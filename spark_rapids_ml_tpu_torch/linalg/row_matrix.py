@@ -1,0 +1,312 @@
+"""Row matrix with accelerated covariance/PCA — port of the reference's
+``linalg/row_matrix.py`` (the ``RapidsRowMatrix`` equivalent).
+
+Two routes, each under both covariance backends:
+  - a ``torch.Tensor`` computes where it lives, in its own dtype. With the
+    ``"xla"`` backend the whole fit is one plain function
+    (:func:`_pca_fit_device`); with ``"pallas"`` the covariance runs on
+    kernel K1 and the eigensolve follows on the same device.
+  - host partitions (numpy blocks) go to the device one at a time in
+    float64 — Hopper computes float64 natively, as the original
+    ``cublasDgemm`` did — and their Grams are summed there.
+
+Routes of later slices raise ``NotImplementedError`` naming the slice:
+streaming sources, ``useGemm=False`` (the packed/native path), and a mesh
+(one process or many).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from spark_rapids_ml_tpu_torch import device as _device
+from spark_rapids_ml_tpu_torch.core.data import (
+    STREAMING_SLICE,
+    as_partitions,
+    is_device_array,
+    is_streaming_source,
+)
+from spark_rapids_ml_tpu_torch.ops.covariance import (
+    centered_gram,
+    welford_add_block,
+    welford_init,
+)
+from spark_rapids_ml_tpu_torch.ops.eigh import (
+    auto_max_iters,
+    eigh_auto,
+    eigh_descending,
+    eigh_descending_host,
+    eigh_topk,
+    sign_flip,
+)
+from spark_rapids_ml_tpu_torch.ops.kernels.covariance import centered_gram_cuda
+from spark_rapids_ml_tpu_torch.ops.linalg import resolve_precision
+from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
+
+MESH_SLICE = (
+    "a device mesh is not ported yet: the mesh and multi-process routes "
+    "arrive with the distribution slice (ROADMAP A.18)"
+)
+PACKED_SLICE = (
+    "useGemm=False (the packed spr path over the native fp64 accumulator) "
+    "is not ported yet: it arrives with the packed/native item (ROADMAP A.5b)"
+)
+
+
+def _ratio(w: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    # Zero-variance input (constant rows) yields zeros, not NaN.
+    return torch.where(total > 0, w / torch.where(total > 0, total, torch.ones_like(total)), w)
+
+
+def _pca_fit_device(x, k, center, precision, eigen_solver, eigen_iters):
+    """The whole PCA fit on a tensor where it lives: column means, centered
+    covariance GEMM, eigensolve, explained variance. Returns tensors on
+    the input's device; nothing is read back except the eigensolver's
+    scalar decisions."""
+    n, d = x.shape
+    mean = torch.mean(x, dim=0) if center else torch.zeros((d,), dtype=x.dtype, device=x.device)
+    cov = centered_gram(x, mean, precision=precision) / (n - 1)
+    if eigen_solver == "auto" and k < d:
+        w, v, _ = eigh_auto(cov, k, max_iters=auto_max_iters(eigen_iters))
+        return v, _ratio(torch.clamp(w, min=0), torch.trace(cov))
+    if eigen_solver == "topk" and k < d:
+        w, v = eigh_topk(cov, k, iters=eigen_iters)
+        return v, _ratio(torch.clamp(w, min=0), torch.trace(cov))
+    w, v = eigh_descending(cov)
+    w = torch.clamp(w, min=0)
+    return v[:, :k], _ratio(w, torch.sum(w))[:k]
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+class RowMatrix:
+    """A row-partitioned matrix with accelerated covariance/PCA.
+
+    Parameters mirror the reference: ``mean_centering``, ``use_gemm``,
+    ``use_accel_svd`` (device eigensolver vs host numpy SVD), ``device_id``
+    (``-1`` = the first card), ``precision``, ``backend`` (``"xla"``: plain
+    torch; ``"pallas"``: kernel K1), ``eigen_solver`` and ``eigen_iters``.
+    """
+
+    def __init__(
+        self,
+        rows,
+        mean_centering: bool = True,
+        use_gemm: bool = True,
+        use_accel_svd: bool = True,
+        device_id: int = -1,
+        mesh=None,
+        precision: str = "highest",
+        dtype=None,
+        input_dtype=None,
+        backend: str = "xla",
+        eigen_solver: str = "full",
+        eigen_iters: int = 8,
+    ):
+        if mesh is not None:
+            raise NotImplementedError(MESH_SLICE)
+        self._device_x: Optional[torch.Tensor] = None
+        self.partitions: Optional[List[np.ndarray]] = None
+        self._num_rows: Optional[int] = None
+        self._num_cols: Optional[int] = None
+        if is_device_array(rows):
+            if rows.dim() != 2:
+                raise ValueError(
+                    f"device-array input must be 2-D (n, d), got shape {tuple(rows.shape)}"
+                )
+            self._device_x = rows
+            self._num_rows = int(rows.shape[0])
+            self._num_cols = int(rows.shape[1])
+        elif is_streaming_source(rows):
+            raise NotImplementedError(STREAMING_SLICE)
+        else:
+            self.partitions = as_partitions(rows)
+        self.mean_centering = mean_centering
+        self.use_accel_svd = use_accel_svd
+        self.device_id = device_id
+        self.precision = self.resolve(precision, input_dtype=input_dtype, backend=backend)
+        if self.precision == "dd" and self._device_x is not None:
+            raise ValueError(
+                "precision='dd' is the host-partition fp64 route; a device "
+                "tensor is already in its compute dtype — pass host "
+                "partitions (or a float64 tensor) for fp64 semantics"
+            )
+        if not use_gemm:
+            if self._device_x is not None:
+                raise ValueError(
+                    "useGemm=False (the packed spr-layout path) consumes host "
+                    "partitions; device-resident input runs the fused GEMM "
+                    "covariance (useGemm=True)"
+                )
+            raise NotImplementedError(PACKED_SLICE)
+        self.backend = backend
+        if eigen_solver not in ("auto", "full", "topk"):
+            raise ValueError(
+                f"eigen_solver must be 'auto', 'full' or 'topk', got {eigen_solver!r}"
+            )
+        self.eigen_solver = eigen_solver
+        if eigen_iters < 1:
+            raise ValueError(f"eigen_iters must be >= 1, got {eigen_iters}")
+        self.eigen_iters = int(eigen_iters)
+        self._dtype = dtype
+
+    @staticmethod
+    def resolve(precision: str, input_dtype=None, backend: str = "xla") -> str:
+        """The one home of precision-request resolution (PCA calls it too).
+        ``"auto"`` resolves to ``"highest"``; under ``backend="pallas"`` an
+        explicit ``"dd"`` is an error, as in the reference."""
+        if backend not in ("xla", "pallas"):
+            raise ValueError(f"backend must be 'xla' or 'pallas', got {backend!r}")
+        resolved = resolve_precision(precision, input_dtype=input_dtype)
+        if backend == "pallas" and resolved == "dd":
+            raise ValueError("precision='dd' has its own kernels; use backend='xla'")
+        return resolved
+
+    # --- shape ---
+
+    @property
+    def num_rows(self) -> int:
+        if self._num_rows is None:
+            self._num_rows = sum(p.shape[0] for p in self.partitions)
+        return self._num_rows
+
+    @property
+    def num_cols(self) -> int:
+        if self._num_cols is not None:
+            return self._num_cols
+        return self.partitions[0].shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        if self._dtype is not None:
+            return self._dtype
+        if self._device_x is not None:
+            return self._device_x.dtype  # a tensor computes in its own dtype
+        return torch.float64
+
+    def _device(self) -> torch.device:
+        if self._device_x is not None:
+            return _device.device_of(self._device_x)
+        return _device.resolve_device(self.device_id)
+
+    # --- column stats (Statistics.colStats analogue) ---
+
+    def column_means(self) -> torch.Tensor:
+        with TraceRange("mean center", TraceColor.ORANGE):
+            if self._device_x is not None:
+                return torch.mean(self._device_x, dim=0)
+            device = self._device()
+            state = welford_init(self.num_cols, dtype=self.dtype, device=device)
+            for part in self.partitions:
+                blk = torch.as_tensor(part).to(device=device, dtype=self.dtype)
+                state = welford_add_block(state, blk)
+            return state[1]
+
+    # --- covariance ---
+
+    def _mean(self) -> torch.Tensor:
+        if self.mean_centering:
+            return self.column_means()
+        return torch.zeros(self.num_cols, dtype=self.dtype, device=self._device())
+
+    def _gram(self, blk: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
+        if self.backend == "pallas":
+            return centered_gram_cuda(blk.contiguous(), mean.contiguous())
+        return centered_gram(blk, mean, precision=self.precision)
+
+    def compute_covariance(self) -> torch.Tensor:
+        n = self.num_rows
+        if n < 2:
+            raise ValueError(f"need at least 2 rows, got {n}")
+        if self._device_x is not None:
+            return self._covariance_device()
+        with TraceRange("compute cov", TraceColor.RED):
+            return self._covariance_gemm(self._mean())
+
+    def _covariance_device(self) -> torch.Tensor:
+        """Covariance of a device tensor where it lives."""
+        self._device()  # on a CUDA tensor: TF32 off, as "highest" needs
+        with TraceRange("compute cov", TraceColor.RED):
+            return self._gram(self._device_x, self._mean()) / (self.num_rows - 1)
+
+    def _covariance_gemm(self, mean: torch.Tensor) -> torch.Tensor:
+        """Per-partition centered Gram, summed on the device."""
+        device = self._device()
+        acc = None
+        for part in self.partitions:
+            with TraceRange("gemm", TraceColor.GREEN):
+                blk = torch.as_tensor(part).to(device=device, dtype=self.dtype)
+                gram = self._gram(blk, mean)
+            acc = gram if acc is None else acc + gram
+        return acc / (self.num_rows - 1)
+
+    # --- PCA (computePrincipalComponentsAndExplainedVariance) ---
+
+    def compute_principal_components_and_explained_variance(
+        self, k: int
+    ) -> Tuple[object, object]:
+        n_cols = self.num_cols
+        if self._device_x is not None and self.use_accel_svd and self.backend != "pallas":
+            n = self.num_rows
+            if n < 2:
+                raise ValueError(f"need at least 2 rows, got {n}")
+            if not 1 <= k <= n_cols:
+                raise ValueError(f"k must be in [1, {n_cols}], got {k}")
+            with TraceRange("fused device fit", TraceColor.RED):
+                self._device()  # on a CUDA tensor: TF32 off, as "highest" needs
+                return _pca_fit_device(
+                    self._device_x,
+                    k,
+                    center=self.mean_centering,
+                    precision=self.precision,
+                    eigen_solver=self.eigen_solver,
+                    eigen_iters=self.eigen_iters,
+                )  # device tensors: the model reads them back lazily
+        if not 1 <= k <= n_cols:
+            raise ValueError(f"k must be in [1, {n_cols}], got {k}")
+        cov = self.compute_covariance()
+        if self.precision == "dd":
+            # The reference's float64 route solves on the host in full (the
+            # route exists for accuracy, not speed): LAPACK in float64 for
+            # every eigenSolver, topk keeping its trace-normalized ratios.
+            with TraceRange("host fp64 SVD", TraceColor.BLUE):
+                w, u = eigh_descending_host(cov)
+            if self.eigen_solver == "topk" and k < n_cols:
+                return u[:, :k], self._trace_ratio(w[:k], cov)
+        elif self.eigen_solver == "topk" and k < n_cols:
+            with TraceRange("topk eigh", TraceColor.BLUE):
+                w_k, u_k = eigh_topk(cov, k, iters=self.eigen_iters)
+                return u_k, self._trace_ratio(w_k, cov)
+        elif self.eigen_solver == "auto" and k < n_cols and self.use_accel_svd:
+            with TraceRange("auto eigh", TraceColor.BLUE):
+                w_k, u_k, _ = eigh_auto(cov, k, max_iters=auto_max_iters(self.eigen_iters))
+                return u_k, self._trace_ratio(w_k, cov)
+        elif self.use_accel_svd:
+            with TraceRange("accel SVD", TraceColor.BLUE):
+                w, u = eigh_descending(cov)
+                u, w = _host(u), _host(w)
+        else:
+            with TraceRange("cpu SVD", TraceColor.BLUE):
+                # Host LAPACK SVD — the breeze brzSvd analogue. For the
+                # symmetric PSD covariance the singular values ARE eigenvalues.
+                u, w, _ = np.linalg.svd(_host(cov).astype(np.float64))
+                u = _host(sign_flip(torch.from_numpy(u)))
+        # Explained variance ratio is eigenvalue-proportional: λ_i / Σλ.
+        w = np.clip(w, 0, None)
+        total = w.sum()
+        explained = w / total if total > 0 else w
+        if k < n_cols:
+            return u[:, :k], explained[:k]
+        return u, explained
+
+    @staticmethod
+    def _trace_ratio(w_k: torch.Tensor, cov: torch.Tensor) -> np.ndarray:
+        """Exact explained-variance ratios of the top-k: w / trace(cov)."""
+        w_k = np.clip(_host(w_k), 0, None)
+        total = float(torch.trace(cov))
+        return w_k / total if total > 0 else w_k

@@ -1,0 +1,144 @@
+"""Rules the PyTorch port keeps, checked on the CPU.
+
+- No module of ``spark_rapids_ml_tpu_torch`` imports JAX or the JAX
+  package: a fresh interpreter that imports all of them has neither in
+  ``sys.modules``, and no import statement in the package names them.
+- Entry points run on the card unless the caller asks for the CPU: with
+  the platform at ``"cuda"`` and no card, a fit raises instead of quietly
+  computing on the CPU. ``gpuId`` resolves as the reference's
+  ``RowMatrix._device`` does.
+- ``chip_smoke.py`` fails, printing no result, without a card, and in a
+  directory that holds nothing else of the repo.
+- A CUDA kernel builds with ``nvcc`` or not at all.
+"""
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from spark_rapids_ml_tpu_torch import device as port_device
+from spark_rapids_ml_tpu_torch.feature import PCA
+from spark_rapids_ml_tpu_torch.ops.kernels import _build
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "spark_rapids_ml_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "spark_rapids_ml_tpu")
+
+
+def _modules():
+    for path in sorted(PACKAGE.rglob("*.py")):
+        parts = path.relative_to(REPO).with_suffix("").parts
+        yield ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+def _clean_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    return env
+
+
+def test_every_port_module_imports_without_jax():
+    names = list(_modules())
+    assert "spark_rapids_ml_tpu_torch.ops.kernels.covariance" in names
+    code = (
+        "import importlib, json, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_no_import_statement_names_jax():
+    offenders = []
+    for path in [*PACKAGE.rglob("*.py"), REPO / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.name}: {n}" for n in names if n.split(".")[0] in FORBIDDEN]
+    assert offenders == []
+
+
+def test_cuda_platform_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    port_device.set_platform("cuda")
+    x = np.random.default_rng(0).standard_normal((20, 4))
+    with pytest.raises(RuntimeError, match="is_available"):
+        PCA().setK(2).fit(x)
+    with pytest.raises(RuntimeError, match="is_available"):
+        PCA().setK(2).setCovarianceBackend("pallas").fit([x[:10], x[10:]])
+    port_device.set_platform("cpu")
+    try:
+        assert PCA().setK(2).fit(x).pc.shape == (4, 2)
+    finally:
+        port_device.set_platform("cuda")
+    with pytest.raises(ValueError, match="platform"):
+        port_device.set_platform("tpu")
+
+
+def test_gpu_id_resolves_like_the_reference(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    port_device.set_platform("cuda")
+    assert port_device.resolve_device(-1) == torch.device("cuda", 0)
+    assert port_device.resolve_device(1) == torch.device("cuda", 1)
+    with pytest.raises(ValueError, match="gpuId=2"):
+        port_device.resolve_device(2)
+    port_device.set_platform("cpu")
+    try:
+        assert port_device.resolve_device(1) == torch.device("cpu")
+    finally:
+        port_device.set_platform("cuda")
+
+
+def test_a_tensor_computes_where_it_lives():
+    port_device.set_platform("cuda")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((30, 5)))
+    model = PCA().setK(2).fit(x)  # a CPU tensor needs no card, whatever the platform
+    assert model._pc_raw.device.type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=_clean_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(REPO / "chip_smoke.py", alone / "chip_smoke.py")
+    env = _clean_env()
+    env.pop("PYTHONPATH")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=alone, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_kernel_build_needs_nvcc(monkeypatch):
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    if Path("/usr/local/cuda/bin/nvcc").is_file():
+        pytest.skip("this machine has a CUDA toolkit at its default prefix")
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        _build.find_nvcc()
+
+
+def test_kernel_library_is_keyed_by_its_source():
+    path = _build.library_path("centered_gram")
+    assert path.parent == _build.BUILD_DIR and path.name.startswith("libcentered_gram-")
+    assert path == _build.library_path("centered_gram")
+    assert (_build.CSRC_DIR / "centered_gram.cu").is_file()
