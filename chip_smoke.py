@@ -5,12 +5,22 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds every hand-written kernel from ``spark_rapids_ml_tpu_torch/csrc``,
-holds each against its plain PyTorch version and a float64 reference on
-the card, drives the main path — ``PCA().setK(16)`` fit and transform on
-a 1M x 1024 float32 tensor, a fit over four host partitions, a save/load
-round trip — times the kernels beside their bounds and profiles one fit
-(device time by kernel, the device's idle share). Each phase prints
+It builds every hand-written kernel from ``spark_rapids_ml_tpu_torch/csrc``
+(one ``nvcc`` per source, all started together), holds each against its
+plain PyTorch version and a float64 reference on the card, and drives the
+port's two paths through their public entry points, each with the launch
+counters set to 0 just before and read just after:
+
+- PCA: ``PCA().setK(16)`` fit and transform on a 1M x 1024 float32
+  tensor, a fit over four host partitions, a save/load round trip;
+- KMeans at BASELINE.md config 3's shape (20M x 16 float32, k = 100, on
+  planted blobs made on the card from the seed): ``KMeans().setK(100)``
+  and ``setK(16)`` fits (kernels K2 and K3), predict and transform on all
+  rows, a save/load round trip, held against the ``xla`` route and a
+  float64 fit from the same initial centers.
+
+It times the kernels beside their bounds and profiles one fit of each
+path (device time by kernel, the device's idle share). Each phase prints
 one JSON line; the ``kernels`` line and the card's ``nvidia-smi`` name and
 power limit come before the last line, which is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -38,6 +48,10 @@ from spark_rapids_ml_tpu_torch.feature import PCA, PCAModel  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.kernels import _build  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.eigh import auto_max_iters, eigh_auto  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.kernels import covariance as k1  # noqa: E402
+from spark_rapids_ml_tpu_torch.ops.kernels import kmeans as kk  # noqa: E402
+from spark_rapids_ml_tpu_torch.clustering import KMeans, KMeansModel  # noqa: E402
+from spark_rapids_ml_tpu_torch.ops import kmeans as ops_kmeans  # noqa: E402
+from spark_rapids_ml_tpu_torch.utils.testing import kmeans_stats_f64  # noqa: E402
 
 SEED = 0
 N_MAIN = 1_000_000          # rows of the main path (bench.py's width: 1M x 1024)
@@ -48,10 +62,24 @@ HOST_PARTS = 4
 HOST_ROWS = 65_536
 REPEATS = 10
 
-#: Every kernel of the path: (name, route, source, the TPU kernel it replaces).
+# KMeans: BASELINE.md config 3's shape (NYC-Taxi 20M rows x 16, k = 100);
+# the data is not in the repo, so blobs are planted at that shape.
+KM_N = 20_000_000
+KM_D = 16
+KM_K = 100
+KM_K_PACKED = 16            # the same tensor at k = 16 is packable: K3
+KM_BLOCK = 1 << 20          # rows per block of the plain and float64 references
+KM_SCALE = 50.0             # blob centers ~ N(0, 50^2), unit noise
+KM_MODES = ("highest", "high", "default")
+
+#: Every kernel of the paths: (name, route, source, the TPU kernel it replaces).
 KERNELS = [
     ("centered_gram", "cuda", "spark_rapids_ml_tpu_torch/csrc/centered_gram.cu",
      "spark_rapids_ml_tpu/ops/pallas/covariance.py:49"),
+    ("assign_stats_fused", "cuda", "spark_rapids_ml_tpu_torch/csrc/kmeans_assign_stats.cu",
+     "spark_rapids_ml_tpu/ops/pallas/kmeans.py:129"),
+    ("assign_stats_packed", "cuda", "spark_rapids_ml_tpu_torch/csrc/kmeans_assign_packed.cu",
+     "spark_rapids_ml_tpu/ops/pallas/kmeans.py:258"),
 ]
 
 #: Published peaks (NVIDIA data sheets, dense, no sparsity): HBM bytes/s,
@@ -153,11 +181,12 @@ def phase_device() -> dict:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    build_s = _build.build_all(name for name, *_ in KERNELS)
+    stems = [os.path.splitext(os.path.basename(source))[0] for _, _, source, _ in KERNELS]
+    build_s = _build.build_all(stems)
     ptxas = {
-        name: [ln.split("info    : ")[-1] for ln in _build.build_logs.get(name, "").splitlines()
+        stem: [ln.split("info    : ")[-1] for ln in _build.build_logs.get(stem, "").splitlines()
                if "registers" in ln or "spill" in ln]
-        for name, *_ in KERNELS
+        for stem in stems
     }
     info = {
         "phase": "device",
@@ -373,6 +402,290 @@ def phase_profile(xm: torch.Tensor) -> dict:
     return out
 
 
+# --- KMeans: kernels K2 and K3 -------------------------------------------
+
+
+def planted_blobs(n: int, d: int, k: int, gen: torch.Generator, scale: float = KM_SCALE):
+    """n rows around k blob centers ~ N(0, scale^2) with unit noise, made
+    on the card; blobs this far apart leave no row near a Voronoi boundary
+    of centers near the blob means, so float32 labels are exact there."""
+    dev = torch.device("cuda")
+    truth = scale * torch.randn((k, d), generator=gen, device=dev)
+    x = torch.empty((n, d), device=dev)
+    x.normal_(generator=gen)
+    x += truth[torch.randint(0, k, (n,), generator=gen, device=dev)]
+    return x, truth
+
+
+def near(truth: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """Centers a little off the blob means (the state of a Lloyd pass)."""
+    return (truth + 0.5 * torch.randn(truth.shape, generator=gen, device=truth.device)).contiguous()
+
+
+def plain_blocked(x: torch.Tensor, c: torch.Tensor, mode: str):
+    """The plain version in KM_BLOCK-row blocks (its (n, k) matrices fit),
+    partials summed in float64; its own c2."""
+    sums = torch.zeros(c.shape, dtype=torch.float64, device=x.device)
+    counts = torch.zeros(c.shape[0], dtype=torch.int64, device=x.device)
+    cost = 0.0
+    for i in range(0, x.shape[0], KM_BLOCK):
+        s, n, j, c2 = kk.assign_stats_plain(x[i:i + KM_BLOCK], c, mode)
+        sums += s.double()
+        counts += n
+        cost += float(j)
+    return sums, counts, cost, c2
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-300)).item()
+
+
+def phase_kmeans_kernel_check(x100, c100, x16, c16, gen) -> dict:
+    """K2 and K3 against their plain versions and an on-card float64
+    computation of the same statistics (kmeans_stats_f64: the operands the
+    mode multiplies, widened exactly, scored with the c2 the kernel
+    returns), at the main path's shapes and two ragged ones, in every
+    precision mode. Counts must be identical, sums and cost within 1e-5;
+    K3 must equal K2 (counts, c2) within 1e-6; a repeat launch must be
+    bitwise equal. The plain cost is held at the same bar after moving it
+    onto the kernel's c2 (its own norms round differently, and that
+    rounding is shared by every row of a cluster). The ragged shapes use
+    blobs at scale 5: the cost is ``Σ‖x‖² + Σ(c2 − 2x·c)``, two float32
+    terms per row far larger than the distance at scale 50, and a few
+    thousand rows do not average their rounding out as 20M do."""
+    cases = [("20M x 16, k=100", x100, c100), ("20M x 16, k=16", x16, c16)]
+    for n, d, k in ((4099, 13, 7), (37, 5, 3)):
+        xs, truth = planted_blobs(n, d, k, gen, scale=5.0)
+        cases.append((f"{n} x {d}, k={k}", xs, near(truth, gen)))
+    rows, main_err = [], {}
+    for label, x, c in cases:
+        kernels = [("assign_stats_fused", kk.assign_stats_fused)]
+        if kk.packed_feasible(x.shape[1], c.shape[0]):
+            kernels.append(("assign_stats_packed", kk.assign_stats_packed))
+        for mode in KM_MODES:
+            plain = plain_blocked(x, c, mode)
+            got = {}
+            for name, fn in kernels:
+                out = fn(x, c, mode)
+                again = fn(x, c, mode)
+                sync()
+                ref_sums, ref_counts, ref_cost, _ = kmeans_stats_f64(x, c, mode, c2=out[3], block_rows=KM_BLOCK)
+                ref_cost = ref_cost.item()
+                plain_cost = plain[2] + float((plain[1].double() * (out[3].double() - plain[3].double())).sum())
+                row = {
+                    "case": label, "kernel": name, "mode": mode,
+                    "counts_equal_f64": bool(torch.equal(out[1], ref_counts)),
+                    "counts_equal_plain": bool(torch.equal(out[1], plain[1])),
+                    "sums_rel_f64": _rel(out[0], ref_sums),
+                    "cost_rel_f64": abs(out[2].item() - ref_cost) / abs(ref_cost),
+                    "plain_sums_rel_f64": _rel(plain[0], ref_sums),
+                    "plain_cost_rel_f64": abs(plain_cost - ref_cost) / abs(ref_cost),
+                    "vs_plain_max_abs": (out[0].double() - plain[0]).abs().max().item(),
+                    "bitwise_repeat": all(torch.equal(u, v) for u, v in zip(out, again)),
+                }
+                rows.append(row)
+                what = f"{name} {label} {mode}"
+                require(row["counts_equal_f64"] and row["counts_equal_plain"], f"{what}: counts differ")
+                require(row["sums_rel_f64"] <= 1e-5 and row["cost_rel_f64"] <= 1e-5, f"{what}: stats vs f64")
+                require(row["plain_sums_rel_f64"] <= 1e-5 and row["plain_cost_rel_f64"] <= 1e-5,
+                        f"plain {label} {mode}: stats vs f64")
+                require(row["bitwise_repeat"], f"{what}: a repeat launch differs")
+                if mode == "highest" and x.shape[0] == KM_N:
+                    main_err.setdefault(name, row["vs_plain_max_abs"])
+                got[name] = out
+                del again
+            if len(got) == 2:
+                f, p = got["assign_stats_fused"], got["assign_stats_packed"]
+                require(torch.equal(f[1], p[1]) and torch.equal(f[3], p[3]), f"K3 != K2 counts/c2 {label} {mode}")
+                require(_rel(p[0], f[0]) <= 1e-6, f"K3 != K2 sums {label} {mode}")
+                require(abs(p[2].item() - f[2].item()) <= 1e-6 * abs(f[2].item()), f"K3 != K2 cost {label} {mode}")
+            del got, plain
+    out = {"phase": "kmeans_kernel_check", "cases": rows, "main_max_abs_err": main_err}
+    emit(out)
+    return out
+
+
+def _labels_f64(x64: torch.Tensor, centers64: torch.Tensor) -> torch.Tensor:
+    return torch.cat([ops_kmeans.assign_clusters(x64[i:i + KM_BLOCK], centers64)[0]
+                      for i in range(0, x64.shape[0], KM_BLOCK)])
+
+
+def phase_kmeans_main_path(x: torch.Tensor) -> tuple:
+    """KMeans through its public entry points, launch counters set to 0
+    just before and read just after; then, outside the counted window, the
+    same k = 100 fit from the fused fit's own initial centers on the
+    ``xla`` route and in float64."""
+    kk.reset_launches()
+    t0 = time.perf_counter()
+    model = KMeans().setK(KM_K).setSeed(SEED).fit(x)
+    centers = model.clusterCenters()
+    fit_first_s = time.perf_counter() - t0
+    after_k100 = dict(kk.launches)
+    model16 = KMeans().setK(KM_K_PACKED).setSeed(SEED).fit(x)
+    centers16 = model16.clusterCenters()
+    after_k16 = dict(kk.launches)
+    labels = model.predict(x)
+    labels_t = model.transform(x)
+    sync()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "kmeans_model")
+        model.write.overwrite().save(path)
+        loaded = KMeansModel.load(path)
+        loaded_labels = loaded.predict(x[:100_000])
+    launches = dict(kk.launches)
+
+    require(after_k100["assign_stats_fused"] >= 1 and after_k100["assign_stats_packed"] == 0,
+            "the k=100 fit did not run on K2")
+    require(after_k16["assign_stats_packed"] > after_k100["assign_stats_packed"], "the k=16 fit did not run on K3")
+    require(np.array_equal(loaded.clusterCenters(), centers), "save/load changed the centers")
+    require(loaded.getK() == KM_K and loaded.numIter == model.numIter, "save/load lost params or numIter")
+    require(torch.equal(loaded_labels, labels[:100_000]), "the loaded model predicts differently")
+
+    # References, outside the counted window.
+    ones = torch.ones(x.shape[0], device=x.device)
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(SEED)
+    init = ops_kmeans.kmeans_plusplus_init(x, ones, gen, KM_K)
+    again = KMeans().setK(KM_K).setInitialModel(init).fit(x)
+    require(np.array_equal(again.clusterCenters(), centers), "the fit's own initial centers were not recovered")
+    xla = KMeans().setK(KM_K).setInitialModel(init).setBackend("xla").fit(x)
+    xla_centers = xla.clusterCenters()
+    del ones
+    x64 = x.double()
+    c64, cost64, iter64 = ops_kmeans.lloyd(x64, torch.ones(x.shape[0], dtype=torch.float64, device=x.device),
+                                           init.double(), block_rows=KM_BLOCK)
+    labels64 = _labels_f64(x64, c64)
+    del x64
+    cost64 = cost64.item()
+    c64 = c64.cpu().numpy()
+    out = {
+        "phase": "kmeans_main_path",
+        "x": [int(x.shape[0]), int(x.shape[1]), str(x.dtype)],
+        "k": [KM_K, KM_K_PACKED],
+        "launches": launches,
+        "launches_k100_fit": after_k100,
+        "launches_k16_fit": {n: after_k16[n] - after_k100[n] for n in after_k16},
+        "fit_first_s": fit_first_s,
+        "num_iter": {"auto": model.numIter, "xla": xla.numIter, "f64": iter64, "k16": model16.numIter},
+        "centers_finite": bool(np.isfinite(centers).all() and np.isfinite(centers16).all()),
+        "centers_vs_xla_max_abs": float(np.abs(centers - xla_centers).max()),
+        "centers_vs_f64_max_abs": float(np.abs(centers - c64).max()),
+        "cost": model.trainingCost,
+        "cost_vs_xla_rel": abs(model.trainingCost - xla.trainingCost) / abs(xla.trainingCost),
+        "cost_vs_f64_rel": abs(model.trainingCost - cost64) / abs(cost64),
+        "labels_vs_f64_mismatches": int((labels != labels64).sum()),
+        "transform_equals_predict": bool(torch.equal(labels_t, labels)),
+        "k16_cost": model16.trainingCost,
+    }
+    emit(out)
+    require(out["centers_finite"], "centers not finite")
+    require(list(centers.shape) == [KM_K, KM_D] and list(centers16.shape) == [KM_K_PACKED, KM_D], "center shapes")
+    require(out["centers_vs_xla_max_abs"] <= 1e-3, "centers differ from the xla route")
+    require(out["centers_vs_f64_max_abs"] <= 1e-3, "centers differ from the f64 fit")
+    require(out["cost_vs_xla_rel"] <= 1e-4 and out["cost_vs_f64_rel"] <= 1e-4, "training cost differs")
+    require(model.numIter == xla.numIter == iter64, "numIter differs between the routes")
+    require(out["labels_vs_f64_mismatches"] == 0, "predict labels differ from the f64 model's")
+    require(out["transform_equals_predict"], "transform differs from predict")
+    require(labels.shape == (KM_N,), "predict shape")
+    return out, model, model16
+
+
+def assign_bound_ms(n: int, d: int, k: int, peaks) -> tuple:
+    """Least time for one assignment + stats pass: x and the centers read
+    once, sums, counts, cost and c2 written once, over HBM; 2·n·k·d
+    operations (the score products, two per FMA) over the fp32 peak."""
+    _, hbm, fp32, _ = peaks
+    bytes_ms = (4 * (n * d + k * d) + 4 * k * d + 8 * k + 4 + 4 * k) / hbm * 1e3
+    ops_ms = 2.0 * n * k * d / fp32 * 1e3
+    return max(bytes_ms, ops_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def phase_kmeans_times(x, model, model16, peaks) -> dict:
+    """K2 at 20M x 16, k = 100 and K3 at k = 16 (the main path's shapes,
+    the fitted centers, ``highest``), each beside its plain version on the
+    same inputs and its bound; fit and predict wall times."""
+    reason = ("no single PyTorch call computes the assignment (argmin of the "
+              "distances) together with the per-cluster sums, counts and cost")
+    print(f"kmeans library_ms: null, {reason}", flush=True)
+    rows = {}
+    for name, fn, m in (("assign_stats_fused", kk.assign_stats_fused, model),
+                        ("assign_stats_packed", kk.assign_stats_packed, model16)):
+        c = torch.tensor(m.clusterCenters(), dtype=torch.float32, device=x.device)
+        n, d = x.shape
+        k = c.shape[0]
+        bound_ms, bound_by = assign_bound_ms(n, d, k, peaks)
+        kernel_ms = time_ms(lambda: fn(x, c, "highest"))
+        plain_ms = time_ms(lambda: kk.assign_stats_plain(x, c, "highest"), repeats=3, warmup=1)
+        rows[name] = {"shape": [n, d], "k": k, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                      "library_why_none": reason, "roofline_share": bound_ms / kernel_ms}
+        torch.cuda.empty_cache()
+
+    def fit(backend, k=KM_K):
+        return KMeans().setK(k).setSeed(SEED).setBackend(backend).fit(x).trainingCost
+
+    out = {
+        "phase": "kmeans_times", "peaks": peaks[0], **rows,
+        "fit_wall_s": {"auto": wall_s(lambda: fit("auto")), "xla": wall_s(lambda: fit("xla")),
+                       "auto_k16": wall_s(lambda: fit("auto", KM_K_PACKED))},
+        "predict_wall_s": wall_s(lambda: model.predict(x)),
+    }
+    emit(out)
+    return out
+
+
+def _device_ms_by_kernel(prof) -> dict:
+    from torch.autograd import DeviceType
+
+    device_ms = {}
+    for avg in prof.key_averages():
+        if avg.device_type == DeviceType.CUDA and avg.self_device_time_total > 0:
+            device_ms[avg.key] = device_ms.get(avg.key, 0.0) + avg.self_device_time_total / 1e3
+    return device_ms
+
+
+def phase_kmeans_profile(x: torch.Tensor) -> dict:
+    """One k = 100 fit (auto: K2) under ``torch.profiler``: device time by
+    kernel and the device's idle share. The Python Lloyd loop reads the
+    movement once per iteration, one host sync each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    est = KMeans().setK(KM_K).setSeed(SEED)
+    est.fit(x)  # warm
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model = est.fit(x)
+        cost = model.trainingCost  # reading it waits for the fit
+        sync()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    require(np.isfinite(cost), "profiled fit gave a non-finite cost")
+    device_ms = _device_ms_by_kernel(prof)
+    busy_ms = sum(device_ms.values())
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:10]
+    out = {
+        "phase": "kmeans_profile", "what": "KMeans().setK(100).setSeed(0).fit(x), 20M x 16 f32, backend auto",
+        "num_iter": model.numIter, "window_ms": window_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": (1.0 - busy_ms / window_ms) if busy_ms else None,
+        "top_device_ms": [{"kernel": k[:80], "ms": v} for k, v in top],
+    }
+    emit(out)
+    return out
+
+
+def kmeans_phases(gen: torch.Generator, peaks) -> dict:
+    x100, truth100 = planted_blobs(KM_N, KM_D, KM_K, gen)
+    x16, truth16 = planted_blobs(KM_N, KM_D, KM_K_PACKED, gen)
+    check = phase_kmeans_kernel_check(x100, near(truth100, gen), x16, near(truth16, gen), gen)
+    del x16
+    torch.cuda.empty_cache()
+    main_path, model, model16 = phase_kmeans_main_path(x100)
+    torch.cuda.empty_cache()
+    times = phase_kmeans_times(x100, model, model16, peaks)
+    phase_kmeans_profile(x100)
+    return {"check": check, "main_path": main_path, "times": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -396,16 +709,28 @@ def main() -> int:
     times = phase_times(xm, model, peaks)
     phase_profile(xm)
 
+    del x_big, xm, parts, model
+    torch.cuda.empty_cache()
+    km = kmeans_phases(gen, peaks)
+
     k1_f32 = times["k1_f32"]
-    name, route, source, replaces = KERNELS[0]
-    emit({"kernels": [{
-        "name": name, "route": route, "source": source, "replaces": replaces,
-        "launches": main_path["launches"][name],
-        "max_abs_err": check["main_max_abs_err"],
-        "ms": k1_f32["kernel_ms"], "kernel_ms": k1_f32["kernel_ms"],
-        "plain_ms": k1_f32["plain_ms"], "bound_ms": k1_f32["bound_ms"],
-        "bound_by": k1_f32["bound_by"], "library_ms": k1_f32["library_ms"],
-    }]})
+    measured = {
+        "centered_gram": dict(k1_f32, launches=main_path["launches"]["centered_gram"],
+                              max_abs_err=check["main_max_abs_err"]),
+    }
+    for name in ("assign_stats_fused", "assign_stats_packed"):
+        measured[name] = dict(km["times"][name], launches=km["main_path"]["launches"][name],
+                              max_abs_err=km["check"]["main_max_abs_err"][name])
+    rows = []
+    for name, route, source, replaces in KERNELS:
+        m = measured[name]
+        rows.append({
+            "name": name, "route": route, "source": source, "replaces": replaces,
+            "launches": m["launches"], "max_abs_err": m["max_abs_err"],
+            "ms": m["kernel_ms"], "kernel_ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        })
+    emit({"kernels": rows})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }})

@@ -6,9 +6,12 @@ same inputs by ``tests/test_torch_*.py``. This package imports ``torch``
 and ``numpy`` and never ``jax`` or anything of the JAX package.
 
 Layer map (the reference's, one for one):
-  - ``feature`` / ``models``  — user-facing estimators (PCA, PCAModel)
+  - ``feature`` / ``clustering`` / ``models`` — user-facing estimators
+    (PCA, PCAModel, KMeans, KMeansModel)
   - ``linalg``                — row-matrix orchestration (RowMatrix)
-  - ``ops``                   — plain tensor math (covariance, eigh, GEMMs)
+  - ``core``                  — params, data, ingest, persistence, serving
+  - ``ops``                   — plain tensor math (covariance, eigh, GEMMs,
+    KMeans)
   - ``ops.kernels`` + ``csrc``— hand-written Hopper kernels (CUDA C++,
     built with nvcc on first use, bound with ctypes)
   - ``device``                — where entry points compute (CUDA by default)

@@ -227,6 +227,58 @@ def extract_column(dataset: Any, input_col: Optional[str]) -> Any:
     return dataset
 
 
+def extract_features(dataset: Any, col: str, drop: Optional[str] = None) -> Any:
+    """Feature extraction shared by the estimators: the DataFrame shim
+    selects ``col``; pandas uses ``col`` if present, else treats the frame
+    (minus the optional ``drop`` column, e.g. a row id) as a bare feature
+    matrix; arrays, tensors and lists pass through."""
+    if isinstance(dataset, DataFrame):
+        return dataset.select(col)
+    try:
+        import pandas as pd
+    except ImportError:  # pragma: no cover
+        return dataset
+    if isinstance(dataset, pd.DataFrame):
+        if col in dataset.columns:
+            return extract_column(dataset, col)
+        keep = [c for c in dataset.columns if c != drop]
+        return dataset[keep].to_numpy(dtype=np.float64)
+    return dataset
+
+
+def extract_weights(dataset: Any, weight_col: Optional[str]) -> Optional[np.ndarray]:
+    """Optional per-row weight column (Spark's ``weightCol``), as float64.
+
+    None when no weight column is configured. Named-column containers
+    only: configuring ``weightCol`` on a bare array is an error, not a
+    silent ignore. Weights must be non-negative, not NaN, not all zero."""
+    if weight_col is None:
+        return None
+    w = None
+    if isinstance(dataset, DataFrame):
+        w = np.asarray(dataset.select(weight_col), dtype=np.float64)
+    else:
+        try:
+            import pandas as pd
+        except ImportError:  # pragma: no cover
+            pd = None
+        if pd is not None and isinstance(dataset, pd.DataFrame):
+            if weight_col not in dataset.columns:
+                raise KeyError(f"no column {weight_col!r} in pandas DataFrame")
+            w = dataset[weight_col].to_numpy(dtype=np.float64)
+    if w is None:
+        raise TypeError(
+            f"weightCol={weight_col!r} requires a dataset with named columns "
+            f"(DataFrame shim or pandas), got {type(dataset).__name__}"
+        )
+    w = w.ravel()
+    if not np.all(w >= 0):  # also rejects NaN
+        raise ValueError("weights must be non-negative and non-NaN")
+    if not np.any(w > 0):
+        raise ValueError("at least one weight must be positive")
+    return w
+
+
 def as_partitions(
     data: Any, num_partitions: Optional[int] = None, dtype=None
 ) -> List[np.ndarray]:

@@ -66,6 +66,12 @@ def toInt(value: Any) -> int:
     return int(value)
 
 
+def toFloat(value: Any) -> float:
+    if isinstance(value, bool) or not isinstance(value, numbers.Real):
+        raise TypeError(f"Could not convert {value!r} to float")
+    return float(value)
+
+
 def toBoolean(value: Any) -> bool:
     if not isinstance(value, bool):
         raise TypeError(f"Could not convert {value!r} to bool")
@@ -201,6 +207,11 @@ class Params:
         # so the copy refuses (or, in a later slice, runs) the same route.
         if hasattr(self, "mesh") and hasattr(that, "mesh"):
             that.mesh = self.mesh
+        # Non-Param state a subclass names in _copy_attrs (a KMeans warm
+        # start) survives copies too.
+        for attr in getattr(self, "_copy_attrs", ()):
+            if getattr(self, attr, None) is not None:
+                setattr(that, attr, getattr(self, attr))
         return that
 
     def _copyValues(self, to: "Params", extra: Optional[Dict[Param, Any]] = None) -> "Params":

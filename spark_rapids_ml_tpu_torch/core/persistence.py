@@ -2,9 +2,10 @@
 
 Port of the reference's ``core/persistence.py``: ``<path>/metadata/part-00000``
 is one JSON line (class, timestamp, sparkVersion, uid, paramMap,
-defaultParamMap) and ``<path>/data`` a one-row parquet table in Spark's
-MatrixUDT/VectorUDT struct encoding, so a model saved by either package
-loads in the other. Without ``pyarrow`` the data goes to
+defaultParamMap, plus a model's extra keys) and ``<path>/data`` a parquet
+table in Spark's MatrixUDT/VectorUDT struct encoding — one row
+(:func:`save_data`) or one row per entity (:func:`save_rows`, a KMeans
+model's clusters) — so a model saved by either package loads in the other. Without ``pyarrow`` the data goes to
 ``<path>/data/part-00000.npz`` instead (the reference's fallback), which
 this package reads back.
 
@@ -99,8 +100,14 @@ def _arrow_types():
     return matrix, vector
 
 
-def save_metadata(instance, path: str, class_name: Optional[str] = None) -> None:
-    """DefaultParamsWriter.saveMetadata equivalent."""
+def save_metadata(
+    instance,
+    path: str,
+    extra_metadata: Optional[Dict[str, Any]] = None,
+    class_name: Optional[str] = None,
+) -> None:
+    """DefaultParamsWriter.saveMetadata equivalent; ``extra_metadata``
+    (e.g. a KMeans model's ``trainingCost``) joins the top-level keys."""
     meta_dir = os.path.join(path, "metadata")
     os.makedirs(meta_dir, exist_ok=True)
     metadata = {
@@ -111,6 +118,8 @@ def save_metadata(instance, path: str, class_name: Optional[str] = None) -> None
         "paramMap": {p.name: v for p, v in instance._paramMap.items()},
         "defaultParamMap": {p.name: v for p, v in instance._defaultParamMap.items()},
     }
+    if extra_metadata:
+        metadata.update(extra_metadata)
     with open(os.path.join(meta_dir, "part-00000"), "w") as f:
         f.write(json.dumps(metadata, separators=(",", ":")) + "\n")
     open(os.path.join(meta_dir, "_SUCCESS"), "w").close()
@@ -147,25 +156,43 @@ def save_data(path: str, columns: Dict[str, tuple]) -> None:
     """Write ``<path>/data`` as one-row single-partition parquet (or
     ``.npz`` without pyarrow). ``columns`` maps name ->
     ("matrix"|"vector"|"scalar", value)."""
+    _write_data(
+        path,
+        {name: (kind, [value]) for name, (kind, value) in columns.items()},
+        {name: value for name, (kind, value) in columns.items()},
+    )
+
+
+def save_rows(path: str, columns: Dict[str, tuple]) -> None:
+    """Write ``<path>/data`` as a multi-row parquet table (or ``.npz``
+    without pyarrow). ``columns`` maps name -> ("matrix"|"vector"|"scalar",
+    list of values), one row per entity: Spark's KMeansModel layout is one
+    (clusterIdx: int, clusterCenter: VectorUDT) row per cluster."""
+    _write_data(path, columns, {name: values for name, (kind, values) in columns.items()})
+
+
+def _write_data(path: str, columns: Dict[str, tuple], npz: Dict[str, Any]) -> None:
+    """``columns``: name -> (kind, list of row values) for parquet;
+    ``npz``: name -> the array the ``.npz`` fallback stores."""
     data_dir = os.path.join(path, "data")
     os.makedirs(data_dir, exist_ok=True)
     if not _HAS_ARROW:
         np.savez(
             os.path.join(data_dir, "part-00000.npz"),
-            **{name: np.asarray(value) for name, (kind, value) in columns.items()},
+            **{name: np.asarray(value) for name, value in npz.items()},
         )
         return
     matrix_type, vector_type = _arrow_types()
     fields, arrays = [], []
-    for name, (kind, value) in columns.items():
+    for name, (kind, values) in columns.items():
         if kind == "matrix":
             fields.append((name, matrix_type))
-            arrays.append(pa.array([_matrix_struct(value)], type=matrix_type))
+            arrays.append(pa.array([_matrix_struct(v) for v in values], type=matrix_type))
         elif kind == "vector":
             fields.append((name, vector_type))
-            arrays.append(pa.array([_vector_struct(value)], type=vector_type))
+            arrays.append(pa.array([_vector_struct(v) for v in values], type=vector_type))
         else:
-            arr = pa.array([value])
+            arr = pa.array(list(values))
             fields.append((name, arr.type))
             arrays.append(arr)
     table = pa.Table.from_arrays(arrays, schema=pa.schema(fields))
@@ -185,28 +212,45 @@ def _read_all_parts(parquets: list):
     )
 
 
-def load_data(path: str) -> Dict[str, Any]:
-    """Read ``<path>/data`` back into {name: decoded value}."""
+def _decode(value: Any) -> Any:
+    if isinstance(value, dict) and "numRows" in value:
+        return matrix_from_struct(value)
+    if isinstance(value, dict) and "size" in value:
+        return vector_from_struct(value)
+    return value
+
+
+def _read_data(path: str):
+    """(parquet table or None, npz dict or None) of ``<path>/data``."""
     data_dir = os.path.join(path, "data")
     parquets = sorted(glob.glob(os.path.join(data_dir, "*.parquet")))
     if parquets:
         if not _HAS_ARROW:
             raise RuntimeError(f"{data_dir} holds parquet but pyarrow is not installed")
-        row = _read_all_parts(parquets).to_pylist()[0]
-        out: Dict[str, Any] = {}
-        for name, value in row.items():
-            if isinstance(value, dict) and "numRows" in value:
-                out[name] = matrix_from_struct(value)
-            elif isinstance(value, dict) and "size" in value:
-                out[name] = vector_from_struct(value)
-            else:
-                out[name] = value
-        return out
+        return _read_all_parts(parquets), None
     npzs = sorted(glob.glob(os.path.join(data_dir, "*.npz")))
     if npzs:
         with np.load(npzs[0]) as z:
-            return {k: z[k] for k in z.files}
+            return None, {k: z[k] for k in z.files}
     raise FileNotFoundError(f"no data files under {data_dir}")
+
+
+def load_data(path: str) -> Dict[str, Any]:
+    """Read ``<path>/data`` back into {name: decoded value}."""
+    table, npz = _read_data(path)
+    if table is None:
+        return npz
+    return {name: _decode(value) for name, value in table.to_pylist()[0].items()}
+
+
+def load_rows(path: str) -> Dict[str, list]:
+    """Read a multi-row ``<path>/data`` table, every part file, into
+    {name: [decoded values]}."""
+    table, npz = _read_data(path)
+    if table is None:
+        return {name: list(values) for name, values in npz.items()}
+    rows = table.to_pylist()
+    return {name: [_decode(row[name]) for row in rows] for name in table.column_names}
 
 
 class MLWriter:

@@ -20,6 +20,9 @@ import torch
 
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
 
+#: Rows per block when a large host matrix is served block by block.
+DEFAULT_STREAM_BLOCK = 65536
+
 
 def serve_rows(
     fn: Callable,

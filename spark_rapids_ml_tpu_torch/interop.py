@@ -1,10 +1,11 @@
 """Carrying fitted weights from the JAX package into this one.
 
-:func:`pca_model_from_numpy` builds a port ``PCAModel`` from the reference
-model's arrays and param map, handed over as numpy and a plain dict —
-so both packages compute the same transform without this package
-importing the other. The second route is persistence: a model saved by
-either package loads in the other (``PCAModel.load``).
+:func:`pca_model_from_numpy` and :func:`kmeans_model_from_numpy` build a
+port model from the reference model's arrays and param map, handed over
+as numpy and a plain dict — so both packages compute the same transform
+or prediction without this package importing the other. The second route
+is persistence: a model saved by either package loads in the other
+(``PCAModel.load``, ``KMeansModel.load``).
 
 Typical use, in code that has both packages::
 
@@ -20,6 +21,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from spark_rapids_ml_tpu_torch.models.kmeans import KMeansModel
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
 
 
@@ -38,7 +40,27 @@ def pca_model_from_numpy(
         raise ValueError(
             f"pc must be (d, k) and explained_variance (k,), got {pc.shape} and {ev.shape}"
         )
-    model = PCAModel(uid, pc, ev)
+    return _with_params(PCAModel(uid, pc, ev), params)
+
+
+def kmeans_model_from_numpy(
+    centers,
+    uid: Optional[str] = None,
+    params: Optional[Dict[str, Any]] = None,
+    training_cost: float = float("nan"),
+    num_iter: int = 0,
+) -> KMeansModel:
+    """A port ``KMeansModel`` holding ``centers`` (k, d) as float64, with
+    the reference model's ``trainingCost``, ``numIter`` and every param of
+    ``params`` that the model has."""
+    centers = np.asarray(centers, dtype=np.float64)
+    if centers.ndim != 2:
+        raise ValueError(f"centers must be (k, d), got {centers.shape}")
+    model = KMeansModel(uid, centers, trainingCost=float(training_cost), numIter=int(num_iter))
+    return _with_params(model, params)
+
+
+def _with_params(model, params: Optional[Dict[str, Any]]):
     for name, value in (params or {}).items():
         if model.hasParam(name):
             model.set(model.getParam(name), value)

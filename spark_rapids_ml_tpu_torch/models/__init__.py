@@ -1,5 +1,6 @@
 """Estimator/model families of the port."""
 
+from spark_rapids_ml_tpu_torch.models.kmeans import KMeans, KMeansModel
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel
 
-__all__ = ["PCA", "PCAModel"]
+__all__ = ["KMeans", "KMeansModel", "PCA", "PCAModel"]

@@ -1,0 +1,304 @@
+"""Kernels K2 and K3: fused KMeans assignment + update statistics on Hopper,
+and the Lloyd loop around them.
+
+Replaces the TPU kernels of ``spark_rapids_ml_tpu/ops/pallas/kmeans.py``:
+``assign_stats_fused`` (K2, ``csrc/kmeans_assign_stats.cu``) and
+``assign_stats_packed`` (K3, ``csrc/kmeans_assign_packed.cu``), plus the
+Lloyd loop ``lloyd_fused``. Both kernels take row-major (n, d) float32 and
+return ``(sums (k, d), counts (k,), cost, c2 (k,))`` over the n real rows:
+per row the scores ``c2 − 2·x·c``, the argmin (lowest index on ties),
+then the cluster sums, integer counts (int64) and
+``cost = Σ‖x‖² + Σ min score``, with the ``c2`` the kernel scored with.
+The reference's transposed, padded ``(d_pad, n_pad)`` layout was a TPU
+lane artifact and is not carried over (``pad_transposed`` has no
+counterpart): the kernels mask the ragged edge themselves, so no padding
+rows exist and the reference's closed-form padding correction in
+``lloyd_fused`` drops out. No (n, k) array is written; no float atomics,
+so every result is bitwise repeatable. Sources and bounds are in the
+``.cu`` files.
+
+Precision (``highest`` / ``high`` / ``default``, or the policy names
+through :func:`pallas_precision`): IEEE fp32 products; the 3-pass bf16
+hi/lo split (stats from ``x_hi + bf16(x − x_hi)``); one bf16-rounded pass
+(stats from ``bf16(x)``). ``Σ‖x‖²`` and ``c2`` use the unrounded values.
+
+Each wrapper takes its plain version only for a tensor on the CPU; on a
+CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from spark_rapids_ml_tpu_torch.ops.kernels import _build
+from spark_rapids_ml_tpu_torch.ops.kmeans import normalize_rows
+from spark_rapids_ml_tpu_torch.ops.precision import make_dot, pallas_precision
+
+FUSED_NAME = "kmeans_assign_stats"
+PACKED_NAME = "kmeans_assign_packed"
+
+#: Launches since the last reset, per kernel (the CPU route does not count).
+launches = {"assign_stats_fused": 0, "assign_stats_packed": 0}
+
+#: The kernels' precision codes (``PREC_*`` in ``csrc/kmeans_common.cuh``).
+PRECISIONS = {"highest": 0, "high": 1, "default": 2}
+
+#: Threads of a K2 block (``BLOCK``), warps (``NW``), and the most shared
+#: memory a Hopper block may use.
+FUSED_THREADS = 256
+FUSED_WARPS = FUSED_THREADS // 32
+MAX_SHARED_BYTES = 232_448
+#: Blocks per SM a launch aims at, and the cap on the partials workspace.
+BLOCKS_PER_SM = 8
+WORKSPACE_BYTES = 256 << 20
+
+Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _register_width(d: int) -> int:
+    """K2 holds a row in registers padded to 16, 32 or 64 features; past
+    64 it reads the row from cache (0)."""
+    return 16 if d <= 16 else 32 if d <= 32 else 64 if d <= 64 else 0
+
+
+def fused_shared_bytes(d: int, k: int) -> int:
+    """Shared memory one K2 block needs (``smem_bytes`` in the source): the
+    cost tree, the centers in two parts at the register width, c2, the
+    block's (k, d) partial sums, its counts, the per-warp counts, the tile
+    offsets and the row order."""
+    ds = _register_width(d) or d
+    return (
+        8 * FUSED_THREADS
+        + 4 * (2 * k * ds + k + k * d)
+        + 4 * (k * (FUSED_WARPS + 2) + 1 + FUSED_THREADS)
+    )
+
+
+def fused_feasible(d: int, k: int) -> bool:
+    """True when K2 can run at this (d, k): what one block keeps in shared
+    memory (the centers, c2 and the block's partial sums and counts, see
+    :func:`fused_shared_bytes`) fits Hopper's 227 KB. The reference's
+    10 MB VMEM rule (``auto_block_n``) does not carry over. At d = 16 this
+    admits k up to about 1,000; the KMeans resolver sends larger fits to
+    the ``xla`` route, and an explicit ``backend="fused"`` raises."""
+    return d >= 1 and k >= 1 and fused_shared_bytes(d, k) <= MAX_SHARED_BYTES
+
+
+def _packed_geometry(d_pad: int, k: int) -> Optional[Tuple[int, int, int]]:
+    """(P, dg, kg) as the reference's ``_packed_geometry``: dg the group
+    feature stride (16/32/64), P = 128 // dg, kg = 128 // P score slots;
+    None when d_pad > 64 or k > kg."""
+    for dg in (16, 32, 64):
+        if d_pad <= dg:
+            p = 128 // dg
+            if k <= 128 // p:
+                return p, dg, 128 // p
+            return None
+    return None
+
+
+def packed_feasible(d: int, k: int) -> bool:
+    """True when K3 (:func:`assign_stats_packed`) can run at this (d, k)."""
+    return _packed_geometry(d + ((-d) % 8), k) is not None
+
+
+def _bf16(a: torch.Tensor) -> torch.Tensor:
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
+def split_parts(a: torch.Tensor, precision: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operand parts (hi, lo) a mode multiplies (``split`` in
+    ``csrc/kmeans_common.cuh``): ``(a, 0)`` for highest, ``(bf16(a),
+    bf16(a − hi))`` for high, ``(bf16(a), 0)`` for default."""
+    if precision == "highest":
+        return a, torch.zeros_like(a)
+    hi = _bf16(a)
+    return hi, (_bf16(a - hi) if precision == "high" else torch.zeros_like(a))
+
+
+def stat_values(x: torch.Tensor, precision: str) -> torch.Tensor:
+    """The value each row adds to its cluster's sum in a mode: hi + lo."""
+    if precision == "highest":
+        return x
+    hi, lo = split_parts(x, precision)
+    return hi + lo
+
+
+def assign_stats_plain(x: torch.Tensor, centers: torch.Tensor, precision: str = "highest") -> Stats:
+    """The plain PyTorch version of K2 (and of K3): the same statistics
+    through (n, k) matrices, at the mode's operand rounding."""
+    precision = pallas_precision(precision)
+    k = centers.shape[0]
+    c2 = torch.sum(centers * centers, dim=1)
+    scores = make_dot(precision)(x, centers.T)
+    scores.mul_(-2.0).add_(c2[None, :])
+    labels = torch.argmin(scores, dim=1)
+    m = torch.gather(scores, 1, labels[:, None])[:, 0]
+    del scores
+    one_hot = torch.zeros((x.shape[0], k), dtype=x.dtype, device=x.device)
+    one_hot.scatter_(1, labels[:, None], 1.0)
+    sums = make_dot("highest")(one_hot.T, stat_values(x, precision))
+    counts = torch.bincount(labels, minlength=k)
+    # Σ‖x‖² + Σ min score, added row by row as the kernels do: the two
+    # sums are each far larger than the cost, so adding them whole would
+    # lose the cost to float32 rounding.
+    cost = torch.sum(torch.sum(x * x, dim=1) + m)
+    return sums, counts, cost, c2
+
+
+def assign_stats_packed_plain(x: torch.Tensor, centers: torch.Tensor,
+                              precision: str = "highest") -> Stats:
+    """The plain version of K3: K3's statistics are K2's."""
+    if not packed_feasible(x.shape[1], centers.shape[0]):
+        raise ValueError(f"packing infeasible at d={x.shape[1]}, k={centers.shape[0]}")
+    return assign_stats_plain(x, centers, precision)
+
+
+def _check(x: torch.Tensor, centers: torch.Tensor, precision: str, what: str) -> str:
+    if x.dim() != 2 or centers.dim() != 2:
+        raise ValueError(f"{what}: x and centers must be 2-D, got {tuple(x.shape)}, {tuple(centers.shape)}")
+    if centers.shape[1] != x.shape[1]:
+        raise ValueError(f"{what}: centers width {centers.shape[1]} != x width {x.shape[1]}")
+    if centers.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"{what}: needs k >= 1 and d >= 1, got {tuple(centers.shape)}")
+    if x.dtype != torch.float32 or centers.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32 x and centers, got {x.dtype} and {centers.dtype}")
+    if centers.device != x.device:
+        raise ValueError(f"{what}: centers are on {centers.device}, x on {x.device}")
+    if not x.is_contiguous() or not centers.is_contiguous():
+        raise ValueError(f"{what} needs contiguous (row-major) x and centers")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {x.device}")
+    mode = pallas_precision(precision)
+    if mode not in PRECISIONS:
+        raise ValueError(f"precision must be highest|high|default, got {precision!r}")
+    return mode
+
+
+def _launch(name: str, symbol: str, x: torch.Tensor, centers: torch.Tensor, mode: str,
+            threads: int, extra: tuple = ()) -> Stats:
+    """Allocates the outputs and the [S, k, d] partials, plans S, launches."""
+    n, d = int(x.shape[0]), int(x.shape[1])
+    k = int(centers.shape[0])
+    dev = x.device
+    lib = _build.load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_int] * len(extra)
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+        + [ctypes.c_void_p] * 8
+    )
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = plan_blocks(n, k * d, threads, sms)
+    rows_per_block = -(-max(n, 1) // blocks)
+    rows_per_block = -(-rows_per_block // threads) * threads
+    blocks = max(1, -(-n // rows_per_block))
+    with torch.cuda.device(dev):
+        ws_sums = torch.empty((blocks, k, d), dtype=torch.float32, device=dev)
+        ws_counts = torch.empty((blocks, k), dtype=torch.int32, device=dev)
+        ws_cost = torch.empty((blocks,), dtype=torch.float64, device=dev)
+        sums = torch.empty((k, d), dtype=torch.float32, device=dev)
+        counts = torch.empty((k,), dtype=torch.int64, device=dev)
+        cost = torch.empty((), dtype=torch.float32, device=dev)
+        c2 = torch.empty((k,), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            x.data_ptr(), centers.data_ptr(), n, d, k, *extra, PRECISIONS[mode],
+            blocks, rows_per_block, ws_sums.data_ptr(), ws_counts.data_ptr(),
+            ws_cost.data_ptr(), sums.data_ptr(), counts.data_ptr(), cost.data_ptr(),
+            c2.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return sums, counts, cost, c2
+
+
+def plan_blocks(n: int, kd: int, threads: int, sms: int) -> int:
+    """Blocks of a launch: about :data:`BLOCKS_PER_SM` per SM, no more than
+    one per ``threads`` rows, the [S, k, d] partials under
+    :data:`WORKSPACE_BYTES`, at least 1."""
+    blocks = min(BLOCKS_PER_SM * sms, -(-n // threads), WORKSPACE_BYTES // max(1, 4 * kd))
+    return max(1, blocks)
+
+
+def assign_stats_fused(x: torch.Tensor, centers: torch.Tensor, precision: str = "highest") -> Stats:
+    """Kernel K2 on a CUDA tensor (its plain version on a CPU one):
+    ``(sums (k, d), counts (k,) int64, cost, c2 (k,))`` over the n rows of
+    row-major float32 ``x`` (n, d) against ``centers`` (k, d). Raises when
+    the shared-memory rule (:func:`fused_feasible`) refuses (d, k)."""
+    mode = _check(x, centers, precision, "assign_stats_fused")
+    if x.device.type == "cpu":
+        return assign_stats_plain(x, centers, mode)
+    d, k = int(x.shape[1]), int(centers.shape[0])
+    if not fused_feasible(d, k):
+        raise ValueError(f"assign_stats_fused: d={d} x k={k} exceeds a block's shared memory")
+    out = _launch(FUSED_NAME, "kmeans_assign_stats", x, centers, mode, FUSED_THREADS)
+    launches["assign_stats_fused"] += 1
+    return out
+
+
+def packed_threads(dg: int) -> int:
+    """Threads of a K3 block at group width ``dg`` (``Geometry::THREADS``)."""
+    return 128 if dg == 64 else 256
+
+
+def assign_stats_packed(x: torch.Tensor, centers: torch.Tensor, precision: str = "highest") -> Stats:
+    """Kernel K3, the small-d, small-k specialisation of K2, on a CUDA
+    tensor (its plain version on a CPU one). Same contract and outputs as
+    :func:`assign_stats_fused`; needs :func:`packed_feasible`."""
+    mode = _check(x, centers, precision, "assign_stats_packed")
+    d, k = int(x.shape[1]), int(centers.shape[0])
+    geom = _packed_geometry(d + ((-d) % 8), k)
+    if geom is None:
+        raise ValueError(f"assign_stats_packed: packing infeasible at d={d}, k={k}")
+    if x.device.type == "cpu":
+        return assign_stats_packed_plain(x, centers, mode)
+    dg = geom[1]
+    out = _launch(PACKED_NAME, "kmeans_assign_packed", x, centers, mode, packed_threads(dg), (dg,))
+    launches["assign_stats_packed"] += 1
+    return out
+
+
+def lloyd_fused(
+    x: torch.Tensor,
+    init_centers: torch.Tensor,
+    max_iter: int = 20,
+    tol: float = 1e-4,
+    precision: str = "highest",
+    cosine: bool = False,
+    packed: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Full Lloyd fit on K2 (or K3 with ``packed=True``; check
+    :func:`packed_feasible` first): (centers, cost, n_iter), with
+    :func:`ops.kmeans.lloyd`'s semantics — movement tolerance, empty
+    clusters keep their center, cosine renormalisation, a final cost pass
+    at the converged centers. ``x`` is (n, d) float32, row-major. The
+    loop reads the movement once per iteration (one host sync each)."""
+    assign = assign_stats_packed if packed else assign_stats_fused
+    centers = init_centers.to(torch.float32).contiguous()
+    moved = torch.tensor(math.inf, dtype=torch.float32)
+    it = 0
+    while bool(moved > tol * tol) and it < max_iter:
+        sums, counts, _, _ = assign(x, centers, precision)
+        counts = counts.to(torch.float32)
+        new_centers = torch.where(
+            counts[:, None] > 0, sums / torch.clamp(counts, min=1.0)[:, None], centers
+        )
+        if cosine:
+            new_centers = normalize_rows(new_centers)
+        moved = torch.max(torch.sum((new_centers - centers) ** 2, dim=1))
+        centers = new_centers.contiguous()
+        it += 1
+    _, _, cost, _ = assign(x, centers, precision)
+    return centers, cost, it

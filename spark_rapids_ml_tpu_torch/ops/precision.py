@@ -91,6 +91,14 @@ def make_dot(precision: str) -> Callable:
     raise ValueError(f"no GEMM for precision {precision!r}")
 
 
+def pallas_precision(precision: str) -> str:
+    """Map a policy mode onto the KMeans kernels' vocabulary (``highest``
+    / ``high`` / ``default``): ``f32`` → ``highest``, ``bf16x3`` → ``high``
+    (the 3-pass split), ``bf16`` → ``default`` (one bf16 pass); the legacy
+    names pass through."""
+    return {"f32": "highest", "bf16x3": "high", "bf16": "default"}.get(precision, precision)
+
+
 def resolve_policy(
     family: str, requested: Optional[str] = None, default: str = "highest"
 ) -> str:

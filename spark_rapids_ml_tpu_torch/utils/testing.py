@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def seeded_matrix(
@@ -54,4 +55,41 @@ def assert_close(name: str, got, want, rtol: float, atol: float = 0.0) -> None:
         )
 
 
-__all__ = ["assert_close", "seeded_matrix"]
+def kmeans_stats_f64(
+    x: torch.Tensor,
+    centers: torch.Tensor,
+    precision: str = "highest",
+    c2: Optional[torch.Tensor] = None,
+    block_rows: int = 1 << 20,
+):
+    """float64 statistics of the function kernels K2/K3 compute, on the
+    operands the mode multiplies (each float32 part widened exactly), in
+    row blocks so that the (block, k) scores fit: (sums (k, d), counts
+    (k,) int64, cost, labels). ``c2`` defaults to the float64 norms of the
+    centers; pass the float32 ``c2`` a kernel returned to score against the
+    same rounded norms (their rounding is shared by every row of a
+    cluster, so it would not average out of the cost)."""
+    from spark_rapids_ml_tpu_torch.ops.kernels.kmeans import split_parts
+
+    k, d = centers.shape
+    ch, cl = (p.double() for p in split_parts(centers, precision))
+    c2 = (centers.double() ** 2).sum(dim=1) if c2 is None else c2.double()
+    sums = torch.zeros((k, d), dtype=torch.float64, device=x.device)
+    counts = torch.zeros((k,), dtype=torch.int64, device=x.device)
+    cost = torch.zeros((), dtype=torch.float64, device=x.device)
+    labels = torch.empty((x.shape[0],), dtype=torch.int64, device=x.device)
+    for i in range(0, x.shape[0], block_rows):
+        xb = x[i:i + block_rows]
+        xh, xl = (p.double() for p in split_parts(xb, precision))
+        scores = c2[None, :] - 2.0 * (xh @ ch.T + xh @ cl.T + xl @ ch.T)
+        lab = torch.argmin(scores, dim=1)
+        m = torch.gather(scores, 1, lab[:, None])[:, 0]
+        del scores
+        sums.index_add_(0, lab, xh + xl)
+        counts += torch.bincount(lab, minlength=k)
+        cost += torch.sum((xb.double() ** 2).sum(dim=1) + m)
+        labels[i:i + block_rows] = lab
+    return sums, counts, cost, labels
+
+
+__all__ = ["assert_close", "kmeans_stats_f64", "seeded_matrix"]

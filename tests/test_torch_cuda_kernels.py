@@ -1,4 +1,5 @@
-"""Kernel K1 (the centered Gram) on a CUDA card, against its plain version.
+"""Kernels K1 (the centered Gram), K2 and K3 (KMeans assignment + stats)
+on a CUDA card, against float64 references and their plain versions.
 
 These tests need the card: they are marked ``cuda`` and skip without one.
 They import nothing of JAX, so on a machine with a card and no JAX they
@@ -6,10 +7,10 @@ run without the repo's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
-Tolerance: the kernel and the plain version (cuBLAS, TF32 off) sum in
-different orders, so both are held against a float64 Gram of the same
+Tolerance for K1: the kernel and the plain version (cuBLAS, TF32 off) sum
+in different orders, so both are held against a float64 Gram of the same
 input, relative to max |C|: 1e-5 for float32 at these sizes, 1e-12 for
-float64.
+float64. K2 and K3: see their section below.
 """
 
 import pytest
@@ -82,3 +83,160 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         k1.centered_gram_cuda(x.half(), torch.zeros(32, device=cuda).half())
     with pytest.raises(ValueError, match="is on"):
         k1.centered_gram_cuda(x, torch.zeros(32))
+
+
+# --- Kernels K2 (assign_stats_fused) and K3 (assign_stats_packed) ---------
+#
+# Held against kmeans_stats_f64, the float64 statistics of the same function
+# on the operands the precision mode multiplies, scoring with the c2 the
+# kernel returns: counts identical, sums within 1e-5 of max |sums|, the
+# cost within 1e-5 relative plus 2e-6 of sum ||x||^2 (the cost is a
+# difference of two sums of about that size, each rounded in fp32 per row;
+# at one row the difference can be 100 times smaller than either). Planted blobs keep every row far from a Voronoi boundary, so
+# the float32 scores cannot flip a label.
+
+from spark_rapids_ml_tpu_torch.ops.kernels import kmeans as kk  # noqa: E402
+from spark_rapids_ml_tpu_torch.utils.testing import kmeans_stats_f64  # noqa: E402
+
+MODES = ("highest", "high", "default")
+
+
+def _blobs(cuda, n, d, k, seed, scale=20.0):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    truth = scale * torch.randn((k, d), generator=gen, device=cuda)
+    labels = torch.randint(0, k, (n,), generator=gen, device=cuda)
+    x = truth[labels] + torch.randn((n, d), generator=gen, device=cuda)
+    centers = (truth + 0.1 * torch.randn((k, d), generator=gen, device=cuda)).contiguous()
+    return x.contiguous(), centers
+
+
+def _hold(stats, x, centers, mode):
+    sums, counts, cost, c2 = stats
+    ref_sums, ref_counts, ref_cost, _ = kmeans_stats_f64(x, centers, mode, c2=c2)
+    assert torch.equal(counts, ref_counts)
+    scale = max(ref_sums.abs().max().item(), 1e-30)
+    assert (sums.double() - ref_sums).abs().max().item() <= 1e-5 * scale
+    x2 = (x.double() ** 2).sum().item()
+    assert abs(cost.item() - ref_cost.item()) <= 1e-5 * abs(ref_cost.item()) + 2e-6 * x2
+    c2_ref = (centers.double() ** 2).sum(dim=1)
+    assert ((c2.double() - c2_ref).abs() <= 1e-6 * c2_ref.abs().clamp_min(1e-30)).all()
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize(
+    "n,d,k",
+    [(1, 1, 1), (4099, 13, 7), (37, 5, 3), (3000, 16, 100), (2000, 40, 9), (1500, 64, 64),
+     (1200, 100, 5), (513, 16, 1)]
+    # k at the shared-memory limit of fused_feasible
+    + [(4000, d, max(k for k in range(1, 2000) if kk.fused_feasible(d, k))) for d in (16, 64)],
+)
+def test_k2_matches_float64(cuda, mode, n, d, k):
+    x, centers = _blobs(cuda, n, d, k, seed=n + d + k)
+    before = kk.launches["assign_stats_fused"]
+    stats = kk.assign_stats_fused(x, centers, mode)
+    torch.cuda.synchronize()
+    assert kk.launches["assign_stats_fused"] == before + 1
+    _hold(stats, x, centers, mode)
+    plain = kk.assign_stats_plain(x, centers, mode)
+    assert torch.equal(stats[1], plain[1])
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n,d,k", [(1, 1, 1), (4099, 13, 7), (3000, 16, 16), (2000, 32, 32),
+                                   (1500, 64, 64), (777, 20, 3)])
+def test_k3_matches_float64_and_k2(cuda, mode, n, d, k):
+    assert kk.packed_feasible(d, k)
+    x, centers = _blobs(cuda, n, d, k, seed=7 * n + d + k)
+    before = kk.launches["assign_stats_packed"]
+    packed = kk.assign_stats_packed(x, centers, mode)
+    torch.cuda.synchronize()
+    assert kk.launches["assign_stats_packed"] == before + 1
+    _hold(packed, x, centers, mode)
+    fused = kk.assign_stats_fused(x, centers, mode)
+    assert torch.equal(packed[1], fused[1])
+    assert torch.equal(packed[3], fused[3])
+    scale = max(fused[0].abs().max().item(), 1e-30)
+    assert (packed[0] - fused[0]).abs().max().item() <= 1e-6 * scale
+    assert abs(packed[2].item() - fused[2].item()) <= 1e-6 * abs(fused[2].item())
+
+
+@pytest.mark.parametrize("assign", [kk.assign_stats_fused, kk.assign_stats_packed])
+def test_no_rows_give_zero_stats(cuda, assign):
+    x = torch.zeros((0, 5), device=cuda)
+    centers = torch.randn((3, 5), device=cuda)
+    sums, counts, cost, c2 = assign(x, centers)
+    assert torch.equal(sums, torch.zeros((3, 5), device=cuda))
+    assert torch.equal(counts, torch.zeros(3, dtype=torch.int64, device=cuda))
+    assert cost.item() == 0.0
+    assert torch.allclose(c2, (centers * centers).sum(dim=1), rtol=1e-6)
+
+
+@pytest.mark.parametrize("assign", [kk.assign_stats_fused, kk.assign_stats_packed])
+def test_ties_go_to_the_lowest_index(cuda, assign):
+    x, centers = _blobs(cuda, 2000, 8, 4, seed=3)
+    dup = torch.cat([centers, centers]).contiguous()  # centers j and j + 4 tie exactly
+    counts = assign(x, dup)[1]
+    assert counts[4:].sum().item() == 0
+    assert torch.equal(counts[:4], assign(x, centers)[1])
+
+
+@pytest.mark.parametrize("assign,k", [(kk.assign_stats_fused, 100), (kk.assign_stats_packed, 16)])
+@pytest.mark.parametrize("mode", MODES)
+def test_k2_k3_are_bitwise_repeatable(cuda, assign, k, mode):
+    x, centers = _blobs(cuda, 300_000, 16, k, seed=11)
+    a = assign(x, centers, mode)
+    b = assign(x, centers, mode)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_k2_k3_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.randn((64, 16), device=cuda)
+    c = torch.randn((4, 16), device=cuda)
+    for assign in (kk.assign_stats_fused, kk.assign_stats_packed):
+        with pytest.raises(TypeError, match="float32"):
+            assign(x.double(), c.double())
+        with pytest.raises(ValueError, match="contiguous"):
+            assign(torch.randn((16, 64), device=cuda).T, c)
+        with pytest.raises(ValueError, match="width"):
+            assign(x, torch.randn((4, 15), device=cuda))
+        with pytest.raises(ValueError, match="is on|are on"):
+            assign(x, c.cpu())
+        with pytest.raises(ValueError, match="precision"):
+            assign(x, c, "fp8")
+    with pytest.raises(ValueError, match="packing infeasible"):
+        kk.assign_stats_packed(x, torch.randn((17, 16), device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        kk.assign_stats_fused(torch.randn((8, 1024), device=cuda), torch.randn((100, 1024), device=cuda))
+
+
+def test_shared_memory_rule_matches_the_source(cuda):
+    import ctypes
+
+    from spark_rapids_ml_tpu_torch.ops.kernels import _build
+
+    lib = _build.load(kk.FUSED_NAME)
+    fn = lib.kmeans_assign_stats_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    for d, k in [(1, 1), (13, 7), (16, 100), (33, 50), (64, 64), (100, 200), (16, 1000)]:
+        assert fn(d, k) == kk.fused_shared_bytes(d, k)
+    packed = _build.load(kk.PACKED_NAME).kmeans_assign_packed_threads
+    packed.argtypes, packed.restype = [ctypes.c_int], ctypes.c_int
+    assert [packed(dg) for dg in (16, 32, 64)] == [kk.packed_threads(dg) for dg in (16, 32, 64)]
+
+
+def test_fused_fit_on_the_card_matches_the_xla_fit(cuda):
+    from spark_rapids_ml_tpu_torch.clustering import KMeans
+
+    x, centers = _blobs(cuda, 400_000, 16, 20, seed=5)
+    for k in (20, 12):
+        init = centers[:k].cpu().numpy()
+        kk.reset_launches()
+        fused = KMeans().setK(k).setInitialModel(init).setBackend("auto").fit(x)
+        name = "assign_stats_packed" if k <= 16 else "assign_stats_fused"
+        assert kk.launches[name] > 0
+        xla = KMeans().setK(k).setInitialModel(init).setBackend("xla").fit(x)
+        assert fused.numIter == xla.numIter
+        assert abs(fused.clusterCenters() - xla.clusterCenters()).max() <= 1e-3
+        assert abs(fused.trainingCost - xla.trainingCost) <= 1e-4 * xla.trainingCost

@@ -9,7 +9,9 @@
   ``RowMatrix._device`` does.
 - ``chip_smoke.py`` fails, printing no result, without a card, and in a
   directory that holds nothing else of the repo.
-- A CUDA kernel builds with ``nvcc`` or not at all.
+- A CUDA kernel builds with ``nvcc`` or not at all, and a wrapper given a
+  CUDA tensor launches its kernel or raises: it never falls back to its
+  plain version (no ``try`` in ``ops/kernels``).
 """
 
 import ast
@@ -27,6 +29,7 @@ import torch
 from spark_rapids_ml_tpu_torch import device as port_device
 from spark_rapids_ml_tpu_torch.feature import PCA
 from spark_rapids_ml_tpu_torch.ops.kernels import _build
+from spark_rapids_ml_tpu_torch.ops.kernels import kmeans as kk
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "spark_rapids_ml_tpu_torch"
@@ -47,7 +50,9 @@ def _clean_env():
 
 def test_every_port_module_imports_without_jax():
     names = list(_modules())
-    assert "spark_rapids_ml_tpu_torch.ops.kernels.covariance" in names
+    for name in ("ops.kernels.covariance", "ops.kernels.kmeans", "ops.kmeans", "models.kmeans",
+                 "core.ingest", "clustering"):
+        assert f"spark_rapids_ml_tpu_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"
@@ -137,8 +142,43 @@ def test_kernel_build_needs_nvcc(monkeypatch):
         _build.find_nvcc()
 
 
-def test_kernel_library_is_keyed_by_its_source():
-    path = _build.library_path("centered_gram")
-    assert path.parent == _build.BUILD_DIR and path.name.startswith("libcentered_gram-")
-    assert path == _build.library_path("centered_gram")
-    assert (_build.CSRC_DIR / "centered_gram.cu").is_file()
+@pytest.mark.parametrize("name", ["centered_gram", "kmeans_assign_stats", "kmeans_assign_packed"])
+def test_kernel_library_is_keyed_by_its_source(name):
+    path = _build.library_path(name)
+    assert path.parent == _build.BUILD_DIR and path.name.startswith(f"lib{name}-")
+    assert path == _build.library_path(name)
+    assert (_build.CSRC_DIR / f"{name}.cu").is_file()
+
+
+def test_kernel_wrappers_have_no_fallback():
+    for path in (PACKAGE / "ops" / "kernels").glob("*.py"):
+        tree = ast.parse(path.read_text(), str(path))
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], path.name
+
+
+def test_a_cuda_tensor_never_reaches_the_plain_version(monkeypatch, tmp_path):
+    """No fallback: on a CUDA tensor the wrapper goes to the kernel build,
+    which raises without nvcc; it never computes the plain version."""
+
+    class _CudaLike:
+        def __init__(self, shape):
+            self.shape = torch.Size(shape)
+            self.dtype = torch.float32
+            self.device = torch.device("cuda")
+
+        def dim(self):
+            return len(self.shape)
+
+        def is_contiguous(self):
+            return True
+
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    if _build.Path("/usr/local/cuda/bin/nvcc").is_file():
+        pytest.skip("this machine has a CUDA toolkit at its default prefix")
+    monkeypatch.setattr(kk, "assign_stats_plain", lambda *a, **k: pytest.fail("plain version reached"))
+    for assign in (kk.assign_stats_fused, kk.assign_stats_packed):
+        with pytest.raises(RuntimeError, match="nvcc was not found"):
+            assign(_CudaLike((10, 4)), _CudaLike((3, 4)))
