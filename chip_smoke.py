@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 It builds every hand-written kernel from ``spark_rapids_ml_tpu_torch/csrc``
 (one ``nvcc`` per source, all started together), holds each against its
 plain PyTorch version and a float64 reference on the card, and drives the
-port's two paths through their public entry points, each with the launch
+port's three paths through their public entry points, each with the launch
 counters set to 0 just before and read just after:
 
 - PCA: ``PCA().setK(16)`` fit and transform on a 1M x 1024 float32
@@ -17,7 +17,13 @@ counters set to 0 just before and read just after:
   planted blobs made on the card from the seed): ``KMeans().setK(100)``
   and ``setK(16)`` fits (kernels K2 and K3), predict and transform on all
   rows, a save/load round trip, held against the ``xla`` route and a
-  float64 fit from the same initial centers.
+  float64 fit from the same initial centers;
+- UMAP at BASELINE.md config 13's shape (50,000 x 64 float32 -> 2-D,
+  nNeighbors 15, 200 epochs, random init, pool of 256, on planted blobs):
+  ``UMAP().fit`` (kernel K4 every epoch), ``transform`` of 10,000 new
+  rows, a save/load round trip; held against an on-card float64 kNN,
+  the plain tail route (one epoch, and trustworthiness of a whole fit),
+  and the blobs; then a spectral-init fit at 8,192 rows.
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). Each phase prints
@@ -51,7 +57,11 @@ from spark_rapids_ml_tpu_torch.ops.kernels import covariance as k1  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.kernels import kmeans as kk  # noqa: E402
 from spark_rapids_ml_tpu_torch.clustering import KMeans, KMeansModel  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops import kmeans as ops_kmeans  # noqa: E402
-from spark_rapids_ml_tpu_torch.utils.testing import kmeans_stats_f64  # noqa: E402
+from spark_rapids_ml_tpu_torch.utils.testing import kmeans_stats_f64, trustworthiness  # noqa: E402
+from spark_rapids_ml_tpu_torch.manifold import UMAP, UMAPModel  # noqa: E402
+from spark_rapids_ml_tpu_torch.models.umap import _knn_excluding_self  # noqa: E402
+from spark_rapids_ml_tpu_torch.ops import umap as ops_umap  # noqa: E402
+from spark_rapids_ml_tpu_torch.ops.kernels import umap as k4  # noqa: E402
 
 SEED = 0
 N_MAIN = 1_000_000          # rows of the main path (bench.py's width: 1M x 1024)
@@ -72,6 +82,22 @@ KM_BLOCK = 1 << 20          # rows per block of the plain and float64 references
 KM_SCALE = 50.0             # blob centers ~ N(0, 50^2), unit noise
 KM_MODES = ("highest", "high", "default")
 
+# UMAP: BASELINE.md config 13 (benchmarks/config13_umap.py: 50k x 64 -> 2-D,
+# nNeighbors 15, 200 epochs, random init, brute_approx); the config's data
+# is N(0, 1), which has no structure to check, so blobs are planted at
+# that shape.
+UM_N = 50_000
+UM_D = 64
+UM_K = 15
+UM_DIM = 2
+UM_EPOCHS = 200
+UM_BLOBS = 10
+UM_SCALE = 3.0              # blob centers ~ N(0, 3^2) per feature, unit noise
+UM_NEW = 10_000             # rows for transform
+UM_SUB = 2_000              # rows of the trustworthiness subsample
+UM_KNN_Q = 2_048            # query rows of the float64 kNN check
+UM_SPECTRAL_N = 8_192       # the largest n the estimator gives spectral init
+
 #: Every kernel of the paths: (name, route, source, the TPU kernel it replaces).
 KERNELS = [
     ("centered_gram", "cuda", "spark_rapids_ml_tpu_torch/csrc/centered_gram.cu",
@@ -80,6 +106,8 @@ KERNELS = [
      "spark_rapids_ml_tpu/ops/pallas/kmeans.py:129"),
     ("assign_stats_packed", "cuda", "spark_rapids_ml_tpu_torch/csrc/kmeans_assign_packed.cu",
      "spark_rapids_ml_tpu/ops/pallas/kmeans.py:258"),
+    ("tail_accumulate", "cuda", "spark_rapids_ml_tpu_torch/csrc/umap_tail.cu",
+     "spark_rapids_ml_tpu/ops/pallas/umap.py:162"),
 ]
 
 #: Published peaks (NVIDIA data sheets, dense, no sparsity): HBM bytes/s,
@@ -686,6 +714,276 @@ def kmeans_phases(gen: torch.Generator, peaks) -> dict:
     return {"check": check, "main_path": main_path, "times": times}
 
 
+# --- UMAP: kernel K4 -------------------------------------------------------
+
+
+def umap_blobs(n: int, truth: torch.Tensor, gen: torch.Generator):
+    """n rows around the blob centers ``truth`` with unit noise, and their
+    blob labels, made on the card."""
+    labels = torch.randint(0, truth.shape[0], (n,), generator=gen, device=truth.device)
+    x = torch.randn((n, truth.shape[1]), generator=gen, device=truth.device)
+    x += truth[labels]
+    return x, labels
+
+
+def umap_estimator() -> UMAP:
+    """Config 13's estimator (benchmarks/config13_umap.py)."""
+    return (UMAP().setNNeighbors(UM_K).setNComponents(UM_DIM).setNEpochs(UM_EPOCHS)
+            .setBuildAlgo("brute_approx").setInit("random").setSeed(SEED))
+
+
+def umap_graph(x: torch.Tensor):
+    """The fit's graph stage through the ops: kNN without self, the fuzzy
+    set, and K4's tail plan."""
+    dists, idx = _knn_excluding_self(x, UM_K, "euclidean", approx=True)
+    graph = ops_umap.fuzzy_simplicial_set(idx, dists)
+    return dists, graph, k4.build_tail_plan(graph.indices, x.shape[0], UM_DIM)
+
+
+def phase_umap_kernel_check(x: torch.Tensor, gen: torch.Generator) -> dict:
+    """The kNN graph against an on-card float64 exact kNN (UM_KNN_Q query
+    rows), and K4 against its plain version and a float64 ``index_add_``
+    at config 13's edge stream (the graph's own tails)."""
+    dists, graph, plan = umap_graph(x)
+    q = x[:UM_KNN_Q].double()
+    d64 = torch.cdist(q, x.double())
+    d64[torch.arange(UM_KNN_Q, device=x.device), torch.arange(UM_KNN_Q, device=x.device)] = float("inf")
+    ref_d, ref_i = torch.topk(d64, UM_K, dim=1, largest=False)
+    del d64
+    got_i = graph.indices[:UM_KNN_Q].long()
+    hits = (got_i[:, :, None] == ref_i[:, None, :]).any(dim=2).sum().item()
+    recall = hits / (UM_KNN_Q * UM_K)
+    dist_rel = ((dists[:UM_KNN_Q].double() - ref_d).abs() / ref_d.clamp_min(1e-30)).max().item()
+
+    n = x.shape[0]
+    e = n * UM_K
+    indeg = torch.bincount(graph.indices.reshape(-1).long(), minlength=n)
+    g = torch.randn((e, UM_DIM), generator=gen, device=x.device)
+    out = k4.tail_accumulate(g, plan)
+    again = k4.tail_accumulate(g, plan)
+    plain = k4.tail_accumulate_plain(g, plan)
+    ref = torch.zeros((n, UM_DIM), dtype=torch.float64, device=x.device)
+    ref.index_add_(0, graph.indices.reshape(-1).long(), g.double())
+    scale = ref.abs().max().item()
+    out_d = {
+        "phase": "umap_kernel_check",
+        "knn_queries": UM_KNN_Q, "knn_recall_vs_f64": recall, "knn_dist_rel_vs_f64": dist_rel,
+        "edges": e, "in_degree_max": int(indeg.max()), "in_degree_p99": float(torch.quantile(indeg.double(), 0.99)),
+        "rows_without_in_edges": int((indeg == 0).sum()),
+        "k4_rel_vs_f64": (out.double() - ref).abs().max().item() / scale,
+        "plain_rel_vs_f64": (plain.double() - ref).abs().max().item() / scale,
+        "k4_vs_plain_max_abs": (out - plain).abs().max().item(),
+        "k4_bitwise_repeat": bool(torch.equal(out, again)),
+        "perm_is_stable_argsort": bool(torch.equal(
+            plan.perm.long(), torch.argsort(graph.indices.reshape(-1).long(), stable=True))),
+    }
+    emit(out_d)
+    require(recall >= 0.999, f"kNN recall {recall:.5f} < 0.999 against the float64 kNN")
+    require(dist_rel <= 1e-4, f"kNN distances {dist_rel:.3e} from float64, > 1e-4 relative")
+    require(out_d["k4_rel_vs_f64"] <= 1e-6, "K4 differs from the float64 index_add_")
+    require(out_d["plain_rel_vs_f64"] <= 1e-5, "the plain version differs from the float64 index_add_")
+    require(out_d["k4_bitwise_repeat"], "a repeat K4 launch differs")
+    require(out_d["perm_is_stable_argsort"], "the plan's perm is not the stable argsort of the tails")
+    return out_d, graph, plan, g
+
+
+def _umap_trust(x, emb, sub) -> float:
+    return trustworthiness(x[sub], emb[sub].to(x.device), 10)
+
+
+def _blob_hits(emb_train, labels, emb_new, labels_new) -> float:
+    """Share of new rows whose embedding lies nearest their own blob's
+    centroid in the training layout (tests/test_umap.py's transform bar)."""
+    cents = torch.stack([emb_train[labels == c].mean(dim=0) for c in range(UM_BLOBS)])
+    nearest = torch.cdist(emb_new.float(), cents).argmin(dim=1)
+    return (nearest == labels_new).float().mean().item()
+
+
+def phase_umap_main_path(x, labels, x_new, labels_new, graph, plan, gen) -> tuple:
+    """UMAP through its public entry points, the launch counters set to 0
+    just before and read just after; then, outside the counted window,
+    one epoch on K4 against the plain route from the same layout and
+    negatives, a whole fit on the plain route, and the structural bars."""
+    k4.reset_launches()
+    t0 = time.perf_counter()
+    model = umap_estimator().fit(x)
+    emb = model._emb_raw
+    sync()
+    fit_first_s = time.perf_counter() - t0
+    after_fit = k4.launches["tail_accumulate"]
+    emb_new = model.transform(x_new)
+    sync()
+    after_transform = k4.launches["tail_accumulate"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "umap_model")
+        model.write.overwrite().save(path)
+        loaded = UMAPModel.load(path)
+        loaded_new = loaded.transform(x_new[:1000])
+    launches = {"tail_accumulate": k4.launches["tail_accumulate"]}
+    # The same 1,000 rows through the fitted model: the transform SGD
+    # amplifies ulps, and cuBLAS may round a 1,000-row product otherwise
+    # than a 10,000-row one, so the comparison keeps the batch.
+    fitted_new = model.transform(x_new[:1000])
+
+    require(after_fit == UM_EPOCHS, f"the fit launched K4 {after_fit} times, not once per epoch ({UM_EPOCHS})")
+    require(after_transform == after_fit, "transform launched K4")
+    require(np.array_equal(loaded.embedding, model.embedding), "save/load changed the embedding")
+    require(loaded.getNNeighbors() == UM_K and (loaded.a, loaded.b) == (model.a, model.b), "save/load lost params")
+
+    # Outside the counted window: one epoch, K4 against the plain route.
+    a, b = model.a, model.b
+    y0 = (10.0 * (2.0 * torch.rand((UM_N, UM_DIM), generator=gen, device=x.device) - 1.0)).contiguous()
+    kw = dict(n_epochs=UM_EPOCHS, neg_rate=5, neg_pool=256, learning_rate=1.0, repulsion=1.0,
+              a=a, b=b, move_other=True)
+    neg = torch.randint(0, UM_N, (256,), generator=gen, device=x.device)
+    one_k4 = ops_umap._make_epoch_fn((UM_N, UM_DIM), graph, None, tail_plan=plan, **kw)(0, y0, neg)
+    one_plain = ops_umap._make_epoch_fn((UM_N, UM_DIM), graph, None, **kw)(0, y0, neg)
+    # The plain route sums each tail row in float32 atomics in no fixed
+    # order, K4 in float64: a hub row of several hundred in-edges differs
+    # by ~1e-5 (some sqrt(in-degree) float32 roundings of its terms). The
+    # bar is 1e-5 of the layout's scale, max(1, max |y|).
+    epoch_err = (one_k4 - one_plain).abs().max().item()
+    epoch_scale = max(1.0, one_plain.abs().max().item())
+    # A whole fit on the plain route, from the same kind of random layout.
+    fit_gen = torch.Generator(device=x.device)
+    fit_gen.manual_seed(SEED + 1)
+    y_start = 10.0 * (2.0 * torch.rand((UM_N, UM_DIM), generator=fit_gen, device=x.device) - 1.0)
+    plain_emb = ops_umap.optimize_layout(y_start, graph, fit_gen, a=a, b=b, n_epochs=UM_EPOCHS)
+    sub = torch.randperm(UM_N, generator=gen, device=x.device)[:UM_SUB]
+    trust = _umap_trust(x, emb, sub)
+    trust_plain = _umap_trust(x, plain_emb, sub)
+    out = {
+        "phase": "umap_main_path",
+        "x": [int(x.shape[0]), int(x.shape[1]), str(x.dtype)], "k": UM_K, "epochs": UM_EPOCHS,
+        "launches": launches, "launches_fit": after_fit, "launches_transform": after_transform - after_fit,
+        "fit_first_s": fit_first_s,
+        "embedding_shape": list(emb.shape), "embedding_finite": bool(torch.isfinite(emb).all()),
+        "one_epoch_k4_vs_plain_max_abs": epoch_err, "one_epoch_max_abs_y": epoch_scale,
+        "trustworthiness": trust, "trustworthiness_plain_route": trust_plain,
+        "transform_shape": list(emb_new.shape),
+        "transform_blob_hits": _blob_hits(emb, labels, emb_new, labels_new),
+        "loaded_transform_max_abs": (loaded_new - fitted_new).abs().max().item(),
+    }
+    emit(out)
+    require(out["embedding_finite"] and out["embedding_shape"] == [UM_N, UM_DIM], "embedding not finite (n, 2)")
+    require(epoch_err <= 1e-5 * epoch_scale,
+            f"one epoch on K4 differs from the plain route by {epoch_err:.3e} at |y| <= {epoch_scale:.1f}")
+    require(trust > 0.85, f"trustworthiness {trust:.4f} <= 0.85")
+    require(abs(trust - trust_plain) <= 0.03, f"trustworthiness {trust:.4f} vs plain route {trust_plain:.4f}")
+    require(out["transform_shape"] == [UM_NEW, UM_DIM], "transform shape")
+    require(out["transform_blob_hits"] >= 0.9, "fewer than 90% of new rows land nearest their blob")
+    require(out["loaded_transform_max_abs"] <= 1e-5, "the loaded model transforms differently")
+    return out, model
+
+
+def tail_bound_ms(n: int, e: int, dim: int, peaks) -> tuple:
+    """Least time for K4: g (e, dim) f32, perm (e) and offsets (n + 1)
+    int32 read once, out (n, dim) f32 written once, over HBM; e·dim adds
+    over the fp32 peak."""
+    _, hbm, fp32, _ = peaks
+    bytes_ms = (4 * e * dim + 4 * e + 4 * (n + 1) + 4 * n * dim) / hbm * 1e3
+    ops_ms = e * dim / fp32 * 1e3
+    return max(bytes_ms, ops_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def phase_umap_times(x, x_new, model, graph, plan, g, peaks) -> dict:
+    """K4 at config 13's edge stream beside its plain version, the library
+    call (one ``index_add_`` of the unsorted stream) and its bound; the
+    fit's graph and SGD phases, the whole fit and transform."""
+    n, e = UM_N, UM_N * UM_K
+    tails = graph.indices.reshape(-1).long()
+    kernel_ms = time_ms(lambda: k4.tail_accumulate(g, plan), repeats=50)
+    plain_ms = time_ms(lambda: k4.tail_accumulate_plain(g, plan), repeats=50)
+    library_ms = time_ms(lambda: torch.zeros((n, UM_DIM), device=x.device).index_add_(0, tails, g), repeats=50)
+    bound_ms, bound_by = tail_bound_ms(n, e, UM_DIM, peaks)
+
+    emb0 = 10.0 * (2.0 * torch.rand((n, UM_DIM), device=x.device) - 1.0)
+
+    def sgd():
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed(SEED)
+        ops_umap.optimize_layout(emb0, graph, gen, a=model.a, b=model.b, n_epochs=UM_EPOCHS, tail_plan=plan)
+
+    out = {
+        "phase": "umap_times", "peaks": peaks[0],
+        "tail_accumulate": {"edges": e, "n": n, "dim": UM_DIM, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms, "library_call": "zeros(n, 2).index_add_(0, tails, g)",
+                            "bound_ms": bound_ms, "bound_by": bound_by, "roofline_share": bound_ms / kernel_ms},
+        "fit_wall_s": wall_s(lambda: umap_estimator().fit(x)._emb_raw),
+        "graph_phase_wall_s": wall_s(lambda: umap_graph(x)),
+        "sgd_phase_wall_s": wall_s(sgd),
+        "transform_wall_s": wall_s(lambda: model.transform(x_new)),
+    }
+    emit(out)
+    return out
+
+
+def phase_umap_profile(x: torch.Tensor) -> dict:
+    """One config-13 fit under ``torch.profiler``: device time by kernel
+    and the device's idle share. The epoch loop launches ~35 small kernels
+    an epoch and never syncs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    est = umap_estimator()
+    est.fit(x)  # warm
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        emb = est.fit(x)._emb_raw
+        sync()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    require(bool(torch.isfinite(emb).all()), "profiled fit gave a non-finite embedding")
+    device_ms = _device_ms_by_kernel(prof)
+    busy_ms = sum(device_ms.values())
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:12]
+    out = {
+        "phase": "umap_profile", "what": "config 13 UMAP fit, 50,000 x 64 f32, 200 epochs, K4 tail route",
+        "window_ms": window_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": (1.0 - busy_ms / window_ms) if busy_ms else None,
+        "kernels_launched": sum(avg.count for avg in prof.key_averages()
+                                if avg.device_type.name == "CUDA" and avg.self_device_time_total > 0),
+        "top_device_ms": [{"kernel": k[:80], "ms": v} for k, v in top],
+    }
+    emit(out)
+    return out
+
+
+def phase_umap_spectral(x: torch.Tensor, labels: torch.Tensor, gen: torch.Generator) -> dict:
+    """A fit at the spectral-init cap (8,192 rows: one dense Laplacian
+    eigh on the card), held to the trustworthiness bar."""
+    xs = x[:UM_SPECTRAL_N]
+    k4.reset_launches()
+    t0 = time.perf_counter()
+    model = UMAP().setNNeighbors(UM_K).setNEpochs(UM_EPOCHS).setSeed(SEED).fit(xs)
+    emb = model._emb_raw
+    sync()
+    wall = time.perf_counter() - t0
+    sub = torch.randperm(UM_SPECTRAL_N, generator=gen, device=x.device)[:UM_SUB]
+    out = {
+        "phase": "umap_spectral", "x": [UM_SPECTRAL_N, UM_D], "init": model.getInit(), "epochs": UM_EPOCHS,
+        "fit_first_s": wall, "launches": k4.launches["tail_accumulate"],
+        "embedding_finite": bool(torch.isfinite(emb).all()),
+        "trustworthiness": _umap_trust(xs, emb, sub),
+    }
+    emit(out)
+    require(out["embedding_finite"], "the spectral-init fit is not finite")
+    require(out["launches"] == UM_EPOCHS, "the spectral-init fit did not run K4 every epoch")
+    require(out["trustworthiness"] > 0.85, "the spectral-init fit's trustworthiness <= 0.85")
+    return out
+
+
+def umap_phases(gen: torch.Generator, peaks) -> dict:
+    truth = UM_SCALE * torch.randn((UM_BLOBS, UM_D), generator=gen, device="cuda")
+    x, labels = umap_blobs(UM_N, truth, gen)
+    x_new, labels_new = umap_blobs(UM_NEW, truth, gen)
+    check, graph, plan, g = phase_umap_kernel_check(x, gen)
+    main_path, model = phase_umap_main_path(x, labels, x_new, labels_new, graph, plan, gen)
+    times = phase_umap_times(x, x_new, model, graph, plan, g, peaks)
+    phase_umap_profile(x)
+    phase_umap_spectral(x, labels, gen)
+    return {"check": check, "main_path": main_path, "times": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -712,6 +1010,8 @@ def main() -> int:
     del x_big, xm, parts, model
     torch.cuda.empty_cache()
     km = kmeans_phases(gen, peaks)
+    torch.cuda.empty_cache()
+    um = umap_phases(gen, peaks)
 
     k1_f32 = times["k1_f32"]
     measured = {
@@ -721,6 +1021,9 @@ def main() -> int:
     for name in ("assign_stats_fused", "assign_stats_packed"):
         measured[name] = dict(km["times"][name], launches=km["main_path"]["launches"][name],
                               max_abs_err=km["check"]["main_max_abs_err"][name])
+    measured["tail_accumulate"] = dict(um["times"]["tail_accumulate"],
+                                       launches=um["main_path"]["launches"]["tail_accumulate"],
+                                       max_abs_err=um["check"]["k4_vs_plain_max_abs"])
     rows = []
     for name, route, source, replaces in KERNELS:
         m = measured[name]

@@ -6,12 +6,12 @@ same inputs by ``tests/test_torch_*.py``. This package imports ``torch``
 and ``numpy`` and never ``jax`` or anything of the JAX package.
 
 Layer map (the reference's, one for one):
-  - ``feature`` / ``clustering`` / ``models`` — user-facing estimators
-    (PCA, PCAModel, KMeans, KMeansModel)
+  - ``feature`` / ``clustering`` / ``manifold`` / ``models`` — user-facing
+    estimators (PCA, PCAModel, KMeans, KMeansModel, UMAP, UMAPModel)
   - ``linalg``                — row-matrix orchestration (RowMatrix)
   - ``core``                  — params, data, ingest, persistence, serving
   - ``ops``                   — plain tensor math (covariance, eigh, GEMMs,
-    KMeans)
+    KMeans, kNN, UMAP)
   - ``ops.kernels`` + ``csrc``— hand-written Hopper kernels (CUDA C++,
     built with nvcc on first use, bound with ctypes)
   - ``device``                — where entry points compute (CUDA by default)

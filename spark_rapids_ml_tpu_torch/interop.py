@@ -1,11 +1,11 @@
 """Carrying fitted weights from the JAX package into this one.
 
-:func:`pca_model_from_numpy` and :func:`kmeans_model_from_numpy` build a
-port model from the reference model's arrays and param map, handed over
+:func:`pca_model_from_numpy`, :func:`kmeans_model_from_numpy` and
+:func:`umap_model_from_numpy` build a port model from the reference model's arrays and param map, handed over
 as numpy and a plain dict — so both packages compute the same transform
 or prediction without this package importing the other. The second route
 is persistence: a model saved by either package loads in the other
-(``PCAModel.load``, ``KMeansModel.load``).
+(``PCAModel.load``, ``KMeansModel.load``, ``UMAPModel.load``).
 
 Typical use, in code that has both packages::
 
@@ -23,6 +23,7 @@ import numpy as np
 
 from spark_rapids_ml_tpu_torch.models.kmeans import KMeansModel
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
+from spark_rapids_ml_tpu_torch.models.umap import UMAPModel
 
 
 def pca_model_from_numpy(
@@ -58,6 +59,26 @@ def kmeans_model_from_numpy(
         raise ValueError(f"centers must be (k, d), got {centers.shape}")
     model = KMeansModel(uid, centers, trainingCost=float(training_cost), numIter=int(num_iter))
     return _with_params(model, params)
+
+
+def umap_model_from_numpy(
+    embedding,
+    train_data,
+    a: float,
+    b: float,
+    uid: Optional[str] = None,
+    params: Optional[Dict[str, Any]] = None,
+) -> UMAPModel:
+    """A port ``UMAPModel`` holding the reference model's ``embedding``
+    (n, dim) and ``trainData`` (n, d) as float64, its fitted curve ``a``,
+    ``b`` and every param of ``params`` that the model has."""
+    embedding = np.asarray(embedding, dtype=np.float64)
+    train_data = np.asarray(train_data, dtype=np.float64)
+    if embedding.ndim != 2 or train_data.ndim != 2 or embedding.shape[0] != train_data.shape[0]:
+        raise ValueError(
+            f"embedding must be (n, dim) and train_data (n, d), got {embedding.shape} and {train_data.shape}"
+        )
+    return _with_params(UMAPModel(uid, embedding, train_data, a=float(a), b=float(b)), params)
 
 
 def _with_params(model, params: Optional[Dict[str, Any]]):

@@ -2,5 +2,6 @@
 
 from spark_rapids_ml_tpu_torch.models.kmeans import KMeans, KMeansModel
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel
+from spark_rapids_ml_tpu_torch.models.umap import UMAP, UMAPModel
 
-__all__ = ["KMeans", "KMeansModel", "PCA", "PCAModel"]
+__all__ = ["KMeans", "KMeansModel", "PCA", "PCAModel", "UMAP", "UMAPModel"]

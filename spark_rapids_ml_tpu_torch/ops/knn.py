@@ -1,0 +1,160 @@
+"""Brute-force k-nearest neighbours — port of the reference's ``ops/knn.py``.
+
+The distance GEMM ``‖q‖² − 2·q·x + ‖x‖²`` is one plain product per item
+block (``torch.matmul``, IEEE fp32 on the card: :func:`device.device_of`
+turns TF32 off), and a Python loop over item blocks keeps the running
+(nq, k) top-k, so memory is O(nq · (k + block)) as in the reference's
+``lax.scan``.
+
+Ties go to the lower item index, as ``lax.top_k`` gives them: the merge
+ranks each candidate row by the key ``(distance bits, position)``, which
+is unique, so ``torch.topk`` (which promises no order among equal values)
+has no tie left to break. Distances are ≥ 0 (clamped, ``-0`` made
+``+0``), whose IEEE bit patterns order as integers.
+
+``approx=True`` (``buildAlgo="brute_approx"``) is exact here: the card has
+no counterpart of ``lax.approx_min_k``, and the reference is exact on the
+CPU as well (ROADMAP C). The streamed and sharded searches wait for their
+slices and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from spark_rapids_ml_tpu_torch import device as _device
+from spark_rapids_ml_tpu_torch.ops.precision import make_dot
+
+METRICS = ("euclidean", "sqeuclidean", "cosine")
+
+STREAMED_ITEM = "knn_host_streamed (items streamed from beyond device memory) is not ported yet: ROADMAP A.11a"
+SHARDED_ITEM = "the sharded kNN (shard_items, knn_sharded) is not ported yet: ROADMAP A.11a (with item 18)"
+
+
+def _block_sq_distances(q: torch.Tensor, xb: torch.Tensor, q_sq: torch.Tensor, dot) -> torch.Tensor:
+    """(nq, B) squared euclidean distances of queries to one item block,
+    summed in the reference's order and clamped at +0."""
+    xb_sq = torch.sum(xb * xb, dim=1)
+    cross = dot(q, xb.T)
+    d2 = (q_sq[:, None] - 2.0 * cross) + xb_sq[None, :]
+    # clamp keeps a -0.0 as it is; adding +0.0 turns it into +0.0.
+    return torch.clamp_min_(d2, 0.0).add_(0.0)
+
+
+def _auto_block_items(nq: int, n_items: int) -> int:
+    """Item-block size, the reference's rule: at most 65,536 items, fewer
+    for large query batches (about 2 GiB of float32 (nq, block) buffer),
+    at least 1,024."""
+    return min(n_items, 65536, max(1024, (1 << 29) // max(nq, 1)))
+
+
+def _smallest_k(cand_d: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the k smallest entries of each candidate row, in
+    ascending (distance, position) order. float32 rows rank by the unique
+    int64 key ``(bits of d) · 2³² + position`` through ``torch.topk``;
+    other types (float64 in the tests) by a stable sort."""
+    if cand_d.dtype != torch.float32:
+        return torch.sort(cand_d, dim=1, stable=True).indices[:, :k]
+    pos = torch.arange(cand_d.shape[1], dtype=torch.int64, device=cand_d.device)
+    key = cand_d.view(torch.int32).to(torch.int64).bitwise_left_shift_(32).bitwise_or_(pos[None, :])
+    return torch.topk(key, k, dim=1, largest=False, sorted=True).indices
+
+
+def _merge(best_d, best_i, d2, idx_block, k: int):
+    """Keep the k smallest of ``[best | block]`` per query row, lower
+    position first among equal distances (the reference's ``top_k``)."""
+    m = best_d.shape[1]
+    cand_d = torch.cat([best_d, d2], dim=1)
+    pos = _smallest_k(cand_d, k)
+    new_d = torch.gather(cand_d, 1, pos)
+    old_i = torch.gather(best_i, 1, pos.clamp(max=m - 1))
+    blk_i = idx_block[(pos - m).clamp(min=0)]
+    return new_d, torch.where(pos < m, old_i, blk_i)
+
+
+def knn_sq_euclidean(
+    queries: torch.Tensor,
+    items: torch.Tensor,
+    k: int,
+    item_mask: Optional[torch.Tensor] = None,
+    block_items: Optional[int] = None,
+    precision: str = "highest",
+    approx: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k by squared euclidean distance, exact (``approx`` included).
+
+    Returns (distances (nq, k) ascending, indices (nq, k) int32 into
+    ``items``). ``item_mask``: 1 for a real row, 0 for a padded one;
+    masked rows get distance +inf and index -1, so when k exceeds the
+    real rows the unfilled slots read (inf, -1). Items go through in
+    ``block_items``-row blocks (:func:`_auto_block_items` when None).
+    """
+    del approx  # exact on every device (module docstring)
+    n_items = int(items.shape[0])
+    if not 1 <= k <= n_items:
+        raise ValueError(f"k must be in [1, {n_items}], got {k}")
+    _device.device_of(queries)
+    if block_items is None:
+        block_items = _auto_block_items(int(queries.shape[0]), n_items)
+    block = min(int(block_items), n_items)
+    dot = make_dot(precision)
+    dev, dtype = queries.device, queries.dtype
+    nq = int(queries.shape[0])
+    q_sq = torch.sum(queries * queries, dim=1)
+    mask = None if item_mask is None else item_mask.to(device=dev, dtype=dtype)
+    best_d = torch.full((nq, k), float("inf"), dtype=dtype, device=dev)
+    best_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
+    for start in range(0, n_items, block):
+        xb = items[start:start + block]
+        d2 = _block_sq_distances(queries, xb, q_sq, dot)
+        idx = torch.arange(start, start + xb.shape[0], dtype=torch.int32, device=dev)
+        if mask is not None:
+            mb = mask[start:start + block] > 0
+            d2 = torch.where(mb[None, :], d2, torch.full_like(d2, float("inf")))
+            idx = torch.where(mb, idx, torch.full_like(idx, -1))
+        best_d, best_i = _merge(best_d, best_i, d2, idx, k)
+        del d2
+    return best_d, best_i
+
+
+def knn(
+    queries: torch.Tensor,
+    items: torch.Tensor,
+    k: int,
+    item_mask: Optional[torch.Tensor] = None,
+    block_items: Optional[int] = None,
+    metric: str = "euclidean",
+    precision: str = "highest",
+    approx: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k under ``euclidean`` | ``sqeuclidean`` | ``cosine``. Cosine
+    distance is ``1 − cos``: both sides L2-normalised, half the squared
+    euclidean distance."""
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    if metric == "cosine":
+        qn = queries / torch.clamp_min(torch.linalg.norm(queries, dim=1, keepdim=True), 1e-30)
+        xn = items / torch.clamp_min(torch.linalg.norm(items, dim=1, keepdim=True), 1e-30)
+        d2, idx = knn_sq_euclidean(qn, xn, k, item_mask, block_items, precision, approx)
+        return d2 / 2.0, idx
+    d2, idx = knn_sq_euclidean(queries, items, k, item_mask, block_items, precision, approx)
+    if metric == "euclidean":
+        return torch.sqrt(d2), idx
+    return d2, idx
+
+
+def knn_host_streamed(*args, **kwargs):
+    raise NotImplementedError(STREAMED_ITEM)
+
+
+def shard_items(*args, **kwargs):
+    raise NotImplementedError(SHARDED_ITEM)
+
+
+def knn_sharded(*args, **kwargs):
+    raise NotImplementedError(SHARDED_ITEM)
+
+
+__all__ = ["knn", "knn_host_streamed", "knn_sharded", "knn_sq_euclidean", "shard_items"]

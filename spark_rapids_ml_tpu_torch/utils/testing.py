@@ -92,4 +92,30 @@ def kmeans_stats_f64(
     return sums, counts, cost, labels
 
 
-__all__ = ["assert_close", "kmeans_stats_f64", "seeded_matrix"]
+def trustworthiness(x, emb, n_neighbors: int = 5) -> float:
+    """sklearn's ``manifold.trustworthiness`` (euclidean) in torch, where
+    the tensors lie:
+
+        T = 1 − 2 / (n·k·(2n − 3k − 1)) · Σ_i Σ_{j ∈ kNN_emb(i)} max(0, r(i, j) − k)
+
+    with r(i, j) the rank of j among i's neighbours in the input space
+    (1 = nearest) and kNN_emb(i) i's k nearest in the embedding, self
+    excluded on both sides. Pairwise (n, n) work: for a few thousand rows."""
+    x = torch.as_tensor(x).double()
+    emb = torch.as_tensor(emb).to(device=x.device, dtype=torch.float64)
+    n, k = int(x.shape[0]), int(n_neighbors)
+    if not 1 <= k < n / 2:
+        raise ValueError(f"n_neighbors must be in [1, n/2), got {k} for n={n}")
+    eye = torch.eye(n, dtype=torch.bool, device=x.device)
+    d_x = torch.cdist(x, x).masked_fill_(eye, float("inf"))
+    rank = torch.empty((n, n), dtype=torch.int64, device=x.device)
+    ranks = torch.arange(1, n + 1, device=x.device).expand(n, n)
+    rank.scatter_(1, torch.argsort(d_x, dim=1), ranks)
+    d_e = torch.cdist(emb, emb).masked_fill_(eye, float("inf"))
+    nbrs = torch.topk(d_e, k, dim=1, largest=False).indices
+    over = torch.gather(rank, 1, nbrs) - k
+    t = float(over.clamp_min(0).sum())
+    return 1.0 - t * (2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0)))
+
+
+__all__ = ["assert_close", "kmeans_stats_f64", "seeded_matrix", "trustworthiness"]

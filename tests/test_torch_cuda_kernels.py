@@ -240,3 +240,108 @@ def test_fused_fit_on_the_card_matches_the_xla_fit(cuda):
         assert fused.numIter == xla.numIter
         assert abs(fused.clusterCenters() - xla.clusterCenters()).max() <= 1e-3
         assert abs(fused.trainingCost - xla.trainingCost) <= 1e-4 * xla.trainingCost
+
+
+# --- Kernel K4 (tail_accumulate) ------------------------------------------
+#
+# Held against an on-card float64 index_add_ of the same edge rows: within
+# 1e-6 of max |out| (the kernel sums in float64 and rounds once, so it lies
+# within half an ulp of the exact sum; the float32 plain version, whose
+# order on the card is not fixed, is held at 1e-5 of the row's sum of |g|).
+
+from spark_rapids_ml_tpu_torch.ops.kernels import umap as k4  # noqa: E402
+
+
+def _edges(cuda, n, k, dim, seed, tails=None):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    if tails is None:
+        tails = torch.randint(0, n, (n, k), generator=gen, device=cuda)
+    g = torch.randn((n * k, dim), generator=gen, device=cuda)
+    return tails, g
+
+
+def _hold_k4(out, g, plan, tails):
+    ref = torch.zeros((plan.n, plan.dim), dtype=torch.float64, device=g.device)
+    ref.index_add_(0, tails.reshape(-1).long(), g.double())
+    scale = max(ref.abs().max().item(), 1e-30)
+    assert out.shape == (plan.n, plan.dim) and out.dtype == torch.float32
+    assert (out.double() - ref).abs().max().item() <= 1e-6 * scale
+    mass = torch.zeros_like(ref).index_add_(0, tails.reshape(-1).long(), g.double().abs())
+    plain = k4.tail_accumulate_plain(g, plan)
+    assert ((plain.double() - ref).abs() <= 1e-5 * mass + 1e-30).all()
+
+
+@pytest.mark.parametrize(
+    "n,k,dim",
+    [(1, 1, 2), (600, 8, 2), (257, 5, 3), (1024, 15, 2), (130, 3, 10), (500, 7, 1),
+     (300, 4, 128), (50_000, 15, 2)],
+)
+def test_k4_matches_float64_index_add(cuda, n, k, dim):
+    tails, g = _edges(cuda, n, k, dim, seed=n + k + dim)
+    plan = k4.build_tail_plan(tails, n, dim)
+    assert torch.equal(plan.perm.long(), torch.argsort(tails.reshape(-1).cpu(), stable=True).to(cuda))
+    before = k4.launches["tail_accumulate"]
+    out = k4.tail_accumulate(g, plan)
+    torch.cuda.synchronize()
+    assert k4.launches["tail_accumulate"] == before + 1
+    _hold_k4(out, g, plan, tails)
+
+
+def test_k4_one_hub_takes_every_edge(cuda):
+    n, k, dim = 4000, 15, 2
+    tails = torch.full((n, k), 1234, dtype=torch.int64, device=cuda)
+    _, g = _edges(cuda, n, k, dim, seed=3, tails=tails)
+    plan = k4.build_tail_plan(tails, n, dim)
+    out = k4.tail_accumulate(g, plan)
+    _hold_k4(out, g, plan, tails)
+    assert torch.count_nonzero(out[:1234]) == 0 and torch.count_nonzero(out[1235:]) == 0
+
+
+def test_k4_rows_without_in_edges_are_zero(cuda):
+    n, k, dim = 1000, 6, 3
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(9)
+    tails = 2 * torch.randint(0, n // 2, (n, k), generator=gen, device=cuda)  # odd rows get none
+    _, g = _edges(cuda, n, k, dim, seed=9, tails=tails)
+    plan = k4.build_tail_plan(tails, n, dim)
+    out = k4.tail_accumulate(g, plan)
+    _hold_k4(out, g, plan, tails)
+    assert torch.count_nonzero(out[1::2]) == 0
+
+
+def test_k4_is_bitwise_repeatable(cuda):
+    tails, g = _edges(cuda, 50_000, 15, 2, seed=13)
+    plan = k4.build_tail_plan(tails, 50_000, 2)
+    assert torch.equal(k4.tail_accumulate(g, plan), k4.tail_accumulate(g, plan))
+
+
+def test_k4_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    tails, g = _edges(cuda, 100, 4, 2, seed=1)
+    plan = k4.build_tail_plan(tails, 100, 2)
+    with pytest.raises(TypeError, match="float32"):
+        k4.tail_accumulate(g.double(), plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.tail_accumulate(torch.randn((2, 400), device=cuda).T, plan)
+    with pytest.raises(ValueError, match="!= plan"):
+        k4.tail_accumulate(g[:-1].contiguous(), plan)
+    with pytest.raises(ValueError, match="!= plan"):
+        k4.tail_accumulate(torch.randn((400, 3), device=cuda), plan)
+    cpu_plan = k4.build_tail_plan(tails.cpu(), 100, 2)
+    with pytest.raises(ValueError, match="is on"):
+        k4.tail_accumulate(g, cpu_plan)
+
+
+def test_k4_runs_every_epoch_of_a_fit(cuda):
+    from spark_rapids_ml_tpu_torch.manifold import UMAP
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    x = torch.randn((3000, 16), generator=gen, device=cuda)
+    x[:1500, 0] += 8.0
+    k4.reset_launches()
+    model = UMAP().setNNeighbors(10).setNEpochs(30).setInit("random").setSeed(1).fit(x)
+    assert k4.launches["tail_accumulate"] == 30
+    assert bool(torch.isfinite(model._emb_raw).all())
+    model.transform(x[:100])
+    assert k4.launches["tail_accumulate"] == 30

@@ -30,6 +30,7 @@ from spark_rapids_ml_tpu_torch import device as port_device
 from spark_rapids_ml_tpu_torch.feature import PCA
 from spark_rapids_ml_tpu_torch.ops.kernels import _build
 from spark_rapids_ml_tpu_torch.ops.kernels import kmeans as kk
+from spark_rapids_ml_tpu_torch.ops.kernels import umap as k4
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "spark_rapids_ml_tpu_torch"
@@ -51,7 +52,8 @@ def _clean_env():
 def test_every_port_module_imports_without_jax():
     names = list(_modules())
     for name in ("ops.kernels.covariance", "ops.kernels.kmeans", "ops.kmeans", "models.kmeans",
-                 "core.ingest", "clustering"):
+                 "core.ingest", "clustering", "ops.knn", "ops.umap", "ops.kernels.umap",
+                 "models.umap", "manifold", "interop", "utils.testing"):
         assert f"spark_rapids_ml_tpu_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
@@ -142,7 +144,7 @@ def test_kernel_build_needs_nvcc(monkeypatch):
         _build.find_nvcc()
 
 
-@pytest.mark.parametrize("name", ["centered_gram", "kmeans_assign_stats", "kmeans_assign_packed"])
+@pytest.mark.parametrize("name", ["centered_gram", "kmeans_assign_stats", "kmeans_assign_packed", "umap_tail"])
 def test_kernel_library_is_keyed_by_its_source(name):
     path = _build.library_path(name)
     assert path.parent == _build.BUILD_DIR and path.name.startswith(f"lib{name}-")
@@ -182,3 +184,9 @@ def test_a_cuda_tensor_never_reaches_the_plain_version(monkeypatch, tmp_path):
     for assign in (kk.assign_stats_fused, kk.assign_stats_packed):
         with pytest.raises(RuntimeError, match="nvcc was not found"):
             assign(_CudaLike((10, 4)), _CudaLike((3, 4)))
+    monkeypatch.setattr(k4, "tail_accumulate_plain", lambda *a, **k: pytest.fail("plain version reached"))
+    perm, offsets = _CudaLike((12,)), _CudaLike((5,))
+    perm.dtype = offsets.dtype = torch.int32
+    plan = k4.TailPlan(perm, offsets, _CudaLike((12,)), 4, 2)
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        k4.tail_accumulate(_CudaLike((12, 2)), plan)
