@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -152,6 +153,36 @@ def time_ms(fn, repeats: int = REPEATS, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 50, replays: int = 5) -> float:
+    """Device time per call of ``fn()``: ``calls`` calls captured in one
+    CUDA graph, the median of ``replays`` timed replays over ``calls``.
+    For a call of a few microseconds, whose eager time is the host's
+    Python and launch path rather than the card's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    sync()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def wall_s(fn, repeats: int = 3) -> float:
     times = []
     for _ in range(repeats):
@@ -168,6 +199,10 @@ def peaks_for(name: str):
         if key in name:
             return key, hbm, fp32, fp64
     return "H100 (name not matched; SXM peaks)", 3.35e12, 67e12, 67e12
+
+
+#: The one PyTorch call that computes K1's function, timed beside it.
+LIBRARY_GRAM = "b = x - mean; torch.matmul(b.T, b)"
 
 
 def gram_bound_ms(n: int, d: int, dtype: torch.dtype, peaks) -> tuple:
@@ -216,6 +251,8 @@ def phase_device() -> dict:
                if "registers" in ln or "spill" in ln]
         for stem in stems
     }
+    spills = {stem: sum(int(v) for ln in lines for v in re.findall(r"(\d+) bytes spill", ln))
+              for stem, lines in ptxas.items()}
     info = {
         "phase": "device",
         "nvidia_smi": smi,
@@ -226,8 +263,11 @@ def phase_device() -> dict:
         "cuda": torch.version.cuda,
         "build_s": build_s,
         "ptxas": ptxas,
+        "spill_bytes": spills,
     }
     emit(info)
+    for stem in ("centered_gram", "umap_tail"):
+        require(spills[stem] == 0, f"{stem} spills registers: {ptxas[stem]}")
     return info
 
 
@@ -245,6 +285,7 @@ def phase_kernel_check(x_big: torch.Tensor, gen: torch.Generator) -> dict:
     for kind, x in cases:
         mean = x.mean(dim=0)
         got = k1.centered_gram_cuda(x, mean)
+        again = k1.centered_gram_cuda(x, mean)
         plain = k1.centered_gram_plain(x, mean)
         ref = f64_gram(x, mean)
         scale = ref.abs().max().item()
@@ -257,14 +298,23 @@ def phase_kernel_check(x_big: torch.Tensor, gen: torch.Generator) -> dict:
             "kernel_rel_err": err, "plain_rel_err": plain_err,
             "kernel_vs_plain_max_abs": vs_plain,
             "symmetric": bool(torch.equal(got, got.T)),
+            "bitwise_repeat": bool(torch.equal(got, again)),
         }
+        if x is x_big:
+            # The library call of the times phase, b = x − μ; bᵀb in IEEE
+            # fp32 (cuBLAS, TF32 off), against the same float64 Gram.
+            b = x - mean
+            row["library_rel_err"] = (torch.matmul(b.T, b).double() - ref).abs().max().item() / scale
+            del b
+            require(err <= row["library_rel_err"],
+                    f"K1 error {err:.3e} above the library call's {row['library_rel_err']:.3e}")
+            main_abs_err = vs_plain
         results.append(row)
         require(err <= tol, f"K1 {kind} {list(x.shape)} error {err:.3e} > {tol:.0e}")
         require(plain_err <= tol, f"plain {kind} {list(x.shape)} error {plain_err:.3e} > {tol:.0e}")
         require(row["symmetric"], f"K1 {kind} {list(x.shape)} output not symmetric")
-        if x is x_big:
-            main_abs_err = vs_plain
-        del got, plain, ref
+        require(row["bitwise_repeat"], f"K1 {kind} {list(x.shape)}: a repeat launch differs")
+        del got, again, plain, ref
     out = {"phase": "kernel_check", "cases": results, "main_max_abs_err": main_abs_err}
     emit(out)
     return out
@@ -369,6 +419,12 @@ def phase_times(xm: torch.Tensor, model, peaks) -> dict:
     mean64 = x64.mean(dim=0)
     f64_kernel_ms = time_ms(lambda: k1.centered_gram_cuda(x64, mean64))
     f64_plain_ms = time_ms(lambda: k1.centered_gram_plain(x64, mean64))
+
+    def library64():
+        b = x64 - mean64
+        return torch.matmul(b.T, b)
+
+    f64_library_ms = time_ms(library64)
     f64_bound_ms, f64_bound_by = gram_bound_ms(HOST_ROWS, d, torch.float64, peaks)
     del x64
 
@@ -380,11 +436,14 @@ def phase_times(xm: torch.Tensor, model, peaks) -> dict:
         "phase": "times",
         "peaks": peaks[0],
         "k1_f32": {"shape": [n, d], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                   "roofline_share": bound_ms / kernel_ms},
+                   "library_ms": library_ms, "library_call": LIBRARY_GRAM,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "roofline_share": bound_ms / kernel_ms, "library_over_kernel": library_ms / kernel_ms},
         "k1_f64": {"shape": [HOST_ROWS, d], "kernel_ms": f64_kernel_ms, "plain_ms": f64_plain_ms,
+                   "library_ms": f64_library_ms, "library_call": LIBRARY_GRAM + ", float64",
                    "bound_ms": f64_bound_ms, "bound_by": f64_bound_by,
-                   "roofline_share": f64_bound_ms / f64_kernel_ms},
+                   "roofline_share": f64_bound_ms / f64_kernel_ms,
+                   "library_over_kernel": f64_library_ms / f64_kernel_ms},
         "fit_wall_s": {"pallas": wall_s(lambda: fit("pallas")), "xla": wall_s(lambda: fit("xla"))},
         "transform_wall_s": wall_s(lambda: model.transform(xm)),
     }
@@ -892,9 +951,16 @@ def phase_umap_times(x, x_new, model, graph, plan, g, peaks) -> dict:
     fit's graph and SGD phases, the whole fit and transform."""
     n, e = UM_N, UM_N * UM_K
     tails = graph.indices.reshape(-1).long()
-    kernel_ms = time_ms(lambda: k4.tail_accumulate(g, plan), repeats=50)
-    plain_ms = time_ms(lambda: k4.tail_accumulate_plain(g, plan), repeats=50)
-    library_ms = time_ms(lambda: torch.zeros((n, UM_DIM), device=x.device).index_add_(0, tails, g), repeats=50)
+    calls = {
+        "kernel": lambda: k4.tail_accumulate(g, plan),
+        "plain": lambda: k4.tail_accumulate_plain(g, plan),
+        "library": lambda: torch.zeros((n, UM_DIM), device=x.device).index_add_(0, tails, g),
+    }
+    # Device time (graph replay) is the comparison; the eager time of one
+    # call, events around it, is the host's Python and launch path.
+    device_ms = {name: graph_ms(fn) for name, fn in calls.items()}
+    eager_ms = {name: time_ms(fn, repeats=50) for name, fn in calls.items()}
+    kernel_ms, plain_ms, library_ms = device_ms["kernel"], device_ms["plain"], device_ms["library"]
     bound_ms, bound_by = tail_bound_ms(n, e, UM_DIM, peaks)
 
     emb0 = 10.0 * (2.0 * torch.rand((n, UM_DIM), device=x.device) - 1.0)
@@ -908,7 +974,10 @@ def phase_umap_times(x, x_new, model, graph, plan, g, peaks) -> dict:
         "phase": "umap_times", "peaks": peaks[0],
         "tail_accumulate": {"edges": e, "n": n, "dim": UM_DIM, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                             "library_ms": library_ms, "library_call": "zeros(n, 2).index_add_(0, tails, g)",
-                            "bound_ms": bound_ms, "bound_by": bound_by, "roofline_share": bound_ms / kernel_ms},
+                            "bound_ms": bound_ms, "bound_by": bound_by, "roofline_share": bound_ms / kernel_ms,
+                            "library_over_kernel": library_ms / kernel_ms,
+                            "timing": "device time per call, 50 calls in one CUDA graph, median of 5 replays",
+                            "eager_call_ms": eager_ms},
         "fit_wall_s": wall_s(lambda: umap_estimator().fit(x)._emb_raw),
         "graph_phase_wall_s": wall_s(lambda: umap_graph(x)),
         "sgd_phase_wall_s": wall_s(sgd),

@@ -7,14 +7,19 @@ float64; Hopper has a float64 path, Mosaic had none).
 
 Bound on the card: the Gram does ``n·d·(d+1)`` flops over ``n·d`` inputs,
 so at the main path's widths (d = 1024) it is bound by operations — fp32
-outside the tensor cores, the ``highest`` mode's IEEE products — not by
-bytes. Design (source: ``csrc/centered_gram.cu``): the (d, d) accumulator
-that the TPU kernel kept in VMEM does not fit a Hopper block, so the
-kernel tiles the output instead — one block per upper-triangular 64×64
-tile and row chunk (split-K over rows, enough chunks to put several
-blocks on every SM), partials to an ``[S, d, d]`` workspace, then a small
+outside the tensor cores, the ``highest`` mode's IEEE products, and fp64
+at the tensor-core rate — not by bytes. Design (source:
+``csrc/centered_gram.cu``): the (d, d) accumulator that the TPU kernel
+kept in VMEM does not fit a Hopper block, so the kernel tiles the output
+instead — one block per upper-triangular 128×128 tile and row chunk
+(split-K over rows), partials to an ``[S, d, d]`` workspace, then a small
 kernel that sums them in a fixed order and mirrors the upper triangle.
-Deterministic, exactly symmetric, no atomics, no padding of ``x``.
+float32 runs a register-blocked SIMT kernel (8×8 IEEE FMAs a thread, rows
+copied by ``cp.async`` through a ring of three shared-memory buffers),
+float64 the fp64 tensor cores (m16n8k4 ``mma.sync``); both centre the rows
+before any product. :func:`plan_splits` picks the chunk count that fills
+whole waves of the blocks the card holds at once. Deterministic, exactly
+symmetric, no atomics, no padding of ``x``.
 
 ``centered_gram_cuda`` takes the plain version only for a tensor on the
 CPU; on a CUDA tensor it launches the kernel or raises.
@@ -33,17 +38,21 @@ NAME = "centered_gram"
 #: Launches of the kernel since the last reset (the CPU route does not count).
 launches = 0
 
-#: Rows per shared-memory step of the kernel (``BK`` in the source).
-ROWS_PER_STEP = 32
-#: Edge of the kernel's output tile (``TILE`` in the source).
-TILE = 64
-#: Rows one block should walk, about: enough work per block to amortize
-#: its tile load, small enough for many waves of blocks.
-ROWS_PER_BLOCK = 2048
+#: Edge of the kernel's output tile, by type (``F32_TILE``, ``F64_TILE``
+#: in the source).
+TILE = {torch.float32: 128, torch.float64: 128}
+#: Rows per shared-memory step, by type (``F32_BK``, ``F64_BK``).
+ROWS_PER_STEP = {torch.float32: 16, torch.float64: 8}
+#: Fewest rows of a row chunk, so a block's loop outweighs its prologue
+#: and its tile's write to the workspace.
+MIN_ROWS_PER_SPLIT = 512
+#: Most waves of blocks :func:`plan_splits` considers.
+MAX_WAVES = 8
 #: Cap on the partials workspace.
 WORKSPACE_BYTES = 512 << 20
 
 _SYMBOLS = {torch.float32: "centered_gram_f32", torch.float64: "centered_gram_f64"}
+_resident: dict = {}  # (device index, dtype) -> blocks per SM
 
 
 def centered_gram_plain(x: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
@@ -52,18 +61,40 @@ def centered_gram_plain(x: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
     return b.T @ b
 
 
-def plan_splits(n: int, d: int, itemsize: int, sms: int) -> int:
-    """Row chunks (split-K) for an (n, d) input on a card with ``sms`` SMs:
-    at least two blocks per SM where the rows allow it, about
-    :data:`ROWS_PER_BLOCK` rows per block for large ``n``, at least
-    :data:`ROWS_PER_STEP` rows per chunk, and the workspace under
-    :data:`WORKSPACE_BYTES`."""
-    tiles = -(-d // TILE)
+def plan_splits(n: int, d: int, dtype: torch.dtype, sms: int, blocks_per_sm: int) -> int:
+    """Row chunks (split-K) for an (n, d) input on a card with ``sms`` SMs
+    that each hold ``blocks_per_sm`` of the type's tile blocks at once: of
+    the counts that give 1 to :data:`MAX_WAVES` waves, the one whose
+    ``pairs × splits`` blocks fill their last wave best (the fewest chunks
+    on a tie), with at most one chunk per :data:`MIN_ROWS_PER_SPLIT` rows
+    and the workspace under :data:`WORKSPACE_BYTES`; at least 1."""
+    tiles = -(-d // TILE[dtype])
     pairs = tiles * (tiles + 1) // 2
-    splits = max(-(-2 * sms // pairs), -(-n // ROWS_PER_BLOCK))
-    splits = min(splits, -(-n // ROWS_PER_STEP), 65535)
-    splits = min(splits, WORKSPACE_BYTES // max(1, d * d * itemsize))
-    return max(1, splits)
+    slots = max(1, sms * blocks_per_sm)
+    itemsize = torch.finfo(dtype).bits // 8
+    cap = max(1, min(n // MIN_ROWS_PER_SPLIT, WORKSPACE_BYTES // max(1, d * d * itemsize), 65535))
+    best, best_fill = 1, 0.0
+    for waves in range(1, MAX_WAVES + 1):
+        splits = min(max(1, waves * slots // pairs), cap)
+        blocks = pairs * splits
+        fill = blocks / (-(-blocks // slots) * slots)
+        if fill > best_fill:
+            best, best_fill = splits, fill
+    return best
+
+
+def _blocks_per_sm(lib: ctypes.CDLL, dtype: torch.dtype, device: torch.device) -> int:
+    """Resident tile-kernel blocks per SM, from the CUDA occupancy API (the
+    registers and shared memory of the build), once per device and type."""
+    key = (device.index, dtype)
+    if key not in _resident:
+        fn = lib.centered_gram_blocks_per_sm
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        got = fn(int(dtype == torch.float64))
+        if got <= 0:
+            raise RuntimeError(f"centered_gram occupancy query failed: {got}")
+        _resident[key] = got
+    return _resident[key]
 
 
 def _check(x: torch.Tensor, mean: torch.Tensor) -> None:
@@ -100,10 +131,11 @@ def centered_gram_cuda(x: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = plan_splits(n, d, x.element_size(), sms)
-    rows_per_split = -(-n // splits)
     with torch.cuda.device(x.device):
+        device = torch.device("cuda", torch.cuda.current_device())
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        splits = plan_splits(n, d, x.dtype, sms, _blocks_per_sm(lib, x.dtype, device))
+        rows_per_split = -(-n // splits)
         ws = torch.empty((splits, d, d), dtype=x.dtype, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(

@@ -12,10 +12,14 @@ CSR row starts over the sorted stream. The reference's tile geometry
 (``TailCfg``: 256-row tiles, 1024-edge blocks, sentinel padding) was
 VMEM/MXU layout and has no counterpart.
 
-The kernel gives each tail row one warp, reads ``g`` through ``perm``,
-sums in float64 and writes each row once, with no atomics: bitwise
-repeatable. Each wrapper takes its plain version only for a tensor on
-the CPU; on a CUDA tensor it launches the kernel or raises.
+The kernel gives each warp :data:`ROWS_PER_WARP` consecutive tail rows:
+a group of lanes per row when all their runs are short, else the whole
+warp row by row. Each lane loads :data:`EDGES_PER_LANE` edges of its row
+ahead (their ``perm`` entries, then the ``g`` rows through them), sums
+in float64, and a fixed butterfly combines the lanes; each row is
+written once, with no atomics: bitwise repeatable. Each wrapper takes
+its plain version only for a tensor on the CPU; on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -32,8 +36,15 @@ NAME = "umap_tail"
 #: Launches since the last reset (the CPU route does not count).
 launches = {"tail_accumulate": 0}
 
-#: Tail rows (warps) per block of the kernel (``WARPS`` in the source).
+#: Warps per block of the kernel (``WARPS`` in the source).
 WARPS = 8
+#: Consecutive tail rows a warp takes (``ROWS_PER_WARP``).
+ROWS_PER_WARP = 4
+#: Edges a lane loads ahead in one round (``UNROLL``).
+EDGES_PER_LANE = 8
+#: Longest run that takes the grouped path, one round of its row's
+#: 32 / ROWS_PER_WARP lanes (``SHORT_RUN``).
+SHORT_RUN = 32 // ROWS_PER_WARP * EDGES_PER_LANE
 
 
 def reset_launches() -> None:

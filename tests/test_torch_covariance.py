@@ -11,6 +11,9 @@ in interpret mode, as in tests/test_pallas.py). Tolerances:
 - Welford column stats: rtol 1e-12.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,17 +97,56 @@ def test_k1_wrapper_validates_its_inputs():
         k1.centered_gram_cuda(x.to("meta"), mean.to("meta"))
 
 
-@pytest.mark.parametrize("n,d,sms", [(1_000_000, 1024, 132), (65_536, 1024, 132), (37, 5, 132), (10, 3000, 132)])
-def test_plan_splits_fills_the_card_within_the_workspace(n, d, sms):
-    item = 4
-    splits = k1.plan_splits(n, d, item, sms)
-    tiles = -(-d // k1.TILE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(
+    "n,d,sms,per_sm",
+    [(1_000_000, 1024, 132, 2), (65_536, 1024, 132, 1), (37, 5, 132, 2), (10, 3000, 132, 1)],
+)
+def test_plan_splits_fills_the_card_within_the_workspace(n, d, sms, per_sm, dtype):
+    item = torch.finfo(dtype).bits // 8
+    splits = k1.plan_splits(n, d, dtype, sms, per_sm)
+    tiles = -(-d // k1.TILE[dtype])
     pairs = tiles * (tiles + 1) // 2
+    slots = sms * per_sm
     assert 1 <= splits <= 65535
     assert splits * d * d * item <= max(k1.WORKSPACE_BYTES, d * d * item)
-    assert splits <= -(-n // k1.ROWS_PER_STEP)
-    if n >= 2 * sms * k1.ROWS_PER_STEP and d * d * item * 2 <= k1.WORKSPACE_BYTES:
-        assert pairs * splits >= 2 * sms or splits * d * d * item * 2 > k1.WORKSPACE_BYTES
+    assert splits <= max(1, n // k1.MIN_ROWS_PER_SPLIT)
+
+    def fill(s):
+        return pairs * s / (-(-pairs * s // slots) * slots)
+
+    # No count the plan may choose fills its last wave better, and none
+    # smaller fills it as well.
+    cap = max(1, min(n // k1.MIN_ROWS_PER_SPLIT, k1.WORKSPACE_BYTES // (d * d * item)))
+    for other in range(1, min(cap, max(1, k1.MAX_WAVES * slots // pairs)) + 1):
+        assert fill(splits) >= fill(other)
+        if other < splits:
+            assert fill(other) < fill(splits)
+
+
+@pytest.mark.parametrize(
+    "dtype,n,d,sms,per_sm,want",
+    [(torch.float32, 1_000_000, 1024, 132, 2, 22), (torch.float64, 65_536, 1024, 132, 1, 11)],
+)
+def test_plan_splits_at_the_main_path_fills_whole_waves(dtype, n, d, sms, per_sm, want):
+    """At d = 1024 the 128-wide tiles make 36 pairs: 22 chunks give 792
+    blocks, three whole waves of 264 (two a SM); 11 give 396, three of 132."""
+    splits = k1.plan_splits(n, d, dtype, sms, per_sm)
+    assert splits == want
+    assert 36 * splits % (sms * per_sm) == 0
+
+
+def _cu_constants(name: str) -> dict:
+    text = (Path(k1.__file__).resolve().parents[2] / "csrc" / f"{name}.cu").read_text()
+    return {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+def test_k1_geometry_matches_the_source():
+    cu = _cu_constants(k1.NAME)
+    for dtype, prefix in ((torch.float32, "F32"), (torch.float64, "F64")):
+        assert k1.TILE[dtype] == cu[f"{prefix}_TILE"]
+        assert k1.ROWS_PER_STEP[dtype] == cu[f"{prefix}_BK"]
+    assert set(k1.TILE) == set(k1.ROWS_PER_STEP) == {torch.float32, torch.float64}
 
 
 def test_mean_and_covariance_matches_jax():

@@ -1,5 +1,6 @@
 """Kernels K1 (the centered Gram), K2 and K3 (KMeans assignment + stats)
-on a CUDA card, against float64 references and their plain versions.
+and K4 (the UMAP tail accumulation) on a CUDA card, against float64
+references and their plain versions.
 
 These tests need the card: they are marked ``cuda`` and skip without one.
 They import nothing of JAX, so on a machine with a card and no JAX they
@@ -36,14 +37,31 @@ def _rel_err(got: torch.Tensor, x: torch.Tensor, mean: torch.Tensor) -> float:
     return ((got.double() - ref).abs().max() / ref.abs().max().clamp_min(1e-300)).item()
 
 
+# Widths at and around the 128-wide tile and its 4-wide vector loads (a
+# width that is not a multiple of 4 takes the scalar variant), and row
+# counts below one row step (k1.ROWS_PER_STEP) and off its multiple.
 @pytest.mark.parametrize(
     "n,d,dtype,tol",
     [
         (1, 1, torch.float32, 1e-5),
         (31, 65, torch.float32, 1e-5),
         (4099, 130, torch.float32, 1e-5),
+        (3, 1024, torch.float32, 1e-5),
+        (1001, 5, torch.float32, 1e-5),
+        (1001, 127, torch.float32, 1e-5),
+        (2000, 128, torch.float32, 1e-5),
+        (777, 129, torch.float32, 1e-5),
+        (1500, 1023, torch.float32, 1e-5),
+        (3000, 1024, torch.float32, 1e-5),
+        (1001, 1025, torch.float32, 1e-5),
         (2048, 256, torch.float64, 1e-12),
         (333, 70, torch.float64, 1e-12),
+        (333, 8, torch.float64, 1e-12),
+        (1001, 63, torch.float64, 1e-12),
+        (2048, 64, torch.float64, 1e-12),
+        (777, 65, torch.float64, 1e-12),
+        (4099, 1024, torch.float64, 1e-12),
+        (5, 1024, torch.float64, 1e-12),
     ],
 )
 def test_kernel_matches_float64_gram(cuda, n, d, dtype, tol):
@@ -57,8 +75,36 @@ def test_kernel_matches_float64_gram(cuda, n, d, dtype, tol):
     assert k1.launches == before + 1
     assert got.shape == (d, d) and got.dtype == dtype
     assert torch.equal(got, got.T)
+    assert torch.equal(got, k1.centered_gram_cuda(x, mean))
     assert _rel_err(got, x, mean) <= tol
     assert _rel_err(k1.centered_gram_plain(x, mean), x, mean) <= tol
+
+
+@pytest.mark.parametrize("d,dtype,tol", [(128, torch.float32, 1e-5), (64, torch.float64, 1e-12)])
+def test_kernel_takes_misaligned_rows(cuda, d, dtype, tol):
+    """x starting one element past a 16-byte boundary: a contiguous tensor
+    the vector loads cannot take, so the scalar variant runs. It sums in
+    the vector variant's order, so an aligned copy gives the same bits."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d)
+    n = 1003
+    flat = torch.randn(n * d + 1, generator=gen, device=cuda, dtype=dtype) + 1.0
+    x = flat[1:].view(n, d)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    mean = x.mean(dim=0)
+    got = k1.centered_gram_cuda(x, mean)
+    assert torch.equal(got, got.T)
+    assert torch.equal(got, k1.centered_gram_cuda(x, mean))
+    assert _rel_err(got, x, mean) <= tol
+    assert torch.equal(got, k1.centered_gram_cuda(x.clone(), mean))
+
+
+def test_split_plan_reads_the_occupancy_of_the_build(cuda):
+    from spark_rapids_ml_tpu_torch.ops.kernels import _build
+
+    lib = _build.load(k1.NAME)
+    for dtype in (torch.float32, torch.float64):
+        assert k1._blocks_per_sm(lib, dtype, torch.device("cuda", torch.cuda.current_device())) >= 1
 
 
 def test_kernel_is_deterministic(cuda):
@@ -286,15 +332,53 @@ def test_k4_matches_float64_index_add(cuda, n, k, dim):
     torch.cuda.synchronize()
     assert k4.launches["tail_accumulate"] == before + 1
     _hold_k4(out, g, plan, tails)
+    assert torch.equal(out, k4.tail_accumulate(g, plan))
 
 
-def test_k4_one_hub_takes_every_edge(cuda):
-    n, k, dim = 4000, 15, 2
+def _pattern_tails(cuda, pattern, seed):
+    """Tails that drive each path of the kernel: one hub of 32·U + 1 edges
+    (the whole warp, two rounds), and warps whose rows mix empty, short and
+    long runs (a long run sends its warp down the row-by-row path)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    u = k4.EDGES_PER_LANE
+    if pattern == "hub_32u_plus_1":
+        n, k = 2000, 3
+        tails = torch.randint(0, n, (n, k), generator=gen, device=cuda)
+        tails[tails == 17] = 18
+        tails.view(-1)[: 32 * u + 1] = 17  # exactly 32·U + 1 in-edges
+    else:
+        n, k = 4000, 5
+        tails = torch.randint(0, n // 2, (n, k), generator=gen, device=cuda) * 2  # odd rows empty
+        flat = tails.view(-1)
+        for i, row in enumerate(range(0, n, 40)):  # a long run every tenth warp
+            flat[200 * i:200 * i + k4.SHORT_RUN + 1 + i] = row
+    return n, k, tails
+
+
+@pytest.mark.parametrize("pattern", ["hub_32u_plus_1", "mixed_groups"])
+@pytest.mark.parametrize("dim", [1, 2, 3, 10, 128])
+def test_k4_degree_patterns(cuda, pattern, dim):
+    n, k, tails = _pattern_tails(cuda, pattern, seed=dim)
+    _, g = _edges(cuda, n, k, dim, seed=dim + 1, tails=tails)
+    plan = k4.build_tail_plan(tails, n, dim)
+    indeg = torch.bincount(tails.reshape(-1), minlength=n)
+    assert int(indeg.max()) > k4.SHORT_RUN and int((indeg == 0).sum()) > 0
+    out = k4.tail_accumulate(g, plan)
+    _hold_k4(out, g, plan, tails)
+    assert torch.equal(out, k4.tail_accumulate(g, plan))
+    assert torch.count_nonzero(out[indeg == 0]) == 0
+
+
+@pytest.mark.parametrize("dim", [1, 2, 3, 10, 128])
+def test_k4_one_hub_takes_every_edge(cuda, dim):
+    n, k = 4000, 15
     tails = torch.full((n, k), 1234, dtype=torch.int64, device=cuda)
     _, g = _edges(cuda, n, k, dim, seed=3, tails=tails)
     plan = k4.build_tail_plan(tails, n, dim)
     out = k4.tail_accumulate(g, plan)
     _hold_k4(out, g, plan, tails)
+    assert torch.equal(out, k4.tail_accumulate(g, plan))
     assert torch.count_nonzero(out[:1234]) == 0 and torch.count_nonzero(out[1235:]) == 0
 
 

@@ -158,6 +158,20 @@ def test_kernel_wrappers_have_no_fallback():
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], path.name
 
 
+@pytest.mark.parametrize("kind", ["wrapper", "source"])
+def test_kernels_read_no_knob(kind):
+    """A kernel's design is fixed in its source and wrapper: neither reads
+    the environment (only the build's toolkit lookup in ``_build`` does)."""
+    if kind == "wrapper":
+        paths = [p for p in (PACKAGE / "ops" / "kernels").glob("*.py") if p.name != "_build.py"]
+    else:
+        paths = [*(PACKAGE / "csrc").glob("*.cu"), *(PACKAGE / "csrc").glob("*.cuh")]
+    assert paths
+    for path in paths:
+        text = path.read_text()
+        assert "environ" not in text and "getenv" not in text, path.name
+
+
 def test_a_cuda_tensor_never_reaches_the_plain_version(monkeypatch, tmp_path):
     """No fallback: on a CUDA tensor the wrapper goes to the kernel build,
     which raises without nvcc; it never computes the plain version."""

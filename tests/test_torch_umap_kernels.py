@@ -9,6 +9,9 @@ reference's element for element; ``plan_feasible`` agrees on both sides
 of its boundaries.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -77,6 +80,54 @@ def test_hub_and_empty_rows():
     np.add.at(exact, indices.reshape(-1), g.astype(np.float64))
     np.testing.assert_allclose(out, exact, atol=1e-4, rtol=1e-5)
     assert np.count_nonzero(np.delete(out, [17, 150], axis=0)) == 0
+
+
+def _degree_pattern(name: str):
+    """Tails that drive each path of the kernel: every row's run short
+    (the grouped path), one hub of 32·U + 1 edges (the whole warp, more
+    than one round), and a warp's group of rows mixing empty, short and
+    long runs."""
+    u = k4.EDGES_PER_LANE
+    if name == "all_short":
+        n, k = 258, 4
+        indices = (np.arange(n)[:, None] + 37 * np.arange(k)[None, :]) % n  # in-degree k each
+    elif name == "hub":
+        n, k = 300, 2
+        indices = np.random.default_rng(5).integers(0, n, size=(n, k))
+        indices.reshape(-1)[: 32 * u + 1] = 5
+    else:
+        n, k = 66, 3
+        indices = np.random.default_rng(6).integers(8, n, size=(n, k))
+        flat = indices.reshape(-1)
+        flat[:100] = 4                  # rows 4..7 share a warp: 4 long,
+        flat[100:103] = 7               # 7 short, 5 and 6 empty
+    return n, k, indices
+
+
+@pytest.mark.parametrize("pattern", ["all_short", "hub", "mixed_group"])
+@pytest.mark.parametrize("dim", [1, 2, 5])
+def test_plain_version_matches_the_pallas_kernel_at_degree_patterns(pattern, dim):
+    n, k, indices = _degree_pattern(pattern)
+    indeg = np.bincount(indices.reshape(-1), minlength=n)
+    if pattern == "all_short":
+        assert indeg.max() <= k4.SHORT_RUN
+    elif pattern == "hub":
+        assert indeg.max() > 32 * k4.EDGES_PER_LANE
+    else:
+        assert indeg[4] > k4.SHORT_RUN and indeg[5] == indeg[6] == 0 and 0 < indeg[7] <= k4.SHORT_RUN
+    g = np.random.default_rng(n + dim).normal(size=(n * k, dim)).astype(np.float32)
+    jplan, jcfg = jpu.build_tail_plan(indices, n, dim)
+    want = np.asarray(jpu.tail_accumulate(jnp.asarray(g), jplan, jcfg, interpret=True))
+    got = k4.tail_accumulate(torch.from_numpy(g), k4.build_tail_plan(torch.from_numpy(indices), n, dim))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-5)
+    assert np.count_nonzero(got.numpy()[indeg == 0]) == 0
+
+
+def test_k4_geometry_matches_the_source():
+    text = (Path(k4.__file__).resolve().parents[2] / "csrc" / f"{k4.NAME}.cu").read_text()
+    cu = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+    assert (k4.WARPS, k4.ROWS_PER_WARP, k4.EDGES_PER_LANE) == (cu["WARPS"], cu["ROWS_PER_WARP"], cu["UNROLL"])
+    assert k4.SHORT_RUN == 32 // cu["ROWS_PER_WARP"] * cu["UNROLL"]
 
 
 @pytest.mark.parametrize(
