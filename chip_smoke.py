@@ -253,6 +253,8 @@ def phase_device() -> dict:
     }
     spills = {stem: sum(int(v) for ln in lines for v in re.findall(r"(\d+) bytes spill", ln))
               for stem, lines in ptxas.items()}
+    for line in ptxas_by_function(_build.build_logs.get("kmeans_assign_packed", "")):
+        print(f"ptxas kmeans_assign_packed {line}", flush=True)
     info = {
         "phase": "device",
         "nvidia_smi": smi,
@@ -266,9 +268,28 @@ def phase_device() -> dict:
         "spill_bytes": spills,
     }
     emit(info)
-    for stem in ("centered_gram", "umap_tail"):
+    # kmeans_assign_stats (K2) is reported and not yet held to it.
+    for stem in ("centered_gram", "kmeans_assign_packed", "umap_tail"):
         require(spills[stem] == 0, f"{stem} spills registers: {ptxas[stem]}")
     return info
+
+
+def ptxas_by_function(log: str) -> list:
+    """One line per kernel of an nvcc -Xptxas -v log: the kernel (template
+    arguments of a K3 instantiation read as <dg, prec, vec>), its
+    registers and its spill stores and loads."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"assign_packed_blocksILi(\d+)ELi(\d)ELb(\d)", ln)
+            name = (f"assign_packed_blocks<{m[1]}, {m[2]}, {'true' if m[3] == '1' else 'false'}>"
+                    if m else re.search(r"'([^']*)'", ln)[1][:60])
+        elif "bytes spill" in ln and name:
+            spill = ln.split("info    : ")[-1].strip()
+        elif "Used" in ln and name:
+            out.append(f"{name}: {ln.split('info    : ')[-1].strip()}; {spill}")
+            name = None
+    return out
 
 
 def phase_kernel_check(x_big: torch.Tensor, gen: torch.Generator) -> dict:
@@ -690,7 +711,10 @@ def assign_bound_ms(n: int, d: int, k: int, peaks) -> tuple:
 def phase_kmeans_times(x, model, model16, peaks) -> dict:
     """K2 at 20M x 16, k = 100 and K3 at k = 16 (the main path's shapes,
     the fitted centers, ``highest``), each beside its plain version on the
-    same inputs and its bound; fit and predict wall times."""
+    same inputs and its bound; fit and predict wall times. ``kernel_ms``
+    is one eager call between CUDA events, so it holds the wrapper's host
+    path up to the launch; ``device_ms`` is the card's time a call, from
+    10 calls replayed in a CUDA graph."""
     reason = ("no single PyTorch call computes the assignment (argmin of the "
               "distances) together with the per-cluster sums, counts and cost")
     print(f"kmeans library_ms: null, {reason}", flush=True)
@@ -702,10 +726,13 @@ def phase_kmeans_times(x, model, model16, peaks) -> dict:
         k = c.shape[0]
         bound_ms, bound_by = assign_bound_ms(n, d, k, peaks)
         kernel_ms = time_ms(lambda: fn(x, c, "highest"))
+        device_ms = graph_ms(lambda: fn(x, c, "highest"), calls=10)
         plain_ms = time_ms(lambda: kk.assign_stats_plain(x, c, "highest"), repeats=3, warmup=1)
-        rows[name] = {"shape": [n, d], "k": k, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                      "library_why_none": reason, "roofline_share": bound_ms / kernel_ms}
+        rows[name] = {"shape": [n, d], "k": k, "kernel_ms": kernel_ms, "device_ms": device_ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": None, "library_why_none": reason,
+                      "roofline_share": bound_ms / kernel_ms,
+                      "device_roofline_share": bound_ms / device_ms}
         torch.cuda.empty_cache()
 
     def fit(backend, k=KM_K):

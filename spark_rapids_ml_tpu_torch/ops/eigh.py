@@ -6,6 +6,13 @@ for ``jnp.linalg.eigh``; the sign convention, the descending order, the
 subspace solvers and their acceptance rule are the reference's, so
 components compare elementwise.
 
+A failed factorisation gives NaN, as in the reference, instead of an
+exception: ``_cholqr`` uses ``cholesky_ex`` (no host check) and turns a
+failed factor into NaN as ``jnp.linalg.cholesky`` does, so ``eigh_auto``'s
+stagnation and acceptance tests see NaN and promote; and every dense
+``eigh`` returns NaN for a non-finite input where ``torch.linalg.eigh``
+would raise.
+
 Two differences by design:
   - the start basis of the subspace solvers cannot be the reference's
     ``jax.random`` draw; it is drawn from a CPU ``torch.Generator`` seeded
@@ -34,10 +41,19 @@ def sign_flip(u: torch.Tensor) -> torch.Tensor:
     return u * signs[None, :]
 
 
+def _eigh(a: torch.Tensor):
+    """``torch.linalg.eigh`` (ascending) that returns all-NaN pairs for an
+    input holding a NaN or an infinity, as ``jnp.linalg.eigh`` does, where
+    torch would raise. The test and the mask stay on the device."""
+    bad = ~torch.isfinite(a).all()
+    w, v = torch.linalg.eigh(torch.where(bad, 0.0, a))
+    return torch.where(bad, float("nan"), w), torch.where(bad, float("nan"), v)
+
+
 def eigh_descending(a: torch.Tensor):
     """Eigendecomposition of symmetric ``a``, eigenvalues descending,
     columns sign-flipped: ``(eigenvalues, eigenvectors)``."""
-    w, v = torch.linalg.eigh(a)  # ascending
+    w, v = _eigh(a)  # ascending
     return torch.flip(w, (0,)), sign_flip(torch.flip(v, (1,)))
 
 
@@ -89,13 +105,15 @@ def _start_basis(d: int, l: int, dtype, device, q0=None) -> torch.Tensor:
 def _cholqr(z: torch.Tensor):
     """CholeskyQR re-orthonormalization of a tall-skinny block:
     ``Q = Z · L⁻ᵀ`` with ``LLᵀ = ZᵀZ`` plus a relative jitter. Returns
-    ``(q, tr(ZᵀZ))``."""
+    ``(q, tr(ZᵀZ))``. A Gram that is not positive definite (a zero or
+    NaN block) gives an all-NaN factor, as ``jnp.linalg.cholesky`` does."""
     l = z.shape[1]
     g = z.T @ z
     s = torch.trace(g)
     eps = 1e-6 if z.dtype == torch.float32 else 1e-14
     eye = torch.eye(l, dtype=z.dtype, device=z.device)
-    lo = torch.linalg.cholesky(g + (eps * s / l) * eye)
+    lo, info = torch.linalg.cholesky_ex(g + (eps * s / l) * eye)
+    lo = torch.where(info == 0, lo, float("nan"))
     linv = torch.linalg.solve_triangular(lo, eye, upper=False)
     return z @ linv.T, s
 
@@ -104,7 +122,7 @@ def _rayleigh_ritz(a: torch.Tensor, q: torch.Tensor, k: int):
     """True QR, Rayleigh–Ritz, descending top-k with the sign flip."""
     q, _ = torch.linalg.qr(q)
     b = q.T @ (a @ q)
-    w, u = torch.linalg.eigh(b)  # ascending
+    w, u = _eigh(b)  # ascending
     w = torch.flip(w, (0,))[:k]
     v = q @ torch.flip(u, (1,))[:, :k]
     return w, sign_flip(v)
@@ -157,7 +175,7 @@ def eigh_auto(
     # the kept components' neighbours to measure local spacing.
     q, _ = torch.linalg.qr(q)
     b = q.T @ (a @ q)
-    w_all, u = torch.linalg.eigh(b)
+    w_all, u = _eigh(b)
     w_all = torch.flip(w_all, (0,))
     w_k = w_all[:k]
     v_k = sign_flip(q @ torch.flip(u, (1,))[:, :k])

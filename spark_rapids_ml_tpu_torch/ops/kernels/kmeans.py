@@ -184,43 +184,73 @@ def _check(x: torch.Tensor, centers: torch.Tensor, precision: str, what: str) ->
     return mode
 
 
+_functions: dict = {}  # (library, symbol) -> the ctypes function, argtypes set
+
+
+def _function(name: str, symbol: str, extra: int):
+    """The launcher ``symbol`` of ``csrc/<name>.cu``, its C signature set
+    once: (x, centers, n, d, k, *extra ints, prec, blocks, rows_per_block,
+    8 pointers)."""
+    key = (name, symbol)
+    if key not in _functions:
+        fn = getattr(_build.load(name), symbol)
+        fn.argtypes = (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_int] * extra
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+            + [ctypes.c_void_p] * 8
+        )
+        fn.restype = ctypes.c_int
+        _functions[key] = fn
+    return _functions[key]
+
+
+_sm_counts: dict = {}  # device index -> streaming multiprocessors
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // 256) * 256
+
+
 def _launch(name: str, symbol: str, x: torch.Tensor, centers: torch.Tensor, mode: str,
-            threads: int, extra: tuple = ()) -> Stats:
-    """Allocates the outputs and the [S, k, d] partials, plans S, launches."""
+            threads: int, extra: tuple = (), plan=None) -> Stats:
+    """Allocates the outputs and the [S, k, d] partials, plans S (by
+    :func:`plan_blocks`, or by ``plan(device, n, sms)`` when given),
+    launches. The partials, counts and costs of the S blocks share one
+    scratch allocation, and the four outputs are views of one more: the
+    host's path up to the launch is part of every eager call."""
     n, d = int(x.shape[0]), int(x.shape[1])
     k = int(centers.shape[0])
     dev = x.device
-    lib = _build.load(name)
-    fn = getattr(lib, symbol)
-    fn.argtypes = (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_int] * len(extra)
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
-        + [ctypes.c_void_p] * 8
-    )
-    fn.restype = ctypes.c_int
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = plan_blocks(n, k * d, threads, sms)
+    fn = _function(name, symbol, len(extra))
+    sms = _sm_counts.get(dev.index)
+    if sms is None:
+        sms = _sm_counts[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = plan_blocks(n, k * d, threads, sms) if plan is None else plan(dev, n, sms)
     rows_per_block = -(-max(n, 1) // blocks)
     rows_per_block = -(-rows_per_block // threads) * threads
     blocks = max(1, -(-n // rows_per_block))
+    counts_at = _aligned(4 * blocks * k * d)
+    cost_at = counts_at + _aligned(4 * blocks * k)
+    c2_at = _aligned(4 * k * d)
+    cost_out_at = c2_at + _aligned(4 * k)
+    counts_out_at = cost_out_at + 256
     with torch.cuda.device(dev):
-        ws_sums = torch.empty((blocks, k, d), dtype=torch.float32, device=dev)
-        ws_counts = torch.empty((blocks, k), dtype=torch.int32, device=dev)
-        ws_cost = torch.empty((blocks,), dtype=torch.float64, device=dev)
-        sums = torch.empty((k, d), dtype=torch.float32, device=dev)
-        counts = torch.empty((k,), dtype=torch.int64, device=dev)
-        cost = torch.empty((), dtype=torch.float32, device=dev)
-        c2 = torch.empty((k,), dtype=torch.float32, device=dev)
+        ws = torch.empty((cost_at + 8 * blocks,), dtype=torch.uint8, device=dev)
+        out = torch.empty((counts_out_at + 8 * k,), dtype=torch.uint8, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        base, obase = ws.data_ptr(), out.data_ptr()
         err = fn(
             x.data_ptr(), centers.data_ptr(), n, d, k, *extra, PRECISIONS[mode],
-            blocks, rows_per_block, ws_sums.data_ptr(), ws_counts.data_ptr(),
-            ws_cost.data_ptr(), sums.data_ptr(), counts.data_ptr(), cost.data_ptr(),
-            c2.data_ptr(), stream,
+            blocks, rows_per_block, base, base + counts_at, base + cost_at,
+            obase, obase + counts_out_at, obase + cost_out_at, obase + c2_at, stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    sums = out[:4 * k * d].view(torch.float32).view(k, d)
+    counts = out[counts_out_at:].view(torch.int64)
+    cost = out[cost_out_at:cost_out_at + 4].view(torch.float32).view(())
+    c2 = out[c2_at:c2_at + 4 * k].view(torch.float32)
     return sums, counts, cost, c2
 
 
@@ -248,9 +278,38 @@ def assign_stats_fused(x: torch.Tensor, centers: torch.Tensor, precision: str = 
     return out
 
 
+#: Warps of a K3 block at each group width dg (``WARPS_16``, ``WARPS_32``,
+#: ``WARPS_64`` in the source); each warp works alone on its own sub-tiles.
+PACKED_WARPS = {16: 16, 32: 8, 64: 4}
+_packed_resident: dict = {}  # (device index, dg, mode) -> resident K3 blocks per SM
+
+
 def packed_threads(dg: int) -> int:
     """Threads of a K3 block at group width ``dg`` (``Geometry::THREADS``)."""
-    return 128 if dg == 64 else 256
+    return 32 * PACKED_WARPS[dg]
+
+
+def packed_blocks(n: int, dg: int, sms: int, per_sm: int) -> int:
+    """Blocks of a K3 launch: one wave, ``per_sm`` resident blocks on each
+    of ``sms`` SMs, each walking a contiguous chunk of rows; no more than
+    one per :func:`packed_threads` rows; at least 1."""
+    return max(1, min(sms * per_sm, -(-n // packed_threads(dg))))
+
+
+def _packed_blocks_per_sm(device: torch.device, dg: int, mode: str) -> int:
+    """Resident K3 blocks per SM at (dg, mode), from the CUDA occupancy API
+    (the registers and shared memory of the build), once per device. The
+    aligned and misaligned variants share it, so both get one plan."""
+    key = (device.index, dg, mode)
+    if key not in _packed_resident:
+        fn = _build.load(PACKED_NAME).kmeans_assign_packed_blocks_per_sm
+        fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+        with torch.cuda.device(device):
+            got = fn(dg, PRECISIONS[mode])
+        if got <= 0:
+            raise RuntimeError(f"kmeans_assign_packed occupancy query failed: {got}")
+        _packed_resident[key] = got
+    return _packed_resident[key]
 
 
 def assign_stats_packed(x: torch.Tensor, centers: torch.Tensor, precision: str = "highest") -> Stats:
@@ -265,7 +324,12 @@ def assign_stats_packed(x: torch.Tensor, centers: torch.Tensor, precision: str =
     if x.device.type == "cpu":
         return assign_stats_packed_plain(x, centers, mode)
     dg = geom[1]
-    out = _launch(PACKED_NAME, "kmeans_assign_packed", x, centers, mode, packed_threads(dg), (dg,))
+
+    def plan(dev, n, sms):
+        return packed_blocks(n, dg, sms, _packed_blocks_per_sm(dev, dg, mode))
+
+    out = _launch(PACKED_NAME, "kmeans_assign_packed", x, centers, mode, packed_threads(dg), (dg,),
+                  plan)
     launches["assign_stats_packed"] += 1
     return out
 

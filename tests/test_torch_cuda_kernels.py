@@ -207,6 +207,73 @@ def test_k3_matches_float64_and_k2(cuda, mode, n, d, k):
     assert abs(packed[2].item() - fused[2].item()) <= 1e-6 * abs(fused[2].item())
 
 
+# K3's own cases: sub-tiles of 64 rows a warp at group width 16 (32 at 32
+# and 64), rings of cp.async stages, a 16-byte copy route for rows that are
+# 16-byte aligned and a 4-byte one otherwise. Centers 16 noise units apart
+# along a +-1 diagonal keep every row far from a Voronoi boundary at any d,
+# so float32 and float64 labels agree.
+
+
+def _separated(cuda, n, d, k, seed):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    signs = torch.where(torch.arange(d, device=cuda) % 2 == 0, 1.0, -1.0)
+    truth = 16.0 * torch.arange(k, device=cuda, dtype=torch.float32)[:, None] * signs[None, :]
+    labels = torch.randint(0, k, (n,), generator=gen, device=cuda)
+    x = truth[labels] + torch.randn((n, d), generator=gen, device=cuda)
+    centers = (truth + 0.1 * torch.randn((k, d), generator=gen, device=cuda)).contiguous()
+    return x.contiguous(), centers
+
+
+def _kg(d):
+    return kk._packed_geometry(d + ((-d) % 8), 1)[2]
+
+
+def _hold_k3(packed, fused, x, centers, mode):
+    _hold(packed, x, centers, mode)
+    assert torch.equal(packed[1], fused[1])  # the labels' counts, bitwise K2's
+    assert torch.equal(packed[3], fused[3])
+    scale = max(fused[0].abs().max().item(), 1e-30)
+    assert (packed[0] - fused[0]).abs().max().item() <= 1e-6 * scale
+    assert abs(packed[2].item() - fused[2].item()) <= 1e-6 * abs(fused[2].item())
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("k_at", ["k=1", "k=kg"])
+@pytest.mark.parametrize("d", [1, 3, 13, 16, 20, 32, 64])
+@pytest.mark.parametrize("n", [5, 4099, 600_001], ids=["below_a_subtile", "off_a_subtile", "many_stages"])
+def test_k3_shapes_match_float64_k2_and_repeat(cuda, n, d, k_at, mode):
+    k = 1 if k_at == "k=1" else _kg(d)
+    assert kk.packed_feasible(d, k)
+    x, centers = _separated(cuda, n, d, k, seed=n + 31 * d + k)
+    before = kk.launches["assign_stats_packed"]
+    packed = kk.assign_stats_packed(x, centers, mode)
+    again = kk.assign_stats_packed(x, centers, mode)
+    torch.cuda.synchronize()
+    assert kk.launches["assign_stats_packed"] == before + 2
+    _hold_k3(packed, kk.assign_stats_fused(x, centers, mode), x, centers, mode)
+    for u, v in zip(packed, again):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("d", [4, 16, 20, 32, 64])
+def test_k3_misaligned_rows_give_the_aligned_results(cuda, d, mode):
+    """A contiguous x whose data_ptr() is only 4-byte aligned takes the
+    4-byte copy route; its results are bitwise those of an aligned copy."""
+    n = 50_003
+    x, centers = _separated(cuda, n, d, _kg(d), seed=d)
+    buf = torch.empty(n * d + 1, device=cuda)
+    xm = buf[1:].view(n, d)
+    xm.copy_(x)
+    assert xm.is_contiguous() and xm.data_ptr() % 16 != 0 and x.data_ptr() % 16 == 0
+    aligned = kk.assign_stats_packed(x, centers, mode)
+    misaligned = kk.assign_stats_packed(xm, centers, mode)
+    for u, v in zip(aligned, misaligned):
+        assert torch.equal(u, v)
+    _hold_k3(misaligned, kk.assign_stats_fused(x, centers, mode), x, centers, mode)
+
+
 @pytest.mark.parametrize("assign", [kk.assign_stats_fused, kk.assign_stats_packed])
 def test_no_rows_give_zero_stats(cuda, assign):
     x = torch.zeros((0, 5), device=cuda)

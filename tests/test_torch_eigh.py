@@ -146,3 +146,58 @@ def test_iteration_constants_match_jax():
         assert teigh.auto_max_iters(it) == jeigh.auto_max_iters(it)
     for d, k in ((40, 4), (10, 9), (1024, 16)):
         assert teigh._subspace_l(d, k) == jeigh._subspace_l(d, k)
+
+
+def _constant_column_cov(d: int) -> np.ndarray:
+    x = seeded_matrix(30, d, 6, scales=np.linspace(2.0, 0.5, d))
+    x[:, 1] = 3.0
+    b = x - x.mean(axis=0)
+    return b.T @ b / 29
+
+
+@pytest.mark.parametrize("case", ["zero", "constant column"])
+def test_eigh_auto_on_a_singular_covariance_matches_jax(case):
+    """A zero Gram (constant data) has no positive-definite CholeskyQR
+    factor: both packages carry NaN through the subspace steps and promote
+    to the full solve, which gives the zero spectrum."""
+    d, k = 12, 2
+    a = np.zeros((d, d)) if case == "zero" else _constant_column_cov(d)
+    wj, vj, pj = jeigh.eigh_auto(jnp.asarray(a), k, max_iters=12)
+    wt, vt, pt = teigh.eigh_auto(torch.from_numpy(a), k, max_iters=12, q0=_jax_q0(d, k))
+    assert pt is bool(pj)
+    if case == "zero":
+        assert pt is True
+    assert_close(f"{case} auto eigenvalues", wt, np.asarray(wj), rtol=0, atol=1e-10)
+    assert_close(f"{case} auto eigenvectors", vt, np.asarray(vj), rtol=0, atol=1e-8)
+    wf, vf = teigh.eigh_descending(torch.from_numpy(a))
+    wfj, vfj = jeigh.eigh_descending(jnp.asarray(a))
+    assert_close(f"{case} full eigenvalues", wf, np.asarray(wfj), rtol=0, atol=1e-10)
+    assert_close(f"{case} full eigenvectors", vf[:, :k], np.asarray(vfj)[:, :k], rtol=0, atol=1e-8)
+
+
+def test_cholqr_of_a_zero_block_is_nan_as_in_jax():
+    z = np.zeros((20, 6))
+    qj, sj = jeigh._cholqr(jnp.asarray(z))
+    qt, st = teigh._cholqr(torch.from_numpy(z))
+    assert np.all(np.isnan(np.asarray(qj))) and torch.isnan(qt).all()
+    assert float(st) == float(sj) == 0.0
+
+
+@pytest.mark.parametrize("solver", ["auto", "full", "topk"])
+def test_a_nan_matrix_gives_nan_without_raising_as_in_jax(solver):
+    d, k = 10, 3
+    a = _planted(d, np.linspace(4.0, 0.5, d), 7)
+    a[2, 5] = a[5, 2] = np.nan
+    if solver == "auto":
+        wj, vj, _ = jeigh.eigh_auto(jnp.asarray(a), k, max_iters=12)
+        wt, vt, pt = teigh.eigh_auto(torch.from_numpy(a), k, max_iters=12, q0=_jax_q0(d, k))
+        assert pt is True
+    elif solver == "full":
+        wj, vj = jeigh.eigh_descending(jnp.asarray(a))
+        wt, vt = teigh.eigh_descending(torch.from_numpy(a))
+    else:
+        wj, vj = jeigh.eigh_topk(jnp.asarray(a), k, iters=8)
+        wt, vt = teigh.eigh_topk(torch.from_numpy(a), k, iters=8, q0=_jax_q0(d, k))
+    for name, got, want in (("eigenvalues", wt, wj), ("eigenvectors", vt, vj)):
+        assert np.all(np.isnan(np.asarray(want))), f"reference {name} are not NaN"
+        assert torch.isnan(got).all(), f"{solver} {name} are not NaN"

@@ -20,6 +20,9 @@ Inputs are numpy from a seed; the JAX side runs as its own tests run it
   bar of tests/test_kmeans_fused.py.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -254,3 +257,28 @@ def test_plain_ties_go_to_the_lowest_index():
     dup = torch.from_numpy(np.concatenate([c, c]))
     counts = kk.assign_stats_fused(torch.from_numpy(x), dup)[1]
     assert int(counts[4:].sum()) == 0 and int(counts.sum()) == 500
+
+
+def test_k3_geometry_matches_the_source():
+    """The wrapper's K3 warps per block are the source's WARPS_16/32/64."""
+    text = (Path(kk.__file__).resolve().parents[2] / "csrc" / f"{kk.PACKED_NAME}.cu").read_text()
+    cu = {int(m[0]): int(m[1]) for m in re.findall(r"constexpr int WARPS_(\d+) = (\d+);", text)}
+    assert cu == kk.PACKED_WARPS
+    assert {dg: kk.packed_threads(dg) for dg in cu} == {dg: 32 * w for dg, w in cu.items()}
+
+
+@pytest.mark.parametrize(
+    "n,dg,sms,per_sm,want",
+    [
+        (20_000_000, 16, 132, 1, 132),  # one wave on a full card
+        (20_000_000, 64, 132, 2, 264),
+        ("2T-1", 16, 132, 1, 2),  # no more than one block per block of threads
+        ("2T-1", 32, 132, 4, 2),
+        (1, 32, 132, 1, 1),
+        (0, 16, 132, 1, 1),  # at least one block
+    ],
+)
+def test_k3_block_plan_is_one_wave(n, dg, sms, per_sm, want):
+    if n == "2T-1":
+        n = 2 * kk.packed_threads(dg) - 1
+    assert kk.packed_blocks(n, dg, sms, per_sm) == want

@@ -99,6 +99,47 @@ def test_fit_matches_jax(container, backend, solver, center):
                  rtol=0, atol=EV_TOL)
 
 
+def _degenerate(case: str) -> np.ndarray:
+    if case == "ones":
+        return np.ones((20, 5))
+    x = _data(40, 6, 8)
+    x[:, 2] = -1.25
+    return x
+
+
+@pytest.mark.parametrize("solver", ["auto", "full"])
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("case", ["ones", "constant column"])
+def test_fit_on_a_zero_covariance_direction_matches_jax(case, backend, solver):
+    """Constant data has a zero covariance: the default solver's CholeskyQR
+    fails as in the reference, which promotes to the full solve; both
+    packages give explained variance [0, 0]."""
+    x = _degenerate(case)
+    params = dict(k=2, covarianceBackend=backend, eigenSolver=solver)
+    model = _configure(PCA(), **params).fit(torch.from_numpy(x))
+    jmodel = _configure(JaxPCA(), **params).fit(jnp.asarray(x))
+    assert_close("explained variance", model.explainedVariance, jmodel.explainedVariance,
+                 rtol=0, atol=EV_TOL)
+    assert_close("components", model.pc, jmodel.pc, rtol=0, atol=PC_TOL)
+    if case == "ones":
+        assert np.array_equal(model.explainedVariance, [0.0, 0.0])
+    else:
+        assert_close("constant column", model.pc[2], np.zeros(2), rtol=0, atol=ABS_TOL)
+
+
+@pytest.mark.parametrize("solver", ["auto", "full"])
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_fit_on_nan_data_gives_nan_as_jax_does(backend, solver):
+    x = _data(30, 5, 9)
+    x[4, 3] = np.nan
+    params = dict(k=2, covarianceBackend=backend, eigenSolver=solver)
+    model = _configure(PCA(), **params).fit(torch.from_numpy(x))
+    jmodel = _configure(JaxPCA(), **params).fit(jnp.asarray(x))
+    for name in ("pc", "explainedVariance"):
+        assert np.all(np.isnan(getattr(jmodel, name))), f"reference {name} is not NaN"
+        assert np.all(np.isnan(getattr(model, name))), f"{name} is not NaN"
+
+
 def test_fit_on_a_tensor_stays_on_its_device_until_read():
     x = torch.from_numpy(_data())
     model = PCA().setK(3).fit(x)
