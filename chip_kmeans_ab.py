@@ -14,8 +14,9 @@ parent, change, change, parent to see the spread.
 Prints one JSON line a run: the checkout, the card's ``nvidia-smi`` name
 and power limit, the fit walls (``auto``, ``xla``, ``auto_k16``), the
 predict wall, ``numIter`` of each fit, and K2's and K3's eager
-``kernel_ms`` (with ``device_ms`` where that checkout measures it). Any
-failed check of a run fails the script. Imports nothing of JAX.
+``kernel_ms`` (with ``device_ms``, and K2's ``device_ms`` on the rows
+sorted by label, where that checkout measures them). Any failed check of
+a run fails the script. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ def run_one(tree: str) -> dict:
         **{f"{key}_{what}": times[name].get(what)
            for key, name in (("k2", "assign_stats_fused"), ("k3", "assign_stats_packed"))
            for what in ("kernel_ms", "device_ms")},
+        "k2_sorted_device_ms": times["assign_stats_fused"].get("sorted_by_label", {}).get("device_ms"),
     }
 
 

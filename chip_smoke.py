@@ -26,7 +26,8 @@ counters set to 0 just before and read just after:
   and the blobs; then a spectral-init fit at 8,192 rows.
 
 It times the kernels beside their bounds and profiles one fit of each
-path (device time by kernel, the device's idle share). Each phase prints
+path (device time by kernel, the device's idle share). It fails if
+``ptxas`` reports a register spill in any kernel's build. Each phase prints
 one JSON line; the ``kernels`` line and the card's ``nvidia-smi`` name and
 power limit come before the last line, which is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -253,8 +254,9 @@ def phase_device() -> dict:
     }
     spills = {stem: sum(int(v) for ln in lines for v in re.findall(r"(\d+) bytes spill", ln))
               for stem, lines in ptxas.items()}
-    for line in ptxas_by_function(_build.build_logs.get("kmeans_assign_packed", "")):
-        print(f"ptxas kmeans_assign_packed {line}", flush=True)
+    for stem in ("kmeans_assign_stats", "kmeans_assign_packed"):
+        for line in ptxas_by_function(_build.build_logs.get(stem, "")):
+            print(f"ptxas {stem} {line}", flush=True)
     info = {
         "phase": "device",
         "nvidia_smi": smi,
@@ -268,22 +270,26 @@ def phase_device() -> dict:
         "spill_bytes": spills,
     }
     emit(info)
-    # kmeans_assign_stats (K2) is reported and not yet held to it.
-    for stem in ("centered_gram", "kmeans_assign_packed", "umap_tail"):
+    for stem in stems:
         require(spills[stem] == 0, f"{stem} spills registers: {ptxas[stem]}")
     return info
 
 
 def ptxas_by_function(log: str) -> list:
-    """One line per kernel of an nvcc -Xptxas -v log: the kernel (template
-    arguments of a K3 instantiation read as <dg, prec, vec>), its
-    registers and its spill stores and loads."""
+    """One line per kernel of an nvcc -Xptxas -v log: the kernel (a K2 or
+    K3 instantiation by its template arguments, as K2's <dreg, prec[,
+    vec]> and K3's <dg, prec, vec>), its registers and its spill stores
+    and loads."""
     out, name = [], None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"assign_packed_blocksILi(\d+)ELi(\d)ELb(\d)", ln)
-            name = (f"assign_packed_blocks<{m[1]}, {m[2]}, {'true' if m[3] == '1' else 'false'}>"
-                    if m else re.search(r"'([^']*)'", ln)[1][:60])
+            m = re.search(r"(assign_[a-z_]+)I((?:L[ib]\d+E)+)E", ln)
+            if m:
+                args = [v if kind == "i" else ("true" if v == "1" else "false")
+                        for kind, v in re.findall(r"L([ib])(\d+)E", m[2])]
+                name = f"{m[1]}<{', '.join(args)}>"
+            else:
+                name = re.search(r"'([^']*)'", ln)[1][:60]
         elif "bytes spill" in ln and name:
             spill = ln.split("info    : ")[-1].strip()
         elif "Used" in ln and name:
@@ -708,13 +714,42 @@ def assign_bound_ms(n: int, d: int, k: int, peaks) -> tuple:
     return max(bytes_ms, ops_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
+def k2_sorted_by_label(x: torch.Tensor, c: torch.Tensor, bound_ms: float) -> dict:
+    """K2 on the same rows ordered by their label (a table sorted by
+    cluster: every warp's rows share one label but at a cluster's edge),
+    held against float64 as phase_kmeans_kernel_check holds the shuffled
+    rows, and timed as they are."""
+    labels = kmeans_stats_f64(x, c, "highest", block_rows=KM_BLOCK)[3]
+    xs = x[torch.argsort(labels, stable=True)]
+    del labels
+    out = kk.assign_stats_fused(xs, c, "highest")
+    again = kk.assign_stats_fused(xs, c, "highest")
+    ref_sums, ref_counts, ref_cost, _ = kmeans_stats_f64(xs, c, "highest", c2=out[3], block_rows=KM_BLOCK)
+    ref_cost = ref_cost.item()
+    row = {
+        "counts_equal_f64": bool(torch.equal(out[1], ref_counts)),
+        "sums_rel_f64": _rel(out[0], ref_sums),
+        "cost_rel_f64": abs(out[2].item() - ref_cost) / abs(ref_cost),
+        "bitwise_repeat": all(torch.equal(u, v) for u, v in zip(out, again)),
+        "kernel_ms": time_ms(lambda: kk.assign_stats_fused(xs, c, "highest")),
+        "device_ms": graph_ms(lambda: kk.assign_stats_fused(xs, c, "highest"), calls=10),
+    }
+    row["device_roofline_share"] = bound_ms / row["device_ms"]
+    del xs, out, again
+    require(row["counts_equal_f64"], "K2 on label-sorted rows: counts differ from float64")
+    require(row["sums_rel_f64"] <= 1e-5 and row["cost_rel_f64"] <= 1e-5, "K2 on label-sorted rows: stats vs f64")
+    require(row["bitwise_repeat"], "K2 on label-sorted rows: a repeat launch differs")
+    return row
+
+
 def phase_kmeans_times(x, model, model16, peaks) -> dict:
     """K2 at 20M x 16, k = 100 and K3 at k = 16 (the main path's shapes,
     the fitted centers, ``highest``), each beside its plain version on the
-    same inputs and its bound; fit and predict wall times. ``kernel_ms``
-    is one eager call between CUDA events, so it holds the wrapper's host
-    path up to the launch; ``device_ms`` is the card's time a call, from
-    10 calls replayed in a CUDA graph."""
+    same inputs and its bound, and K2 again on the rows sorted by label;
+    fit and predict wall times. ``kernel_ms`` is one eager call between
+    CUDA events, so it holds the wrapper's host path up to the launch;
+    ``device_ms`` is the card's time a call, from 10 calls replayed in a
+    CUDA graph."""
     reason = ("no single PyTorch call computes the assignment (argmin of the "
               "distances) together with the per-cluster sums, counts and cost")
     print(f"kmeans library_ms: null, {reason}", flush=True)
@@ -733,6 +768,8 @@ def phase_kmeans_times(x, model, model16, peaks) -> dict:
                       "library_ms": None, "library_why_none": reason,
                       "roofline_share": bound_ms / kernel_ms,
                       "device_roofline_share": bound_ms / device_ms}
+        if name == "assign_stats_fused":
+            rows[name]["sorted_by_label"] = k2_sorted_by_label(x, c, bound_ms)
         torch.cuda.empty_cache()
 
     def fit(backend, k=KM_K):

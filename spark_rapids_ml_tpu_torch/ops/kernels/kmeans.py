@@ -47,13 +47,25 @@ launches = {"assign_stats_fused": 0, "assign_stats_packed": 0}
 #: The kernels' precision codes (``PREC_*`` in ``csrc/kmeans_common.cuh``).
 PRECISIONS = {"highest": 0, "high": 1, "default": 2}
 
-#: Threads of a K2 block (``BLOCK``), warps (``NW``), and the most shared
-#: memory a Hopper block may use.
+#: K2's sort variant (``assign_stats_blocks`` in the source): threads of a
+#: block (``BLOCK``) and its warps (``NW``); the most shared memory a Hopper
+#: block may use.
 FUSED_THREADS = 256
 FUSED_WARPS = FUSED_THREADS // 32
 MAX_SHARED_BYTES = 232_448
-#: Blocks per SM a launch aims at, and the cap on the partials workspace.
-BLOCKS_PER_SM = 8
+#: K2's warp variant (``assign_stats_warps``): rows a lane scores at each
+#: register width, in "highest"/"default" and in "high" (``ROWS_16``,
+#: ``ROWS_16_HIGH``, ...); the warps of a block at most (``WARPS_MAX``, and
+#: ``WARPS_MAX_WIDE`` where a lane's rows take 128 registers or more) and
+#: at least (``WARPS_MIN``: below it the sort variant runs); the bytes of
+#: the cost's per-warp doubles (``RED_BYTES``).
+FUSED_ROWS = {16: 4, 32: 2, 64: 1}
+FUSED_ROWS_HIGH = {16: 2, 32: 1, 64: 1}
+FUSED_WARPS_MAX = 12
+FUSED_WARPS_MAX_WIDE = 8
+FUSED_WARPS_MIN = 4
+FUSED_RED_BYTES = 128
+#: The cap on the partials workspace of a launch.
 WORKSPACE_BYTES = 256 << 20
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -71,10 +83,10 @@ def _register_width(d: int) -> int:
 
 
 def fused_shared_bytes(d: int, k: int) -> int:
-    """Shared memory one K2 block needs (``smem_bytes`` in the source): the
-    cost tree, the centers in two parts at the register width, c2, the
-    block's (k, d) partial sums, its counts, the per-warp counts, the tile
-    offsets and the row order."""
+    """Shared memory of a block of K2's sort variant (``smem_bytes`` in the
+    source): the cost tree, the centers in two parts at the register
+    width, c2, the block's (k, d) partial sums, its counts, the per-warp
+    counts, the tile offsets and the row order."""
     ds = _register_width(d) or d
     return (
         8 * FUSED_THREADS
@@ -84,13 +96,52 @@ def fused_shared_bytes(d: int, k: int) -> int:
 
 
 def fused_feasible(d: int, k: int) -> bool:
-    """True when K2 can run at this (d, k): what one block keeps in shared
-    memory (the centers, c2 and the block's partial sums and counts, see
-    :func:`fused_shared_bytes`) fits Hopper's 227 KB. The reference's
+    """True when K2 can run at this (d, k): a block of its sort variant
+    (:func:`fused_shared_bytes`) fits Hopper's 227 KB. The warp variant
+    runs on a subset of these shapes (:func:`fused_warps`). The reference's
     10 MB VMEM rule (``auto_block_n``) does not carry over. At d = 16 this
     admits k up to about 1,000; the KMeans resolver sends larger fits to
     the ``xla`` route, and an explicit ``backend="fused"`` raises."""
     return d >= 1 and k >= 1 and fused_shared_bytes(d, k) <= MAX_SHARED_BYTES
+
+
+def _round4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def fused_rows(dreg: int, mode: str) -> int:
+    """Rows a lane of K2's warp variant scores at register width ``dreg``."""
+    return (FUSED_ROWS_HIGH if mode == "high" else FUSED_ROWS)[dreg]
+
+
+def fused_warp_shared_bytes(d: int, k: int, mode: str, warps: int) -> int:
+    """Shared memory of a K2 warp-variant block (``warp_smem`` in the
+    source): the cost's doubles, the centers' parts (two in "high"), c2,
+    and per warp its stage of ``32·rows`` rows and its transpose buffer of
+    16, each row ``dreg + 4`` floats, its (k + 1, dreg) sums and its
+    counts, each 16-byte aligned."""
+    dreg = _register_width(d)
+    fixed = FUSED_RED_BYTES + 4 * ((2 if mode == "high" else 1) * k * dreg + _round4(k))
+    per_warp = 4 * ((32 * fused_rows(dreg, mode) + 16) * (dreg + 4) + (k + 1) * dreg + _round4(k))
+    return fixed + warps * per_warp
+
+
+def fused_warps(d: int, k: int, mode: str) -> int:
+    """Warps of a K2 block in the warp variant at (d, k, mode): as many as
+    shared memory holds up to the cap, rounded down to a multiple of 4 (the
+    same number on each of an SM's schedulers); 0 when the sort variant
+    runs (d > 64, or fewer than :data:`FUSED_WARPS_MIN` warps fit)."""
+    dreg = _register_width(d)
+    if dreg == 0:
+        return 0
+    row_registers = fused_rows(dreg, mode) * dreg * (2 if mode == "high" else 1)
+    cap = FUSED_WARPS_MAX_WIDE if row_registers >= 128 else FUSED_WARPS_MAX
+    fixed = fused_warp_shared_bytes(d, k, mode, 0)
+    if fixed >= MAX_SHARED_BYTES:
+        return 0
+    warps = min(cap, (MAX_SHARED_BYTES - fixed) // (fused_warp_shared_bytes(d, k, mode, 1) - fixed))
+    warps -= warps % 4
+    return warps if warps >= FUSED_WARPS_MIN else 0
 
 
 def _packed_geometry(d_pad: int, k: int) -> Optional[Tuple[int, int, int]]:
@@ -213,9 +264,9 @@ def _aligned(nbytes: int) -> int:
 
 
 def _launch(name: str, symbol: str, x: torch.Tensor, centers: torch.Tensor, mode: str,
-            threads: int, extra: tuple = (), plan=None) -> Stats:
-    """Allocates the outputs and the [S, k, d] partials, plans S (by
-    :func:`plan_blocks`, or by ``plan(device, n, sms)`` when given),
+            unit: int, plan, extra: tuple = ()) -> Stats:
+    """Allocates the outputs and the [S, k, d] partials, plans S by
+    ``plan(device, n, sms)``, gives each block a multiple of ``unit`` rows,
     launches. The partials, counts and costs of the S blocks share one
     scratch allocation, and the four outputs are views of one more: the
     host's path up to the launch is part of every eager call."""
@@ -226,9 +277,9 @@ def _launch(name: str, symbol: str, x: torch.Tensor, centers: torch.Tensor, mode
     sms = _sm_counts.get(dev.index)
     if sms is None:
         sms = _sm_counts[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = plan_blocks(n, k * d, threads, sms) if plan is None else plan(dev, n, sms)
+    blocks = plan(dev, n, sms)
     rows_per_block = -(-max(n, 1) // blocks)
-    rows_per_block = -(-rows_per_block // threads) * threads
+    rows_per_block = -(-rows_per_block // unit) * unit
     blocks = max(1, -(-n // rows_per_block))
     counts_at = _aligned(4 * blocks * k * d)
     cost_at = counts_at + _aligned(4 * blocks * k)
@@ -254,26 +305,59 @@ def _launch(name: str, symbol: str, x: torch.Tensor, centers: torch.Tensor, mode
     return sums, counts, cost, c2
 
 
-def plan_blocks(n: int, kd: int, threads: int, sms: int) -> int:
-    """Blocks of a launch: about :data:`BLOCKS_PER_SM` per SM, no more than
-    one per ``threads`` rows, the [S, k, d] partials under
-    :data:`WORKSPACE_BYTES`, at least 1."""
-    blocks = min(BLOCKS_PER_SM * sms, -(-n // threads), WORKSPACE_BYTES // max(1, 4 * kd))
-    return max(1, blocks)
+def fused_unit(d: int, k: int, mode: str) -> int:
+    """Rows a K2 block's share is a multiple of: a round of sub-tiles, one
+    for each warp, in the warp variant (``32 · rows · warps``); a tile of
+    :data:`FUSED_THREADS` rows in the sort variant."""
+    warps = fused_warps(d, k, mode)
+    return 32 * fused_rows(_register_width(d), mode) * warps if warps else FUSED_THREADS
+
+
+def fused_blocks(n: int, unit: int, kd: int, sms: int, per_sm: int) -> int:
+    """Blocks of a K2 launch: one wave, ``per_sm`` resident blocks on each
+    of ``sms`` SMs, each walking a contiguous chunk of rows; no more than
+    one per ``unit`` rows (:func:`fused_unit`); the [S, k, d] partials
+    under :data:`WORKSPACE_BYTES`; at least 1."""
+    return max(1, min(sms * per_sm, -(-n // unit), WORKSPACE_BYTES // max(1, 4 * kd)))
+
+
+_fused_resident: dict = {}  # (device index, d, k, mode) -> resident K2 blocks per SM
+
+
+def _fused_blocks_per_sm(device: torch.device, d: int, k: int, mode: str) -> int:
+    """Resident K2 blocks per SM of the variant that runs at (d, k, mode),
+    from the CUDA occupancy API, once per device and shape."""
+    key = (device.index, d, k, mode)
+    if key not in _fused_resident:
+        fn = _build.load(FUSED_NAME).kmeans_assign_stats_blocks_per_sm
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+        with torch.cuda.device(device):
+            got = fn(d, k, PRECISIONS[mode])
+        if got <= 0:
+            raise RuntimeError(f"kmeans_assign_stats occupancy query failed: {got}")
+        _fused_resident[key] = got
+    return _fused_resident[key]
 
 
 def assign_stats_fused(x: torch.Tensor, centers: torch.Tensor, precision: str = "highest") -> Stats:
     """Kernel K2 on a CUDA tensor (its plain version on a CPU one):
     ``(sums (k, d), counts (k,) int64, cost, c2 (k,))`` over the n rows of
     row-major float32 ``x`` (n, d) against ``centers`` (k, d). Raises when
-    the shared-memory rule (:func:`fused_feasible`) refuses (d, k)."""
+    the shared-memory rule (:func:`fused_feasible`) refuses (d, k). The
+    warp variant runs where :func:`fused_warps` is positive, the sort
+    variant elsewhere; both give the same statistics."""
     mode = _check(x, centers, precision, "assign_stats_fused")
     if x.device.type == "cpu":
         return assign_stats_plain(x, centers, mode)
     d, k = int(x.shape[1]), int(centers.shape[0])
     if not fused_feasible(d, k):
         raise ValueError(f"assign_stats_fused: d={d} x k={k} exceeds a block's shared memory")
-    out = _launch(FUSED_NAME, "kmeans_assign_stats", x, centers, mode, FUSED_THREADS)
+    unit = fused_unit(d, k, mode)
+
+    def plan(dev, n, sms):
+        return fused_blocks(n, unit, k * d, sms, _fused_blocks_per_sm(dev, d, k, mode))
+
+    out = _launch(FUSED_NAME, "kmeans_assign_stats", x, centers, mode, unit, plan)
     launches["assign_stats_fused"] += 1
     return out
 
@@ -328,8 +412,8 @@ def assign_stats_packed(x: torch.Tensor, centers: torch.Tensor, precision: str =
     def plan(dev, n, sms):
         return packed_blocks(n, dg, sms, _packed_blocks_per_sm(dev, dg, mode))
 
-    out = _launch(PACKED_NAME, "kmeans_assign_packed", x, centers, mode, packed_threads(dg), (dg,),
-                  plan)
+    out = _launch(PACKED_NAME, "kmeans_assign_packed", x, centers, mode, packed_threads(dg), plan,
+                  (dg,))
     launches["assign_stats_packed"] += 1
     return out
 

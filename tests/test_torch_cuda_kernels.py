@@ -324,6 +324,158 @@ def test_k2_k3_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kk.assign_stats_fused(torch.randn((8, 1024), device=cuda), torch.randn((100, 1024), device=cuda))
 
 
+# K2's own cases. Two variants: the warp variant (d <= 64 while
+# fused_warps(d, k, mode) > 0: sub-tiles of 32 * rows rows a warp, a
+# cp.async stage, sums owned by feature) and the sort variant (d > 64, or
+# k past the warp variant's shared memory).
+
+
+def _sorted_by_label(x, centers, mode):
+    """x reordered so that equal labels are adjacent: every warp's rows
+    share one label except at a cluster's edge."""
+    labels = kmeans_stats_f64(x, centers, mode)[3]
+    return x[torch.argsort(labels, stable=True)].contiguous()
+
+
+def _k2_repeat(x, centers, mode):
+    got = kk.assign_stats_fused(x, centers, mode)
+    again = kk.assign_stats_fused(x, centers, mode)
+    for u, v in zip(got, again):
+        assert torch.equal(u, v)
+    return got
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n,d,k", [(300_001, 16, 100), (300_001, 16, 16), (100_003, 32, 30),
+                                   (100_003, 64, 20), (20_000, 100, 12)])
+def test_k2_sorted_labels_match_float64_and_k3(cuda, n, d, k, mode):
+    x, centers = _blobs(cuda, n, d, k, seed=n + d + k)
+    xs = _sorted_by_label(x, centers, mode)
+    got = _k2_repeat(xs, centers, mode)
+    _hold(got, xs, centers, mode)
+    assert torch.equal(got[1], kk.assign_stats_fused(x, centers, mode)[1])
+    if kk.packed_feasible(d, k):
+        _hold_k3(kk.assign_stats_packed(xs, centers, mode), got, xs, centers, mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("d,k", [(16, 100), (13, 7), (64, 40), (80, 9)])
+def test_k2_every_row_in_one_cluster(cuda, d, k, mode):
+    x, centers = _blobs(cuda, 200_003, d, k, seed=d * k)
+    x = (centers[2] + torch.randn(x.shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(d))).contiguous()
+    got = _k2_repeat(x, centers, mode)
+    _hold(got, x, centers, mode)
+    assert got[1][2].item() == x.shape[0]
+
+
+def _warp_limit(d, mode):
+    return max(k for k in range(1, 2000) if kk.fused_warps(d, k, mode) > 0)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("at", ["last_warp_k", "first_sort_k", "feasible_limit"])
+@pytest.mark.parametrize("d", [13, 16, 32, 64])
+def test_k2_variant_boundaries_match_float64(cuda, d, at, mode):
+    """k at the last shape of the warp variant, the first of the sort
+    variant, and the limit of fused_feasible, for each register width."""
+    limit = max(k for k in range(1, 2000) if kk.fused_feasible(d, k))
+    k = {"last_warp_k": _warp_limit(d, mode), "first_sort_k": _warp_limit(d, mode) + 1,
+         "feasible_limit": limit}[at]
+    assert kk.fused_feasible(d, k)
+    assert (kk.fused_warps(d, k, mode) > 0) == (at == "last_warp_k")
+    x, centers = _blobs(cuda, 4000, d, k, seed=d + k)
+    got = _k2_repeat(x, centers, mode)
+    _hold(got, x, centers, mode)
+    assert torch.equal(got[1], kk.assign_stats_plain(x, centers, mode)[1])
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("d,k", [(13, 40), (16, 100), (64, 30), (64, 200)])
+def test_k2_misaligned_rows_give_the_aligned_results(cuda, d, k, mode):
+    """A contiguous x whose data_ptr() is only 4-byte aligned takes the
+    4-byte copy route of the warp variant (d = 13 takes it either way; k =
+    200 at d = 64 runs the sort variant); the results are bitwise those of
+    an aligned copy."""
+    n = 50_003
+    x, centers = _separated(cuda, n, d, k, seed=d + k)
+    buf = torch.empty(n * d + 1, device=cuda)
+    xm = buf[1:].view(n, d)
+    xm.copy_(x)
+    assert xm.is_contiguous() and xm.data_ptr() % 16 != 0 and x.data_ptr() % 16 == 0
+    aligned = kk.assign_stats_fused(x, centers, mode)
+    misaligned = kk.assign_stats_fused(xm, centers, mode)
+    for u, v in zip(aligned, misaligned):
+        assert torch.equal(u, v)
+    _hold(misaligned, x, centers, mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n", [1, 5, 127, 129, 1_537, 65_537])
+@pytest.mark.parametrize("d,k", [(16, 100), (20, 50), (64, 30)])
+def test_k2_ragged_rows_match_float64_and_repeat(cuda, n, d, k, mode):
+    """n below one sub-tile, off one, and off a round of sub-tiles."""
+    x, centers = _blobs(cuda, n, d, k, seed=3 * n + d + k)
+    got = _k2_repeat(x, centers, mode)
+    _hold(got, x, centers, mode)
+    assert torch.equal(got[1], kk.assign_stats_plain(x, centers, mode)[1])
+
+
+@pytest.mark.parametrize("d,k", [(5, 3), (16, 100), (16, 900), (100, 7)])
+def test_k2_no_rows_give_zero_stats_in_both_variants(cuda, d, k):
+    x = torch.zeros((0, d), device=cuda)
+    centers = torch.randn((k, d), device=cuda)
+    sums, counts, cost, c2 = kk.assign_stats_fused(x, centers)
+    assert torch.equal(sums, torch.zeros((k, d), device=cuda))
+    assert torch.equal(counts, torch.zeros(k, dtype=torch.int64, device=cuda))
+    assert cost.item() == 0.0
+    assert torch.allclose(c2, (centers * centers).sum(dim=1), rtol=1e-6)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("d,k", [(8, 4), (16, 300), (80, 6)])
+def test_k2_ties_go_to_the_lowest_index_in_both_variants(cuda, d, k, mode):
+    x, centers = _blobs(cuda, 3000, d, k, seed=d + k)
+    dup = torch.cat([centers, centers]).contiguous()  # centers j and j + k tie exactly
+    counts = kk.assign_stats_fused(x, dup, mode)[1]
+    assert counts[k:].sum().item() == 0
+    assert torch.equal(counts[:k], kk.assign_stats_fused(x, centers, mode)[1])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_k2_rows_past_the_norm_limit_take_score_itself(cuda, mode):
+    """Rows whose ||x||^2 passes 2^124 (blobs scaled by 2^56; few enough
+    rows that the cost stays below float32's largest value) are scored by
+    score() itself rather than its one-FFMA form; the labels are still
+    float64's and bitwise K3's."""
+    x, centers = _blobs(cuda, 1000, 16, 16, seed=56)
+    x, centers = x * 2.0 ** 56, (centers * 2.0 ** 56).contiguous()
+    assert (x.double() ** 2).sum(dim=1).max().item() > 2.0 ** 124
+    got = _k2_repeat(x, centers, mode)
+    _hold(got, x, centers, mode)
+    packed = kk.assign_stats_packed(x, centers, mode)
+    assert torch.equal(packed[1], got[1]) and torch.equal(packed[3], got[3])
+
+
+def test_k2_variant_and_plan_match_the_source(cuda):
+    import ctypes
+
+    from spark_rapids_ml_tpu_torch.ops.kernels import _build
+
+    lib = _build.load(kk.FUSED_NAME)
+    warps = lib.kmeans_assign_stats_warps
+    warps.argtypes, warps.restype = [ctypes.c_int] * 3, ctypes.c_int
+    per_sm = lib.kmeans_assign_stats_blocks_per_sm
+    per_sm.argtypes, per_sm.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for mode, prec in kk.PRECISIONS.items():
+        for d in (1, 13, 16, 17, 32, 40, 64, 65, 200):
+            for k in (1, 7, 100, 300, 560, 600, 971):
+                if not kk.fused_feasible(d, k):
+                    continue
+                assert warps(d, k, prec) == kk.fused_warps(d, k, mode), (d, k, mode)
+                assert per_sm(d, k, prec) >= 1, (d, k, mode)
+    assert warps(16, 100, 7) == -1
+
+
 def test_shared_memory_rule_matches_the_source(cuda):
     import ctypes
 

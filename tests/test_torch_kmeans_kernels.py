@@ -282,3 +282,110 @@ def test_k3_block_plan_is_one_wave(n, dg, sms, per_sm, want):
     if n == "2T-1":
         n = 2 * kk.packed_threads(dg) - 1
     assert kk.packed_blocks(n, dg, sms, per_sm) == want
+
+
+# --- K2's two variants and its block plan ---------------------------------
+
+
+def _k2_source_constants():
+    text = (Path(kk.__file__).resolve().parents[2] / "csrc" / f"{kk.FUSED_NAME}.cu").read_text()
+    ints = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+    ints["MAX_SMEM"] = int(re.search(r"constexpr size_t MAX_SMEM = (\d+);", text)[1])
+    return ints
+
+
+def test_k2_geometry_matches_the_source():
+    """The wrapper's K2 constants are the source's: the sort variant's
+    block, the warp variant's rows a lane, warp caps and the cost's bytes."""
+    cu = _k2_source_constants()
+    assert cu["BLOCK"] == kk.FUSED_THREADS and cu["BLOCK"] // 32 == kk.FUSED_WARPS
+    assert cu["MAX_SMEM"] == kk.MAX_SHARED_BYTES
+    assert {w: cu[f"ROWS_{w}"] for w in (16, 32, 64)} == kk.FUSED_ROWS
+    assert {w: cu.get(f"ROWS_{w}_HIGH", cu[f"ROWS_{w}"]) for w in (16, 32, 64)} == kk.FUSED_ROWS_HIGH
+    assert (cu["WARPS_MAX"], cu["WARPS_MAX_WIDE"], cu["WARPS_MIN"], cu["RED_BYTES"]) == (
+        kk.FUSED_WARPS_MAX, kk.FUSED_WARPS_MAX_WIDE, kk.FUSED_WARPS_MIN, kk.FUSED_RED_BYTES)
+
+
+@pytest.mark.parametrize(
+    "d,k,mode,want",
+    [
+        (16, 100, "highest", 12),  # the main path: 20M x 16, k = 100
+        (16, 100, "default", 12),
+        (16, 100, "high", 12),
+        (16, 546, "highest", 4),  # the last k of the warp variant at width 16
+        (16, 547, "highest", 0),  # the first of the sort variant
+        (13, 546, "default", 4),
+        (16, 511, "high", 4),
+        (16, 512, "high", 0),
+        (32, 100, "highest", 8),
+        (64, 137, "highest", 4),
+        (64, 138, "highest", 0),
+        (64, 1, "high", 8),  # 128 row registers a lane: the wide cap
+        (65, 4, "highest", 0),  # past width 64: the sort variant
+        (1024, 18, "highest", 0),
+    ],
+)
+def test_k2_variant_choice(d, k, mode, want):
+    assert kk.fused_warps(d, k, mode) == want
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_k2_warp_variant_fills_its_shared_memory(mode):
+    """Where the warp variant runs, its warps are a multiple of 4 between
+    WARPS_MIN and the cap, fit the block's shared memory, and 4 more would
+    pass the cap or not fit."""
+    for d in (1, 5, 13, 16, 17, 24, 32, 40, 64):
+        dreg = kk._register_width(d)
+        cap = (kk.FUSED_WARPS_MAX_WIDE
+               if kk.fused_rows(dreg, mode) * dreg * (2 if mode == "high" else 1) >= 128
+               else kk.FUSED_WARPS_MAX)
+        for k in (1, 2, 7, 31, 100, 137, 300, 546, 800):
+            w = kk.fused_warps(d, k, mode)
+            if w == 0:
+                assert (kk.fused_warp_shared_bytes(d, k, mode, kk.FUSED_WARPS_MIN)
+                        > kk.MAX_SHARED_BYTES), (d, k)
+                continue
+            assert w % 4 == 0 and kk.FUSED_WARPS_MIN <= w <= cap, (d, k, w)
+            assert kk.fused_warp_shared_bytes(d, k, mode, w) <= kk.MAX_SHARED_BYTES
+            assert w == cap or kk.fused_warp_shared_bytes(d, k, mode, w + 4) > kk.MAX_SHARED_BYTES
+
+
+def test_k2_block_unit_is_a_round_of_subtiles():
+    assert kk.fused_unit(16, 100, "highest") == 32 * 4 * 12
+    assert kk.fused_unit(16, 100, "high") == 32 * 2 * 12
+    assert kk.fused_unit(64, 100, "highest") == 32 * 1 * 4
+    assert kk.fused_unit(16, 900, "highest") == kk.FUSED_THREADS  # the sort variant's tile
+    assert kk.fused_unit(100, 7, "highest") == kk.FUSED_THREADS
+
+
+@pytest.mark.parametrize(
+    "n,unit,kd,sms,per_sm,want",
+    [
+        (20_000_000, 1536, 1600, 132, 1, 132),  # one wave on a full card
+        (20_000_000, 256, 1600, 132, 3, 396),
+        (2 * 1536 - 1, 1536, 1600, 132, 1, 2),  # no more than one block per unit of rows
+        (1, 1536, 1600, 132, 1, 1),
+        (0, 1536, 1600, 132, 1, 1),  # at least one block
+        (20_000_000, 256, 1 << 24, 132, 4, (256 << 20) // (4 << 24)),  # the workspace cap
+    ],
+)
+def test_k2_block_plan_is_one_wave(n, unit, kd, sms, per_sm, want):
+    assert kk.fused_blocks(n, unit, kd, sms, per_sm) == want
+
+
+@pytest.mark.parametrize("d,limit", [(16, 971), (32, 535), (64, 282), (128, 145), (1024, 18)])
+def test_fused_feasible_keeps_its_limits(d, limit):
+    """The largest k K2 takes at each width, frozen: a redesign of the
+    kernel keeps every shape it took before."""
+    assert kk.fused_feasible(d, limit) and not kk.fused_feasible(d, limit + 1)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_k2_plain_matches_pallas_interpret_on_sorted_labels(mode):
+    """Rows ordered by their labels (each run of a warp's rows shares one
+    label, as in a table sorted by cluster)."""
+    x, c = _near_origin(1100, 16, 6, seed=77, bf16=mode == "default")
+    labels = kmeans_stats_f64(torch.from_numpy(x), torch.from_numpy(c), mode)[3]
+    x = np.ascontiguousarray(x[np.argsort(labels.numpy(), kind="stable")])
+    got = kk.assign_stats_fused(torch.from_numpy(x), torch.from_numpy(c), mode)
+    _hold(f"K2 plain sorted {mode}", got, _jax_stats(jpk.assign_stats_fused, x, c, mode))
