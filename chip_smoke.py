@@ -23,7 +23,19 @@ counters set to 0 just before and read just after:
   ``UMAP().fit`` (kernel K4 every epoch), ``transform`` of 10,000 new
   rows, a save/load round trip; held against an on-card float64 kNN,
   the plain tail route (one epoch, and trustworthiness of a whole fit),
-  and the blobs; then a spectral-init fit at 8,192 rows.
+  and the blobs; then a spectral-init fit at 8,192 rows;
+- wide and streaming fits, which run none of the kernels' own paths:
+  ``PCA().setK(16)`` on a 262,144 x 8,192 float32 tensor (``solver``
+  auto takes the randomized sketch), held against the same sketch in
+  float64 and an exact float64 eigensolve, and timed beside the
+  covariance fits (K1 at d = 8,192 under ``pallas``); the same rows as 32
+  host blocks through an iterator factory (the streaming sketch); PCA
+  over 2,097,152 x 1,024 float32 rows as 32 host blocks (a one-shot
+  generator and a factory: the one-pass streaming covariance) and its
+  streaming transform, against an on-card float64 fit; KMeans at config
+  3's shape as 20 host blocks through a factory (streaming Lloyd),
+  warm-started against the in-memory fit and seeded from its reservoir
+  against the planted blobs.
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -64,6 +76,9 @@ from spark_rapids_ml_tpu_torch.manifold import UMAP, UMAPModel  # noqa: E402
 from spark_rapids_ml_tpu_torch.models.umap import _knn_excluding_self  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops import umap as ops_umap  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.kernels import umap as k4  # noqa: E402
+from spark_rapids_ml_tpu_torch.ops.eigh import sign_flip  # noqa: E402
+from spark_rapids_ml_tpu_torch.ops.randomized import draw_omega, randomized_pca  # noqa: E402
+from spark_rapids_ml_tpu_torch.utils.tracing import counter_value  # noqa: E402
 
 SEED = 0
 N_MAIN = 1_000_000          # rows of the main path (bench.py's width: 1M x 1024)
@@ -99,6 +114,15 @@ UM_NEW = 10_000             # rows for transform
 UM_SUB = 2_000              # rows of the trustworthiness subsample
 UM_KNN_Q = 2_048            # query rows of the float64 kNN check
 UM_SPECTRAL_N = 8_192       # the largest n the estimator gives spectral init
+
+# Wide and streaming fits. WIDE_D is twice the width at which solver "auto"
+# takes the randomized sketch (4,096); the streaming fits cut no widths.
+WIDE_N = 262_144
+WIDE_D = 8_192
+WIDE_BLOCK = 8_192          # rows per host block of the streaming sketch (32 blocks)
+ST_N = 2_097_152            # rows of the streaming covariance fit (32 blocks of HOST_ROWS)
+KM_ST_BLOCK = 1 << 20       # rows per host block of the streaming KMeans fit (20 blocks)
+ORACLE_CHUNK = 16_384       # rows per chunk of the float64 Gram of the wide rows
 
 #: Every kernel of the paths: (name, route, source, the TPU kernel it replaces).
 KERNELS = [
@@ -1117,6 +1141,348 @@ def umap_phases(gen: torch.Generator, peaks) -> dict:
     return {"check": check, "main_path": main_path, "times": times}
 
 
+# --- Wide and streaming fits (no kernel of their own) -----------------------
+
+
+def _pc_err_aligned(a: np.ndarray, b: np.ndarray) -> float:
+    """Max |a − b| after each column of ``a`` takes the sign that agrees
+    with ``b``'s."""
+    signs = np.where(np.sum(a * b, axis=0) < 0, -1.0, 1.0)
+    return float(np.abs(a * signs - b).max())
+
+
+def _ev_rel_each(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def wide_oracle(x: torch.Tensor, k: int) -> dict:
+    """The exact float64 answer for the wide rows: the Gram around the
+    float32 column mean (K1's input) in row chunks, the covariance
+    corrected to the float64 mean, and its top-k eigenpairs (one dense
+    float64 ``eigh``)."""
+    n, d = x.shape
+    mean32 = x.mean(dim=0)
+    m = mean32.double()
+    mean64 = torch.zeros(d, dtype=torch.float64, device=x.device)
+    gram = torch.zeros((d, d), dtype=torch.float64, device=x.device)
+    for i in range(0, n, ORACLE_CHUNK):
+        b = x[i:i + ORACLE_CHUNK].double()
+        mean64 += b.sum(dim=0)
+        b -= m
+        gram.addmm_(b.T, b)
+        del b
+    mean64 /= n
+    delta = mean64 - m
+    # Σ(x − μ)(x − μ)ᵀ = Σ(x − m)(x − m)ᵀ − n·(μ − m)(μ − m)ᵀ
+    cov = (gram - n * torch.outer(delta, delta)) / (n - 1)
+    w, v = torch.linalg.eigh(cov)
+    w = torch.flip(w, (0,))
+    return {"mean32": mean32, "gram": gram, "cov": cov, "w": w[:k].cpu().numpy(),
+            "v": sign_flip(torch.flip(v, (1,))[:, :k]).cpu().numpy(),
+            "total": float(torch.trace(cov))}
+
+
+def _against_oracle(pc: np.ndarray, ev: np.ndarray, oracle: dict) -> dict:
+    v = torch.from_numpy(pc).to(device=oracle["cov"].device, dtype=torch.float64)
+    captured = float(torch.trace(v.T @ oracle["cov"] @ v))
+    exact_ratio = oracle["w"] / oracle["total"]
+    return {
+        "captured_variance_share": captured / float(oracle["w"].sum()),
+        "top4_pc_max_abs": _pc_err_aligned(pc[:, :4], oracle["v"][:, :4]),
+        "top4_ev_rel": _ev_rel_each(ev[:4], exact_ratio[:4]),
+    }
+
+
+def _require_oracle(what: str, got: dict) -> None:
+    require(got["captured_variance_share"] >= 0.99,
+            f"{what}: captured variance {got['captured_variance_share']:.5f} < 0.99 of the exact top-{K}")
+    require(got["top4_pc_max_abs"] <= 1e-2, f"{what}: top-4 components {got['top4_pc_max_abs']:.3e} > 1e-2")
+    require(got["top4_ev_rel"] <= 1e-3, f"{what}: top-4 ratios {got['top4_ev_rel']:.3e} > 1e-3 relative")
+
+
+def phase_wide_pca(x: torch.Tensor) -> tuple:
+    """The default fit at d = 8,192 (twice the sketch threshold) on a card
+    tensor: it must take the randomized sketch, shown by the sketch's own
+    counter; held against the same algorithm in float64 with the same Ω,
+    and against the exact float64 eigenpairs; timed beside the covariance
+    path under ``xla`` and ``pallas`` (K1 at d = 8,192, its Gram held to
+    the float64 Gram at or below the library call's error)."""
+    t_phase = time.perf_counter()
+    n, d = x.shape
+    sketches = counter_value("pca.sketch")
+    t0 = time.perf_counter()
+    model = PCA().setK(K).fit(x)
+    pc, ev = model.pc, model.explainedVariance
+    fit_first_s = time.perf_counter() - t0
+    took_sketch = counter_value("pca.sketch") - sketches
+    require(took_sketch == 1, f"the default fit at d = {d} did not take the randomized sketch")
+
+    # The same algorithm in float64 from the fit's own draw.
+    omega = draw_omega(d, min(K + 10, d, n), x.dtype).double()
+    x64 = x.double()
+    c64, r64, _ = randomized_pca(x64, K, omega)
+    del x64
+    same_pc = _pc_err_aligned(pc, c64.cpu().numpy())
+    same_ev = _ev_rel_each(ev, r64.cpu().numpy())
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    oracle = wide_oracle(x, K)
+    oracle_s = time.perf_counter() - t0
+    vs_oracle = _against_oracle(pc, ev, oracle)
+
+    # K1 at d = 8,192 against the float64 Gram, beside the library call.
+    mean32 = oracle["mean32"]
+    scale = oracle["gram"].abs().max().item()
+    got = k1.centered_gram_cuda(x, mean32)
+    k1_err = (got.double() - oracle["gram"]).abs().max().item() / scale
+    del got
+    b = x - mean32
+    lib = torch.matmul(b.T, b)
+    del b
+    lib_err = (lib.double() - oracle["gram"]).abs().max().item() / scale
+    del lib
+    torch.cuda.empty_cache()
+
+    def fit(solver, backend="xla"):
+        m = PCA().setK(K).setSolver(solver).setCovarianceBackend(backend).fit(x)
+        return m.pc, m.explainedVariance
+
+    # One launch per row slice that the workspace cap allows.
+    want_launches = -(-n // k1.launch_rows(n, d, x.dtype))
+    k1.reset_launches()
+    cov_pc, cov_ev = fit("covariance", "pallas")
+    pallas_launches = k1.launches
+    times = {
+        "randomized": wall_s(lambda: fit("auto")),
+        "covariance_xla": wall_s(lambda: fit("covariance"), repeats=1),
+        "covariance_pallas": wall_s(lambda: fit("covariance", "pallas"), repeats=1),
+    }
+    out = {
+        "phase": "wide_pca", "x": [n, d, str(x.dtype)], "k": K,
+        "route": "randomized sketch (counter pca.sketch +1)", "sketch_counter_delta": took_sketch,
+        "fit_first_s": fit_first_s,
+        "pc_vs_same_omega_f64_max_abs": same_pc, "ev_vs_same_omega_f64_rel": same_ev,
+        "oracle": vs_oracle, "oracle_s": oracle_s,
+        "covariance_pallas_vs_oracle": _against_oracle(cov_pc, cov_ev, oracle),
+        "k1_d8192": {"launches_in_pallas_fit": pallas_launches, "launches_planned": want_launches,
+                     "rel_err_vs_f64": k1_err,
+                     "library_rel_err_vs_f64": lib_err, "library_call": LIBRARY_GRAM},
+        "fit_wall_s": times,
+        "timing": "randomized: median of 3; covariance fits: one fit each",
+        "ev_top3": ev[:3].tolist(),
+    }
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    require(bool(np.isfinite(pc).all()) and list(pc.shape) == [d, K], "wide components not finite (d, k)")
+    require(same_pc <= 1e-3, f"wide sketch vs the float64 sketch: components {same_pc:.3e} > 1e-3")
+    require(same_ev <= 1e-4, f"wide sketch vs the float64 sketch: ratios {same_ev:.3e} > 1e-4 relative")
+    _require_oracle("wide sketch", vs_oracle)
+    require(pallas_launches == want_launches,
+            f"the pallas covariance fit at d = {d} launched K1 {pallas_launches} times, "
+            f"its row slices call for {want_launches}")
+    require(k1_err <= lib_err, f"K1 at d = 8192: error {k1_err:.3e} above the library call's {lib_err:.3e}")
+    return out, oracle, ev
+
+
+def phase_streaming_wide_pca(blocks: list, oracle: dict, sketch_ev: np.ndarray) -> dict:
+    """The wide rows as host blocks through an iterator factory: ``solver``
+    auto peeks one block's width and runs the streaming sketch (a moments
+    pass and three passes over the blocks)."""
+    t_phase = time.perf_counter()
+    streams = counter_value("pca.sketch.stream")
+    passes = counter_value("pca.sketch.stream.passes")
+    opened = []  # host clock at each fresh iterator: the width probe, then one per pass
+
+    def factory():
+        opened.append(time.perf_counter())
+        return iter(blocks)
+
+    t0 = time.perf_counter()
+    model = PCA().setK(K).fit(factory)
+    pc, ev = model.pc, model.explainedVariance
+    wall = time.perf_counter() - t0
+    n_passes = counter_value("pca.sketch.stream.passes") - passes
+    ends = opened[2:] + [t0 + wall]
+    vs_oracle = _against_oracle(pc, ev, oracle)
+    out = {
+        "phase": "streaming_wide_pca",
+        "x": [sum(b.shape[0] for b in blocks), int(blocks[0].shape[1]), str(blocks[0].dtype)],
+        "blocks": len(blocks), "block_rows": int(blocks[0].shape[0]), "k": K,
+        "route": "streaming randomized sketch (counter pca.sketch.stream +1)",
+        "fit_wall_s": wall, "passes": n_passes,
+        "pass_s": {"moments (host float64)": ends[0] - opened[1],
+                   "power and Rayleigh-Ritz (card)": [e - s for s, e in zip(opened[2:], ends[1:])]},
+        "oracle": vs_oracle,
+        # The streaming sketch's subspace is (XᵀX)²Ω, the in-memory one's
+        # (XᵀX)³Ω (the reference's two algorithms at power_iters = 2), so
+        # their trailing ratios differ by more than their leading ones.
+        "top4_ev_vs_in_memory_sketch_rel": _ev_rel_each(ev[:4], sketch_ev[:4]),
+        "ev_vs_in_memory_sketch_rel": _ev_rel_each(ev, sketch_ev),
+    }
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    require(counter_value("pca.sketch.stream") - streams == 1, "the wide stream did not take the streaming sketch")
+    require(n_passes == 4, f"the streaming sketch made {n_passes} passes, not 4")
+    _require_oracle("streaming wide sketch", vs_oracle)
+    require(out["top4_ev_vs_in_memory_sketch_rel"] <= 1e-3,
+            "streaming sketch top-4 ratios differ from the in-memory sketch's by > 1e-3 relative")
+    return out
+
+
+def _h2d_ms(prof) -> float:
+    return sum(ms for key, ms in _device_ms_by_kernel(prof).items() if "HtoD" in key)
+
+
+def phase_streaming_pca(x: torch.Tensor, blocks: list) -> dict:
+    """PCA over host blocks at constant memory: a one-shot generator and an
+    iterator factory (d = 1,024 < 4,096: the one-pass streaming
+    covariance), the streaming transform, one factory fit under
+    ``torch.profiler`` (the device's idle share and its host-to-device
+    copy time); held against an on-card float64 fit of the same rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    n = sum(b.shape[0] for b in blocks)
+    nbytes = sum(b.nbytes for b in blocks)
+    sketches = counter_value("pca.sketch") + counter_value("pca.sketch.stream")
+    t0 = time.perf_counter()
+    model_gen = PCA().setK(K).fit(iter(blocks))
+    pc_gen = model_gen.pc
+    gen_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = PCA().setK(K).fit(lambda: iter(blocks))
+    pc, ev = model.pc, model.explainedVariance
+    factory_wall = time.perf_counter() - t0
+    took_sketch = counter_value("pca.sketch") + counter_value("pca.sketch.stream") - sketches
+
+    t0 = time.perf_counter()
+    y = np.concatenate(list(model.transform(lambda: iter(blocks))))
+    transform_wall = time.perf_counter() - t0
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        PCA().setK(K).fit(lambda: iter(blocks)).explainedVariance
+        sync()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = _device_ms_by_kernel(prof)
+    busy_ms = sum(device_ms.values())
+    h2d_ms = _h2d_ms(prof)
+
+    # The reference: an on-card float64 fit of the same rows.
+    model64 = PCA().setK(K).fit(x.double())
+    pc64, ev64 = model64.pc, model64.explainedVariance
+    torch.cuda.empty_cache()
+    pc_dev = torch.from_numpy(pc).to(x.device)
+    y_ref = torch.cat([x[i:i + HOST_ROWS].double() @ pc_dev for i in range(0, n, HOST_ROWS)]).cpu().numpy()
+    y_rel = float(np.abs(y - y_ref).max() / np.abs(y_ref).max())
+    out = {
+        "phase": "streaming_pca", "x": [n, int(blocks[0].shape[1]), str(blocks[0].dtype)],
+        "blocks": len(blocks), "block_rows": int(blocks[0].shape[0]), "k": K,
+        "route": "one-pass streaming covariance, float64 on the card", "sketch_counter_delta": took_sketch,
+        "fit_wall_s": {"generator": gen_wall, "factory": factory_wall},
+        "rows_per_s": {"generator": n / gen_wall, "factory": n / factory_wall},
+        "host_bytes": nbytes, "h2d_bytes_per_s_over_fit_wall": nbytes / factory_wall,
+        "transform_wall_s": transform_wall,
+        "profile": {"window_ms": window_ms, "device_busy_ms": busy_ms,
+                    "device_idle_share": (1.0 - busy_ms / window_ms) if busy_ms else None,
+                    "h2d_copy_ms": h2d_ms, "h2d_share_of_window": h2d_ms / window_ms,
+                    "h2d_bytes_per_s_while_copying": nbytes / (h2d_ms / 1e3) if h2d_ms else None,
+                    "top_device_ms": [{"kernel": k[:80], "ms": v}
+                                      for k, v in sorted(device_ms.items(), key=lambda kv: -kv[1])[:6]]},
+        "pc_vs_f64_max_abs": {"generator": _pc_err(pc_gen, pc64), "factory": _pc_err(pc, pc64)},
+        "ev_vs_f64_rel": {"generator": _ev_rel(model_gen.explainedVariance, ev64), "factory": _ev_rel(ev, ev64)},
+        "transform_rel": y_rel,
+    }
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    require(took_sketch == 0, "a d = 1024 stream took the sketch")
+    require(y.shape == (n, K), "streaming transform shape")
+    for kind in ("generator", "factory"):
+        require(out["pc_vs_f64_max_abs"][kind] <= 1e-6, f"streaming {kind} components differ from the f64 fit")
+        require(out["ev_vs_f64_rel"][kind] <= 1e-10, f"streaming {kind} explained variance differs from the f64 fit")
+    require(y_rel <= 1e-4, "streaming transform differs from x @ pc")
+    return out
+
+
+def phase_streaming_kmeans(x: torch.Tensor, truth: torch.Tensor, blocks: list, gen: torch.Generator) -> dict:
+    """KMeans over host blocks through an iterator factory (streaming
+    Lloyd, one pass an iteration, the plain route): warm-started against
+    the in-memory ``xla`` fit from the same centers, and seeded from its
+    reservoir against the planted blobs."""
+    t_phase = time.perf_counter()
+    c0 = near(truth, gen)
+    mem = KMeans().setK(KM_K).setInitialModel(c0).setBackend("xla").fit(x)
+    kk.reset_launches()
+    t0 = time.perf_counter()
+    warm = KMeans().setK(KM_K).setInitialModel(c0).fit(lambda: iter(blocks))
+    warm_centers = warm.clusterCenters()
+    warm_wall = time.perf_counter() - t0
+
+    def seeded():
+        return KMeans().setK(KM_K).setSeed(SEED).fit(lambda: iter(blocks))
+
+    model = seeded()
+    centers = model.clusterCenters()
+    kernel_launches = dict(kk.launches)
+    seeded_wall = wall_s(lambda: seeded().trainingCost)
+    truth_np = truth.double().cpu().numpy()
+    nearest = np.sqrt(((truth_np[:, None, :] - centers[None]) ** 2).sum(-1)).min(axis=1)
+    out = {
+        "phase": "streaming_kmeans", "x": [sum(b.shape[0] for b in blocks), int(blocks[0].shape[1]),
+                                           str(blocks[0].dtype)],
+        "blocks": len(blocks), "block_rows": int(blocks[0].shape[0]), "k": KM_K,
+        "kernel_launches": kernel_launches,
+        "warm": {"fit_wall_s": warm_wall, "num_iter": warm.numIter, "in_memory_num_iter": mem.numIter,
+                 "centers_vs_in_memory_max_abs": float(np.abs(warm_centers - mem.clusterCenters()).max()),
+                 "cost_vs_in_memory_rel": abs(warm.trainingCost - mem.trainingCost) / abs(mem.trainingCost)},
+        "seeded": {"fit_wall_s": seeded_wall, "timing": "median of 3", "num_iter": model.numIter,
+                   "planted_center_max_distance": float(nearest.max())},
+    }
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    require(sum(kernel_launches.values()) == 0, "the streaming KMeans route launched K2 or K3")
+    require(out["warm"]["centers_vs_in_memory_max_abs"] <= 1e-3, "streaming centers differ from the in-memory fit")
+    require(out["warm"]["cost_vs_in_memory_rel"] <= 1e-4, "streaming cost differs from the in-memory fit")
+    require(warm.numIter == mem.numIter, "streaming numIter differs from the in-memory fit")
+    require(nearest.max() <= 1.0, f"a planted center is {nearest.max():.3f} from every fitted center")
+    return out
+
+
+def streaming_phases(gen: torch.Generator) -> None:
+    """The wide and streaming phases, each freeing its data before the
+    next: the wide tensor, then its rows as host blocks, then the streaming
+    covariance rows, then the KMeans rows. Prints the four phases' wall
+    with the making and copying of their data."""
+    t0 = time.perf_counter()
+    x = planted(WIDE_N, WIDE_D, gen)
+    _, oracle, sketch_ev = phase_wide_pca(x)
+    wide_host = x.cpu().numpy()
+    del x
+    oracle = {key: oracle[key] for key in ("cov", "w", "v", "total")}
+    torch.cuda.empty_cache()
+    blocks = [wide_host[i:i + WIDE_BLOCK] for i in range(0, WIDE_N, WIDE_BLOCK)]
+    phase_streaming_wide_pca(blocks, oracle, sketch_ev)
+    del wide_host, blocks, oracle
+    torch.cuda.empty_cache()
+
+    x = planted(ST_N, D, gen)
+    host = x.cpu().numpy()
+    blocks = [host[i:i + HOST_ROWS] for i in range(0, ST_N, HOST_ROWS)]
+    phase_streaming_pca(x, blocks)
+    del x, host, blocks
+    torch.cuda.empty_cache()
+
+    x, truth = planted_blobs(KM_N, KM_D, KM_K, gen)
+    host = x.cpu().numpy()
+    blocks = [host[i:i + KM_ST_BLOCK] for i in range(0, KM_N, KM_ST_BLOCK)]
+    phase_streaming_kmeans(x, truth, blocks, gen)
+    del x, host, blocks
+    torch.cuda.empty_cache()
+    emit({"phases": ["wide_pca", "streaming_wide_pca", "streaming_pca", "streaming_kmeans"],
+          "wall_s": time.perf_counter() - t0})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -1145,6 +1511,8 @@ def main() -> int:
     km = kmeans_phases(gen, peaks)
     torch.cuda.empty_cache()
     um = umap_phases(gen, peaks)
+    torch.cuda.empty_cache()
+    streaming_phases(gen)
 
     k1_f32 = times["k1_f32"]
     measured = {

@@ -10,13 +10,15 @@ Port of the reference's ``core/data.py``. The native representations:
     place where it lives (the reference's ``jax.Array`` mode)
 
 Everything host-side funnels through :func:`as_partitions`, which yields
-dense row-major float blocks. Streaming sources (block iterators, block
-readers, iterator factories) are recognised and refused: their fit and
-transform paths arrive with the streaming slice.
+dense row-major float blocks. Streaming sources (a block iterator, a
+block reader with ``iter_blocks``, or a zero-argument iterator factory)
+never materialize: the estimators' streaming paths take them block by
+block (:func:`iter_stream_blocks`), at constant memory.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -27,12 +29,31 @@ try:
 except ImportError:  # pragma: no cover
     _sp = None
 
+#: Default rows per block of the fit-path block readers (one block is
+#: resident on the device at a time).
+DEFAULT_FIT_BLOCK_ROWS = 65536
 
-STREAMING_SLICE = (
-    "streaming block sources (iterators, block readers, iterator factories) "
-    "are not ported yet: they arrive with the streaming item (ROADMAP A.5a); "
-    "pass numpy partitions or a torch.Tensor"
-)
+FIT_BLOCK_ROWS_ENV = "TPUML_FIT_BLOCK_ROWS"
+
+
+def fit_block_rows() -> int:
+    """Rows per block of :class:`HostArrayBlockReader` and
+    :class:`ArrowBlockReader` when the caller gives none: the
+    ``TPUML_FIT_BLOCK_ROWS`` knob when it is set (an integer >= 1), else
+    :data:`DEFAULT_FIT_BLOCK_ROWS`. The reference's autotuned default
+    waits for the precision/autotune item (ROADMAP 5e)."""
+    raw = os.environ.get(FIT_BLOCK_ROWS_ENV)
+    if raw is None:
+        return DEFAULT_FIT_BLOCK_ROWS
+    try:
+        value = int(raw.strip())
+    except ValueError:
+        raise ValueError(
+            f"{FIT_BLOCK_ROWS_ENV}={raw!r}: expected an integer (e.g. 100)"
+        ) from None
+    if value < 1:
+        raise ValueError(f"{FIT_BLOCK_ROWS_ENV}={raw!r}: expected an integer >= 1")
+    return value
 
 
 class SparseVector:
@@ -130,6 +151,13 @@ def infer_input_dtype(data: Any):
         return data.dtype if np.issubdtype(data.dtype, np.floating) else None
     if isinstance(data, (SparseVector, DenseVector, float)):
         return np.dtype(np.float64)
+    if callable(getattr(data, "iter_blocks", None)) and hasattr(data, "dtype"):
+        # Block readers know their dtype.
+        try:
+            dt = np.dtype(data.dtype)
+        except TypeError:
+            return None
+        return dt if np.issubdtype(dt, np.floating) else None
     try:
         import pandas as pd
     except ImportError:  # pragma: no cover
@@ -169,6 +197,13 @@ def _block_to_dense(block: Any, dtype=None) -> np.ndarray:
     if not rows:
         return np.zeros((0, 0), dtype=dt)
     return np.stack(rows).astype(dt, copy=False)
+
+
+def dense_block(block: Any) -> np.ndarray:
+    """One raw block of a stream as a dense host array: a float32 block
+    stays float32 (it goes to the device as it is and widens there, to the
+    same values), anything else is float64."""
+    return _block_to_dense(block, dtype=np.float32 if getattr(block, "dtype", None) == np.float32 else None)
 
 
 class DataFrame:
@@ -285,9 +320,13 @@ def as_partitions(
     """Normalize input into a list of dense (rows_i, d) float partitions
     (float64 by default). A ``list``/``tuple`` of 2-D blocks is
     pre-partitioned; anything else becomes one partition, optionally
-    re-split into ``num_partitions`` row blocks."""
+    re-split into ``num_partitions`` row blocks. A streaming source is
+    refused: it would have to be materialized."""
     if is_streaming_source(data):
-        raise NotImplementedError(STREAMING_SLICE)
+        raise ValueError(
+            "a streaming block source is not materialized into partitions; "
+            "pass it to fit (or transform), which streams it block by block"
+        )
     if isinstance(data, (list, tuple)) and data and _is_block(data[0]):
         parts = [_block_to_dense(b, dtype=dtype) for b in data]
     else:
@@ -336,6 +375,51 @@ def _is_zero_arg_callable(fn: Any) -> bool:
     return True
 
 
+def is_reiterable_stream(data: Any) -> bool:
+    """True for streaming sources that can be iterated more than once: a
+    block reader (``iter_blocks``) or an iterator factory (zero-argument
+    callable). A one-shot generator streams but cannot be re-read, so the
+    multi-pass algorithms (the randomized sketch, Lloyd) refuse it."""
+    if callable(getattr(data, "iter_blocks", None)):
+        return True
+    from collections.abc import Iterator
+
+    return (
+        callable(data)
+        and not isinstance(data, (type, Iterator))
+        and _is_zero_arg_callable(data)
+    )
+
+
+def peek_stream_width(data: Any) -> int:
+    """Feature width of a re-iterable streaming source, read from the first
+    non-empty block of a fresh iterator (a routing probe; never call it on
+    a one-shot generator, whose rows it would consume). An array, tensor
+    or sparse matrix is read by its shape, with no copy; only a block of
+    rows without one is densified."""
+    for blk in iter_stream_blocks(data):
+        shape = getattr(blk, "shape", None)
+        if shape is None or len(shape) != 2:
+            shape = _block_to_dense(blk).shape
+        if shape[0] > 0:
+            return int(shape[1])
+    raise ValueError("streaming source yielded no rows")
+
+
+def iter_stream_blocks(data: Any):
+    """A fresh iterator of raw blocks over a streaming source (see
+    :func:`is_streaming_source`)."""
+    from collections.abc import Iterator
+
+    if isinstance(data, Iterator):
+        return data
+    if callable(getattr(data, "iter_blocks", None)):
+        return data.iter_blocks()
+    if callable(data):
+        return iter(data())
+    raise TypeError(f"not a streaming block source: {type(data).__name__}")
+
+
 def as_matrix(data: Any, dtype=None) -> np.ndarray:
     """Normalize input into one dense (n, d) float matrix (float64 by default)."""
     parts = as_partitions(data, dtype=dtype)
@@ -356,3 +440,122 @@ def num_features(data: Any) -> int:
             return first.shape[1]
         return len(_row_to_array(first))
     return as_partitions(data)[0].shape[1]
+
+
+class HostArrayBlockReader:
+    """Re-iterable block view over one host matrix: blocks are row slices
+    (numpy views, no copy), so a fit through it keeps one block on the
+    device at a time. Exposes ``dtype`` for :func:`infer_input_dtype`."""
+
+    def __init__(self, x: Any, block_rows: Optional[int] = None):
+        self._x = np.asarray(x)
+        if self._x.ndim != 2:
+            raise ValueError(
+                f"HostArrayBlockReader needs a 2-D matrix, got {self._x.ndim}-D"
+            )
+        self.block_rows = int(block_rows) if block_rows else fit_block_rows()
+        if self.block_rows < 1:
+            raise ValueError("block_rows must be >= 1")
+
+    @property
+    def dtype(self):
+        return self._x.dtype
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (int(self._x.shape[0]), int(self._x.shape[1]))
+
+    def iter_blocks(self) -> Iterable[np.ndarray]:
+        for i in range(0, self._x.shape[0], self.block_rows):
+            yield self._x[i : i + self.block_rows]
+
+
+class ArrowBlockReader:
+    """Re-iterable block reader over an on-disk parquet dataset (a file or
+    a directory), read through ``pyarrow.dataset`` one record batch of
+    ``block_rows`` at a time, so a fit never holds the dataset in host or
+    device memory. Feature ``columns`` default to every column except
+    ``exclude``; a list-typed column (Spark's packed vector column)
+    expands to its width. :meth:`read_column` materializes one column
+    (labels). ``pyarrow`` is imported when a reader is made, not with
+    this module."""
+
+    def __init__(
+        self,
+        source: Any,
+        columns: Optional[Sequence[str]] = None,
+        *,
+        block_rows: Optional[int] = None,
+        dtype: Any = None,
+        exclude: Sequence[str] = (),
+    ):
+        import pyarrow as pa
+        import pyarrow.dataset as pads
+
+        self._ds = (
+            source
+            if isinstance(source, pads.Dataset)
+            else pads.dataset(source, format="parquet")
+        )
+        schema = self._ds.schema
+        if columns is None:
+            columns = [c for c in schema.names if c not in set(exclude)]
+        else:
+            missing = [c for c in columns if c not in schema.names]
+            if missing:
+                raise KeyError(f"no such column(s) in dataset: {missing}")
+        if not columns:
+            raise ValueError("ArrowBlockReader needs at least one feature column")
+        self.columns = list(columns)
+        if dtype is not None:
+            self._dtype = np.dtype(dtype)
+        else:
+            # float32 only when every feature column is float32; anything
+            # else reads as float64.
+            def _leaf(t):
+                return t.value_type if pa.types.is_list(t) or pa.types.is_fixed_size_list(t) else t
+
+            all_f32 = all(_leaf(schema.field(c).type) == pa.float32() for c in self.columns)
+            self._dtype = np.dtype(np.float32 if all_f32 else np.float64)
+        self.block_rows = int(block_rows) if block_rows else fit_block_rows()
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    def num_rows(self) -> int:
+        return int(self._ds.count_rows())
+
+    @staticmethod
+    def _column_to_numpy(chunk) -> np.ndarray:
+        import pyarrow as pa
+
+        t = chunk.type
+        if pa.types.is_list(t) or pa.types.is_fixed_size_list(t):
+            # flatten(), not .values: a sliced batch shares its parent's
+            # buffer, and .values would return the whole column.
+            flat = np.asarray(chunk.flatten())
+            if pa.types.is_list(t):
+                widths = np.asarray(chunk.value_lengths())
+                if widths.size and not np.all(widths == widths[0]):
+                    raise ValueError("ragged list column cannot form a matrix")
+                width = int(widths[0]) if widths.size else 0
+            else:
+                width = t.list_size
+            return flat.reshape(-1, width)
+        return np.asarray(chunk.to_numpy(zero_copy_only=False)).reshape(-1, 1)
+
+    def iter_blocks(self) -> Iterable[np.ndarray]:
+        for batch in self._ds.to_batches(columns=self.columns, batch_size=self.block_rows):
+            if batch.num_rows == 0:
+                continue
+            cols = [self._column_to_numpy(batch.column(i)) for i in range(batch.num_columns)]
+            block = cols[0] if len(cols) == 1 else np.concatenate(cols, axis=1)
+            yield np.ascontiguousarray(block, dtype=self._dtype)
+
+    def read_column(self, name: str, dtype: Any = np.float64) -> np.ndarray:
+        """One full column as a host array (label extraction)."""
+        if name not in self._ds.schema.names:
+            raise KeyError(f"no such column in dataset: {name!r}")
+        tbl = self._ds.to_table(columns=[name])
+        return np.asarray(tbl.column(0).to_numpy(zero_copy_only=False), dtype=dtype)

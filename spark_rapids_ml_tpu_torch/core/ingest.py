@@ -28,6 +28,11 @@ from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 _NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
+def numpy_dtype(dtype: torch.dtype):
+    """The numpy twin of a floating torch dtype (float32 or float64)."""
+    return _NUMPY_DTYPE[dtype]
+
+
 def default_dtype() -> torch.dtype:
     """The compute dtype of host inputs when the caller pins none:
     float32, the card's working type (the reference's non-x64 default)."""

@@ -1,18 +1,25 @@
 """Row matrix with accelerated covariance/PCA — port of the reference's
 ``linalg/row_matrix.py`` (the ``RapidsRowMatrix`` equivalent).
 
-Two routes, each under both covariance backends:
+Three routes:
   - a ``torch.Tensor`` computes where it lives, in its own dtype. With the
     ``"xla"`` backend the whole fit is one plain function
     (:func:`_pca_fit_device`); with ``"pallas"`` the covariance runs on
     kernel K1 and the eigensolve follows on the same device.
   - host partitions (numpy blocks) go to the device one at a time in
     float64 — Hopper computes float64 natively, as the original
-    ``cublasDgemm`` did — and their Grams are summed there.
+    ``cublasDgemm`` did — and their Grams are summed there (plain torch or
+    K1).
+  - a streaming source (block iterator, block reader, iterator factory) is
+    never materialized: one pass of the shifted accumulation
+    (``ops/covariance.py::streaming_mean_and_covariance``) in float64,
+    one block on the device at a time, plain torch only. Its shape is
+    known once the pass has run. ``precision="dd"`` is the same float64
+    scan.
 
 Routes of later slices raise ``NotImplementedError`` naming the slice:
-streaming sources, ``useGemm=False`` (the packed/native path), and a mesh
-(one process or many).
+``useGemm=False`` (the packed/native path) and a mesh (one process or
+many, streaming or not).
 """
 
 from __future__ import annotations
@@ -24,13 +31,14 @@ import torch
 
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.data import (
-    STREAMING_SLICE,
     as_partitions,
     is_device_array,
     is_streaming_source,
+    iter_stream_blocks,
 )
 from spark_rapids_ml_tpu_torch.ops.covariance import (
     centered_gram,
+    streaming_mean_and_covariance,
     welford_add_block,
     welford_init,
 )
@@ -112,6 +120,7 @@ class RowMatrix:
             raise NotImplementedError(MESH_SLICE)
         self._device_x: Optional[torch.Tensor] = None
         self.partitions: Optional[List[np.ndarray]] = None
+        self._stream = None
         self._num_rows: Optional[int] = None
         self._num_cols: Optional[int] = None
         if is_device_array(rows):
@@ -123,7 +132,7 @@ class RowMatrix:
             self._num_rows = int(rows.shape[0])
             self._num_cols = int(rows.shape[1])
         elif is_streaming_source(rows):
-            raise NotImplementedError(STREAMING_SLICE)
+            self._stream = rows
         else:
             self.partitions = as_partitions(rows)
         self.mean_centering = mean_centering
@@ -144,6 +153,8 @@ class RowMatrix:
                     "covariance (useGemm=True)"
                 )
             raise NotImplementedError(PACKED_SLICE)
+        if backend == "pallas" and self._stream is not None:
+            raise ValueError("backend='pallas' has no streaming path; use 'xla'")
         self.backend = backend
         if eigen_solver not in ("auto", "full", "topk"):
             raise ValueError(
@@ -169,16 +180,23 @@ class RowMatrix:
 
     # --- shape ---
 
+    _STREAM_SHAPE = "streaming input: shape is unknown until a fit pass runs"
+
     @property
     def num_rows(self) -> int:
         if self._num_rows is None:
+            if self.partitions is None:
+                raise RuntimeError(self._STREAM_SHAPE)
             self._num_rows = sum(p.shape[0] for p in self.partitions)
         return self._num_rows
 
     @property
     def num_cols(self) -> int:
+        # A streaming source's width is what its pass found.
         if self._num_cols is not None:
             return self._num_cols
+        if self.partitions is None:
+            raise RuntimeError(self._STREAM_SHAPE)
         return self.partitions[0].shape[1]
 
     @property
@@ -197,6 +215,11 @@ class RowMatrix:
     # --- column stats (Statistics.colStats analogue) ---
 
     def column_means(self) -> torch.Tensor:
+        if self._stream is not None:
+            raise RuntimeError(
+                "streaming input: column means are computed inside the "
+                "one-pass covariance; use compute_covariance()"
+            )
         with TraceRange("mean center", TraceColor.ORANGE):
             if self._device_x is not None:
                 return torch.mean(self._device_x, dim=0)
@@ -220,6 +243,8 @@ class RowMatrix:
         return centered_gram(blk, mean, precision=self.precision)
 
     def compute_covariance(self) -> torch.Tensor:
+        if self._stream is not None:
+            return self._covariance_streaming()
         n = self.num_rows
         if n < 2:
             raise ValueError(f"need at least 2 rows, got {n}")
@@ -233,6 +258,23 @@ class RowMatrix:
         self._device()  # on a CUDA tensor: TF32 off, as "highest" needs
         with TraceRange("compute cov", TraceColor.RED):
             return self._gram(self._device_x, self._mean()) / (self.num_rows - 1)
+
+    def _covariance_streaming(self) -> torch.Tensor:
+        """Covariance of a streaming source: one pass, one block on the
+        device at a time (shifted accumulation, float64). Records the shape
+        the pass found."""
+        device = self._device()
+        with TraceRange("compute cov (stream)", TraceColor.RED):
+            _, cov, n = streaming_mean_and_covariance(
+                iter_stream_blocks(self._stream),
+                center=self.mean_centering,
+                dtype=self.dtype,
+                precision=self.precision,
+                device=device,
+            )
+        self._num_rows = int(n)
+        self._num_cols = int(cov.shape[0])
+        return torch.from_numpy(cov).to(device=device, dtype=self.dtype)
 
     def _covariance_gemm(self, mean: torch.Tensor) -> torch.Tensor:
         """Per-partition centered Gram, summed on the device."""
@@ -250,9 +292,8 @@ class RowMatrix:
     def compute_principal_components_and_explained_variance(
         self, k: int
     ) -> Tuple[object, object]:
-        n_cols = self.num_cols
         if self._device_x is not None and self.use_accel_svd and self.backend != "pallas":
-            n = self.num_rows
+            n, n_cols = self.num_rows, self.num_cols
             if n < 2:
                 raise ValueError(f"need at least 2 rows, got {n}")
             if not 1 <= k <= n_cols:
@@ -267,9 +308,13 @@ class RowMatrix:
                     eigen_solver=self.eigen_solver,
                     eigen_iters=self.eigen_iters,
                 )  # device tensors: the model reads them back lazily
+        # A stream learns its width during the pass: validate k after it.
+        if self._stream is None and not 1 <= k <= self.num_cols:
+            raise ValueError(f"k must be in [1, {self.num_cols}], got {k}")
+        cov = self.compute_covariance()
+        n_cols = self.num_cols
         if not 1 <= k <= n_cols:
             raise ValueError(f"k must be in [1, {n_cols}], got {k}")
-        cov = self.compute_covariance()
         if self.precision == "dd":
             # The reference's float64 route solves on the host in full (the
             # route exists for accuracy, not speed): LAPACK in float64 for

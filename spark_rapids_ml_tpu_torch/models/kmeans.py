@@ -17,11 +17,19 @@ kernels' plain versions (the reference's ``interpret=True``).
 
 "k-means||" is greedy k-means++ on the device, seeded from a
 ``torch.Generator`` (``seed``): it matches the reference in distribution,
-not in bits. Left out until their ROADMAP items: streaming sources
-(A.7a), a mesh (A.7d) and ``serving_signature`` (A.7e) raise
-``NotImplementedError``; the checkpointed Lloyd (A.7b) and the fit memory
-guard (A.7c) are switched on by knobs the port does not read yet, so no
-fit reaches them.
+not in bits.
+
+A streaming source (an iterator factory or a block reader: Lloyd makes a
+pass per iteration, so a one-shot generator is refused) fits at constant
+memory on the ``xla`` route, whatever ``backend`` says, as in the
+reference: seeding runs on a one-pass reservoir of max(4096, 4k) rows,
+then :func:`~spark_rapids_ml_tpu_torch.ops.kmeans.lloyd_streaming` in
+float32.
+
+Left out until their ROADMAP items: a mesh (A.7d) and
+``serving_signature`` (A.7e) raise ``NotImplementedError``; the
+checkpointed Lloyd (A.7b) and the fit memory guard (A.7c) are switched on
+by knobs the port does not read yet, so no fit reaches them.
 """
 
 from __future__ import annotations
@@ -37,10 +45,13 @@ from spark_rapids_ml_tpu_torch.core.data import (
     extract_features,
     extract_weights,
     is_device_array,
+    is_reiterable_stream,
     is_streaming_source,
+    iter_stream_blocks,
+    peek_stream_width,
 )
 from spark_rapids_ml_tpu_torch.core.estimator import Estimator, Model
-from spark_rapids_ml_tpu_torch.core.ingest import matrix_like, prepare_rows
+from spark_rapids_ml_tpu_torch.core.ingest import default_dtype, matrix_like, numpy_dtype, prepare_rows
 from spark_rapids_ml_tpu_torch.core.lazy_state import LazyHostState, to_host
 from spark_rapids_ml_tpu_torch.core.params import Param, Params, gt, toFloat, toInt, toString
 from spark_rapids_ml_tpu_torch.core.persistence import (
@@ -57,16 +68,14 @@ from spark_rapids_ml_tpu_torch.ops.kmeans import (
     assign_clusters,
     kmeans_plusplus_init,
     lloyd,
+    lloyd_streaming,
     normalize_rows,
     random_init,
+    reservoir_sample_rows,
 )
 from spark_rapids_ml_tpu_torch.ops.precision import pallas_precision, resolve_policy, validate_mode
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
-STREAMING_FIT_ITEM = (
-    "streaming KMeans fits (lloyd_streaming over a re-iterable block source) "
-    "are not ported yet: ROADMAP A.7a; pass numpy partitions or a torch.Tensor"
-)
 MESH_ITEM = "the mesh route of KMeans is not ported yet: ROADMAP A.7d"
 SERVING_SIGNATURE_ITEM = "serving_signature is not ported yet: ROADMAP A.7e (with the serving slice)"
 
@@ -234,13 +243,79 @@ class KMeans(_KMeansParams, Estimator, MLReadable):
         rows = extract_features(dataset, self.getFeaturesCol())
         w_host = extract_weights(dataset, self.getWeightCol())
         if is_streaming_source(rows):
-            raise NotImplementedError(STREAMING_FIT_ITEM)
+            return self._fit_streaming(rows)
         if self.mesh is not None:
             raise NotImplementedError(MESH_ITEM)
         return self._fit_in_memory(rows, w_host)
 
+    # Seeding reservoir of a streaming fit: large enough that k-means++ on
+    # the sample seeds like k-means++ on the data.
+    _STREAM_SAMPLE_CAP = 4096
+
     def _fit_streaming(self, rows) -> "KMeansModel":
-        raise NotImplementedError(STREAMING_FIT_ITEM)
+        """A re-iterable block source: one data pass per Lloyd iteration at
+        O(block + k·d) memory, seeded by k-means++ (or random) on a
+        one-pass reservoir, or warm-started from the initial model."""
+        if not is_reiterable_stream(rows):
+            raise ValueError(
+                "KMeans is multi-pass: a streaming fit needs a RE-ITERABLE "
+                "source (a zero-arg iterator factory or a block reader with "
+                ".iter_blocks()), not a one-shot generator"
+            )
+        if self.mesh is not None:
+            raise ValueError(
+                "streaming KMeans is single-device; pass host partitions "
+                "for a mesh fit"
+            )
+        k = self.getK()
+        cosine = self.getDistanceMeasure() == "cosine"
+        dtype = default_dtype()
+        device = _device.resolve_device()
+        with TraceRange("kmeans stream fit", TraceColor.CYAN):
+            if self._initial_centers is not None:
+                # No sampling pass: check the width against one peeked block.
+                if self._initial_centers.shape[0] != k:
+                    raise ValueError(
+                        f"initial model has {self._initial_centers.shape[0]} centers but k={k}"
+                    )
+                width = peek_stream_width(rows)
+                if self._initial_centers.shape[1] != width:
+                    raise ValueError(
+                        f"initial centers have {self._initial_centers.shape[1]} features "
+                        f"but the data has {width}"
+                    )
+                init = torch.tensor(self._initial_centers, dtype=dtype, device=device)
+                if cosine:
+                    init = normalize_rows(init)
+            else:
+                cap = max(self._STREAM_SAMPLE_CAP, 4 * k)
+                sample, n_seen = reservoir_sample_rows(
+                    iter_stream_blocks(rows), cap, self.getSeed(), dtype=numpy_dtype(dtype)
+                )
+                if k > n_seen:
+                    raise ValueError(f"k={k} exceeds number of rows {n_seen}")
+                xs = torch.from_numpy(sample).to(device)
+                if cosine:
+                    xs = normalize_rows(xs)
+                mask = torch.ones(xs.shape[0], dtype=xs.dtype, device=device)
+                gen = torch.Generator(device=device)
+                gen.manual_seed(self.getSeed())
+                if self.getInitMode() == "random":
+                    init = random_init(xs, mask, gen, k)
+                else:
+                    init = kmeans_plusplus_init(xs, mask, gen, k)
+            with TraceRange("kmeans lloyd stream", TraceColor.PURPLE):
+                centers, cost, n_iter = lloyd_streaming(
+                    lambda: iter_stream_blocks(rows),
+                    init,
+                    max_iter=self.getMaxIter(),
+                    tol=self.getTol(),
+                    precision=self._train_precision(),
+                    cosine=cosine,
+                    dtype=dtype,
+                )
+        model = KMeansModel(self.uid, centers, trainingCost=cost, numIter=n_iter)
+        return self._copyValues(model)
 
     def _train_precision(self) -> str:
         """An explicit ``setPrecision`` wins; otherwise the param's default

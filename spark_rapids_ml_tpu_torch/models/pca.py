@@ -10,10 +10,21 @@ multiplies with plain torch; ``"pallas"`` (alias ``"cuda"``) runs the
 Gram on the hand-written kernel K1. Aliases are stored as the reference's
 spelling.
 
+``solver``: ``"covariance"`` forms the (d, d) covariance and solves it;
+``"randomized"`` runs the sketch of ``ops/randomized.py`` (no (d, d)
+anything); ``"auto"`` (default) takes the sketch at d ≥ 4096 features, as
+the reference does, except where the covariance path was asked for by
+``precision="dd"`` or ``covarianceBackend="pallas"``, or the input is a
+one-shot generator (which cannot be read twice).
+
+Streaming sources (a block iterator, a block reader, a zero-argument
+iterator factory) fit at constant memory: one pass of the shifted
+covariance, or the multi-pass streaming sketch for a re-iterable source;
+``transform`` of a stream yields one numpy block per non-empty block.
+
 Routes of later slices raise ``NotImplementedError`` naming the slice:
-``solver="randomized"`` (and ``"auto"`` at d ≥ 4096, where the reference
-switches to the sketch), streaming sources, ``useGemm=False`` and a mesh.
-The reference's fit memory guard is left out.
+``useGemm=False`` and a mesh. The reference's fit memory guard is left
+out.
 """
 
 from __future__ import annotations
@@ -25,14 +36,17 @@ import torch
 
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.data import (
-    STREAMING_SLICE,
     DataFrame,
+    as_matrix,
     as_partitions,
     extract_column,
     infer_input_dtype,
     is_device_array,
+    is_reiterable_stream,
     is_streaming_source,
+    iter_stream_blocks,
     num_features,
+    peek_stream_width,
 )
 from spark_rapids_ml_tpu_torch.core.estimator import Estimator, HasInputCol, HasOutputCol, Model
 from spark_rapids_ml_tpu_torch.core.lazy_state import LazyHostState
@@ -49,12 +63,8 @@ from spark_rapids_ml_tpu_torch.core.serving import serve_rows, serve_stream
 from spark_rapids_ml_tpu_torch.linalg.row_matrix import MESH_SLICE, RowMatrix
 from spark_rapids_ml_tpu_torch.ops.linalg import project_rows, validate_precision
 from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy
+from spark_rapids_ml_tpu_torch.ops.randomized import randomized_pca, randomized_pca_streaming
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
-
-RANDOMIZED_SLICE = (
-    "the randomized sketch solver is not ported yet: it arrives with "
-    "slice 1's randomized item (ROADMAP A.6)"
-)
 
 #: Port spellings of ``covarianceBackend`` -> the reference's spelling.
 BACKEND_ALIASES = {"xla": "xla", "torch": "xla", "pallas": "pallas", "cuda": "pallas"}
@@ -216,44 +226,57 @@ class PCA(_PCAParams, Estimator, MLReadable):
         self.set(self.covarianceBackend, BACKEND_ALIASES[value])
         return self
 
-    # Above this many features the reference's "auto" switches to the
-    # randomized sketch, which is not ported yet.
+    # Above this many features "auto" switches to the randomized sketch:
+    # the (d, d) covariance and its eigensolve grow as d² and d³, the
+    # sketch as n·d·l with l = k + oversample.
     _RANDOMIZED_AUTO_DIM = 4096
 
     def _fit(self, dataset: Any) -> "PCAModel":
         rows = extract_column(dataset, self.getInputCol())
         if self.mesh is not None:
             raise NotImplementedError(MESH_SLICE)
-        if is_streaming_source(rows):
-            raise NotImplementedError(STREAMING_SLICE)
         solver = self.getSolver()
         backend = self.getCovarianceBackend()
-        if backend == "pallas" and (not self.getUseGemm() or solver == "randomized"):
+        streaming = is_streaming_source(rows)
+        if solver == "randomized" and streaming and not is_reiterable_stream(rows):
+            raise ValueError(
+                "the randomized solver makes multiple passes; a one-shot "
+                "generator cannot be re-read — pass an iterator factory "
+                "(zero-arg callable) or a block reader (iter_blocks), or "
+                "use solver='covariance' (one-pass)"
+            )
+        if solver == "randomized" and self.getPrecision() == "dd":
+            raise ValueError(
+                "the randomized solver has no dd path; use "
+                "solver='covariance' with precision='dd'"
+            )
+        if backend == "pallas" and (streaming or not self.getUseGemm() or solver == "randomized"):
             raise ValueError(
                 "covarianceBackend='pallas' applies to the single-device "
-                "materialized GEMM covariance path (useGemm=True, "
-                "solver != 'randomized')"
+                "materialized GEMM covariance path (no streaming source, "
+                "useGemm=True, solver != 'randomized')"
             )
-        if solver == "randomized":
-            raise NotImplementedError(RANDOMIZED_SLICE)
         # Resolve "auto" against the RAW input dtype, before densification.
         requested = self.getPrecision()
         input_dtype = infer_input_dtype(rows) if requested == "auto" else None
         explicit = requested if self.isSet(self.precision) else None
         requested = resolve_policy("pca", explicit, default=requested)
         resolved = RowMatrix.resolve(requested, input_dtype=input_dtype, backend=backend)
-        if (
-            solver == "auto"
-            and resolved != "dd"
-            and backend != "pallas"
-            and num_features(rows) >= self._RANDOMIZED_AUTO_DIM
-        ):
-            raise NotImplementedError(
-                f"solver='auto' at {num_features(rows)} >= {self._RANDOMIZED_AUTO_DIM} "
-                "features takes the randomized sketch in the reference; "
-                + RANDOMIZED_SLICE
-                + " — set solver='covariance' to fit the covariance path"
-            )
+        if solver == "randomized":
+            return self._fit_randomized(rows)
+        # "auto" peeks at the width only (the first block of a fresh
+        # iterator for a re-iterable stream). dd and pallas ask for the
+        # covariance path; a one-shot generator keeps it at any width.
+        if solver == "auto" and resolved != "dd" and backend != "pallas":
+            if streaming:
+                wide = (
+                    is_reiterable_stream(rows)
+                    and peek_stream_width(rows) >= self._RANDOMIZED_AUTO_DIM
+                )
+            else:
+                wide = num_features(rows) >= self._RANDOMIZED_AUTO_DIM
+            if wide:
+                return self._fit_randomized(rows)
         mat = RowMatrix(
             rows,
             mean_centering=self.getMeanCentering(),
@@ -267,6 +290,46 @@ class PCA(_PCAParams, Estimator, MLReadable):
         )
         pc, explained = mat.compute_principal_components_and_explained_variance(self.getK())
         return self._copyValues(PCAModel(self.uid, pc, explained))
+
+    def _sketch_precision(self) -> str:
+        """GEMM mode of the sketch: an explicit mode wins; ``auto`` (and
+        ``dd``, refused before routing) run at ``highest``."""
+        requested = self.getPrecision() if self.isSet(self.precision) else None
+        mode = resolve_policy("pca", requested, default="highest")
+        return "highest" if mode in ("auto", "dd") else mode
+
+    def _fit_randomized(self, rows) -> "PCAModel":
+        """The wide-feature path, no (d, d) covariance: a tensor is
+        sketched where it lives and stays lazy; a host matrix goes to the
+        ``gpuId`` device in float64; a re-iterable stream runs
+        :func:`randomized_pca_streaming` in float64 on that device."""
+        k = self.getK()
+        prec = self._sketch_precision()
+        center = self.getMeanCentering()
+        if is_streaming_source(rows):
+            comps, ratio, _, _ = randomized_pca_streaming(
+                lambda: iter_stream_blocks(rows),
+                k,
+                center=center,
+                precision=prec,
+                device=_device.resolve_device(self.getGpuId()),
+            )
+            return self._copyValues(PCAModel(self.uid, comps, ratio))
+        if is_device_array(rows):
+            if rows.dim() != 2:
+                raise ValueError(
+                    f"device-array input must be 2-D (n, d), got shape {tuple(rows.shape)}"
+                )
+            _device.device_of(rows)  # on a CUDA tensor: TF32 off, as "highest" needs
+            x = rows
+        else:
+            x = torch.from_numpy(as_matrix(rows)).to(_device.resolve_device(self.getGpuId()))
+        n, d = x.shape
+        if not 1 <= k <= min(n, d):
+            raise ValueError(f"k must be in [1, {min(n, d)}], got {k}")
+        with TraceRange("randomized fit", TraceColor.PURPLE):
+            comps, ratio, _ = randomized_pca(x, k, center=center, precision=prec)
+        return self._copyValues(PCAModel(self.uid, comps, ratio))
 
 
 class PCAModel(_PCAParams, Model, LazyHostState):
@@ -325,7 +388,9 @@ class PCAModel(_PCAParams, Model, LazyHostState):
         A tensor is projected where it lives and the result stays there;
         host input goes to the device partition by partition and comes
         back as numpy (a DataFrame gains ``outputCol``; an array-like
-        returns an (n, k) ndarray)."""
+        returns an (n, k) ndarray). A streaming source gives a generator
+        of (rows, k) numpy blocks, one per non-empty block, at constant
+        memory."""
         if self._pc_raw is None:
             raise RuntimeError("model has no principal components")
         rows = extract_column(dataset, self.getInputCol())
@@ -337,14 +402,19 @@ class PCAModel(_PCAParams, Model, LazyHostState):
                     _project_kernel, rows, (self._pc_device(rows.dtype, device),),
                     static=static, name="pca.transform",
                 )
-        if is_streaming_source(rows):
-            raise NotImplementedError(STREAMING_SLICE)
         device = _device.resolve_device(self.getGpuId())
+        pc_dev = self._pc_device(torch.float64, device)
+        if is_streaming_source(rows):
+            # serve_stream densifies each raw block and skips empty ones.
+            return serve_stream(
+                _project_kernel, iter_stream_blocks(rows), (pc_dev,), static=static,
+                name="pca.transform", device=device, dtype=torch.float64,
+            )
         parts = as_partitions(rows)
         with TraceRange("batch transform", TraceColor.GREEN):
             outs = list(
                 serve_stream(
-                    _project_kernel, parts, (self._pc_device(torch.float64, device),),
+                    _project_kernel, parts, (pc_dev,),
                     static=static, name="pca.transform", device=device, dtype=torch.float64,
                 )
             )

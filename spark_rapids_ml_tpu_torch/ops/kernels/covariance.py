@@ -18,8 +18,12 @@ float32 runs a register-blocked SIMT kernel (8×8 IEEE FMAs a thread, rows
 copied by ``cp.async`` through a ring of three shared-memory buffers),
 float64 the fp64 tensor cores (m16n8k4 ``mma.sync``); both centre the rows
 before any product. :func:`plan_splits` picks the chunk count that fills
-whole waves of the blocks the card holds at once. Deterministic, exactly
-symmetric, no atomics, no padding of ``x``.
+whole waves of the blocks the card holds at once, with no chunk longer
+than :data:`MAX_ROWS_PER_SPLIT` rows: a running fp32 sum's rounding error
+grows with its length. Where the workspace cap allows fewer chunks than
+that needs (wide d), the wrapper runs the kernel on row slices and adds
+their Grams in order. Deterministic, exactly symmetric, no atomics, no
+padding of ``x``.
 
 ``centered_gram_cuda`` takes the plain version only for a tensor on the
 CPU; on a CUDA tensor it launches the kernel or raises.
@@ -46,6 +50,11 @@ ROWS_PER_STEP = {torch.float32: 16, torch.float64: 8}
 #: Fewest rows of a row chunk, so a block's loop outweighs its prologue
 #: and its tile's write to the workspace.
 MIN_ROWS_PER_SPLIT = 512
+#: Most rows of a row chunk, the length of each thread's running sums.
+#: The fp32 error grows with it: at 262,144 x 8,192 (H100, planted data)
+#: one chunk gave 9.0e-5 of max |G| from the float64 Gram, chunks of
+#: 65,536 rows 1.2e-5, of 32,768 rows 5.2e-6; the library call 1.5e-5.
+MAX_ROWS_PER_SPLIT = 32768
 #: Most waves of blocks :func:`plan_splits` considers.
 MAX_WAVES = 8
 #: Cap on the partials workspace.
@@ -66,21 +75,35 @@ def plan_splits(n: int, d: int, dtype: torch.dtype, sms: int, blocks_per_sm: int
     that each hold ``blocks_per_sm`` of the type's tile blocks at once: of
     the counts that give 1 to :data:`MAX_WAVES` waves, the one whose
     ``pairs × splits`` blocks fill their last wave best (the fewest chunks
-    on a tie), with at most one chunk per :data:`MIN_ROWS_PER_SPLIT` rows
-    and the workspace under :data:`WORKSPACE_BYTES`; at least 1."""
+    on a tie), with at most one chunk per :data:`MIN_ROWS_PER_SPLIT` rows,
+    at least one per :data:`MAX_ROWS_PER_SPLIT` rows, and the workspace
+    under :data:`WORKSPACE_BYTES` (which wins); at least 1."""
     tiles = -(-d // TILE[dtype])
     pairs = tiles * (tiles + 1) // 2
     slots = max(1, sms * blocks_per_sm)
-    itemsize = torch.finfo(dtype).bits // 8
-    cap = max(1, min(n // MIN_ROWS_PER_SPLIT, WORKSPACE_BYTES // max(1, d * d * itemsize), 65535))
-    best, best_fill = 1, 0.0
+    cap = split_cap(n, d, dtype)
+    floor = min(-(-n // MAX_ROWS_PER_SPLIT), cap)
+    best, best_fill = floor, 0.0
     for waves in range(1, MAX_WAVES + 1):
-        splits = min(max(1, waves * slots // pairs), cap)
+        splits = min(max(floor, 1, waves * slots // pairs), cap)
         blocks = pairs * splits
         fill = blocks / (-(-blocks // slots) * slots)
         if fill > best_fill:
             best, best_fill = splits, fill
     return best
+
+
+def split_cap(n: int, d: int, dtype: torch.dtype) -> int:
+    """Most row chunks of one launch: one per :data:`MIN_ROWS_PER_SPLIT`
+    rows, the ``[S, d, d]`` workspace under :data:`WORKSPACE_BYTES`."""
+    itemsize = torch.finfo(dtype).bits // 8
+    return max(1, min(n // MIN_ROWS_PER_SPLIT, WORKSPACE_BYTES // max(1, d * d * itemsize), 65535))
+
+
+def launch_rows(n: int, d: int, dtype: torch.dtype) -> int:
+    """Rows of one launch: all ``n`` unless the workspace cap leaves chunks
+    longer than :data:`MAX_ROWS_PER_SPLIT`; then slices of cap × that."""
+    return min(n, split_cap(n, d, dtype) * MAX_ROWS_PER_SPLIT)
 
 
 def _blocks_per_sm(lib: ctypes.CDLL, dtype: torch.dtype, device: torch.device) -> int:
@@ -122,29 +145,36 @@ def centered_gram_cuda(x: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"centered_gram runs on CUDA or CPU tensors, got {x.device}")
     n, d = int(x.shape[0]), int(x.shape[1])
-    out = torch.empty((d, d), dtype=x.dtype, device=x.device)
     if n == 0 or d == 0:
-        return out.zero_()
+        return torch.zeros((d, d), dtype=x.dtype, device=x.device)
     lib = _build.load(NAME)
     fn = getattr(lib, _SYMBOLS[x.dtype])
     fn.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    step = launch_rows(n, d, x.dtype)
+    out = None
     with torch.cuda.device(x.device):
         device = torch.device("cuda", torch.cuda.current_device())
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        splits = plan_splits(n, d, x.dtype, sms, _blocks_per_sm(lib, x.dtype, device))
-        rows_per_split = -(-n // splits)
-        ws = torch.empty((splits, d, d), dtype=x.dtype, device=x.device)
+        per_sm = _blocks_per_sm(lib, x.dtype, device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            x.data_ptr(), mean.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            n, d, splits, rows_per_split, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"centered_gram kernel launch failed: CUDA error {err}")
-    launches += 1
+        for row0 in range(0, n, step):
+            xs = x[row0:row0 + step]
+            rows = int(xs.shape[0])
+            splits = plan_splits(rows, d, x.dtype, sms, per_sm)
+            ws = torch.empty((splits, d, d), dtype=x.dtype, device=x.device)
+            part = torch.empty((d, d), dtype=x.dtype, device=x.device)
+            err = fn(
+                xs.data_ptr(), mean.data_ptr(), ws.data_ptr(), part.data_ptr(),
+                rows, d, splits, -(-rows // splits), stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"centered_gram kernel launch failed: CUDA error {err}")
+            launches += 1
+            del ws
+            out = part if out is None else out.add_(part)
     return out
 
 

@@ -15,18 +15,27 @@ from an explicit ``torch.Generator`` (JAX's threefry bits cannot be
 reproduced, so seeded results match the reference in distribution, not
 bit for bit); the reference's ``approx_max_k`` is an exact ``topk`` here.
 
+The streaming fit: :func:`reservoir_sample_rows` draws the seeding
+sample in one pass (numpy's ``default_rng(seed)``, so the sample is the
+reference's bit for bit) and :func:`lloyd_streaming` runs one pass over a
+re-iterable block source per Lloyd iteration, summing each block's
+:func:`block_suff_stats` on the device. Kernels K2 and K3 are not used on
+this route, as in the reference.
+
 Left for later slices: ``lloyd_resumable``/``_lloyd_segment``
-(checkpointed Lloyd), ``lloyd_streaming``/``reservoir_sample_rows``
-(streaming fit) and ``assign_clusters_blocked`` (ANN).
+(checkpointed Lloyd) and ``assign_clusters_blocked`` (ANN).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple, Union
+from typing import Any, Callable, Iterable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
+from spark_rapids_ml_tpu_torch.core.data import _block_to_dense
+from spark_rapids_ml_tpu_torch.core.serving import prefetch_blocks, upload_block
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
 
 Dot = Union[str, Callable]
@@ -140,6 +149,92 @@ def block_suff_stats(xb: torch.Tensor, centers: torch.Tensor, precision: str = "
     x2 = torch.sum(xb * xb, dim=1)
     mb = torch.ones(xb.shape[0], dtype=xb.dtype, device=xb.device)
     return _assign_and_accumulate(xb, mb, x2, centers, centers.shape[0], make_dot(precision))
+
+
+def reservoir_sample_rows(blocks: Iterable[Any], cap: int, seed: int, dtype=None):
+    """One-pass uniform row reservoir (Algorithm R, vectorized per block):
+    ``(sample (min(cap, n), d), n_seen)``. The unbiased seeding set of the
+    streaming fit, without materializing the data."""
+    rng = np.random.default_rng(seed)
+    buf = None
+    seen = 0
+    for blk in blocks:
+        b = _block_to_dense(blk, dtype=dtype)
+        if b.shape[0] == 0:
+            continue
+        if buf is None:
+            buf = np.empty((cap, b.shape[1]), dtype=b.dtype)
+        i = 0
+        # Fill: the first `cap` rows enter directly.
+        if seen < cap:
+            take = min(cap - seen, b.shape[0])
+            buf[seen : seen + take] = b[:take]
+            seen += take
+            i = take
+        # Replace: global row t takes slot j ~ U[0, t] when j < cap.
+        nb = b.shape[0] - i
+        if nb > 0:
+            t = seen + np.arange(nb)
+            js = rng.integers(0, t + 1)
+            hit = js < cap
+            # Later rows drawn into one slot win, in stream order.
+            buf[js[hit]] = b[i:][hit]
+            seen += nb
+    if buf is None:
+        raise ValueError("streaming source yielded no rows")
+    return buf[: min(cap, seen)], seen
+
+
+def lloyd_streaming(
+    blocks_factory: Callable[[], Iterable[Any]],
+    init_centers: torch.Tensor,
+    max_iter: int = 20,
+    tol: float = 1e-4,
+    precision: str = "highest",
+    cosine: bool = False,
+    dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Lloyd over a re-iterable block source at constant memory: one pass
+    per iteration, each host block going to the centers' device one ahead
+    of its use (``prefetch_blocks``) in ``dtype`` (default the centers'),
+    its :func:`block_suff_stats` summed there ((k, d) state). The update,
+    the movement stop and the final cost at the converged centers are
+    :func:`lloyd`'s: empty clusters keep their center."""
+    centers = init_centers
+    k, d = centers.shape
+    dtype = dtype or centers.dtype
+    device = centers.device
+
+    def upload(blk):
+        host, xb = upload_block(blk, device, dtype)
+        if host.shape[0] == 0:
+            return None
+        return normalize_rows(xb) if cosine else xb
+
+    def one_pass(cs):
+        sums = torch.zeros((k, d), dtype=cs.dtype, device=device)
+        counts = torch.zeros((k,), dtype=cs.dtype, device=device)
+        cost = torch.zeros((), dtype=cs.dtype, device=device)
+        for xb in prefetch_blocks(blocks_factory(), upload):
+            if xb is not None:
+                sb, cb, jb = block_suff_stats(xb, cs, precision=precision)
+                sums, counts, cost = sums + sb, counts + cb, cost + jb
+        return sums, counts, cost
+
+    n_iter = 0
+    for n_iter in range(1, max_iter + 1):
+        sums, counts, _ = one_pass(centers)
+        new_centers = torch.where(
+            counts[:, None] > 0, sums / torch.clamp(counts, min=1.0)[:, None], centers
+        )
+        if cosine:
+            new_centers = normalize_rows(new_centers)
+        moved = float(torch.max(torch.sum((new_centers - centers) ** 2, dim=1)))
+        centers = new_centers
+        if moved <= tol * tol:
+            break
+    _, _, cost = one_pass(centers)
+    return centers, cost, n_iter
 
 
 def _gumbel(n: int, like: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

@@ -111,14 +111,18 @@ def test_plan_splits_fills_the_card_within_the_workspace(n, d, sms, per_sm, dtyp
     assert 1 <= splits <= 65535
     assert splits * d * d * item <= max(k1.WORKSPACE_BYTES, d * d * item)
     assert splits <= max(1, n // k1.MIN_ROWS_PER_SPLIT)
+    cap = max(1, min(n // k1.MIN_ROWS_PER_SPLIT, k1.WORKSPACE_BYTES // (d * d * item)))
+    assert cap == k1.split_cap(n, d, dtype)
+    # No chunk is longer than MAX_ROWS_PER_SPLIT rows unless the cap forbids.
+    floor = min(-(-n // k1.MAX_ROWS_PER_SPLIT), cap)
+    assert splits >= floor
 
     def fill(s):
         return pairs * s / (-(-pairs * s // slots) * slots)
 
     # No count the plan may choose fills its last wave better, and none
     # smaller fills it as well.
-    cap = max(1, min(n // k1.MIN_ROWS_PER_SPLIT, k1.WORKSPACE_BYTES // (d * d * item)))
-    for other in range(1, min(cap, max(1, k1.MAX_WAVES * slots // pairs)) + 1):
+    for other in range(floor, max(floor, min(cap, k1.MAX_WAVES * slots // pairs)) + 1):
         assert fill(splits) >= fill(other)
         if other < splits:
             assert fill(other) < fill(splits)
@@ -126,14 +130,33 @@ def test_plan_splits_fills_the_card_within_the_workspace(n, d, sms, per_sm, dtyp
 
 @pytest.mark.parametrize(
     "dtype,n,d,sms,per_sm,want",
-    [(torch.float32, 1_000_000, 1024, 132, 2, 22), (torch.float64, 65_536, 1024, 132, 1, 11)],
+    [(torch.float32, 1_000_000, 1024, 132, 2, 44), (torch.float64, 65_536, 1024, 132, 1, 11)],
 )
 def test_plan_splits_at_the_main_path_fills_whole_waves(dtype, n, d, sms, per_sm, want):
-    """At d = 1024 the 128-wide tiles make 36 pairs: 22 chunks give 792
-    blocks, three whole waves of 264 (two a SM); 11 give 396, three of 132."""
+    """At d = 1024 the 128-wide tiles make 36 pairs. 1M rows need at least
+    31 chunks of at most 32,768 rows: 44 give 1,584 blocks, six whole waves
+    of 264 (two a SM); 65,536 float64 rows take 11, 396 blocks, three
+    waves of 132."""
     splits = k1.plan_splits(n, d, dtype, sms, per_sm)
     assert splits == want
     assert 36 * splits % (sms * per_sm) == 0
+
+
+@pytest.mark.parametrize(
+    "n,d,dtype,rows",
+    [(1_000_003, 1024, torch.float32, 1_000_003), (262_144, 8192, torch.float32, 65_536),
+     (300_000, 8192, torch.float64, 32_768), (100, 8192, torch.float32, 100)],
+)
+def test_launch_rows_bound_every_running_sum(n, d, dtype, rows):
+    """A launch covers all rows unless the workspace cap would leave chunks
+    longer than MAX_ROWS_PER_SPLIT; then slices of cap x that many rows."""
+    assert k1.launch_rows(n, d, dtype) == rows
+    step = k1.launch_rows(n, d, dtype)
+    for row0 in range(0, n, step):
+        part = min(step, n - row0)
+        splits = k1.plan_splits(part, d, dtype, 132, 2)
+        assert -(-part // splits) <= max(k1.MAX_ROWS_PER_SPLIT, -(-part // k1.split_cap(part, d, dtype)))
+        assert splits <= k1.split_cap(part, d, dtype)
 
 
 def _cu_constants(name: str) -> dict:

@@ -107,6 +107,24 @@ def test_split_plan_reads_the_occupancy_of_the_build(cuda):
         assert k1._blocks_per_sm(lib, dtype, torch.device("cuda", torch.cuda.current_device())) >= 1
 
 
+def test_long_inputs_split_into_bounded_chunks_and_launch_slices(cuda, monkeypatch):
+    """No running sum is longer than ``MAX_ROWS_PER_SPLIT`` rows: with the
+    workspace capped at two chunks, 150,000 rows take three launches of
+    at most 65,536 rows, whose Grams add up to the float64 Gram within the
+    file's float32 tolerance; and the result is bitwise repeatable."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    x = torch.randn((150_000, 256), generator=gen, device=cuda) + 3.0
+    mean = x.mean(dim=0)
+    monkeypatch.setattr(k1, "WORKSPACE_BYTES", 2 * 256 * 256 * 4)
+    assert k1.launch_rows(150_000, 256, torch.float32) == 2 * k1.MAX_ROWS_PER_SPLIT
+    k1.reset_launches()
+    got = k1.centered_gram_cuda(x, mean)
+    assert k1.launches == 3
+    assert _rel_err(got, x, mean) <= 1e-5
+    assert torch.equal(got, got.T) and torch.equal(got, k1.centered_gram_cuda(x, mean))
+
+
 def test_kernel_is_deterministic(cuda):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(7)

@@ -254,8 +254,8 @@ def test_resolve_backend_follows_the_reference_rules():
 
 def test_estimator_refuses_what_the_slice_leaves_out():
     x, _ = make_blobs(2, n=50)
-    with pytest.raises(NotImplementedError, match="A.7a"):
-        KMeans().setK(2).fit(lambda: iter([x]))
+    # A.7a (the streaming fit) arrived with the streaming slice.
+    assert KMeans().setK(2).fit(lambda: iter([x])).clusterCenters().shape == (2, x.shape[1])
     with pytest.raises(NotImplementedError, match="A.7d"):
         KMeans(mesh=object()).setK(2).fit(x)
     with pytest.raises(NotImplementedError, match="A.7e"):

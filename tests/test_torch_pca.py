@@ -204,21 +204,21 @@ def test_k_and_row_count_errors():
 
 
 def test_routes_of_later_slices_raise_not_implemented():
+    """The randomized, wide ``auto`` and streaming routes arrived with the
+    streaming/sketch slice and now fit; ``useGemm=False`` and a mesh still
+    raise, naming their items."""
     x = _data(30, 6, 5)
-    with pytest.raises(NotImplementedError, match="randomized"):
-        PCA().setK(2).setSolver("randomized").fit(x)
-    with pytest.raises(NotImplementedError, match="4096"):
-        PCA().setK(2).fit(np.zeros((3, 4096)))
-    with pytest.raises(NotImplementedError, match="streaming"):
-        PCA().setK(2).fit(iter([x[:10], x[10:]]))
-    with pytest.raises(NotImplementedError, match="streaming"):
-        PCA().setK(2).fit(lambda: iter([x]))
+    assert PCA().setK(2).setSolver("randomized").fit(x).pc.shape == (6, 2)
+    wide = np.random.default_rng(5).standard_normal((12, 4096))
+    assert PCA().setK(2).fit(wide).pc.shape == (4096, 2)
+    assert PCA().setK(2).fit(iter([x[:10], x[10:]])).pc.shape == (6, 2)
+    assert PCA().setK(2).fit(lambda: iter([x])).pc.shape == (6, 2)
     with pytest.raises(NotImplementedError, match="useGemm=False"):
         PCA().setK(2).setUseGemm(False).fit(x)
     with pytest.raises(NotImplementedError, match="mesh"):
         PCA(mesh=object()).setK(2).fit(x)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        PCA().setK(2).fit(x).transform(iter([x]))
+    out = list(PCA().setK(2).fit(x).transform(iter([x])))
+    assert len(out) == 1 and out[0].shape == (30, 2)
 
 
 def test_reference_guards_are_kept():

@@ -53,7 +53,8 @@ def test_every_port_module_imports_without_jax():
     names = list(_modules())
     for name in ("ops.kernels.covariance", "ops.kernels.kmeans", "ops.kmeans", "models.kmeans",
                  "core.ingest", "clustering", "ops.knn", "ops.umap", "ops.kernels.umap",
-                 "models.umap", "manifold", "interop", "utils.testing"):
+                 "models.umap", "manifold", "interop", "utils.testing", "ops.randomized",
+                 "ops.covariance", "core.serving", "core.data"):
         assert f"spark_rapids_ml_tpu_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
