@@ -35,7 +35,16 @@ counters set to 0 just before and read just after:
   streaming transform, against an on-card float64 fit; KMeans at config
   3's shape as 20 host blocks through a factory (streaming Lloyd),
   warm-started against the in-memory fit and seeded from its reservoir
-  against the planted blobs.
+  against the planted blobs;
+- linear, logistic and evaluation at BASELINE configs 4, 10 and 14, which
+  launch no kernel: ``LinearRegression().setRegParam(0.1)`` on 11M x 28
+  float32 rows (also its elastic net, its ``dd`` route over 11 host blocks,
+  predict and evaluate), held against a float64 solve of float64 moments;
+  ``LogisticRegression().setRegParam(0.01).setMaxIter(20).setTol(0.0)`` on
+  the same shape (also 3-class multinomial, elastic net, the streaming fit
+  over 11 host blocks, predict), held against float64 copies and a
+  converged float64 fit; the three evaluators on 10M rows on the card,
+  held against their host route in float64.
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -79,6 +88,8 @@ from spark_rapids_ml_tpu_torch.ops.kernels import umap as k4  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.eigh import sign_flip  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.randomized import draw_omega, randomized_pca  # noqa: E402
 from spark_rapids_ml_tpu_torch.utils.tracing import counter_value  # noqa: E402
+from spark_rapids_ml_tpu_torch.regression import LinearRegression  # noqa: E402
+from spark_rapids_ml_tpu_torch.classification import LogisticRegression  # noqa: E402
 
 SEED = 0
 N_MAIN = 1_000_000          # rows of the main path (bench.py's width: 1M x 1024)
@@ -1483,6 +1494,462 @@ def streaming_phases(gen: torch.Generator) -> None:
           "wall_s": time.perf_counter() - t0})
 
 
+# --- Linear, logistic, evaluation (no kernel of their own) ------------------
+
+GLM_N = 11_000_000           # BASELINE configs 4 and 10: HIGGS-shaped rows
+GLM_D = 28
+GLM_BLOCK = 1_000_000        # rows per host block of the streaming fits (11 blocks)
+EVAL_N = 10_000_000          # config 14's rows
+F64_CHUNK = 1 << 20          # rows per chunk of the float64 references
+
+
+def _kernel_launch_total() -> int:
+    return k1.launches + sum(kk.launches.values()) + sum(k4.launches.values())
+
+
+def _reset_kernel_launches() -> None:
+    k1.reset_launches()
+    kk.reset_launches()
+    k4.reset_launches()
+
+
+def glm_rows(gen: torch.Generator):
+    """HIGGS-shaped rows on the card: 28 float32 features, each N(μ_j, s_j²)
+    with μ_j ~ U(−0.5, 0.5) and s_j ~ U(0.5, 1.5), and a true weight
+    vector w ~ N(0, 1)."""
+    dev = gen.device
+    mu = torch.rand(GLM_D, generator=gen, device=dev) - 0.5
+    sd = torch.rand(GLM_D, generator=gen, device=dev) + 0.5
+    x = torch.randn((GLM_N, GLM_D), generator=gen, device=dev)
+    x.mul_(sd).add_(mu)
+    w = torch.randn(GLM_D, generator=gen, device=dev)
+    return x, w
+
+
+def f64_moments(x: torch.Tensor, y: torch.Tensor):
+    """(XᵀX, Xᵀy, Σx, Σy, n) in float64 from row chunks of the same rows."""
+    d = x.shape[1]
+    xtx = torch.zeros((d, d), dtype=torch.float64, device=x.device)
+    xty = torch.zeros(d, dtype=torch.float64, device=x.device)
+    xs = torch.zeros(d, dtype=torch.float64, device=x.device)
+    ys = torch.zeros((), dtype=torch.float64, device=x.device)
+    for i in range(0, x.shape[0], F64_CHUNK):
+        b, yb = x[i:i + F64_CHUNK].double(), y[i:i + F64_CHUNK].double()
+        xtx += b.T @ b
+        xty += b.T @ yb
+        xs += b.sum(dim=0)
+        ys += yb.sum()
+    return xtx.cpu().numpy(), xty.cpu().numpy(), xs.cpu().numpy(), float(ys), x.shape[0]
+
+
+def ridge_f64(xtx, xty, xs, ys, n, reg):
+    """Spark's normal-solver ridge (standardized penalty) in numpy float64:
+    (Xcᵀ Xc + n·reg·diag(σ²)) b = Xcᵀ yc, b0 = ȳ − x̄ᵀb."""
+    xm, ym = xs / n, ys / n
+    a = xtx - n * np.outer(xm, xm)
+    rhs = xty - n * xm * ym
+    var = np.maximum((np.diag(xtx) - n * xm * xm) / (n - 1), 0.0)
+    coef = np.linalg.solve(a + n * reg * np.diag(var), rhs)
+    return coef, ym - xm @ coef
+
+
+def _rel_max(a, b) -> float:
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _host_blocks(x: torch.Tensor, rows: int) -> list:
+    host = x.cpu().numpy()
+    return [host[i:i + rows] for i in range(0, host.shape[0], rows)]
+
+
+def phase_linreg(gen: torch.Generator, peaks) -> dict:
+    """BASELINE config 4: ``LinearRegression().setRegParam(0.1)`` on an
+    11M × 28 float32 tensor pair, held against a float64 solve of float64
+    moments of the same rows; the elastic net (FISTA) against itself on a
+    float64 copy; the ``dd`` route over 11 host blocks; ``predict`` and
+    ``evaluate`` over all rows."""
+    t_phase = time.perf_counter()
+    x, w_true = glm_rows(gen)
+    y = x @ w_true + 0.1 * torch.randn(GLM_N, generator=gen, device=x.device)
+    _reset_kernel_launches()
+    est = LinearRegression().setRegParam(0.1)
+    model = est.fit((x, y))
+    coef, b0 = model.coefficients, model.intercept
+    fit_wall = wall_s(lambda: est.fit((x, y)).coefficients)
+    stats64 = f64_moments(x, y)
+    ref_coef, ref_b0 = ridge_f64(*stats64, 0.1)
+    scale = float(np.abs(ref_coef).max())
+
+    enet = LinearRegression().setRegParam(0.1).setElasticNetParam(0.5)
+    fista0 = counter_value("linear.fista.iterations")
+    t0 = time.perf_counter()
+    m_enet = enet.fit((x, y))
+    enet_coef = m_enet.coefficients
+    enet_first = time.perf_counter() - t0
+    fista_syncs = counter_value("linear.fista.iterations") - fista0
+    enet_wall = wall_s(lambda: enet.fit((x, y)).coefficients)
+    x64, y64 = x.double(), y.double()
+    m_enet64 = enet.fit((x64, y64))
+    del x64, y64
+    torch.cuda.empty_cache()
+
+    blocks = _host_blocks(x, GLM_BLOCK)
+    y_host = y.cpu().numpy()
+    t0 = time.perf_counter()
+    m_dd = LinearRegression().setRegParam(0.1).setPrecision("dd").fit((blocks, y_host))
+    dd_coef = m_dd.coefficients
+    dd_wall = time.perf_counter() - t0
+    del blocks, y_host
+
+    t0 = time.perf_counter()
+    pred = model.predict(x)
+    sync()
+    predict_wall = time.perf_counter() - t0
+    coef_dev = torch.from_numpy(coef).to(x.device)
+    pred_err, sse = 0.0, 0.0
+    for i in range(0, GLM_N, F64_CHUNK):
+        ref = x[i:i + F64_CHUNK].double() @ coef_dev + b0
+        pred_err = max(pred_err, float((ref - pred[i:i + F64_CHUNK].double()).abs().max()))
+        sse += float(((y[i:i + F64_CHUNK].double() - ref) ** 2).sum())
+    rmse64 = float(np.sqrt(sse / GLM_N))
+    summary = model.evaluate((x, y))
+    launches = _kernel_launch_total()
+    _, hbm, _, _ = peaks
+    out = {
+        "phase": "linreg", "config": "BASELINE config 4", "x": [GLM_N, GLM_D, str(x.dtype)],
+        "estimator": "LinearRegression().setRegParam(0.1)",
+        "fit_wall_s": fit_wall, "timing": "median of 3, host clock around fit and the coefficients' readback",
+        "stats_bound_ms": GLM_N * GLM_D * 4 / hbm * 1e3,
+        "stats_bound_by": "bytes (one read of x at the card's HBM rate)",
+        "coef_vs_f64_solve_rel": _rel_max(coef, ref_coef),
+        "intercept_vs_f64_solve_abs": abs(b0 - ref_b0) / scale,
+        "enet": {"fit_wall_s": enet_wall, "fit_first_s": enet_first, "fista_iterations": fista_syncs,
+                 "coef_vs_f64_copy_rel": _rel_max(enet_coef, m_enet64.coefficients)},
+        "dd": {"fit_wall_s": dd_wall, "blocks": -(-GLM_N // GLM_BLOCK),
+               "coef_vs_f64_solve_rel": _rel_max(dd_coef, ref_coef)},
+        "predict_wall_s": predict_wall, "predict_max_abs_vs_f64": pred_err,
+        "evaluate": summary, "rmse_f64_of_the_model": rmse64, "kernel_launches": launches,
+    }
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    require(launches == 0, "the linear route launched a kernel")
+    require(bool(np.isfinite(coef).all()) and coef.shape == (GLM_D,), "coefficients not finite (d,)")
+    require(out["coef_vs_f64_solve_rel"] <= 1e-4, "config-4 coefficients differ from the float64 solve by > 1e-4")
+    require(out["intercept_vs_f64_solve_abs"] <= 1e-4, "config-4 intercept differs from the float64 solve")
+    require(out["enet"]["coef_vs_f64_copy_rel"] <= 1e-4, "elastic-net coefficients differ from the float64 copy's")
+    require(out["dd"]["coef_vs_f64_solve_rel"] <= 1e-9, "dd coefficients differ from the float64 solve")
+    require(pred.shape == (GLM_N,) and pred_err <= 1e-4, "predict differs from x·coef + b")
+    require(abs(summary["rootMeanSquaredError"] - rmse64) <= 1e-5 * rmse64, "evaluate's rmse differs from float64")
+    del x, y, pred
+    torch.cuda.empty_cache()
+    return out
+
+
+def f64_stddev(x: torch.Tensor) -> torch.Tensor:
+    """Population stddev of each column in float64, from row chunks."""
+    chunks = range(0, x.shape[0], F64_CHUNK)
+    mean = sum(x[i:i + F64_CHUNK].double().sum(dim=0) for i in chunks) / x.shape[0]
+    ss = sum(((x[i:i + F64_CHUNK].double() - mean) ** 2).sum(dim=0) for i in chunks)
+    return torch.sqrt(ss / x.shape[0])
+
+
+def logistic_objective64(x: torch.Tensor, y: torch.Tensor, weights, intercepts, reg: float, sigma64) -> float:
+    """The config's objective of an original-space solution, in float64 on
+    the card: mean log-loss + reg/2 · Σ (w_j σ_j)² (the penalty on the
+    standardized coefficients, σ the population stddev)."""
+    w = torch.from_numpy(np.asarray(weights, dtype=np.float64)).to(x.device)
+    b = torch.from_numpy(np.asarray(intercepts, dtype=np.float64)).to(x.device)
+    total = torch.zeros((), dtype=torch.float64, device=x.device)
+    for i in range(0, x.shape[0], F64_CHUNK):
+        logits = x[i:i + F64_CHUNK].double() @ w + b
+        yb = y[i:i + F64_CHUNK].long()
+        if w.shape[1] == 1:
+            z = logits[:, 0]
+            total += torch.sum(torch.logaddexp(z, torch.zeros((), dtype=z.dtype, device=z.device)) - (yb == 1) * z)
+        else:
+            total -= torch.sum(torch.log_softmax(logits, dim=1).gather(1, yb[:, None]))
+    penalty = 0.5 * reg * float(((w * sigma64[:, None]) ** 2).sum())
+    return float(total) / x.shape[0] + penalty
+
+
+def _eval_ms(loss, w, b, repeats: int = 5) -> float:
+    return time_ms(lambda: loss.value_and_grad(w, b), repeats=repeats, warmup=1)
+
+
+class _StandardizedBlocks:
+    """The reference's fused sweep for comparison: each row block
+    standardized first (``ops.logistic._block_terms``)."""
+
+    def __init__(self, x, target, mask, offset, scale, rows):
+        self.args, self.rows = (x, target, mask, offset, scale), rows
+
+    def value_and_grad(self, w, b):
+        from spark_rapids_ml_tpu_torch.ops import logistic as ops_logistic
+
+        x, target, mask, offset, scale = self.args
+        acc = None
+        for i in range(0, x.shape[0], self.rows):
+            t = ops_logistic._block_terms(x[i:i + self.rows], target[i:i + self.rows], mask[i:i + self.rows],
+                                          w, b, offset, scale, 1, True, torch.matmul)
+            acc = t if acc is None else tuple(a + v for a, v in zip(acc, t))
+        return acc
+
+
+def logistic_block_sweep(x: torch.Tensor, y: torch.Tensor) -> dict:
+    """Device time of one objective evaluation (value and gradient) at
+    config 10's shape: the port's fused sweep (standardization folded into
+    the weights) at three row blocks, the reference's form (each block
+    standardized first) at its 65,536 rows and at the port's blocks, and
+    the plain autograd objective."""
+    from spark_rapids_ml_tpu_torch.ops import logistic as ops_logistic
+
+    mask = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+    offset, scale = ops_logistic._standardizer(x, mask, True, True)
+    target = ops_logistic._targets(y.long(), 1, x.dtype)
+    w = torch.full((x.shape[1], 1), 0.01, dtype=x.dtype, device=x.device)
+    b = torch.zeros(1, dtype=x.dtype, device=x.device)
+    out = {"default_block_rows": ops_logistic.FUSED_BLOCK_ROWS}
+    for rows in (1 << 20, 1 << 22, x.shape[0]):
+        loss = ops_logistic.LogisticLoss(x, target, mask, offset, scale, mask.sum(), 0.01, 1, True,
+                                         torch.matmul, fused=True, block_rows=rows)
+        out[f"folded_block_{rows}_ms"] = _eval_ms(loss, w, b)
+    for rows in (65_536, 1 << 20, x.shape[0]):
+        out[f"standardized_block_{rows}_ms"] = _eval_ms(_StandardizedBlocks(x, target, mask, offset, scale, rows),
+                                                        w, b)
+    plain = ops_logistic.LogisticLoss(x, target, mask, offset, scale, mask.sum(), 0.01, 1, True,
+                                      torch.matmul, fused=False)
+    out["plain_autograd_ms"] = _eval_ms(plain, w, b)
+    # The least time: two reads of x (logits, then Xᵀdz) at the HBM rate.
+    _, hbm, _, _ = peaks_for(torch.cuda.get_device_name(0)) if x.is_cuda else peaks_for("H100")
+    out["two_reads_of_x_bound_ms"] = 2 * x.numel() * x.element_size() / hbm * 1e3
+    return out
+
+
+def _logreg_profile(est, x, y) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    est.fit((x, y)).weights  # warm
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        est.fit((x, y)).weights  # reading the weights waits for the fit
+        sync()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = _device_ms_by_kernel(prof)
+    busy_ms = sum(device_ms.values())
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:10]
+    return {"window_ms": window_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1.0 - busy_ms / window_ms) if busy_ms else None,
+            "top_device_ms": [{"kernel": k[:80], "ms": v} for k, v in top]}
+
+
+def phase_logreg(gen: torch.Generator) -> dict:
+    """BASELINE config 10: ``LogisticRegression().setRegParam(0.01)
+    .setMaxIter(20).setTol(0.0)`` on 11M × 28 float32 rows with labels
+    x·w + 0.5·noise > 0, held against the same fit on a float64 copy and a
+    converged float64 fit; a 3-class multinomial fit and an elastic-net
+    fit against their float64 twins; the streaming fit over 11 host
+    blocks through a factory; ``predict`` on all rows; one fit profiled."""
+    t_phase = time.perf_counter()
+    x, w_true = glm_rows(gen)
+    margin = (x - x.mean(dim=0)) / x.std(dim=0) @ w_true + 0.5 * torch.randn(GLM_N, generator=gen, device=x.device)
+    y = (margin > 0).float()
+    q = torch.quantile(margin[:1_000_000], torch.tensor([1 / 3, 2 / 3], device=x.device))
+    y3 = torch.bucketize(margin, q).float()
+    del margin
+    _reset_kernel_launches()
+    sigma64 = f64_stddev(x)
+
+    est = LogisticRegression().setRegParam(0.01).setMaxIter(20).setTol(0.0)
+    evals0 = counter_value("logistic.lbfgs.evaluations")
+    t0 = time.perf_counter()
+    model = est.fit((x, y))
+    w32, b32 = model.weights, model.intercepts
+    first_wall = time.perf_counter() - t0
+    evals = counter_value("logistic.lbfgs.evaluations") - evals0
+    fit_wall = wall_s(lambda: est.fit((x, y)).weights)
+    sweep = logistic_block_sweep(x, y)
+    profile = _logreg_profile(est, x, y)
+
+    x64 = x.double()
+    m64 = est.fit((x64, y))
+    conv = LogisticRegression().setRegParam(0.01).setMaxIter(200).setTol(1e-9)
+    t0 = time.perf_counter()
+    m_conv = conv.fit((x64, y))
+    conv_wall = time.perf_counter() - t0
+    multi = LogisticRegression().setRegParam(0.01).setMaxIter(20).setTol(0.0)
+    t0 = time.perf_counter()
+    m3 = multi.fit((x, y3))
+    w3 = m3.weights
+    multi_wall = time.perf_counter() - t0
+    m3_64 = multi.fit((x64, y3))
+    enet = LogisticRegression().setRegParam(0.01).setElasticNetParam(0.5).setMaxIter(100)
+    fista0 = counter_value("logistic.fista.iterations")
+    t0 = time.perf_counter()
+    m_enet = enet.fit((x, y))
+    w_enet = m_enet.weights
+    enet_wall = time.perf_counter() - t0
+    fista_iters = counter_value("logistic.fista.iterations") - fista0
+    m_enet64 = enet.fit((x64, y))
+    del x64
+    torch.cuda.empty_cache()
+
+    obj = {
+        "config10_f32": logistic_objective64(x, y, w32, b32, 0.01, sigma64),
+        "converged_f64": logistic_objective64(x, y, m_conv.weights, m_conv.intercepts, 0.01, sigma64),
+    }
+
+    blocks = _host_blocks(x, GLM_BLOCK)
+    y_host = y.cpu().numpy()
+    passes0 = counter_value("logistic.stream.passes")
+    t0 = time.perf_counter()
+    m_stream = est.fit((lambda: iter(blocks), y_host))
+    stream_wall = time.perf_counter() - t0
+    stream_passes = counter_value("logistic.stream.passes") - passes0
+    obj["streaming"] = logistic_objective64(x, y, m_stream.weights, m_stream.intercepts, 0.01, sigma64)
+    del blocks, y_host
+
+    t0 = time.perf_counter()
+    labels = model.predict(x)
+    sync()
+    predict_wall = time.perf_counter() - t0
+    w64t = torch.from_numpy(m64.weights).to(x.device)
+    b64 = float(m64.intercepts[0])
+    differ = near = 0
+    for i in range(0, GLM_N, F64_CHUNK):
+        z = (x[i:i + F64_CHUNK].double() @ w64t)[:, 0] + b64
+        diff = labels[i:i + F64_CHUNK] != (z > 0).to(torch.int32)
+        close = z.abs() <= 1e-5
+        differ += int((diff & ~close).sum())
+        near += int(close.sum())
+    launches = _kernel_launch_total()
+    scale = float(np.abs(m64.weights).max())
+    out = {
+        "phase": "logreg", "config": "BASELINE config 10", "x": [GLM_N, GLM_D, str(x.dtype)],
+        "estimator": "LogisticRegression().setRegParam(0.01).setMaxIter(20).setTol(0.0)",
+        "num_iter": model.numIter, "objective_evaluations": evals,
+        "fit_wall_s": fit_wall, "fit_first_s": first_wall, "timing": "median of 3",
+        "weights_vs_f64_copy_rel": _rel_max(w32, m64.weights),
+        "intercept_vs_f64_copy_abs": abs(float(b32[0]) - b64) / scale,
+        "objective": obj,
+        "objective_vs_converged_rel": abs(obj["config10_f32"] - obj["converged_f64"]) / abs(obj["converged_f64"]),
+        "converged_f64": {"num_iter": m_conv.numIter, "fit_wall_s": conv_wall},
+        "multinomial": {"classes": m3.numClasses, "num_iter": m3.numIter, "fit_wall_s": multi_wall,
+                        "weights_vs_f64_copy_rel": _rel_max(w3, m3_64.weights)},
+        "elastic_net": {"fista_iterations": fista_iters, "fit_wall_s": enet_wall,
+                        "weights_vs_f64_copy_rel": _rel_max(w_enet, m_enet64.weights)},
+        "streaming": {"blocks": -(-GLM_N // GLM_BLOCK), "fit_wall_s": stream_wall, "num_iter": m_stream.numIter,
+                      "device_passes": stream_passes,
+                      "objective_vs_converged_rel": abs(obj["streaming"] - obj["converged_f64"]) / abs(
+                          obj["converged_f64"])},
+        "predict_wall_s": predict_wall, "labels_differing_from_f64": differ,
+        "rows_within_1e-5_of_threshold": near,
+        "objective_sweep": sweep, "profile": profile, "kernel_launches": launches,
+    }
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    require(launches == 0, "the logistic route launched a kernel")
+    require(model.numIter == 20, f"config 10 ran {model.numIter} iterations, not 20")
+    require(bool(np.isfinite(w32).all()) and w32.shape == (GLM_D, 1), "weights not finite (d, 1)")
+    require(out["weights_vs_f64_copy_rel"] <= 1e-3, "config-10 weights differ from the float64 copy's by > 1e-3")
+    require(out["objective_vs_converged_rel"] <= 1e-4, "config-10 objective is > 1e-4 from the converged fit's")
+    require(m3.numClasses == 3 and out["multinomial"]["weights_vs_f64_copy_rel"] <= 1e-3,
+            "multinomial weights differ from the float64 copy's")
+    require(out["elastic_net"]["weights_vs_f64_copy_rel"] <= 1e-3, "elastic-net weights differ from the float64 copy's")
+    require(out["streaming"]["objective_vs_converged_rel"] <= 1e-4, "streaming objective is > 1e-4 from converged")
+    require(labels.shape == (GLM_N,) and differ == 0, f"{differ} predicted labels differ from the float64 model's")
+    del x, y, y3, labels
+    torch.cuda.empty_cache()
+    return out
+
+
+def _auc_profile(ev, pair) -> dict:
+    """One AUC evaluate under ``torch.profiler``: device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev.evaluate(pair)
+        sync()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = _device_ms_by_kernel(prof)
+    busy_ms = sum(device_ms.values())
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]
+    return {"window_ms": window_ms, "device_busy_ms": busy_ms,
+            "top_device_ms": [{"kernel": k[:80], "ms": v} for k, v in top]}
+
+
+def phase_evaluators(gen: torch.Generator, peaks) -> dict:
+    """BASELINE config 14: the three evaluators on 10M rows — scores
+    s ~ U(0, 1) float32 and labels ~ Bernoulli(s) on the card — through
+    the device route (a tensor pair), held against the port's host route
+    on float64 numpy copies and, for the ROC, against 5/6 (its value
+    under this law)."""
+    from spark_rapids_ml_tpu_torch import evaluation
+
+    t_phase = time.perf_counter()
+    dev = gen.device
+    s = torch.rand(EVAL_N, generator=gen, device=dev)
+    y = (torch.rand(EVAL_N, generator=gen, device=dev) < s).float()
+    p = (s > 0.5).float()
+    _reset_kernel_launches()
+    evals = {
+        "areaUnderROC": (evaluation.BinaryClassificationEvaluator(), (y, s)),
+        "areaUnderPR": (evaluation.BinaryClassificationEvaluator().setMetricName("areaUnderPR"), (y, s)),
+        "rmse": (evaluation.RegressionEvaluator(), (y, s)),
+        "accuracy": (evaluation.MulticlassClassificationEvaluator().setMetricName("accuracy"), (y, p)),
+        "f1": (evaluation.MulticlassClassificationEvaluator(), (y, p)),
+    }
+    device_values = {k: ev.evaluate(pair) for k, (ev, pair) in evals.items()}
+    walls = {k: wall_s(lambda ev=ev, pair=pair: ev.evaluate(pair)) for k, (ev, pair) in evals.items()}
+    auc_profile = _auc_profile(evals["areaUnderROC"][0], (y, s))
+    host_pairs = {k: tuple(t.cpu().numpy().astype(np.float64) for t in pair) for k, (_, pair) in evals.items()}
+    threshold = evaluation._DEVICE_THRESHOLD
+    evaluation._DEVICE_THRESHOLD = float("inf")  # the host route, whatever the size
+    try:
+        t0 = time.perf_counter()
+        host_values = {k: ev.evaluate(host_pairs[k]) for k, (ev, _) in evals.items()}
+        host_wall = time.perf_counter() - t0
+    finally:
+        evaluation._DEVICE_THRESHOLD = threshold
+    _, hbm, _, _ = peaks
+    sort_bytes = 2 * 8 * EVAL_N * np.log2(EVAL_N)
+    launches = _kernel_launch_total()
+    out = {
+        "phase": "evaluators", "config": "BASELINE config 14", "rows": EVAL_N,
+        "device": device_values, "host_float64": host_values, "host_wall_s_all_five": host_wall,
+        "evaluate_wall_s": walls, "timing": "median of 3, device route on the tensor pair",
+        "auc_sort_bound_ms": sort_bytes / hbm * 1e3, "auc_sort_bound": "2·8·N·log2(N) bytes at the HBM rate",
+        "roc_minus_five_sixths": device_values["areaUnderROC"] - 5 / 6,
+        "auc_profile": auc_profile,
+        "kernel_launches": launches,
+    }
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    require(launches == 0, "the evaluators launched a kernel")
+    for k in ("areaUnderROC", "areaUnderPR"):
+        require(abs(device_values[k] - host_values[k]) <= 1e-6, f"{k}: device route differs from the host route")
+    require(abs(out["roc_minus_five_sixths"]) <= 2e-3, "ROC is not 5/6 under s ~ U(0,1), y ~ Bernoulli(s)")
+    require(abs(device_values["rmse"] - host_values["rmse"]) <= 1e-6 * host_values["rmse"], "rmse differs")
+    for k in ("accuracy", "f1"):
+        require(abs(device_values[k] - host_values[k]) <= 1e-9, f"{k}: device route differs from the host route")
+    del s, y, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def glm_phases(gen: torch.Generator, peaks) -> dict:
+    """Configs 4, 10 and 14, each phase freeing its data before the next."""
+    t0 = time.perf_counter()
+    out = {"linreg": phase_linreg(gen, peaks), "logreg": phase_logreg(gen), "evaluators": phase_evaluators(gen, peaks)}
+    wall = time.perf_counter() - t0
+    emit({"phases": ["linreg", "logreg", "evaluators"], "wall_s": wall})
+    require(wall <= 60.0, f"the three phases took {wall:.1f} s, over their 60 s")
+    out["wall_s"] = wall
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -1513,6 +1980,8 @@ def main() -> int:
     um = umap_phases(gen, peaks)
     torch.cuda.empty_cache()
     streaming_phases(gen)
+    torch.cuda.empty_cache()
+    glm_phases(gen, peaks)
 
     k1_f32 = times["k1_f32"]
     measured = {

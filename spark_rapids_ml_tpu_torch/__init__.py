@@ -6,12 +6,14 @@ same inputs by ``tests/test_torch_*.py``. This package imports ``torch``
 and ``numpy`` and never ``jax`` or anything of the JAX package.
 
 Layer map (the reference's, one for one):
-  - ``feature`` / ``clustering`` / ``manifold`` / ``models`` — user-facing
-    estimators (PCA, PCAModel, KMeans, KMeansModel, UMAP, UMAPModel)
+  - ``feature`` / ``clustering`` / ``manifold`` / ``regression`` /
+    ``classification`` / ``models`` — user-facing estimators (PCA, KMeans,
+    UMAP, LinearRegression, LogisticRegression and their models)
+  - ``evaluation``            — Regression, Multiclass and Binary evaluators
   - ``linalg``                — row-matrix orchestration (RowMatrix)
   - ``core``                  — params, data, ingest, persistence, serving
   - ``ops``                   — plain tensor math (covariance, eigh, GEMMs,
-    KMeans, kNN, UMAP)
+    KMeans, kNN, UMAP, linear and logistic solvers, L-BFGS, metrics)
   - ``ops.kernels`` + ``csrc``— hand-written Hopper kernels (CUDA C++,
     built with nvcc on first use, bound with ctypes)
   - ``device``                — where entry points compute (CUDA by default)

@@ -12,6 +12,11 @@ would be a fallback that hides the device.
 :func:`prepare_rows` returns ``(x, mask, n_true, d_true)``; ``mask`` is
 the per-row weight (all ones, or the ``weightCol`` weights), in a dtype
 wide enough to count rows exactly (at least float32).
+
+The supervised families add :func:`prepare_labels` (the target vector
+beside the rows, with the length-mismatch guard), :func:`validate_int_labels`
+(the classifiers' integer-label check: one stacked readback on the card)
+and :func:`to_host_f64`.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.data import as_matrix, as_partitions, is_device_array
+from spark_rapids_ml_tpu_torch.core.lazy_state import to_host
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 _NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
@@ -99,3 +105,77 @@ def matrix_like(x: Any):
     if is_device_array(x):
         return x[None, :] if x.dim() == 1 else x
     return as_matrix(x)
+
+
+def prepare_labels(
+    y: Any,
+    n_pad: int,
+    n_true: Optional[int] = None,
+    dtype: Optional[torch.dtype] = None,
+    device: Optional[torch.device] = None,
+) -> torch.Tensor:
+    """A label/target vector placed beside :func:`prepare_rows` output, at
+    ``dtype`` (default :func:`default_dtype`), zero-padded to ``n_pad``.
+    A tensor stays where it lives; host labels go to ``device``.
+
+    ``n_true`` (the rows' true count) guards against a length-mismatched
+    ``(X, y)`` pair: only padding may be zero-filled — a ``y`` shorter than
+    the data would otherwise train on phantom rows."""
+    dtype = dtype or default_dtype()
+    if is_device_array(y):
+        ys = y.reshape(-1).to(dtype)
+        if n_true is not None and int(ys.shape[0]) != n_true:
+            raise ValueError(
+                f"label vector has {int(ys.shape[0])} entries but the data has {n_true} rows"
+            )
+        pad = n_pad - int(ys.shape[0])
+        if pad:
+            ys = torch.nn.functional.pad(ys, (0, pad))
+        return ys
+    y_arr = np.asarray(y).ravel()
+    if n_true is not None and y_arr.shape[0] != n_true:
+        raise ValueError(
+            f"label vector has {y_arr.shape[0]} entries but the data has {n_true} rows"
+        )
+    y_host = np.zeros(n_pad, dtype=torch.empty((), dtype=dtype).numpy().dtype)
+    y_host[: y_arr.shape[0]] = y_arr
+    return torch.from_numpy(y_host).to(device if device is not None else _device.resolve_device())
+
+
+def validate_int_labels(y: Any):
+    """The classifiers' label check: non-negative integers. On a tensor it
+    costs ONE readback — the integrality flag, the minimum and the maximum
+    travel as one stacked tensor (the class count sets shapes, so a sync
+    is inherent; an O(n) pull of the labels is what must not happen).
+
+    Returns ``(y_int, n_classes)``: ``y_int`` is int64 where the labels
+    live (a tensor) or a host int64 array."""
+    if is_device_array(y):
+        y = y.reshape(-1)
+        y_int = y.to(torch.int64)
+        if y.is_floating_point():
+            integral = torch.all(y == y_int.to(y.dtype))
+        else:
+            integral = torch.ones((), dtype=torch.bool, device=y.device)
+        integral_i, lo, hi = torch.stack(
+            [integral.to(torch.int64), torch.min(y_int), torch.max(y_int)]
+        ).tolist()
+        if not integral_i:
+            raise ValueError("labels must be integers in [0, numClasses)")
+        if lo < 0:
+            raise ValueError("labels must be >= 0")
+        return y_int, hi + 1
+    y_host = np.asarray(y).ravel()
+    y_int = y_host.astype(np.int64)
+    if not np.array_equal(y_int, y_host):
+        raise ValueError("labels must be integers in [0, numClasses)")
+    if y_int.size and y_int.min() < 0:
+        raise ValueError("labels must be >= 0")
+    return y_int, int(y_int.max()) + 1 if y_int.size else 1
+
+
+def to_host_f64(x) -> np.ndarray:
+    """Any array or tensor as host float64 (the reference's ``double[]``
+    surface). Models call it lazily, so a fit on the card pays the copy
+    only when someone reads the result."""
+    return to_host(x, np.float64)

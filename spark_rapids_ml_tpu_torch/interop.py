@@ -1,11 +1,14 @@
 """Carrying fitted weights from the JAX package into this one.
 
-:func:`pca_model_from_numpy`, :func:`kmeans_model_from_numpy` and
-:func:`umap_model_from_numpy` build a port model from the reference model's arrays and param map, handed over
-as numpy and a plain dict — so both packages compute the same transform
-or prediction without this package importing the other. The second route
-is persistence: a model saved by either package loads in the other
-(``PCAModel.load``, ``KMeansModel.load``, ``UMAPModel.load``).
+:func:`pca_model_from_numpy`, :func:`kmeans_model_from_numpy`,
+:func:`umap_model_from_numpy`, :func:`linear_regression_model_from_numpy`
+and :func:`logistic_regression_model_from_numpy` build a port model from
+the reference model's arrays and param map, handed over as numpy and a
+plain dict — so both packages compute the same transform or prediction
+without this package importing the other. The second route is
+persistence: a model saved by either package loads in the other
+(``PCAModel.load``, ``KMeansModel.load``, ``UMAPModel.load``,
+``LinearRegressionModel.load``, ``LogisticRegressionModel.load``).
 
 Typical use, in code that has both packages::
 
@@ -22,6 +25,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from spark_rapids_ml_tpu_torch.models.kmeans import KMeansModel
+from spark_rapids_ml_tpu_torch.models.linear_regression import LinearRegressionModel
+from spark_rapids_ml_tpu_torch.models.logistic_regression import LogisticRegressionModel
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
 from spark_rapids_ml_tpu_torch.models.umap import UMAPModel
 
@@ -79,6 +84,42 @@ def umap_model_from_numpy(
             f"embedding must be (n, dim) and train_data (n, d), got {embedding.shape} and {train_data.shape}"
         )
     return _with_params(UMAPModel(uid, embedding, train_data, a=float(a), b=float(b)), params)
+
+
+def linear_regression_model_from_numpy(
+    coef,
+    intercept: float,
+    uid: Optional[str] = None,
+    params: Optional[Dict[str, Any]] = None,
+) -> LinearRegressionModel:
+    """A port ``LinearRegressionModel`` holding ``coef`` (d,) as float64 and
+    ``intercept``, with every param of ``params`` that the model has."""
+    coef = np.asarray(coef, dtype=np.float64)
+    if coef.ndim != 1:
+        raise ValueError(f"coef must be (d,), got {coef.shape}")
+    return _with_params(LinearRegressionModel(uid, coef, float(intercept)), params)
+
+
+def logistic_regression_model_from_numpy(
+    weights,
+    intercepts,
+    num_classes: int,
+    uid: Optional[str] = None,
+    params: Optional[Dict[str, Any]] = None,
+    num_iter: int = 0,
+) -> LogisticRegressionModel:
+    """A port ``LogisticRegressionModel`` holding the reference model's
+    ``weights`` (d, c) and ``intercepts`` (c,) as float64 (c = 1 for the
+    binomial sigmoid column), its ``numClasses``, ``numIter`` and every
+    param of ``params`` that the model has."""
+    weights = np.asarray(weights, dtype=np.float64)
+    intercepts = np.asarray(intercepts, dtype=np.float64)
+    if weights.ndim != 2 or intercepts.shape != (weights.shape[1],):
+        raise ValueError(
+            f"weights must be (d, c) and intercepts (c,), got {weights.shape} and {intercepts.shape}"
+        )
+    model = LogisticRegressionModel(uid, weights, intercepts, numClasses=int(num_classes), numIter=int(num_iter))
+    return _with_params(model, params)
 
 
 def _with_params(model, params: Optional[Dict[str, Any]]):

@@ -1,7 +1,12 @@
 """Estimator/model families of the port."""
 
 from spark_rapids_ml_tpu_torch.models.kmeans import KMeans, KMeansModel
+from spark_rapids_ml_tpu_torch.models.linear_regression import LinearRegression, LinearRegressionModel
+from spark_rapids_ml_tpu_torch.models.logistic_regression import LogisticRegression, LogisticRegressionModel
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel
 from spark_rapids_ml_tpu_torch.models.umap import UMAP, UMAPModel
 
-__all__ = ["KMeans", "KMeansModel", "PCA", "PCAModel", "UMAP", "UMAPModel"]
+__all__ = [
+    "KMeans", "KMeansModel", "LinearRegression", "LinearRegressionModel",
+    "LogisticRegression", "LogisticRegressionModel", "PCA", "PCAModel", "UMAP", "UMAPModel",
+]

@@ -7,6 +7,7 @@ card:
   - ``gemm_syrk``    C = BᵀB       (the reference's JNI ``dgemm``)
   - ``project_rows`` C = X·pc      (the device-resident row projection)
   - ``gemm_project`` C = AᵀB       (the reference's JNI ``dgemm_b``)
+  - ``soft_threshold``             the L1 prox of both FISTA solvers
 
 Hopper computes float64 natively, so a float64 request is met in
 float64: ``precision="auto"`` never resolves to the reference's
@@ -59,3 +60,8 @@ def project_rows(x: torch.Tensor, pc: torch.Tensor, precision: str = "highest") 
 def gemm_project(a: torch.Tensor, b: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     """C = AᵀB — the batched projection kernel."""
     return make_dot(precision)(a.T, b)
+
+
+def soft_threshold(v: torch.Tensor, t) -> torch.Tensor:
+    """Proximal operator of t·||.||₁: sign(v) · max(|v| − t, 0)."""
+    return torch.sign(v) * torch.clamp(torch.abs(v) - t, min=0.0)

@@ -34,7 +34,7 @@ from spark_rapids_ml_tpu_torch.ops.kernels import umap as k4
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "spark_rapids_ml_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "spark_rapids_ml_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "spark_rapids_ml_tpu")
 
 
 def _modules():
@@ -54,7 +54,9 @@ def test_every_port_module_imports_without_jax():
     for name in ("ops.kernels.covariance", "ops.kernels.kmeans", "ops.kmeans", "models.kmeans",
                  "core.ingest", "clustering", "ops.knn", "ops.umap", "ops.kernels.umap",
                  "models.umap", "manifold", "interop", "utils.testing", "ops.randomized",
-                 "ops.covariance", "core.serving", "core.data"):
+                 "ops.covariance", "core.serving", "core.data", "ops.linear", "ops.lbfgs",
+                 "ops.logistic", "ops.metrics", "models.linear_regression",
+                 "models.logistic_regression", "regression", "classification", "evaluation"):
         assert f"spark_rapids_ml_tpu_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
