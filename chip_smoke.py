@@ -44,7 +44,22 @@ counters set to 0 just before and read just after:
   the same shape (also 3-class multinomial, elastic net, the streaming fit
   over 11 host blocks, predict), held against float64 copies and a
   converged float64 fit; the three evaluators on 10M rows on the card,
-  held against their host route in float64.
+  held against their host route in float64;
+- the fit policy, last, which adds no kernel (its UMAP fits count K4's
+  launches under each ``TPUML_UMAP_SCATTER`` route):
+  ``PCA().setK(16).setUseGemm(False)`` on 4 host float64 partitions of
+  65,536 × 128 (the native spr accumulator, built with g++ from
+  ``native/src/tpuml_host.cpp``) and the same rows as a ``.npy`` through
+  ``NpyBlockReader`` (packed and GEMM streaming routes), against an
+  on-card float64 fit; the fit memory guard: a 4 GiB host PCA over a
+  1 GiB budget degrades, bit for bit the explicit block-reader fit, a real
+  OOM under a ballast is recovered to the same fit once the failed
+  attempt's memory is freed, KMeans / linear / logistic at configs 3, 4
+  and 10's shapes degrade under 256 MiB (bit for bit), ``fused`` KMeans
+  and UMAP are refused, and with no budget set the earlier phases' one
+  host-input fit was admitted; the knobs ``TPUML_PRECISION_PCA``,
+  ``TPUML_UMAP_SCATTER`` and ``TPUML_LOGISTIC_FUSED`` against their
+  explicit twins.
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -66,6 +81,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -90,6 +106,10 @@ from spark_rapids_ml_tpu_torch.ops.randomized import draw_omega, randomized_pca 
 from spark_rapids_ml_tpu_torch.utils.tracing import counter_value  # noqa: E402
 from spark_rapids_ml_tpu_torch.regression import LinearRegression  # noqa: E402
 from spark_rapids_ml_tpu_torch.classification import LogisticRegression  # noqa: E402
+from spark_rapids_ml_tpu_torch import native  # noqa: E402
+from spark_rapids_ml_tpu_torch.core import membudget  # noqa: E402
+from spark_rapids_ml_tpu_torch.core.data import HostArrayBlockReader  # noqa: E402
+from spark_rapids_ml_tpu_torch.robustness.degrade import DegradationWarning  # noqa: E402
 
 SEED = 0
 N_MAIN = 1_000_000          # rows of the main path (bench.py's width: 1M x 1024)
@@ -1950,6 +1970,318 @@ def glm_phases(gen: torch.Generator, peaks) -> dict:
     return out
 
 
+# --- The fit policy: packed PCA, the fit memory guard, the knobs ------------
+
+PK_PARTS = 4                # host partitions of the packed fit
+PK_ROWS = 65_536
+PK_D = 128
+PK_K = 16
+GUARD_N = 1_048_576         # 1,048,576 x 1,024 float32 host rows: 4 GiB
+GUARD_BUDGET = 1 << 30      # (a): 1 GiB, so the fit degrades
+OOM_HEADROOM = 4 << 30      # (b): the ballast leaves 4 GiB free: too little for the
+                            # in-memory fit's 8 GiB float64 copy, room for the
+                            # streaming fit's ~1.5 GiB of blocks after the earlier
+                            # phases' allocator state (2.5 GiB made it halve once)
+SMALL_BUDGET = 256 << 20    # (c): configs 3, 4 and 10 under 256 MiB
+GUARD_ITERS = 5             # (c): Lloyd / L-BFGS iterations of each pair of fits
+HOST_INPUT_FITS = 1         # (e): host-input fits of the earlier phases (main_path's partitions)
+
+
+class knob:
+    """Set ``TPUML_*`` variables for a block and restore them after."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update({k: str(v) for k, v in self.values.items()})
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def planted_f64(n: int, d: int, top: int, gen: torch.Generator) -> torch.Tensor:
+    """Float64 rows on the card: a decaying top ``top`` (s_i = 1 + 30·0.8^i)
+    over unit noise, rotated by a random orthogonal Q and shifted."""
+    dev = torch.device("cuda")
+    q, _ = torch.linalg.qr(torch.randn((d, d), generator=gen, device=dev, dtype=torch.float64))
+    s = torch.ones(d, dtype=torch.float64, device=dev)
+    s[:top] += 30.0 * 0.8 ** torch.arange(top, dtype=torch.float64, device=dev)
+    z = torch.randn((n, d), generator=gen, device=dev, dtype=torch.float64)
+    return (z * s) @ q.T + 3.0 * torch.randn(d, generator=gen, device=dev, dtype=torch.float64)
+
+
+def _fit_vs(model, ref) -> dict:
+    return {"pc_max_abs": _pc_err_aligned(model.pc, ref.pc),
+            "ev_max_abs": float(np.abs(model.explainedVariance - ref.explainedVariance).max())}
+
+
+def _same_pca(a, b) -> bool:
+    return np.array_equal(a.pc, b.pc) and np.array_equal(a.explainedVariance, b.explainedVariance)
+
+
+def phase_packed_pca(gen: torch.Generator) -> dict:
+    """``PCA().setK(16).setUseGemm(False)`` on 4 host float64 partitions of
+    65,536 × 128 through the native spr accumulator (counter
+    ``pca.packed.native``), then the same rows as a ``.npy`` through
+    ``NpyBlockReader``, by the packed and the GEMM streaming routes; each
+    held against an on-card float64 fit of the same rows, its wall beside
+    the card's float64 Gram of those rows."""
+    n = PK_PARTS * PK_ROWS
+    x = planted_f64(n, PK_D, PK_K, gen)
+    ref = PCA().setK(PK_K).fit(x)
+    host = x.cpu().numpy()
+    parts = [host[i * PK_ROWS:(i + 1) * PK_ROWS] for i in range(PK_PARTS)]
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    build_s = time.perf_counter() - t0
+    require(lib is not None, f"the native host library did not build: {native.build_error()}")
+    est = PCA().setK(PK_K).setUseGemm(False)
+    walls, fits = {}, {}
+    native0, device0 = counter_value("pca.packed.native"), counter_value("pca.packed.device")
+    t0 = time.perf_counter()
+    fits["partitions"] = est.fit(parts)
+    walls["partitions"] = time.perf_counter() - t0
+    require(counter_value("pca.packed.native") - native0 == 1, "the partition fit did not take the native route")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rows.npy")
+        np.save(path, host)
+        with native.NpyBlockReader(path, block_rows=PK_ROWS) as reader:
+            require(reader.shape == (n, PK_D) and reader.dtype == np.float64, "NpyBlockReader shape/dtype")
+            t0 = time.perf_counter()
+            fits["npy_packed"] = est.fit(reader)
+            walls["npy_packed"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fits["npy_gemm"] = PCA().setK(PK_K).fit(reader)
+            walls["npy_gemm"] = time.perf_counter() - t0
+    require(counter_value("pca.packed.native") - native0 == 2, "the npy packed fit did not take the native route")
+    require(counter_value("pca.packed.device") == device0, "a packed fit took the device route")
+    mean = x.mean(dim=0)
+    gram_ms = time_ms(lambda: f64_gram(x, mean), repeats=5)
+    out = {"phase": "packed_pca", "rows": [n, PK_D], "k": PK_K, "native_build_s": build_s,
+           "fit_wall_s": walls, "rows_per_s": {k: n / v for k, v in walls.items()},
+           "f64_gram_ms": gram_ms, "vs_f64": {k: _fit_vs(m, ref) for k, m in fits.items()}}
+    emit(out)
+    for name, err in out["vs_f64"].items():
+        require(err["pc_max_abs"] <= 1e-8, f"packed_pca {name}: components {err['pc_max_abs']:.3e} > 1e-8")
+        require(err["ev_max_abs"] <= 1e-10, f"packed_pca {name}: ratios {err['ev_max_abs']:.3e} > 1e-10")
+    return out
+
+
+def _guard_counts() -> dict:
+    names = ("fit.admission.admitted", "fit.admission.degraded", "fit.admission.rejected",
+             "fit.oom.events", "fit.oom.recovered")
+    return {n: counter_value(n) for n in names}
+
+
+def _delta(before: dict) -> dict:
+    return {k: counter_value(k) - v for k, v in before.items()}
+
+
+def _degraded(fit, what: str):
+    """``fit()`` must degrade: one ``fit.admission.degraded`` and one
+    ``DegradationWarning``."""
+    before = _guard_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        model = fit()
+        wall = time.perf_counter() - t0
+    require(_delta(before)["fit.admission.degraded"] == 1, f"{what}: not degraded")
+    require(any(isinstance(w.message, DegradationWarning) for w in caught), f"{what}: no DegradationWarning")
+    return model, wall
+
+
+def _raises_fit_memory_error(fit, what: str) -> str:
+    try:
+        fit()
+    except membudget.FitMemoryError as exc:
+        return str(exc)
+    raise RuntimeError(f"chip smoke check failed: {what} did not raise FitMemoryError")
+
+
+def phase_fit_guard(gen: torch.Generator) -> dict:
+    """The fit memory guard on the card: (a) a 4 GiB host PCA over a 1 GiB
+    budget degrades, bitwise equal to the explicit ``HostArrayBlockReader``
+    fit; (b) a real OOM under a ballast is recovered after the failed
+    attempt's memory was freed, equal to (a); (c) KMeans, linear and
+    logistic at configs 3, 4 and 10's shapes under 256 MiB degrade,
+    bitwise equal to their explicit streaming fits, and ``fused`` KMeans
+    is refused; (d) UMAP at config 13's shape under 1 MiB is refused."""
+    out = {"phase": "fit_guard"}
+    x = planted(GUARD_N, D, gen)
+    host = x.cpu().numpy()
+    del x
+    torch.cuda.empty_cache()
+    with knob(TPUML_FIT_MEM_BUDGET=GUARD_BUDGET):
+        model_a, wall_a = _degraded(lambda: PCA().setK(K).fit(host), "(a) PCA 4 GiB")
+    t0 = time.perf_counter()
+    explicit = PCA().setK(K).fit(HostArrayBlockReader(host))
+    out["a"] = {"degraded_wall_s": wall_a, "explicit_wall_s": time.perf_counter() - t0,
+                "bitwise_equal": _same_pca(model_a, explicit)}
+    require(out["a"]["bitwise_equal"], "(a) the degraded PCA differs from the explicit reader's fit")
+
+    # (b) A ballast leaves OOM_HEADROOM free, so the in-memory fit's float64
+    # copy of the rows cannot be placed; the budget admits it anyway.
+    torch.cuda.empty_cache()
+    free = membudget.free_hbm_bytes()
+    ballast = torch.empty(free - OOM_HEADROOM, dtype=torch.uint8, device="cuda")
+    at_fallback = {}
+    run_streaming = membudget.run_streaming_with_recovery
+
+    def watched(*args, **kwargs):
+        at_fallback["allocated"] = torch.cuda.memory_allocated()
+        return run_streaming(*args, **kwargs)
+
+    allocated0 = torch.cuda.memory_allocated()
+    before = _guard_counts()
+    membudget.run_streaming_with_recovery = watched
+    try:
+        with knob(TPUML_FIT_MEM_BUDGET=1 << 40), warnings.catch_warnings():
+            warnings.simplefilter("ignore", DegradationWarning)
+            t0 = time.perf_counter()
+            model_b = PCA().setK(K).fit(host)
+            wall_b = time.perf_counter() - t0
+    finally:
+        membudget.run_streaming_with_recovery = run_streaming
+    counts = _delta(before)
+    del ballast
+    torch.cuda.empty_cache()
+    out["b"] = {"free_before_ballast": free, "headroom": OOM_HEADROOM, "wall_s": wall_b, "counters": counts,
+                "allocated_before_fit": allocated0, "allocated_at_fallback": at_fallback.get("allocated"),
+                "bitwise_equal_a": _same_pca(model_b, model_a)}
+    emit({"phase": "fit_guard", "a": out["a"], "b": out["b"]})
+    require(counts["fit.oom.events"] == 1 and counts["fit.oom.recovered"] == 1,
+            f"(b) the OOM was not recovered once: {counts}")
+    require(at_fallback.get("allocated") == allocated0,
+            "(b) the failed attempt's memory was still held when the fallback started")
+    require(out["b"]["bitwise_equal_a"], "(b) the recovered PCA differs from (a)")
+    del host
+
+    # (c) Configs 3, 4 and 10 under a 256 MiB budget.
+    xk, _ = planted_blobs(KM_N, KM_D, KM_K, gen)
+    xk_host = xk.cpu().numpy()
+    del xk
+    km = KMeans().setK(KM_K).setSeed(SEED).setMaxIter(GUARD_ITERS).setBackend("xla")
+    with knob(TPUML_FIT_MEM_BUDGET=SMALL_BUDGET):
+        m_km, wall_km = _degraded(lambda: km.fit(xk_host), "(c) KMeans")
+        fused_msg = _raises_fit_memory_error(
+            lambda: KMeans().setK(KM_K).setSeed(SEED).setBackend("fused").fit(xk_host), "(c) fused KMeans")
+    e_km = km.fit(HostArrayBlockReader(xk_host))
+    same_km = (np.array_equal(m_km.clusterCenters(), e_km.clusterCenters())
+               and m_km.trainingCost == e_km.trainingCost)
+    del xk_host
+    xg, w_true = glm_rows(gen)
+    yg = (xg @ w_true + 0.5 * torch.randn(GLM_N, generator=gen, device=xg.device) > 0).float()
+    xg_host, yg_host = xg.cpu().numpy(), yg.cpu().numpy()
+    del xg, yg
+    torch.cuda.empty_cache()
+    lin = LinearRegression().setRegParam(0.1)
+    logit = LogisticRegression().setRegParam(0.01).setMaxIter(GUARD_ITERS).setTol(0.0)
+    with knob(TPUML_FIT_MEM_BUDGET=SMALL_BUDGET):
+        m_lin, wall_lin = _degraded(lambda: lin.fit((xg_host, yg_host)), "(c) LinearRegression")
+        m_log, wall_log = _degraded(lambda: logit.fit((xg_host, yg_host)), "(c) LogisticRegression")
+    e_lin = lin.fit((HostArrayBlockReader(xg_host), yg_host))
+    e_log = logit.fit((HostArrayBlockReader(xg_host), yg_host))
+    out["c"] = {
+        "kmeans": {"wall_s": wall_km, "bitwise_equal": same_km, "fused_refused": fused_msg},
+        "linear": {"wall_s": wall_lin, "bitwise_equal": bool(
+            np.array_equal(m_lin.coefficients, e_lin.coefficients) and m_lin.intercept == e_lin.intercept)},
+        "logistic": {"wall_s": wall_log, "bitwise_equal": bool(
+            np.array_equal(m_log.weights, e_log.weights) and np.array_equal(m_log.intercepts, e_log.intercepts)
+            and m_log.numIter == e_log.numIter)},
+    }
+    del xg_host, yg_host
+    for fam in ("kmeans", "linear", "logistic"):
+        require(out["c"][fam]["bitwise_equal"], f"(c) the degraded {fam} fit differs from the explicit reader's")
+
+    # (d) UMAP has no streaming fit: over budget is a FitMemoryError.
+    truth = UM_SCALE * torch.randn((UM_BLOBS, UM_D), generator=gen, device="cuda")
+    xu, _ = umap_blobs(UM_N, truth, gen)
+    with knob(TPUML_FIT_MEM_BUDGET=1 << 20):
+        out["d"] = {"umap_refused": _raises_fit_memory_error(
+            lambda: umap_estimator().fit(xu.cpu().numpy()), "(d) UMAP")}
+    emit({"phase": "fit_guard", "c": out["c"], "d": out["d"]})
+    return out
+
+
+def phase_knobs(gen: torch.Generator) -> dict:
+    """``TPUML_PRECISION_PCA``, ``TPUML_UMAP_SCATTER`` and
+    ``TPUML_LOGISTIC_FUSED`` on the card, each against its explicit twin."""
+    x = planted_f64(PK_PARTS * PK_ROWS, PK_D, PK_K, gen).float()
+    explicit = PCA().setK(PK_K).setPrecision("bf16x3").fit(x)
+    with knob(TPUML_PRECISION_PCA="bf16x3"):
+        by_knob = PCA().setK(PK_K).fit(x)
+    plain = PCA().setK(PK_K).fit(x)
+    pca = {"bitwise_equal": _same_pca(by_knob, explicit), "differs_from_f32": not _same_pca(plain, explicit)}
+    del x
+
+    truth = UM_SCALE * torch.randn((UM_BLOBS, UM_D), generator=gen, device="cuda")
+    xu, _ = umap_blobs(UM_N, truth, gen)
+    sub = torch.randperm(UM_N, generator=gen, device=xu.device)[:UM_SUB]
+    umap = {}
+    for route in ("pallas", "xla"):
+        k4.reset_launches()
+        with knob(TPUML_UMAP_SCATTER=route):
+            t0 = time.perf_counter()
+            emb = umap_estimator().fit(xu)._emb_raw
+            sync()
+            wall = time.perf_counter() - t0
+        umap[route] = {"launches": k4.launches["tail_accumulate"], "wall_s": wall,
+                       "trustworthiness": _umap_trust(xu, emb, sub)}
+    del xu
+
+    xg, w_true = glm_rows(gen)
+    y = ((xg - xg.mean(dim=0)) / xg.std(dim=0) @ w_true
+         + 0.5 * torch.randn(GLM_N, generator=gen, device=xg.device) > 0).float()
+    sigma64 = f64_stddev(xg)
+    logit = {}
+    for fused in ("1", "0"):
+        with knob(TPUML_LOGISTIC_FUSED=fused):
+            t0 = time.perf_counter()
+            m = LogisticRegression().setRegParam(0.01).setMaxIter(20).setTol(0.0).fit((xg, y))
+            w, b = m.weights, m.intercepts
+            wall = time.perf_counter() - t0
+        logit[fused] = {"numIter": m.numIter, "wall_s": wall,
+                        "objective": logistic_objective64(xg, y, w, b, 0.01, sigma64)}
+    del xg, y
+    torch.cuda.empty_cache()
+    obj_rel = abs(logit["0"]["objective"] - logit["1"]["objective"]) / abs(logit["1"]["objective"])
+    out = {"phase": "knobs", "precision_pca": pca, "umap_scatter": umap,
+           "logistic_fused": logit, "logistic_objective_rel": obj_rel}
+    emit(out)
+    require(pca["bitwise_equal"], "TPUML_PRECISION_PCA=bf16x3 differs from setPrecision('bf16x3')")
+    require(umap["xla"]["launches"] == 0, "TPUML_UMAP_SCATTER=xla launched K4")
+    require(umap["pallas"]["launches"] == UM_EPOCHS, "TPUML_UMAP_SCATTER=pallas did not launch K4 every epoch")
+    require(abs(umap["xla"]["trustworthiness"] - umap["pallas"]["trustworthiness"]) <= 0.03,
+            "TPUML_UMAP_SCATTER=xla trustworthiness is not within 0.03 of K4's")
+    require(logit["0"]["numIter"] == logit["1"]["numIter"], "TPUML_LOGISTIC_FUSED=0 changed numIter")
+    require(obj_rel <= 1e-4, f"TPUML_LOGISTIC_FUSED=0 objective {obj_rel:.3e} from the fused fit's, > 1e-4")
+    return out
+
+
+def fit_policy_phases(gen: torch.Generator) -> dict:
+    """The packed PCA route, the fit memory guard and the knobs; each phase
+    frees its data before the next. Prints their walls."""
+    t0 = time.perf_counter()
+    walls = {}
+    out = {}
+    for name, phase in (("packed_pca", phase_packed_pca), ("fit_guard", phase_fit_guard), ("knobs", phase_knobs)):
+        t = time.perf_counter()
+        out[name] = phase(gen)
+        walls[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    emit({"phases": list(walls), "wall_s": wall, "phase_wall_s": walls})
+    require(wall <= 90.0, f"the three phases took {wall:.1f} s, over their 90 s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -1962,6 +2294,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+    guard0 = _guard_counts()
     x_big = planted(N_RAGGED, D, gen)
     check = phase_kernel_check(x_big, gen)
     torch.cuda.empty_cache()
@@ -1982,6 +2315,15 @@ def main() -> int:
     streaming_phases(gen)
     torch.cuda.empty_cache()
     glm_phases(gen, peaks)
+    # (e) With no budget set, the earlier phases' host-input fits were
+    # admitted and nothing degraded, was refused or met an OOM.
+    guard = _delta(guard0)
+    emit({"phase": "fit_guard", "e": guard})
+    require(guard["fit.admission.admitted"] == HOST_INPUT_FITS and guard["fit.admission.degraded"] == 0
+            and guard["fit.admission.rejected"] == 0 and guard["fit.oom.events"] == 0,
+            f"(e) the earlier phases' fits were not all admitted: {guard}")
+    torch.cuda.empty_cache()
+    fit_policy_phases(gen)
 
     k1_f32 = times["k1_f32"]
     measured = {

@@ -11,18 +11,23 @@ Port of the reference's ``core/data.py``. The native representations:
 
 Everything host-side funnels through :func:`as_partitions`, which yields
 dense row-major float blocks. Streaming sources (a block iterator, a
-block reader with ``iter_blocks``, or a zero-argument iterator factory)
-never materialize: the estimators' streaming paths take them block by
-block (:func:`iter_stream_blocks`), at constant memory.
+block reader with ``iter_blocks`` — :class:`HostArrayBlockReader`,
+:class:`ArrowBlockReader`, ``native.NpyBlockReader`` — or a zero-argument
+iterator factory) never materialize: the estimators' streaming paths
+take them block by block (:func:`iter_stream_blocks`), at constant
+memory. A reader that knows its ``dtype`` reports it to
+:func:`infer_input_dtype`. :func:`host_rows_shape` is the fit memory
+gate's shape probe.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from spark_rapids_ml_tpu_torch.utils.envknobs import env_int, reject_autotune
 
 try:
     import scipy.sparse as _sp
@@ -36,24 +41,24 @@ DEFAULT_FIT_BLOCK_ROWS = 65536
 FIT_BLOCK_ROWS_ENV = "TPUML_FIT_BLOCK_ROWS"
 
 
-def fit_block_rows() -> int:
-    """Rows per block of :class:`HostArrayBlockReader` and
-    :class:`ArrowBlockReader` when the caller gives none: the
-    ``TPUML_FIT_BLOCK_ROWS`` knob when it is set (an integer >= 1), else
-    :data:`DEFAULT_FIT_BLOCK_ROWS`. The reference's autotuned default
-    waits for the precision/autotune item (ROADMAP 5e)."""
-    raw = os.environ.get(FIT_BLOCK_ROWS_ENV)
-    if raw is None:
-        return DEFAULT_FIT_BLOCK_ROWS
-    try:
-        value = int(raw.strip())
-    except ValueError:
-        raise ValueError(
-            f"{FIT_BLOCK_ROWS_ENV}={raw!r}: expected an integer (e.g. 100)"
-        ) from None
-    if value < 1:
-        raise ValueError(f"{FIT_BLOCK_ROWS_ENV}={raw!r}: expected an integer >= 1")
-    return value
+def fit_block_rows(
+    family: Optional[str] = None,
+    *,
+    width: Optional[int] = None,
+    itemsize: int = 4,
+) -> int:
+    """Rows per block of the fit-path block readers and of a degraded
+    streaming fit: ``TPUML_FIT_BLOCK_ROWS`` when it is set (an integer
+    >= 1), else :data:`DEFAULT_FIT_BLOCK_ROWS`. The signature is the
+    reference's; ``family``, ``width`` and ``itemsize`` size the
+    autotuner's recommendation there, which is not ported: with
+    ``TPUML_AUTOTUNE=on`` and the block knob unset this raises
+    ``NotImplementedError`` (ROADMAP A.9)."""
+    explicit = env_int(FIT_BLOCK_ROWS_ENV, None, minimum=1)
+    if explicit is not None:
+        return explicit
+    reject_autotune()
+    return DEFAULT_FIT_BLOCK_ROWS
 
 
 class SparseVector:
@@ -442,6 +447,37 @@ def num_features(data: Any) -> int:
     return as_partitions(data)[0].shape[1]
 
 
+def host_rows_shape(data: Any) -> Optional[Tuple[int, int]]:
+    """(n_rows, n_features) of a host input without densifying it: the
+    probe the fit memory gate prices from. None when the shape cannot be
+    known without materializing, and for a tensor, which computes where it
+    lives and is never copied to another device by a fit (nothing left to
+    admit)."""
+    if is_device_array(data):
+        return None
+    if isinstance(data, np.ndarray):
+        if data.ndim == 2:
+            return (int(data.shape[0]), int(data.shape[1]))
+        if data.ndim == 1:
+            return (1, int(data.shape[0]))
+        return None
+    if _sp is not None and _sp.issparse(data):
+        return (int(data.shape[0]), int(data.shape[1]))
+    if isinstance(data, (SparseVector, DenseVector)):
+        return (1, len(data.toArray()))
+    if isinstance(data, (list, tuple)) and data:
+        first = data[0]
+        if _is_block(first):
+            if any(not _is_block(p) for p in data):
+                return None
+            return (int(sum(p.shape[0] for p in data)), int(first.shape[1]))
+        try:
+            return (len(data), len(_row_to_array(first)))
+        except (TypeError, ValueError):
+            return None
+    return None
+
+
 class HostArrayBlockReader:
     """Re-iterable block view over one host matrix: blocks are row slices
     (numpy views, no copy), so a fit through it keeps one block on the
@@ -453,7 +489,13 @@ class HostArrayBlockReader:
             raise ValueError(
                 f"HostArrayBlockReader needs a 2-D matrix, got {self._x.ndim}-D"
             )
-        self.block_rows = int(block_rows) if block_rows else fit_block_rows()
+        self.block_rows = (
+            int(block_rows)
+            if block_rows
+            else fit_block_rows(
+                "fit.host_matrix", width=int(self._x.shape[1]), itemsize=int(self._x.dtype.itemsize)
+            )
+        )
         if self.block_rows < 1:
             raise ValueError("block_rows must be >= 1")
 
@@ -517,7 +559,11 @@ class ArrowBlockReader:
 
             all_f32 = all(_leaf(schema.field(c).type) == pa.float32() for c in self.columns)
             self._dtype = np.dtype(np.float32 if all_f32 else np.float64)
-        self.block_rows = int(block_rows) if block_rows else fit_block_rows()
+        self.block_rows = (
+            int(block_rows)
+            if block_rows
+            else fit_block_rows("fit.arrow", width=len(self.columns), itemsize=int(self._dtype.itemsize))
+        )
 
     @property
     def dtype(self):

@@ -11,6 +11,8 @@
   - :func:`prefetch_blocks` one-ahead hand-off for the streaming fits:
                          block k+1 is prepared (densified, its copy to the
                          device issued) before block k is handed on.
+  - :func:`reclaim_device_memory` what the fit-path OOM recovery frees
+                         between attempts.
 
 PyTorch runs eagerly and compiles nothing per shape, so the reference's
 shape buckets and AOT program cache have no work to do here. Double
@@ -20,6 +22,7 @@ slice (and the streaming fits' H2D lever, ROADMAP A.3 L5).
 
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Iterable, Iterator, Optional
 
 import numpy as np
@@ -103,3 +106,16 @@ def prefetch_blocks(blocks: Iterable[Any], prepare: Callable[[Any], Any]) -> Ite
         pending = current
     if pending is not _none:
         yield pending
+
+
+def reclaim_device_memory(device: Optional[torch.device] = None) -> None:
+    """Best-effort release of reclaimable device memory after an OOM: a
+    garbage collection (tensors held only by dropped frames or cycles)
+    and, on a CUDA ``device``, the caching allocator's unused blocks. The
+    fit-path recovery calls it between attempts, so the retry meets the
+    device's true free memory. Counter ``fit.oom.reclaims``."""
+    gc.collect()
+    if device is not None and device.type == "cuda":
+        with torch.cuda.device(device):
+            torch.cuda.empty_cache()
+    bump_counter("fit.oom.reclaims")

@@ -1,7 +1,7 @@
 """Row matrix with accelerated covariance/PCA — port of the reference's
 ``linalg/row_matrix.py`` (the ``RapidsRowMatrix`` equivalent).
 
-Three routes:
+Four routes:
   - a ``torch.Tensor`` computes where it lives, in its own dtype. With the
     ``"xla"`` backend the whole fit is one plain function
     (:func:`_pca_fit_device`); with ``"pallas"`` the covariance runs on
@@ -10,6 +10,14 @@ Three routes:
     float64 — Hopper computes float64 natively, as the original
     ``cublasDgemm`` did — and their Grams are summed there (plain torch or
     K1).
+  - ``use_gemm=False``, the packed spr path (host partitions or a stream):
+    the native float64 Kahan accumulator (``native.SprAccumulator``) when
+    the host library loads, counter ``pca.packed.native``; otherwise the
+    packed-upper Gram on the fit's device (:func:`centered_gram_packed`;
+    a stream takes the shifted scan below), counter ``pca.packed.device``.
+    The covariance is float64 either way and goes to the fit's device for
+    the eigensolve: the reference's x64 branch, where a host float64
+    covariance is solved on the device in float64 (cuSOLVER here).
   - a streaming source (block iterator, block reader, iterator factory) is
     never materialized: one pass of the shifted accumulation
     (``ops/covariance.py::streaming_mean_and_covariance``) in float64,
@@ -17,9 +25,8 @@ Three routes:
     known once the pass has run. ``precision="dd"`` is the same float64
     scan.
 
-Routes of later slices raise ``NotImplementedError`` naming the slice:
-``useGemm=False`` (the packed/native path) and a mesh (one process or
-many, streaming or not).
+A mesh (one process or many, streaming or not) raises
+``NotImplementedError`` naming its slice.
 """
 
 from __future__ import annotations
@@ -30,7 +37,9 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch import device as _device
+from spark_rapids_ml_tpu_torch import native
 from spark_rapids_ml_tpu_torch.core.data import (
+    _block_to_dense,
     as_partitions,
     is_device_array,
     is_streaming_source,
@@ -38,6 +47,7 @@ from spark_rapids_ml_tpu_torch.core.data import (
 )
 from spark_rapids_ml_tpu_torch.ops.covariance import (
     centered_gram,
+    centered_gram_packed,
     streaming_mean_and_covariance,
     welford_add_block,
     welford_init,
@@ -51,17 +61,16 @@ from spark_rapids_ml_tpu_torch.ops.eigh import (
     sign_flip,
 )
 from spark_rapids_ml_tpu_torch.ops.kernels.covariance import centered_gram_cuda
-from spark_rapids_ml_tpu_torch.ops.linalg import resolve_precision
-from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
+from spark_rapids_ml_tpu_torch.ops.linalg import resolve_precision, triu_to_full
+from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
 
 MESH_SLICE = (
     "a device mesh is not ported yet: the mesh and multi-process routes "
     "arrive with the distribution slice (ROADMAP A.18)"
 )
-PACKED_SLICE = (
-    "useGemm=False (the packed spr path over the native fp64 accumulator) "
-    "is not ported yet: it arrives with the packed/native item (ROADMAP A.5b)"
-)
+#: The packed layout's wire-format cap (the reference's
+#: ``RapidsRowMatrix.scala:66-68``): n(n+1)/2 entries of a 32-bit index.
+PACKED_MAX_COLS = 65535
 
 
 def _ratio(w: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
@@ -145,16 +154,17 @@ class RowMatrix:
                 "tensor is already in its compute dtype — pass host "
                 "partitions (or a float64 tensor) for fp64 semantics"
             )
-        if not use_gemm:
-            if self._device_x is not None:
-                raise ValueError(
-                    "useGemm=False (the packed spr-layout path) consumes host "
-                    "partitions; device-resident input runs the fused GEMM "
-                    "covariance (useGemm=True)"
-                )
-            raise NotImplementedError(PACKED_SLICE)
+        if not use_gemm and self._device_x is not None:
+            raise ValueError(
+                "useGemm=False (the packed spr-layout path) consumes host "
+                "partitions; device-resident input runs the fused GEMM "
+                "covariance (useGemm=True)"
+            )
         if backend == "pallas" and self._stream is not None:
             raise ValueError("backend='pallas' has no streaming path; use 'xla'")
+        if backend == "pallas" and not use_gemm:
+            raise ValueError("backend='pallas' applies to the GEMM path (useGemm=True)")
+        self.use_gemm = use_gemm
         self.backend = backend
         if eigen_solver not in ("auto", "full", "topk"):
             raise ValueError(
@@ -251,6 +261,8 @@ class RowMatrix:
         if self._device_x is not None:
             return self._covariance_device()
         with TraceRange("compute cov", TraceColor.RED):
+            if not self.use_gemm:
+                return self._covariance_packed()
             return self._covariance_gemm(self._mean())
 
     def _covariance_device(self) -> torch.Tensor:
@@ -261,9 +273,23 @@ class RowMatrix:
 
     def _covariance_streaming(self) -> torch.Tensor:
         """Covariance of a streaming source: one pass, one block on the
-        device at a time (shifted accumulation, float64). Records the shape
-        the pass found."""
+        device at a time (shifted accumulation, float64), or through the
+        native accumulator on the packed route. Records the shape the pass
+        found."""
         device = self._device()
+        if not self.use_gemm:
+            if native.available():
+                bump_counter("pca.packed.native")
+                with TraceRange("compute cov (stream, native spr)", TraceColor.RED):
+                    cov, n = self._native_spr_covariance(
+                        (_block_to_dense(blk) for blk in iter_stream_blocks(self._stream)),
+                        self.mean_centering,
+                    )
+                self._num_rows = n
+                self._num_cols = int(cov.shape[0])
+                return torch.from_numpy(cov).to(device)
+            # No native library: the device's streaming scan below.
+            bump_counter("pca.packed.device")
         with TraceRange("compute cov (stream)", TraceColor.RED):
             _, cov, n = streaming_mean_and_covariance(
                 iter_stream_blocks(self._stream),
@@ -286,6 +312,54 @@ class RowMatrix:
                 gram = self._gram(blk, mean)
             acc = gram if acc is None else acc + gram
         return acc / (self.num_rows - 1)
+
+    @staticmethod
+    def _native_spr_covariance(blocks, center: bool) -> Tuple[np.ndarray, int]:
+        """Dense host blocks through the native float64 Kahan accumulator:
+        ``(covariance float64, rows)``. The one home of the
+        cap/accumulate/finalize sequence of the packed route and its
+        streaming twin."""
+        acc = None
+        for b in blocks:
+            if b.shape[0] == 0:
+                continue
+            if acc is None:
+                if b.shape[1] > PACKED_MAX_COLS:
+                    raise ValueError(
+                        f"packed path caps features at {PACKED_MAX_COLS}, got {b.shape[1]}"
+                    )
+                acc = native.SprAccumulator(b.shape[1])
+            acc.add_block(b)
+        if acc is None:
+            raise ValueError("need at least 2 rows to compute a covariance, got 0")
+        cov, _ = acc.finalize(center=center)
+        return cov, int(acc.n_rows)
+
+    def _covariance_packed(self) -> torch.Tensor:
+        """The packed-upper (spr/treeAggregate) covariance of host
+        partitions, float64 on the fit's device. Native when the library
+        loads: true float64 with Kahan compensation and its own column
+        means in the same pass. Otherwise the packed Gram per partition on
+        the device, or for ``dd`` the float64 GEMM route (the reference's
+        ``dd`` kernels)."""
+        n_cols = self.num_cols
+        if n_cols > PACKED_MAX_COLS:
+            raise ValueError(f"packed path caps features at {PACKED_MAX_COLS}, got {n_cols}")
+        if native.available():
+            bump_counter("pca.packed.native")
+            cov, _ = self._native_spr_covariance(iter(self.partitions), self.mean_centering)
+            return torch.from_numpy(cov).to(self._device())
+        bump_counter("pca.packed.device")
+        mean = self._mean()
+        if self.precision == "dd":
+            return self._covariance_gemm(mean)
+        device = self._device()
+        acc = None
+        for part in self.partitions:
+            blk = torch.as_tensor(part).to(device=device, dtype=self.dtype)
+            packed = centered_gram_packed(blk, mean)
+            acc = packed if acc is None else acc + packed
+        return triu_to_full(acc) / (self.num_rows - 1)
 
     # --- PCA (computePrincipalComponentsAndExplainedVariance) ---
 

@@ -26,10 +26,16 @@ reference: seeding runs on a one-pass reservoir of max(4096, 4k) rows,
 then :func:`~spark_rapids_ml_tpu_torch.ops.kmeans.lloyd_streaming` in
 float32.
 
+A host input passes the fit memory guard (``core/membudget.py``): over
+budget it reroutes to the streaming fit through a ``HostArrayBlockReader``
+(bit-identical to an explicit one), and so does a device OOM mid-fit;
+``weightCol`` and ``backend="fused"`` cannot stream, so they raise
+``FitMemoryError`` instead.
+
 Left out until their ROADMAP items: a mesh (A.7d) and
 ``serving_signature`` (A.7e) raise ``NotImplementedError``; the
-checkpointed Lloyd (A.7b) and the fit memory guard (A.7c) are switched on
-by knobs the port does not read yet, so no fit reaches them.
+checkpointed Lloyd (A.7b) is switched on by knobs the port does not read
+yet, so no fit reaches it.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from spark_rapids_ml_tpu_torch.core.data import (
     iter_stream_blocks,
     peek_stream_width,
 )
+from spark_rapids_ml_tpu_torch.core import membudget
 from spark_rapids_ml_tpu_torch.core.estimator import Estimator, Model
 from spark_rapids_ml_tpu_torch.core.ingest import default_dtype, matrix_like, numpy_dtype, prepare_rows
 from spark_rapids_ml_tpu_torch.core.lazy_state import LazyHostState, to_host
@@ -246,7 +253,16 @@ class KMeans(_KMeansParams, Estimator, MLReadable):
             return self._fit_streaming(rows)
         if self.mesh is not None:
             raise NotImplementedError(MESH_ITEM)
-        return self._fit_in_memory(rows, w_host)
+        # Over budget, the input reroutes to the _fit_streaming an explicit
+        # reader takes (bit-identical); a device OOM mid-fit takes the same
+        # exit.
+        return membudget.fit_within_budget(
+            "kmeans", rows, lambda: self._fit_in_memory(rows, w_host), self._fit_streaming,
+            can_stream=w_host is None and self.getBackend() != "fused",
+            why_cannot_stream="the streaming KMeans path supports neither "
+                              "weightCol nor backend='fused'",
+            ledger_families=("kmeans",),
+        )
 
     # Seeding reservoir of a streaming fit: large enough that k-means++ on
     # the sample seeds like k-means++ on the data.
@@ -318,8 +334,8 @@ class KMeans(_KMeansParams, Estimator, MLReadable):
         return self._copyValues(model)
 
     def _train_precision(self) -> str:
-        """An explicit ``setPrecision`` wins; otherwise the param's default
-        (``highest``). The reference's knobs and autotune wait for ROADMAP 5e."""
+        """An explicit ``setPrecision`` wins, then ``TPUML_PRECISION_KMEANS``,
+        then ``TPUML_PRECISION``, then the param's default (``highest``)."""
         requested = self.getPrecision() if self.isSet(self.precision) else None
         return resolve_policy("kmeans", requested, default=self.getPrecision())
 

@@ -19,10 +19,16 @@ host input only, as the reference's does. ``"auto"`` resolves to
 ``"highest"``: the card has float64, so nothing routes to ``dd`` quietly.
 ``setInitialModel`` warm-starts FISTA.
 
+A host ``(X, y)`` passes the fit memory guard (``core/membudget.py``):
+over budget it reroutes through a ``HostArrayBlockReader`` to the
+streaming statistics (bit-identical to an explicit reader), and so does a
+device OOM mid-fit; ``weightCol`` cannot stream, so it raises
+``FitMemoryError`` instead.
+
 Left out until their ROADMAP items: a mesh (A.9, item 8d) and
 ``serving_signature`` (A.8, item 17) raise ``NotImplementedError``; the
-resumable FISTA (A.9, robustness) and the fit memory guard (5d) are
-switched on by knobs the port does not read yet, so no fit reaches them.
+resumable FISTA (A.9, robustness) is switched on by knobs the port does
+not read yet, so no fit reaches it.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from spark_rapids_ml_tpu_torch.core.data import (
     is_streaming_source,
     iter_stream_blocks,
 )
+from spark_rapids_ml_tpu_torch.core import membudget
 from spark_rapids_ml_tpu_torch.core.estimator import Estimator, Model
 from spark_rapids_ml_tpu_torch.core.ingest import matrix_like, prepare_labels, prepare_rows
 from spark_rapids_ml_tpu_torch.core.lazy_state import LazyHostState, to_host
@@ -258,7 +265,17 @@ class LinearRegression(_LinearRegressionParams, Estimator, MLReadable):
             return self._copyValues(LinearRegressionModel(self.uid, coef, intercept))
         x_in, y_in = _extract_xy(dataset, self.getFeaturesCol(), self.getLabelCol())
         w_host = extract_weights(dataset, self.getWeightCol())
-        return self._fit_in_memory(x_in, y_in, w_host, self._resolved_precision())
+        prec = self._resolved_precision()
+        # Over budget, the input reroutes through a block reader into the
+        # streaming statistics branch above (bit-identical to an explicit
+        # reader); a device OOM mid-fit takes the same exit.
+        return membudget.fit_within_budget(
+            "linear", x_in, lambda: self._fit_in_memory(x_in, y_in, w_host, prec),
+            lambda reader: self._fit((reader, y_in)),
+            can_stream=w_host is None,
+            why_cannot_stream="the streaming path does not support weightCol",
+            dtype=torch.float64, ledger_families=("linear", "linreg"),
+        )
 
     def _fit_in_memory(self, x_in, y_in, w_host, prec: str) -> "LinearRegressionModel":
         if prec == "dd":

@@ -15,13 +15,21 @@ Routes, as in the reference: a tensor pair fits where it lives, in its own
 dtype; host data goes to the platform's device in float64 (the reference's
 x64 behaviour); ``(source, y)`` with a re-iterable streaming source runs
 the multi-pass streaming fit (float64 on the device, scipy's L-BFGS-B on
-the host). ``fused`` (default True) picks the one-sweep objective; the
-reference's ``TPUML_LOGISTIC_FUSED`` knob waits for ROADMAP 5e.
+the host). ``LogisticRegression(fused=...)`` picks the one-sweep objective
+(True) or the two-sweep autograd one (False); not given, the
+``TPUML_LOGISTIC_FUSED`` knob decides (default 1, fused), as in the
+reference.
+
+A host ``(X, y)`` passes the fit memory guard (``core/membudget.py``):
+over budget it reroutes through a ``HostArrayBlockReader`` to the
+streaming fit (bit-identical to an explicit reader), and so does a device
+OOM mid-fit; ``weightCol``, elastic net and warm starts cannot stream, so
+they raise ``FitMemoryError`` instead.
 
 Left out until their ROADMAP items: a mesh (A.9, item 9d) and
 ``serving_signature`` (A.8, item 17) raise ``NotImplementedError``; the
-resumable L-BFGS (A.9, robustness) and the fit memory guard (5d) are
-switched on by knobs the port does not read yet, so no fit reaches them.
+resumable L-BFGS (A.9, robustness) is switched on by knobs the port does
+not read yet, so no fit reaches it.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.data import DataFrame, as_matrix, extract_weights, is_device_array
 from spark_rapids_ml_tpu_torch.core.data import is_reiterable_stream, is_streaming_source
+from spark_rapids_ml_tpu_torch.core import membudget
 from spark_rapids_ml_tpu_torch.core.estimator import Estimator, Model
 from spark_rapids_ml_tpu_torch.core.ingest import matrix_like, prepare_labels, prepare_rows, validate_int_labels
 from spark_rapids_ml_tpu_torch.core.lazy_state import LazyHostState, to_host
@@ -57,6 +66,7 @@ from spark_rapids_ml_tpu_torch.ops.logistic import (
     streaming_label_feature_stats,
 )
 from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy, validate_mode
+from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 MESH_ITEM = "the mesh route of LogisticRegression is not ported yet: ROADMAP A.9 (item 9d)"
@@ -172,10 +182,17 @@ def _resolve_family(family: str, n_classes: int):
 class LogisticRegression(_LogisticRegressionParams, Estimator, MLReadable):
     """``LogisticRegression().setRegParam(0.1).fit((X, y))``."""
 
-    def __init__(self, uid: Optional[str] = None, mesh=None, fused: bool = True):
+    def __init__(self, uid: Optional[str] = None, mesh=None, fused: Optional[bool] = None):
         super().__init__(uid)
         self.mesh = mesh
         self.fused = fused
+
+    def _use_fused(self) -> bool:
+        """The ``fused`` argument when given, else ``TPUML_LOGISTIC_FUSED``
+        (default 1: the one-sweep objective)."""
+        if self.fused is not None:
+            return bool(self.fused)
+        return env_choice("TPUML_LOGISTIC_FUSED", ("0", "1"), "1") == "1"
 
     def setFeaturesCol(self, value: str) -> "LogisticRegression":
         return self.set(self.featuresCol, value)
@@ -256,7 +273,21 @@ class LogisticRegression(_LogisticRegressionParams, Estimator, MLReadable):
             return self._fit_streaming(dataset)
         x_in, y_in = _extract_xy(dataset, self.getFeaturesCol(), self.getLabelCol())
         w_host = extract_weights(dataset, self.getWeightCol())
-        return self._fit_in_memory(x_in, y_in, w_host)
+        # Over budget, the input reroutes to the (reader, y) streaming fit an
+        # explicit reader takes (bit-identical); a device OOM mid-fit takes
+        # the same exit.
+        return membudget.fit_within_budget(
+            "logistic", x_in, lambda: self._fit_in_memory(x_in, y_in, w_host),
+            lambda reader: self._fit((reader, y_in)),
+            can_stream=(
+                w_host is None
+                and not (self.getElasticNetParam() > 0.0 and self.getRegParam() > 0.0)
+                and self._initial_weights is None
+            ),
+            why_cannot_stream="the streaming path supports neither "
+                              "weightCol, elastic net, nor warm starts",
+            dtype=torch.float64, ledger_families=("logistic",),
+        )
 
     def _fit_in_memory(self, x_in, y_in, w_host) -> "LogisticRegressionModel":
         # Tensor labels validate where they live: one readback.
@@ -273,7 +304,7 @@ class LogisticRegression(_LogisticRegressionParams, Estimator, MLReadable):
                 max_iter=self.getMaxIter(),
                 tol=self.getTol(),
                 multinomial=multinomial,
-                fused=self.fused,
+                fused=self._use_fused(),
                 precision=self._train_precision(),
             )
             enet = self.getElasticNetParam()
@@ -339,7 +370,7 @@ class LogisticRegression(_LogisticRegressionParams, Estimator, MLReadable):
                 max_iter=self.getMaxIter(),
                 tol=self.getTol(),
                 multinomial=family == "multinomial",
-                fused=self.fused,
+                fused=self._use_fused(),
                 precision=self._train_precision(),
             )
         model = LogisticRegressionModel(self.uid, result.weights, result.intercepts,

@@ -22,9 +22,16 @@ iterator factory) fit at constant memory: one pass of the shifted
 covariance, or the multi-pass streaming sketch for a re-iterable source;
 ``transform`` of a stream yields one numpy block per non-empty block.
 
-Routes of later slices raise ``NotImplementedError`` naming the slice:
-``useGemm=False`` and a mesh. The reference's fit memory guard is left
-out.
+``useGemm=False`` takes the packed spr route of ``linalg/row_matrix.py``
+(native float64 accumulator, else the packed Gram on the card).
+
+Every fit passes the fit memory guard (``core/membudget.py``), as in the
+reference: a host input over the budget refits through a
+``HostArrayBlockReader`` on the streaming route an explicit reader takes
+(bit-identical to it), and a device OOM mid-fit takes the same exit;
+``covarianceBackend="pallas"`` cannot stream, so it raises
+``FitMemoryError`` instead. A mesh raises ``NotImplementedError`` naming
+its slice.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from spark_rapids_ml_tpu_torch.core.data import (
     num_features,
     peek_stream_width,
 )
+from spark_rapids_ml_tpu_torch.core import membudget
 from spark_rapids_ml_tpu_torch.core.estimator import Estimator, HasInputCol, HasOutputCol, Model
 from spark_rapids_ml_tpu_torch.core.lazy_state import LazyHostState
 from spark_rapids_ml_tpu_torch.core.params import Param, gt, toBoolean, toInt, toString
@@ -235,6 +243,21 @@ class PCA(_PCAParams, Estimator, MLReadable):
         rows = extract_column(dataset, self.getInputCol())
         if self.mesh is not None:
             raise NotImplementedError(MESH_SLICE)
+        # Over budget, the input re-enters as a block reader: the streaming
+        # route an explicit reader takes, bit for bit. (The reference
+        # re-enters _fit, whose own recovery turns a streaming OOM into
+        # FitMemoryError before the block rows can halve.)
+        return membudget.fit_within_budget(
+            "pca", rows, lambda: self._fit_in_memory(rows), self._fit_in_memory,
+            can_stream=self.getCovarianceBackend() != "pallas",
+            why_cannot_stream="covarianceBackend='pallas' needs the "
+                              "materialized single-device path",
+            dtype=torch.float64, ledger_families=("pca",), device_id=self.getGpuId(),
+        )
+
+    def _fit_in_memory(self, rows: Any) -> "PCAModel":
+        """Solver routing and fit of an admitted input: host or device
+        data, or any streaming source (which the guard waves through)."""
         solver = self.getSolver()
         backend = self.getCovarianceBackend()
         streaming = is_streaming_source(rows)

@@ -13,18 +13,22 @@ Fit: the exact kNN graph (:mod:`ops.knn`), the fuzzy simplicial set,
 spectral init up to 8,192 rows (random in the ±10 box above, or the
 ``setInitEmbedding`` layout), then the synchronous-epoch SGD
 (:mod:`ops.umap`). The tail side of every epoch runs on kernel K4
-(:mod:`ops.kernels.umap`) when the layout lies on a CUDA card and
-``plan_feasible`` holds, else through ``index_add_``. ``transform``
+(:mod:`ops.kernels.umap`) when ``plan_feasible`` holds and
+``TPUML_UMAP_SCATTER`` asks for it: ``auto`` (default) on a CUDA layout,
+``pallas`` on any layout (K4's plain version on a CPU tensor, as the
+reference interprets its kernel there); otherwise, and always with
+``xla``, through ``index_add_``. ``transform``
 places new points by membership-weighted interpolation of their
 training neighbours, then refines them with epochs against the fixed
 training layout (no tail update, so no K4 launch).
 
 Random numbers come from ``torch.Generator``s seeded by ``seed`` (fit)
 and ``seed + 1`` (transform): the reference's results are matched in
-distribution, not bit for bit. Left out until their ROADMAP items: a
-mesh (A.12b, item 18), the fit memory guard (A.12c, with 5d), the
-``TPUML_UMAP_SCATTER`` knob (A.12d, with 5e) and the checkpointed layout
-(A.12a, robustness slice).
+distribution, not bit for bit. A host input passes the fit memory guard
+(``core/membudget.py``) priced in float32; UMAP has no streaming fit, so
+over budget is a ``FitMemoryError``. Left out until their ROADMAP items: a
+mesh (A.12b, item 18) and the checkpointed layout (A.12a, robustness
+slice).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.data import DataFrame, extract_features, is_device_array
+from spark_rapids_ml_tpu_torch.core import membudget
 from spark_rapids_ml_tpu_torch.core.estimator import Estimator, Model
 from spark_rapids_ml_tpu_torch.core.ingest import matrix_like
 from spark_rapids_ml_tpu_torch.core.lazy_state import LazyHostState, to_host
@@ -58,6 +63,7 @@ from spark_rapids_ml_tpu_torch.ops.umap import (
     smooth_knn_dist,
     spectral_init,
 )
+from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 _SPECTRAL_CAP = 8192  # a dense-Laplacian eigh above this would dominate the fit
@@ -281,6 +287,15 @@ class UMAP(_UMAPParams, Estimator, MLReadable):
         if self.mesh is not None:
             raise NotImplementedError(MESH_ITEM)
         rows = extract_features(dataset, self.getFeaturesCol())
+        # The kNN graph and the epoch SGD need the whole matrix on the
+        # device: no streaming rung, so over budget is a FitMemoryError up
+        # front instead of an OOM inside the copy.
+        membudget.fit_memory_guard(
+            "umap", rows, can_stream=False,
+            why_cannot_stream="UMAP has no streaming fit (the kNN graph "
+                              "and epoch SGD need the full matrix resident)",
+            dtype=np.float32, ledger_families=("umap",),
+        )
         device_in = is_device_array(rows)
         x_in = matrix_like(rows)
         n = int(x_in.shape[0])
@@ -299,10 +314,15 @@ class UMAP(_UMAPParams, Estimator, MLReadable):
                     x, k, self.getMetric(), approx=self.getBuildAlgo() == "brute_approx"
                 )
                 graph = fuzzy_simplicial_set(idx, dists)
-                # The tail route: K4 over a per-fit tail sort on the card,
-                # the plain scatter elsewhere.
+                # The tail route (TPUML_UMAP_SCATTER): "auto" takes K4 over a
+                # per-fit tail sort on a CUDA layout and index_add_
+                # elsewhere; "pallas" takes K4's wrapper wherever the plan is
+                # feasible (its plain version on a CPU tensor); "xla" takes
+                # index_add_.
+                scatter = env_choice("TPUML_UMAP_SCATTER", ("auto", "pallas", "xla"), "auto")
+                want_k4 = scatter == "pallas" or (scatter == "auto" and x.device.type == "cuda")
                 tail_plan = None
-                if x.device.type == "cuda" and plan_feasible(n, k, dim):
+                if want_k4 and plan_feasible(n, k, dim):
                     tail_plan = build_tail_plan(graph.indices, n, dim)
             if self._init_embedding is not None:
                 if self._init_embedding.shape != (n, dim):

@@ -24,6 +24,7 @@ import torch
 
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.serving import prefetch_blocks, upload_block
+from spark_rapids_ml_tpu_torch.ops.linalg import _triu_indices_packed
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
 
 
@@ -31,6 +32,16 @@ def centered_gram(x: torch.Tensor, mean: torch.Tensor, precision: str = "highest
     """(x − mean)ᵀ(x − mean) — the per-partition covariance partial."""
     b = x - mean
     return make_dot(precision)(b.T, b)
+
+
+def centered_gram_packed(x: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
+    """The centered Gram in the packed-upper layout of the spr path
+    (cuBLAS ``Dspr`` FILL_MODE_UPPER, n(n+1)/2 entries): computed as one
+    GEMM and packed, since a GEMM beats n sequential rank-1 updates; the
+    layout is kept as the aggregation format."""
+    full = centered_gram(x, mean)
+    rows, cols = _triu_indices_packed(x.shape[1])
+    return full[torch.from_numpy(rows).to(full.device), torch.from_numpy(cols).to(full.device)]
 
 
 def mean_and_covariance(x: torch.Tensor, precision: str = "highest"):

@@ -8,6 +8,7 @@ card:
   - ``project_rows`` C = X·pc      (the device-resident row projection)
   - ``gemm_project`` C = AᵀB       (the reference's JNI ``dgemm_b``)
   - ``soft_threshold``             the L1 prox of both FISTA solvers
+  - ``triu_to_full``               packed upper triangle -> full symmetric
 
 Hopper computes float64 natively, so a float64 request is met in
 float64: ``precision="auto"`` never resolves to the reference's
@@ -17,6 +18,9 @@ on the ordinary route.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
@@ -65,3 +69,25 @@ def gemm_project(a: torch.Tensor, b: torch.Tensor, precision: str = "highest") -
 def soft_threshold(v: torch.Tensor, t) -> torch.Tensor:
     """Proximal operator of t·||.||₁: sign(v) · max(|v| − t, 0)."""
     return torch.sign(v) * torch.clamp(torch.abs(v) - t, min=0.0)
+
+
+def _triu_indices_packed(n: int):
+    """(row, col) indices in the packed-upper column-major order: element
+    (i, j), i <= j, at ``j(j+1)/2 + i`` (cuBLAS ``Dspr`` FILL_MODE_UPPER,
+    Spark's ``BLAS.spr``)."""
+    cols = np.concatenate([np.full(j + 1, j) for j in range(n)])
+    rows = np.concatenate([np.arange(j + 1) for j in range(n)])
+    return rows, cols
+
+
+def triu_to_full(packed: torch.Tensor) -> torch.Tensor:
+    """Packed upper triangle -> the full symmetric matrix; n comes from
+    the length n(n+1)/2."""
+    nt = int(packed.shape[0])
+    n = (math.isqrt(8 * nt + 1) - 1) // 2
+    if n * (n + 1) // 2 != nt:
+        raise ValueError(f"packed length {nt} is not triangular")
+    rows, cols = _triu_indices_packed(n)
+    full = torch.zeros((n, n), dtype=packed.dtype, device=packed.device)
+    full[torch.from_numpy(rows).to(full.device), torch.from_numpy(cols).to(full.device)] = packed
+    return full + torch.triu(full, diagonal=1).T

@@ -14,9 +14,11 @@ gives the reference's "bf16 multiply, fp32 accumulate" numbers exactly
 (the product of two bf16 values is exact in fp32). float64 operands are
 multiplied in float64 in every mode, as the reference does under x64.
 
-:func:`resolve_policy` is reduced to "explicit request, else default";
-the reference's environment knobs and autotuned decisions wait for a
-later slice.
+:func:`resolve_policy` layers an op family's mode as the reference does:
+explicit request > ``TPUML_PRECISION_<FAMILY>`` > ``TPUML_PRECISION`` >
+default. The reference's fourth layer, a committed autotuner decision,
+is not ported (ROADMAP A.9): where it would be consulted,
+``TPUML_AUTOTUNE=on`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,8 +27,14 @@ from typing import Callable, Optional
 
 import torch
 
+from spark_rapids_ml_tpu_torch.utils.envknobs import EnvKnobError, env_str, reject_autotune
+
 MODES = ("f32", "bf16x3", "bf16")
 LEGACY = ("default", "high", "highest")
+
+FAMILIES = ("covariance", "pca", "kmeans", "logistic", "linear", "serving")
+
+PRECISION_ENV = "TPUML_PRECISION"
 
 #: Documented parity bounds vs the f32 product (max |err| / max |ref|).
 REL_TOL = {"bf16x3": 2e-4, "bf16": 3e-2}
@@ -99,14 +107,34 @@ def pallas_precision(precision: str) -> str:
     return {"f32": "highest", "bf16x3": "high", "bf16": "default"}.get(precision, precision)
 
 
+def family_env(family: str) -> str:
+    return f"TPUML_PRECISION_{family.upper()}"
+
+
+def _env_mode(name: str) -> Optional[str]:
+    value = env_str(name)
+    if value is None:
+        return None
+    if value not in MODES + LEGACY:
+        raise EnvKnobError(name, value, f"one of {'|'.join(MODES + LEGACY)}")
+    return value
+
+
 def resolve_policy(
     family: str, requested: Optional[str] = None, default: str = "highest"
 ) -> str:
-    """The precision mode for an op family: the explicit request when
-    there is one (``"auto"`` and ``"dd"`` pass through to their own
-    resolution downstream), else ``default``."""
-    if requested is None:
-        return default
-    if requested in ("auto", "dd"):
-        return requested
-    return validate_mode(requested)
+    """The precision mode for an op family. ``requested`` is the
+    explicitly set param (None when ``setPrecision`` was never called;
+    ``"dd"`` passes through to its own resolution downstream). Layering:
+    explicit > ``TPUML_PRECISION_<FAMILY>`` > ``TPUML_PRECISION`` >
+    ``requested`` ``"auto"`` > ``default``."""
+    if family not in FAMILIES:
+        raise ValueError(f"unknown precision family {family!r}")
+    if requested is not None and requested != "auto":
+        return requested if requested == "dd" else validate_mode(requested)
+    mode = _env_mode(family_env(family)) or _env_mode(PRECISION_ENV)
+    if mode is None and requested is None:
+        reject_autotune()
+    if mode is None:
+        mode = requested if requested is not None else default
+    return mode

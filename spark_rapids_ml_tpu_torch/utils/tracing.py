@@ -5,8 +5,8 @@ same nine ARGB colours (reference ``NvtxRange``/``NvtxColor``), here over
 ``torch.cuda.nvtx.range_push``/``range_pop`` when CUDA is available, so
 the ranges show up in any NVTX-aware trace. Off CUDA the range costs one
 availability check. The counters are a plain dict under a lock; the
-reference's metrics registry and event log wait for the observability
-slice.
+reference's metrics registry waits for the observability slice (the
+event log's JSON-lines sink is ``observability/events.py``).
 """
 
 from __future__ import annotations

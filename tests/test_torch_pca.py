@@ -205,16 +205,15 @@ def test_k_and_row_count_errors():
 
 def test_routes_of_later_slices_raise_not_implemented():
     """The randomized, wide ``auto`` and streaming routes arrived with the
-    streaming/sketch slice and now fit; ``useGemm=False`` and a mesh still
-    raise, naming their items."""
+    streaming/sketch slice and ``useGemm=False`` with the packed route, and
+    now fit; a mesh still raises, naming its item."""
     x = _data(30, 6, 5)
     assert PCA().setK(2).setSolver("randomized").fit(x).pc.shape == (6, 2)
     wide = np.random.default_rng(5).standard_normal((12, 4096))
     assert PCA().setK(2).fit(wide).pc.shape == (4096, 2)
     assert PCA().setK(2).fit(iter([x[:10], x[10:]])).pc.shape == (6, 2)
     assert PCA().setK(2).fit(lambda: iter([x])).pc.shape == (6, 2)
-    with pytest.raises(NotImplementedError, match="useGemm=False"):
-        PCA().setK(2).setUseGemm(False).fit(x)
+    assert PCA().setK(2).setUseGemm(False).fit(x).pc.shape == (6, 2)
     with pytest.raises(NotImplementedError, match="mesh"):
         PCA(mesh=object()).setK(2).fit(x)
     out = list(PCA().setK(2).fit(x).transform(iter([x])))

@@ -56,7 +56,9 @@ def test_every_port_module_imports_without_jax():
                  "models.umap", "manifold", "interop", "utils.testing", "ops.randomized",
                  "ops.covariance", "core.serving", "core.data", "ops.linear", "ops.lbfgs",
                  "ops.logistic", "ops.metrics", "models.linear_regression",
-                 "models.logistic_regression", "regression", "classification", "evaluation"):
+                 "models.logistic_regression", "regression", "classification", "evaluation",
+                 "utils.envknobs", "robustness.retry", "robustness.degrade", "observability.events",
+                 "core.membudget", "native"):
         assert f"spark_rapids_ml_tpu_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"

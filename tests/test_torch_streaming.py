@@ -336,8 +336,8 @@ def test_row_matrix_stream_guards():
     for Mat in (RowMatrix, JaxRowMatrix):
         with pytest.raises(ValueError, match="no streaming path"):
             Mat(lambda: iter([x]), backend="pallas")
-    with pytest.raises(NotImplementedError, match="useGemm=False"):
-        RowMatrix(lambda: iter([x]), use_gemm=False)
+    packed = RowMatrix(lambda: iter([x]), use_gemm=False).compute_covariance()
+    assert_close("packed stream cov", packed, np.cov(x.T), rtol=0, atol=1e-12)
     with pytest.raises(NotImplementedError, match="mesh"):
         RowMatrix(lambda: iter([x]), mesh=object())
 
