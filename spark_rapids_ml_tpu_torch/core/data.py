@@ -426,7 +426,14 @@ def iter_stream_blocks(data: Any):
 
 
 def as_matrix(data: Any, dtype=None) -> np.ndarray:
-    """Normalize input into one dense (n, d) float matrix (float64 by default)."""
+    """Normalize input into one dense (n, d) float matrix (float64 by
+    default). A tensor is copied to the host from wherever it lives, as
+    the reference densifies a ``jax.Array``: the fit-path OOM fallback
+    streams that copy."""
+    if is_device_array(data):
+        host = data.detach().cpu().numpy()
+        host = host[None, :] if host.ndim == 1 else host
+        return np.ascontiguousarray(host, dtype=np.float64 if dtype is None else np.dtype(dtype))
     parts = as_partitions(data, dtype=dtype)
     if len(parts) == 1:
         return parts[0]

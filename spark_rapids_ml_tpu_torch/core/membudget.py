@@ -25,9 +25,11 @@ larger than the card's free memory dies inside ``prepare_rows``'
      holds the failed attempt's frames, and with them its CUDA tensors.
 
 :func:`fit_within_budget` is the sequence each family's ``_fit`` runs
-(guard, degraded reroute, in-memory fit under recovery). A stream or a
-tensor that meets an OOM has no host matrix to re-block, so it ends in
-``FitMemoryError`` (the reference copies a device array back instead).
+(guard, degraded reroute, in-memory fit under recovery). A tensor that
+meets an OOM is copied to the host in its own dtype (``host_matrix``)
+and streamed from there, as the reference copies a device array back; a
+stream has no host matrix to re-block, so its OOM ends in
+``FitMemoryError``.
 
 Observable as in the reference: ``fit_admission`` events, the
 ``fit.admission.*`` and ``fit.oom.*`` counters, and the ``degrade``
@@ -194,9 +196,9 @@ _ADMIT = FitAdmission(degrade=False)
 
 
 def host_matrix(rows: Any) -> np.ndarray:
-    """Densify a host fit input to the matrix the streaming reroute
+    """Densify a fit input to the host matrix the streaming reroute
     blocks over, at the dtype of the user's container (float64 when it
-    has none)."""
+    has none). A tensor is copied to the host in its own dtype."""
     from spark_rapids_ml_tpu_torch.core.data import as_matrix, infer_input_dtype
 
     return as_matrix(rows, dtype=infer_input_dtype(rows))
@@ -431,9 +433,10 @@ def fit_within_budget(
     estimators spell it out: :func:`fit_memory_guard` on ``rows``; over
     budget, ``streaming(reader)`` over the densified input; otherwise
     ``in_memory()`` under :func:`run_fit_with_oom_recovery`, whose
-    fallback is the same streaming reroute for a host input that can
-    stream (a stream or a tensor has no host matrix to re-block)."""
-    from spark_rapids_ml_tpu_torch.core.data import is_device_array, is_streaming_source
+    fallback is the same streaming reroute for an in-memory input that
+    can stream: a host input, or a tensor copied to the host once memory
+    is reclaimed (a stream has no host matrix to re-block)."""
+    from spark_rapids_ml_tpu_torch.core.data import is_streaming_source
 
     guard = fit_memory_guard(
         family, rows, can_stream=can_stream, why_cannot_stream=why_cannot_stream,
@@ -442,7 +445,7 @@ def fit_within_budget(
     if guard.degrade:
         return run_streaming_with_recovery(family, streaming, guard.matrix, device_id=device_id)
     fallback = None
-    if can_stream and not is_streaming_source(rows) and not is_device_array(rows):
+    if can_stream and not is_streaming_source(rows):
         def fallback():
             return run_streaming_with_recovery(family, streaming, host_matrix(rows), device_id=device_id)
     return run_fit_with_oom_recovery(family, in_memory, fallback, device_id=device_id)

@@ -537,14 +537,75 @@ def test_reclaim_counts_and_collects():
     assert ttracing.counter_value("fit.oom.reclaims") == before + 2
 
 
-@pytest.mark.parametrize("source", ["tensor", "stream"])
+@pytest.mark.parametrize("source", ["stream"])
 def test_an_oom_without_a_host_matrix_is_a_fit_memory_error(monkeypatch, source):
-    """A tensor or a stream has no host matrix to re-block: its OOM ends in
-    the structured error, not in a streaming reroute."""
+    """A stream has no host matrix to re-block: its OOM ends in the
+    structured error, not in a streaming reroute (in both packages)."""
     def oom(self, rows, *args):
         raise _oom()
 
     monkeypatch.setattr(PCA, "_fit_in_memory", oom)
-    data = torch.from_numpy(X) if source == "tensor" else (lambda: iter([X]))
+    data = lambda: iter([X])  # noqa: E731
     with pytest.raises(tmb.FitMemoryError, match="cannot degrade to streaming"):
         PCA().setK(2).fit(data)
+
+
+_FAMILY_CLASSES = {"pca": (PCA, JaxPCA), "kmeans": (KMeans, JaxKMeans),
+                   "linear": (LinearRegression, JaxLinR), "logistic": (LogisticRegression, JaxLR)}
+
+
+def _on_device(data, to_device):
+    return (to_device(data[0]), data[1]) if isinstance(data, tuple) else to_device(data)
+
+
+def _raise_in_memory(monkeypatch, cls, is_stream, exc):
+    real = cls._fit_in_memory
+
+    def flaky(self, rows, *args):
+        if not is_stream(rows):
+            raise exc
+        return real(self, rows, *args)
+
+    monkeypatch.setattr(cls, "_fit_in_memory", flaky)
+
+
+@pytest.mark.parametrize("family", list(DEGRADED))
+def test_an_oom_on_a_tensor_is_recovered_by_streaming(monkeypatch, family):
+    """A tensor that meets an OOM is copied to the host in its own dtype
+    and streamed, as the reference recovers a device array: the result is
+    the JAX package's recovered fit of the same rows, and bitwise the
+    port's explicit ``HostArrayBlockReader`` fit."""
+    port_cls, jax_cls = _FAMILY_CLASSES[family]
+    port_est, jax_est, data, explicit_fit = DEGRADED[family]
+    monkeypatch.setenv("TPUML_FIT_BLOCK_ROWS", "40")
+    _raise_in_memory(monkeypatch, port_cls, tdata.is_streaming_source, _oom())
+    _raise_in_memory(monkeypatch, jax_cls, jdata.is_streaming_source,
+                     RuntimeError("RESOURCE_EXHAUSTED: while allocating"))
+    names = ("fit.oom.events", "fit.oom.recovered", "degrade.events")
+    before = {n: ttracing.counter_value(n) for n in names}
+    with pytest.warns(DegradationWarning, match="out of memory mid-fit"):
+        ours = port_est().fit(_on_device(data, torch.from_numpy))
+    assert {n: ttracing.counter_value(n) - v for n, v in before.items()} == dict.fromkeys(names, 1)
+    with pytest.warns(jdegrade.DegradationWarning):
+        theirs = jax_est().fit(_on_device(data, jnp.asarray))
+    got, want = _state(family, ours), _state(family, theirs)
+    if family == "pca":
+        np.testing.assert_allclose(_aligned(got[0], want[0]), want[0], rtol=0, atol=1e-8)
+        np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-10)
+    else:
+        tol = 1e-4 if family == "kmeans" else 1e-10
+        for a, b in zip(got[:-1], want[:-1]):
+            np.testing.assert_allclose(a, b, rtol=0, atol=tol * max(1.0, np.abs(b).max()))
+        if family in ("kmeans", "logistic"):
+            assert got[-1][-1] == want[-1][-1]  # numIter
+    explicit = explicit_fit(tdata.HostArrayBlockReader(X, block_rows=40))
+    for a, b in zip(got, _state(family, explicit)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_a_tensor_copies_to_the_host_in_its_own_dtype():
+    x32 = torch.from_numpy(X.astype(np.float32))
+    m = tmb.host_matrix(x32)
+    assert m.dtype == np.float32 and np.array_equal(m, X.astype(np.float32))
+    assert tmb.host_matrix(torch.from_numpy(X)).dtype == np.float64
+    assert tdata.as_matrix(x32[0]).shape == (1, X.shape[1])
