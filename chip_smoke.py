@@ -45,7 +45,7 @@ counters set to 0 just before and read just after:
   over 11 host blocks, predict), held against float64 copies and a
   converged float64 fit; the three evaluators on 10M rows on the card,
   held against their host route in float64;
-- the fit policy, last, which adds no kernel (its UMAP fits count K4's
+- the fit policy, which adds no kernel (its UMAP fits count K4's
   launches under each ``TPUML_UMAP_SCATTER`` route):
   ``PCA().setK(16).setUseGemm(False)`` on 4 host float64 partitions of
   65,536 × 128 (the native spr accumulator, built with g++ from
@@ -59,7 +59,21 @@ counters set to 0 just before and read just after:
   and UMAP are refused, and with no budget set the earlier phases' one
   host-input fit was admitted; the knobs ``TPUML_PRECISION_PCA``,
   ``TPUML_UMAP_SCATTER`` and ``TPUML_LOGISTIC_FUSED`` against their
-  explicit twins.
+  explicit twins; and (f) a 4 GiB float32 CUDA tensor that meets a real
+  OOM, copied to the host and streamed, bit for bit the explicit
+  block-reader fit of its host copy;
+- the neighbours, last, which launch no kernel, on data planted on the
+  card and within their own 60 s: BASELINE config 11,
+  ``NearestNeighbors().setK(10)`` on 1M x 96 float32 items and 10,000
+  queries (euclidean, cosine) against an on-card float64 brute force,
+  with a profile split of the search into GEMM, int64 key build, ``topk``
+  and the rest; config 7, ``ApproximateNearestNeighbors`` with ``brute``,
+  ``brute_approx`` and ``ivfflat`` (nlist 1,024, nprobe 32; the
+  quantizer's row-blocked assignment; nprobe = nlist exact on 1,000
+  queries); an ``ivfflat`` save and load rebuilding the same index;
+  config 8, ``ivfpq`` on 1M x 128 items and 2,000 queries (uint8 codes,
+  ADC against float64, ``refine_ratio`` 4) and a streamed brute index
+  over host blocks against the resident one.
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -110,6 +124,11 @@ from spark_rapids_ml_tpu_torch import native  # noqa: E402
 from spark_rapids_ml_tpu_torch.core import membudget  # noqa: E402
 from spark_rapids_ml_tpu_torch.core.data import HostArrayBlockReader  # noqa: E402
 from spark_rapids_ml_tpu_torch.robustness.degrade import DegradationWarning  # noqa: E402
+from spark_rapids_ml_tpu_torch.neighbors import (  # noqa: E402
+    ApproximateNearestNeighbors,
+    ApproximateNearestNeighborsModel,
+    NearestNeighbors,
+)
 
 SEED = 0
 N_MAIN = 1_000_000          # rows of the main path (bench.py's width: 1M x 1024)
@@ -2207,6 +2226,73 @@ def phase_fit_guard(gen: torch.Generator) -> dict:
         out["d"] = {"umap_refused": _raises_fit_memory_error(
             lambda: umap_estimator().fit(xu.cpu().numpy()), "(d) UMAP")}
     emit({"phase": "fit_guard", "c": out["c"], "d": out["d"]})
+    del xu
+    torch.cuda.empty_cache()
+    out["f"] = fit_guard_tensor_oom(gen)
+    return out
+
+
+def _peak_extra_bytes(fit):
+    """``(fit(), the most device bytes it held beyond those allocated
+    before it)``."""
+    sync()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    result = fit()
+    sync()
+    return result, torch.cuda.max_memory_allocated() - base
+
+
+def fit_guard_tensor_oom(gen: torch.Generator) -> dict:
+    """(f) A 1,048,576 x 1,024 float32 CUDA tensor that meets a real OOM
+    in ``PCA().setK(16).fit`` is copied to the host and streamed. The
+    ballast leaves the midpoint between the two fits' peaks, each measured
+    here without a ballast: the in-memory fit (its centered copy of the
+    rows) cannot run there, the streaming fit (one block at a time) can.
+    The recovered fit must be bitwise the explicit reader fit of
+    ``x.cpu().numpy()``, with the failed attempt's memory freed."""
+    x = planted(GUARD_N, D, gen)
+    host = x.cpu().numpy()
+    _, peak_in_memory = _peak_extra_bytes(lambda: PCA().setK(K).fit(x).pc)
+    explicit, peak_stream = _peak_extra_bytes(lambda: PCA().setK(K).fit(HostArrayBlockReader(host)))
+    require(peak_stream < peak_in_memory,
+            f"(f) the streaming fit's peak {peak_stream} is not below the in-memory fit's {peak_in_memory}")
+    headroom = (peak_stream + peak_in_memory) // 2
+    torch.cuda.empty_cache()
+    free = membudget.free_hbm_bytes()
+    ballast = torch.empty(free - headroom, dtype=torch.uint8, device="cuda")
+    at_fallback = {}
+    run_streaming = membudget.run_streaming_with_recovery
+
+    def watched(*args, **kwargs):
+        at_fallback["allocated"] = torch.cuda.memory_allocated()
+        return run_streaming(*args, **kwargs)
+
+    allocated0 = torch.cuda.memory_allocated()
+    before = _guard_counts()
+    membudget.run_streaming_with_recovery = watched
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DegradationWarning)
+            t0 = time.perf_counter()
+            model = PCA().setK(K).fit(x)
+            wall = time.perf_counter() - t0
+    finally:
+        membudget.run_streaming_with_recovery = run_streaming
+    counts = _delta(before)
+    del ballast, x, host
+    torch.cuda.empty_cache()
+    out = {"peak_in_memory": peak_in_memory, "peak_stream": peak_stream, "headroom": headroom,
+           "free_before_ballast": free, "wall_s": wall, "counters": counts,
+           "allocated_before_fit": allocated0, "allocated_at_fallback": at_fallback.get("allocated"),
+           "bitwise_equal_explicit": _same_pca(model, explicit)}
+    emit({"phase": "fit_guard", "f": out})
+    require(counts["fit.oom.events"] == 1 and counts["fit.oom.recovered"] == 1,
+            f"(f) the tensor's OOM was not recovered once: {counts}")
+    require(at_fallback.get("allocated") == allocated0,
+            "(f) the failed attempt's memory was still held when the fallback started")
+    require(out["bitwise_equal_explicit"], "(f) the recovered tensor fit differs from the explicit reader's")
     return out
 
 
@@ -2282,6 +2368,296 @@ def fit_policy_phases(gen: torch.Generator) -> dict:
     return out
 
 
+NB_N = 1_000_000            # BASELINE configs 7 and 11: 1M x 96 float32 items
+NB_D = 96
+NB_Q = 10_000               # their 10,000 queries
+NB_K = 10
+NB_LISTS = 1024             # config 7's ivfflat: nlist 1024, nprobe 32
+NB_PROBE = 32
+NB_FULL_Q = 1_000           # (b): queries of the nprobe = nlist check
+PQ_D = 128                  # config 8: 1M x 128 items, 2,000 queries
+PQ_Q = 2_000
+PQ_PARAMS = {"nlist": 512, "nprobe": 16, "M": 32, "kmeans_iters": 3, "pq_iters": 3}
+PQ_ADC_Q = 200              # (c): queries of the float64 ADC check
+PQ_BLOCK = 262_144          # (c): rows per host block of the streamed brute index
+SAVE_N = 50_000             # (d): items of the saved ivfflat model (a 1M-item model's
+                            # vector rows took 98.7 s to save and load)
+SAVE_PARAMS = {"nlist": 64, "nprobe": 8}
+F64_CHUNK = 512             # query rows per chunk of the float64 brute force
+NB_WALL_LIMIT_S = 60.0
+
+
+def knn_f64(queries: torch.Tensor, items: torch.Tensor, k: int, metric: str = "euclidean"):
+    """Exact top-k in float64 on the card, ``F64_CHUNK`` queries at a time:
+    (distances under ``metric``, indices)."""
+    q64, x64 = queries.double(), items.double()
+    if metric == "cosine":
+        q64 = q64 / q64.norm(dim=1, keepdim=True)
+        x64 = x64 / x64.norm(dim=1, keepdim=True)
+    x_sq = (x64 * x64).sum(dim=1)
+    out_d, out_i = [], []
+    for s in range(0, q64.shape[0], F64_CHUNK):
+        qb = q64[s:s + F64_CHUNK]
+        d2 = ((qb * qb).sum(dim=1)[:, None] - 2.0 * (qb @ x64.T) + x_sq[None, :]).clamp_min_(0.0)
+        d, i = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+        out_d.append(d)
+        out_i.append(i)
+        del d2
+    d2 = torch.cat(out_d)
+    dist = {"euclidean": d2.sqrt(), "sqeuclidean": d2, "cosine": d2 / 2.0}[metric]
+    return dist, torch.cat(out_i)
+
+
+def recall_of(idx: torch.Tensor, ref: torch.Tensor) -> float:
+    """Share of the reference's neighbours that ``idx`` found, row by row."""
+    hits = (idx.long()[:, :, None] == ref.long()[:, None, :]).any(dim=2).sum()
+    return float(hits) / ref.numel()
+
+
+def rel_err(d: torch.Tensor, ref: torch.Tensor) -> float:
+    return float(((d.double() - ref.double()).abs() / ref.double().abs().clamp_min(1e-30)).max())
+
+
+def _knn_split(prof) -> dict:
+    """Device ms of one exact search by kind: the distance GEMM, the
+    int64 merge keys, ``topk`` and the rest."""
+    split = {"gemm": 0.0, "key_build": 0.0, "topk": 0.0, "rest": 0.0}
+    for key, ms in _device_ms_by_kernel(prof).items():
+        name = key.lower()
+        if any(t in name for t in ("gemm", "cutlass", "xmma", "sm90_")):
+            split["gemm"] += ms
+        elif any(t in name for t in ("topk", "radix", "sort", "bitonic")):
+            split["topk"] += ms
+        elif any(t in name for t in ("bitwise", "shift")) or ("copy" in name and "int" in name):
+            split["key_build"] += ms
+        else:
+            split["rest"] += ms
+    return split
+
+
+def phase_exact_knn(items: torch.Tensor, queries: torch.Tensor, peaks) -> dict:
+    """(a) BASELINE config 11: ``NearestNeighbors().setK(10)`` on 1M x 96
+    float32 CUDA items, 10,000 queries, euclidean then cosine, against an
+    on-card float64 brute force; timed (median of 3) beside the distance
+    GEMM's operations bound and split by kernel kind under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"phase": "neighbours_exact", "what": "NearestNeighbors().setK(10), 1M x 96 f32, 10,000 queries"}
+    _, _, fp32, _ = peaks
+    out["gemm_bound_ms"] = 2.0 * NB_Q * NB_N * NB_D / fp32 * 1e3
+    refs = {}
+    for metric in ("euclidean", "cosine"):
+        model = NearestNeighbors().setK(NB_K).setMetric(metric).fit(items)
+        d, idx = model.kneighbors(queries)
+        require(d.is_cuda and idx.is_cuda and idx.dtype == torch.int32 and tuple(idx.shape) == (NB_Q, NB_K),
+                f"(a) {metric}: kneighbors did not return (10,000, 10) CUDA tensors")
+        wall = wall_s(lambda: model.kneighbors(queries))
+        t0 = time.perf_counter()
+        d64, i64 = knn_f64(queries, items, NB_K, metric)
+        ref_s = time.perf_counter() - t0
+        refs[metric] = i64
+        got = {"wall_s": wall, "queries_per_s": NB_Q / wall, "recall_vs_f64": recall_of(idx, i64),
+               "dist_rel_vs_f64": rel_err(d, d64), "f64_reference_s": ref_s}
+        out[metric] = got
+        require(got["recall_vs_f64"] >= 0.999, f"(a) {metric} recall {got['recall_vs_f64']} < 0.999")
+        require(got["dist_rel_vs_f64"] <= 1e-4, f"(a) {metric} distances {got['dist_rel_vs_f64']:.2e} > 1e-4")
+        if metric == "euclidean":
+            sync()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.kneighbors(queries)
+                sync()
+                window_ms = (time.perf_counter() - t0) * 1e3
+            split = _knn_split(prof)
+            busy = sum(split.values())
+            top = sorted(_device_ms_by_kernel(prof).items(), key=lambda kv: -kv[1])[:8]
+            out["profile"] = {"window_ms": window_ms, "device_busy_ms": busy, "split_ms": split,
+                              "device_idle_share": 1.0 - busy / window_ms,
+                              "top_device_ms": [{"kernel": k[:80], "ms": v} for k, v in top]}
+    emit(out)
+    out["refs"] = refs
+    return out
+
+
+def phase_ann_config7(items: torch.Tensor, queries: torch.Tensor, exact: torch.Tensor) -> dict:
+    """(b) BASELINE config 7: ``ApproximateNearestNeighbors().setK(10)
+    .setMetric("sqeuclidean")`` with ``brute``, ``brute_approx`` and
+    ``ivfflat`` (nlist 1024, nprobe 32) on the same items. The quantizer's
+    final assignment must take the row-blocked route (4·n·nlist > 2e9);
+    ``nprobe = nlist`` on 1,000 queries must be exact."""
+    out = {"phase": "neighbours_config7"}
+    res = {}
+    for algo in ("brute", "brute_approx"):
+        model = ApproximateNearestNeighbors().setK(NB_K).setMetric("sqeuclidean").setAlgorithm(algo).fit(items)
+        d, idx = model.kneighbors(queries)
+        res[algo] = idx
+        wall = wall_s(lambda: model.kneighbors(queries), repeats=1)
+        out[algo] = {"wall_s": wall, "queries_per_s": NB_Q / wall, "recall_vs_exact": recall_of(idx, exact)}
+    require(torch.equal(res["brute_approx"], res["brute"]), "(b) brute_approx indices differ from brute's")
+    blocked0 = counter_value("ann.quantizer.blocked_assign")
+    est = (ApproximateNearestNeighbors().setK(NB_K).setMetric("sqeuclidean")
+           .setAlgoParams({"nlist": NB_LISTS, "nprobe": NB_PROBE}))
+    sync()
+    t0 = time.perf_counter()
+    model = est.fit(items)
+    sync()
+    build_s = time.perf_counter() - t0
+    blocked = counter_value("ann.quantizer.blocked_assign") - blocked0
+    d, idx = model.kneighbors(queries)
+    search = wall_s(lambda: model.kneighbors(queries))
+    l_max = int(model._index.lists.shape[1])
+    model.set(model.algoParams, {"nlist": NB_LISTS, "nprobe": NB_LISTS})
+    sync()
+    t0 = time.perf_counter()
+    _, idx_full = model.kneighbors(queries[:NB_FULL_Q])
+    sync()
+    full_s = time.perf_counter() - t0
+    model.set(model.algoParams, {"nlist": NB_LISTS, "nprobe": NB_PROBE})
+    out["ivfflat"] = {"build_wall_s": build_s, "search_wall_s": search, "queries_per_s": NB_Q / search,
+                      "recall_vs_exact": recall_of(idx, exact), "l_max": l_max,
+                      "mean_list": NB_N / NB_LISTS, "blocked_assign": blocked,
+                      "full_probe_wall_s": full_s,
+                      "full_probe_recall_vs_brute": recall_of(idx_full, res["brute"][:NB_FULL_Q])}
+    emit(out)
+    require(blocked == 1, "(b) the quantizer's assignment did not take the blocked route")
+    require(out["ivfflat"]["full_probe_recall_vs_brute"] >= 0.999, "(b) nprobe = nlist recall < 0.999")
+    return out
+
+
+def adc_f64(index, queries: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The index's own ADC distance of each returned item, recomputed in
+    float64 from its centroids, codebooks and codes."""
+    n_lists, l_max, m_sub = index.codes.shape
+    ds = index.codebooks.shape[2]
+    flat_ids = index.list_ids.reshape(-1).long()
+    slot = torch.full((int(flat_ids.max()) + 1,), -1, dtype=torch.long, device=flat_ids.device)
+    real = flat_ids >= 0
+    slot[flat_ids[real]] = torch.nonzero(real)[:, 0]
+    where = slot[idx.long()]  # (q, k) flat slot of each returned item
+    codes = index.codes.reshape(-1, m_sub)[where].long()  # (q, k, M)
+    cents = index.centroids.double()[where // l_max]  # (q, k, d)
+    resid = (queries.double()[:, None, :] - cents).reshape(*where.shape, m_sub, ds)
+    books = index.codebooks.double()  # (M, K, ds)
+    picked = books[torch.arange(m_sub, device=codes.device)[None, None, :], codes]  # (q, k, M, ds)
+    return ((resid - picked) ** 2).sum(dim=(2, 3))
+
+
+def phase_ann_config8(gen: torch.Generator) -> dict:
+    """(c) BASELINE config 8: 1M x 128 float32 items, 2,000 queries.
+    ``ivfpq`` (nlist 512, nprobe 16, M 32, 3 + 3 iterations, no refine):
+    build, search, recall, uint8 codes and a float64 ADC check; then
+    ``refine_ratio`` 4; then a streamed brute index over host blocks of
+    262,144 rows against the resident ``brute``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    items = torch.randn((NB_N, PQ_D), generator=gen, device="cuda")
+    queries = torch.randn((PQ_Q, PQ_D), generator=gen, device="cuda")
+    _, exact = knn_f64(queries, items, NB_K, "sqeuclidean")
+    out = {"phase": "neighbours_config8"}
+    est = ApproximateNearestNeighbors().setK(NB_K).setMetric("sqeuclidean").setAlgorithm("ivfpq")
+    sync()
+    t0 = time.perf_counter()
+    model = est.setAlgoParams(PQ_PARAMS).fit(items)
+    sync()
+    build_s = time.perf_counter() - t0
+    d, idx = model.kneighbors(queries)
+    search = wall_s(lambda: model.kneighbors(queries))
+    index = model._index
+    adc = adc_f64(index, queries[:PQ_ADC_Q], idx[:PQ_ADC_Q])
+    model.set(model.algoParams, dict(PQ_PARAMS, refine_ratio=4))
+    _, idx_refined = model.kneighbors(queries)
+    refined = wall_s(lambda: model.kneighbors(queries))
+    out["ivfpq"] = {"build_wall_s": build_s, "search_wall_s": search, "queries_per_s": PQ_Q / search,
+                    "recall_vs_exact": recall_of(idx, exact), "codes_dtype": str(index.codes.dtype),
+                    "l_max": int(index.codes.shape[1]), "adc_rel_vs_f64": rel_err(d[:PQ_ADC_Q], adc),
+                    "refine4_wall_s": refined, "refine4_recall_vs_exact": recall_of(idx_refined, exact)}
+    del model, index
+    torch.cuda.empty_cache()
+
+    resident = ApproximateNearestNeighbors().setK(NB_K).setAlgorithm("brute").fit(items)
+    d_res, i_res = resident.kneighbors(queries)
+    res_wall = wall_s(lambda: resident.kneighbors(queries))
+    host = items.cpu().numpy()
+    blocks = [host[i:i + PQ_BLOCK] for i in range(0, NB_N, PQ_BLOCK)]
+    streamed = ApproximateNearestNeighbors().setK(NB_K).setAlgorithm("brute").fit(lambda: iter(blocks))
+    d_st, i_st = streamed.kneighbors(queries)
+    st_wall = wall_s(lambda: streamed.kneighbors(queries))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        streamed.kneighbors(queries)
+        sync()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    out["streamed_brute"] = {"blocks": len(blocks), "wall_s": st_wall, "queries_per_s": PQ_Q / st_wall,
+                             "resident_wall_s": res_wall, "recall_vs_resident": recall_of(i_st, i_res),
+                             "dist_rel_vs_resident": rel_err(d_st, d_res),
+                             "h2d_share": _h2d_ms(prof) / window_ms, "window_ms": window_ms}
+    emit(out)
+    pq = out["ivfpq"]
+    require(pq["codes_dtype"] == "torch.uint8", "(c) ivfpq codes are not uint8")
+    require(pq["adc_rel_vs_f64"] <= 1e-4, f"(c) ADC distances {pq['adc_rel_vs_f64']:.2e} from float64 > 1e-4")
+    require(pq["refine4_recall_vs_exact"] >= pq["recall_vs_exact"], "(c) refine_ratio 4 lowered the recall")
+    sb = out["streamed_brute"]
+    require(sb["recall_vs_resident"] >= 0.999 and sb["dist_rel_vs_resident"] <= 1e-5,
+            f"(c) the streamed brute index differs from the resident one: {sb}")
+    return out
+
+
+def phase_ann_save_load(items: torch.Tensor, queries: torch.Tensor) -> dict:
+    """(d) An ``ivfflat`` model of ``SAVE_N`` of the items, saved and
+    loaded on the card, rebuilds (from its seed) an index whose neighbours
+    are bitwise the saved model's."""
+    from spark_rapids_ml_tpu_torch.core import persistence
+
+    model = ApproximateNearestNeighbors().setK(NB_K).setSeed(SEED).setAlgoParams(SAVE_PARAMS).fit(items[:SAVE_N])
+    _, idx = model.kneighbors(queries)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ann_model")
+        t0 = time.perf_counter()
+        model.write.overwrite().save(path)
+        loaded = ApproximateNearestNeighborsModel.load(path)
+        save_load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, idx_loaded = loaded.kneighbors(queries)
+    sync()
+    out = {"phase": "neighbours_save_load", "items": SAVE_N, "parquet": persistence._HAS_ARROW,
+           "save_load_s": save_load_s,
+           "rebuild_and_search_s": time.perf_counter() - t0,
+           "bitwise_equal": bool(torch.equal(idx_loaded, idx))}
+    emit(out)
+    require(out["bitwise_equal"], "(d) the reloaded ivfflat model's neighbours differ from the saved model's")
+    return out
+
+
+def neighbour_phases(gen: torch.Generator, peaks) -> dict:
+    """BASELINE configs 11, 7 and 8 through the port's neighbour
+    estimators on data planted on the card, and an ``ivfflat`` save/load;
+    each phase frees its data before the next. Prints the group's wall,
+    which must stay within ``NB_WALL_LIMIT_S``."""
+    t0 = time.perf_counter()
+    items = torch.randn((NB_N, NB_D), generator=gen, device="cuda")
+    queries = torch.randn((NB_Q, NB_D), generator=gen, device="cuda")
+    walls = {}
+    t = time.perf_counter()
+    exact = phase_exact_knn(items, queries, peaks)
+    walls["exact"] = time.perf_counter() - t
+    t = time.perf_counter()
+    c7 = phase_ann_config7(items, queries, exact["refs"]["euclidean"])
+    walls["config7"] = time.perf_counter() - t
+    t = time.perf_counter()
+    save_load = phase_ann_save_load(items, queries)
+    walls["save_load"] = time.perf_counter() - t
+    del items, queries, exact
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    c8 = phase_ann_config8(gen)
+    walls["config8"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    emit({"phases": "neighbours", "wall_s": wall, "phase_wall_s": walls})
+    require(wall <= NB_WALL_LIMIT_S, f"the neighbour phases took {wall:.1f} s, over their {NB_WALL_LIMIT_S:.0f} s")
+    return {"config7": c7, "config8": c8, "save_load": save_load}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -2324,6 +2700,8 @@ def main() -> int:
             f"(e) the earlier phases' fits were not all admitted: {guard}")
     torch.cuda.empty_cache()
     fit_policy_phases(gen)
+    torch.cuda.empty_cache()
+    neighbour_phases(gen, peaks)
 
     k1_f32 = times["k1_f32"]
     measured = {

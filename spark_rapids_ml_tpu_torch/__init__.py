@@ -7,14 +7,16 @@ and ``numpy`` and never ``jax`` or anything of the JAX package.
 
 Layer map (the reference's, one for one):
   - ``feature`` / ``clustering`` / ``manifold`` / ``regression`` /
-    ``classification`` / ``models`` — user-facing estimators (PCA, KMeans,
-    UMAP, LinearRegression, LogisticRegression and their models)
+    ``classification`` / ``neighbors`` / ``models`` — user-facing
+    estimators (PCA, KMeans, UMAP, LinearRegression, LogisticRegression,
+    NearestNeighbors, ApproximateNearestNeighbors and their models)
   - ``evaluation``            — Regression, Multiclass and Binary evaluators
   - ``linalg``                — row-matrix orchestration (RowMatrix)
   - ``core``                  — params, data, ingest, persistence, serving,
     the fit memory guard (``membudget``)
   - ``ops``                   — plain tensor math (covariance, eigh, GEMMs,
-    KMeans, kNN, UMAP, linear and logistic solvers, L-BFGS, metrics)
+    KMeans, kNN (resident and streamed), IVF-Flat and IVF-PQ, UMAP,
+    linear and logistic solvers, L-BFGS, metrics)
   - ``ops.kernels`` + ``csrc``— hand-written Hopper kernels (CUDA C++,
     built with nvcc on first use, bound with ctypes)
   - ``native``                — ctypes loader of the host C++ runtime (the

@@ -1,14 +1,20 @@
 """Carrying fitted weights from the JAX package into this one.
 
 :func:`pca_model_from_numpy`, :func:`kmeans_model_from_numpy`,
-:func:`umap_model_from_numpy`, :func:`linear_regression_model_from_numpy`
-and :func:`logistic_regression_model_from_numpy` build a port model from
-the reference model's arrays and param map, handed over as numpy and a
-plain dict — so both packages compute the same transform or prediction
-without this package importing the other. The second route is
-persistence: a model saved by either package loads in the other
+:func:`umap_model_from_numpy`, :func:`linear_regression_model_from_numpy`,
+:func:`logistic_regression_model_from_numpy`,
+:func:`nearest_neighbors_model_from_numpy` and
+:func:`approximate_nearest_neighbors_model_from_numpy` build a port model
+from the reference model's arrays and param map, handed over as numpy and
+a plain dict — so both packages compute the same transform or prediction
+without this package importing the other. The IVF quantizer's draws
+cannot be reproduced here, so the ANN model also takes the reference's
+index arrays: both packages then probe the same lists. The second route
+is persistence: a model saved by either package loads in the other
 (``PCAModel.load``, ``KMeansModel.load``, ``UMAPModel.load``,
-``LinearRegressionModel.load``, ``LogisticRegressionModel.load``).
+``LinearRegressionModel.load``, ``LogisticRegressionModel.load``,
+``NearestNeighborsModel.load``, ``ApproximateNearestNeighborsModel.load``;
+the ANN index is rebuilt from the seed there).
 
 Typical use, in code that has both packages::
 
@@ -23,10 +29,13 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
+from spark_rapids_ml_tpu_torch.models.approximate_nearest_neighbors import ApproximateNearestNeighborsModel
 from spark_rapids_ml_tpu_torch.models.kmeans import KMeansModel
 from spark_rapids_ml_tpu_torch.models.linear_regression import LinearRegressionModel
 from spark_rapids_ml_tpu_torch.models.logistic_regression import LogisticRegressionModel
+from spark_rapids_ml_tpu_torch.models.nearest_neighbors import NearestNeighborsModel
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
 from spark_rapids_ml_tpu_torch.models.umap import UMAPModel
 
@@ -120,6 +129,73 @@ def logistic_regression_model_from_numpy(
         )
     model = LogisticRegressionModel(uid, weights, intercepts, numClasses=int(num_classes), numIter=int(num_iter))
     return _with_params(model, params)
+
+
+def nearest_neighbors_model_from_numpy(
+    items,
+    ids=None,
+    uid: Optional[str] = None,
+    params: Optional[Dict[str, Any]] = None,
+) -> NearestNeighborsModel:
+    """A port ``NearestNeighborsModel`` indexing the reference model's
+    ``items`` (n, d) (and its ``ids``), with every param of ``params`` that
+    the model has."""
+    items = _matrix(items, "items")
+    return _with_params(NearestNeighborsModel(uid, items, _ids(ids, items)), params)
+
+
+_INDEX_FIELDS = {
+    "ivfflat": ("centroids", "lists", "list_mask", "list_ids"),
+    "ivfpq": ("centroids", "codebooks", "codes", "list_mask", "list_ids"),
+}
+
+
+def approximate_nearest_neighbors_model_from_numpy(
+    items,
+    ids=None,
+    uid: Optional[str] = None,
+    params: Optional[Dict[str, Any]] = None,
+    index: Optional[Dict[str, Any]] = None,
+) -> ApproximateNearestNeighborsModel:
+    """A port ``ApproximateNearestNeighborsModel`` over the reference
+    model's ``items`` (n, d) and ``ids``, with every param of ``params``
+    that the model has. ``index`` carries the reference's built index as
+    numpy: ``centroids``, ``lists``, ``list_mask`` and ``list_ids`` for
+    ``ivfflat``; ``centroids``, ``codebooks``, ``codes``, ``list_mask`` and
+    ``list_ids`` for ``ivfpq``. Without it the port builds its own index
+    at the first ``kneighbors``."""
+    items = _matrix(items, "items")
+    model = _with_params(ApproximateNearestNeighborsModel(uid, items, _ids(ids, items)), params)
+    if index is not None:
+        from spark_rapids_ml_tpu_torch.ops.ann import IVFIndex, IVFPQIndex
+
+        is_pq = "codes" in index
+        fields = _INDEX_FIELDS["ivfpq" if is_pq else "ivfflat"]
+        missing = [f for f in fields if f not in index]
+        if missing:
+            raise ValueError(f"index lacks {missing}")
+        tensors = {f: torch.from_numpy(np.array(index[f])) for f in fields}
+        tensors["list_ids"] = tensors["list_ids"].to(torch.int32)
+        if is_pq:
+            tensors["codes"] = tensors["codes"].to(torch.uint8)
+        model._index = (IVFPQIndex if is_pq else IVFIndex)(**tensors)
+    return model
+
+
+def _matrix(x, what: str) -> np.ndarray:
+    x = np.asarray(x)
+    if x.ndim != 2:
+        raise ValueError(f"{what} must be (n, d), got {x.shape}")
+    return x
+
+
+def _ids(ids, items: np.ndarray) -> Optional[np.ndarray]:
+    if ids is None:
+        return None
+    ids = np.asarray(ids)
+    if ids.shape != (items.shape[0],):
+        raise ValueError(f"ids must be ({items.shape[0]},), got {ids.shape}")
+    return ids
 
 
 def _with_params(model, params: Optional[Dict[str, Any]]):

@@ -432,12 +432,6 @@ class LinearRegressionModel(_LinearRegressionParams, Model, LazyHostState):
             self._intercept_raw = float(self._intercept_raw)
         return self._intercept_raw
 
-    def setFeaturesCol(self, value: str) -> "LinearRegressionModel":
-        return self.set(self.featuresCol, value)
-
-    def setPredictionCol(self, value: str) -> "LinearRegressionModel":
-        return self.set(self.predictionCol, value)
-
     def copy(self, extra=None) -> "LinearRegressionModel":
         """Model.copy preserves fitted state (Spark's Model.copy contract)."""
         that = LinearRegressionModel(self.uid, self._coef_raw, self._intercept_raw)

@@ -22,8 +22,12 @@ re-iterable block source per Lloyd iteration, summing each block's
 :func:`block_suff_stats` on the device. Kernels K2 and K3 are not used on
 this route, as in the reference.
 
+:func:`assign_clusters_blocked` walks the rows in blocks, so only a
+(block, k) distance matrix exists at a time: the IVF coarse quantizer's
+final assignment at shapes whose full (n, k) matrix would not fit.
+
 Left for later slices: ``lloyd_resumable``/``_lloyd_segment``
-(checkpointed Lloyd) and ``assign_clusters_blocked`` (ANN).
+(checkpointed Lloyd).
 """
 
 from __future__ import annotations
@@ -59,6 +63,26 @@ def assign_clusters(x: torch.Tensor, centers: torch.Tensor, precision: str = "hi
     d2 = _sq_dists(x, centers, x2, make_dot(precision))
     labels = torch.argmin(d2, dim=1)
     return labels, torch.gather(d2, 1, labels[:, None])[:, 0]
+
+
+def assign_clusters_blocked(
+    x: torch.Tensor,
+    centers: torch.Tensor,
+    block_rows: int = 65536,
+    precision: str = "highest",
+):
+    """Row-blocked :func:`assign_clusters`: labels (the first minimum, as
+    ``jnp.argmin``) and each row's squared distance to its nearest center,
+    with one (block, k) distance matrix at a time."""
+    dot = make_dot(precision)
+    labels, d2s = [], []
+    for i in range(0, max(int(x.shape[0]), 1), block_rows):
+        xb = x[i:i + block_rows]
+        d2 = _sq_dists(xb, centers, torch.sum(xb * xb, dim=1), dot)
+        labels.append(torch.argmin(d2, dim=1))
+        d2s.append(torch.amin(d2, dim=1))
+        del d2
+    return torch.cat(labels), torch.cat(d2s)
 
 
 def _assign_and_accumulate(xb, mb, x2b, centers, k: int, dot: Callable):

@@ -14,8 +14,15 @@ has no tie left to break. Distances are ≥ 0 (clamped, ``-0`` made
 
 ``approx=True`` (``buildAlgo="brute_approx"``) is exact here: the card has
 no counterpart of ``lax.approx_min_k``, and the reference is exact on the
-CPU as well (ROADMAP C). The streamed and sharded searches wait for their
-slices and raise ``NotImplementedError``.
+CPU as well (ROADMAP C).
+
+:func:`knn_host_streamed` searches an item set streamed from the host
+block by block (beyond device memory): each block is copied to the
+queries' device one ahead of its use (``core/serving.prefetch_blocks``),
+merged into the running (nq, k) state by :func:`_merge_block_topk` (the
+same merge as the resident loop, so the result does not depend on the
+block sizes) and then freed. The sharded search waits for its slice and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,12 +32,24 @@ from typing import Optional, Tuple
 import torch
 
 from spark_rapids_ml_tpu_torch import device as _device
+from spark_rapids_ml_tpu_torch.core.serving import prefetch_blocks, upload_block
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
 
 METRICS = ("euclidean", "sqeuclidean", "cosine")
 
-STREAMED_ITEM = "knn_host_streamed (items streamed from beyond device memory) is not ported yet: ROADMAP A.11a"
-SHARDED_ITEM = "the sharded kNN (shard_items, knn_sharded) is not ported yet: ROADMAP A.11a (with item 18)"
+SHARDED_ITEM = "the sharded kNN (shard_items, knn_sharded) is not ported yet: ROADMAP A.9, item 18"
+
+
+def _nonneg(d2: torch.Tensor) -> torch.Tensor:
+    """Clamp squared distances at 0, in place, and turn -0 into +0
+    (``clamp_min`` keeps a -0; adding +0 does not), so their bit patterns
+    order as integers (:func:`_smallest_k`)."""
+    return torch.clamp_min_(d2, 0.0).add_(0.0)
+
+
+def unit_rows(x: torch.Tensor) -> torch.Tensor:
+    """Rows scaled to unit L2 norm, norms floored at 1e-30 (cosine)."""
+    return x / torch.clamp_min(torch.linalg.norm(x, dim=1, keepdim=True), 1e-30)
 
 
 def _block_sq_distances(q: torch.Tensor, xb: torch.Tensor, q_sq: torch.Tensor, dot) -> torch.Tensor:
@@ -38,9 +57,7 @@ def _block_sq_distances(q: torch.Tensor, xb: torch.Tensor, q_sq: torch.Tensor, d
     summed in the reference's order and clamped at +0."""
     xb_sq = torch.sum(xb * xb, dim=1)
     cross = dot(q, xb.T)
-    d2 = (q_sq[:, None] - 2.0 * cross) + xb_sq[None, :]
-    # clamp keeps a -0.0 as it is; adding +0.0 turns it into +0.0.
-    return torch.clamp_min_(d2, 0.0).add_(0.0)
+    return _nonneg((q_sq[:, None] - 2.0 * cross) + xb_sq[None, :])
 
 
 def _auto_block_items(nq: int, n_items: int) -> int:
@@ -64,13 +81,19 @@ def _smallest_k(cand_d: torch.Tensor, k: int) -> torch.Tensor:
 
 def _merge(best_d, best_i, d2, idx_block, k: int):
     """Keep the k smallest of ``[best | block]`` per query row, lower
-    position first among equal distances (the reference's ``top_k``)."""
+    position first among equal distances (the reference's ``top_k``).
+    ``idx_block`` is the block's indices, shared by every row (B,) or
+    one row each (nq, B)."""
     m = best_d.shape[1]
     cand_d = torch.cat([best_d, d2], dim=1)
     pos = _smallest_k(cand_d, k)
     new_d = torch.gather(cand_d, 1, pos)
     old_i = torch.gather(best_i, 1, pos.clamp(max=m - 1))
-    blk_i = idx_block[(pos - m).clamp(min=0)]
+    blk_pos = (pos - m).clamp(min=0)
+    if idx_block.dim() == 2:
+        blk_i = torch.gather(idx_block, 1, blk_pos)
+    else:
+        blk_i = idx_block[blk_pos]
     return new_d, torch.where(pos < m, old_i, blk_i)
 
 
@@ -135,9 +158,8 @@ def knn(
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     if metric == "cosine":
-        qn = queries / torch.clamp_min(torch.linalg.norm(queries, dim=1, keepdim=True), 1e-30)
-        xn = items / torch.clamp_min(torch.linalg.norm(items, dim=1, keepdim=True), 1e-30)
-        d2, idx = knn_sq_euclidean(qn, xn, k, item_mask, block_items, precision, approx)
+        d2, idx = knn_sq_euclidean(unit_rows(queries), unit_rows(items), k, item_mask, block_items,
+                                   precision, approx)
         return d2 / 2.0, idx
     d2, idx = knn_sq_euclidean(queries, items, k, item_mask, block_items, precision, approx)
     if metric == "euclidean":
@@ -145,8 +167,61 @@ def knn(
     return d2, idx
 
 
-def knn_host_streamed(*args, **kwargs):
-    raise NotImplementedError(STREAMED_ITEM)
+def _merge_block_topk(best_d, best_i, queries, q_sq, xb, start: int, k: int,
+                      approx: bool = False, precision: str = "highest"):
+    """One streamed block merged into the running (nq, k) top-k state:
+    the resident loop's step, for a host loop to drive block by block.
+    ``approx`` is exact here (module docstring)."""
+    del approx
+    d2 = _block_sq_distances(queries, xb, q_sq, make_dot(precision))
+    idx = torch.arange(start, start + xb.shape[0], dtype=torch.int32, device=xb.device)
+    return _merge(best_d, best_i, d2, idx, k)
+
+
+def knn_host_streamed(
+    queries: torch.Tensor,
+    item_blocks,
+    k: int,
+    metric: str = "euclidean",
+    precision: str = "highest",
+    approx: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k against an item set streamed from the host: ``item_blocks``
+    is an iterable of host (rows_i, d) blocks (a list, a generator,
+    ``reader.iter_blocks()``; one pass). Each non-empty block goes to the
+    queries' device in their dtype and merges into the running state, so
+    device memory is O(nq · k + block) and the item count is bounded by
+    the source. Indices count rows across the blocks. Raises
+    ``ValueError`` when the pass ends with fewer than k items."""
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    dev = _device.device_of(queries)
+    q = unit_rows(queries) if metric == "cosine" else queries
+    q_sq = torch.sum(q * q, dim=1)
+    nq, dtype = int(q.shape[0]), q.dtype
+    best_d = torch.full((nq, k), float("inf"), dtype=dtype, device=dev)
+    best_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
+
+    def upload(blk):
+        host, xb = upload_block(blk, dev, dtype)
+        if host.shape[0] == 0:
+            return None
+        return unit_rows(xb) if metric == "cosine" else xb
+
+    offset = 0
+    for xb in prefetch_blocks(item_blocks, upload):
+        if xb is None:
+            continue
+        best_d, best_i = _merge_block_topk(best_d, best_i, q, q_sq, xb, offset, k,
+                                           approx=approx, precision=precision)
+        offset += int(xb.shape[0])
+    if offset < k:
+        raise ValueError(f"k={k} exceeds streamed item count {offset}")
+    if metric == "euclidean":
+        return torch.sqrt(best_d), best_i
+    if metric == "cosine":
+        return best_d / 2.0, best_i
+    return best_d, best_i
 
 
 def shard_items(*args, **kwargs):

@@ -135,10 +135,10 @@ def test_refusals_and_waiting_routes():
         port_knn.knn(q, q, 4)
     with pytest.raises(ValueError, match="unknown metric"):
         port_knn.knn(q, q, 1, metric="manhattan")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11a"):
-        port_knn.knn_host_streamed(q, [q.numpy()], 1)
+    with pytest.raises(ValueError, match="exceeds streamed item count 3"):
+        port_knn.knn_host_streamed(q, [q.numpy()], 4)
     for fn in (port_knn.shard_items, port_knn.knn_sharded):
-        with pytest.raises(NotImplementedError, match="item 18"):
+        with pytest.raises(NotImplementedError, match="A.9, item 18"):
             fn(q)
 
 
