@@ -73,7 +73,20 @@ counters set to 0 just before and read just after:
   queries); an ``ivfflat`` save and load rebuilding the same index;
   config 8, ``ivfpq`` on 1M x 128 items and 2,000 queries (uint8 codes,
   ADC against float64, ``refine_ratio`` 4) and a streamed brute index
-  over host blocks against the resident one.
+  over host blocks against the resident one;
+- DBSCAN and the random forest, last, which launch no kernel, on data
+  drawn on the card and within their own 60 s: BASELINE config 12,
+  ``DBSCAN().setEps(2.0).setMinSamples(8)`` on 100,000 x 16 float32 rows of
+  20 planted blobs, held to the float64 fit of the same rows (and 10,000
+  new rows through ``transform``), with a profile split into distance
+  GEMMs, the adjacency epilogue and the label passes; the 100,000-point
+  chain in float64 (one cluster in at most 4 sweeps; float32 recorded);
+  config 9, ``RandomForestClassifier`` (8 trees, depth 6, 16 bins,
+  ``setNumClasses(2)``) on 500,000 x 16 float32 rows, its trees bitwise
+  the same fit with histograms summed in float64, split into histogram
+  GEMMs, one-hot builds, split search and routing; the regressor at the
+  same shape (RMSE within 1 % of its float64-histogram fit); save and load
+  of the classifier (bitwise) and of a 10,000-row DBSCAN model.
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -108,7 +121,7 @@ from spark_rapids_ml_tpu_torch.ops.kernels import _build  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.eigh import auto_max_iters, eigh_auto  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.kernels import covariance as k1  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.kernels import kmeans as kk  # noqa: E402
-from spark_rapids_ml_tpu_torch.clustering import KMeans, KMeansModel  # noqa: E402
+from spark_rapids_ml_tpu_torch.clustering import DBSCAN, DBSCANModel, KMeans, KMeansModel  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops import kmeans as ops_kmeans  # noqa: E402
 from spark_rapids_ml_tpu_torch.utils.testing import kmeans_stats_f64, trustworthiness  # noqa: E402
 from spark_rapids_ml_tpu_torch.manifold import UMAP, UMAPModel  # noqa: E402
@@ -118,8 +131,12 @@ from spark_rapids_ml_tpu_torch.ops.kernels import umap as k4  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.eigh import sign_flip  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.randomized import draw_omega, randomized_pca  # noqa: E402
 from spark_rapids_ml_tpu_torch.utils.tracing import counter_value  # noqa: E402
-from spark_rapids_ml_tpu_torch.regression import LinearRegression  # noqa: E402
-from spark_rapids_ml_tpu_torch.classification import LogisticRegression  # noqa: E402
+from spark_rapids_ml_tpu_torch.regression import LinearRegression, RandomForestRegressor  # noqa: E402
+from spark_rapids_ml_tpu_torch.classification import (  # noqa: E402
+    LogisticRegression,
+    RandomForestClassificationModel,
+    RandomForestClassifier,
+)
 from spark_rapids_ml_tpu_torch import native  # noqa: E402
 from spark_rapids_ml_tpu_torch.core import membudget  # noqa: E402
 from spark_rapids_ml_tpu_torch.core.data import HostArrayBlockReader  # noqa: E402
@@ -2658,6 +2675,359 @@ def neighbour_phases(gen: torch.Generator, peaks) -> dict:
     return {"config7": c7, "config8": c8, "save_load": save_load}
 
 
+# --- DBSCAN and the random forest: BASELINE configs 12 and 9 ---------------
+
+DB_N = 100_000              # config 12: 100k x 16 float32, 20 blobs (centres N(0, 12^2)), noise 0.4
+DB_D = 16
+DB_BLOBS = 20
+DB_EPS = 2.0
+DB_MIN_SAMPLES = 8
+DB_NEW = 10_000             # (a): new rows from the same blobs for transform
+DB_SAVE_N = 10_000          # (d): rows of the saved DBSCAN model (~100 us a vector row)
+CHAIN_N = 100_000           # (b): the chain at spacing 0.5, eps 0.6, minSamples 2
+RF_N = 500_000              # config 9: 500k x 16, 8 trees, depth 6, 16 bins, 2 classes
+RF_D = 16
+RF_TREES = 8
+RF_DEPTH = 6
+RF_BINS = 16
+DF_WALL_LIMIT_S = 60.0
+BORDER_REL = 1e-4           # a pair this close (relative) to eps may fall either side in float32
+
+
+def _ranged(module, names):
+    """Wrap ``module``'s functions ``names`` in ``torch.profiler.record_function``
+    ranges of the same name; returns the originals to put back."""
+    from torch.profiler import record_function
+
+    saved = {}
+    for name in names:
+        fn = saved[name] = getattr(module, name)
+
+        def wrapped(*args, _fn=fn, _name=name, **kwargs):
+            with record_function(_name):
+                return _fn(*args, **kwargs)
+
+        setattr(module, name, wrapped)
+    return saved
+
+
+def _is_gemm(kernel: str) -> bool:
+    name = kernel.lower()
+    return any(t in name for t in ("gemm", "cutlass", "xmma", "sm90_", "sm80_"))
+
+
+def _range_split(fit, module, names) -> dict:
+    """One ``fit()`` under the profiler with ``module.names`` in ranges:
+    each kernel's device ms is charged to the innermost range whose span
+    on the device's timeline holds its start (GEMM kernels apart), with
+    each range's count; the window, the busy device time (kernels only),
+    the idle share, the kernels launched, and the seconds the profiler's
+    bookkeeping took after the window."""
+    from bisect import bisect_right
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = _ranged(module, names)
+    try:
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fit()
+            sync()
+            window_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+    t_post = time.perf_counter()
+    spans = {name: [] for name in names}
+    kernels = []
+    # The raw events: building the profiler's FunctionEvent tree for ~10^5
+    # events would take longer than the fit.
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != DeviceType.CUDA:
+            continue
+        start, ns = evt.start_ns(), evt.duration_ns()
+        if evt.name() in spans:
+            spans[evt.name()].append((start, start + ns))
+        else:
+            kernels.append((start, ns / 1e6, evt.name()))
+    starts = {name: sorted(v) for name, v in spans.items()}
+    keys = {name: [a for a, _ in v] for name, v in starts.items()}
+    by_range = {name: {"ms": 0.0, "gemm_ms": 0.0, "count": len(v)} for name, v in spans.items()}
+    busy = gemm = 0.0
+    for start, ms, kname in kernels:
+        busy += ms
+        gemm += ms if _is_gemm(kname) else 0.0
+        owner, width = None, None
+        for name in names:
+            i = bisect_right(keys[name], start) - 1
+            if i >= 0:
+                a, b = starts[name][i]
+                if start <= b and (width is None or b - a < width):
+                    owner, width = name, b - a
+        if owner is not None:
+            by_range[owner]["ms"] += ms
+            by_range[owner]["gemm_ms"] += ms if _is_gemm(kname) else 0.0
+    return {"window_ms": window_ms, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / window_ms,
+            "kernel_launches": len(kernels), "gemm_ms": gemm, "ranges": by_range,
+            "profiler_post_s": time.perf_counter() - t_post}
+
+
+def dbscan_blobs(n: int, centres: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """Rows of the planted blobs, as the reference's config 12 draws them:
+    a uniform blob per row and N(0, 0.4^2) noise, float32 on the card."""
+    assign = torch.randint(0, centres.shape[0], (n,), generator=gen, device=centres.device)
+    return centres[assign] + 0.4 * torch.randn((n, centres.shape[1]), generator=gen, device=centres.device)
+
+
+def _borderline(x64: torch.Tensor, rows, items: torch.Tensor, eps: float):
+    """For each row, one item whose float64 distance lies within
+    ``BORDER_REL`` of eps (the pair float32 may put either side), or None."""
+    named = []
+    for i in rows:
+        d = torch.sqrt(((items - x64[i]) ** 2).sum(dim=1))
+        near = torch.nonzero((d - eps).abs() <= BORDER_REL * eps)[:, 0]
+        named.append(None if near.numel() == 0 else (int(i), int(near[0]), float(d[near[0]])))
+    return named
+
+
+def _differences_are_borderline(what: str, got: np.ndarray, want: np.ndarray, x64, items, eps) -> dict:
+    """Equal, or each differing row names a pair at eps (float64)."""
+    rows = np.flatnonzero(got != want)
+    pairs = _borderline(x64, rows[:50], items, eps)
+    out = {"differing_rows": int(rows.size), "named_pairs": [p for p in pairs if p is not None][:5]}
+    require(rows.size <= 50 and all(p is not None for p in pairs),
+            f"(a) {what}: {rows.size} rows differ from the float64 fit, not all at eps: {pairs[:5]}")
+    return out
+
+
+def phase_dbscan_config12(gen: torch.Generator, peaks) -> dict:
+    """(a) BASELINE config 12: ``DBSCAN().setEps(2.0).setMinSamples(8)`` on
+    100,000 x 16 float32 CUDA rows of 20 planted blobs; wall (median of
+    3), sweeps, a profile split (distance GEMMs, the adjacency epilogue,
+    the label passes) beside the GEMM bound (2·n²·d a sweep at the fp32
+    peak); held to the float64 fit of the same rows, and 10,000 new rows
+    transformed by both."""
+    from spark_rapids_ml_tpu_torch.ops import dbscan as ops_dbscan
+
+    dev = gen.device
+    centres = torch.randn((DB_BLOBS, DB_D), generator=gen, device=dev) * 12.0
+    x = dbscan_blobs(DB_N, centres, gen)
+    x_new = dbscan_blobs(DB_NEW, centres, gen)
+    est = DBSCAN().setEps(DB_EPS).setMinSamples(DB_MIN_SAMPLES)
+    model = est.fit(x)
+    wall = wall_s(lambda: est.fit(x))
+    split = _range_split(lambda: est.fit(x), ops_dbscan, ("_eps_sweep", "_compress_labels"))
+    eps_r, label_r = split["ranges"]["_eps_sweep"], split["ranges"]["_compress_labels"]
+    split["split_ms"] = {"distance_gemm": eps_r["gemm_ms"], "adjacency_epilogue": eps_r["ms"] - eps_r["gemm_ms"],
+                         "label_passes": label_r["ms"],
+                         "rest": split["device_busy_ms"] - eps_r["ms"] - label_r["ms"]}
+    sweeps = label_r["count"]  # one pointer-jumping pass per propagation round
+    eps_sweeps = eps_r["count"]  # the counts, the propagation rounds, the border attachment
+    del split["ranges"]
+    _, _, fp32, _ = peaks
+    gemm_bound_sweep_ms = 2.0 * DB_N * DB_N * DB_D / fp32 * 1e3
+
+    x64 = x.double()
+    t0 = time.perf_counter()
+    model64 = DBSCAN().setEps(DB_EPS).setMinSamples(DB_MIN_SAMPLES).fit(x64)
+    f64_s = time.perf_counter() - t0
+    clusters = int(model.labels_.max()) + 1
+    out = {"phase": "dbscan_config12", "what": "DBSCAN().setEps(2.0).setMinSamples(8), 100,000 x 16 f32 CUDA",
+           "fit_wall_s": wall, "rows_per_s": DB_N / wall, "propagation_sweeps": sweeps,
+           "eps_sweeps": eps_sweeps, "gemm_bound_ms_per_sweep": gemm_bound_sweep_ms,
+           "gemm_bound_ms": eps_sweeps * gemm_bound_sweep_ms, "profile": split,
+           "clusters": clusters, "noise_rows": int((model.labels_ < 0).sum()),
+           "core_rows": int(model.core_mask_.sum()), "f64_fit_s": f64_s}
+    out["vs_f64_core"] = _differences_are_borderline("core mask", model.core_mask_, model64.core_mask_, x64, x64,
+                                                     DB_EPS)
+    out["vs_f64_labels"] = _differences_are_borderline("labels", model.labels_, model64.labels_, x64, x64, DB_EPS)
+    new32 = model.transform(x_new)
+    new64 = model64.transform(x_new.double())
+    cores64 = x64[torch.from_numpy(model64.core_sample_indices_).to(dev)]
+    out["transform_new"] = _differences_are_borderline("transform", new32, new64, x_new.double(), cores64, DB_EPS)
+    out["transform_new"]["noise_rows"] = int((new32 < 0).sum())
+    out["transform_wall_s"] = wall_s(lambda: model.transform(x_new))
+    emit(out)
+    require(clusters == DB_BLOBS, f"(a) {clusters} clusters, not the {DB_BLOBS} planted blobs")
+    return out
+
+
+def phase_dbscan_chain(gen: torch.Generator) -> dict:
+    """(b) The 100,000-point chain (spacing 0.5, eps 0.6, minSamples 2)
+    through ``ops.dbscan.dbscan_labels(..., return_sweeps=True)`` in
+    float64: one cluster of core points within 4 sweeps. The float32 chain
+    is recorded, not required: at coordinate 50,000 ‖q‖² is 2.5e9, whose
+    float32 spacing (256) swamps eps² = 0.36."""
+    from spark_rapids_ml_tpu_torch.ops import dbscan as ops_dbscan
+
+    out = {"phase": "dbscan_chain", "n": CHAIN_N}
+    for dtype in (torch.float64, torch.float32):
+        t = torch.arange(CHAIN_N, device=gen.device, dtype=dtype) * 0.5
+        chain = torch.stack([t, torch.zeros_like(t)], dim=1)
+        sync()
+        t0 = time.perf_counter()
+        labels, core, sweeps = ops_dbscan.dbscan_labels(chain, 0.6, 2, return_sweeps=True)
+        sync()
+        lab = labels.cpu().numpy()
+        out[str(dtype).split(".")[-1]] = {
+            "wall_s": time.perf_counter() - t0, "sweeps": sweeps, "core_rows": int(core.sum()),
+            "clusters": int(np.unique(lab[lab >= 0]).size), "noise_rows": int((lab < 0).sum())}
+    emit(out)
+    f64 = out["float64"]
+    require(f64["clusters"] == 1 and f64["core_rows"] == CHAIN_N and f64["noise_rows"] == 0,
+            f"(b) the float64 chain is not one cluster of core points: {f64}")
+    require(f64["sweeps"] <= 4, f"(b) the float64 chain took {f64['sweeps']} sweeps, over 4")
+    return out
+
+
+def forest_rows(gen: torch.Generator):
+    """Config 9's rows as the reference's benchmark draws them: x ~ N(0, 1)
+    (500,000 x 16 float32), w ~ N(0, 1), margin x·w + 0.3·noise."""
+    dev = gen.device
+    x = torch.randn((RF_N, RF_D), generator=gen, device=dev)
+    w = torch.randn(RF_D, generator=gen, device=dev)
+    return x, x @ w + 0.3 * torch.randn(RF_N, generator=gen, device=dev)
+
+
+def _f64_hist_fit(x, row_stats, impurity: str, classification: bool):
+    """The estimator's fit from the same draws (its generator, seeded as
+    it seeds it), with histograms summed in float64 and rounded to float32
+    before the split search."""
+    from spark_rapids_ml_tpu_torch.models import random_forest as rf
+    from spark_rapids_ml_tpu_torch.ops import trees as ops_trees
+
+    gen = rf._forest_draws(SEED, x.device)
+    w = ops_trees.sample_weights(gen, RF_TREES, RF_N, 1.0, True)
+    m = rf.resolve_feature_subset("auto", RF_D, RF_TREES, classification)
+    return ops_trees.fit_forest_fused(x, row_stats, w, generator=gen, max_depth=RF_DEPTH, n_bins=RF_BINS,
+                                      impurity=impurity, feat_subset=m, exact_counts=classification,
+                                      hist_precision="float64")
+
+
+def phase_forest_config9(x: torch.Tensor, margin: torch.Tensor, peaks) -> dict:
+    """(c) BASELINE config 9: ``RandomForestClassifier().setNumTrees(8)
+    .setMaxDepth(6).setMaxBins(16).setNumClasses(2).setSeed(0)`` on the
+    500,000 x 16 float32 CUDA pair; wall (median of 3), kernel launches, a
+    profile split (histogram GEMMs, one-hot builds, split search, routing)
+    beside the FLOP bound Σₗ 2·S·T·n·2ˡ·d·B at the fp32 peak; the trees
+    bitwise the float64-histogram fit's."""
+    from spark_rapids_ml_tpu_torch.ops import trees as ops_trees
+
+    y = (margin > 0).to(torch.float32)
+    est = (RandomForestClassifier().setNumTrees(RF_TREES).setMaxDepth(RF_DEPTH).setMaxBins(RF_BINS)
+           .setNumClasses(2).setSeed(SEED))
+    model = est.fit((x, y))
+    wall = wall_s(lambda: est.fit((x, y)))
+    split = _range_split(lambda: est.fit((x, y)), ops_trees,
+                         ("_level_histogram", "_node_totals", "split_level", "grow_forest",
+                          "quantize_features", "bin_features"))
+    r = split.pop("ranges")
+    hist_ms = r["_level_histogram"]["ms"] + r["_node_totals"]["ms"]
+    hist_gemm = r["_level_histogram"]["gemm_ms"] + r["_node_totals"]["gemm_ms"]
+    split["split_ms"] = {"histogram_gemm": hist_gemm, "one_hot_builds": hist_ms - hist_gemm,
+                         "split_search": r["split_level"]["ms"], "routing_and_node_writes": r["grow_forest"]["ms"],
+                         "quantize_and_bin": r["quantize_features"]["ms"] + r["bin_features"]["ms"]}
+    _, _, fp32, _ = peaks
+    flop = sum(2.0 * 2 * RF_TREES * RF_N * 2 ** level * RF_D * RF_BINS for level in range(RF_DEPTH))
+    rs = torch.stack([1.0 - y, y], dim=1)
+    forest64 = _f64_hist_fit(x, rs, "gini", True)
+    differ = [f for f in forest64._fields if not torch.equal(getattr(model._forest, f), getattr(forest64, f))]
+    probs = model.predictProbability(x)
+    out = {"phase": "forest_config9", "what": "RandomForestClassifier 8 trees, depth 6, 16 bins, 500,000 x 16 f32",
+           "fit_wall_s": wall, "rows_per_s": RF_N / wall, "profile": split, "flop": flop,
+           "flop_bound_ms": flop / fp32 * 1e3, "fields_differing_from_f64_hist": differ,
+           "split_nodes": int((model._forest.feature >= 0).sum()),
+           "train_accuracy": float((torch.argmax(probs, dim=1) == y.long()).float().mean()),
+           "max_prob_sum_err": float((probs.sum(dim=1) - 1.0).abs().max()),
+           "predict_wall_s": wall_s(lambda: model.predictProbability(x))}
+    emit(out)
+    require(not differ, f"(c) the trees differ from the float64-histogram fit in {differ}")
+    require(out["max_prob_sum_err"] <= 1e-5, f"(c) probabilities sum to 1 within {out['max_prob_sum_err']:.2e}")
+    return {"model": model, **out}
+
+
+def phase_forest_regressor_and_saves(x: torch.Tensor, margin: torch.Tensor, clf, gen: torch.Generator) -> dict:
+    """(d) ``RandomForestRegressor`` at config 9's shape (y = x·w + 0.3·noise)
+    against its float64-histogram fit: RMSE within 1 %, split nodes that
+    differ counted. Save and load config 9's classifier (predictions
+    bitwise) and a DBSCAN model of 10,000 rows."""
+    from spark_rapids_ml_tpu_torch.ops import trees as ops_trees
+
+    est = RandomForestRegressor().setNumTrees(RF_TREES).setMaxDepth(RF_DEPTH).setMaxBins(RF_BINS).setSeed(SEED)
+    model = est.fit((x, margin))
+    wall = wall_s(lambda: est.fit((x, margin)))
+    y_mean = float(torch.mean(margin))
+    yc = margin - y_mean
+    forest64 = _f64_hist_fit(x, torch.stack([torch.ones_like(yc), yc, yc * yc], dim=1), "variance", False)
+    forest64 = forest64._replace(leaf_value=forest64.leaf_value + y_mean)
+    pred64 = ops_trees.forest_predict_reg(x, forest64, RF_DEPTH)
+    rmse = float(torch.sqrt(torch.mean((model.predict(x) - margin) ** 2)))
+    rmse64 = float(torch.sqrt(torch.mean((pred64 - margin) ** 2)))
+    out = {"phase": "forest_regressor_and_saves", "fit_wall_s": wall, "rows_per_s": RF_N / wall,
+           "rmse": rmse, "rmse_f64_hist": rmse64, "rmse_rel_diff": abs(rmse - rmse64) / rmse64,
+           "split_nodes": int((model._forest.feature >= 0).sum()),
+           "split_nodes_differing": int((model._forest.feature != forest64.feature).sum())}
+    probs = clf.predictProbability(x)
+    dev = gen.device
+    centres = torch.randn((DB_BLOBS, DB_D), generator=gen, device=dev) * 12.0
+    xs = dbscan_blobs(DB_SAVE_N, centres, gen)
+    db = DBSCAN().setEps(DB_EPS).setMinSamples(DB_MIN_SAMPLES).fit(xs)
+    q = dbscan_blobs(1_000, centres, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        clf.write.overwrite().save(os.path.join(tmp, "rfc"))
+        loaded = RandomForestClassificationModel.load(os.path.join(tmp, "rfc"))
+        out["forest_save_load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        db.write.overwrite().save(os.path.join(tmp, "dbscan"))
+        db_loaded = DBSCANModel.load(os.path.join(tmp, "dbscan"))
+        out["dbscan_save_load_s"] = time.perf_counter() - t0
+    out["forest_bitwise"] = bool(torch.equal(loaded.predictProbability(x), probs))
+    out["dbscan_equal"] = bool(np.array_equal(db_loaded.labels_, db.labels_)
+                               and np.array_equal(db_loaded.core_mask_, db.core_mask_)
+                               and np.array_equal(db_loaded.fitted, db.fitted)
+                               and np.array_equal(db_loaded.transform(q), db.transform(q)))
+    emit(out)
+    require(out["rmse_rel_diff"] <= 0.01, f"(d) RMSE {rmse} vs {rmse64} from the float64-histogram fit, over 1 %")
+    require(out["forest_bitwise"], "(d) the reloaded classifier's predictions differ")
+    require(out["dbscan_equal"], "(d) the reloaded DBSCAN model differs")
+    return out
+
+
+def dbscan_forest_phases(gen: torch.Generator, peaks) -> dict:
+    """BASELINE configs 12 and 9 through the port's DBSCAN and random
+    forest estimators on data drawn on the card, which launch none of
+    K1-K4. Prints the group's wall, which must stay within
+    ``DF_WALL_LIMIT_S``."""
+    t0 = time.perf_counter()
+    _reset_kernel_launches()
+    walls = {}
+    t = time.perf_counter()
+    c12 = phase_dbscan_config12(gen, peaks)
+    walls["config12"] = time.perf_counter() - t
+    t = time.perf_counter()
+    chain = phase_dbscan_chain(gen)
+    walls["chain"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    x, margin = forest_rows(gen)
+    t = time.perf_counter()
+    c9 = phase_forest_config9(x, margin, peaks)
+    walls["config9"] = time.perf_counter() - t
+    t = time.perf_counter()
+    reg = phase_forest_regressor_and_saves(x, margin, c9.pop("model"), gen)
+    walls["regressor_and_saves"] = time.perf_counter() - t
+    del x, margin
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    emit({"phases": "dbscan_forest", "wall_s": wall, "phase_wall_s": walls,
+          "k1_k4_launches": _kernel_launch_total()})
+    require(_kernel_launch_total() == 0, "the DBSCAN and forest phases launched a kernel of K1-K4")
+    require(wall <= DF_WALL_LIMIT_S, f"the DBSCAN and forest phases took {wall:.1f} s, over their {DF_WALL_LIMIT_S:.0f} s")
+    return {"config12": c12, "chain": chain, "config9": c9, "regressor": reg}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -2702,6 +3072,8 @@ def main() -> int:
     fit_policy_phases(gen)
     torch.cuda.empty_cache()
     neighbour_phases(gen, peaks)
+    torch.cuda.empty_cache()
+    dbscan_forest_phases(gen, peaks)
 
     k1_f32 = times["k1_f32"]
     measured = {

@@ -3,8 +3,11 @@
 :func:`pca_model_from_numpy`, :func:`kmeans_model_from_numpy`,
 :func:`umap_model_from_numpy`, :func:`linear_regression_model_from_numpy`,
 :func:`logistic_regression_model_from_numpy`,
-:func:`nearest_neighbors_model_from_numpy` and
-:func:`approximate_nearest_neighbors_model_from_numpy` build a port model
+:func:`nearest_neighbors_model_from_numpy`,
+:func:`approximate_nearest_neighbors_model_from_numpy`,
+:func:`dbscan_model_from_numpy`,
+:func:`random_forest_classification_model_from_numpy` and
+:func:`random_forest_regression_model_from_numpy` build a port model
 from the reference model's arrays and param map, handed over as numpy and
 a plain dict — so both packages compute the same transform or prediction
 without this package importing the other. The IVF quantizer's draws
@@ -13,8 +16,10 @@ index arrays: both packages then probe the same lists. The second route
 is persistence: a model saved by either package loads in the other
 (``PCAModel.load``, ``KMeansModel.load``, ``UMAPModel.load``,
 ``LinearRegressionModel.load``, ``LogisticRegressionModel.load``,
-``NearestNeighborsModel.load``, ``ApproximateNearestNeighborsModel.load``;
-the ANN index is rebuilt from the seed there).
+``NearestNeighborsModel.load``, ``ApproximateNearestNeighborsModel.load``,
+``DBSCANModel.load``, ``RandomForestClassificationModel.load``,
+``RandomForestRegressionModel.load``; the ANN index is rebuilt from the
+seed there).
 
 Typical use, in code that has both packages::
 
@@ -32,11 +37,13 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch.models.approximate_nearest_neighbors import ApproximateNearestNeighborsModel
+from spark_rapids_ml_tpu_torch.models.dbscan import DBSCANModel
 from spark_rapids_ml_tpu_torch.models.kmeans import KMeansModel
 from spark_rapids_ml_tpu_torch.models.linear_regression import LinearRegressionModel
 from spark_rapids_ml_tpu_torch.models.logistic_regression import LogisticRegressionModel
 from spark_rapids_ml_tpu_torch.models.nearest_neighbors import NearestNeighborsModel
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
+from spark_rapids_ml_tpu_torch.models.random_forest import RandomForestClassificationModel, RandomForestRegressionModel
 from spark_rapids_ml_tpu_torch.models.umap import UMAPModel
 
 
@@ -180,6 +187,73 @@ def approximate_nearest_neighbors_model_from_numpy(
             tensors["codes"] = tensors["codes"].to(torch.uint8)
         model._index = (IVFPQIndex if is_pq else IVFIndex)(**tensors)
     return model
+
+
+def dbscan_model_from_numpy(
+    fitted,
+    labels,
+    core_mask,
+    uid: Optional[str] = None,
+    params: Optional[Dict[str, Any]] = None,
+) -> DBSCANModel:
+    """A port ``DBSCANModel`` holding the reference model's ``fitted`` rows
+    (n, d) as float64, its ``labels_`` (n,) and ``core_mask_`` (n,), with
+    every param of ``params`` that the model has."""
+    fitted = _matrix(np.asarray(fitted, dtype=np.float64), "fitted")
+    labels = np.asarray(labels)
+    core_mask = np.asarray(core_mask)
+    if labels.shape != (fitted.shape[0],) or core_mask.shape != labels.shape:
+        raise ValueError(
+            f"labels and core_mask must be ({fitted.shape[0]},), got {labels.shape} and {core_mask.shape}"
+        )
+    return _with_params(DBSCANModel(uid, fitted, labels, core_mask), params)
+
+
+_FOREST_DTYPES = {
+    "feature": np.int32, "threshold": np.float32, "is_leaf": bool, "leaf_value": np.float32,
+    "node_weight": np.float32, "node_gain": np.float32, "node_impurity": np.float32,
+}
+
+
+def _forest(forest_arrays: Dict[str, Any]):
+    """The reference's ``Forest`` fields (a dict, or the NamedTuple's
+    ``_asdict()``) as the port's CPU tensors in their dtypes."""
+    from spark_rapids_ml_tpu_torch.ops.trees import Forest
+
+    missing = [f for f in Forest._fields if f not in forest_arrays]
+    if missing:
+        raise ValueError(f"forest_arrays lacks {missing}")
+    return Forest(*(torch.from_numpy(np.array(forest_arrays[f], dtype=_FOREST_DTYPES[f]))
+                    for f in Forest._fields))
+
+
+def random_forest_classification_model_from_numpy(
+    forest_arrays: Dict[str, Any],
+    numFeatures: int,
+    numClasses: int,
+    uid: Optional[str] = None,
+    params: Optional[Dict[str, Any]] = None,
+) -> RandomForestClassificationModel:
+    """A port ``RandomForestClassificationModel`` over the reference
+    model's forest arrays (``{field: array}`` for every ``Forest`` field),
+    its ``numFeatures`` and ``numClasses``, with every param of ``params``
+    that the model has."""
+    model = RandomForestClassificationModel(uid, _forest(forest_arrays), numFeatures=int(numFeatures),
+                                            numClasses=int(numClasses))
+    return _with_params(model, params)
+
+
+def random_forest_regression_model_from_numpy(
+    forest_arrays: Dict[str, Any],
+    numFeatures: int,
+    uid: Optional[str] = None,
+    params: Optional[Dict[str, Any]] = None,
+) -> RandomForestRegressionModel:
+    """A port ``RandomForestRegressionModel`` over the reference model's
+    forest arrays and ``numFeatures``, with every param of ``params`` that
+    the model has."""
+    model = RandomForestRegressionModel(uid, _forest(forest_arrays), numFeatures=int(numFeatures))
+    return _with_params(model, params)
 
 
 def _matrix(x, what: str) -> np.ndarray:

@@ -1,0 +1,223 @@
+"""DBSCAN — port of the reference's ``ops/dbscan.py``: blocked epsilon-graph
+sweeps and min-label propagation.
+
+The epsilon graph is never stored. Every sweep recomputes the pairwise
+squared distances block by block, a (Bq, d) x (d, Bi) product per pair of
+query and item blocks (:func:`ops.knn._block_sq_distances`, through the
+precision mode's ``dot``), and folds each (Bq, Bi) boolean adjacency into
+a per-query result: a neighbour count (:func:`core_point_mask`) or the
+minimum label over core neighbours (:func:`_min_core_neighbor_label`).
+The reference's ``lax.map`` over query blocks and ``lax.scan`` over item
+blocks become a Python loop over both; a ragged last block is sliced,
+not padded. Counts are integers and labels are minima, so the result
+does not depend on the block sizes.
+
+Clusters are the connected components of the core-core epsilon graph:
+each round is one sweep (every core point takes the minimum label over
+its core neighbours) followed by pointer jumping to a fixpoint
+(:func:`_compress_labels`), so the number of sweeps grows as O(log n) in
+a chain, not as its diameter. Each ``while`` of the reference's two
+``lax.while_loop``s is a Python loop here, and each test of its
+condition reads one flag back from the device. Border points then take
+the minimum label of their core neighbours; the rest is noise (-1).
+
+Labels are int32 row indices of each cluster's representative (its
+lowest core row), with ``_INT_MAX`` as "no core neighbour yet";
+:func:`relabel_consecutive` maps them to 0..C-1 on the host.
+
+The eps test is a cancellation: ‖q‖² − 2q·x + ‖x‖² against eps², so far
+from the origin float32 rounds pairs across the cut. The estimator
+computes host input in float64 (``models/dbscan.py``).
+
+The sharded route (``dbscan_labels_sharded``) raises
+``NotImplementedError`` (ROADMAP A.9, item 18).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from spark_rapids_ml_tpu_torch import device as _device
+from spark_rapids_ml_tpu_torch.ops.knn import _block_sq_distances
+from spark_rapids_ml_tpu_torch.ops.precision import make_dot
+
+_INT_MAX = torch.iinfo(torch.int32).max
+
+SHARDED_ITEM = "the mesh DBSCAN (dbscan_labels_sharded) is not ported yet: ROADMAP A.9, item 18"
+
+
+def _eps_sweep(
+    x: torch.Tensor,
+    valid: Optional[torch.Tensor],
+    eps_sq: torch.Tensor,
+    per_block: Callable,
+    combine: Callable,
+    block_q: int,
+    block_i: int,
+    dot: Callable,
+) -> torch.Tensor:
+    """One blocked sweep over the epsilon graph of ``x`` against itself.
+
+    For every query block, every item block's (Bq, Bi) boolean adjacency
+    (``d2 <= eps_sq``, masked to valid rows, self-pairs included) goes
+    through ``per_block(adj, j0)`` and folds into the block's result with
+    ``combine``. ``valid`` None means every row is real. Returns the
+    per-query results, (n,)."""
+    n = int(x.shape[0])
+    outs = []
+    for q0 in range(0, n, block_q):
+        qb = x[q0:q0 + block_q]
+        q_sq = torch.sum(qb * qb, dim=1)
+        acc = None
+        for j0 in range(0, n, block_i):
+            d2 = _block_sq_distances(qb, x[j0:j0 + block_i], q_sq, dot)
+            adj = d2 <= eps_sq
+            del d2
+            if valid is not None:
+                adj &= valid[None, j0:j0 + block_i]
+                adj &= valid[q0:q0 + block_q, None]
+            part = per_block(adj, j0)
+            acc = part if acc is None else combine(acc, part)
+        outs.append(acc)
+    return torch.cat(outs)
+
+
+def _eps_sq(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """eps² in the rows' dtype, squared there, as the reference does."""
+    return torch.tensor(eps, dtype=x.dtype, device=x.device) ** 2
+
+
+def _valid_mask(x: torch.Tensor, row_mask) -> Optional[torch.Tensor]:
+    return None if row_mask is None else torch.as_tensor(row_mask, device=x.device).to(torch.bool)
+
+
+def _eps_neighbor_counts(x, valid, eps_sq, block_q: int, block_i: int, dot) -> torch.Tensor:
+    """(n,) int32 eps-neighbour counts, self included."""
+    return _eps_sweep(
+        x, valid, eps_sq,
+        per_block=lambda adj, j0: torch.sum(adj, dim=1, dtype=torch.int32),
+        combine=torch.add,
+        block_q=block_q, block_i=block_i, dot=dot,
+    )
+
+
+def core_point_mask(
+    x: torch.Tensor,
+    eps: float,
+    min_pts: int,
+    row_mask: Optional[torch.Tensor] = None,
+    block_q: int = 2048,
+    block_i: int = 8192,
+    precision: str = "highest",
+) -> torch.Tensor:
+    """Boolean (n,) mask of core points: at least ``min_pts`` neighbours
+    within eps, the point itself included (the sklearn/cuML convention).
+    ``row_mask`` flags real rows (1) against padding (0)."""
+    _device.device_of(x)
+    valid = _valid_mask(x, row_mask)
+    counts = _eps_neighbor_counts(x, valid, _eps_sq(x, eps), block_q, block_i, make_dot(precision))
+    core = counts >= min_pts
+    return core if valid is None else core & valid
+
+
+def _min_core_neighbor_label(x, valid, core, labels, eps_sq, block_q: int, block_i: int, dot) -> torch.Tensor:
+    """For every point, the minimum label over its CORE eps-neighbours
+    (itself included when core); ``_INT_MAX`` where it has none."""
+    masked_labels = torch.where(core, labels, torch.full_like(labels, _INT_MAX))
+
+    def per_block(adj, j0):
+        lab = masked_labels[j0:j0 + adj.shape[1]]
+        return torch.where(adj, lab[None, :], _INT_MAX).amin(dim=1)
+
+    return _eps_sweep(x, valid, eps_sq, per_block, torch.minimum, block_q, block_i, dot)
+
+
+def _compress_labels(labels: torch.Tensor, core: torch.Tensor, n: int) -> torch.Tensor:
+    """Pointer jumping ``labels[labels]`` on core points to a fixpoint.
+
+    Labels are row indices, so each jump hops to the representative's
+    current representative, and the compressed depth doubles per jump: a
+    chain of length L collapses in O(log L) (n,) gathers, each followed
+    by one flag read back. ``_INT_MAX`` entries clamp to a harmless
+    gather of row n - 1."""
+    while True:
+        safe = torch.clamp(labels, 0, n - 1).long()
+        jumped = torch.where(core, torch.minimum(labels, labels[safe]), labels)
+        if not bool(torch.any(jumped != labels)):
+            return jumped
+        labels = jumped
+
+
+def dbscan_labels(
+    x: torch.Tensor,
+    eps: float,
+    min_pts: int,
+    row_mask: Optional[torch.Tensor] = None,
+    block_q: int = 2048,
+    block_i: int = 8192,
+    precision: str = "highest",
+    return_sweeps: bool = False,
+):
+    """Full DBSCAN: ``(labels (n,) int32, core_mask (n,) bool)``, and the
+    number of epsilon sweeps of the propagation (its rounds, the last of
+    which changed nothing) with ``return_sweeps``.
+
+    Labels are each cluster's representative row (its lowest core row), -1
+    for noise. A border point takes the minimum label of its core
+    neighbours (sklearn takes the first in scan order, so border ties may
+    differ from sklearn; core clusters are the same)."""
+    n = int(x.shape[0])
+    valid = _valid_mask(x, row_mask)
+    eps_sq = _eps_sq(x, eps)
+    dot = make_dot(precision)
+    core = core_point_mask(x, eps, min_pts, row_mask=valid, block_q=block_q, block_i=block_i,
+                           precision=precision)
+    labels = torch.where(core, torch.arange(n, dtype=torch.int32, device=x.device), _INT_MAX)
+    sweeps = 0
+    changed = True
+    while changed:
+        neigh = _min_core_neighbor_label(x, valid, core, labels, eps_sq, block_q, block_i, dot)
+        new = torch.where(core, torch.minimum(labels, neigh), labels)
+        jumped = _compress_labels(new, core, n)
+        changed = bool(torch.any(jumped != labels))
+        labels = jumped
+        sweeps += 1
+
+    neigh = _min_core_neighbor_label(x, valid, core, labels, eps_sq, block_q, block_i, dot)
+    border = ~core & (neigh < _INT_MAX)
+    if valid is not None:
+        border &= valid
+    labels = torch.where(border, neigh, labels)
+    labels = torch.where(labels == _INT_MAX, -1, labels)
+    if valid is not None:
+        labels = torch.where(valid, labels, -1)
+    if return_sweeps:
+        return labels, core, sweeps
+    return labels, core
+
+
+def relabel_consecutive(labels: np.ndarray) -> np.ndarray:
+    """Host: representative-row labels to consecutive 0..C-1, ordered by
+    first appearance (the sklearn convention); noise stays -1."""
+    labels = np.asarray(labels)
+    out = np.full_like(labels, -1)
+    pos = np.flatnonzero(labels >= 0)
+    if pos.size == 0:
+        return out
+    reps, inverse = np.unique(labels[pos], return_inverse=True)
+    first_row = np.full(reps.size, labels.size, dtype=np.int64)
+    np.minimum.at(first_row, inverse, pos)
+    rank = np.empty(reps.size, dtype=np.int64)
+    rank[np.argsort(first_row, kind="stable")] = np.arange(reps.size)
+    out[pos] = rank[inverse]
+    return out
+
+
+def dbscan_labels_sharded(*args, **kwargs):
+    raise NotImplementedError(SHARDED_ITEM)
+
+
+__all__ = ["core_point_mask", "dbscan_labels", "dbscan_labels_sharded", "relabel_consecutive"]

@@ -1,7 +1,7 @@
 """Regression namespace — parity with ``org.apache.spark.ml.regression``
-and the reference's ``spark_rapids_ml_tpu.regression`` (the random forest
-regressor arrives with its slice, ROADMAP A.6 item 15)."""
+and the reference's ``spark_rapids_ml_tpu.regression``."""
 
 from spark_rapids_ml_tpu_torch.models.linear_regression import LinearRegression, LinearRegressionModel
+from spark_rapids_ml_tpu_torch.models.random_forest import RandomForestRegressionModel, RandomForestRegressor
 
-__all__ = ["LinearRegression", "LinearRegressionModel"]
+__all__ = ["LinearRegression", "LinearRegressionModel", "RandomForestRegressionModel", "RandomForestRegressor"]

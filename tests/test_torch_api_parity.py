@@ -27,12 +27,18 @@ PAIRS = {
     "PCAModel": (feature, jax_feature),
     "KMeans": (clustering, jax_clustering),
     "KMeansModel": (clustering, jax_clustering),
+    "DBSCAN": (clustering, jax_clustering),
+    "DBSCANModel": (clustering, jax_clustering),
     "UMAP": (manifold, jax_manifold),
     "UMAPModel": (manifold, jax_manifold),
     "LinearRegression": (regression, jax_regression),
     "LinearRegressionModel": (regression, jax_regression),
+    "RandomForestRegressor": (regression, jax_regression),
+    "RandomForestRegressionModel": (regression, jax_regression),
     "LogisticRegression": (classification, jax_classification),
     "LogisticRegressionModel": (classification, jax_classification),
+    "RandomForestClassifier": (classification, jax_classification),
+    "RandomForestClassificationModel": (classification, jax_classification),
     "NearestNeighbors": (neighbors, jax_neighbors),
     "NearestNeighborsModel": (neighbors, jax_neighbors),
     "ApproximateNearestNeighbors": (neighbors, jax_neighbors),

@@ -58,7 +58,8 @@ def test_every_port_module_imports_without_jax():
                  "ops.logistic", "ops.metrics", "models.linear_regression",
                  "models.logistic_regression", "regression", "classification", "evaluation",
                  "utils.envknobs", "robustness.retry", "robustness.degrade", "observability.events",
-                 "core.membudget", "native"):
+                 "core.membudget", "native", "ops.dbscan", "models.dbscan", "ops.trees",
+                 "models.random_forest"):
         assert f"spark_rapids_ml_tpu_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
