@@ -87,6 +87,20 @@ counters set to 0 just before and read just after:
   GEMMs, one-hot builds, split search and routing; the regressor at the
   same shape (RMSE within 1 % of its float64-histogram fit); save and load
   of the classifier (bitwise) and of a 10,000-row DBSCAN model.
+- composition, last, within its own 60 s, on data drawn on the card:
+  (a) ``Pipeline([PCA().setK(8), KMeans().setK(100)])`` on config 3's
+  20M x 16 float32 blobs (K2 in the KMeans stage), its fused transform
+  bitwise the staged loop's and equal to a float64 projection and
+  assignment off a named margin band; (b) ``CrossValidator`` (3 folds x
+  regParam 0.001 / 0.01 / 0.1) over PCA(16, ``pallas``) -> logistic on
+  config 10's 11M x 28 float32 pair (device folds, 10 K1 launches, no
+  host copy of x by a count of aten's copies, every avgMetrics entry
+  within 1e-4 of a float64 re-evaluation of its fold model, bestModel
+  bitwise a fresh fit of the best map); (c) ``TrainValidationSplit``
+  over the logistic family with the AUC, within 1e-6 of the host route;
+  (d) config 10's rows as a host array through (b)'s model, fused and
+  staged bitwise, with walls and copy bytes, and 32-row requests;
+  (e) save and load of (a)'s and (b)'s models, predicting bitwise.
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -100,6 +114,7 @@ a directory without the package. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -145,6 +160,17 @@ from spark_rapids_ml_tpu_torch.neighbors import (  # noqa: E402
     ApproximateNearestNeighbors,
     ApproximateNearestNeighborsModel,
     NearestNeighbors,
+)
+from spark_rapids_ml_tpu_torch.evaluation import (  # noqa: E402
+    BinaryClassificationEvaluator,
+    MulticlassClassificationEvaluator,
+)
+from spark_rapids_ml_tpu_torch.pipeline import Pipeline, PipelineModel  # noqa: E402
+from spark_rapids_ml_tpu_torch.tuning import (  # noqa: E402
+    CrossValidator,
+    CrossValidatorModel,
+    ParamGridBuilder,
+    TrainValidationSplit,
 )
 
 SEED = 0
@@ -3028,6 +3054,389 @@ def dbscan_forest_phases(gen: torch.Generator, peaks) -> dict:
     return {"config12": c12, "chain": chain, "config9": c9, "regressor": reg}
 
 
+# --- Composition: pipelines, tuning, fusion (BASELINE configs 3 and 10) -----
+
+CP_PCA_K = 8                # (a): PCA(8) -> KMeans(100) over config 3's 20M x 16 blobs
+CP_TUNE_K = 16              # (b): PCA(16, pallas) -> LogisticRegression over config 10's 11M x 28
+CP_REGS = (0.001, 0.01, 0.1)
+CP_FOLDS = 3
+CP_REQUEST = 32             # (d): rows of one small request
+CP_REQUESTS = 200           # (d): requests timed each way
+CP_CHECK_ROWS = 1_000_000   # (e): rows each reloaded model predicts
+CP_WALL_LIMIT_S = 60.0
+
+
+@contextlib.contextmanager
+def fitted_models(klass):
+    """Every model ``klass.fit`` returns while the block runs, in order:
+    the validators' per-fold and refit models, kept for the checks."""
+    log = []
+    own = "fit" in vars(klass)
+    orig = klass.fit
+
+    def fit(self, dataset):
+        model = orig(self, dataset)
+        log.append(model)
+        return model
+
+    klass.fit = fit
+    try:
+        yield log
+    finally:
+        if own:
+            klass.fit = orig
+        else:
+            del klass.fit
+
+
+@contextlib.contextmanager
+def fusion_off():
+    os.environ["TPUML_PIPELINE_FUSION"] = "off"
+    try:
+        yield
+    finally:
+        del os.environ["TPUML_PIPELINE_FUSION"]
+
+
+def copy_counter():
+    """A dispatch mode that counts the bytes aten's copies move between
+    the host and a device while it is active (``_to_copy``, ``copy_``,
+    ``_local_scalar_dense``: every ``.to``, ``.cpu()``, ``.item()``). The
+    profiler's trace proved no count: with the card's events alone it lost
+    a third of the copies."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+
+    class CopyCounter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = {"h2d_bytes": 0, "d2h_bytes": 0, "h2d_copies": 0, "d2h_copies": 0}
+
+        def _note(self, src: torch.device, dst: torch.device, nbytes: int) -> None:
+            if (src.type == "cpu") == (dst.type == "cpu"):
+                return
+            key = "h2d" if src.type == "cpu" else "d2h"
+            self.counts[f"{key}_bytes"] += int(nbytes)
+            self.counts[f"{key}_copies"] += 1
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is aten._to_copy.default:
+                self._note(args[0].device, out.device, out.numel() * out.element_size())
+            elif func is aten.copy_.default:
+                self._note(args[1].device, args[0].device, args[0].numel() * args[0].element_size())
+            elif func is aten._local_scalar_dense.default:
+                self._note(args[0].device, torch.device("cpu"), args[0].element_size())
+            return out
+
+    return CopyCounter()
+
+
+def _serving_bytes() -> tuple:
+    return counter_value("serving.h2d.bytes"), counter_value("serving.d2h.bytes")
+
+
+def _labels_pca_kmeans_f64(x: torch.Tensor, pc64: torch.Tensor, c64: torch.Tensor):
+    """Labels of a float64 projection and assignment, and each row's
+    float64 gap between its two nearest centers beside its band width
+    1e-6·(‖p‖² + max‖c‖²)."""
+    labels, in_band = [], []
+    c2max = float((c64 * c64).sum(dim=1).max())
+    for i in range(0, x.shape[0], KM_BLOCK):
+        p = x[i:i + KM_BLOCK].double() @ pc64
+        d2 = (p * p).sum(dim=1, keepdim=True) - 2.0 * p @ c64.T + (c64 * c64).sum(dim=1)
+        two = torch.topk(d2, 2, dim=1, largest=False)
+        labels.append(two.indices[:, 0])
+        in_band.append(two.values[:, 1] - two.values[:, 0] <= 1e-6 * ((p * p).sum(dim=1) + c2max))
+    return torch.cat(labels), torch.cat(in_band)
+
+
+def phase_composition_config3(gen: torch.Generator) -> dict:
+    """(a) ``Pipeline([PCA().setK(8), KMeans().setK(100).setSeed(0)])``
+    fitted on config 3's 20M x 16 float32 blobs on the card; the fused
+    transform against the staged loop (bitwise) and a float64 projection
+    and assignment with the same components and centers (equal off the
+    named margin band); walls of fit, fused and staged transform."""
+    x, _ = planted_blobs(KM_N, KM_D, KM_K, gen)
+    pipe = Pipeline(stages=[PCA().setK(CP_PCA_K), KMeans().setK(KM_K).setSeed(SEED)])
+    kk.reset_launches()
+    model = pipe.fit(x)
+    launches = dict(kk.launches)
+    fused0 = counter_value("pipeline.fusion.fused")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        fused = model.transform(x)
+    fused_count = counter_value("pipeline.fusion.fused") - fused0
+    with fusion_off():
+        staged = model.transform(x)
+    pc64 = torch.from_numpy(model.stages[0].pc).to(x.device)
+    c64 = torch.from_numpy(model.stages[1].clusterCenters()).to(x.device)
+    labels64, in_band = _labels_pca_kmeans_f64(x, pc64, c64)
+    off = fused != labels64
+    walls = {
+        "fit": wall_s(lambda: pipe.fit(x)),
+        "fused_transform": wall_s(lambda: model.transform(x)),
+    }
+    with fusion_off():
+        walls["staged_transform"] = wall_s(lambda: model.transform(x))
+    out = {
+        "phase": "composition_config3", "x": [KM_N, KM_D, "float32"], "stages": "PCA(k=8) -> KMeans(k=100)",
+        "kernel": "assign_stats_packed (K3)" if launches["assign_stats_packed"] else "assign_stats_fused (K2)",
+        "launches": launches, "num_iter": model.stages[1].numIter, "fused_counter_delta": fused_count,
+        "fused_equals_staged": bool(torch.equal(fused, staged)),
+        "vs_f64_mismatches": int(off.sum()), "vs_f64_mismatches_outside_band": int((off & ~in_band).sum()),
+        "band_rows": int(in_band.sum()),
+        "band": "float64 gap between the two nearest centers <= 1e-6 (|p|^2 + max |c|^2)",
+        "wall_s": walls, "timing": "median of 3",
+    }
+    emit(out)
+    require(launches["assign_stats_fused"] + launches["assign_stats_packed"] >= 1,
+            "(a) the pipeline's KMeans stage launched neither K2 nor K3")
+    require(fused_count == 1, "(a) the plain-tensor transform did not fuse")
+    require(out["fused_equals_staged"], "(a) fused labels differ from the staged loop's")
+    require(out["vs_f64_mismatches_outside_band"] == 0,
+            "(a) fused labels differ from the float64 assignment off the margin band")
+    return {"out": out, "model": model, "x": x}
+
+
+def phase_composition_config10(x: torch.Tensor, y: torch.Tensor) -> dict:
+    """(b) ``CrossValidator`` over ``Pipeline([PCA().setK(16)
+    .setCovarianceBackend("pallas"), LogisticRegression()...])`` with a
+    regParam grid of 3 and 3 folds on config 10's 11M x 28 float32 pair on
+    the card: device folds, no host copy of x (aten's copies, counted),
+    K1 launches, every avgMetrics entry against a float64 re-evaluation
+    of its fold models, bestModel against a fresh fit of the best map;
+    (c) ``TrainValidationSplit`` over the logistic family with the AUC,
+    each metric against the host route in float64."""
+    from spark_rapids_ml_tpu_torch import evaluation
+
+    n = int(x.shape[0])
+    pca = PCA().setK(CP_TUNE_K).setCovarianceBackend("pallas")
+    lr = LogisticRegression().setMaxIter(20).setTol(0.0)
+    pipe = Pipeline(stages=[pca, lr])
+    grid = ParamGridBuilder().addGrid(lr.regParam, list(CP_REGS)).build()
+    cv = (CrossValidator().setEstimator(pipe).setEstimatorParamMaps(grid)
+          .setEvaluator(MulticlassClassificationEvaluator().setMetricName("accuracy"))
+          .setNumFolds(CP_FOLDS).setSeed(SEED))
+    folds0 = counter_value("tuning.device_folds")
+    _reset_kernel_launches()
+    with fitted_models(Pipeline) as fits, copy_counter() as copies:
+        cvm = cv.fit((x, y))
+        sync()
+    k1_launches = k1.launches
+    folds_used = counter_value("tuning.device_folds") - folds0
+    t0 = time.perf_counter()
+    cvm_timed = cv.fit((x, y))
+    sync()
+    cv_wall = time.perf_counter() - t0
+
+    # float64 re-evaluation of each fold model on its validation rows.
+    perm = np.random.default_rng(SEED).permutation(n)
+    folds = np.array_split(perm, CP_FOLDS)
+    y64 = y.double()
+    metrics64 = np.zeros((len(grid), CP_FOLDS))
+    for fold_i, val_idx in enumerate(folds):
+        idx = torch.from_numpy(np.sort(val_idx)).to(x.device)
+        xv, yv = x.index_select(0, idx), y64.index_select(0, idx)
+        for map_i in range(len(grid)):
+            m = fits[fold_i * len(grid) + map_i]
+            pc64 = torch.from_numpy(m.stages[0].pc).to(x.device)
+            w64 = torch.from_numpy(m.stages[1].weights).to(x.device)
+            b64 = torch.from_numpy(m.stages[1].intercepts).to(x.device)
+            hits = 0.0
+            for i in range(0, xv.shape[0], F64_CHUNK):
+                z = (xv[i:i + F64_CHUNK].double() @ pc64) @ w64[:, 0] + b64[0]
+                hits += float(((z > 0).double() == yv[i:i + F64_CHUNK]).sum())
+            metrics64[map_i, fold_i] = hits / xv.shape[0]
+        del xv, yv
+    avg64 = metrics64.mean(axis=1)
+    best = cvm.bestIndex
+    fresh = pipe.copy(grid[best]).fit((x, y))
+    same_best = all(
+        np.array_equal(a, b) for a, b in (
+            (cvm.bestModel.stages[0].pc, fresh.stages[0].pc),
+            (cvm_timed.bestModel.stages[0].pc, fresh.stages[0].pc),
+            (cvm.bestModel.stages[1].weights, fresh.stages[1].weights),
+            (cvm_timed.bestModel.stages[1].weights, fresh.stages[1].weights),
+            (cvm.bestModel.stages[1].intercepts, fresh.stages[1].intercepts),
+        )
+    )
+    out_b = {
+        "phase": "composition_config10_cv", "x": [n, int(x.shape[1]), "float32"],
+        "estimator": "Pipeline(PCA(k=16, pallas) -> LogisticRegression(maxIter 20, tol 0))",
+        "grid_regParam": list(CP_REGS), "folds": CP_FOLDS, "fits": len(fits),
+        "avg_metrics": cvm.avgMetrics, "avg_metrics_f64": avg64.tolist(),
+        "avg_vs_f64_max_abs": float(np.abs(np.asarray(cvm.avgMetrics) - avg64).max()),
+        "avg_metrics_timed_run": cvm_timed.avgMetrics, "best_index": best,
+        "copies_counted_by": "a torch dispatch mode over aten's copies during the first fit",
+        "k1_launches": k1_launches, "device_folds": folds_used, "copies": copies.counts,
+        "x_bytes": int(x.numel() * x.element_size()), "fold_index_bytes": n * 8 * CP_FOLDS,
+        "best_equals_fresh_fit": same_best, "fit_wall_s": cv_wall, "timing": "one run, unprofiled",
+    }
+    emit(out_b)
+    require(folds_used == 1, "(b) the validator did not prepare device folds")
+    require(k1_launches == len(grid) * CP_FOLDS + 1, f"(b) K1 launched {k1_launches} times, not 10")
+    require(copies.counts["h2d_bytes"] >= out_b["fold_index_bytes"], "(b) the copy count missed the fold indices")
+    require(copies.counts["d2h_bytes"] < out_b["x_bytes"] // 100,
+            "(b) the tuning fit copied x (or a fold of it) to the host")
+    require(out_b["avg_vs_f64_max_abs"] <= 1e-4, "(b) avgMetrics differ from the float64 re-evaluation by > 1e-4")
+    require(cvm_timed.avgMetrics == cvm.avgMetrics and cvm_timed.bestIndex == best, "(b) a second fit differs")
+    require(same_best, "(b) bestModel differs from Pipeline.copy(best map).fit(full pair)")
+
+    # (c) TrainValidationSplit over the logistic family, AUC.
+    lr_c = LogisticRegression().setMaxIter(20).setTol(0.0)
+    grid_c = ParamGridBuilder().addGrid(lr_c.regParam, list(CP_REGS)).build()
+    tvs = (TrainValidationSplit().setEstimator(lr_c).setEstimatorParamMaps(grid_c)
+           .setEvaluator(BinaryClassificationEvaluator()).setTrainRatio(0.75).setSeed(SEED))
+    with fitted_models(LogisticRegression) as tvs_fits:
+        t0 = time.perf_counter()
+        tvm = tvs.fit((x, y))
+        sync()
+        tvs_wall = time.perf_counter() - t0
+    n_train = int(round(n * 0.75))
+    val = torch.from_numpy(np.sort(perm[n_train:])).to(x.device)
+    xv, yv = x.index_select(0, val), y.index_select(0, val).cpu().numpy().astype(np.float64)
+    threshold = evaluation._DEVICE_THRESHOLD
+    evaluation._DEVICE_THRESHOLD = float("inf")  # the host route, whatever the size
+    try:
+        host = [BinaryClassificationEvaluator().evaluate(
+            (yv, m.predictProbability(xv)[:, 1].cpu().numpy().astype(np.float64))) for m in tvs_fits[:len(grid_c)]]
+    finally:
+        evaluation._DEVICE_THRESHOLD = threshold
+    del xv
+    out_c = {
+        "phase": "composition_config10_tvs", "estimator": "LogisticRegression(maxIter 20, tol 0)",
+        "evaluator": "areaUnderROC", "train_ratio": 0.75, "validation_metrics": tvm.validationMetrics,
+        "host_f64": host, "vs_host_max_abs": float(np.abs(np.asarray(tvm.validationMetrics) - host).max()),
+        "best_index": tvm.bestIndex, "fit_wall_s": tvs_wall, "fits": len(tvs_fits),
+    }
+    emit(out_c)
+    require(len(tvs_fits) == len(grid_c) + 1, "(c) the split did not fit each map and refit the best")
+    require(out_c["vs_host_max_abs"] <= 1e-6, "(c) validationMetrics differ from the host route by > 1e-6")
+    return {"b": out_b, "c": out_c, "cvm": cvm}
+
+
+def phase_composition_host(x: torch.Tensor, model) -> dict:
+    """(d) config 10's 11M x 28 float32 host array through (b)'s bestModel:
+    fused against staged, bitwise, with the walls and the serving copy
+    bytes of each; then a 32-row request, median of 200 calls each way."""
+    host = x.cpu().numpy()
+
+    def run(fused: bool):
+        h0, d0 = _serving_bytes()
+        t0 = time.perf_counter()
+        if fused:
+            out = model.transform(host)
+        else:
+            with fusion_off():
+                out = model.transform(host)
+        wall = time.perf_counter() - t0
+        h1, d1 = _serving_bytes()
+        return out, {"wall_s": wall, "h2d_bytes": h1 - h0, "d2h_bytes": d1 - d0}
+
+    fused0 = counter_value("pipeline.fusion.fused")
+    out_f, fused = run(True)
+    out_s, staged = run(False)
+    fused_count = counter_value("pipeline.fusion.fused") - fused0
+    out_f2, fused2 = run(True)
+    out_s2, staged2 = run(False)
+    small = host[:CP_REQUEST]
+
+    def per_call(fused_route: bool) -> float:
+        times = []
+        for _ in range(CP_REQUESTS):
+            t0 = time.perf_counter()
+            if fused_route:
+                model.transform(small)
+            else:
+                with fusion_off():
+                    model.transform(small)
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    small_ms = {"fused": per_call(True), "staged": per_call(False)}
+    n, d, k = host.shape[0], host.shape[1], CP_TUNE_K
+    predicted = {
+        "fused": {"h2d_bytes": n * d * 8, "d2h_bytes": n * 4},
+        "staged": {"h2d_bytes": n * d * 8 + n * k * 8, "d2h_bytes": n * k * 8 + n * (4 + 8 * 2 + 8 * 2)},
+    }
+    out = {
+        "phase": "composition_host_input", "x": [n, d, str(host.dtype)], "fused": fused, "staged": staged,
+        "second_run": {"fused": fused2, "staged": staged2}, "bytes_by_construction": predicted,
+        "fused_equals_staged": bool(np.array_equal(out_f, out_s) and np.array_equal(out_f2, out_s2)),
+        "fused_counter_delta": fused_count, "request_rows": CP_REQUEST, "requests": CP_REQUESTS,
+        "request_ms_median": small_ms, "timing": "host clock, one call each (two runs)",
+    }
+    emit(out)
+    require(fused_count == 1, "(d) the host-array transform did not fuse")
+    require(out["fused_equals_staged"], "(d) fused and staged results differ on host input")
+    for route in ("fused", "staged"):
+        for key in ("h2d_bytes", "d2h_bytes"):
+            require(out[route][key] == predicted[route][key], f"(d) {route} {key} is not the predicted count")
+    return out
+
+
+def phase_composition_saves(x3: torch.Tensor, model3, x10: torch.Tensor, cvm) -> dict:
+    """(e) Save and load (a)'s PipelineModel and (b)'s CrossValidatorModel;
+    the loaded models predict bitwise on 1M rows each."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        model3.save(os.path.join(tmp, "pipeline"))
+        cvm.save(os.path.join(tmp, "cv"))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded3 = PipelineModel.load(os.path.join(tmp, "pipeline"))
+        loaded_cv = CrossValidatorModel.load(os.path.join(tmp, "cv"))
+        load_s = time.perf_counter() - t0
+    # A save holds float64 weights (Spark's format): the reloaded logistic
+    # stage serves tensors in float64 where the float32 fit served them
+    # in float32, so (b)'s model is held on host rows, which both serve
+    # in float64; (a)'s stages cast their weights to the batch's dtype.
+    a, b = x3[:CP_CHECK_ROWS], x10[:CP_CHECK_ROWS].cpu().numpy()
+    out = {
+        "phase": "composition_saves", "save_s": save_s, "load_s": load_s,
+        "pipeline_equal": bool(torch.equal(loaded3.transform(a), model3.transform(a))),
+        "cv_equal": bool(np.array_equal(loaded_cv.transform(b), cvm.transform(b))),
+        "cv_metrics_equal": loaded_cv.avgMetrics == cvm.avgMetrics and loaded_cv.bestIndex == cvm.bestIndex,
+    }
+    emit(out)
+    require(out["pipeline_equal"], "(e) the loaded PipelineModel predicts differently")
+    require(out["cv_equal"] and out["cv_metrics_equal"], "(e) the loaded CrossValidatorModel differs")
+    return out
+
+
+def composition_phases(gen: torch.Generator) -> dict:
+    """Pipelines, tuning and pipeline fusion at BASELINE configs 3 and 10 on
+    data planted on the card: (a)-(e) of the composition slice. Prints the
+    group's wall, which must stay within ``CP_WALL_LIMIT_S``."""
+    t0 = time.perf_counter()
+    walls = {}
+    t = time.perf_counter()
+    a = phase_composition_config3(gen)
+    walls["a_config3"] = time.perf_counter() - t
+    x10, w_true = glm_rows(gen)
+    margin = (x10 - x10.mean(dim=0)) / x10.std(dim=0) @ w_true + 0.5 * torch.randn(
+        GLM_N, generator=gen, device=x10.device)
+    y10 = (margin > 0).float()
+    del margin
+    t = time.perf_counter()
+    bc = phase_composition_config10(x10, y10)
+    walls["bc_config10"] = time.perf_counter() - t
+    t = time.perf_counter()
+    d = phase_composition_host(x10, bc["cvm"].bestModel)
+    walls["d_host_input"] = time.perf_counter() - t
+    t = time.perf_counter()
+    e = phase_composition_saves(a["x"], a["model"], x10, bc["cvm"])
+    walls["e_saves"] = time.perf_counter() - t
+    del a["x"], x10, y10
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    emit({"phases": "composition", "wall_s": wall, "phase_wall_s": walls})
+    require(wall <= CP_WALL_LIMIT_S, f"the composition phases took {wall:.1f} s, over their {CP_WALL_LIMIT_S:.0f} s")
+    return {"a": a["out"], "b": bc["b"], "c": bc["c"], "d": d, "e": e}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -3074,6 +3483,8 @@ def main() -> int:
     neighbour_phases(gen, peaks)
     torch.cuda.empty_cache()
     dbscan_forest_phases(gen, peaks)
+    torch.cuda.empty_cache()
+    composition_phases(gen)
 
     k1_f32 = times["k1_f32"]
     measured = {

@@ -11,6 +11,10 @@ Layer map (the reference's, one for one):
     estimators (PCA, KMeans, UMAP, LinearRegression, LogisticRegression,
     NearestNeighbors, ApproximateNearestNeighbors and their models)
   - ``evaluation``            — Regression, Multiclass and Binary evaluators
+  - ``pipeline`` / ``tuning`` — Pipeline and PipelineModel; ParamGridBuilder,
+    CrossValidator and TrainValidationSplit
+  - ``pipeline_fusion`` / ``serving`` — the fuser and the ServingSignature
+    each model declares (the serving runtime is not ported yet)
   - ``linalg``                — row-matrix orchestration (RowMatrix)
   - ``core``                  — params, data, ingest, persistence, serving,
     the fit memory guard (``membudget``)

@@ -9,6 +9,17 @@ model's clusters) — so a model saved by either package loads in the other. Wit
 ``<path>/data/part-00000.npz`` instead (the reference's fallback), which
 this package reads back.
 
+Composite writers (``Pipeline``, the validators) record their
+components' classes as import paths. :func:`persisted_class_path` writes
+the reference's twin path for this package's own classes, and
+:func:`resolve_persisted_class` reads a ``spark_rapids_ml_tpu.<module>``
+path as its ``spark_rapids_ml_tpu_torch.<module>`` twin (a rewrite of the
+string: the JAX package is never imported), so a directory written by
+either package loads in the other. Other roots are refused unless
+registered with :func:`allow_persisted_package`; directories written by
+upstream Spark name JVM classes, which :func:`resolve_component_class`
+maps through :data:`_SPARK_CLASS_ALIASES`.
+
 Left out until the robustness slice: the fault-injection point and the
 retry policy around the write. ``MLWriter.save`` keeps the reference's
 directory-level atomicity (write a temp sibling, then ``os.replace``).
@@ -150,6 +161,126 @@ def get_and_set_params(instance, metadata: Dict[str, Any]) -> None:
     for name, value in metadata.get("paramMap", {}).items():
         if instance.hasParam(name):
             instance.set(instance.getParam(name), value)
+
+
+#: This package's root, and the reference's, whose paths map onto it.
+PORT_ROOT = "spark_rapids_ml_tpu_torch"
+REFERENCE_ROOT = "spark_rapids_ml_tpu"
+
+# Root packages whose classes on-disk metadata may name. User libraries
+# with custom pipeline stages opt in via allow_persisted_package().
+_LOADABLE_PACKAGES = {PORT_ROOT}
+
+
+def allow_persisted_package(package_root: str) -> None:
+    """Opt a root package into model-directory loading.
+
+    Custom Estimator/Model/Transformer classes defined outside this package
+    round-trip through Pipeline/CrossValidator persistence only after their
+    root package is registered here — loading is restricted by default
+    because model directories are data and may be untrusted.
+    """
+    if not package_root or "." in package_root:
+        raise ValueError(
+            f"package root must be a bare top-level name, got {package_root!r}"
+        )
+    _LOADABLE_PACKAGES.add(package_root)
+
+
+def persisted_class_path(klass: type) -> str:
+    """The import path a composite writer records for ``klass``: the
+    reference's twin path for a class of this package, so the reference
+    loads the directory too; any other class's own path."""
+    module = klass.__module__
+    root, dot, rest = module.partition(".")
+    if root == PORT_ROOT:
+        module = REFERENCE_ROOT + dot + rest
+    return f"{module}.{klass.__qualname__}"
+
+
+def _port_path(class_path: str) -> str:
+    """``spark_rapids_ml_tpu.<rest>`` as ``spark_rapids_ml_tpu_torch.<rest>``;
+    any other path unchanged."""
+    root, dot, rest = class_path.partition(".")
+    return PORT_ROOT + dot + rest if root == REFERENCE_ROOT and dot else class_path
+
+
+def resolve_persisted_class(class_path: str):
+    """Import the class named in on-disk metadata, restricted to registered
+    packages (this one, and the reference's paths read as this package's
+    twins): model directories are data, and letting them name arbitrary
+    modules would turn ``load`` into an import-side-effect gadget. See
+    :func:`allow_persisted_package` for extending to user stage libraries."""
+    module_name, _, class_name = _port_path(class_path).rpartition(".")
+    root = module_name.split(".", 1)[0]
+    if root not in _LOADABLE_PACKAGES:
+        raise ValueError(
+            f"refusing to import {class_path!r} from model metadata: only "
+            f"classes under {sorted(_LOADABLE_PACKAGES | {REFERENCE_ROOT})} are loadable "
+            "(register yours via allow_persisted_package)"
+        )
+    import importlib
+
+    obj = getattr(importlib.import_module(module_name), class_name, None)
+    # The attribute itself must be a class DEFINED in a registered package —
+    # modules re-export numpy etc., whose `.load` is not a model loader.
+    if not (
+        isinstance(obj, type)
+        and getattr(obj, "__module__", "").split(".", 1)[0] in _LOADABLE_PACKAGES
+    ):
+        raise ValueError(
+            f"refusing to load {class_path!r} from model metadata: not a "
+            "class from a registered package"
+        )
+    return obj
+
+
+#: Spark JVM class simple names -> this package's import paths, for
+#: loading directories written by upstream Spark: its metadata names JVM
+#: classes (org.apache.spark.ml.feature.PCAModel) and its composite
+#: writers (Pipeline, CrossValidator) record no python import path at
+#: all — the nested component's own metadata "class" is the only type
+#: information on disk.
+_SPARK_CLASS_ALIASES: Dict[str, str] = {
+    "PCA": f"{PORT_ROOT}.feature.PCA",
+    "PCAModel": f"{PORT_ROOT}.feature.PCAModel",
+    "KMeans": f"{PORT_ROOT}.clustering.KMeans",
+    "KMeansModel": f"{PORT_ROOT}.clustering.KMeansModel",
+    "LogisticRegression": f"{PORT_ROOT}.classification.LogisticRegression",
+    "LogisticRegressionModel": f"{PORT_ROOT}.classification.LogisticRegressionModel",
+    "LinearRegression": f"{PORT_ROOT}.regression.LinearRegression",
+    "LinearRegressionModel": f"{PORT_ROOT}.regression.LinearRegressionModel",
+    "RandomForestClassifier": f"{PORT_ROOT}.classification.RandomForestClassifier",
+    "RandomForestClassificationModel": f"{PORT_ROOT}.classification.RandomForestClassificationModel",
+    "RandomForestRegressor": f"{PORT_ROOT}.regression.RandomForestRegressor",
+    "RandomForestRegressionModel": f"{PORT_ROOT}.regression.RandomForestRegressionModel",
+    "Pipeline": f"{PORT_ROOT}.pipeline.Pipeline",
+    "PipelineModel": f"{PORT_ROOT}.pipeline.PipelineModel",
+    "CrossValidatorModel": f"{PORT_ROOT}.tuning.CrossValidatorModel",
+    "TrainValidationSplitModel": f"{PORT_ROOT}.tuning.TrainValidationSplitModel",
+}
+
+
+def resolve_component_class(path: str):
+    """The loader class for a NESTED model directory (a pipeline stage,
+    a validator's ``bestModel``) whose owner recorded no python import
+    path — i.e. a directory written by upstream Spark. Reads the
+    component's own metadata ``class`` and maps the JVM simple name via
+    :data:`_SPARK_CLASS_ALIASES`; python class paths (either package's
+    writes) still resolve through the registered-package gate."""
+    metadata = load_metadata(path)
+    class_path = metadata.get("class", "")
+    root = class_path.split(".", 1)[0]
+    if root in _LOADABLE_PACKAGES or root == REFERENCE_ROOT:
+        return resolve_persisted_class(class_path)
+    simple = class_path.rsplit(".", 1)[-1]
+    alias = _SPARK_CLASS_ALIASES.get(simple)
+    if alias is None:
+        raise ValueError(
+            f"no loader for Spark class {class_path!r} (component at "
+            f"{path}): known aliases are {sorted(_SPARK_CLASS_ALIASES)}"
+        )
+    return resolve_persisted_class(alias)
 
 
 def save_data(path: str, columns: Dict[str, tuple]) -> None:

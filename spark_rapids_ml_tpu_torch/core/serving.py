@@ -13,11 +13,17 @@
                          device issued) before block k is handed on.
   - :func:`reclaim_device_memory` what the fit-path OOM recovery frees
                          between attempts.
+  - :func:`to_numpy`     a serving result back on the host.
+
+Counters ``serving.h2d.bytes`` and ``serving.d2h.bytes`` count the bytes
+the serving routes copy in (:func:`upload_block`) and out
+(:func:`to_numpy`).
 
 PyTorch runs eagerly and compiles nothing per shape, so the reference's
 shape buckets and AOT program cache have no work to do here. Double
 buffering on a copy stream from pinned memory waits for the serving
-slice (and the streaming fits' H2D lever, ROADMAP A.3 L5).
+slice (and the streaming fits' H2D lever, ROADMAP A.3 L5), and so do the
+serving device-cache hooks, which raise here.
 """
 
 from __future__ import annotations
@@ -76,7 +82,14 @@ def serve_stream(
         with TraceRange(f"serve {name}", TraceColor.GREEN):
             out = fn(x_dev, *args, **static)
         bump_counter("serving.stream.blocks")
-        yield out.cpu().numpy()
+        yield to_numpy(out)
+
+
+def to_numpy(out: torch.Tensor) -> np.ndarray:
+    """A serving result as host numpy (counter ``serving.d2h.bytes``)."""
+    host = out.cpu().numpy()
+    bump_counter("serving.d2h.bytes", host.nbytes)
+    return host
 
 
 def upload_block(blk: Any, device: torch.device, dtype: Optional[torch.dtype] = None):
@@ -86,6 +99,7 @@ def upload_block(blk: Any, device: torch.device, dtype: Optional[torch.dtype] = 
     half the bytes and widens on the device to the same values) and
     anything else is float64. An empty block gives ``(0, ·)`` arrays."""
     host = dense_block(blk) if dtype is None else _block_to_dense(blk, dtype=numpy_dtype(dtype))
+    bump_counter("serving.h2d.bytes", host.nbytes)
     return host, torch.as_tensor(host).to(device)
 
 
@@ -119,3 +133,18 @@ def reclaim_device_memory(device: Optional[torch.device] = None) -> None:
         with torch.cuda.device(device):
             torch.cuda.empty_cache()
     bump_counter("fit.oom.reclaims")
+
+
+DEVICE_CACHE_ITEM = "the serving device-cache hooks are not ported yet: ROADMAP A.8, item 17"
+
+
+def note_device_cache(model) -> None:
+    """Not ported: the serving runtime's registry of models holding device
+    copies of their weights (ROADMAP A.8, item 17)."""
+    raise NotImplementedError(DEVICE_CACHE_ITEM)
+
+
+def invalidate_device_caches() -> int:
+    """Not ported: dropping every registered model's device copies
+    (ROADMAP A.8, item 17)."""
+    raise NotImplementedError(DEVICE_CACHE_ITEM)

@@ -10,7 +10,11 @@
 :func:`random_forest_regression_model_from_numpy` build a port model
 from the reference model's arrays and param map, handed over as numpy and
 a plain dict — so both packages compute the same transform or prediction
-without this package importing the other. The IVF quantizer's draws
+without this package importing the other. :func:`pipeline_model_from_numpy`
+builds a ``PipelineModel`` from one such description per stage, and
+:func:`cross_validator_model_from_numpy` /
+:func:`train_validation_split_model_from_numpy` wrap a carried-across
+best model with the reference validator's metrics. The IVF quantizer's draws
 cannot be reproduced here, so the ANN model also takes the reference's
 index arrays: both packages then probe the same lists. The second route
 is persistence: a model saved by either package loads in the other
@@ -18,8 +22,9 @@ is persistence: a model saved by either package loads in the other
 ``LinearRegressionModel.load``, ``LogisticRegressionModel.load``,
 ``NearestNeighborsModel.load``, ``ApproximateNearestNeighborsModel.load``,
 ``DBSCANModel.load``, ``RandomForestClassificationModel.load``,
-``RandomForestRegressionModel.load``; the ANN index is rebuilt from the
-seed there).
+``RandomForestRegressionModel.load``, ``PipelineModel.load``,
+``CrossValidatorModel.load``, ``TrainValidationSplitModel.load``; the ANN
+index is rebuilt from the seed there).
 
 Typical use, in code that has both packages::
 
@@ -45,6 +50,8 @@ from spark_rapids_ml_tpu_torch.models.nearest_neighbors import NearestNeighborsM
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
 from spark_rapids_ml_tpu_torch.models.random_forest import RandomForestClassificationModel, RandomForestRegressionModel
 from spark_rapids_ml_tpu_torch.models.umap import UMAPModel
+from spark_rapids_ml_tpu_torch.pipeline import PipelineModel
+from spark_rapids_ml_tpu_torch.tuning import CrossValidatorModel, TrainValidationSplitModel
 
 
 def pca_model_from_numpy(
@@ -253,6 +260,70 @@ def random_forest_regression_model_from_numpy(
     forest arrays and ``numFeatures``, with every param of ``params`` that
     the model has."""
     model = RandomForestRegressionModel(uid, _forest(forest_arrays), numFeatures=int(numFeatures))
+    return _with_params(model, params)
+
+
+#: ``pipeline_model_from_numpy``'s family names -> the helper that builds
+#: that family's model from the stage's other keys.
+STAGE_FAMILIES = {
+    "pca": pca_model_from_numpy,
+    "kmeans": kmeans_model_from_numpy,
+    "linear_regression": linear_regression_model_from_numpy,
+    "logistic_regression": logistic_regression_model_from_numpy,
+    "random_forest_classification": random_forest_classification_model_from_numpy,
+    "random_forest_regression": random_forest_regression_model_from_numpy,
+    "umap": umap_model_from_numpy,
+    "nearest_neighbors": nearest_neighbors_model_from_numpy,
+    "approximate_nearest_neighbors": approximate_nearest_neighbors_model_from_numpy,
+    "dbscan": dbscan_model_from_numpy,
+}
+
+
+def pipeline_model_from_numpy(stages, uid: Optional[str] = None) -> PipelineModel:
+    """A port ``PipelineModel`` from one dict per fitted stage of the
+    reference pipeline: ``{"family": name, **keyword arguments}``, where
+    ``name`` is a key of :data:`STAGE_FAMILIES` and the other keys are
+    that family's helper's arguments (arrays, ``uid``, ``params``), e.g.
+    ``{"family": "pca", "pc": ref.pc, "explained_variance":
+    ref.explainedVariance, "uid": ref.uid}``."""
+    models = []
+    for i, stage in enumerate(stages):
+        stage = dict(stage)
+        family = stage.pop("family", None)
+        if family not in STAGE_FAMILIES:
+            raise ValueError(f"stage {i}: unknown family {family!r}; known: {sorted(STAGE_FAMILIES)}")
+        models.append(STAGE_FAMILIES[family](**stage))
+    return PipelineModel(uid, models)
+
+
+def cross_validator_model_from_numpy(
+    best_model,
+    avg_metrics,
+    best_index: int,
+    uid: Optional[str] = None,
+    params: Optional[Dict[str, Any]] = None,
+) -> CrossValidatorModel:
+    """A port ``CrossValidatorModel`` around ``best_model`` (a port model
+    carried across, e.g. by :func:`pipeline_model_from_numpy`), with the
+    reference model's ``avgMetrics``, ``bestIndex`` and params."""
+    model = CrossValidatorModel(uid, best_model, avgMetrics=[float(m) for m in avg_metrics],
+                                bestIndex=int(best_index))
+    return _with_params(model, params)
+
+
+def train_validation_split_model_from_numpy(
+    best_model,
+    validation_metrics,
+    best_index: int,
+    uid: Optional[str] = None,
+    params: Optional[Dict[str, Any]] = None,
+) -> TrainValidationSplitModel:
+    """A port ``TrainValidationSplitModel`` around ``best_model``, with
+    the reference model's ``validationMetrics``, ``bestIndex`` and
+    params."""
+    model = TrainValidationSplitModel(uid, best_model,
+                                      validationMetrics=[float(m) for m in validation_metrics],
+                                      bestIndex=int(best_index))
     return _with_params(model, params)
 
 

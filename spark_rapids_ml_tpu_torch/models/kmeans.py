@@ -32,10 +32,12 @@ budget it reroutes to the streaming fit through a ``HostArrayBlockReader``
 ``weightCol`` and ``backend="fused"`` cannot stream, so they raise
 ``FitMemoryError`` instead.
 
-Left out until their ROADMAP items: a mesh (A.7d) and
-``serving_signature`` (A.7e) raise ``NotImplementedError``; the
-checkpointed Lloyd (A.7b) is switched on by knobs the port does not read
-yet, so no fit reaches it.
+``KMeansModel.serving_signature()`` declares the assignment kernel
+``predict`` runs, for the pipeline fuser.
+
+Left out until their ROADMAP items: a mesh (A.7d) raises
+``NotImplementedError``; the checkpointed Lloyd (A.7b) is switched on by
+knobs the port does not read yet, so no fit reaches it.
 """
 
 from __future__ import annotations
@@ -81,10 +83,10 @@ from spark_rapids_ml_tpu_torch.ops.kmeans import (
     reservoir_sample_rows,
 )
 from spark_rapids_ml_tpu_torch.ops.precision import pallas_precision, resolve_policy, validate_mode
+from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 MESH_ITEM = "the mesh route of KMeans is not ported yet: ROADMAP A.7d"
-SERVING_SIGNATURE_ITEM = "serving_signature is not ported yet: ROADMAP A.7e (with the serving slice)"
 
 
 def _assign_kernel(x, centers, *, cosine: bool, precision: str = "highest"):
@@ -172,6 +174,10 @@ class _KMeansParams(Params):
 
 class KMeans(_KMeansParams, Estimator, MLReadable):
     """``KMeans().setK(8).fit(x)`` — Lloyd on the card."""
+
+    # Consumes tensors in place, so tuning loops may feed fold slices
+    # that stay on the device (tuning._device_fold_prep).
+    _device_foldable = True
 
     def __init__(self, uid: Optional[str] = None, mesh=None):
         super().__init__(uid)
@@ -517,8 +523,27 @@ class KMeansModel(_KMeansParams, Model, LazyHostState):
         )
         return np.concatenate(outs) if outs else np.zeros((0,), dtype=np.int64)
 
-    def serving_signature(self):
-        raise NotImplementedError(SERVING_SIGNATURE_ITEM)
+    def serving_signature(self) -> ServingSignature:
+        """The serving contract: the assignment kernel ``predict`` runs,
+        the centers at their own dtype on the platform's device (the
+        kernel casts them to each batch's dtype, as ``predict`` does), and
+        the (n,) label spec."""
+        if self._centers_raw is None:
+            raise RuntimeError("model has no cluster centers")
+        raw = self._centers_raw
+        dtype = raw.dtype if isinstance(raw, torch.Tensor) else torch.float64
+        centers = self._centers_on(_device.resolve_device(), dtype)
+        return ServingSignature(
+            kernel=_assign_kernel,
+            weights=(centers,),
+            static={
+                "cosine": self.getDistanceMeasure() == "cosine",
+                "precision": self._serving_precision(),
+            },
+            name="kmeans.predict",
+            n_features=int(centers.shape[1]),
+            output_spec=lambda n, dtype: spec((n,), torch.int64),
+        )
 
     def transform(self, dataset: Any) -> Any:
         rows = extract_features(dataset, self.getFeaturesCol())

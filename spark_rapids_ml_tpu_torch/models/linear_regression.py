@@ -25,10 +25,12 @@ streaming statistics (bit-identical to an explicit reader), and so does a
 device OOM mid-fit; ``weightCol`` cannot stream, so it raises
 ``FitMemoryError`` instead.
 
-Left out until their ROADMAP items: a mesh (A.9, item 8d) and
-``serving_signature`` (A.8, item 17) raise ``NotImplementedError``; the
-resumable FISTA (A.9, robustness) is switched on by knobs the port does
-not read yet, so no fit reaches it.
+``LinearRegressionModel.serving_signature()`` declares the prediction
+kernel ``predict`` runs, for the pipeline fuser.
+
+Left out until their ROADMAP items: a mesh (A.9, item 8d) raises
+``NotImplementedError``; the resumable FISTA (A.9, robustness) is
+switched on by knobs the port does not read yet, so no fit reaches it.
 """
 
 from __future__ import annotations
@@ -74,10 +76,10 @@ from spark_rapids_ml_tpu_torch.ops.linear import (
     solve_normal_host,
 )
 from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy
+from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 MESH_ITEM = "the mesh route of LinearRegression is not ported yet: ROADMAP A.9 (item 8d)"
-SERVING_SIGNATURE_ITEM = "serving_signature is not ported yet: ROADMAP A.8 (item 17, with the serving slice)"
 
 
 def _predict_kernel(x, coef, intercept, *, precision: str = "highest"):
@@ -151,6 +153,10 @@ class LinearRegression(_LinearRegressionParams, Estimator, MLReadable):
     ``LinearRegression().setRegParam(0.1).fit((X, y))``; the input is
     ``(X, y)``, a DataFrame shim or a pandas frame with feature and label
     columns, or ``(blocks, y)`` for a streaming fit."""
+
+    # Consumes tensors in place, so tuning loops may feed fold slices
+    # that stay on the device (tuning._device_fold_prep).
+    _device_foldable = True
 
     def __init__(self, uid: Optional[str] = None, mesh=None):
         super().__init__(uid)
@@ -478,8 +484,27 @@ class LinearRegressionModel(_LinearRegressionParams, Model, LazyHostState):
         ))
         return np.concatenate(outs) if outs else np.zeros((0,), dtype=np.float64)
 
-    def serving_signature(self):
-        raise NotImplementedError(SERVING_SIGNATURE_ITEM)
+    def serving_signature(self) -> ServingSignature:
+        """The serving contract: the X·coef + b kernel ``predict`` runs,
+        (coefficients, intercept) on the platform's device, and the (n,)
+        prediction spec."""
+        if self._coef_raw is None:
+            raise RuntimeError("model has no coefficients")
+        # Each at its own dtype: the kernel casts both to the batch's, as
+        # ``predict`` casts the fitted values.
+        device = _device.resolve_device()
+        raw, b = self._coef_raw, self._intercept_raw
+        coef = raw.to(device) if isinstance(raw, torch.Tensor) else torch.tensor(self.coefficients, device=device)
+        intercept = (b.to(device) if isinstance(b, torch.Tensor)
+                     else torch.tensor(float(b), dtype=torch.float64, device=device))
+        return ServingSignature(
+            kernel=_predict_kernel,
+            weights=(coef, intercept),
+            static={"precision": self._serving_precision()},
+            name="linreg.predict",
+            n_features=int(coef.shape[0]),
+            output_spec=lambda n, dtype: spec((n,), dtype),
+        )
 
     def transform(self, dataset: Any) -> Any:
         if isinstance(dataset, DataFrame):

@@ -26,10 +26,13 @@ streaming fit (bit-identical to an explicit reader), and so does a device
 OOM mid-fit; ``weightCol``, elastic net and warm starts cannot stream, so
 they raise ``FitMemoryError`` instead.
 
-Left out until their ROADMAP items: a mesh (A.9, item 9d) and
-``serving_signature`` (A.8, item 17) raise ``NotImplementedError``; the
-resumable L-BFGS (A.9, robustness) is switched on by knobs the port does
-not read yet, so no fit reaches it.
+``LogisticRegressionModel.serving_signature()`` declares the forward
+kernel ``predict`` runs, with :func:`_select_labels` as its
+transform-on-array contract, for the pipeline fuser.
+
+Left out until their ROADMAP items: a mesh (A.9, item 9d) raises
+``NotImplementedError``; the resumable L-BFGS (A.9, robustness) is
+switched on by knobs the port does not read yet, so no fit reaches it.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     save_data,
     save_metadata,
 )
-from spark_rapids_ml_tpu_torch.core.serving import DEFAULT_STREAM_BLOCK, serve_rows, upload_block
+from spark_rapids_ml_tpu_torch.core.serving import DEFAULT_STREAM_BLOCK, serve_rows, to_numpy, upload_block
 from spark_rapids_ml_tpu_torch.models.linear_regression import _extract_xy, _streaming_blocks
 from spark_rapids_ml_tpu_torch.ops.logistic import (
     classification_metrics,
@@ -66,21 +69,30 @@ from spark_rapids_ml_tpu_torch.ops.logistic import (
     streaming_label_feature_stats,
 )
 from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy, validate_mode
+from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 MESH_ITEM = "the mesh route of LogisticRegression is not ported yet: ROADMAP A.9 (item 9d)"
-SERVING_SIGNATURE_ITEM = "serving_signature is not ported yet: ROADMAP A.8 (item 17, with the serving slice)"
 
 
-def _forward_kernel(x, w, b, *, threshold: float, precision: str = "highest"):
+def _forward_kernel(x, w, b, *, n_classes: int = 0, threshold: float, precision: str = "highest"):
     """Serving kernel: one forward pass → (labels, probabilities, raw
     margins); the batch follows the weights' dtype, and binomial labels
-    honour the threshold."""
-    labels, probs, raw = predict_logistic(x.to(w.dtype), w, b, n_classes=0, precision=precision)
+    honour the threshold. ``n_classes`` is the model's class count, static
+    as in the reference's kernel (the weights' width decides the link)."""
+    labels, probs, raw = predict_logistic(x.to(w.dtype), w, b, n_classes=n_classes, precision=precision)
     if w.shape[1] == 1 and threshold != 0.5:
         labels = (probs[:, 1] > threshold).to(torch.int32)
     return labels, probs, raw
+
+
+def _select_labels(outs):
+    """Transform-on-array contract for the fuser: a pipeline ending in a
+    classifier yields the labels of the (labels, probabilities, raw)
+    triple, as ``transform`` of a plain array does."""
+    labels, _probs, _raw = outs
+    return labels
 
 
 class _LogisticRegressionParams(Params):
@@ -181,6 +193,10 @@ def _resolve_family(family: str, n_classes: int):
 
 class LogisticRegression(_LogisticRegressionParams, Estimator, MLReadable):
     """``LogisticRegression().setRegParam(0.1).fit((X, y))``."""
+
+    # Consumes tensors in place, so tuning loops may feed fold slices
+    # that stay on the device (tuning._device_fold_prep).
+    _device_foldable = True
 
     def __init__(self, uid: Optional[str] = None, mesh=None, fused: Optional[bool] = None):
         super().__init__(uid)
@@ -490,26 +506,57 @@ class LogisticRegressionModel(_LogisticRegressionParams, Model, LazyHostState):
         float64 and comes back as numpy."""
         if self._w_raw is None:
             raise RuntimeError("model has no weights")
-        static = {"threshold": float(self.getThreshold()), "precision": self._serving_precision()}
+        static = self._serving_static()
         x = matrix_like(x)
         if is_device_array(x):
-            fitted = self._w_raw.dtype if isinstance(self._w_raw, torch.Tensor) else torch.float64
-            w, b = self._wb_on(_device.device_of(x), fitted)
+            w, b = self._wb_on(_device.device_of(x), self._fitted_dtype())
             return serve_rows(_forward_kernel, x, (w, b), static=static, name="logreg.predict")
         device = _device.resolve_device()
         w, b = self._wb_on(device, torch.float64)
         outs = []
         for i in range(0, x.shape[0], DEFAULT_STREAM_BLOCK):
             _, xb = upload_block(x[i:i + DEFAULT_STREAM_BLOCK], device, dtype=torch.float64)
-            outs.append([t.cpu().numpy() for t in
+            outs.append([to_numpy(t) for t in
                          serve_rows(_forward_kernel, xb, (w, b), static=static, name="logreg.predict")])
         if not outs:
             k = max(2, w.shape[1])
             return (np.zeros((0,), np.int32), np.zeros((0, k)), np.zeros((0, k)))
         return tuple(np.concatenate([o[j] for o in outs]) for j in range(3))
 
-    def serving_signature(self):
-        raise NotImplementedError(SERVING_SIGNATURE_ITEM)
+    def _fitted_dtype(self) -> torch.dtype:
+        return self._w_raw.dtype if isinstance(self._w_raw, torch.Tensor) else torch.float64
+
+    def _serving_static(self) -> dict:
+        return {
+            "n_classes": int(self.numClasses),
+            "threshold": float(self.getThreshold()),
+            "precision": self._serving_precision(),
+        }
+
+    def serving_signature(self) -> ServingSignature:
+        """The serving contract: the forward kernel ``predict`` runs, the
+        (weights, intercepts) pair at the fitted dtype on the platform's
+        device (the tensor route's), the float64 pair as ``host_weights``
+        where the fit was not float64 (the host route's), the (labels,
+        probabilities, raw margins) specs, and :func:`_select_labels`."""
+        if self._w_raw is None:
+            raise RuntimeError("model has no weights")
+        device = _device.resolve_device()
+        fitted = self._fitted_dtype()
+        w, b = self._wb_on(device, fitted)
+        n_out = max(2, int(w.shape[1]))
+        return ServingSignature(
+            kernel=_forward_kernel,
+            weights=(w, b),
+            static=self._serving_static(),
+            name="logreg.predict",
+            n_features=int(w.shape[0]),
+            output_spec=lambda n, dtype: (
+                spec((n,), torch.int32), spec((n, n_out), w.dtype), spec((n, n_out), w.dtype),
+            ),
+            select=_select_labels,
+            host_weights=None if fitted == torch.float64 else self._wb_on(device, torch.float64),
+        )
 
     def transform(self, dataset: Any) -> Any:
         if isinstance(dataset, DataFrame):

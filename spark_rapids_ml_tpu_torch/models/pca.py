@@ -67,11 +67,12 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     save_data,
     save_metadata,
 )
-from spark_rapids_ml_tpu_torch.core.serving import serve_rows, serve_stream
+from spark_rapids_ml_tpu_torch.core.serving import DEFAULT_STREAM_BLOCK, serve_rows, serve_stream
 from spark_rapids_ml_tpu_torch.linalg.row_matrix import MESH_SLICE, RowMatrix
 from spark_rapids_ml_tpu_torch.ops.linalg import project_rows, validate_precision
 from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy
 from spark_rapids_ml_tpu_torch.ops.randomized import randomized_pca, randomized_pca_streaming
+from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 #: Port spellings of ``covarianceBackend`` -> the reference's spelling.
@@ -166,6 +167,10 @@ class _PCAParams(HasInputCol, HasOutputCol):
 
 class PCA(_PCAParams, Estimator, MLReadable):
     """PCA estimator. ``PCA().setK(3).setInputCol("features").fit(df)``."""
+
+    # Consumes tensors in place, so tuning loops may feed fold slices
+    # that stay on the device (tuning._device_fold_prep).
+    _device_foldable = True
 
     def __init__(self, uid: Optional[str] = None, mesh=None):
         super().__init__(uid)
@@ -409,11 +414,12 @@ class PCAModel(_PCAParams, Model, LazyHostState):
         """Project rows onto the principal subspace: out = X · pc.
 
         A tensor is projected where it lives and the result stays there;
-        host input goes to the device partition by partition and comes
-        back as numpy (a DataFrame gains ``outputCol``; an array-like
-        returns an (n, k) ndarray). A streaming source gives a generator
-        of (rows, k) numpy blocks, one per non-empty block, at constant
-        memory."""
+        host input goes to the device in float64 blocks of at most
+        ``DEFAULT_STREAM_BLOCK`` rows of each partition, as the other
+        families' host routes go, and comes back as numpy (a DataFrame
+        gains ``outputCol``; an array-like returns an (n, k) ndarray). A
+        streaming source gives a generator of (rows, k) numpy blocks, one
+        per non-empty block, at constant memory."""
         if self._pc_raw is None:
             raise RuntimeError("model has no principal components")
         rows = extract_column(dataset, self.getInputCol())
@@ -433,11 +439,12 @@ class PCAModel(_PCAParams, Model, LazyHostState):
                 _project_kernel, iter_stream_blocks(rows), (pc_dev,), static=static,
                 name="pca.transform", device=device, dtype=torch.float64,
             )
-        parts = as_partitions(rows)
+        blocks = [p[i:i + DEFAULT_STREAM_BLOCK] for p in as_partitions(rows)
+                  for i in range(0, p.shape[0], DEFAULT_STREAM_BLOCK)]
         with TraceRange("batch transform", TraceColor.GREEN):
             outs = list(
                 serve_stream(
-                    _project_kernel, parts, (pc_dev,),
+                    _project_kernel, blocks, (pc_dev,),
                     static=static, name="pca.transform", device=device, dtype=torch.float64,
                 )
             )
@@ -475,6 +482,31 @@ class PCAModel(_PCAParams, Model, LazyHostState):
         if requested in ("auto", "dd"):
             requested = "highest"
         return resolve_policy("serving", requested)
+
+    def _serving_dtype(self) -> torch.dtype:
+        """The components' own dtype (float64 for host components): the
+        kernel casts them to each batch's dtype, so one copy serves host
+        input (float64) and tensors of any dtype bit for bit as
+        ``transform`` does."""
+        raw = self._pc_raw
+        return raw.dtype if isinstance(raw, torch.Tensor) else torch.float64
+
+    def serving_signature(self) -> ServingSignature:
+        """The serving contract: the projection kernel, the components at
+        their own dtype on the platform's device, and the (n, k)
+        projection spec."""
+        if self._pc_raw is None:
+            raise RuntimeError("model has no principal components")
+        pc = self._pc_device(self._serving_dtype(), _device.resolve_device())
+        d, k = int(pc.shape[0]), int(pc.shape[1])
+        return ServingSignature(
+            kernel=_project_kernel,
+            weights=(pc,),
+            static={"precision": self._serving_precision()},
+            name="pca.transform",
+            n_features=d,
+            output_spec=lambda n, dtype: spec((n, k), dtype),
+        )
 
     def _save_impl(self, path: str) -> None:
         save_metadata(self, path, class_name="com.nvidia.spark.ml.feature.PCAModel")

@@ -27,9 +27,14 @@ NodeData schema), so either package, and Spark, loads the other's saves.
 
 The fit has no streaming route: over the fit memory budget
 (``core/membudget.py``) a host input raises ``FitMemoryError``. Left out
-until their ROADMAP items: a mesh (A.9, item 18) and ``serving_signature``
-(A.8, item 17) raise ``NotImplementedError``; the serving device cache
-(``note_device_cache``, A.8) is a plain per-device copy of the forest.
+until their ROADMAP items: a mesh (A.9, item 18) raises
+``NotImplementedError``; the serving device cache (``note_device_cache``,
+A.8) is a plain per-device copy of the forest.
+
+Both models predict through the reference's serving kernels,
+:func:`_proba_kernel` and :func:`_reg_kernel`, and declare them in
+``serving_signature()`` for the pipeline fuser (the classifier with
+:func:`_select_argmax` as its transform-on-array contract).
 """
 
 from __future__ import annotations
@@ -56,7 +61,7 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     load_rows,
     save_metadata,
 )
-from spark_rapids_ml_tpu_torch.core.serving import serve_rows
+from spark_rapids_ml_tpu_torch.core.serving import serve_rows, to_numpy, upload_block
 from spark_rapids_ml_tpu_torch.models.linear_regression import _extract_xy
 from spark_rapids_ml_tpu_torch.ops.trees import (
     Forest,
@@ -66,10 +71,29 @@ from spark_rapids_ml_tpu_torch.ops.trees import (
     forest_predict_reg,
     sample_weights,
 )
+from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 MESH_ITEM = "the mesh route of the random forest is not ported yet: ROADMAP A.9, item 18"
-SERVING_SIGNATURE_ITEM = "serving_signature is not ported yet: ROADMAP A.8, item 17"
+
+
+def _proba_kernel(x, forest, *, depth: int):
+    """Serving kernel: (n, C) mean leaf class distributions. Trees route
+    in float32 (the forests' training dtype)."""
+    return forest_predict_proba(x.to(torch.float32), forest, depth)
+
+
+def _reg_kernel(x, forest, *, depth: int):
+    """Serving kernel: (n,) mean leaf values."""
+    return forest_predict_reg(x.to(torch.float32), forest, depth)
+
+
+def _select_argmax(outs):
+    """Transform-on-array contract for the fuser: the classifier's
+    ``transform`` of a plain array yields argmax labels, not the class
+    distribution."""
+    probs = outs[0] if isinstance(outs, tuple) else outs
+    return torch.argmax(probs, dim=1)
 
 
 def resolve_feature_subset(strategy: str, d: int, n_trees: int, classification: bool) -> int:
@@ -347,24 +371,43 @@ class _ForestModel(_RandomForestParams, Model):
             self._forest_dev[key] = Forest(*(t.to(device) for t in forest))
         return self._forest_dev[key]
 
-    def _serve(self, fn, x, name: str):
-        """``fn`` on the rows as float32: a tensor where it lives (the
-        result stays there), host rows on the platform's device (the
-        result comes back as numpy)."""
+    def _serve(self, kernel, x, name: str):
+        """The serving ``kernel`` on the rows as float32: a tensor where it
+        lives (the result stays there), host rows on the platform's device
+        (the result comes back as numpy)."""
         if self._forest is None:
             raise RuntimeError("model has no fitted forest")
         rows = matrix_like(x)
-        xd = _on_device(rows)
-        out = serve_rows(fn, xd, (self._forest_on(xd.device),), name=name,
-                         static={"max_depth": _forest_depth(self._forest)})
-        return out if is_device_array(rows) else out.cpu().numpy()
+        if is_device_array(rows):
+            xd = _on_device(rows)
+        else:
+            _, xd = upload_block(rows, _device.resolve_device(), dtype=torch.float32)
+        out = serve_rows(kernel, xd, (self._forest_on(xd.device),), name=name,
+                         static={"depth": _forest_depth(self._forest)})
+        return out if is_device_array(rows) else to_numpy(out)
 
-    def serving_signature(self):
-        raise NotImplementedError(SERVING_SIGNATURE_ITEM)
+    def _signature(self, kernel, name: str, output_spec, select=None) -> ServingSignature:
+        """Shared ``serving_signature()`` body of the two forest models:
+        the forest on the platform's device, its depth static."""
+        if self._forest is None:
+            raise RuntimeError("model has no fitted forest")
+        return ServingSignature(
+            kernel=kernel,
+            weights=(self._forest_on(_device.resolve_device()),),
+            static={"depth": _forest_depth(self._forest)},
+            name=name,
+            n_features=int(self.numFeatures),
+            output_spec=output_spec,
+            select=select,
+        )
 
 
 class RandomForestClassifier(_RandomForestParams, Estimator, MLReadable):
     """``RandomForestClassifier().setNumTrees(20).fit((X, y))``."""
+
+    # Consumes tensors in place, so tuning loops may feed fold slices
+    # that stay on the device (tuning._device_fold_prep).
+    _device_foldable = True
 
     probabilityCol = Param("_", "probabilityCol", "probability column name", toString)
     rawPredictionCol = Param("_", "rawPredictionCol", "raw prediction column name", toString)
@@ -466,7 +509,14 @@ class RandomForestClassificationModel(_ForestModel):
 
     def predictProbability(self, x):
         """(n, C) mean of the trees' leaf class distributions."""
-        return self._serve(forest_predict_proba, x, "rf.predictProbability")
+        return self._serve(_proba_kernel, x, "rf.predictProbability")
+
+    def serving_signature(self) -> ServingSignature:
+        """The serving contract: the probability kernel, the forest, the
+        (n, C) float32 distribution spec, and :func:`_select_argmax`."""
+        n_classes = int(self.numClasses)
+        return self._signature(_proba_kernel, "rf.predictProbability",
+                               lambda n, dtype: spec((n, n_classes), torch.float32), select=_select_argmax)
 
     def predict(self, x):
         probs = self.predictProbability(x)
@@ -517,6 +567,10 @@ class RandomForestClassificationModel(_ForestModel):
 
 class RandomForestRegressor(_RandomForestParams, Estimator, MLReadable):
     """``RandomForestRegressor().setNumTrees(20).fit((X, y))``."""
+
+    # Consumes tensors in place, so tuning loops may feed fold slices
+    # that stay on the device (tuning._device_fold_prep).
+    _device_foldable = True
 
     def __init__(self, uid: Optional[str] = None, mesh=None):
         super().__init__(uid)
@@ -572,7 +626,12 @@ class RandomForestRegressionModel(_ForestModel):
 
     def predict(self, x):
         """(n,) mean of the trees' leaf means."""
-        return self._serve(forest_predict_reg, x, "rf.predict")
+        return self._serve(_reg_kernel, x, "rf.predict")
+
+    def serving_signature(self) -> ServingSignature:
+        """The serving contract: the regression kernel, the forest, and
+        the (n,) float32 prediction spec."""
+        return self._signature(_reg_kernel, "rf.predict", lambda n, dtype: spec((n,), torch.float32))
 
     def transform(self, dataset: Any) -> Any:
         rows = extract_features(dataset, self.getFeaturesCol(), drop=self.getLabelCol())

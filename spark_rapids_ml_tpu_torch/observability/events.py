@@ -13,6 +13,9 @@ object per line with the reference's envelope::
 distributed traces, the flight ring and the telemetry directory wait for
 the observability item (ROADMAP A.9). The sink is configured at the first
 :func:`emit` (or by :func:`configure`), not when the module is imported.
+
+:data:`SCHEMA` lists the record kinds the port writes, each with the
+fields the reference's ``validate_record`` requires of it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,15 @@ from typing import Optional
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_str
 
 EVENT_LOG_ENV = "TPUML_EVENT_LOG"
+
+#: The record kinds the port writes and the fields each must carry (the
+#: reference's ``SCHEMA`` entries for them): the degradation records, the
+#: fit memory guard's, and the pipeline fuser's.
+SCHEMA = {
+    "degrade": frozenset({"what", "why", "fallback"}),
+    "fit_admission": frozenset({"action", "family"}),
+    "pipeline_fusion": frozenset({"action", "pipeline"}),
+}
 
 _UNSET = object()
 _sink = _UNSET  # guarded by _sink_lock for writes; None = disabled

@@ -68,6 +68,17 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
     Knob("TPUML_FIT_DEGRADE", "choice", "fit-memory",
          "auto: over-budget host fits reroute to streaming; off: raise "
          "the structured budget error", default="auto", choices=("auto", "off")),
+    # pipeline fusion (pipeline_fusion/fuser.py)
+    Knob("TPUML_PIPELINE_FUSION", "choice", "pipeline-fusion",
+         "auto = PipelineModel.transform on plain arrays runs the whole "
+         "stage chain as one composite kernel on the device (stage-at-a-time "
+         "when any stage is unfusable); off = always stage-at-a-time",
+         default="auto", choices=("auto", "off")),
+    Knob("TPUML_PIPELINE_FUSION_FIT", "choice", "pipeline-fusion",
+         "auto = Pipeline.fit places plain-array datasets on device once "
+         "so stages (and CV/TVS folds) chain device-resident; off = host "
+         "datasets flow stage-at-a-time unmodified",
+         default="auto", choices=("auto", "off")),
     # observability (observability/events.py)
     Knob("TPUML_EVENT_LOG", "str", "observability",
          "JSON-lines event sink: a file path or 'stderr' (unset = off)"),

@@ -1,5 +1,5 @@
-"""One-way API parity: every public method of a ported estimator, model or
-evaluator exists on its reference twin. The port may lack reference
+"""One-way API parity: every public method of a ported estimator, model,
+evaluator, pipeline or tuning class exists on its reference twin. The port may lack reference
 methods that wait for later slices (``partial_fit``, ``fit_report``,
 ``deployMode``, ROADMAP A.9); it adds none the reference lacks."""
 
@@ -13,14 +13,18 @@ import spark_rapids_ml_tpu.evaluation as jax_evaluation
 import spark_rapids_ml_tpu.feature as jax_feature
 import spark_rapids_ml_tpu.manifold as jax_manifold
 import spark_rapids_ml_tpu.neighbors as jax_neighbors
+import spark_rapids_ml_tpu.pipeline as jax_pipeline
 import spark_rapids_ml_tpu.regression as jax_regression
+import spark_rapids_ml_tpu.tuning as jax_tuning
 import spark_rapids_ml_tpu_torch.classification as classification
 import spark_rapids_ml_tpu_torch.clustering as clustering
 import spark_rapids_ml_tpu_torch.evaluation as evaluation
 import spark_rapids_ml_tpu_torch.feature as feature
 import spark_rapids_ml_tpu_torch.manifold as manifold
 import spark_rapids_ml_tpu_torch.neighbors as neighbors
+import spark_rapids_ml_tpu_torch.pipeline as pipeline
 import spark_rapids_ml_tpu_torch.regression as regression
+import spark_rapids_ml_tpu_torch.tuning as tuning
 
 PAIRS = {
     "PCA": (feature, jax_feature),
@@ -46,6 +50,13 @@ PAIRS = {
     "RegressionEvaluator": (evaluation, jax_evaluation),
     "MulticlassClassificationEvaluator": (evaluation, jax_evaluation),
     "BinaryClassificationEvaluator": (evaluation, jax_evaluation),
+    "Pipeline": (pipeline, jax_pipeline),
+    "PipelineModel": (pipeline, jax_pipeline),
+    "ParamGridBuilder": (tuning, jax_tuning),
+    "CrossValidator": (tuning, jax_tuning),
+    "CrossValidatorModel": (tuning, jax_tuning),
+    "TrainValidationSplit": (tuning, jax_tuning),
+    "TrainValidationSplitModel": (tuning, jax_tuning),
 }
 
 

@@ -258,8 +258,8 @@ def test_estimator_refuses_what_the_slice_leaves_out():
     assert KMeans().setK(2).fit(lambda: iter([x])).clusterCenters().shape == (2, x.shape[1])
     with pytest.raises(NotImplementedError, match="A.7d"):
         KMeans(mesh=object()).setK(2).fit(x)
-    with pytest.raises(NotImplementedError, match="A.7e"):
-        KMeans().setK(2).fit(x).serving_signature()
+    # A.7e (the serving signature) arrived with the composition slice.
+    assert KMeans().setK(2).fit(x).serving_signature().name == "kmeans.predict"
     with pytest.raises(ValueError, match="exceeds"):
         KMeans().setK(10).fit(x[:5])
     with pytest.raises(ValueError, match="k=3"):

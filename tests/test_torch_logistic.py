@@ -582,8 +582,8 @@ def test_error_paths_raise_the_reference_types(case):
 def test_routes_of_later_slices_raise_naming_their_item(binomial):
     with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
         LogisticRegression(mesh=object()).fit((X, Y2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        binomial[0].serving_signature()
+    # The serving signature arrived with the composition slice.
+    assert binomial[0].serving_signature().name == "logreg.predict"
 
 
 def test_params_surface_matches_jax():

@@ -59,7 +59,8 @@ def test_every_port_module_imports_without_jax():
                  "models.logistic_regression", "regression", "classification", "evaluation",
                  "utils.envknobs", "robustness.retry", "robustness.degrade", "observability.events",
                  "core.membudget", "native", "ops.dbscan", "models.dbscan", "ops.trees",
-                 "models.random_forest"):
+                 "models.random_forest", "serving", "serving.signature", "pipeline_fusion",
+                 "pipeline_fusion.fuser", "pipeline", "tuning"):
         assert f"spark_rapids_ml_tpu_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
