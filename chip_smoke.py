@@ -101,6 +101,22 @@ counters set to 0 just before and read just after:
   (d) config 10's rows as a host array through (b)'s model, fused and
   staged bitwise, with walls and copy bytes, and 32-row requests;
   (e) save and load of (a)'s and (b)'s models, predicting bitwise.
+- serving, last, within its own 60 s (configs 15, 3, 16 and 10): (a) the
+  bucket ladder: config 15's ``PCAModel`` (1024 -> 16, float32 components
+  from the seed) and config 3's ``KMeansModel`` (k = 100 over 16) on
+  float32 device batches of 1 to 65,536 rows, twice, one CUDA graph per
+  bucket (captures = buckets), each output bitwise the eager kernel on the
+  same padded bucket and held to float64, with the replay and the eager
+  call timed per bucket; (b) a 1M x 1,024 float32 device batch (eager
+  above the capture bound) beside its bytes bound, and the same rows as
+  host blocks through the pinned double-buffered stream against a
+  pageable copy loop, with the share of copy and compute overlap; (c)
+  config 16's closed loop, 16 threads x 150 single rows through a
+  ``ServingRuntime``, unbatched and batched; (d) config 10's fused PCA(16)
+  -> logistic ``PipelineModel`` as one servable, 200 requests of 32 rows,
+  bitwise its ``transform``; (e) a hot swap under 4 threads, ``retire``
+  freeing its weights and graphs, queue and byte shedding, a deadline,
+  a drain.
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -122,6 +138,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -2167,6 +2184,18 @@ def _raises_fit_memory_error(fit, what: str) -> str:
     raise RuntimeError(f"chip smoke check failed: {what} did not raise FitMemoryError")
 
 
+def _close_serving_programs() -> None:
+    """Close the serving program cache of the earlier phases before a
+    ballast: the OOM recovery's reclaim closes it too, and the checks that
+    the failed attempt's memory is gone compare the bytes allocated when
+    the fallback starts with those before the fit, exactly. A graph's
+    pool also holds free blocks that ``free_hbm_bytes`` would count as
+    usable."""
+    from spark_rapids_ml_tpu_torch.core import serving as core_serving
+
+    core_serving.clear_program_cache()
+
+
 def phase_fit_guard(gen: torch.Generator) -> dict:
     """The fit memory guard on the card: (a) a 4 GiB host PCA over a 1 GiB
     budget degrades, bitwise equal to the explicit ``HostArrayBlockReader``
@@ -2190,6 +2219,7 @@ def phase_fit_guard(gen: torch.Generator) -> dict:
 
     # (b) A ballast leaves OOM_HEADROOM free, so the in-memory fit's float64
     # copy of the rows cannot be placed; the budget admits it anyway.
+    _close_serving_programs()
     torch.cuda.empty_cache()
     free = membudget.free_hbm_bytes()
     ballast = torch.empty(free - OOM_HEADROOM, dtype=torch.uint8, device="cuda")
@@ -2302,6 +2332,7 @@ def fit_guard_tensor_oom(gen: torch.Generator) -> dict:
     require(peak_stream < peak_in_memory,
             f"(f) the streaming fit's peak {peak_stream} is not below the in-memory fit's {peak_in_memory}")
     headroom = (peak_stream + peak_in_memory) // 2
+    _close_serving_programs()
     torch.cuda.empty_cache()
     free = membudget.free_hbm_bytes()
     ballast = torch.empty(free - headroom, dtype=torch.uint8, device="cuda")
@@ -3437,6 +3468,552 @@ def composition_phases(gen: torch.Generator) -> dict:
     return {"a": a["out"], "b": bc["b"], "c": bc["c"], "d": d, "e": e}
 
 
+# Serving: the in-process runtime (ROADMAP A.8, item 17) at configs 15, 3,
+# 16 and 10. Config 15's PCA is 1024 -> 16 with float32 orthonormal
+# components from the seed (benchmarks/config15_serving.py); config 3's
+# KMeans is k = 100 over 16 features; config 16 drives 16 closed-loop
+# threads of single-row requests (benchmarks/config16_server.py).
+SV_D = 1024
+SV_K = 16
+SV_SIZES = (1, 3, 8, 9, 100, 1_000, 4_097, 65_536)
+SV_CALLS = 200              # (a): timed calls per size, each way
+SV_BIG = 1_000_000          # (b): rows of the large batch
+SV_BLOCK = 131_072          # (b): config 15's BLOCK
+SV_THREADS = 16             # (c): config 16's closed loop
+SV_REQUESTS = 150
+SV_PIPE_ROWS = 32           # (d): rows of one request
+SV_PIPE_REQUESTS = 200
+SV_SWAP_THREADS = 4         # (e): submitting threads across the hot swap
+SV_SWAP_REQUESTS = 100
+SV_WALL_LIMIT_S = 60.0
+EAGER_REQUEST_MS = (0.385, 0.652)  # a 32-row request on the eager fused and staged routes, before graphs (PERF.md)
+
+
+def _serving_stats() -> dict:
+    from spark_rapids_ml_tpu_torch.core import serving as core_serving
+
+    return core_serving.program_cache_stats()
+
+
+def _assign_f64(x: torch.Tensor, c64: torch.Tensor):
+    """Labels of a float64 assignment, and whether each row lies on the
+    margin band: its two nearest centers within 1e-6·(‖x‖² + max‖c‖²)."""
+    x = x.double()
+    d2 = (x * x).sum(dim=1, keepdim=True) - 2.0 * x @ c64.T + (c64 * c64).sum(dim=1)
+    two = torch.topk(d2, 2, dim=1, largest=False)
+    band = two.values[:, 1] - two.values[:, 0] <= 1e-6 * ((x * x).sum(dim=1) + (c64 * c64).sum(dim=1).max())
+    return two.indices[:, 0], band
+
+
+def _median_call_ms(fn, calls: int = SV_CALLS) -> float:
+    """Median host wall of ``fn()`` followed by a synchronize, over ``calls``."""
+    fn()
+    sync()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def phase_serving_buckets(gen: torch.Generator) -> dict:
+    """(a) The bucket ladder: config 15's PCA and config 3's KMeans on
+    float32 device batches of ``SV_SIZES`` rows, twice. Captures equal the
+    distinct buckets after the first pass and do not move in the second;
+    each output is bitwise the eager kernel on the same padded bucket;
+    projections within 1e-5 (relative to the largest) of float64, labels
+    equal to a float64 assignment off the margin band. Per size, the
+    median host wall of ``transform``/``predict`` (a graph replay) beside
+    the eager kernel on the unpadded rows."""
+    from spark_rapids_ml_tpu_torch.core.serving import bucket_rows
+    from spark_rapids_ml_tpu_torch.models import kmeans as km_mod
+    from spark_rapids_ml_tpu_torch.models import pca as pca_mod
+
+    dev = gen.device
+    q, _ = torch.linalg.qr(torch.randn((SV_D, SV_K), generator=gen, device=dev, dtype=torch.float64))
+    pca = PCAModel("sv-pca", q.float().cpu().numpy(), np.full(SV_K, 1.0 / SV_K))
+    c64 = torch.randn((KM_K, KM_D), generator=gen, device=dev, dtype=torch.float64) * KM_SCALE
+    km = KMeansModel("sv-km", c64.cpu().numpy())
+    n_max = max(SV_SIZES)
+    idx = torch.randint(0, KM_K, (n_max,), generator=gen, device=dev)
+    families = {
+        "pca": (pca.transform, pca_mod._project_kernel, (pca._pc_device(torch.float32, dev),),
+                {"precision": pca._serving_precision()},
+                torch.randn((n_max, SV_D), generator=gen, device=dev)),
+        "kmeans": (km.predict, km_mod._assign_kernel, (km._centers_on(dev, torch.float32),),
+                   {"cosine": False, "precision": km._serving_precision()},
+                   (c64[idx] + torch.randn((n_max, KM_D), generator=gen, device=dev, dtype=torch.float64)).float()),
+    }
+    pc64 = torch.from_numpy(pca.pc).to(dev)
+    buckets = sorted({bucket_rows(n) for n in SV_SIZES})
+    out = {"phase": "serving_buckets", "sizes": list(SV_SIZES), "buckets": buckets, "families": {}}
+    for name, (call, kernel, weights, static, x) in families.items():
+        s0 = _serving_stats()
+        outs = [call(x[:n]) for n in SV_SIZES]
+        s1 = _serving_stats()
+        for n in SV_SIZES:
+            call(x[:n])
+        s2 = _serving_stats()
+        rows = []
+        for n, got in zip(SV_SIZES, outs):
+            xb = x[:n]
+            b = bucket_rows(n)
+            xp = torch.zeros((b, xb.shape[1]), dtype=xb.dtype, device=dev)
+            xp[:n] = xb
+            bitwise = bool(torch.equal(got, kernel(xp, *weights, **static)[:n]))
+            if name == "pca":
+                ref = xb.double() @ pc64
+                check = {"rel_err_vs_f64": float((got.double() - ref).abs().max() / ref.abs().max())}
+            else:
+                labels64, band = _assign_f64(xb, c64)
+                off = got != labels64
+                check = {"labels_differ": int(off.sum()), "differ_off_band": int((off & ~band).sum())}
+            rows.append({
+                "rows": n, "bucket": b, "bitwise_eager_at_bucket": bitwise, **check,
+                "replay_call_ms": _median_call_ms(lambda: call(xb)),
+                "eager_call_ms": _median_call_ms(lambda: kernel(xb, *weights, **static)),
+            })
+        crossover = next((r["bucket"] for r in rows if r["replay_call_ms"] >= r["eager_call_ms"]), None)
+        out["families"][name] = {
+            "captures_first_pass": s1["compiles"] - s0["compiles"], "captures_second_pass": s2["compiles"] - s1["compiles"],
+            "hits_second_pass": s2["hits"] - s1["hits"], "per_size": rows,
+            "first_bucket_where_replay_is_not_faster": crossover,
+        }
+    emit(out)
+    for name, fam in out["families"].items():
+        require(fam["captures_first_pass"] == len(buckets), f"(a) {name}: captures != distinct buckets")
+        require(fam["captures_second_pass"] == 0, f"(a) {name}: the second pass captured")
+        for r in fam["per_size"]:
+            require(r["bitwise_eager_at_bucket"], f"(a) {name} at {r['rows']} rows: replay != eager at the bucket")
+            if name == "pca":
+                require(r["rel_err_vs_f64"] <= 1e-5, f"(a) pca at {r['rows']} rows: projection off float64")
+            else:
+                require(r["differ_off_band"] == 0, f"(a) kmeans at {r['rows']} rows: labels off float64")
+    return {"out": out, "pca": pca}
+
+
+def phase_serving_large(gen: torch.Generator, pca) -> dict:
+    """(b) A 1,000,000 x 1,024 float32 device batch through
+    ``PCAModel.transform`` (above the capture bound: eager, counted as a
+    bypass) beside its bytes bound; the same rows as a host array through
+    the pinned double-buffered stream in config 15's 131,072-row blocks
+    (wall and H2D rate), beside a pageable ``.to(device)`` loop over the
+    same blocks and the stream's stages timed alone (host staging, the
+    pinned copy, the compute): the share of the wall they overlap is what
+    the stream hides of their sum (the profiler's raw memcpy events lost
+    copies on that machine); each block's result bitwise the same kernel
+    on the block widened to float64 on the card."""
+    from spark_rapids_ml_tpu_torch.models import pca as pca_mod
+
+    dev = gen.device
+    _, hbm, _, _ = peaks_for(torch.cuda.get_device_name(0))
+    x = torch.randn((SV_BIG, SV_D), generator=gen, device=dev)
+    b0 = counter_value("serving.cache.bypass")
+    y = pca.transform(x)
+    device_wall = wall_s(lambda: pca.transform(x))
+    bypasses = counter_value("serving.cache.bypass") - b0
+    ref = x[:65_536].double() @ torch.from_numpy(pca.pc).to(dev)
+    device_rel = float((y[:65_536].double() - ref).abs().max() / ref.abs().max())
+    bound_ms = (SV_BIG * SV_D * 4 + SV_BIG * SV_K * 4) / hbm * 1e3
+    host = x.cpu().numpy()
+    del x, y, ref
+    blocks = [host[i:i + SV_BLOCK] for i in range(0, SV_BIG, SV_BLOCK)]
+    nbytes = host.nbytes
+
+    h0, d0 = _serving_bytes()
+    t0 = time.perf_counter()
+    outs = list(pca.transform(iter(blocks)))
+    first_wall = time.perf_counter() - t0  # includes allocating the pinned buffers
+    h1, d1 = _serving_bytes()
+    t0 = time.perf_counter()
+    for _ in pca.transform(iter(blocks)):
+        pass
+    pinned_wall = time.perf_counter() - t0
+
+    def pageable():
+        for blk in blocks:
+            torch.from_numpy(blk).to(dev)
+        sync()
+
+    t0 = time.perf_counter()
+    pageable()
+    pageable_wall = time.perf_counter() - t0
+
+    # The stream's three stages, each timed alone over the same blocks: the
+    # host's copy into pinned memory (host clock), the copy to the card and
+    # the widening plus projection (CUDA events). What the stream hides of
+    # their sum is the overlap.
+    pc64 = pca._pc_device(torch.float64, dev)
+    static = {"precision": pca._serving_precision()}
+    pinned = torch.empty(blocks[0].shape, dtype=torch.float32, pin_memory=True)
+    x_dev = torch.empty(blocks[0].shape, dtype=torch.float32, device=dev)
+    stage_s = h2d_ms = compute_ms = 0.0
+    for blk in blocks:
+        n = blk.shape[0]
+        t0 = time.perf_counter()
+        pinned[:n].copy_(torch.from_numpy(blk))
+        stage_s += time.perf_counter() - t0
+        start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        start.record()
+        x_dev[:n].copy_(pinned[:n], non_blocking=True)
+        mid.record()
+        pca_mod._project_kernel(x_dev[:n].double(), pc64, **static)
+        end.record()
+        sync()
+        h2d_ms += start.elapsed_time(mid)
+        compute_ms += mid.elapsed_time(end)
+    del pinned, x_dev
+    serial_ms = stage_s * 1e3 + h2d_ms + compute_ms
+    hidden_ms = serial_ms - pinned_wall * 1e3
+    bitwise = all(
+        np.array_equal(o, pca_mod._project_kernel(torch.from_numpy(blk).to(dev).double(), pc64, **static).cpu().numpy())
+        for blk, o in zip(blocks, outs))
+    out = {
+        "phase": "serving_large", "x": [SV_BIG, SV_D, "float32"],
+        "device_batch": {"wall_ms": device_wall * 1e3, "bytes_bound_ms": bound_ms, "bypass_count": bypasses,
+                         "rel_err_vs_f64_first_65536": device_rel},
+        "host_stream": {"block_rows": SV_BLOCK, "blocks": len(blocks), "first_wall_s": first_wall,
+                        "wall_s": pinned_wall, "h2d_bytes": h1 - h0, "d2h_bytes": d1 - d0,
+                        "h2d_gb_s_over_wall": nbytes / pinned_wall / 1e9,
+                        "alone": {"host_staging_ms": stage_s * 1e3, "h2d_copy_ms": h2d_ms,
+                                  "compute_ms": compute_ms,
+                                  "pinned_h2d_gb_s": nbytes / (h2d_ms / 1e3) / 1e9},
+                        "serial_sum_ms": serial_ms, "hidden_ms": hidden_ms,
+                        "overlap_share_of_wall": hidden_ms / (pinned_wall * 1e3),
+                        "overlap": "the stages' sum timed alone minus the stream's wall"},
+        "pageable_copy_loop": {"wall_s": pageable_wall, "h2d_gb_s": nbytes / pageable_wall / 1e9},
+        "stream_bitwise_kernel_on_f64_blocks": bitwise,
+        "timing": "host clock; device batch median of 3 after one call",
+    }
+    emit(out)
+    require(bypasses >= 1, "(b) the 1M-row device batch was not served eagerly above the capture bound")
+    require(device_rel <= 1e-5, "(b) the device batch's projection is off float64")
+    require(h1 - h0 == nbytes, "(b) the stream did not copy each host byte once")
+    require(bitwise, "(b) a streamed block differs from the kernel on its float64 rows")
+    return out
+
+
+def _closed_loop(rt, probes: np.ndarray):
+    """``SV_THREADS`` workers, one outstanding single-row request each:
+    the wall, every answer, and each request's submit-to-result ms."""
+    answers = np.zeros(probes.shape[:2], dtype=np.int64)
+    lat = np.zeros(probes.shape[:2])
+
+    def worker(tid: int) -> None:
+        for j in range(probes.shape[1]):
+            t0 = time.perf_counter()
+            answers[tid, j] = rt.submit("km", probes[tid, j]).result(timeout=120)[0]
+            lat[tid, j] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(probes.shape[0])]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    require(not any(t.is_alive() for t in threads), "(c) a closed-loop worker did not finish")
+    return wall, answers, lat
+
+
+def phase_serving_config16(gen: torch.Generator) -> dict:
+    """(c) Config 16 at full width: a ``ServingRuntime`` serving config 3's
+    KMeans (k = 100, d = 16) to 16 closed-loop threads x 150 single-row
+    requests, once with ``max_batch=1, max_delay_ms=0`` and once with
+    ``max_batch=16, max_delay_ms=5``, both warmed; rows/s and their ratio,
+    p50 / p99 latency (the histogram's and the exact), dispatches, mean
+    batch fill. Every answer equals a float64 assignment off the band."""
+    from spark_rapids_ml_tpu_torch.observability.metrics import percentile_from_histogram
+    from spark_rapids_ml_tpu_torch.serving import ServingRuntime
+    from spark_rapids_ml_tpu_torch.serving.batcher import _latency_hist
+
+    dev = gen.device
+    c64 = torch.randn((KM_K, KM_D), generator=gen, device=dev, dtype=torch.float64) * KM_SCALE
+    model = KMeansModel("sv16", c64.cpu().numpy())
+    total = SV_THREADS * SV_REQUESTS
+    idx = torch.randint(0, KM_K, (total,), generator=gen, device=dev)
+    rows = c64[idx] + 4.0 * torch.randn((total, KM_D), generator=gen, device=dev, dtype=torch.float64)
+    labels64, band = _assign_f64(rows, c64)
+    probes = rows.cpu().numpy().reshape(SV_THREADS, SV_REQUESTS, KM_D)
+
+    def run(max_batch: int, delay_ms: float) -> dict:
+        rt = ServingRuntime(max_batch=max_batch, max_delay_ms=delay_ms, queue_limit=4 * total)
+        rt.register("km", model)
+        rt.warm("km", buckets=[1 << p for p in range(9) if (1 << p) <= max_batch])
+        d0 = counter_value("serving.batch.dispatch")
+        r0 = counter_value("serving.batch.rows_total")
+        h0 = _latency_hist().value()
+        s0 = _serving_stats()
+        wall, answers, lat = _closed_loop(rt, probes)
+        dispatches = counter_value("serving.batch.dispatch") - d0
+        h1 = _latency_hist().value()
+        s1 = _serving_stats()
+        rt.close()
+        hist = {"buckets": {le: c - h0["buckets"][le] for le, c in h1["buckets"].items()},
+                "count": h1["count"] - h0["count"], "sum": h1["sum"] - h0["sum"]}
+        got = torch.from_numpy(answers.reshape(-1)).to(dev)
+        off = got != labels64
+        return {
+            "max_batch": max_batch, "max_delay_ms": delay_ms, "wall_s": wall, "rows_per_s": total / wall,
+            "dispatches": dispatches, "requests_per_dispatch": total / dispatches,
+            "mean_batch_fill": (counter_value("serving.batch.rows_total") - r0) / dispatches / max_batch,
+            "p50_ms_histogram": percentile_from_histogram(hist, 0.50),
+            "p99_ms_histogram": percentile_from_histogram(hist, 0.99),
+            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+            "captures_during_run": s1["compiles"] - s0["compiles"],
+            "labels_differ": int(off.sum()), "differ_off_band": int((off & ~band).sum()),
+        }
+
+    unbatched = run(1, 0.0)
+    batched = run(SV_THREADS, 5.0)
+    out = {"phase": "serving_config16", "model": [KM_K, KM_D], "threads": SV_THREADS, "requests": SV_REQUESTS,
+           "unbatched": unbatched, "batched": batched,
+           "batched_over_unbatched_rows_s": batched["rows_per_s"] / unbatched["rows_per_s"],
+           "timing": "host clock, closed loop"}
+    emit(out)
+    require(unbatched["dispatches"] == total, "(c) max_batch=1 coalesced")
+    require(batched["dispatches"] * 4 <= total, "(c) the batched run coalesced fewer than 4 requests a dispatch")
+    for run_ in (unbatched, batched):
+        require(run_["differ_off_band"] == 0, "(c) an answer differs from the float64 assignment")
+        require(run_["captures_during_run"] == 0, "(c) a warmed run captured")
+    return out
+
+
+def phase_serving_pipeline(gen: torch.Generator) -> dict:
+    """(d) Config 10's PCA(16) -> logistic ``PipelineModel``, fitted on the
+    11M x 28 float32 pair on the card, registered as one version: 200
+    requests of 32 host rows, each one graph replay of the fused chain;
+    the median request latency beside the same rows through
+    ``PipelineModel.transform`` and the eager routes' 0.385-0.652 ms; every
+    answer bitwise ``transform`` of its rows (the same bucket)."""
+    from spark_rapids_ml_tpu_torch.serving import ServingRuntime
+
+    x10, w_true = glm_rows(gen)
+    margin = (x10 - x10.mean(dim=0)) / x10.std(dim=0) @ w_true + 0.5 * torch.randn(
+        GLM_N, generator=gen, device=x10.device)
+    y10 = (margin > 0).float()
+    del margin
+    t0 = time.perf_counter()
+    model = Pipeline(stages=[PCA().setK(CP_TUNE_K),
+                             LogisticRegression().setRegParam(0.01).setMaxIter(20).setTol(0.0)]).fit((x10, y10))
+    fit_wall = time.perf_counter() - t0
+    host = x10[:SV_PIPE_ROWS * SV_PIPE_REQUESTS].cpu().numpy()
+    del x10, y10
+    reqs = [host[i * SV_PIPE_ROWS:(i + 1) * SV_PIPE_ROWS] for i in range(SV_PIPE_REQUESTS)]
+    with ServingRuntime(max_batch=SV_PIPE_ROWS, max_delay_ms=5.0) as rt:
+        s0 = _serving_stats()
+        rt.register("pipe", model, warm_buckets=(SV_PIPE_ROWS,))
+        s1 = _serving_stats()
+        answers, lat = [], []
+        for r in reqs:
+            t0 = time.perf_counter()
+            answers.append(rt.submit("pipe", r).result(timeout=60))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        s2 = _serving_stats()
+    direct = []
+    fused0 = counter_value("pipeline.fusion.fused")
+    wants = []
+    for r in reqs:
+        t0 = time.perf_counter()
+        wants.append(model.transform(r))
+        direct.append((time.perf_counter() - t0) * 1e3)
+    fused = counter_value("pipeline.fusion.fused") - fused0
+    s3 = _serving_stats()
+    out = {
+        "phase": "serving_pipeline", "x": [GLM_N, GLM_D, "float32"], "fit_rows": GLM_N, "fit_wall_s": fit_wall,
+        "request_rows": SV_PIPE_ROWS, "requests": SV_PIPE_REQUESTS,
+        "warm_captures": s1["compiles"] - s0["compiles"],
+        "captures_while_serving": s2["compiles"] - s1["compiles"],
+        "captures_in_transform": s3["compiles"] - s2["compiles"],
+        "runtime_request_ms": {"median": statistics.median(lat), "p99": float(np.percentile(lat, 99))},
+        "transform_request_ms": {"median": statistics.median(direct), "p99": float(np.percentile(direct, 99))},
+        "eager_route_request_ms": list(EAGER_REQUEST_MS), "transform_fused_count": fused,
+        "bitwise_transform": all(np.array_equal(a, w) for a, w in zip(answers, wants)),
+        "timing": "host clock, one request at a time",
+    }
+    emit(out)
+    require(out["warm_captures"] == 1, "(d) warming the fused pipeline did not capture one graph")
+    require(out["captures_while_serving"] == 0 and out["captures_in_transform"] == 0,
+            "(d) serving or transform captured again")
+    require(fused == SV_PIPE_REQUESTS, "(d) transform did not fuse")
+    require(out["bitwise_transform"], "(d) a runtime answer differs from PipelineModel.transform")
+    return out
+
+
+def phase_serving_lifecycle(gen: torch.Generator) -> dict:
+    """(e) Lifecycle and admission on the card: a hot swap v1 -> v2 under
+    ``SV_SWAP_THREADS`` submitting threads (dyadic rows and centers, so no
+    batch shape can change a bit): every answer its own version's, no
+    batch mixing versions (the event log); ``retire(v1)`` frees its
+    weights and graphs (``memory_allocated``); a queue limit and a byte
+    budget shed with ``Overloaded`` (the budget back to 0 reserved bytes
+    after), an expired deadline fails with ``DeadlineExceeded``,
+    ``close(drain=True)`` answers every request, and no batch degraded."""
+    import gc
+
+    from spark_rapids_ml_tpu_torch.core import serving as core_serving
+    from spark_rapids_ml_tpu_torch.observability import events
+    from spark_rapids_ml_tpu_torch.serving import DeadlineExceeded, Overloaded, ServingRuntime
+    from spark_rapids_ml_tpu_torch.serving.signature import spec_bytes, tree_leaves
+
+    rng = np.random.default_rng(SEED)
+    m1 = KMeansModel("sv-v1", rng.integers(-64, 64, (KM_K, KM_D)) / 4.0)
+    m2 = KMeansModel("sv-v2", rng.integers(-64, 64, (KM_K, KM_D)) / 4.0 + 8.0)
+    total = SV_SWAP_THREADS * SV_SWAP_REQUESTS
+    probes = rng.integers(-64, 64, (total, KM_D)) / 4.0
+    exp = {1: m1.predict(probes), 2: m2.predict(probes)}
+    degraded0 = counter_value("serving.degraded_batches")
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "events.jsonl")
+        events.configure(log)
+        try:
+            rt = ServingRuntime(max_batch=16, max_delay_ms=2.0)
+            v1 = rt.register("km", m1, alias="prod", warm_buckets=(1, 16)).version
+            collected, lock = [], threading.Lock()
+            started, swapped = threading.Event(), threading.Event()
+
+            def worker(tid: int) -> None:
+                local = []
+                for j in range(SV_SWAP_REQUESTS):
+                    i = tid * SV_SWAP_REQUESTS + j
+                    fut = rt.submit("km@prod", probes[i])
+                    local.append((i, fut.result(timeout=60), fut.model_version))
+                    if tid == 0 and j == SV_SWAP_REQUESTS // 5:
+                        started.set()
+                    if tid == 0 and j == SV_SWAP_REQUESTS // 2:
+                        swapped.wait(timeout=60)
+                with lock:
+                    collected.extend(local)
+
+            threads = [threading.Thread(target=worker, args=(t,)) for t in range(SV_SWAP_THREADS)]
+            for t in threads:
+                t.start()
+            require(started.wait(timeout=60), "(e) no request finished before the swap")
+            v2 = rt.register("km", m2, warm_buckets=(1, 16)).version
+            rt.set_alias("km", "prod", v2)
+            swapped.set()
+            for t in threads:
+                t.join(timeout=120)
+            require(not any(t.is_alive() for t in threads), "(e) a submitting thread did not finish")
+
+            # retire(v1): its device weights and every graph that reads them.
+            cached = [w for entry in (m1._centers_dev or {}).values() for w in tree_leaves(entry)]
+            ptrs = {w.data_ptr() for w in cached}
+            progs = [p for p in core_serving._PROGRAMS.values() if p.ptrs & ptrs]
+            held = sum(t.numel() * t.element_size() for p in progs
+                       for t in tree_leaves((p.static_x, p.static_out)) if isinstance(t, torch.Tensor))
+            held += sum(w.numel() * w.element_size() for w in cached)
+            n_graphs = len(progs)
+            del cached, progs
+            gc.collect()
+            sync()
+            before = torch.cuda.memory_allocated()
+            rt.retire("km", v1)
+            gc.collect()
+            sync()
+            freed = before - torch.cuda.memory_allocated()
+            rt.close()
+        finally:
+            events.configure()
+        recs = [json.loads(line) for line in open(log)]
+    serving_recs = [r for r in recs if r["event"] == "serving"]
+    admitted = {r["run_id"]: r["version"] for r in serving_recs if r["action"] == "enqueue"}
+    mixed = sum(1 for r in serving_recs if r["action"] == "dispatch"
+                and {admitted[rid] for rid in r["run_ids"]} != {r["version"]})
+    wrong = sum(1 for i, ans, ver in collected if not np.array_equal(ans, exp[ver][i:i + 1]))
+    by_version = {v: sum(1 for *_, ver in collected if ver == v) for v in (1, 2)}
+
+    # Admission on the card: a queue limit, a byte budget, a deadline, a drain.
+    sig = m2.serving_signature()
+    price = 8 * KM_D * 8 + spec_bytes(sig.output_spec(8, torch.float64))
+    shed = {}
+    rt = ServingRuntime(queue_limit=2, start=False)
+    rt.register("km", m2)
+    queued = [rt.submit("km", probes[i]) for i in range(2)]
+    try:
+        rt.submit("km", probes[2])
+    except Overloaded as exc:
+        shed["queue"] = exc.reason
+    rt.close(drain=True)
+    drained = all(f.result(timeout=60).shape == (1,) for f in queued)
+    rt = ServingRuntime(mem_budget=2 * price, start=False)
+    rt.register("km", m2)
+    queued = [rt.submit("km", probes[i]) for i in range(2)]
+    try:
+        rt.submit("km", probes[2])
+    except Overloaded as exc:
+        shed["memory"] = exc.reason
+    rt.start()
+    [f.result(timeout=60) for f in queued]
+    deadline = time.monotonic() + 30.0
+    while rt.snapshot()["reserved_bytes"] and time.monotonic() < deadline:
+        time.sleep(0.001)
+    reserved_after = rt.snapshot()["reserved_bytes"]
+    rt.close()
+    rt = ServingRuntime(start=False)
+    rt.register("km", m2)
+    late = rt.submit("km", probes[0], timeout=0.01)
+    pending = [rt.submit("km", probes[i]) for i in range(1, 6)]
+    time.sleep(0.05)
+    rt.close(drain=True)
+    try:
+        late.result(timeout=60)
+        expired = "answered"
+    except DeadlineExceeded:
+        expired = "DeadlineExceeded"
+    drain_all = all(f.result(timeout=60).shape == (1,) for f in pending)
+    out = {
+        "phase": "serving_lifecycle", "model": [KM_K, KM_D], "threads": SV_SWAP_THREADS, "requests": total,
+        "answers_by_version": by_version, "wrong_answers": wrong, "mixed_version_batches": mixed,
+        "retire": {"graphs": n_graphs, "held_bytes": held, "freed_bytes": freed},
+        "shed": shed, "reserved_bytes_after_budget_drain": reserved_after, "deadline": expired,
+        "drain_answered_all": drained and drain_all,
+        "degraded_batches": counter_value("serving.degraded_batches") - degraded0,
+    }
+    emit(out)
+    require(len(collected) == total and wrong == 0, "(e) an answer is not its version's")
+    require(by_version[1] > 0 and by_version[2] > 0, "(e) the swap did not split the stream")
+    require(mixed == 0, "(e) a batch mixed versions")
+    require(n_graphs >= 2 and freed >= held, "(e) retire did not free v1's weights and graphs")
+    require(shed == {"queue": "queue", "memory": "memory"}, "(e) admission did not shed")
+    require(reserved_after == 0, "(e) the byte budget did not return to 0")
+    require(expired == "DeadlineExceeded", "(e) an expired deadline was answered")
+    require(out["drain_answered_all"], "(e) close(drain=True) left a request unanswered")
+    require(out["degraded_batches"] == 0, "(e) a batch degraded")
+    return out
+
+
+def serving_phases(gen: torch.Generator) -> dict:
+    """The in-process serving runtime at configs 15, 3, 16 and 10: (a)-(e)
+    of the serving slice. Prints the group's wall, which must stay within
+    ``SV_WALL_LIMIT_S``."""
+    t0 = time.perf_counter()
+    walls = {}
+    t = time.perf_counter()
+    a = phase_serving_buckets(gen)
+    walls["a_buckets"] = time.perf_counter() - t
+    t = time.perf_counter()
+    b = phase_serving_large(gen, a["pca"])
+    walls["b_large"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    c = phase_serving_config16(gen)
+    walls["c_config16"] = time.perf_counter() - t
+    t = time.perf_counter()
+    d = phase_serving_pipeline(gen)
+    walls["d_pipeline"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    e = phase_serving_lifecycle(gen)
+    walls["e_lifecycle"] = time.perf_counter() - t
+    wall = time.perf_counter() - t0
+    emit({"phases": "serving", "wall_s": wall, "phase_wall_s": walls, "program_cache": _serving_stats()})
+    require(wall <= SV_WALL_LIMIT_S, f"the serving phases took {wall:.1f} s, over their {SV_WALL_LIMIT_S:.0f} s")
+    return {"a": a["out"], "b": b, "c": c, "d": d, "e": e}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -3485,6 +4062,8 @@ def main() -> int:
     dbscan_forest_phases(gen, peaks)
     torch.cuda.empty_cache()
     composition_phases(gen)
+    torch.cuda.empty_cache()
+    serving_phases(gen)
 
     k1_f32 = times["k1_f32"]
     measured = {

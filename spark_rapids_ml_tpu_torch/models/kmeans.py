@@ -71,7 +71,7 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     save_metadata,
     save_rows,
 )
-from spark_rapids_ml_tpu_torch.core.serving import DEFAULT_STREAM_BLOCK, serve_rows, serve_stream
+from spark_rapids_ml_tpu_torch.core.serving import note_device_cache, serve_blocks, serve_rows
 from spark_rapids_ml_tpu_torch.ops.kernels.kmeans import fused_feasible, lloyd_fused, packed_feasible
 from spark_rapids_ml_tpu_torch.ops.kmeans import (
     assign_clusters,
@@ -479,8 +479,9 @@ class KMeansModel(_KMeansParams, Model, LazyHostState):
         return self
 
     def _centers_on(self, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-        """Centers at ``dtype`` on ``device``, cached per (device, dtype);
-        free when the fit left them there already."""
+        """Centers at ``dtype`` on ``device``, cached per (device, dtype)
+        and registered with ``core/serving`` (which drops the cache when
+        the model retires); free when the fit left them there already."""
         raw = self._centers_raw
         if isinstance(raw, torch.Tensor) and raw.device == device and raw.dtype == dtype:
             return raw
@@ -490,6 +491,7 @@ class KMeansModel(_KMeansParams, Model, LazyHostState):
         if key not in self._centers_dev:
             src = raw if isinstance(raw, torch.Tensor) else torch.tensor(self.clusterCenters())
             self._centers_dev[key] = src.to(device=device, dtype=dtype)
+            note_device_cache(self)
         return self._centers_dev[key]
 
     def _serving_precision(self) -> str:
@@ -497,9 +499,11 @@ class KMeansModel(_KMeansParams, Model, LazyHostState):
         return resolve_policy("serving", requested)
 
     def predict(self, x):
-        """Nearest-center labels. A tensor is served where it lives and
-        gets a tensor back; host input goes to the device block by block
-        (float64) and comes back as numpy."""
+        """Nearest-center labels, through the bucketed program cache (on
+        the card, a CUDA graph per row bucket). A tensor is served where it
+        lives and gets a tensor back; host input goes to the device in
+        float64 blocks (``serve_blocks``: pinned, double-buffered) and
+        comes back as numpy."""
         if self._centers_raw is None:
             raise RuntimeError("model has no cluster centers")
         x = matrix_like(x)
@@ -514,14 +518,9 @@ class KMeansModel(_KMeansParams, Model, LazyHostState):
                 static=static, name="kmeans.predict",
             )
         device = _device.resolve_device()
-        blocks = [x[i:i + DEFAULT_STREAM_BLOCK] for i in range(0, x.shape[0], DEFAULT_STREAM_BLOCK)]
-        outs = list(
-            serve_stream(
-                _assign_kernel, blocks, (self._centers_on(device, torch.float64),),
-                static=static, name="kmeans.predict", device=device, dtype=torch.float64,
-            )
-        )
-        return np.concatenate(outs) if outs else np.zeros((0,), dtype=np.int64)
+        out = serve_blocks(_assign_kernel, x, (self._centers_on(device, torch.float64),),
+                           static=static, name="kmeans.predict", device=device)
+        return out if out is not None else np.zeros((0,), dtype=np.int64)
 
     def serving_signature(self) -> ServingSignature:
         """The serving contract: the assignment kernel ``predict`` runs,

@@ -64,7 +64,7 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     save_data,
     save_metadata,
 )
-from spark_rapids_ml_tpu_torch.core.serving import DEFAULT_STREAM_BLOCK, serve_rows, serve_stream
+from spark_rapids_ml_tpu_torch.core.serving import note_device_cache, serve_blocks, serve_rows
 from spark_rapids_ml_tpu_torch.ops.linalg import resolve_precision, validate_precision
 from spark_rapids_ml_tpu_torch.ops.linear import (
     normal_eq_stats,
@@ -452,7 +452,9 @@ class LinearRegressionModel(_LinearRegressionParams, Model, LazyHostState):
         return resolve_policy("serving", requested)
 
     def _coef_on(self, device: torch.device, dtype: torch.dtype):
-        """``(coefficients, intercept)`` at ``dtype`` on ``device``, cached."""
+        """``(coefficients, intercept)`` on ``device``, cached and registered
+        with ``core/serving``: at ``dtype``, or each at its own fitted
+        dtype for ``dtype=None`` (the signature's pair)."""
         if self._coef_dev is None:
             self._coef_dev = {}
         key = (str(device), str(dtype))
@@ -460,13 +462,16 @@ class LinearRegressionModel(_LinearRegressionParams, Model, LazyHostState):
             raw = self._coef_raw if isinstance(self._coef_raw, torch.Tensor) else torch.tensor(self.coefficients)
             b = self._intercept_raw
             b = b if isinstance(b, torch.Tensor) else torch.tensor(float(b), dtype=torch.float64)
-            self._coef_dev[key] = (raw.to(device=device, dtype=dtype), b.to(device=device, dtype=dtype))
+            self._coef_dev[key] = (raw.to(device=device, dtype=dtype or raw.dtype),
+                                   b.to(device=device, dtype=dtype or b.dtype))
+            note_device_cache(self)
         return self._coef_dev[key]
 
     def predict(self, x):
-        """X·coef + b. A tensor is served where it lives and gets a tensor
-        back; host input goes to the device block by block in float64 and
-        comes back as numpy."""
+        """X·coef + b, through the bucketed program cache. A tensor is
+        served where it lives and gets a tensor back; host input goes to
+        the device in float64 blocks (``serve_blocks``) and comes back as
+        numpy."""
         if self._coef_raw is None:
             raise RuntimeError("model has no coefficients")
         x = matrix_like(x)
@@ -477,12 +482,9 @@ class LinearRegressionModel(_LinearRegressionParams, Model, LazyHostState):
                 static=static, name="linreg.predict",
             )
         device = _device.resolve_device()
-        blocks = [x[i:i + DEFAULT_STREAM_BLOCK] for i in range(0, x.shape[0], DEFAULT_STREAM_BLOCK)]
-        outs = list(serve_stream(
-            _predict_kernel, blocks, self._coef_on(device, torch.float64),
-            static=static, name="linreg.predict", device=device, dtype=torch.float64,
-        ))
-        return np.concatenate(outs) if outs else np.zeros((0,), dtype=np.float64)
+        out = serve_blocks(_predict_kernel, x, self._coef_on(device, torch.float64),
+                           static=static, name="linreg.predict", device=device)
+        return out if out is not None else np.zeros((0,), dtype=np.float64)
 
     def serving_signature(self) -> ServingSignature:
         """The serving contract: the X·coef + b kernel ``predict`` runs,
@@ -491,12 +493,11 @@ class LinearRegressionModel(_LinearRegressionParams, Model, LazyHostState):
         if self._coef_raw is None:
             raise RuntimeError("model has no coefficients")
         # Each at its own dtype: the kernel casts both to the batch's, as
-        # ``predict`` casts the fitted values.
-        device = _device.resolve_device()
-        raw, b = self._coef_raw, self._intercept_raw
-        coef = raw.to(device) if isinstance(raw, torch.Tensor) else torch.tensor(self.coefficients, device=device)
-        intercept = (b.to(device) if isinstance(b, torch.Tensor)
-                     else torch.tensor(float(b), dtype=torch.float64, device=device))
+        # ``predict`` casts the fitted values. Where the two dtypes agree
+        # this is ``predict``'s own cached pair, so both share programs.
+        own = {t.dtype if isinstance(t, torch.Tensor) else torch.float64
+               for t in (self._coef_raw, self._intercept_raw)}
+        coef, intercept = self._coef_on(_device.resolve_device(), own.pop() if len(own) == 1 else None)
         return ServingSignature(
             kernel=_predict_kernel,
             weights=(coef, intercept),

@@ -58,7 +58,7 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     save_data,
     save_metadata,
 )
-from spark_rapids_ml_tpu_torch.core.serving import DEFAULT_STREAM_BLOCK, serve_rows, to_numpy, upload_block
+from spark_rapids_ml_tpu_torch.core.serving import note_device_cache, serve_blocks, serve_rows
 from spark_rapids_ml_tpu_torch.models.linear_regression import _extract_xy, _streaming_blocks
 from spark_rapids_ml_tpu_torch.ops.logistic import (
     classification_metrics,
@@ -489,7 +489,8 @@ class LogisticRegressionModel(_LogisticRegressionParams, Model, LazyHostState):
         return resolve_policy("serving", requested)
 
     def _wb_on(self, device: torch.device, dtype: torch.dtype):
-        """(weights, intercepts) at ``dtype`` on ``device``, cached."""
+        """(weights, intercepts) at ``dtype`` on ``device``, cached and
+        registered with ``core/serving``."""
         if self._wb_dev is None:
             self._wb_dev = {}
         key = (str(device), str(dtype))
@@ -497,13 +498,15 @@ class LogisticRegressionModel(_LogisticRegressionParams, Model, LazyHostState):
             w = self._w_raw if isinstance(self._w_raw, torch.Tensor) else torch.tensor(self.weights)
             b = self._b_raw if isinstance(self._b_raw, torch.Tensor) else torch.tensor(self.intercepts)
             self._wb_dev[key] = (w.to(device=device, dtype=dtype), b.to(device=device, dtype=dtype))
+            note_device_cache(self)
         return self._wb_dev[key]
 
     def _predict_all(self, x):
-        """One forward pass: ``(labels, probabilities, raw margins)``. A
-        tensor is served where it lives, at the fitted weights' dtype, and
-        gets tensors back; host input goes to the device block by block in
-        float64 and comes back as numpy."""
+        """One forward pass: ``(labels, probabilities, raw margins)``,
+        through the bucketed program cache. A tensor is served where it
+        lives, at the fitted weights' dtype, and gets tensors back; host
+        input goes to the device in float64 blocks (``serve_blocks``) and
+        comes back as numpy."""
         if self._w_raw is None:
             raise RuntimeError("model has no weights")
         static = self._serving_static()
@@ -513,15 +516,12 @@ class LogisticRegressionModel(_LogisticRegressionParams, Model, LazyHostState):
             return serve_rows(_forward_kernel, x, (w, b), static=static, name="logreg.predict")
         device = _device.resolve_device()
         w, b = self._wb_on(device, torch.float64)
-        outs = []
-        for i in range(0, x.shape[0], DEFAULT_STREAM_BLOCK):
-            _, xb = upload_block(x[i:i + DEFAULT_STREAM_BLOCK], device, dtype=torch.float64)
-            outs.append([to_numpy(t) for t in
-                         serve_rows(_forward_kernel, xb, (w, b), static=static, name="logreg.predict")])
-        if not outs:
+        out = serve_blocks(_forward_kernel, x, (w, b), static=static, name="logreg.predict",
+                           device=device, host_dtype=np.float64)
+        if out is None:
             k = max(2, w.shape[1])
             return (np.zeros((0,), np.int32), np.zeros((0, k)), np.zeros((0, k)))
-        return tuple(np.concatenate([o[j] for o in outs]) for j in range(3))
+        return tuple(out)
 
     def _fitted_dtype(self) -> torch.dtype:
         return self._w_raw.dtype if isinstance(self._w_raw, torch.Tensor) else torch.float64

@@ -67,7 +67,7 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     save_data,
     save_metadata,
 )
-from spark_rapids_ml_tpu_torch.core.serving import DEFAULT_STREAM_BLOCK, serve_rows, serve_stream
+from spark_rapids_ml_tpu_torch.core.serving import note_device_cache, serve_blocks, serve_rows, serve_stream
 from spark_rapids_ml_tpu_torch.linalg.row_matrix import MESH_SLICE, RowMatrix
 from spark_rapids_ml_tpu_torch.ops.linalg import project_rows, validate_precision
 from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy
@@ -413,13 +413,17 @@ class PCAModel(_PCAParams, Model, LazyHostState):
     def transform(self, dataset: Any) -> Any:
         """Project rows onto the principal subspace: out = X · pc.
 
-        A tensor is projected where it lives and the result stays there;
-        host input goes to the device in float64 blocks of at most
-        ``DEFAULT_STREAM_BLOCK`` rows of each partition, as the other
-        families' host routes go, and comes back as numpy (a DataFrame
-        gains ``outputCol``; an array-like returns an (n, k) ndarray). A
-        streaming source gives a generator of (rows, k) numpy blocks, one
-        per non-empty block, at constant memory."""
+        A tensor is projected where it lives, through the bucketed program
+        cache (on the card, a CUDA graph per row bucket), and the result
+        stays there; host input goes to the device in float64 blocks of at
+        most ``stream_block_rows()`` rows of each partition
+        (``serve_blocks``: a partition of one block in one copy, a larger
+        one pinned and double-buffered), as the other families' host
+        routes go, and comes
+        back as numpy (a DataFrame gains ``outputCol``; an array-like
+        returns an (n, k) ndarray). A streaming source gives a generator of
+        (rows, k) numpy blocks, one per non-empty block, at constant
+        memory."""
         if self._pc_raw is None:
             raise RuntimeError("model has no principal components")
         rows = extract_column(dataset, self.getInputCol())
@@ -439,15 +443,10 @@ class PCAModel(_PCAParams, Model, LazyHostState):
                 _project_kernel, iter_stream_blocks(rows), (pc_dev,), static=static,
                 name="pca.transform", device=device, dtype=torch.float64,
             )
-        blocks = [p[i:i + DEFAULT_STREAM_BLOCK] for p in as_partitions(rows)
-                  for i in range(0, p.shape[0], DEFAULT_STREAM_BLOCK)]
         with TraceRange("batch transform", TraceColor.GREEN):
-            outs = list(
-                serve_stream(
-                    _project_kernel, blocks, (pc_dev,),
-                    static=static, name="pca.transform", device=device, dtype=torch.float64,
-                )
-            )
+            outs = [serve_blocks(_project_kernel, p, (pc_dev,), static=static, name="pca.transform",
+                                 device=device) for p in as_partitions(rows)]
+            outs = [out for out in outs if out is not None]
         if not outs:
             projected = np.zeros((0, self.pc.shape[1]), dtype=self.pc.dtype)
         else:
@@ -466,13 +465,16 @@ class PCAModel(_PCAParams, Model, LazyHostState):
 
     def _pc_device(self, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
         """Components at ``dtype`` on ``device``, cached: repeated
-        transforms do not copy them to the card again."""
+        transforms do not copy them to the card again, and their graphs
+        find the same weights. The cache is registered with
+        ``core/serving``, which drops it when the model retires."""
         key = (str(dtype), str(device))
         if key not in self._pc_dev_cache:
             raw = self._pc_raw
             if not isinstance(raw, torch.Tensor):
                 raw = torch.tensor(np.asarray(raw))  # a copy: numpy views may be read-only
             self._pc_dev_cache[key] = raw.to(device=device, dtype=dtype)
+            note_device_cache(self)
         return self._pc_dev_cache[key]
 
     def _serving_precision(self) -> str:

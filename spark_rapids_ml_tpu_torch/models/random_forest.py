@@ -28,8 +28,9 @@ NodeData schema), so either package, and Spark, loads the other's saves.
 The fit has no streaming route: over the fit memory budget
 (``core/membudget.py``) a host input raises ``FitMemoryError``. Left out
 until their ROADMAP items: a mesh (A.9, item 18) raises
-``NotImplementedError``; the serving device cache (``note_device_cache``,
-A.8) is a plain per-device copy of the forest.
+``NotImplementedError``. The per-device copies of the forest are
+registered with ``core/serving`` (``note_device_cache``), which drops
+them when the model retires from a serving registry.
 
 Both models predict through the reference's serving kernels,
 :func:`_proba_kernel` and :func:`_reg_kernel`, and declare them in
@@ -61,7 +62,7 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     load_rows,
     save_metadata,
 )
-from spark_rapids_ml_tpu_torch.core.serving import serve_rows, to_numpy, upload_block
+from spark_rapids_ml_tpu_torch.core.serving import note_device_cache, serve_blocks, serve_rows, to_numpy, upload_block
 from spark_rapids_ml_tpu_torch.models.linear_regression import _extract_xy
 from spark_rapids_ml_tpu_torch.ops.trees import (
     Forest,
@@ -369,22 +370,27 @@ class _ForestModel(_RandomForestParams, Model):
         key = str(device)
         if key not in self._forest_dev:
             self._forest_dev[key] = Forest(*(t.to(device) for t in forest))
+            note_device_cache(self)
         return self._forest_dev[key]
 
     def _serve(self, kernel, x, name: str):
-        """The serving ``kernel`` on the rows as float32: a tensor where it
-        lives (the result stays there), host rows on the platform's device
-        (the result comes back as numpy)."""
+        """The serving ``kernel`` on the rows as float32, through the
+        bucketed program cache: a tensor where it lives (the result stays
+        there), host rows on the platform's device in float32 blocks
+        (``serve_blocks``; the result comes back as numpy)."""
         if self._forest is None:
             raise RuntimeError("model has no fitted forest")
         rows = matrix_like(x)
+        static = {"depth": _forest_depth(self._forest)}
         if is_device_array(rows):
             xd = _on_device(rows)
-        else:
-            _, xd = upload_block(rows, _device.resolve_device(), dtype=torch.float32)
-        out = serve_rows(kernel, xd, (self._forest_on(xd.device),), name=name,
-                         static={"depth": _forest_depth(self._forest)})
-        return out if is_device_array(rows) else to_numpy(out)
+            return serve_rows(kernel, xd, (self._forest_on(xd.device),), name=name, static=static)
+        device = _device.resolve_device()
+        if rows.shape[0] == 0:
+            _, xd = upload_block(rows, device, dtype=torch.float32)
+            return to_numpy(serve_rows(kernel, xd, (self._forest_on(device),), name=name, static=static))
+        return serve_blocks(kernel, rows, (self._forest_on(device),), name=name, static=static,
+                            device=device, dtype=torch.float32, host_dtype=np.float32)
 
     def _signature(self, kernel, name: str, output_spec, select=None) -> ServingSignature:
         """Shared ``serving_signature()`` body of the two forest models:

@@ -6,13 +6,20 @@
 object per line with the reference's envelope::
 
     {"event": "<type>", "ts": <wall epoch>, "mono": <monotonic>,
-     "pid": <os pid>, "process": 0, "run_id": null, "trace": null,
-     ...type fields...}
+     "pid": <os pid>, "process": 0, "run_id": "<serve-...|null>",
+     "trace": "<trace id|null>", ...type fields...}
 
-``run_id`` and ``trace`` stay null and ``process`` 0: run scopes,
-distributed traces, the flight ring and the telemetry directory wait for
-the observability item (ROADMAP A.9). The sink is configured at the first
-:func:`emit` (or by :func:`configure`), not when the module is imported.
+``run_id`` comes from the ambient :func:`run_scope` (a contextvar): every
+``serve_rows`` call opens one, and a scope already open is joined, so a
+transform inside a caller's scope shares its id. Each request of the
+serving runtime carries its own ``run_id`` as a field. ``trace`` is the
+ambient :class:`TraceContext`: a fresh run roots one, and
+:func:`current_trace_context` / :func:`trace_scope` carry it across a
+thread hop (the runtime's submitter to its dispatcher thread).
+``process`` stays 0, and cross-process trace carriers, span trees, the
+flight ring and the telemetry directory wait for the observability item
+(ROADMAP A.9). The sink is configured at the first :func:`emit` (or by
+:func:`configure`), not when the module is imported.
 
 :data:`SCHEMA` lists the record kinds the port writes, each with the
 fields the reference's ``validate_record`` requires of it.
@@ -20,6 +27,10 @@ fields the reference's ``validate_record`` requires of it.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
+import itertools
 import json
 import os
 import sys
@@ -32,13 +43,128 @@ from spark_rapids_ml_tpu_torch.utils.envknobs import env_str
 EVENT_LOG_ENV = "TPUML_EVENT_LOG"
 
 #: The record kinds the port writes and the fields each must carry (the
-#: reference's ``SCHEMA`` entries for them): the degradation records, the
-#: fit memory guard's, and the pipeline fuser's.
+#: reference's ``SCHEMA`` entries for them): run scopes, the degradation
+#: records, the fit memory guard's, the pipeline fuser's and the serving
+#: layer's.
 SCHEMA = {
+    "run": frozenset({"action", "kind", "label"}),
     "degrade": frozenset({"what", "why", "fallback"}),
     "fit_admission": frozenset({"action", "family"}),
     "pipeline_fusion": frozenset({"action", "pipeline"}),
+    "serving": frozenset({"action"}),
+    "registry_rollback": frozenset({"model", "alias", "version", "previous"}),
 }
+
+
+# --- trace context -----------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceContext:
+    """The trace a run or request belongs to: ``trace_id`` names the
+    episode; ``span_id`` / ``parent_span_id`` are carried for the
+    reference's shape (the port records no spans yet: ROADMAP A.9)."""
+
+    trace_id: str
+    span_id: Optional[str] = None
+    parent_span_id: Optional[str] = None
+
+
+def new_trace_id() -> str:
+    return os.urandom(8).hex()
+
+
+_TRACE: "contextvars.ContextVar[Optional[TraceContext]]" = contextvars.ContextVar(
+    "tpuml_torch_trace_ctx", default=None
+)
+
+
+def begin_trace() -> TraceContext:
+    """A fresh root :class:`TraceContext`."""
+    return TraceContext(new_trace_id())
+
+
+def current_trace() -> Optional[TraceContext]:
+    """The ambient trace of this context, or None."""
+    return _TRACE.get()
+
+
+def current_trace_context() -> Optional[TraceContext]:
+    """What to hand across a thread hop: the ambient trace (there are no
+    open spans to parent to yet)."""
+    return _TRACE.get()
+
+
+@contextlib.contextmanager
+def trace_scope(ctx: Optional[TraceContext]):
+    """Make ``ctx`` the ambient trace for the block (None: no-op) — the
+    carrier for the dispatcher thread."""
+    if ctx is None:
+        yield None
+        return
+    token = _TRACE.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _TRACE.reset(token)
+
+
+# --- run scopes --------------------------------------------------------
+
+_run_seq = itertools.count(1)
+
+
+class RunContext:
+    """One run's identity: ``run_id``, its kind and label, its start."""
+
+    __slots__ = ("run_id", "kind", "label", "t0_wall", "t0_mono")
+
+    def __init__(self, run_id: str, kind: str, label: str):
+        self.run_id = run_id
+        self.kind = kind
+        self.label = label
+        self.t0_wall = time.time()
+        self.t0_mono = time.monotonic()
+
+
+_CTX: "contextvars.ContextVar[Optional[RunContext]]" = contextvars.ContextVar(
+    "tpuml_torch_run_ctx", default=None
+)
+
+
+def new_run_id(kind: str) -> str:
+    """``<kind>-<pid hex>-<sequence>-<random>``, the reference's form."""
+    return f"{kind}-{os.getpid():x}-{next(_run_seq):04x}-{os.urandom(3).hex()}"
+
+
+def current_run() -> Optional[RunContext]:
+    return _CTX.get()
+
+
+def current_run_id() -> Optional[str]:
+    ctx = _CTX.get()
+    return ctx.run_id if ctx is not None else None
+
+
+@contextlib.contextmanager
+def run_scope(kind: str, label: str = ""):
+    """Enter (or join) a run: a fresh ``run_id`` when none is active, the
+    ambient one otherwise. A fresh run with no ambient trace roots one."""
+    cur = _CTX.get()
+    if cur is not None:
+        yield cur
+        return
+    ctx = RunContext(new_run_id(kind), kind, label)
+    token = _CTX.set(ctx)
+    t_token = _TRACE.set(begin_trace()) if _TRACE.get() is None else None
+    emit("run", action="start", kind=kind, label=label)
+    try:
+        yield ctx
+    finally:
+        _CTX.reset(token)
+        emit("run", action="end", kind=kind, label=label, run_id=ctx.run_id)
+        if t_token is not None:
+            _TRACE.reset(t_token)
 
 _UNSET = object()
 _sink = _UNSET  # guarded by _sink_lock for writes; None = disabled
@@ -88,14 +214,16 @@ def emit(etype: str, **fields) -> None:
         configure()
     if _sink is None:
         return
+    ctx = _CTX.get()
+    tc = _TRACE.get()
     rec = {
         "event": etype,
         "ts": time.time(),
         "mono": time.monotonic(),
         "pid": os.getpid(),
         "process": 0,
-        "run_id": None,
-        "trace": None,
+        "run_id": ctx.run_id if ctx is not None else None,
+        "trace": tc.trace_id if tc is not None else None,
     }
     rec.update(fields)
     line = json.dumps(rec, default=str)

@@ -42,15 +42,10 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     resolve_persisted_class,
     save_metadata,
 )
-from spark_rapids_ml_tpu_torch.core.serving import DEFAULT_STREAM_BLOCK, serve_rows, serve_stream
+from spark_rapids_ml_tpu_torch.core.serving import HOST_DTYPE, serve_blocks, serve_rows
 from spark_rapids_ml_tpu_torch.observability.events import emit
 from spark_rapids_ml_tpu_torch.pipeline_fusion import fuse_pipeline_stages, fusion_fit_enabled, fusion_mode
 from spark_rapids_ml_tpu_torch.serving.signature import tree_map
-
-#: The dtype the fused route moves host rows in: every family's host
-#: route computes in float64.
-HOST_DTYPE = torch.float64
-
 
 def save_stages(owner, path: str, stages: List[Any], class_name: str) -> None:
     """Persist ``stages`` under ``<path>/stages/<i>_<uid>`` with import
@@ -318,22 +313,21 @@ class PipelineModel(Model):
 
 
 def _serve_fused(sig, x: Any) -> Any:
-    """The composite on ``x`` through ``core/serving``: a tensor where it
-    lives (the result stays there); a host array in float64 blocks of
-    ``DEFAULT_STREAM_BLOCK`` rows on the platform's device, each block's
-    result back as numpy — the blocks and the dtype of the families' own
-    host routes, so the result is theirs bit for bit."""
+    """The composite on ``x`` through ``core/serving``'s bucketed program
+    cache (on the card, one CUDA graph per row bucket for the whole
+    chain): a tensor where it lives (the result stays there); a host
+    array in float64 blocks of ``stream_block_rows()`` rows on the
+    platform's device, each block's result back as numpy — the blocks,
+    buckets and dtype of the families' own host routes, so the result is
+    theirs bit for bit."""
     if is_device_array(x):
         device = _device.device_of(x)
         return serve_rows(sig.kernel, x, sig.weights_on(device), static=sig.static, name=sig.name)
     device = _device.resolve_device()
-    host = numpy_dtype(HOST_DTYPE)
-    blocks = (np.asarray(x[i:i + DEFAULT_STREAM_BLOCK], dtype=host)
-              for i in range(0, x.shape[0], DEFAULT_STREAM_BLOCK))
-    outs = list(serve_stream(sig.kernel, blocks, sig.weights_on(device, host=True), static=sig.static,
-                             name=sig.name, device=device, dtype=HOST_DTYPE))
-    if outs:
-        return np.concatenate(outs) if len(outs) > 1 else outs[0]
+    out = serve_blocks(sig.kernel, np.asarray(x), sig.weights_on(device, host=True), static=sig.static,
+                       name=sig.name, device=device, dtype=HOST_DTYPE, host_dtype=numpy_dtype(HOST_DTYPE))
+    if out is not None:
+        return out
     # No rows: the contract's empty arrays, as the staged loop gives them.
     return tree_map(lambda s: torch.zeros(tuple(s.shape), dtype=s.dtype).numpy(),
                     sig.output_spec(0, HOST_DTYPE))

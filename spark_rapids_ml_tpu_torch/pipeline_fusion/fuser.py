@@ -20,10 +20,11 @@ Port of the reference's ``pipeline_fusion/fuser.py``. Three pieces:
   (non-strict) warns a structured :class:`FusionFallbackWarning` and
   returns None so the caller keeps the stage-at-a-time path.
 
-PyTorch runs eagerly, so the composite is the stages' kernels one after
-the other with every intermediate on the device, not one compiled
-program. Capturing it as a CUDA graph per row bucket needs the bucketed
-program cache of ``core/serving.py`` (ROADMAP A.8, item 17).
+The composite is the stages' kernels one after the other with every
+intermediate on the device. ``core/serving.py``'s bucketed program cache
+captures it as one CUDA graph per row bucket on the card; the kernel
+cache keeps its function object, and so its program key, stable across
+calls.
 """
 
 from __future__ import annotations

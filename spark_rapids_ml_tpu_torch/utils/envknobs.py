@@ -79,6 +79,32 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "so stages (and CV/TVS folds) chain device-resident; off = host "
          "datasets flow stage-at-a-time unmodified",
          default="auto", choices=("auto", "off")),
+    # serving program cache and streaming (core/serving.py)
+    Knob("TPUML_SERVING_CACHE_SIZE", "int", "serving",
+         "bound on the program LRU (entries per process; on CUDA one "
+         "captured graph per entry)", default=32),
+    Knob("TPUML_SERVING_DONATE", "choice", "serving",
+         "read and validated; no effect on CUDA (a graph's input is a "
+         "static buffer already)", default="on", choices=("on", "off")),
+    Knob("TPUML_SERVE_STREAM_BLOCK", "int", "serving",
+         "rows per block of pinned double-buffered host-batch streaming, "
+         "and the largest row bucket the program cache captures",
+         default=65536),
+    # online-serving runtime (serving/)
+    Knob("TPUML_SERVE_MAX_BATCH", "int", "serving-runtime",
+         "rows per coalesced micro-batch dispatch", default=256),
+    Knob("TPUML_SERVE_MAX_DELAY_MS", "float", "serving-runtime",
+         "coalescing window from the first request of a forming batch",
+         default=5.0),
+    Knob("TPUML_SERVE_QUEUE", "int", "serving-runtime",
+         "admission queue depth bound", default=1024),
+    Knob("TPUML_SERVE_MEM_BUDGET", "int", "serving-runtime",
+         "device-memory admission budget in bytes (0 = gate off)",
+         default=0),
+    Knob("TPUML_DEGRADE", "choice", "robustness",
+         "off: a failed device batch errors its requests; cpu: refused "
+         "(NotImplementedError): the port does not fall back to the CPU",
+         default="off", choices=("off", "cpu")),
     # observability (observability/events.py)
     Knob("TPUML_EVENT_LOG", "str", "observability",
          "JSON-lines event sink: a file path or 'stderr' (unset = off)"),

@@ -112,7 +112,7 @@ def test_unregistered_knobs_are_refused(monkeypatch, accessor):
 
 
 def test_env_float_matches_the_reference(monkeypatch):
-    # The port registers no float knob; the accessor is exercised through a
+    # The accessor is exercised through a
     # harness name, which both registries exempt.
     for value in ("0.5", " 2 ", "-1", "half"):
         monkeypatch.setenv("TPUML_TEST_FLOAT", value)

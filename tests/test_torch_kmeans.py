@@ -330,11 +330,13 @@ def test_predict_and_transform_match_jax(fitted, container):
 
 
 def test_predict_streams_a_large_host_matrix(fitted, monkeypatch):
-    import spark_rapids_ml_tpu_torch.models.kmeans as mk
+    from spark_rapids_ml_tpu_torch.utils.tracing import counter_value
 
     x, model, jmodel = fitted
-    monkeypatch.setattr(mk, "DEFAULT_STREAM_BLOCK", 64)  # 400 rows -> 7 blocks
+    monkeypatch.setenv("TPUML_SERVE_STREAM_BLOCK", "64")  # 400 rows -> 7 blocks
+    blocks = counter_value("serving.stream.blocks")
     assert np.array_equal(model.predict(x), np.asarray(jmodel.predict(x)))
+    assert counter_value("serving.stream.blocks") - blocks == 7
 
 
 @pytest.mark.parametrize("measure", ["euclidean", "cosine"])

@@ -226,14 +226,9 @@ class TestFusedParity:
     def test_host_blocks_are_the_staged_routes_blocks(self, data, monkeypatch):
         """Host rows go to the device in the staged routes' blocks: with a
         block of 40 rows, 96 rows are three blocks either way."""
-        from spark_rapids_ml_tpu_torch import pipeline as port_pipeline
-        from spark_rapids_ml_tpu_torch.models import kmeans as port_kmeans
-        from spark_rapids_ml_tpu_torch.models import pca as port_pca
-
         x, y = data
         model = Pipeline(stages=CHAINS["pca-kmeans"]()).fit((x, y))
-        for module in (port_pipeline, port_pca, port_kmeans):
-            monkeypatch.setattr(module, "DEFAULT_STREAM_BLOCK", 40)
+        monkeypatch.setenv("TPUML_SERVE_STREAM_BLOCK", "40")
         blocks = counter_value("serving.stream.blocks")
         h2d = counter_value("serving.h2d.bytes")
         fused = model.transform(x)

@@ -60,7 +60,8 @@ def test_every_port_module_imports_without_jax():
                  "utils.envknobs", "robustness.retry", "robustness.degrade", "observability.events",
                  "core.membudget", "native", "ops.dbscan", "models.dbscan", "ops.trees",
                  "models.random_forest", "serving", "serving.signature", "pipeline_fusion",
-                 "pipeline_fusion.fuser", "pipeline", "tuning"):
+                 "pipeline_fusion.fuser", "pipeline", "tuning", "observability.metrics",
+                 "serving.admission", "serving.batcher", "serving.registry", "serving.server"):
         assert f"spark_rapids_ml_tpu_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"

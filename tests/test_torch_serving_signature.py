@@ -241,14 +241,24 @@ def test_unfitted_models_raise_as_the_reference():
 
 
 def test_left_out_runtime_names_its_item():
+    """The in-process runtime is ported; the distributed tier names item
+    17b, and the device-cache hooks take the model, as the reference's."""
     import spark_rapids_ml_tpu_torch.serving as serving
+    from spark_rapids_ml_tpu_torch.serving import server
 
-    for name in ("ServingRuntime", "ModelRegistry", "MicroBatcher", "RoutingRuntime"):
-        with pytest.raises(NotImplementedError, match=r"A\.8, item 17"):
+    for name in ("ServingRuntime", "ModelRegistry", "MicroBatcher"):
+        assert getattr(serving, name).__name__ == name
+    assert serving.ServingRuntime is server.ServingRuntime
+    for name in ("RoutingRuntime", "router_snapshots", "ElasticScaler"):
+        with pytest.raises(NotImplementedError, match=r"A\.9, item 17b"):
             getattr(serving, name)
     with pytest.raises(AttributeError):
         serving.no_such_name  # noqa: B018
-    with pytest.raises(NotImplementedError, match=r"A\.8, item 17"):
-        core_serving.invalidate_device_caches()
-    with pytest.raises(NotImplementedError, match=r"A\.8, item 17"):
-        core_serving.note_device_cache(object())
+    with pytest.raises(TypeError):
+        core_serving.invalidate_device_caches()  # the model is required
+    model = LinearRegressionModel("hooks", np.arange(3.0), 0.5)
+    model.predict(np.ones((2, 3)))
+    assert model._coef_dev
+    assert core_serving.invalidate_device_caches(model) == 1
+    assert model._coef_dev is None
+    core_serving.note_device_cache(model)
