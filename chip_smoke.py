@@ -117,6 +117,22 @@ counters set to 0 just before and read just after:
   bitwise its ``transform``; (e) a hot swap under 4 threads, ``retire``
   freeing its weights and graphs, queue and byte shedding, a deadline,
   a drain.
+- the mesh and multi-process routes, last, within their own 120 s, with
+  no fallback to the CPU or to one device and none of the kernels (the
+  reference's mesh routes reach no Pallas kernel): (a) config 5's width,
+  ``PCA(mesh=...).setK(16)`` on a 1,048,576 x 1,024 float32 tensor over a
+  (1, 1) mesh and a (4, 1) mesh of the one card, and the same rows as 4
+  host partitions through ``shard_rows_from_partitions``, held to the
+  float64 and single-device fits, K1 not launched, ``pallas`` refused;
+  (b) config 5's block step, ``streaming_mean_and_covariance_mesh`` over
+  2,000,000 x 1,024 float32 rows as 2 host blocks, with the H2D share of
+  its window; (c) two processes on the one card (gloo with CUDA tensors;
+  the script starts itself as ``--mesh-rank R``): gang PCA, the streamed
+  covariance with both merges, gang logistic at config 10's shape, ranks
+  bitwise equal and held to one-process fits; then an NCCL world of one
+  equal bit for bit to (a)'s (1, 1) fit; (d) KMeans (config 3), linear
+  (config 4) and logistic (config 10) on (4, 1) and (2, 2) meshes against
+  their single-device and float64 fits.
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -183,6 +199,9 @@ from spark_rapids_ml_tpu_torch.evaluation import (  # noqa: E402
     MulticlassClassificationEvaluator,
 )
 from spark_rapids_ml_tpu_torch.pipeline import Pipeline, PipelineModel  # noqa: E402
+from spark_rapids_ml_tpu_torch.parallel import distributed as gang  # noqa: E402
+from spark_rapids_ml_tpu_torch.ops import covariance as ops_covariance  # noqa: E402
+from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from spark_rapids_ml_tpu_torch.tuning import (  # noqa: E402
     CrossValidator,
     CrossValidatorModel,
@@ -1625,15 +1644,17 @@ def glm_rows(gen: torch.Generator):
     return x, w
 
 
-def f64_moments(x: torch.Tensor, y: torch.Tensor):
-    """(XᵀX, Xᵀy, Σx, Σy, n) in float64 from row chunks of the same rows."""
+def f64_moments(x: torch.Tensor, y: torch.Tensor, chunk: int = 0):
+    """(XᵀX, Xᵀy, Σx, Σy, n) in float64 from row chunks of the same rows
+    (``chunk`` rows each, default ``F64_CHUNK``)."""
+    chunk = chunk or F64_CHUNK
     d = x.shape[1]
     xtx = torch.zeros((d, d), dtype=torch.float64, device=x.device)
     xty = torch.zeros(d, dtype=torch.float64, device=x.device)
     xs = torch.zeros(d, dtype=torch.float64, device=x.device)
     ys = torch.zeros((), dtype=torch.float64, device=x.device)
-    for i in range(0, x.shape[0], F64_CHUNK):
-        b, yb = x[i:i + F64_CHUNK].double(), y[i:i + F64_CHUNK].double()
+    for i in range(0, x.shape[0], chunk):
+        b, yb = x[i:i + chunk].double(), y[i:i + chunk].double()
         xtx += b.T @ b
         xty += b.T @ yb
         xs += b.sum(dim=0)
@@ -1745,24 +1766,27 @@ def phase_linreg(gen: torch.Generator, peaks) -> dict:
     return out
 
 
-def f64_stddev(x: torch.Tensor) -> torch.Tensor:
+def f64_stddev(x: torch.Tensor, chunk: int = 0) -> torch.Tensor:
     """Population stddev of each column in float64, from row chunks."""
-    chunks = range(0, x.shape[0], F64_CHUNK)
-    mean = sum(x[i:i + F64_CHUNK].double().sum(dim=0) for i in chunks) / x.shape[0]
-    ss = sum(((x[i:i + F64_CHUNK].double() - mean) ** 2).sum(dim=0) for i in chunks)
+    chunk = chunk or F64_CHUNK
+    chunks = range(0, x.shape[0], chunk)
+    mean = sum(x[i:i + chunk].double().sum(dim=0) for i in chunks) / x.shape[0]
+    ss = sum(((x[i:i + chunk].double() - mean) ** 2).sum(dim=0) for i in chunks)
     return torch.sqrt(ss / x.shape[0])
 
 
-def logistic_objective64(x: torch.Tensor, y: torch.Tensor, weights, intercepts, reg: float, sigma64) -> float:
+def logistic_objective64(x: torch.Tensor, y: torch.Tensor, weights, intercepts, reg: float, sigma64,
+                         chunk: int = 0) -> float:
     """The config's objective of an original-space solution, in float64 on
     the card: mean log-loss + reg/2 · Σ (w_j σ_j)² (the penalty on the
     standardized coefficients, σ the population stddev)."""
+    chunk = chunk or F64_CHUNK
     w = torch.from_numpy(np.asarray(weights, dtype=np.float64)).to(x.device)
     b = torch.from_numpy(np.asarray(intercepts, dtype=np.float64)).to(x.device)
     total = torch.zeros((), dtype=torch.float64, device=x.device)
-    for i in range(0, x.shape[0], F64_CHUNK):
-        logits = x[i:i + F64_CHUNK].double() @ w + b
-        yb = y[i:i + F64_CHUNK].long()
+    for i in range(0, x.shape[0], chunk):
+        logits = x[i:i + chunk].double() @ w + b
+        yb = y[i:i + chunk].long()
         if w.shape[1] == 1:
             z = logits[:, 0]
             total += torch.sum(torch.logaddexp(z, torch.zeros((), dtype=z.dtype, device=z.device)) - (yb == 1) * z)
@@ -4014,6 +4038,383 @@ def serving_phases(gen: torch.Generator) -> dict:
     return {"a": a["out"], "b": b, "c": c, "d": d, "e": e}
 
 
+MS_N = 1_048_576            # (a), (c): config 5's width, 1,048,576 x 1,024 float32 rows
+MS_PARTS = 4                # (a): host partitions of 262,144 rows
+MS_ST_N = 2_000_000         # (b): config 5's block step, 2 host blocks of its BLOCK
+MS_ST_BLOCK = 1_000_000
+MS_SEED_A = SEED + 100      # (a) and (c)'s NCCL world-of-one refit draw the same rows
+MS_SEED_GLM = SEED + 200    # (c) and (d)'s config 10 rows
+MS_RANKS = 2
+MS_RANK_TIMEOUT_S = 150
+MS_WALL_LIMIT_S = 120.0
+MS_F64_CHUNK = 1 << 20      # rows per chunk of the group's float64 references
+
+
+def _mesh_of(shape):
+    """A mesh of ``shape`` positions, every one on the one card."""
+    return make_mesh(shape, devices=[torch.device("cuda", 0)] * (shape[0] * shape[1]))
+
+
+def _rel_err(got, want) -> float:
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def phase_mesh_config5(gen_seed: int) -> dict:
+    """(a) Config 5's width in one process: ``PCA(mesh=...).setK(16)`` on a
+    1,048,576 x 1,024 float32 tensor over a (1, 1) mesh and a (4, 1) mesh of
+    the one card, and the same rows as 4 host partitions through
+    ``shard_rows_from_partitions`` on the (4, 1) mesh; held to the on-card
+    float64 fit and to the single-device ``xla`` fit; K1 never launched and
+    ``pallas`` with a mesh refused."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(gen_seed)
+    x = planted(MS_N, D, gen)
+    parts = list(x.cpu().numpy().reshape(MS_PARTS, MS_N // MS_PARTS, D))
+    m11, m41 = _mesh_of((1, 1)), _mesh_of((4, 1))
+    single = PCA().setK(K)
+    k1.reset_launches()
+    fits = {
+        "mesh_1x1": lambda: PCA(mesh=m11).setK(K).fit(x),
+        "mesh_4x1": lambda: PCA(mesh=m41).setK(K).fit(x),
+        "mesh_4x1_host_parts": lambda: PCA(mesh=m41).setK(K).fit(parts),
+    }
+    models = {name: fit() for name, fit in fits.items()}
+    launches = k1.launches
+    walls = {name: wall_s(lambda f=fit: f().pc) for name, fit in fits.items()}
+    model_single = single.fit(x)
+    walls["single_device"] = wall_s(lambda: single.fit(x).pc)
+    try:
+        PCA(mesh=m11).setK(K).setCovarianceBackend("pallas").fit(x)
+        pallas_refused = False
+    except ValueError:
+        pallas_refused = True
+    model64 = PCA().setK(K).fit(x.double())
+    pc64, ev64 = model64.pc, model64.explainedVariance
+    out = {"phase": "mesh_config5", "x": [MS_N, D, "torch.float32"], "k": K,
+           "host_parts": [MS_PARTS, MS_N // MS_PARTS, D], "k1_launches": launches,
+           "pallas_with_mesh_refused": pallas_refused, "fit_wall_s_median_of_3": walls}
+    for name, model in models.items():
+        out[name] = {
+            "pc_vs_f64_max_abs": _pc_err(model.pc, pc64),
+            "ev_vs_f64_rel": _ev_rel(model.explainedVariance, ev64),
+            "pc_vs_single_xla_max_abs": _pc_err(model.pc, model_single.pc),
+            "ev_vs_single_xla_rel": _ev_rel(model.explainedVariance, model_single.explainedVariance),
+        }
+    emit(out)
+    require(launches == 0, "a mesh fit launched K1")
+    require(pallas_refused, "covarianceBackend='pallas' with a mesh was not refused")
+    for name in models:
+        got = out[name]
+        require(got["pc_vs_f64_max_abs"] <= 1e-3, f"(a) {name} components differ from the f64 fit")
+        require(got["ev_vs_f64_rel"] <= 1e-4, f"(a) {name} explained variance differs from the f64 fit")
+        require(got["pc_vs_single_xla_max_abs"] <= 1e-5, f"(a) {name} components differ from the xla fit")
+        require(got["ev_vs_single_xla_rel"] <= 1e-4, f"(a) {name} explained variance differs from the xla fit")
+    return {"out": out, "pc_1x1": models["mesh_1x1"].pc, "ev_1x1": models["mesh_1x1"].explainedVariance}
+
+
+def phase_mesh_stream(gen: torch.Generator, peaks) -> dict:
+    """(b) Config 5's block step: ``streaming_mean_and_covariance_mesh``
+    over 2,000,000 x 1,024 float32 rows as 2 host blocks of 1,000,000 rows
+    on the (1, 1) mesh, one run under ``torch.profiler`` for the H2D share
+    of the window; held to ``streaming_mean_and_covariance`` on the same
+    blocks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = planted(MS_ST_N, D, gen)
+    blocks = [x[i:i + MS_ST_BLOCK].cpu().numpy() for i in range(0, MS_ST_N, MS_ST_BLOCK)]
+    del x
+    torch.cuda.empty_cache()
+    m11 = _mesh_of((1, 1))
+    mesh_cov = ops_covariance.streaming_mean_and_covariance_mesh
+    _, cov, n = mesh_cov(iter(blocks), m11)
+    wall = wall_s(lambda: mesh_cov(iter(blocks), m11))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mesh_cov(iter(blocks), m11)
+        sync()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = _device_ms_by_kernel(prof)
+    h2d_ms = _h2d_ms(prof)
+    _, cov_single, _ = ops_covariance.streaming_mean_and_covariance(iter(blocks), device=m11.first_device)
+    bound_ms, bound_by = gram_bound_ms(MS_ST_N, D, torch.float64, peaks)
+    out = {
+        "phase": "mesh_stream", "x": [MS_ST_N, D, "float32 host"], "blocks": len(blocks),
+        "block_rows": MS_ST_BLOCK, "mesh": [1, 1], "rows": int(n), "wall_s_median_of_3": wall,
+        "rows_per_s": MS_ST_N / wall,
+        "profile": {"window_ms": window_ms, "device_busy_ms": sum(device_ms.values()),
+                    "h2d_copy_ms": h2d_ms, "h2d_share_of_window": h2d_ms / window_ms},
+        "f64_gram_bound_ms": bound_ms, "f64_gram_bound_by": bound_by,
+        "cov_vs_single_rel": _rel_err(cov, cov_single),
+    }
+    emit(out)
+    require(int(n) == MS_ST_N, "(b) the streamed mesh covariance lost rows")
+    require(out["cov_vs_single_rel"] <= 1e-10, "(b) the streamed mesh covariance differs from the single-device scan")
+    return out
+
+
+def _glm_logistic_rows(seed: int):
+    """Config 10's 11M x 28 float32 rows and labels, drawn on the card."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x, w_true = glm_rows(gen)
+    margin = (x - x.mean(dim=0)) / x.std(dim=0) @ w_true + 0.5 * torch.randn(GLM_N, generator=gen, device=x.device)
+    return x, (margin > 0).float()
+
+
+def _logistic_config10():
+    return LogisticRegression().setRegParam(0.01).setMaxIter(20).setTol(0.0)
+
+
+def mesh_rank_main(argv) -> int:
+    """One rank of (c), started by :func:`phase_mesh_gang`: joins the gang
+    (gloo with CUDA tensors for two ranks on the one card, NCCL for a world
+    of one), fits its share through ``setDeployMode("gang")`` and writes its
+    results to ``--mesh-out``."""
+    args = dict(zip(argv[1::2], argv[2::2]))
+    rank, world = int(args["--mesh-rank"]), int(args["--mesh-world"])
+    out_dir, backend = args["--mesh-out"], args["--mesh-backend"]
+    port_device.set_platform("cuda")
+    port_device.use_ieee_fp32_matmul()
+    gang.initialize(coordinator_address=f"127.0.0.1:{args['--mesh-port']}", backend=backend)
+    reduce_s = [0.0]
+    all_reduce = torch.distributed.all_reduce
+
+    def timed_all_reduce(tensor, *a, **kw):
+        t0 = time.perf_counter()
+        work = all_reduce(tensor, *a, **kw)
+        if tensor.is_cuda:
+            sync()
+        reduce_s[0] += time.perf_counter() - t0
+        return work
+
+    torch.distributed.all_reduce = timed_all_reduce
+    res, walls = {}, {}
+    t_rank = time.perf_counter()
+    if world == 1:
+        # The NCCL world of one: (a)'s rows, refit as a gang.
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(MS_SEED_A)
+        x = planted(MS_N, D, gen)
+        t0 = time.perf_counter()
+        model = PCA().setDeployMode("gang").setK(K).fit(x)
+        res["pc"], res["ev"] = model.pc, model.explainedVariance
+        walls["pca_gang"] = time.perf_counter() - t0
+    else:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + rank)
+        x = planted(MS_N, D, gen)
+        t0 = time.perf_counter()
+        model = PCA().setDeployMode("gang").setK(K).fit(x)
+        res["pc"], res["ev"] = model.pc, model.explainedVariance
+        walls["pca_gang"] = time.perf_counter() - t0
+        blocks = list(x.cpu().numpy().reshape(MS_PARTS, MS_N // MS_PARTS, D))
+        del x, model
+        torch.cuda.empty_cache()
+        for merge in ("psum", "allgather"):
+            t0 = time.perf_counter()
+            mean, cov, n = gang.streaming_covariance_process_local(
+                iter(blocks), mesh=gang.global_mesh(), merge=merge)
+            walls[f"stream_{merge}"] = time.perf_counter() - t0
+            res[f"{merge}_mean"], res[f"{merge}_cov"], res[f"{merge}_n"] = mean, cov, np.asarray(n)
+        del blocks
+        xg, yg = _glm_logistic_rows(MS_SEED_GLM)
+        half = GLM_N // world
+        xs, ys = xg[rank * half:(rank + 1) * half].clone(), yg[rank * half:(rank + 1) * half].clone()
+        del xg, yg
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        lr = _logistic_config10().setDeployMode("gang").fit((xs, ys))
+        res["lr_weights"], res["lr_intercepts"] = lr.weights, lr.intercepts
+        res["lr_iter"] = np.asarray(lr.numIter)
+        walls["logistic_gang"] = time.perf_counter() - t0
+    res["wall_s"] = np.asarray(time.perf_counter() - t_rank)
+    res["all_reduce_s"] = np.asarray(reduce_s[0])
+    res["walls"] = np.asarray(json.dumps(walls))
+    np.savez(os.path.join(out_dir, f"rank{rank}_of_{world}.npz"), **res)
+    torch.distributed.destroy_process_group()
+    print(f"mesh rank {rank}/{world} ok", flush=True)
+    return 0
+
+
+def _spawn_ranks(world: int, backend: str, out_dir: str) -> list:
+    """Start ``world`` ranks of this script (one per ``member_env``), wait
+    for them under a timeout, and stop any that outlive it."""
+    with contextlib.closing(__import__("socket").socket()) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [
+        subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(rank), "--mesh-world", str(world),
+             "--mesh-port", str(port), "--mesh-out", out_dir, "--mesh-backend", backend],
+            env=gang.member_env(rank, world), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for rank in range(world)
+    ]
+    try:
+        outs = [p.communicate(timeout=MS_RANK_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"(c) rank {rank}/{world} failed: {stderr[-2000:]}")
+        require(f"mesh rank {rank}/{world} ok" in stdout, f"(c) rank {rank}/{world} printed no result")
+    return [dict(np.load(os.path.join(out_dir, f"rank{r}_of_{world}.npz"))) for r in range(world)]
+
+
+def phase_mesh_gang(a: dict) -> dict:
+    """(c) Two processes on the one card (gloo with CUDA tensors: NCCL
+    refuses two ranks on one GPU), each holding 1,048,576 x 1,024 float32
+    rows from ``SEED + rank``: a gang PCA, the streamed covariance with
+    both merges, and a gang logistic fit at config 10's shape (5.5M rows a
+    rank); then a world of one over NCCL refitting (a)'s rows. The
+    references are computed here, after the ranks have exited."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(MS_RANKS, "gloo", tmp)
+        gloo_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (nccl,) = _spawn_ranks(1, "nccl", tmp)
+        nccl_wall = time.perf_counter() - t0
+    same = {key: bool(np.array_equal(ranks[0][key], ranks[1][key]))
+            for key in ranks[0] if key not in ("wall_s", "all_reduce_s", "walls")}
+    # One-process float64 covariance of both ranks' rows, on the card.
+    xs = []
+    for rank in range(MS_RANKS):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + rank)
+        xs.append(planted(MS_N, D, gen))
+    n = MS_RANKS * MS_N
+    mean = sum(x.double().sum(dim=0) for x in xs) / n
+    gram = sum(f64_gram(x[i:i + MS_F64_CHUNK], mean) for x in xs for i in range(0, MS_N, MS_F64_CHUNK))
+    cov64 = (gram / (n - 1)).cpu().numpy()
+    del xs, gram
+    torch.cuda.empty_cache()
+    xg, yg = _glm_logistic_rows(MS_SEED_GLM)
+    single = _logistic_config10().fit((xg, yg))
+    sigma64 = f64_stddev(xg, MS_F64_CHUNK)
+    obj_single = logistic_objective64(xg, yg, single.weights, single.intercepts, 0.01, sigma64, MS_F64_CHUNK)
+    obj_gang = logistic_objective64(xg, yg, ranks[0]["lr_weights"], ranks[0]["lr_intercepts"], 0.01, sigma64,
+                                    MS_F64_CHUNK)
+    out = {
+        "phase": "mesh_gang", "ranks": MS_RANKS, "backend": "gloo (CUDA tensors)",
+        "rows_per_rank": MS_N, "logistic_rows_per_rank": GLM_N // MS_RANKS,
+        "ranks_bitwise_equal": same,
+        "cov_vs_f64_rel": {m: _rel_err(ranks[0][f"{m}_cov"], cov64) for m in ("psum", "allgather")},
+        "rows_merged": {m: int(ranks[0][f"{m}_n"]) for m in ("psum", "allgather")},
+        "logistic_objective_rel": abs(obj_gang - obj_single) / abs(obj_single),
+        "logistic_num_iter": {"gang": int(ranks[0]["lr_iter"]), "single": single.numIter},
+        "rank_wall_s": [float(r["wall_s"]) for r in ranks],
+        "rank_all_reduce_s": [float(r["all_reduce_s"]) for r in ranks],
+        "rank_step_wall_s": [json.loads(str(r["walls"])) for r in ranks],
+        "spawn_to_exit_s": {"gloo_2_ranks": gloo_wall, "nccl_world_of_one": nccl_wall},
+        "nccl_world_of_one_equals_mesh_1x1": bool(np.array_equal(nccl["pc"], a["pc_1x1"])
+                                                  and np.array_equal(nccl["ev"], a["ev_1x1"])),
+        "nccl_wall_s": float(nccl["wall_s"]), "nccl_all_reduce_s": float(nccl["all_reduce_s"]),
+    }
+    emit(out)
+    require(all(same.values()), f"(c) the ranks' results differ: {same}")
+    for merge in ("psum", "allgather"):
+        require(out["rows_merged"][merge] == n, f"(c) the {merge} merge lost rows")
+        require(out["cov_vs_f64_rel"][merge] <= 1e-10, f"(c) the {merge} covariance differs from float64")
+    require(out["logistic_objective_rel"] <= 1e-4, "(c) the gang logistic objective differs from one process")
+    require(out["logistic_num_iter"]["gang"] == single.numIter, "(c) the gang logistic numIter differs")
+    require(out["nccl_world_of_one_equals_mesh_1x1"], "(c) the NCCL world of one differs from (a)'s (1, 1) fit")
+    return {"out": out, "logistic": (xg, yg, single, sigma64, obj_single)}
+
+
+def phase_mesh_families(gen: torch.Generator, logistic) -> dict:
+    """(d) Configs 3, 4 and 10 on meshes of the one card: KMeans(100) on
+    20M x 16 blobs from pinned initial centres on a (4, 1) mesh against the
+    single-device ``xla`` fit; LinearRegression (config 4) and
+    LogisticRegression (config 10) on (4, 1) and (2, 2) meshes against the
+    float64 solve and the single-device fit."""
+    out = {"phase": "mesh_families", "walls_s": {}}
+    x, truth = planted_blobs(KM_N, KM_D, KM_K, gen)
+    init = near(truth, gen).cpu().numpy()
+    km_single = KMeans().setK(KM_K).setBackend("xla").setInitialModel(init)
+    km_mesh = KMeans(mesh=_mesh_of((4, 1))).setK(KM_K).setInitialModel(init)
+    t0 = time.perf_counter()
+    ms = km_mesh.fit(x)
+    c_mesh = ms.clusterCenters()
+    out["walls_s"]["kmeans_4x1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ss = km_single.fit(x)
+    c_single = ss.clusterCenters()
+    out["walls_s"]["kmeans_single_xla"] = time.perf_counter() - t0
+    out["kmeans"] = {"x": [KM_N, KM_D, KM_K], "num_iter": {"mesh_4x1": ms.numIter, "single": ss.numIter},
+                     "centers_max_abs": float(np.abs(c_mesh - c_single).max()),
+                     "cost_rel": abs(ms.trainingCost - ss.trainingCost) / abs(ss.trainingCost)}
+    del x, truth
+    torch.cuda.empty_cache()
+
+    x, w_true = glm_rows(gen)
+    y = x @ w_true + 0.1 * torch.randn(GLM_N, generator=gen, device=x.device)
+    ref_coef, _ = ridge_f64(*f64_moments(x, y, MS_F64_CHUNK), 0.1)
+    scale = float(np.abs(ref_coef).max())
+    out["linear"] = {"x": [GLM_N, GLM_D]}
+    for name, mesh in (("single", None), ("mesh_4x1", _mesh_of((4, 1))), ("mesh_2x2", _mesh_of((2, 2)))):
+        est = LinearRegression(mesh=mesh).setRegParam(0.1)
+        coef = est.fit((x, y)).coefficients
+        out["walls_s"][f"linear_{name}"] = wall_s(lambda e=est: e.fit((x, y)).coefficients)
+        out["linear"][f"{name}_coef_vs_f64_rel_to_max"] = float(np.abs(coef - ref_coef).max()) / scale
+    del x, y
+    torch.cuda.empty_cache()
+
+    xg, yg, single, sigma64, obj_single = logistic
+    out["logistic"] = {"x": [GLM_N, GLM_D], "single_num_iter": single.numIter}
+    out["walls_s"]["logistic_single"] = wall_s(lambda: _logistic_config10().fit((xg, yg)).weights, repeats=1)
+    for name, shape in (("mesh_4x1", (4, 1)), ("mesh_2x2", (2, 2))):
+        est = _logistic_config10()
+        est.setMesh(_mesh_of(shape))
+        t0 = time.perf_counter()
+        model = est.fit((xg, yg))
+        w = model.weights
+        out["walls_s"][f"logistic_{name}"] = time.perf_counter() - t0
+        obj = logistic_objective64(xg, yg, w, model.intercepts, 0.01, sigma64, MS_F64_CHUNK)
+        out["logistic"][name] = {"num_iter": model.numIter, "objective_rel": abs(obj - obj_single) / abs(obj_single)}
+    emit(out)
+    require(out["kmeans"]["num_iter"]["mesh_4x1"] == ss.numIter, "(d) KMeans numIter differs on the mesh")
+    require(out["kmeans"]["centers_max_abs"] <= 1e-3, "(d) KMeans centres differ on the mesh")
+    require(out["kmeans"]["cost_rel"] <= 1e-4, "(d) KMeans cost differs on the mesh")
+    for name in ("single", "mesh_4x1", "mesh_2x2"):
+        require(out["linear"][f"{name}_coef_vs_f64_rel_to_max"] <= 1e-4, f"(d) linear {name} differs from float64")
+    for name in ("mesh_4x1", "mesh_2x2"):
+        require(out["logistic"][name]["num_iter"] == single.numIter, f"(d) logistic {name} numIter differs")
+        require(out["logistic"][name]["objective_rel"] <= 1e-4, f"(d) logistic {name} objective differs")
+    return out
+
+
+def mesh_phases(gen: torch.Generator) -> dict:
+    """The mesh and multi-process routes, (a)-(d) of the distribution slice,
+    with no fallback to the CPU or to one device. Prints the group's wall,
+    which must stay within ``MS_WALL_LIMIT_S``."""
+    peaks = peaks_for(torch.cuda.get_device_name(0))
+    t0 = time.perf_counter()
+    walls = {}
+    t = time.perf_counter()
+    a = phase_mesh_config5(MS_SEED_A)
+    walls["a_config5"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    b = phase_mesh_stream(gen, peaks)
+    walls["b_block_step"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    c = phase_mesh_gang(a)
+    walls["c_gang"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    d = phase_mesh_families(gen, c["logistic"])
+    walls["d_families"] = time.perf_counter() - t
+    wall = time.perf_counter() - t0
+    emit({"phases": "mesh", "wall_s": wall, "phase_wall_s": walls})
+    require(wall <= MS_WALL_LIMIT_S, f"the mesh phases took {wall:.1f} s, over their {MS_WALL_LIMIT_S:.0f} s")
+    return {"a": a["out"], "b": b, "c": c["out"], "d": d}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -4064,6 +4465,8 @@ def main() -> int:
     composition_phases(gen)
     torch.cuda.empty_cache()
     serving_phases(gen)
+    torch.cuda.empty_cache()
+    mesh_phases(gen)
 
     k1_f32 = times["k1_f32"]
     measured = {
@@ -4093,4 +4496,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--mesh-rank" in sys.argv:
+        sys.exit(mesh_rank_main(sys.argv))
     sys.exit(main())

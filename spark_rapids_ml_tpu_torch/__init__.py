@@ -13,8 +13,8 @@ Layer map (the reference's, one for one):
   - ``evaluation``            — Regression, Multiclass and Binary evaluators
   - ``pipeline`` / ``tuning`` — Pipeline and PipelineModel; ParamGridBuilder,
     CrossValidator and TrainValidationSplit
-  - ``pipeline_fusion`` / ``serving`` — the fuser and the ServingSignature
-    each model declares (the serving runtime is not ported yet)
+  - ``pipeline_fusion`` / ``serving`` — the fuser, the ServingSignature
+    each model declares, and the in-process serving runtime
   - ``linalg``                — row-matrix orchestration (RowMatrix)
   - ``core``                  — params, data, ingest, persistence, serving,
     the fit memory guard (``membudget``)
@@ -25,6 +25,8 @@ Layer map (the reference's, one for one):
     built with nvcc on first use, bound with ctypes)
   - ``native``                — ctypes loader of the host C++ runtime (the
     packed covariance accumulator, ``NpyBlockReader``), built with g++
+  - ``parallel``              — device meshes, row sharding, the collectives
+    of the mesh routes and the ``torch.distributed`` gang bring-up
   - ``device``                — where entry points compute (CUDA by default)
   - ``utils.tracing``         — NVTX ranges and plain counters
   - ``utils.envknobs``        — the ``TPUML_*`` knobs the port reads

@@ -4,9 +4,11 @@ Port of the reference's ``core/estimator.py``: ``Estimator.fit(dataset)``
 delegates to the family's ``_fit`` and returns a ``Model`` (a
 ``Transformer``). ``fit`` is the fit path's OOM safety net, as in the
 reference: a device OOM that escaped the family's own recovery re-raises
-as the structured ``core.membudget.FitMemoryError``. Left out until their
-slices: gang deployment, the run recorder around ``fit``,
-``partial_fit`` and fit checkpointing.
+as the structured ``core.membudget.FitMemoryError``. ``deployMode`` (env
+twin ``TPUML_GANG_FIT``) makes a fit one member of a
+``torch.distributed`` gang, as in the reference. Left out until their
+slices: the run recorder around ``fit``, ``partial_fit`` and fit
+checkpointing.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Any, Optional
 from spark_rapids_ml_tpu_torch.core.membudget import reraise_if_oom
 from spark_rapids_ml_tpu_torch.core.params import Param, Params, toString
 from spark_rapids_ml_tpu_torch.core.persistence import MLReadable
+from spark_rapids_ml_tpu_torch.observability.events import emit
+from spark_rapids_ml_tpu_torch.utils.envknobs import env_int, env_str
 
 
 class HasInputCol(Params):
@@ -46,10 +50,47 @@ class Transformer(Params):
 
 
 class Estimator(Params):
+    #: Fit deployment mode: ``"single"`` (default) fits on this process's
+    #: devices alone; ``"gang"`` makes this process one member of a
+    #: ``torch.distributed`` gang — every member calls the same ``fit``
+    #: with its LOCAL rows, the ingest funnel lays them out as one
+    #: row-sharded input, and the reductions are all-reduced, so every
+    #: member returns the identical whole-dataset model. The env twin is
+    #: ``TPUML_GANG_FIT=1``.
+    deployMode = Param("_", "deployMode", "fit deployment mode: 'single' or 'gang'", toString)
+
+    def getDeployMode(self) -> str:
+        if self.isDefined(self.deployMode):
+            return self.getOrDefault(self.deployMode)
+        return "gang" if env_str("TPUML_GANG_FIT", "0") == "1" else "single"
+
+    def setDeployMode(self, value: str):
+        if value not in ("single", "gang"):
+            raise ValueError(f"deployMode must be 'single' or 'gang', got {value!r}")
+        return self.set(self.deployMode, value)
+
+    def _join_gang(self) -> None:
+        """Gang-member bring-up at the top of a gang fit: join the gang
+        when ``TPUML_NUM_PROCESSES > 1`` or ``TPUML_COORDINATOR`` is set
+        (idempotent), and default this estimator's mesh to the gang's
+        (``global_mesh``). A family without a mesh route raises its
+        ROADMAP item here (``setMesh``) or at its fit."""
+        from spark_rapids_ml_tpu_torch.parallel import distributed as gang
+
+        num = env_int("TPUML_NUM_PROCESSES", minimum=1)
+        if (num is not None and num > 1) or env_str("TPUML_COORDINATOR"):
+            gang.initialize()
+        if getattr(self, "mesh", None) is None and hasattr(self, "setMesh"):
+            self.setMesh(gang.global_mesh())
+        emit("gang_fit", action="join", estimator=type(self).__name__,
+             num_processes=gang.process_count(), process_id=gang.process_index())
+
     def fit(self, dataset: Any):
         """Fit ``dataset`` and return the fitted model. A raw device OOM
         never escapes: it re-raises as ``FitMemoryError``."""
         try:
+            if self.getDeployMode() == "gang":
+                self._join_gang()
             return self._fit(dataset)
         except RuntimeError as exc:
             failure = exc

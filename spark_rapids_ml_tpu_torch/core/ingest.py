@@ -1,17 +1,26 @@
-"""Estimator input funnel — port of the single-device parts of the
-reference's ``core/ingest.py``.
+"""Estimator input funnel — port of the reference's ``core/ingest.py``.
 
 A ``torch.Tensor`` is consumed in place where it lives, in its own
 floating dtype (an integral tensor is cast there). Host data densifies
 into one matrix at :func:`default_dtype` (or the ``dtype`` the caller
 pins) and goes to :func:`device.resolve_device`, which raises on the
-``"cuda"`` platform without a card. The reference's mesh padding, retry
-policy, fault points and CPU degradation are left out: a CPU degrade
-would be a fallback that hides the device.
+``"cuda"`` platform without a card. The reference's retry policy, fault
+points and CPU degradation are left out: a CPU degrade would be a
+fallback that hides the device.
+
+With a mesh the rows come back as a
+:class:`~spark_rapids_ml_tpu_torch.parallel.mesh.ShardedRows`, as the
+reference's ``_prepare_rows_impl`` places them: a tensor is padded and
+split where it lives, never through the host; host partitions go through
+``shard_rows_from_partitions`` without a host concatenation; in a gang
+(more than one process) the partitions are this process's rows and go
+through ``shard_rows_process_local``, and a member's tensor rejoins that
+host path. Weights fold into the masks.
 
 :func:`prepare_rows` returns ``(x, mask, n_true, d_true)``; ``mask`` is
 the per-row weight (all ones, or the ``weightCol`` weights), in a dtype
-wide enough to count rows exactly (at least float32).
+wide enough to count rows exactly (at least float32), or under a mesh the
+list of per-shard masks.
 
 The supervised families add :func:`prepare_labels` (the target vector
 beside the rows, with the length-mismatch guard), :func:`validate_int_labels`
@@ -46,8 +55,8 @@ def default_dtype() -> torch.dtype:
 
 
 class PreparedRows(NamedTuple):
-    x: torch.Tensor  # (n, d) on its device
-    mask: torch.Tensor  # (n,) row weights, 1 for an unweighted row
+    x: Any  # (n, d) tensor on its device, or ShardedRows under a mesh
+    mask: Any  # (n,) row weights, 1 for an unweighted row; per-shard masks under a mesh
     n_true: int
     d_true: int
 
@@ -60,12 +69,15 @@ def _mask_dtype(x_dtype: torch.dtype) -> torch.dtype:
 
 def prepare_rows(
     rows: Any,
+    mesh=None,
     dtype: Optional[torch.dtype] = None,
     device_id: int = -1,
     weights: Optional[np.ndarray] = None,
 ) -> PreparedRows:
     """Any supported input as rows on their device plus a weight mask."""
     with TraceRange("ingest", TraceColor.BLUE):
+        if mesh is not None:
+            return _prepare_rows_mesh(rows, mesh, dtype, weights)
         if is_device_array(rows):
             if rows.dim() != 2:
                 raise ValueError(f"tensor input must be 2-D, got {rows.dim()}-D")
@@ -85,6 +97,49 @@ def prepare_rows(
         if weights is not None:
             mask = _combine_weights(mask, weights, n)
         return PreparedRows(x, mask, n, d)
+
+
+def _prepare_rows_mesh(rows: Any, mesh, dtype: Optional[torch.dtype], weights) -> PreparedRows:
+    """The mesh branches of :func:`prepare_rows` (module docstring)."""
+    from spark_rapids_ml_tpu_torch.parallel.collectives import process_count
+    from spark_rapids_ml_tpu_torch.parallel.distributed import shard_rows_process_local
+    from spark_rapids_ml_tpu_torch.parallel.mesh import shard_rows_from_partitions, shard_tensor_rows
+
+    gang = process_count() > 1
+    if gang and is_device_array(rows):
+        # A member's tensor is its local rows: it enters the gang's layout
+        # through the process-local host path (one local shard's pull), in
+        # its own floating dtype.
+        if dtype is None and rows.is_floating_point():
+            dtype = rows.dtype
+        rows = to_host(rows)
+    if is_device_array(rows):
+        if rows.dim() != 2:
+            raise ValueError(f"tensor input must be 2-D, got {rows.dim()}-D")
+        x = rows if rows.is_floating_point() else rows.to(dtype or default_dtype())
+        _device.device_of(x)
+        with TraceRange("ingest H2D", TraceColor.CYAN):
+            sharded = shard_tensor_rows(x, mesh)
+    else:
+        dt = dtype or default_dtype()
+        parts = as_partitions(rows, dtype=_NUMPY_DTYPE[dt])
+        with TraceRange("ingest H2D", TraceColor.CYAN):
+            if gang:
+                sharded = shard_rows_process_local(parts, mesh, dtype=_NUMPY_DTYPE[dt])
+            else:
+                sharded = shard_rows_from_partitions(parts, mesh, dtype=_NUMPY_DTYPE[dt])
+    sharded = sharded.with_masks(_mask_dtype(sharded.dtype))
+    if weights is not None:
+        # Weights are local like the rows: checked against this process's
+        # row count, laid out as the rows are, multiplied into the masks.
+        n_local = sum(sharded.valid)
+        w_host = np.asarray(weights, dtype=np.float64).ravel()
+        if w_host.shape[0] != n_local:
+            raise ValueError(
+                f"weight vector has {w_host.shape[0]} entries but the data has {n_local} rows"
+            )
+        sharded = sharded.fold_weights(sharded.split_vector(w_host, sharded.masks[0].dtype))
+    return PreparedRows(sharded, sharded.masks, sharded.n, sharded.d)
 
 
 def _combine_weights(mask: torch.Tensor, weights, n_true: int) -> torch.Tensor:
@@ -113,15 +168,24 @@ def prepare_labels(
     n_true: Optional[int] = None,
     dtype: Optional[torch.dtype] = None,
     device: Optional[torch.device] = None,
-) -> torch.Tensor:
+    rows: Any = None,
+):
     """A label/target vector placed beside :func:`prepare_rows` output, at
     ``dtype`` (default :func:`default_dtype`), zero-padded to ``n_pad``.
-    A tensor stays where it lives; host labels go to ``device``.
+    A tensor stays where it lives; host labels go to ``device``. Beside
+    mesh ``rows`` (a ``ShardedRows``), the labels are this process's and
+    come back laid out as the rows are: one tensor per data shard.
 
     ``n_true`` (the rows' true count) guards against a length-mismatched
     ``(X, y)`` pair: only padding may be zero-filled — a ``y`` shorter than
     the data would otherwise train on phantom rows."""
     dtype = dtype or default_dtype()
+    if rows is not None:
+        n_local = sum(rows.valid)
+        count = int(y.reshape(-1).shape[0]) if is_device_array(y) else np.asarray(y).ravel().shape[0]
+        if count != n_local:
+            raise ValueError(f"label vector has {count} entries but the data has {n_local} rows")
+        return rows.split_vector(y, dtype)
     if is_device_array(y):
         ys = y.reshape(-1).to(dtype)
         if n_true is not None and int(ys.shape[0]) != n_true:

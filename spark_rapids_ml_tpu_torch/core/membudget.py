@@ -6,7 +6,7 @@ larger than the card's free memory dies inside ``prepare_rows``'
 
   1. **Pricing** — :func:`padded_input_bytes` mirrors what the port's
      ``prepare_rows`` places: the rows in the fit's dtype plus the row
-     mask (no mesh padding: the port has no mesh route yet). The cost
+     mask, padded to the mesh's axes as the placement pads them. The cost
      ledger is not ported (ROADMAP A.9), so :func:`ledger_measured_bytes`
      is None and every decision is priced "declared"
      (counter ``fit.admission.declared``).
@@ -149,14 +149,20 @@ def _numpy_dtype(dtype: Any) -> np.dtype:
     return np.dtype(dtype)
 
 
-def padded_input_bytes(n: int, d: int, dtype: Any) -> int:
+def padded_input_bytes(n: int, d: int, dtype: Any, mesh: Any = None) -> int:
     """Device bytes ``prepare_rows`` allocates for an (n, d) host input:
     the rows plus the row mask, whose dtype is the rows' widened to at
-    least float32 (``core/ingest._mask_dtype``). ``dtype`` is a numpy or
-    torch dtype."""
+    least float32 (``core/ingest._mask_dtype``), with the padding of the
+    mesh's axes. ``dtype`` is a numpy or torch dtype."""
     np_dtype = _numpy_dtype(dtype)
+    n_pad, d_pad = int(n), int(d)
+    if mesh is not None:
+        from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, model_axis_size
+
+        n_pad += (-n_pad) % int(mesh.shape[DATA_AXIS])
+        d_pad += (-d_pad) % model_axis_size(mesh)
     mask_itemsize = np.promote_types(np_dtype, np.float32).itemsize
-    return int(n) * int(d) * np_dtype.itemsize + int(n) * mask_itemsize
+    return n_pad * d_pad * np_dtype.itemsize + n_pad * mask_itemsize
 
 
 def ledger_measured_bytes(*family_prefixes: str) -> Optional[int]:
@@ -210,6 +216,7 @@ def fit_memory_guard(
     *,
     can_stream: bool,
     why_cannot_stream: str = "",
+    mesh: Any = None,
     dtype: Any = None,
     ledger_families: Sequence[str] = (),
     extra_bytes: int = 0,
@@ -218,9 +225,10 @@ def fit_memory_guard(
     """Price a fit's host input against the device-memory budget.
 
     Waves through (``degrade=False``) whenever there is nothing to
-    decide: gate off, a streaming source, a tensor (it computes where it
-    lives), or an input whose shape cannot be known without the copy this
-    gate exists to avoid. Over budget, either returns a ``degrade=True``
+    decide: gate off, a streaming source, a mesh fit (sharded placement is
+    priced per device and relaunched rather than degraded, as in the
+    reference), a tensor (it computes where it lives), or an input whose
+    shape cannot be known without the copy this gate exists to avoid. Over budget, either returns a ``degrade=True``
     decision (recording the warning + event + counter) or raises
     :class:`FitMemoryError` when this configuration cannot stream or
     ``TPUML_FIT_DEGRADE=off``. ``dtype`` is the dtype the fit places the
@@ -229,7 +237,7 @@ def fit_memory_guard(
     """
     from spark_rapids_ml_tpu_torch.core.data import host_rows_shape, is_streaming_source
 
-    if is_streaming_source(rows):
+    if mesh is not None or is_streaming_source(rows):
         return _ADMIT
     budget = fit_mem_budget(device_id)
     if budget <= 0:
@@ -425,6 +433,7 @@ def fit_within_budget(
     *,
     can_stream: bool,
     why_cannot_stream: str,
+    mesh: Any = None,
     dtype: Any = None,
     ledger_families: Sequence[str] = (),
     device_id: int = -1,
@@ -435,17 +444,18 @@ def fit_within_budget(
     ``in_memory()`` under :func:`run_fit_with_oom_recovery`, whose
     fallback is the same streaming reroute for an in-memory input that
     can stream: a host input, or a tensor copied to the host once memory
-    is reclaimed (a stream has no host matrix to re-block)."""
+    is reclaimed (a stream has no host matrix to re-block). A mesh fit is
+    admitted as it is and has no streaming reroute."""
     from spark_rapids_ml_tpu_torch.core.data import is_streaming_source
 
     guard = fit_memory_guard(
         family, rows, can_stream=can_stream, why_cannot_stream=why_cannot_stream,
-        dtype=dtype, ledger_families=ledger_families, device_id=device_id,
+        mesh=mesh, dtype=dtype, ledger_families=ledger_families, device_id=device_id,
     )
     if guard.degrade:
         return run_streaming_with_recovery(family, streaming, guard.matrix, device_id=device_id)
     fallback = None
-    if can_stream and not is_streaming_source(rows):
+    if can_stream and mesh is None and not is_streaming_source(rows):
         def fallback():
             return run_streaming_with_recovery(family, streaming, host_matrix(rows), device_id=device_id)
     return run_fit_with_oom_recovery(family, in_memory, fallback, device_id=device_id)

@@ -1,0 +1,83 @@
+"""Shifted second-moment accumulator — pure numpy, picklable. Port of
+the reference's ``core/moments.py`` (the port keeps its own copy).
+
+The wire-format twin of the native C++ ``SprAccumulator``
+(native/src/tpuml_host.cpp): same shifted-data algorithm (accumulate
+Σ(x−K)(x−K)ᵀ about a per-accumulator shift K, re-base on merge), but as a
+plain-numpy object that serializes across process boundaries — the
+"treeAggregate zero value" of the Spark adapter, where partition-local
+stats are computed on executors and merged by the combOp
+(RapidsRowMatrix.scala:226-233). fp64 vectorized numpy; for the
+in-process hot path prefer the native accumulator (Kahan-compensated C++).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+class ShiftedMoments:
+    """Streaming (count, Σs, ΣssT) about a shift K = first row seen."""
+
+    __slots__ = ("n_cols", "n_rows", "shift", "sum", "gram")
+
+    def __init__(self, n_cols: int):
+        self.n_cols = int(n_cols)
+        self.n_rows = 0
+        self.shift: Optional[np.ndarray] = None
+        self.sum = np.zeros(n_cols, dtype=np.float64)
+        self.gram = np.zeros((n_cols, n_cols), dtype=np.float64)
+
+    def add_block(self, block: np.ndarray) -> "ShiftedMoments":
+        block = np.asarray(block, dtype=np.float64)
+        if block.ndim != 2 or block.shape[1] != self.n_cols:
+            raise ValueError(f"block must be (rows, {self.n_cols}), got {block.shape}")
+        if block.shape[0] == 0:
+            return self
+        if self.shift is None:
+            self.shift = block[0].copy()
+        s = block - self.shift
+        self.sum += s.sum(axis=0)
+        self.gram += s.T @ s
+        self.n_rows += block.shape[0]
+        return self
+
+    def merge(self, other: "ShiftedMoments") -> "ShiftedMoments":
+        if other.n_cols != self.n_cols:
+            raise ValueError("column count mismatch")
+        if other.n_rows == 0:
+            return self
+        if self.shift is None:
+            self.shift = other.shift.copy() if other.shift is not None else None
+        d = other.shift - self.shift
+        nb = float(other.n_rows)
+        self.gram += (
+            other.gram
+            + np.outer(d, other.sum)
+            + np.outer(other.sum, d)
+            + nb * np.outer(d, d)
+        )
+        self.sum += other.sum + nb * d
+        self.n_rows += other.n_rows
+        return self
+
+    def finalize(self, center: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+        """Returns (covariance, mean); covariance normalized by (n−1)."""
+        m = self.n_rows
+        if m < 2:
+            raise ValueError(f"need at least 2 rows, got {m}")
+        ms = self.sum / m
+        mean = self.shift + ms
+        if center:
+            cov = (self.gram - m * np.outer(ms, ms)) / (m - 1)
+        else:
+            raw = (
+                self.gram
+                + np.outer(self.shift, self.sum)
+                + np.outer(self.sum, self.shift)
+                + m * np.outer(self.shift, self.shift)
+            )
+            cov = raw / (m - 1)
+        return cov, mean

@@ -204,7 +204,7 @@ class Params:
         that = type(self)()
         self._copyValues(that, extra)
         # Estimators may carry a non-Param mesh argument; a copy keeps it
-        # so the copy refuses (or, in a later slice, runs) the same route.
+        # so the copy runs (or refuses) the same route.
         if hasattr(self, "mesh") and hasattr(that, "mesh"):
             that.mesh = self.mesh
         # Non-Param state a subclass names in _copy_attrs (a KMeans warm

@@ -25,8 +25,18 @@ Four routes:
     known once the pass has run. ``precision="dd"`` is the same float64
     scan.
 
-A mesh (one process or many, streaming or not) raises
-``NotImplementedError`` naming its slice.
+With a mesh (``parallel/mesh.py``) the covariance is a per-shard sum
+over the data axis (``parallel/distributed_cov.py``): host partitions are
+placed shard by shard (``shard_rows_from_partitions``; in a gang, this
+process's rows through ``shard_rows_process_local``), a tensor is split
+where it lives (its rows must divide the data axis, as in the
+reference), and a stream is split block by block
+(``streaming_mean_and_covariance_mesh``; in a gang each process streams
+its own blocks and the moments merge,
+``streaming_covariance_process_local``). The eigensolve follows on the
+mesh's first device. As in the reference, ``backend="pallas"`` has no
+mesh path, and ``precision="dd"`` with a mesh needs the multi-process
+streaming deployment.
 """
 
 from __future__ import annotations
@@ -62,12 +72,11 @@ from spark_rapids_ml_tpu_torch.ops.eigh import (
 )
 from spark_rapids_ml_tpu_torch.ops.kernels.covariance import centered_gram_cuda
 from spark_rapids_ml_tpu_torch.ops.linalg import resolve_precision, triu_to_full
+from spark_rapids_ml_tpu_torch.parallel.collectives import process_count
+from spark_rapids_ml_tpu_torch.parallel.distributed_cov import distributed_mean_and_covariance
+from spark_rapids_ml_tpu_torch.parallel.mesh import device_array_rows_on_mesh, shard_rows_from_partitions
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
 
-MESH_SLICE = (
-    "a device mesh is not ported yet: the mesh and multi-process routes "
-    "arrive with the distribution slice (ROADMAP A.18)"
-)
 #: The packed layout's wire-format cap (the reference's
 #: ``RapidsRowMatrix.scala:66-68``): n(n+1)/2 entries of a 32-bit index.
 PACKED_MAX_COLS = 65535
@@ -78,14 +87,26 @@ def _ratio(w: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
     return torch.where(total > 0, w / torch.where(total > 0, total, torch.ones_like(total)), w)
 
 
-def _pca_fit_device(x, k, center, precision, eigen_solver, eigen_iters):
+def _pca_fit_device(x, k, center, precision, eigen_solver, eigen_iters, mesh=None):
     """The whole PCA fit on a tensor where it lives: column means, centered
     covariance GEMM, eigensolve, explained variance. Returns tensors on
     the input's device; nothing is read back except the eigensolver's
-    scalar decisions."""
+    scalar decisions. With a mesh the tensor is split over it and the
+    covariance is the per-shard sum."""
     n, d = x.shape
+    if mesh is not None:
+        _, cov = distributed_mean_and_covariance(
+            device_array_rows_on_mesh(x, mesh), None, mesh, precision=precision, center=center
+        )
+        return _pca_from_cov(cov[:d, :d], k, eigen_solver, eigen_iters)
     mean = torch.mean(x, dim=0) if center else torch.zeros((d,), dtype=x.dtype, device=x.device)
     cov = centered_gram(x, mean, precision=precision) / (n - 1)
+    return _pca_from_cov(cov, k, eigen_solver, eigen_iters)
+
+
+def _pca_from_cov(cov, k, eigen_solver, eigen_iters):
+    """Eigensolve and explained-variance ratios of a device covariance."""
+    d = cov.shape[0]
     if eigen_solver == "auto" and k < d:
         w, v, _ = eigh_auto(cov, k, max_iters=auto_max_iters(eigen_iters))
         return v, _ratio(torch.clamp(w, min=0), torch.trace(cov))
@@ -125,8 +146,6 @@ class RowMatrix:
         eigen_solver: str = "full",
         eigen_iters: int = 8,
     ):
-        if mesh is not None:
-            raise NotImplementedError(MESH_SLICE)
         self._device_x: Optional[torch.Tensor] = None
         self.partitions: Optional[List[np.ndarray]] = None
         self._stream = None
@@ -147,7 +166,8 @@ class RowMatrix:
         self.mean_centering = mean_centering
         self.use_accel_svd = use_accel_svd
         self.device_id = device_id
-        self.precision = self.resolve(precision, input_dtype=input_dtype, backend=backend)
+        self.mesh = mesh
+        self.precision = self.resolve(precision, mesh=mesh, input_dtype=input_dtype, backend=backend)
         if self.precision == "dd" and self._device_x is not None:
             raise ValueError(
                 "precision='dd' is the host-partition fp64 route; a device "
@@ -160,6 +180,19 @@ class RowMatrix:
                 "partitions; device-resident input runs the fused GEMM "
                 "covariance (useGemm=True)"
             )
+        if self.precision == "dd" and mesh is not None:
+            # dd composes with a mesh only as the per-executor streaming
+            # merge (each process scans its own blocks in float64); the
+            # single-process mesh routes refuse it, as in the reference.
+            if not (self.partitions is None and process_count() > 1):
+                raise ValueError(
+                    "precision='dd' with a mesh requires the multi-process "
+                    "streaming deployment (per-executor dd scans + moment "
+                    "merge); single-process mesh fits use "
+                    "precision='highest'"
+                )
+        if backend == "pallas" and mesh is not None:
+            raise ValueError("backend='pallas' has no mesh path; use 'xla'")
         if backend == "pallas" and self._stream is not None:
             raise ValueError("backend='pallas' has no streaming path; use 'xla'")
         if backend == "pallas" and not use_gemm:
@@ -177,12 +210,15 @@ class RowMatrix:
         self._dtype = dtype
 
     @staticmethod
-    def resolve(precision: str, input_dtype=None, backend: str = "xla") -> str:
+    def resolve(precision: str, mesh=None, input_dtype=None, backend: str = "xla") -> str:
         """The one home of precision-request resolution (PCA calls it too).
-        ``"auto"`` resolves to ``"highest"``; under ``backend="pallas"`` an
-        explicit ``"dd"`` is an error, as in the reference."""
+        ``"auto"`` resolves to ``"highest"`` (with a mesh always, deferring
+        to the mesh covariance); under ``backend="pallas"`` an explicit
+        ``"dd"`` is an error, as in the reference."""
         if backend not in ("xla", "pallas"):
             raise ValueError(f"backend must be 'xla' or 'pallas', got {backend!r}")
+        if precision == "auto" and mesh is not None:
+            return "highest"
         resolved = resolve_precision(precision, input_dtype=input_dtype)
         if backend == "pallas" and resolved == "dd":
             raise ValueError("precision='dd' has its own kernels; use backend='xla'")
@@ -220,7 +256,13 @@ class RowMatrix:
     def _device(self) -> torch.device:
         if self._device_x is not None:
             return _device.device_of(self._device_x)
+        if self.mesh is not None:
+            return self.mesh.first_device
         return _device.resolve_device(self.device_id)
+
+    @property
+    def _gang(self) -> bool:
+        return self.mesh is not None and process_count() > 1
 
     # --- column stats (Statistics.colStats analogue) ---
 
@@ -255,12 +297,18 @@ class RowMatrix:
     def compute_covariance(self) -> torch.Tensor:
         if self._stream is not None:
             return self._covariance_streaming()
-        n = self.num_rows
-        if n < 2:
-            raise ValueError(f"need at least 2 rows, got {n}")
+        if not self._gang:
+            # A gang checks the GLOBAL count after the counts handshake: a
+            # local check would kill a low-row executor while its peers
+            # wait for it in the collective.
+            n = self.num_rows
+            if n < 2:
+                raise ValueError(f"need at least 2 rows, got {n}")
         if self._device_x is not None:
             return self._covariance_device()
         with TraceRange("compute cov", TraceColor.RED):
+            if self.mesh is not None:
+                return self._covariance_mesh()[1]
             if not self.use_gemm:
                 return self._covariance_packed()
             return self._covariance_gemm(self._mean())
@@ -269,7 +317,37 @@ class RowMatrix:
         """Covariance of a device tensor where it lives."""
         self._device()  # on a CUDA tensor: TF32 off, as "highest" needs
         with TraceRange("compute cov", TraceColor.RED):
+            if self.mesh is not None:
+                d = self.num_cols
+                _, cov = distributed_mean_and_covariance(
+                    device_array_rows_on_mesh(self._device_x, self.mesh), None, self.mesh,
+                    precision=self.precision, center=self.mean_centering,
+                )
+                return cov[:d, :d]
             return self._gram(self._device_x, self._mean()) / (self.num_rows - 1)
+
+    def _covariance_mesh(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Host partitions over the mesh: placed shard by shard (never
+        concatenated on the host) in this matrix's dtype, or in a gang this
+        process's rows assembled with its peers'; then the per-shard
+        covariance sum. Feature padding is sliced off."""
+        np_dtype = np.dtype(torch.empty((), dtype=self.dtype).numpy().dtype)
+        if self._gang:
+            from spark_rapids_ml_tpu_torch.parallel.distributed import shard_rows_process_local
+
+            xs = shard_rows_process_local(self.partitions, self.mesh, dtype=np_dtype)
+            # Shape facts are global after the handshake; the <2 check runs
+            # here, alike on every process.
+            self._num_rows, self._num_cols = xs.n, xs.d
+            if xs.n < 2:
+                raise ValueError(f"need at least 2 rows, got {xs.n}")
+        else:
+            xs = shard_rows_from_partitions(self.partitions, self.mesh, dtype=np_dtype)
+        d = xs.d
+        mean, cov = distributed_mean_and_covariance(
+            xs, None, self.mesh, precision=self.precision, center=self.mean_centering
+        )
+        return mean[:d], cov[:d, :d]
 
     def _covariance_streaming(self) -> torch.Tensor:
         """Covariance of a streaming source: one pass, one block on the
@@ -277,6 +355,8 @@ class RowMatrix:
         native accumulator on the packed route. Records the shape the pass
         found."""
         device = self._device()
+        if self.mesh is not None:
+            return self._covariance_streaming_mesh(device)
         if not self.use_gemm:
             if native.available():
                 bump_counter("pca.packed.native")
@@ -298,6 +378,32 @@ class RowMatrix:
                 precision=self.precision,
                 device=device,
             )
+        self._num_rows = int(n)
+        self._num_cols = int(cov.shape[0])
+        return torch.from_numpy(cov).to(device=device, dtype=self.dtype)
+
+    def _covariance_streaming_mesh(self, device: torch.device) -> torch.Tensor:
+        """A stream over the mesh: in a gang each process streams its own
+        blocks and the moments merge (psum, or the exact float64 allgather
+        for ``dd``); in one process each block is split over the data
+        axis."""
+        blocks = iter_stream_blocks(self._stream)
+        if self._gang:
+            from spark_rapids_ml_tpu_torch.parallel.distributed import streaming_covariance_process_local
+
+            with TraceRange("compute cov (stream, multiproc)", TraceColor.RED):
+                _, cov, n = streaming_covariance_process_local(
+                    blocks, center=self.mean_centering, dtype=self.dtype,
+                    precision=self.precision, mesh=self.mesh,
+                )
+        else:
+            from spark_rapids_ml_tpu_torch.ops.covariance import streaming_mean_and_covariance_mesh
+
+            with TraceRange("compute cov (stream, mesh)", TraceColor.RED):
+                _, cov, n = streaming_mean_and_covariance_mesh(
+                    blocks, self.mesh, center=self.mean_centering, dtype=self.dtype,
+                    precision=self.precision,
+                )
         self._num_rows = int(n)
         self._num_cols = int(cov.shape[0])
         return torch.from_numpy(cov).to(device=device, dtype=self.dtype)
@@ -381,9 +487,12 @@ class RowMatrix:
                     precision=self.precision,
                     eigen_solver=self.eigen_solver,
                     eigen_iters=self.eigen_iters,
+                    mesh=self.mesh,
                 )  # device tensors: the model reads them back lazily
-        # A stream learns its width during the pass: validate k after it.
-        if self._stream is None and not 1 <= k <= self.num_cols:
+        # A stream learns its width during the pass, and a gang member its
+        # global width from the handshake: validate k after those.
+        shape_known = self._stream is None and not self._gang
+        if shape_known and not 1 <= k <= self.num_cols:
             raise ValueError(f"k must be in [1, {self.num_cols}], got {k}")
         cov = self.compute_covariance()
         n_cols = self.num_cols

@@ -133,7 +133,10 @@ class DBSCAN(_DBSCANParams, Estimator, MLReadable):
     def fit(self, dataset: Any) -> "DBSCANModel":
         """Cluster the rows: a tensor where it lives, host rows in float64
         on the platform's device. Overrides ``fit`` (not ``_fit``), as the
-        reference does."""
+        reference does. A gang fit (``deployMode="gang"``) needs the
+        sharded route and raises its ROADMAP item."""
+        if self.getDeployMode() == "gang":
+            raise NotImplementedError(MESH_ITEM)
         x = matrix_like(extract_features(dataset, self.getFeaturesCol()))
         xd = _rows_on_device(x)
         with TraceRange("dbscan fit", TraceColor.RED):

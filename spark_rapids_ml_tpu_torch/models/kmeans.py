@@ -35,9 +35,14 @@ budget it reroutes to the streaming fit through a ``HostArrayBlockReader``
 ``KMeansModel.serving_signature()`` declares the assignment kernel
 ``predict`` runs, for the pipeline fuser.
 
-Left out until their ROADMAP items: a mesh (A.7d) raises
-``NotImplementedError``; the checkpointed Lloyd (A.7b) is switched on by
-knobs the port does not read yet, so no fit reaches it.
+With a mesh (``KMeans(mesh=make_mesh(...))``, or ``setDeployMode("gang")``
+in a gang) the rows are placed over it by ``prepare_rows`` and Lloyd runs
+per data shard with its statistics summed over the data axis
+(``ops/kmeans.py``), on the ``xla`` route: the kernels' blockers include
+a mesh, as in the reference. A streaming source refuses a mesh.
+
+Left out until its ROADMAP item: the checkpointed Lloyd (A.7b) is
+switched on by knobs the port does not read yet, so no fit reaches it.
 """
 
 from __future__ import annotations
@@ -74,6 +79,7 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
 from spark_rapids_ml_tpu_torch.core.serving import note_device_cache, serve_blocks, serve_rows
 from spark_rapids_ml_tpu_torch.ops.kernels.kmeans import fused_feasible, lloyd_fused, packed_feasible
 from spark_rapids_ml_tpu_torch.ops.kmeans import (
+    as_row_shards,
     assign_clusters,
     kmeans_plusplus_init,
     lloyd,
@@ -85,8 +91,6 @@ from spark_rapids_ml_tpu_torch.ops.kmeans import (
 from spark_rapids_ml_tpu_torch.ops.precision import pallas_precision, resolve_policy, validate_mode
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
-
-MESH_ITEM = "the mesh route of KMeans is not ported yet: ROADMAP A.7d"
 
 
 def _assign_kernel(x, centers, *, cosine: bool, precision: str = "highest"):
@@ -257,8 +261,6 @@ class KMeans(_KMeansParams, Estimator, MLReadable):
         w_host = extract_weights(dataset, self.getWeightCol())
         if is_streaming_source(rows):
             return self._fit_streaming(rows)
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_ITEM)
         # Over budget, the input reroutes to the _fit_streaming an explicit
         # reader takes (bit-identical); a device OOM mid-fit takes the same
         # exit.
@@ -267,7 +269,7 @@ class KMeans(_KMeansParams, Estimator, MLReadable):
             can_stream=w_host is None and self.getBackend() != "fused",
             why_cannot_stream="the streaming KMeans path supports neither "
                               "weightCol nor backend='fused'",
-            ledger_families=("kmeans",),
+            mesh=self.mesh, ledger_families=("kmeans",),
         )
 
     # Seeding reservoir of a streaming fit: large enough that k-means++ on
@@ -350,12 +352,19 @@ class KMeans(_KMeansParams, Estimator, MLReadable):
         cosine = self.getDistanceMeasure() == "cosine"
         precision = self._train_precision()
         with TraceRange("kmeans fit", TraceColor.CYAN):
-            xs, mask, n, d = prepare_rows(rows, weights=w_host)
+            xs, mask, n, d = prepare_rows(rows, mesh=self.mesh, weights=w_host)
             if k > n:
                 raise ValueError(f"k={k} exceeds number of rows {n}")
-            if cosine:
-                xs = normalize_rows(xs) * (mask > 0).to(xs.dtype)[:, None]
-            gen = torch.Generator(device=xs.device)
+            if self.mesh is not None:
+                # Each data shard's real rows at the true width (a mesh's
+                # feature padding is dropped here, not sliced off later).
+                xs = as_row_shards(xs, cosine=cosine)
+                device, dtype = xs.device, xs.x[0].dtype
+            else:
+                if cosine:
+                    xs = normalize_rows(xs) * (mask > 0).to(xs.dtype)[:, None]
+                device, dtype = xs.device, xs.dtype
+            gen = torch.Generator(device=device)
             gen.manual_seed(self.getSeed())
             if self._initial_centers is not None:
                 if self._initial_centers.shape[0] != k:
@@ -367,7 +376,7 @@ class KMeans(_KMeansParams, Estimator, MLReadable):
                         f"initial centers have {self._initial_centers.shape[1]} features "
                         f"but the data has {d}"
                     )
-                init = torch.tensor(self._initial_centers, dtype=xs.dtype, device=xs.device)
+                init = torch.tensor(self._initial_centers, dtype=dtype, device=device)
                 if cosine:
                     init = normalize_rows(init)
             elif self.getInitMode() == "random":
@@ -375,7 +384,7 @@ class KMeans(_KMeansParams, Estimator, MLReadable):
             else:
                 init = kmeans_plusplus_init(xs, mask, gen, k)
             backend = self._resolve_backend(
-                w_host, n * k, d=d, k=k, dtype=xs.dtype, device=xs.device
+                w_host, n * k, d=d, k=k, dtype=dtype, device=device
             )
             if backend == "fused":
                 with TraceRange("kmeans lloyd fused", TraceColor.PURPLE):

@@ -28,8 +28,13 @@ device OOM mid-fit; ``weightCol`` cannot stream, so it raises
 ``LinearRegressionModel.serving_signature()`` declares the prediction
 kernel ``predict`` runs, for the pipeline fuser.
 
-Left out until their ROADMAP items: a mesh (A.9, item 8d) raises
-``NotImplementedError``; the resumable FISTA (A.9, robustness) is
+With a mesh (``LinearRegression(mesh=make_mesh(...))``, or
+``setDeployMode("gang")`` in a gang) each data shard computes its
+sufficient statistics and ``psum_data`` sums them; the solvers run on the
+reduced O(d²) statistics and need no collective. A mesh fit takes a list
+of blocks as host partitions, not as a stream.
+
+Left out until its ROADMAP item: the resumable FISTA (A.9, robustness) is
 switched on by knobs the port does not read yet, so no fit reaches it.
 """
 
@@ -79,7 +84,6 @@ from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
-MESH_ITEM = "the mesh route of LinearRegression is not ported yet: ROADMAP A.9 (item 8d)"
 
 
 def _predict_kernel(x, coef, intercept, *, precision: str = "highest"):
@@ -258,9 +262,10 @@ class LinearRegression(_LinearRegressionParams, Estimator, MLReadable):
                 "solver='normal' supports only L2 (elasticNetParam must "
                 "be 0); use solver='auto' for elastic net"
             )
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_ITEM)
-        streaming = _streaming_blocks(dataset) if self.getWeightCol() is None else None
+        # A mesh fit takes block lists as host partitions, never the
+        # streaming statistics.
+        streaming = (_streaming_blocks(dataset)
+                     if self.mesh is None and self.getWeightCol() is None else None)
         if streaming is not None:
             prec = self._resolved_precision()
             if prec == "dd":
@@ -280,7 +285,7 @@ class LinearRegression(_LinearRegressionParams, Estimator, MLReadable):
             lambda reader: self._fit((reader, y_in)),
             can_stream=w_host is None,
             why_cannot_stream="the streaming path does not support weightCol",
-            dtype=torch.float64, ledger_families=("linear", "linreg"),
+            mesh=self.mesh, dtype=torch.float64, ledger_families=("linear", "linreg"),
         )
 
     def _fit_in_memory(self, x_in, y_in, w_host, prec: str) -> "LinearRegressionModel":
@@ -292,9 +297,15 @@ class LinearRegression(_LinearRegressionParams, Estimator, MLReadable):
                 )
             return self._fit_dd([(x_in, y_in)])
         with TraceRange("linreg fit", TraceColor.DARK_GREEN):
-            xs, mask, n, d = prepare_rows(x_in, dtype=torch.float64, weights=w_host)
-            ys = prepare_labels(y_in, n, n_true=n, dtype=xs.dtype, device=xs.device)
-            stats = normal_eq_stats(xs, ys, None if w_host is None else mask.to(xs.dtype), precision=prec)
+            xs, mask, n, d = prepare_rows(x_in, mesh=self.mesh, dtype=torch.float64, weights=w_host)
+            if self.mesh is not None:
+                # Per-shard statistics summed over the data axis: every
+                # process of a gang solves the same normal equations.
+                ys = prepare_labels(y_in, n, dtype=xs.dtype, rows=xs)
+                stats = normal_eq_stats(xs, ys, precision=prec)
+            else:
+                ys = prepare_labels(y_in, n, n_true=n, dtype=xs.dtype, device=xs.device)
+                stats = normal_eq_stats(xs, ys, None if w_host is None else mask.to(xs.dtype), precision=prec)
             coef, intercept = self._solve_from_stats(stats, d)
         # Solve outputs stay where they are; the host views convert lazily.
         return self._copyValues(LinearRegressionModel(self.uid, coef, intercept))

@@ -30,9 +30,14 @@ they raise ``FitMemoryError`` instead.
 kernel ``predict`` runs, with :func:`_select_labels` as its
 transform-on-array contract, for the pipeline fuser.
 
-Left out until their ROADMAP items: a mesh (A.9, item 9d) raises
-``NotImplementedError``; the resumable L-BFGS (A.9, robustness) is
-switched on by knobs the port does not read yet, so no fit reaches it.
+With a mesh (``LogisticRegression(mesh=make_mesh(...))``, or
+``setDeployMode("gang")`` in a gang) the objective is summed per data
+shard and over the data axis (``ops/logistic.py``); a gang agrees on the
+class count first (``allgather_host_max``). A streaming source refuses a
+mesh.
+
+Left out until its ROADMAP item: the resumable L-BFGS (A.9, robustness)
+is switched on by knobs the port does not read yet, so no fit reaches it.
 """
 
 from __future__ import annotations
@@ -69,11 +74,12 @@ from spark_rapids_ml_tpu_torch.ops.logistic import (
     streaming_label_feature_stats,
 )
 from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy, validate_mode
+from spark_rapids_ml_tpu_torch.parallel.collectives import process_count
+from spark_rapids_ml_tpu_torch.parallel.distributed import allgather_host_max
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
-MESH_ITEM = "the mesh route of LogisticRegression is not ported yet: ROADMAP A.9 (item 9d)"
 
 
 def _forward_kernel(x, w, b, *, n_classes: int = 0, threshold: float, precision: str = "highest"):
@@ -283,9 +289,12 @@ class LogisticRegression(_LogisticRegressionParams, Estimator, MLReadable):
         return resolve_policy("logistic", requested, default=self.getPrecision())
 
     def _fit(self, dataset: Any) -> "LogisticRegressionModel":
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_ITEM)
         if isinstance(dataset, tuple) and len(dataset) == 2 and is_streaming_source(dataset[0]):
+            if self.mesh is not None:
+                raise ValueError(
+                    "streaming LogisticRegression is single-device; pass host "
+                    "partitions for a mesh fit"
+                )
             return self._fit_streaming(dataset)
         x_in, y_in = _extract_xy(dataset, self.getFeaturesCol(), self.getLabelCol())
         w_host = extract_weights(dataset, self.getWeightCol())
@@ -302,16 +311,23 @@ class LogisticRegression(_LogisticRegressionParams, Estimator, MLReadable):
             ),
             why_cannot_stream="the streaming path supports neither "
                               "weightCol, elastic net, nor warm starts",
-            dtype=torch.float64, ledger_families=("logistic",),
+            mesh=self.mesh, dtype=torch.float64, ledger_families=("logistic",),
         )
 
     def _fit_in_memory(self, x_in, y_in, w_host) -> "LogisticRegressionModel":
         # Tensor labels validate where they live: one readback.
         y_int, n_classes = validate_int_labels(y_in)
+        if self.mesh is not None and process_count() > 1:
+            # Each member counted classes from its own labels; the class
+            # count sets the objective's shapes, so the gang agrees on it.
+            n_classes = allgather_host_max(n_classes)
         family, n_classes = _resolve_family(self.getFamily(), n_classes)
         with TraceRange("logreg fit", TraceColor.YELLOW):
-            xs, mask, n, d = prepare_rows(x_in, dtype=torch.float64, weights=w_host)
-            ys = prepare_labels(y_int, n, n_true=n, dtype=torch.int64, device=xs.device)
+            xs, mask, n, d = prepare_rows(x_in, mesh=self.mesh, dtype=torch.float64, weights=w_host)
+            if self.mesh is not None:
+                ys = prepare_labels(y_int, n, dtype=torch.int64, rows=xs)
+            else:
+                ys = prepare_labels(y_int, n, n_true=n, dtype=torch.int64, device=xs.device)
             multinomial = family == "multinomial"
             common = dict(
                 n_classes=n_classes,

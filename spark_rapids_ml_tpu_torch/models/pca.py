@@ -30,8 +30,15 @@ reference: a host input over the budget refits through a
 ``HostArrayBlockReader`` on the streaming route an explicit reader takes
 (bit-identical to it), and a device OOM mid-fit takes the same exit;
 ``covarianceBackend="pallas"`` cannot stream, so it raises
-``FitMemoryError`` instead. A mesh raises ``NotImplementedError`` naming
-its slice.
+``FitMemoryError`` instead.
+
+With a mesh (``PCA(mesh=make_mesh(...))``, or ``setDeployMode("gang")``
+in a gang) the covariance routes run over it (``linalg/row_matrix.py``)
+and the sketch runs row-sharded (``ops/randomized.py``); a mesh fit is
+admitted as it is, without a streaming reroute, as in the reference.
+``"auto"`` keeps the covariance for a wide input whose model axis would
+pad the features (the sketch does not shard the model axis); the
+streaming sketch and the sketch in a gang refuse a mesh.
 """
 
 from __future__ import annotations
@@ -68,10 +75,16 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     save_metadata,
 )
 from spark_rapids_ml_tpu_torch.core.serving import note_device_cache, serve_blocks, serve_rows, serve_stream
-from spark_rapids_ml_tpu_torch.linalg.row_matrix import MESH_SLICE, RowMatrix
+from spark_rapids_ml_tpu_torch.linalg.row_matrix import RowMatrix
 from spark_rapids_ml_tpu_torch.ops.linalg import project_rows, validate_precision
 from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy
 from spark_rapids_ml_tpu_torch.ops.randomized import randomized_pca, randomized_pca_streaming
+from spark_rapids_ml_tpu_torch.parallel.collectives import process_count
+from spark_rapids_ml_tpu_torch.parallel.mesh import (
+    device_array_rows_on_mesh,
+    model_axis_size,
+    shard_rows_from_partitions,
+)
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
@@ -246,8 +259,6 @@ class PCA(_PCAParams, Estimator, MLReadable):
 
     def _fit(self, dataset: Any) -> "PCAModel":
         rows = extract_column(dataset, self.getInputCol())
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_SLICE)
         # Over budget, the input re-enters as a block reader: the streaming
         # route an explicit reader takes, bit for bit. (The reference
         # re-enters _fit, whose own recovery turns a streaming OOM into
@@ -257,7 +268,8 @@ class PCA(_PCAParams, Estimator, MLReadable):
             can_stream=self.getCovarianceBackend() != "pallas",
             why_cannot_stream="covarianceBackend='pallas' needs the "
                               "materialized single-device path",
-            dtype=torch.float64, ledger_families=("pca",), device_id=self.getGpuId(),
+            mesh=self.mesh, dtype=torch.float64, ledger_families=("pca",),
+            device_id=self.getGpuId(),
         )
 
     def _fit_in_memory(self, rows: Any) -> "PCAModel":
@@ -273,36 +285,57 @@ class PCA(_PCAParams, Estimator, MLReadable):
                 "(zero-arg callable) or a block reader (iter_blocks), or "
                 "use solver='covariance' (one-pass)"
             )
+        if solver == "randomized" and streaming and self.mesh is not None:
+            # An explicit mesh is never dropped: the streaming sketch is
+            # single-device.
+            raise ValueError(
+                "the streaming randomized solver is single-device; unset "
+                "the mesh, materialize the input (mesh-sharded sketch), or "
+                "use solver='covariance' (streamed mesh covariance)"
+            )
+        if solver == "randomized" and process_count() > 1:
+            raise ValueError(
+                "the randomized solver has no multi-process path; use "
+                "solver='covariance' (per-executor streaming + moment merge)"
+            )
         if solver == "randomized" and self.getPrecision() == "dd":
             raise ValueError(
                 "the randomized solver has no dd path; use "
                 "solver='covariance' with precision='dd'"
             )
-        if backend == "pallas" and (streaming or not self.getUseGemm() or solver == "randomized"):
+        if backend == "pallas" and (
+            self.mesh is not None or streaming or not self.getUseGemm() or solver == "randomized"
+        ):
             raise ValueError(
                 "covarianceBackend='pallas' applies to the single-device "
-                "materialized GEMM covariance path (no streaming source, "
-                "useGemm=True, solver != 'randomized')"
+                "materialized GEMM covariance path (no mesh, no streaming "
+                "source, useGemm=True, solver != 'randomized')"
             )
         # Resolve "auto" against the RAW input dtype, before densification.
         requested = self.getPrecision()
         input_dtype = infer_input_dtype(rows) if requested == "auto" else None
         explicit = requested if self.isSet(self.precision) else None
         requested = resolve_policy("pca", explicit, default=requested)
-        resolved = RowMatrix.resolve(requested, input_dtype=input_dtype, backend=backend)
+        resolved = RowMatrix.resolve(requested, mesh=self.mesh, input_dtype=input_dtype, backend=backend)
         if solver == "randomized":
             return self._fit_randomized(rows)
         # "auto" peeks at the width only (the first block of a fresh
         # iterator for a re-iterable stream). dd and pallas ask for the
         # covariance path; a one-shot generator keeps it at any width.
-        if solver == "auto" and resolved != "dd" and backend != "pallas":
+        if solver == "auto" and process_count() == 1 and resolved != "dd" and backend != "pallas":
             if streaming:
+                # A stream over a mesh keeps the streamed mesh covariance.
                 wide = (
-                    is_reiterable_stream(rows)
+                    self.mesh is None
+                    and is_reiterable_stream(rows)
                     and peek_stream_width(rows) >= self._RANDOMIZED_AUTO_DIM
                 )
             else:
                 wide = num_features(rows) >= self._RANDOMIZED_AUTO_DIM
+                if wide and self.mesh is not None:
+                    # The sketch does not shard the model axis: a mesh whose
+                    # model axis would pad the features keeps the covariance.
+                    wide = num_features(rows) % model_axis_size(self.mesh) == 0
             if wide:
                 return self._fit_randomized(rows)
         mat = RowMatrix(
@@ -311,6 +344,7 @@ class PCA(_PCAParams, Estimator, MLReadable):
             use_gemm=self.getUseGemm(),
             use_accel_svd=self.getUseCuSolverSVD(),
             device_id=self.getGpuId(),
+            mesh=self.mesh,
             precision=resolved,
             backend=backend,
             eigen_solver=self.getEigenSolver(),
@@ -330,7 +364,10 @@ class PCA(_PCAParams, Estimator, MLReadable):
         """The wide-feature path, no (d, d) covariance: a tensor is
         sketched where it lives and stays lazy; a host matrix goes to the
         ``gpuId`` device in float64; a re-iterable stream runs
-        :func:`randomized_pca_streaming` in float64 on that device."""
+        :func:`randomized_pca_streaming` in float64 on that device. With a
+        mesh, the rows are sharded over it (host partitions in float64)
+        and the sketch runs row-sharded; its features must divide the
+        model axis."""
         k = self.getK()
         prec = self._sketch_precision()
         center = self.getMeanCentering()
@@ -343,7 +380,9 @@ class PCA(_PCAParams, Estimator, MLReadable):
                 device=_device.resolve_device(self.getGpuId()),
             )
             return self._copyValues(PCAModel(self.uid, comps, ratio))
-        if is_device_array(rows):
+        if self.mesh is not None:
+            x = self._sketch_rows_on_mesh(rows, k)
+        elif is_device_array(rows):
             if rows.dim() != 2:
                 raise ValueError(
                     f"device-array input must be 2-D (n, d), got shape {tuple(rows.shape)}"
@@ -352,12 +391,43 @@ class PCA(_PCAParams, Estimator, MLReadable):
             x = rows
         else:
             x = torch.from_numpy(as_matrix(rows)).to(_device.resolve_device(self.getGpuId()))
-        n, d = x.shape
+        n, d = (x.n, x.d) if self.mesh is not None else x.shape
         if not 1 <= k <= min(n, d):
             raise ValueError(f"k must be in [1, {min(n, d)}], got {k}")
         with TraceRange("randomized fit", TraceColor.PURPLE):
             comps, ratio, _ = randomized_pca(x, k, center=center, precision=prec)
         return self._copyValues(PCAModel(self.uid, comps, ratio))
+
+
+    def _sketch_rows_on_mesh(self, rows, k: int):
+        """The sketch's rows over the mesh: a tensor split where it lives
+        (rows dividing the data axis, features the model axis), host
+        partitions placed in float64. The sketch does not pad the model
+        axis, so features must divide it."""
+        mp = model_axis_size(self.mesh)
+        if is_device_array(rows):
+            if rows.dim() != 2:
+                raise ValueError(
+                    f"device-array input must be 2-D (n, d), got shape {tuple(rows.shape)}"
+                )
+            _device.device_of(rows)
+            if rows.shape[1] % mp != 0:
+                raise ValueError(
+                    "the randomized solver does not shard the model "
+                    f"axis (features {rows.shape[1]} would pad to a multiple of "
+                    f"{mp}); use a (dp, 1) mesh or solver='covariance'"
+                )
+            return device_array_rows_on_mesh(rows, self.mesh, shard_features=mp > 1)
+        x = shard_rows_from_partitions(as_partitions(rows), self.mesh, dtype=np.float64)
+        if not 1 <= k <= min(x.n, x.d):
+            raise ValueError(f"k must be in [1, {min(x.n, x.d)}], got {k}")
+        if x.d_pad != x.d:
+            raise ValueError(
+                "the randomized solver does not shard the model axis "
+                f"(features {x.d} pad to {x.d_pad}); use a (dp, 1) "
+                "mesh or solver='covariance'"
+            )
+        return x
 
 
 class PCAModel(_PCAParams, Model, LazyHostState):

@@ -163,3 +163,51 @@ def streaming_mean_and_covariance(
         return centered_gram(bs, torch.zeros(bs.shape[1], dtype=dtype, device=bs.device), precision=precision)
 
     return finalize_shifted_gram(*shifted_block_scan(blocks, center, gram_fn, device), center)
+
+
+def _sharded_block_gram(bs: torch.Tensor, mesh, dtype: torch.dtype, precision: str) -> torch.Tensor:
+    """The Gram of one shifted block split over the mesh's data axis: each
+    shard's Gram where that shard lives, summed over the data axis on the
+    first device (features are not split, as in the reference's
+    ``P(data, None)`` block layout)."""
+    from spark_rapids_ml_tpu_torch.parallel.collectives import psum_data
+
+    grid = mesh.grid
+    dp = grid.shape[0]
+    per = -(-bs.shape[0] // dp)
+    dot = make_dot(precision)
+    grams = []
+    for i in range(dp):
+        shard = bs[i * per:(i + 1) * per].to(device=grid[i, 0], dtype=dtype)
+        grams.append(dot(shard.T, shard))
+    return psum_data(grams, mesh.first_device)
+
+
+def streaming_mean_and_covariance_mesh(
+    blocks: Iterable[Any],
+    mesh,
+    center: bool = True,
+    dtype: torch.dtype = torch.float64,
+    precision: str = "highest",
+):
+    """One pass over streamed host blocks, each split over the mesh's data
+    axis: :func:`streaming_mean_and_covariance` with the per-block Gram
+    taken per shard and summed over the data axis. A block goes to the
+    mesh's first device, is shifted there in float64 and split; host and
+    per-device memory stay bounded by one block. Returns host float64
+    ``(mean, cov, n)``. A gang has its own route,
+    ``parallel.distributed.streaming_covariance_process_local``."""
+    from spark_rapids_ml_tpu_torch.parallel.collectives import process_count
+
+    if process_count() > 1:
+        raise ValueError(
+            "this single-process sharded-block path has a multi-process "
+            "sibling: parallel.distributed.streaming_covariance_process_local "
+            "(each process streams its LOCAL blocks; RowMatrix routes there "
+            "automatically)"
+        )
+
+    def gram_fn(bs: torch.Tensor) -> torch.Tensor:
+        return _sharded_block_gram(bs, mesh, dtype, precision)
+
+    return finalize_shifted_gram(*shifted_block_scan(blocks, center, gram_fn, mesh.first_device), center)

@@ -26,6 +26,15 @@ this route, as in the reference.
 (block, k) distance matrix exists at a time: the IVF coarse quantizer's
 final assignment at shapes whose full (n, k) matrix would not fit.
 
+Over a mesh (:class:`RowShards`, built from a ``ShardedRows`` by
+:func:`as_row_shards`) each data shard computes its assignment and
+statistics where it lives, the sums meet in ``psum_data`` and the centre
+update runs on the first device. The seeding draws its uniforms for the
+global row order from the one generator and splits them by shard, and
+its top-t choices and candidate rows are taken over all shards, so a mesh
+fit draws what the single-device fit draws and differs from it only in
+the order of its sums.
+
 Left for later slices: ``lloyd_resumable``/``_lloyd_segment``
 (checkpointed Lloyd).
 """
@@ -33,7 +42,7 @@ Left for later slices: ``lloyd_resumable``/``_lloyd_segment``
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Iterable, Optional, Tuple, Union
+from typing import Any, Callable, Iterable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,12 +50,97 @@ import torch
 from spark_rapids_ml_tpu_torch.core.data import _block_to_dense
 from spark_rapids_ml_tpu_torch.core.serving import prefetch_blocks, upload_block
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
+from spark_rapids_ml_tpu_torch.parallel.collectives import all_reduce_sum, allreduce_slots, in_gang, psum_data
+from spark_rapids_ml_tpu_torch.parallel.mesh import ShardedRows
 
 Dot = Union[str, Callable]
 
 
 def _as_dot(dot: Dot) -> Callable:
     return make_dot(dot) if isinstance(dot, str) else dot
+
+
+class RowShards(NamedTuple):
+    """The rows of a fit as data shards: each shard's real rows and row
+    weights where they live, the global index of each shard's first row,
+    the gang's row count, and the device the centres live on. One tensor
+    is one shard at offset 0."""
+
+    x: List[torch.Tensor]
+    mask: List[torch.Tensor]
+    offsets: List[int]
+    n: int
+    device: torch.device
+
+
+def as_row_shards(x: Any, mask: Optional[torch.Tensor] = None, cosine: bool = False) -> RowShards:
+    """A tensor (with its mask) or a ``ShardedRows`` as :class:`RowShards`
+    (features past the true width dropped); ``cosine`` unit-normalizes a
+    ShardedRows' rows, zeroing those of weight 0."""
+    if isinstance(x, RowShards):
+        return x
+    if not isinstance(x, ShardedRows):
+        return RowShards([x], [mask], [0], int(x.shape[0]), x.device)
+    xs, ms = [], []
+    for i in range(len(x.blocks)):
+        xi = x.local_rows(i)
+        wi = x.local_weights(i)
+        mi = torch.ones(xi.shape[0], dtype=xi.dtype, device=xi.device) if wi is None else wi.to(xi.dtype)
+        if cosine:
+            xi = normalize_rows(xi) * (mi > 0).to(xi.dtype)[:, None]
+        xs.append(xi)
+        ms.append(mi)
+    return RowShards(xs, ms, list(x.offsets), x.n, x.mesh.first_device)
+
+
+def _split_global(v: torch.Tensor, shards: RowShards) -> List[torch.Tensor]:
+    """A vector over the gang's rows in global order, cut into the local
+    shards' pieces (on their devices)."""
+    return [v[off:off + xi.shape[0]].to(xi.device) for xi, off in zip(shards.x, shards.offsets)]
+
+
+def _global_index(shards: RowShards, device: torch.device) -> torch.Tensor:
+    """The global row index of every local row, in shard order."""
+    return torch.cat([torch.arange(off, off + xi.shape[0], device=device)
+                      for xi, off in zip(shards.x, shards.offsets)])
+
+
+def _global_topk(scores: List[torch.Tensor], shards: RowShards, t: int):
+    """``(values, global row indices)`` of the ``t`` largest scores over
+    every shard of the gang. In one process: ``topk`` of the shards'
+    scores joined in global order. In a gang each process offers its own
+    top ``t`` and the merged candidates are ranked again."""
+    dev = shards.device
+    local = scores[0].to(dev) if len(scores) == 1 else torch.cat([sc.to(dev) for sc in scores])
+    if not in_gang():
+        vals, pos = torch.topk(local, t)
+        return vals, pos + shards.offsets[0] if len(scores) == 1 else _global_index(shards, dev)[pos]
+    take = min(t, int(local.shape[0]))
+    vals = torch.full((t,), -math.inf, dtype=local.dtype, device=dev)
+    idx = torch.full((t,), -1, dtype=torch.int64, device=dev)
+    if take:
+        v, pos = torch.topk(local, take)
+        vals[:take] = v
+        idx[:take] = _global_index(shards, dev)[pos]
+    all_vals = allreduce_slots(vals).reshape(-1)
+    all_idx = allreduce_slots(idx).reshape(-1)
+    top, pos = torch.topk(all_vals, t)
+    return top, all_idx[pos]
+
+
+def _rows_at(parts: List[torch.Tensor], shards: RowShards, gidx: torch.Tensor) -> torch.Tensor:
+    """``parts`` (one tensor per shard, rows first) at global row indices
+    ``gidx``, on the centres' device; each row comes from the shard (and
+    process) that holds it."""
+    dev = shards.device
+    if len(parts) == 1 and not in_gang():
+        return parts[0][gidx.to(parts[0].device)].to(dev)
+    out = torch.zeros((gidx.shape[0],) + tuple(parts[0].shape[1:]), dtype=parts[0].dtype, device=dev)
+    for p, off in zip(parts, shards.offsets):
+        sel = (gidx >= off) & (gidx < off + p.shape[0])
+        if bool(sel.any()):
+            out[sel] = p[(gidx[sel] - off).to(p.device)].to(dev)
+    return all_reduce_sum(out)
 
 
 def _sq_dists(x: torch.Tensor, centers: torch.Tensor, x2: torch.Tensor, dot: Callable) -> torch.Tensor:
@@ -100,25 +194,36 @@ def _assign_and_accumulate(xb, mb, x2b, centers, k: int, dot: Callable):
     return sums, counts, cost
 
 
-def lloyd_step(x, mask, centers, x2, dot: Dot, cosine: bool = False,
-               block_rows: Optional[int] = None):
-    """One Lloyd iteration: (new_centers, cost). ``dot`` is a mode name or
-    a matmul callable. ``block_rows`` walks the rows in blocks so only a
-    (block, k) distance matrix exists at a time; the last block may be
-    short (a tensor slice needs no padding)."""
-    dot = _as_dot(dot)
+def _shard_stats(x, mask, x2, centers, dot: Callable, block_rows: Optional[int]):
+    """One shard's (sums (k, d), counts (k,), cost); ``block_rows`` walks
+    its rows in blocks so only a (block, k) distance matrix exists at a
+    time (the last block may be short)."""
     k = centers.shape[0]
     n = x.shape[0]
     if block_rows is None or n <= block_rows:
-        sums, counts, cost = _assign_and_accumulate(x, mask, x2, centers, k, dot)
-    else:
-        sums = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
-        counts = torch.zeros((k,), dtype=x.dtype, device=x.device)
-        cost = torch.zeros((), dtype=x.dtype, device=x.device)
-        for i in range(0, n, block_rows):
-            j = slice(i, i + block_rows)
-            sb, cb, jb = _assign_and_accumulate(x[j], mask[j], x2[j], centers, k, dot)
-            sums, counts, cost = sums + sb, counts + cb, cost + jb
+        return _assign_and_accumulate(x, mask, x2, centers, k, dot)
+    sums = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
+    counts = torch.zeros((k,), dtype=x.dtype, device=x.device)
+    cost = torch.zeros((), dtype=x.dtype, device=x.device)
+    for i in range(0, n, block_rows):
+        j = slice(i, i + block_rows)
+        sb, cb, jb = _assign_and_accumulate(x[j], mask[j], x2[j], centers, k, dot)
+        sums, counts, cost = sums + sb, counts + cb, cost + jb
+    return sums, counts, cost
+
+
+def lloyd_step(x, mask, centers, x2, dot: Dot, cosine: bool = False,
+               block_rows: Optional[int] = None):
+    """One Lloyd iteration: (new_centers, cost). ``dot`` is a mode name or
+    a matmul callable. ``x`` is a tensor (with ``mask`` and ``x2``) or
+    :class:`RowShards` (``x2`` then one tensor per shard): each shard's
+    statistics are summed over the data axis before the update."""
+    dot = _as_dot(dot)
+    shards = as_row_shards(x, mask)
+    x2s = [x2] if isinstance(x2, torch.Tensor) else x2
+    stats = [_shard_stats(xi, mi, x2i, centers.to(xi.device), dot, block_rows)
+             for xi, mi, x2i in zip(shards.x, shards.mask, x2s)]
+    sums, counts, cost = (psum_data(list(parts), shards.device) for parts in zip(*stats))
     new_centers = torch.where(
         counts[:, None] > 0, sums / torch.clamp(counts, min=1.0)[:, None], centers
     )
@@ -127,20 +232,21 @@ def lloyd_step(x, mask, centers, x2, dot: Dot, cosine: bool = False,
     return new_centers, cost
 
 
-def _auto_block_rows(n: int, k: int, block_rows: Optional[int]) -> int:
-    """``block_rows=None``: unblocked (``n + 1``) while the (n, k) float32
-    temporary stays under ~9 GB, else blocks of ~1 GB of temporaries (the
-    reference's static rule; its autotuner is not ported)."""
+def _auto_block_rows(n: int, k: int, block_rows: Optional[int], data_shards: int = 1) -> int:
+    """``block_rows=None``: unblocked (``n + 1``) while a device's (n, k)
+    float32 temporary (``n / data_shards`` rows) stays under ~9 GB, else
+    blocks of ~1 GB of temporaries (the reference's static rule; its
+    autotuner is not ported)."""
     if block_rows is not None:
         return block_rows
-    if 4 * n * k > 9_000_000_000:
+    if 4 * n * k // max(data_shards, 1) > 9_000_000_000:
         return max(8, (250_000_000 // max(k, 1) // 8) * 8)
     return n + 1
 
 
 def lloyd(
-    x: torch.Tensor,
-    mask: torch.Tensor,
+    x: Any,
+    mask: Optional[torch.Tensor],
     init_centers: torch.Tensor,
     max_iter: int = 20,
     tol: float = 1e-4,
@@ -151,19 +257,21 @@ def lloyd(
     """Full Lloyd fit: (centers, cost, n_iter). Stops when no center moves
     more than ``tol`` (euclidean) or at ``max_iter``, then evaluates the
     cost once more at the converged centers. With ``cosine`` the centers
-    stay unit-normalized (rows must already be)."""
+    stay unit-normalized (rows must already be). ``x`` is a tensor with
+    its ``mask``, or :class:`RowShards` / a ``ShardedRows`` over a mesh."""
     dot = make_dot(precision)
-    block_rows = _auto_block_rows(x.shape[0], init_centers.shape[0], block_rows)
-    x2 = torch.sum(x * x, dim=1)
-    centers = init_centers
-    moved = torch.tensor(math.inf, dtype=x.dtype)
+    shards = as_row_shards(x, mask)
+    block_rows = _auto_block_rows(shards.n, init_centers.shape[0], block_rows, len(shards.x))
+    x2 = [torch.sum(xi * xi, dim=1) for xi in shards.x]
+    centers = init_centers.to(shards.device)
+    moved = torch.tensor(math.inf, dtype=centers.dtype)
     it = 0
     while bool(moved > tol * tol) and it < max_iter:
-        new_centers, _ = lloyd_step(x, mask, centers, x2, dot, cosine=cosine, block_rows=block_rows)
+        new_centers, _ = lloyd_step(shards, None, centers, x2, dot, cosine=cosine, block_rows=block_rows)
         moved = torch.max(torch.sum((new_centers - centers) ** 2, dim=1))
         centers = new_centers
         it += 1
-    _, cost = lloyd_step(x, mask, centers, x2, dot, cosine=cosine, block_rows=block_rows)
+    _, cost = lloyd_step(shards, None, centers, x2, dot, cosine=cosine, block_rows=block_rows)
     return centers, cost, it
 
 
@@ -268,9 +376,17 @@ def _gumbel(n: int, like: torch.Tensor, generator: torch.Generator) -> torch.Ten
     return -torch.log(-torch.log(u))
 
 
+def _shard_gumbel(shards: RowShards, generator: torch.Generator) -> List[torch.Tensor]:
+    """Gumbel noise for the gang's rows in global order, drawn from the one
+    generator on the centres' device and cut into the local shards."""
+    like = torch.empty((), dtype=shards.x[0].dtype, device=shards.device)
+    g = _gumbel(shards.n, like, generator)
+    return _split_global(g, shards) if len(shards.x) > 1 or in_gang() else [g]
+
+
 def kmeans_plusplus_init(
-    x: torch.Tensor,
-    mask: torch.Tensor,
+    x: Any,
+    mask: Optional[torch.Tensor],
     generator: torch.Generator,
     k: int,
     precision: str = "highest",
@@ -280,41 +396,57 @@ def kmeans_plusplus_init(
     D² sampling with the greedy refinement: each step draws ``2 +
     ceil(log2 k)`` candidate rows with probability ∝ weight·D² (Gumbel-
     top-t) and keeps the one that minimizes the resulting potential. Rows
-    of weight 0 are never chosen and add nothing to the potential."""
+    of weight 0 are never chosen and add nothing to the potential. ``x``
+    is a tensor with its ``mask``, or row shards (the draws are those of
+    the single-device seeding of the same rows)."""
     dot = make_dot(precision)
-    n, d = x.shape
-    neg_inf = torch.tensor(-math.inf, dtype=x.dtype, device=x.device)
-    t = min(2 + max(int(math.ceil(math.log2(k))), 0), n)
-    x2 = torch.sum(x * x, dim=1)
-    g0 = _gumbel(n, x, generator)
-    first = torch.argmax(torch.where(mask > 0, g0, neg_inf))
-    centers = torch.zeros((k, d), dtype=x.dtype, device=x.device)
-    centers[0] = x[first]
-    min_d2 = torch.clamp(x2 - 2.0 * dot(x, x[first]) + x2[first], min=0.0)
+    shards = as_row_shards(x, mask)
+    dev = shards.device
+    d = shards.x[0].shape[1]
+    dtype = shards.x[0].dtype
+    t = min(2 + max(int(math.ceil(math.log2(k))), 0), shards.n)
+    x2 = [torch.sum(xi * xi, dim=1) for xi in shards.x]
+    neg_inf = [torch.tensor(-math.inf, dtype=dtype, device=xi.device) for xi in shards.x]
+    g0 = _shard_gumbel(shards, generator)
+    scores = [torch.where(mi > 0, gi, ni) for mi, gi, ni in zip(shards.mask, g0, neg_inf)]
+    first = _global_topk(scores, shards, 1)[1][0]
+    centers = torch.zeros((k, d), dtype=dtype, device=dev)
+    x_first = _rows_at(shards.x, shards, first.reshape(1))[0]
+    x2_first = _rows_at(x2, shards, first.reshape(1))[0]
+    centers[0] = x_first
+    min_d2 = [torch.clamp(x2i - 2.0 * dot(xi, x_first.to(xi.device)) + x2_first.to(xi.device), min=0.0)
+              for xi, x2i in zip(shards.x, x2)]
     for i in range(1, k):
-        logw = torch.where((mask > 0) & (min_d2 > 0), torch.log(mask * min_d2), neg_inf)
-        g = _gumbel(n, x, generator)
-        cand = torch.topk(logw + g, t).indices
+        logw = [torch.where((mi > 0) & (md > 0), torch.log(mi * md), ni)
+                for mi, md, ni in zip(shards.mask, min_d2, neg_inf)]
+        g = _shard_gumbel(shards, generator)
+        top, cand = _global_topk([lw + gi for lw, gi in zip(logw, g)], shards, t)
         # All-zero residual (duplicate data): take the first row.
-        degenerate = ~torch.isfinite(torch.max(logw))
+        degenerate = ~torch.isfinite(top[0])
         cand = torch.where(degenerate, first, cand)
-        xc = x[cand]
-        d2c = torch.clamp(
-            x2[None, :] - 2.0 * dot(xc, x.T) + torch.sum(xc * xc, dim=1)[:, None], min=0.0
-        )
-        pot = torch.sum(torch.minimum(min_d2[None, :], d2c) * mask[None, :], dim=1)
-        best = torch.argmin(pot)
-        centers[i] = x[cand[best]]
-        min_d2 = torch.minimum(min_d2, d2c[best])
+        xc = _rows_at(shards.x, shards, cand)
+        c2 = torch.sum(xc * xc, dim=1)
+        pots, d2cs = [], []
+        for xi, x2i, mi, md in zip(shards.x, x2, shards.mask, min_d2):
+            d2c = torch.clamp(
+                x2i[None, :] - 2.0 * dot(xc.to(xi.device), xi.T) + c2.to(xi.device)[:, None], min=0.0
+            )
+            pots.append(torch.sum(torch.minimum(md[None, :], d2c) * mi[None, :], dim=1))
+            d2cs.append(d2c)
+        best = torch.argmin(psum_data(pots, dev))
+        centers[i] = xc[best]
+        min_d2 = [torch.minimum(md, d2c[best.to(d2c.device)]) for md, d2c in zip(min_d2, d2cs)]
     return centers
 
 
-def random_init(x: torch.Tensor, mask: torch.Tensor, generator: torch.Generator, k: int) -> torch.Tensor:
+def random_init(x: Any, mask: Optional[torch.Tensor], generator: torch.Generator, k: int) -> torch.Tensor:
     """Random seeding: k distinct rows of nonzero weight, by Gumbel scores
-    and an exact top-k."""
-    g = _gumbel(x.shape[0], x, generator)
-    scores = torch.where(mask > 0, g, torch.tensor(-math.inf, dtype=x.dtype, device=x.device))
-    return x[torch.topk(scores, k).indices]
+    and an exact top-k over every shard."""
+    shards = as_row_shards(x, mask)
+    g = _shard_gumbel(shards, generator)
+    scores = [torch.where(mi > 0, gi, torch.tensor(-math.inf, dtype=gi.dtype, device=gi.device))
+              for mi, gi in zip(shards.mask, g)]
+    return _rows_at(shards.x, shards, _global_topk(scores, shards, k)[1])
 
 
 def normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

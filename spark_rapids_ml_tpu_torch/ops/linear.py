@@ -21,7 +21,7 @@ test once an iteration.
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Tuple
+from typing import Any, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,13 +31,15 @@ from spark_rapids_ml_tpu_torch.core.serving import prefetch_blocks, upload_block
 from spark_rapids_ml_tpu_torch.ops.eigh import _eigh
 from spark_rapids_ml_tpu_torch.ops.linalg import soft_threshold
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
+from spark_rapids_ml_tpu_torch.parallel.collectives import psum_data
+from spark_rapids_ml_tpu_torch.parallel.mesh import ShardedRows
 from spark_rapids_ml_tpu_torch.utils.tracing import bump_counter
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def normal_eq_stats(
-    x: torch.Tensor, y: torch.Tensor, mask: Optional[torch.Tensor] = None, precision: str = "highest"
+    x: Any, y: Any, mask: Optional[torch.Tensor] = None, precision: str = "highest"
 ) -> Stats:
     """Masked sufficient statistics in one pass: ``(xtx, xty, x_sum, y_sum,
     yty, count)``, raw (uncentered) moments; centering happens in the
@@ -45,7 +47,20 @@ def normal_eq_stats(
 
     ``mask=None`` means every row is real with weight 1 and skips the
     masking multiplies: at small d the statistics are bytes-bound and an
-    x·mask pass would double the traffic."""
+    x·mask pass would double the traffic.
+
+    Over a mesh ``x`` is a ``ShardedRows`` and ``y`` its per-shard labels:
+    each data shard's statistics of its real rows (at the true width, its
+    weights as the mask), summed over the data axis by ``psum_data``; the
+    solvers need no collective after that."""
+    if isinstance(x, ShardedRows):
+        per_shard = [
+            normal_eq_stats(x.local_rows(i), y[i][: x.valid[i]],
+                            None if x.local_weights(i) is None else x.local_weights(i).to(x.dtype),
+                            precision=precision)
+            for i in range(len(x.blocks))
+        ]
+        return tuple(psum_data(list(parts), x.mesh.first_device) for parts in zip(*per_shard))
     dot = make_dot(precision)
     if mask is None:
         n = torch.tensor(float(x.shape[0]), dtype=x.dtype, device=x.device)

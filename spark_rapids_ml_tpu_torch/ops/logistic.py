@@ -49,6 +49,8 @@ from spark_rapids_ml_tpu_torch.core.serving import prefetch_blocks, upload_block
 from spark_rapids_ml_tpu_torch.ops import lbfgs
 from spark_rapids_ml_tpu_torch.ops.linalg import soft_threshold
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
+from spark_rapids_ml_tpu_torch.parallel.collectives import psum_data
+from spark_rapids_ml_tpu_torch.parallel.mesh import ShardedRows
 from spark_rapids_ml_tpu_torch.utils.tracing import bump_counter
 
 
@@ -129,38 +131,56 @@ class LogisticLoss:
     ``loss(w, b)`` is a scalar tensor that autograd differentiates (through
     :class:`_FusedLoss` when fused). ``value_and_grad(w, b)`` gives value and
     gradient directly: in one blocked sweep when fused, by autograd
-    otherwise."""
+    otherwise.
+
+    Over a mesh ``x``, ``y_target`` and ``mask`` are lists, one entry per
+    data shard (its real rows): each shard's loss sum and gradient partials
+    are taken where it lives and summed over the data axis, one
+    ``psum_data`` per evaluation; unfused, each shard's partials come from
+    autograd over its own sum."""
 
     def __init__(self, x, y_target, mask, offset, scale, n, reg_param, c, fit_intercept, dot,
                  fused: bool = True, block_rows: int = FUSED_BLOCK_ROWS):
-        self.x, self.y_target, self.mask = x, y_target, mask
+        self.sharded = isinstance(x, list)
+        self.parts = list(zip(x, y_target, mask)) if self.sharded else [(x, y_target, mask)]
         self.offset, self.scale, self.n = offset, scale, n
         self.reg_param, self.c, self.fit_intercept, self.dot = reg_param, c, fit_intercept, dot
         self.fused = fused
         self.block_rows = max(1, int(block_rows))
 
-    def _plain(self, w, b):
-        xs = (self.x - self.offset) / self.scale
-        logits = self.dot(xs, w)
+    def _part_loss_sum(self, part, w, b):
+        """One shard's weighted log-loss sum with the block standardized."""
+        x, y, m = part
+        dev = x.device
+        xs = (x - self.offset.to(dev)) / self.scale.to(dev)
+        logits = self.dot(xs, w.to(dev))
         if self.fit_intercept:
-            logits = logits + b
+            logits = logits + b.to(dev)
         if self.c == 1:
             z = logits[:, 0]
-            per_row = softplus(z) - self.y_target * z
+            per_row = softplus(z) - y * z
         else:
-            per_row = -torch.sum(self.y_target * torch.log_softmax(logits, dim=1), dim=1)
-        return torch.sum(per_row * self.mask) / self.n + 0.5 * self.reg_param * torch.sum(w * w)
+            per_row = -torch.sum(y * torch.log_softmax(logits, dim=1), dim=1)
+        return torch.sum(per_row * m)
 
-    def _fused_value_and_grad(self, w, b):
-        x, y, m, dot = self.x, self.y_target, self.mask, self.dot
-        # The standardization folded into the weights (module docstring).
-        w_s = w / self.scale[:, None]
-        shift = -dot(self.offset, w_s)
-        if self.fit_intercept:
-            shift = shift + b
+    def _plain(self, w, b):
+        return self._part_loss_sum(self.parts[0], w, b) / self.n + 0.5 * self.reg_param * torch.sum(w * w)
+
+    def _finish(self, loss_s, gw_s, gb_s, w, b):
+        value = loss_s / self.n + 0.5 * self.reg_param * torch.sum(w * w)
+        gw = gw_s / self.n + self.reg_param * w
+        gb = gb_s / self.n if self.fit_intercept else torch.zeros_like(b)
+        return value, (gw, gb.to(b.dtype))
+
+    def _part_sweep(self, part, w_s, shift):
+        """One shard's (loss sum, Xᵀdz, Σdz) in row blocks, in order; the
+        last block is short (the reference slides it back and masks the
+        overlap: the same rows, counted once)."""
+        x, y, m = part
+        dot = self.dot
+        dev = x.device
+        w_s, shift = w_s.to(dev), shift.to(dev)
         loss_s = gx_s = gb_s = None
-        # Row blocks in order; the last one is short (the reference slides
-        # it back and masks the overlap: the same rows, counted once).
         for start in range(0, x.shape[0], self.block_rows):
             xb = x[start:start + self.block_rows]
             loss, dz = _loss_and_dz(dot(xb, w_s) + shift, y[start:start + self.block_rows],
@@ -170,21 +190,46 @@ class LogisticLoss:
                 loss_s, gx_s, gb_s = terms
             else:
                 loss_s, gx_s, gb_s = loss_s + terms[0], gx_s + terms[1], gb_s + terms[2]
+        if loss_s is None:  # a shard without real rows
+            loss_s = torch.zeros((), dtype=x.dtype, device=dev)
+            gx_s = torch.zeros_like(w_s)
+            gb_s = torch.zeros(w_s.shape[1], dtype=x.dtype, device=dev)
+        return loss_s, gx_s, gb_s
+
+    def _fused_value_and_grad(self, w, b):
+        # The standardization folded into the weights (module docstring).
+        w_s = w / self.scale[:, None]
+        shift = -self.dot(self.offset, w_s)
+        if self.fit_intercept:
+            shift = shift + b
+        sweeps = [self._part_sweep(part, w_s, shift) for part in self.parts]
+        loss_s, gx_s, gb_s = (psum_data(list(t), w.device) for t in zip(*sweeps))
         gw_s = (gx_s - torch.outer(self.offset, gb_s)) / self.scale[:, None]
-        value = loss_s / self.n + 0.5 * self.reg_param * torch.sum(w * w)
-        gw = gw_s / self.n + self.reg_param * w
-        gb = gb_s / self.n if self.fit_intercept else torch.zeros_like(b)
-        return value, (gw, gb.to(b.dtype))
+        return self._finish(loss_s, gw_s, gb_s, w, b)
+
+    def _sharded_autograd_value_and_grad(self, w, b):
+        """Unfused over a mesh: autograd of each shard's own sum, then one
+        sum over the data axis of value and gradient."""
+        partials = []
+        for part in self.parts:
+            v, (gw, gb) = _autograd_value_and_grad(lambda w_, b_: self._part_loss_sum(part, w_, b_), w, b)
+            partials.append((v, gw, gb))
+        loss_s, gw_s, gb_s = (psum_data(list(t), w.device) for t in zip(*partials))
+        return self._finish(loss_s, gw_s, gb_s, w, b)
 
     def __call__(self, w, b):
         if self.fused:
             return _FusedLoss.apply(w, b, self._fused_value_and_grad)
+        if self.sharded:
+            return _FusedLoss.apply(w, b, self._sharded_autograd_value_and_grad)
         return self._plain(w, b)
 
     def value_and_grad(self, w, b):
         if self.fused:
             with torch.no_grad():
                 return self._fused_value_and_grad(w, b)
+        if self.sharded:
+            return self._sharded_autograd_value_and_grad(w, b)
         return _autograd_value_and_grad(self._plain, w, b)
 
 
@@ -202,13 +247,18 @@ def _autograd_value_and_grad(fn, w, b):
     return value.detach(), (gw, gb)
 
 
-def _masked_feature_moments(x: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _masked_feature_moments(x, mask) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted per-feature mean and population stddev (Spark's scaler);
-    the weights enter the variance linearly."""
-    m = mask.to(x.dtype)
-    n = torch.sum(m)
-    mean = torch.sum(x * m[:, None], dim=0) / n
-    var = torch.sum(((x - mean) ** 2) * m[:, None], dim=0) / n
+    the weights enter the variance linearly. ``x`` and ``mask`` may be
+    lists of data shards: each sum is then taken per shard and summed over
+    the data axis."""
+    xs = x if isinstance(x, list) else [x]
+    ms = [m.to(xi.dtype) for m, xi in zip(mask if isinstance(mask, list) else [mask], xs)]
+    dev = xs[0].device
+    n = psum_data([torch.sum(m) for m in ms], dev)
+    mean = psum_data([torch.sum(xi * m[:, None], dim=0) for xi, m in zip(xs, ms)], dev) / n
+    var = psum_data([torch.sum(((xi - mean.to(xi.device)) ** 2) * m[:, None], dim=0)
+                     for xi, m in zip(xs, ms)], dev) / n
     return mean, torch.sqrt(var)
 
 
@@ -220,6 +270,19 @@ def _standardizer(x, mask, fit_intercept: bool, standardization: bool):
     if not standardization:
         return torch.zeros_like(mean), torch.ones_like(safe_sigma)
     return (mean if fit_intercept else torch.zeros_like(mean)), safe_sigma
+
+
+def _shards(x, y, mask, dtype: Optional[torch.dtype] = None):
+    """``(xs, ys, ms, d, dtype, device)``: a tensor fit as itself, or a
+    ``ShardedRows`` fit as lists of its data shards' real rows (true
+    width), labels and weights, computing on the mesh's first device."""
+    if isinstance(x, ShardedRows):
+        xs = [x.local_rows(i) for i in range(len(x.blocks))]
+        ys = [yi[: x.valid[i]] for i, yi in enumerate(y)]
+        ms = [torch.ones(xi.shape[0], dtype=xi.dtype, device=xi.device) if x.local_weights(i) is None
+              else x.local_weights(i).to(xi.dtype) for i, xi in enumerate(xs)]
+        return xs, ys, ms, x.d, xs[0].dtype, x.mesh.first_device
+    return x, y, mask.to(x.dtype), x.shape[1], x.dtype, x.device
 
 
 def _n_columns(n_classes: int, multinomial: bool) -> int:
@@ -261,15 +324,18 @@ def fit_logistic(
 
     ``y``: (n,) integer labels in [0, n_classes); ``mask``: (n,) row
     weights. ``init_w`` (d, c) / ``init_b`` (c,) warm-start from an
-    original-space solution (default zeros)."""
+    original-space solution (default zeros). Over a mesh ``x`` is a
+    ``ShardedRows``, ``y`` its per-shard labels and ``mask`` unused (the
+    weights ride in ``x``): each evaluation is one sum over the data axis
+    of value and gradient, and the L-BFGS state stays on the host in
+    float64, identical on every process of a gang."""
     c = _n_columns(n_classes, multinomial)
-    d = x.shape[1]
-    dtype, dev = x.dtype, x.device
+    x, y, mask, d, dtype, dev = _shards(x, y, mask)
     dot = make_dot(precision)
-    mask = mask.to(dtype)
-    n = torch.sum(mask)
+    n = psum_data([torch.sum(m) for m in mask], dev) if isinstance(mask, list) else torch.sum(mask)
     offset, scale = _standardizer(x, mask, fit_intercept, standardization)
-    loss = LogisticLoss(x, _targets(y, c, dtype), mask, offset, scale, n, reg_param, c, fit_intercept, dot,
+    y_target = [_targets(yi, c, dtype) for yi in y] if isinstance(y, list) else _targets(y, c, dtype)
+    loss = LogisticLoss(x, y_target, mask, offset, scale, n, reg_param, c, fit_intercept, dot,
                         fused=fused)
 
     if init_w is None:
@@ -346,26 +412,31 @@ def fit_logistic_elastic_net(
     iterations on the standardized Gram started at ``v0`` (see the module
     docstring). One readback an iteration for the stopping test."""
     c = _n_columns(n_classes, multinomial)
-    d = x.shape[1]
-    dtype, dev = x.dtype, x.device
+    x, y, mask, d, dtype, dev = _shards(x, y, mask)
     dot = make_dot(precision)
-    mask = mask.to(dtype)
-    n = torch.sum(mask)
+    sharded = isinstance(x, list)
+    n = psum_data([torch.sum(m) for m in mask], dev) if sharded else torch.sum(mask)
     offset, scale = _standardizer(x, mask, fit_intercept, standardization)
-    y_target = _targets(y, c, dtype)
+    y_target = [_targets(yi, c, dtype) for yi in y] if sharded else _targets(y, c, dtype)
     reg1 = reg_param * elastic_net_param
     reg2 = reg_param * (1.0 - elastic_net_param)
 
     # Spectral norm of the masked standardized design by power iteration:
     # L_data = λmax(Xsᵀ M Xs) · curvature / n, with the per-row logistic
-    # curvature ≤ 1/4 (sigmoid) or ≤ 1/2 (softmax).
-    xs = (x - offset) / scale
+    # curvature ≤ 1/4 (sigmoid) or ≤ 1/2 (softmax). Over a mesh each
+    # product is a per-shard sum over the data axis.
+    parts = list(zip(x, mask)) if sharded else [(x, mask)]
+    xs = [((xi - offset.to(xi.device)) / scale.to(xi.device), mi) for xi, mi in parts]
+
+    def gram_apply(v):
+        return psum_data([dot(xi.T, dot(xi, v.to(xi.device)) * mi) for xi, mi in xs], dev)
+
     v = default_start_vector(d, dtype, dev) if v0 is None else _tensor(v0, dtype, dev)
     v = v / torch.clamp(torch.linalg.norm(v), min=1e-30)
     for _ in range(30):
-        u = dot(xs.T, dot(xs, v) * mask)
+        u = gram_apply(v)
         v = u / torch.clamp(torch.linalg.norm(u), min=1e-30)
-    lam_max = torch.linalg.norm(dot(xs.T, dot(xs, v) * mask))
+    lam_max = torch.linalg.norm(gram_apply(v))
     del xs
     curvature = 0.25 if c == 1 else 0.5
     # 1.1 safety margin: power iteration converges from below.

@@ -47,6 +47,8 @@ from spark_rapids_ml_tpu_torch.core.data import dense_block
 from spark_rapids_ml_tpu_torch.core.serving import prefetch_blocks, upload_block
 from spark_rapids_ml_tpu_torch.ops.eigh import _eigh, sign_flip
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
+from spark_rapids_ml_tpu_torch.parallel.collectives import psum_data
+from spark_rapids_ml_tpu_torch.parallel.mesh import ShardedRows
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
 
 #: Rows per chunk of the exact centered trace: the (chunk, d) centered
@@ -71,25 +73,29 @@ def _omega(omega: Any, d: int, l: int, dtype: torch.dtype, device: torch.device)
     return omega.to(device=device, dtype=dtype)
 
 
-def _chol_qr2(y: torch.Tensor, dot: Callable) -> torch.Tensor:
+def _chol_qr2(y: Any, dot: Callable) -> Any:
     """Orthonormalize the columns of (n, l) ``y`` by two Cholesky-QR passes
     (``dot`` is the precision-resolved matmul). A Gram that is not positive
     definite even with the ridge (a zero or NaN sketch) gives NaN, as
-    ``jnp.linalg.cholesky`` does."""
-    eps = torch.finfo(y.dtype).eps
-    eye = torch.eye(y.shape[1], dtype=y.dtype, device=y.device)
+    ``jnp.linalg.cholesky`` does. ``y`` may be a list of row shards: each
+    pass's (l, l) Gram is then their sum over the data axis
+    (``psum_data``), and each shard is solved where it lives."""
+    shards = y if isinstance(y, list) else [y]
+    eps = torch.finfo(shards[0].dtype).eps
+    eye = torch.eye(shards[0].shape[1], dtype=shards[0].dtype, device=shards[0].device)
 
-    def once(y):
-        g = dot(y.T, y)
+    def once(ys):
+        g = psum_data([dot(t.T, t) for t in ys], eye.device)
         # Tiny ridge: keeps the factor defined when the sketch is
         # near rank-deficient (data with fewer than l directions).
         g = g + (eps * torch.trace(g)) * eye
         lo, info = torch.linalg.cholesky_ex(g)
         lo = torch.where(info == 0, lo, float("nan"))
         # y · R⁻¹ with R = Lᵀ upper: solve X·R = y.
-        return torch.linalg.solve_triangular(lo.T, y, upper=True, left=False)
+        return [torch.linalg.solve_triangular(lo.T.to(t.device), t, upper=True, left=False) for t in ys]
 
-    return once(once(y))
+    out = once(once(shards))
+    return out if isinstance(y, list) else out[0]
 
 
 def _centered_trace(x: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
@@ -102,7 +108,7 @@ def _centered_trace(x: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
 
 
 def randomized_pca(
-    x: torch.Tensor,
+    x: Any,
     k: int,
     omega: Any = None,
     oversample: int = 10,
@@ -114,26 +120,45 @@ def randomized_pca(
     covariance, where ``x`` lives and in its dtype. ``omega`` is the (d, l)
     draw, l = min(k + oversample, d, n) (default :func:`draw_omega`).
     ``center=False`` is second-moment PCA. Returns tensors
-    ``(components (d, k), explained-variance ratio (k,), mean (d,))``."""
-    n, d = x.shape
-    if k > min(n, d):
+    ``(components (d, k), explained-variance ratio (k,), mean (d,))``.
+
+    ``x`` may be a :class:`~spark_rapids_ml_tpu_torch.parallel.mesh.
+    ShardedRows` (the mesh-sharded sketch): the sketch ``Y = X·Ω`` stays
+    row-sharded, its Cholesky-QR2 Grams and ``B = QᵀX`` are sums over the
+    data axis, the pad rows are left out, and ``n`` in ``l`` is the padded
+    row count, as in the reference. The results land on the mesh's first
+    device."""
+    if isinstance(x, ShardedRows):
+        shards = [x.local_rows(i) for i in range(len(x.blocks))]
+        n, n_rows, d = x.n, x.n_pad, x.d
+        first = x.mesh.first_device
+    else:
+        shards = [x]
+        n = n_rows = x.shape[0]
+        d = x.shape[1]
+        first = x.device
+    if k > min(n_rows, d):
         raise ValueError(
-            f"randomized PCA needs k <= min(n_rows, n_features) = {min(n, d)}, got k={k}"
+            f"randomized PCA needs k <= min(n_rows, n_features) = {min(n_rows, d)}, got k={k}"
         )
     bump_counter("pca.sketch")
-    l = min(k + oversample, d, n)
+    l = min(k + oversample, d, n_rows)
     dot = make_dot(precision)
-    dtype = x.dtype
-    mean = torch.sum(x, dim=0) / n if center else torch.zeros((d,), dtype=dtype, device=x.device)
+    dtype = shards[0].dtype
+    if center:
+        mean = psum_data([torch.sum(t, dim=0) for t in shards], first) / n
+    else:
+        mean = torch.zeros((d,), dtype=dtype, device=first)
 
-    def center_matmul(v):  # Xc @ v
-        return dot(x, v) - (mean @ v)[None, :]
+    def center_matmul(v):  # Xc @ v, one block per shard
+        return [dot(t, v.to(t.device)) - (mean @ v).to(t.device)[None, :] for t in shards]
 
-    def center_rmatmul(u):  # Xcᵀ @ u
-        return dot(x.T, u) - torch.outer(mean, torch.sum(u, dim=0))
+    def center_rmatmul(u):  # Xcᵀ @ u for u sharded like the rows
+        return (psum_data([dot(t.T, ut) for t, ut in zip(shards, u)], first)
+                - torch.outer(mean, psum_data([torch.sum(ut, dim=0) for ut in u], first)))
 
     with TraceRange("randomized sketch", TraceColor.PURPLE):
-        q = _chol_qr2(center_matmul(_omega(omega, d, l, dtype, x.device)), dot)
+        q = _chol_qr2(center_matmul(_omega(omega, d, l, dtype, first)), dot)
         for _ in range(power_iters):
             z = _chol_qr2(center_rmatmul(q), dot)
             q = _chol_qr2(center_matmul(z), dot)
@@ -143,7 +168,7 @@ def randomized_pca(
         _, s, vt = torch.linalg.svd(b, full_matrices=False)
         comps = sign_flip(vt[:k].T)
     denom = max(n - 1, 1)
-    total_var = _centered_trace(x, mean) / denom
+    total_var = psum_data([_centered_trace(t, mean.to(t.device)) for t in shards], first) / denom
     explained = s[:k] ** 2 / denom
     ratio = explained / torch.clamp(total_var, min=torch.finfo(dtype).tiny)
     return comps, ratio, mean

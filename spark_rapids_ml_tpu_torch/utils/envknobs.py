@@ -55,6 +55,20 @@ def _precision_knob(family: str, what: str) -> Knob:
 
 #: Every ``TPUML_*`` knob the port reads, keyed by name.
 KNOBS: Dict[str, Knob] = {k.name: k for k in (
+    # distributed bring-up (parallel/distributed.py)
+    Knob("TPUML_COORDINATOR", "str", "distributed",
+         "coordinator host:port of the torch.distributed gang (tcp init method)"),
+    Knob("TPUML_NUM_PROCESSES", "int", "distributed",
+         "gang size for the distributed bring-up"),
+    Knob("TPUML_PROCESS_ID", "int", "distributed",
+         "this process's rank in the gang"),
+    Knob("TPUML_HEARTBEAT_TIMEOUT", "int", "distributed",
+         "seconds before a collective with a dead peer fails survivors"),
+    # gang deploy mode (core/estimator.py)
+    Knob("TPUML_GANG_FIT", "choice", "distributed",
+         "1 routes Estimator.fit through gang deploy mode (each process "
+         "feeds its local rows; collectives merge) — the env twin of "
+         "setDeployMode('gang')", default="0", choices=("0", "1")),
     # fit memory budget & streaming degradation (core/membudget.py)
     Knob("TPUML_FIT_MEM_BUDGET", "int", "fit-memory",
          "fit admission budget in device bytes (unset = the fit device's "

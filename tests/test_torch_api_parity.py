@@ -1,7 +1,7 @@
 """One-way API parity: every public method of a ported estimator, model,
 evaluator, pipeline or tuning class exists on its reference twin. The port may lack reference
 methods that wait for later slices (``partial_fit``, ``fit_report``,
-``deployMode``, ROADMAP A.9); it adds none the reference lacks."""
+ROADMAP A.9); it adds none the reference lacks."""
 
 import inspect
 

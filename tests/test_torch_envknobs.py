@@ -20,6 +20,7 @@ import torch
 
 from spark_rapids_ml_tpu.classification import LogisticRegression as JaxLR
 from spark_rapids_ml_tpu.core import data as jdata
+from spark_rapids_ml_tpu.feature import PCA as JaxPCA
 from spark_rapids_ml_tpu.core import membudget as jmb
 from spark_rapids_ml_tpu.manifold import UMAP as JaxUMAP
 from spark_rapids_ml_tpu.models import logistic_regression as jlogistic
@@ -29,6 +30,7 @@ from spark_rapids_ml_tpu_torch import device as port_device
 from spark_rapids_ml_tpu_torch.classification import LogisticRegression
 from spark_rapids_ml_tpu_torch.core import data as tdata
 from spark_rapids_ml_tpu_torch.core import membudget as tmb
+from spark_rapids_ml_tpu_torch.feature import PCA
 from spark_rapids_ml_tpu_torch.manifold import UMAP
 from spark_rapids_ml_tpu_torch.ops import precision as tprec
 from spark_rapids_ml_tpu_torch.ops import umap as pou
@@ -73,6 +75,17 @@ READERS = {
         lambda: tknobs.env_choice("TPUML_UMAP_SCATTER", ("auto", "pallas", "xla"), "auto"),
         lambda: jknobs.env_choice("TPUML_UMAP_SCATTER", ("auto", "pallas", "xla"), "auto")),
     "TPUML_EVENT_LOG": (lambda: tknobs.env_str("TPUML_EVENT_LOG"), lambda: jknobs.env_str("TPUML_EVENT_LOG")),
+    # the gang bring-up (parallel/distributed.initialize reads these as the
+    # reference does) and the deploy-mode default
+    "TPUML_GANG_FIT": (lambda: PCA().getDeployMode(), lambda: JaxPCA().getDeployMode()),
+    "TPUML_NUM_PROCESSES": (lambda: tknobs.env_int("TPUML_NUM_PROCESSES", minimum=1),
+                            lambda: jknobs.env_int("TPUML_NUM_PROCESSES", minimum=1)),
+    "TPUML_PROCESS_ID": (lambda: tknobs.env_int("TPUML_PROCESS_ID", minimum=0),
+                         lambda: jknobs.env_int("TPUML_PROCESS_ID", minimum=0)),
+    "TPUML_HEARTBEAT_TIMEOUT": (lambda: tknobs.env_int("TPUML_HEARTBEAT_TIMEOUT", minimum=1),
+                                lambda: jknobs.env_int("TPUML_HEARTBEAT_TIMEOUT", minimum=1)),
+    "TPUML_COORDINATOR": (lambda: tknobs.env_str("TPUML_COORDINATOR"),
+                          lambda: jknobs.env_str("TPUML_COORDINATOR")),
 }
 
 CASES = [
@@ -85,6 +98,11 @@ CASES = [
     ("TPUML_LOGISTIC_FUSED", ["0", "1", "yes"]),
     ("TPUML_UMAP_SCATTER", ["auto", "pallas", "XLA", "cuda"]),
     ("TPUML_EVENT_LOG", ["stderr", "", " /tmp/ev.jsonl "]),
+    ("TPUML_GANG_FIT", ["0", "1", " 1 ", "yes"]),
+    ("TPUML_NUM_PROCESSES", ["1", "4", "0", "two"]),
+    ("TPUML_PROCESS_ID", ["0", "3", "-1", "x"]),
+    ("TPUML_HEARTBEAT_TIMEOUT", ["30", "0", "1.5"]),
+    ("TPUML_COORDINATOR", ["127.0.0.1:1234", "", " host:1 "]),
 ]
 
 

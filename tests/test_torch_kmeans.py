@@ -31,6 +31,7 @@ from spark_rapids_ml_tpu.core.data import extract_features as jax_extract_featur
 from spark_rapids_ml_tpu.core.data import extract_weights as jax_extract_weights
 from spark_rapids_ml_tpu.ops import kmeans as jkm
 from spark_rapids_ml_tpu_torch import device as port_device
+from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh
 from spark_rapids_ml_tpu_torch.clustering import KMeans, KMeansModel
 from spark_rapids_ml_tpu_torch.core import ingest, persistence
 from spark_rapids_ml_tpu_torch.core.data import DataFrame, extract_features, extract_weights
@@ -256,8 +257,9 @@ def test_estimator_refuses_what_the_slice_leaves_out():
     x, _ = make_blobs(2, n=50)
     # A.7a (the streaming fit) arrived with the streaming slice.
     assert KMeans().setK(2).fit(lambda: iter([x])).clusterCenters().shape == (2, x.shape[1])
-    with pytest.raises(NotImplementedError, match="A.7d"):
-        KMeans(mesh=object()).setK(2).fit(x)
+    # A.7d (the mesh) arrived with the distribution slice.
+    mesh = make_mesh((2, 1), devices=[torch.device("cpu")] * 2)
+    assert KMeans(mesh=mesh).setK(2).fit(x).clusterCenters().shape == (2, x.shape[1])
     # A.7e (the serving signature) arrived with the composition slice.
     assert KMeans().setK(2).fit(x).serving_signature().name == "kmeans.predict"
     with pytest.raises(ValueError, match="exceeds"):
@@ -270,10 +272,8 @@ def test_estimator_refuses_what_the_slice_leaves_out():
 
 def test_params_surface_matches_jax():
     est, jest = KMeans(), JaxKMeans()
-    # deployMode belongs to the reference's gang deployment (ROADMAP 18).
-    assert sorted(p.name for p in est.params) == sorted(
-        p.name for p in jest.params if p.name != "deployMode"
-    )
+    # deployMode (gang fits) arrived with the distribution slice.
+    assert sorted(p.name for p in est.params) == sorted(p.name for p in jest.params)
     for p in jest.params:
         if jest.hasDefault(p) and est.hasParam(p.name):
             assert est.getOrDefault(p.name) == jest.getOrDefault(p)

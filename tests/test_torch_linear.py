@@ -30,6 +30,7 @@ from spark_rapids_ml_tpu.ops import linear as jax_linear
 from spark_rapids_ml_tpu.regression import LinearRegression as JaxLR
 from spark_rapids_ml_tpu.regression import LinearRegressionModel as JaxLRModel
 from spark_rapids_ml_tpu_torch import device as port_device
+from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh
 from spark_rapids_ml_tpu_torch.core import ingest
 from spark_rapids_ml_tpu_torch.core.data import DataFrame, HostArrayBlockReader
 from spark_rapids_ml_tpu_torch.interop import linear_regression_model_from_numpy
@@ -484,8 +485,10 @@ def test_error_paths_raise_the_reference_types(case):
 
 
 def test_routes_of_later_slices_raise_naming_their_item(fitted):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        LinearRegression(mesh=object()).fit((X, Y))
+    # The mesh (A.9, 8d) arrived with the distribution slice.
+    mesh = make_mesh((2, 1), devices=[torch.device("cpu")] * 2)
+    np.testing.assert_allclose(LinearRegression(mesh=mesh).fit((X, Y)).coefficients,
+                               LinearRegression().fit((X, Y)).coefficients, rtol=0, atol=1e-10)
     # The serving signature arrived with the composition slice.
     assert fitted[0].serving_signature().name == "linreg.predict"
 

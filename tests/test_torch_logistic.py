@@ -32,6 +32,7 @@ from spark_rapids_ml_tpu.core.data import DataFrame as JaxDataFrame
 from spark_rapids_ml_tpu.core.data import HostArrayBlockReader as JaxReader
 from spark_rapids_ml_tpu.ops import logistic as jax_logistic
 from spark_rapids_ml_tpu_torch import device as port_device
+from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh
 from spark_rapids_ml_tpu_torch.classification import LogisticRegression, LogisticRegressionModel
 from spark_rapids_ml_tpu_torch.core.data import DataFrame, HostArrayBlockReader
 from spark_rapids_ml_tpu_torch.interop import logistic_regression_model_from_numpy
@@ -580,8 +581,10 @@ def test_error_paths_raise_the_reference_types(case):
 
 
 def test_routes_of_later_slices_raise_naming_their_item(binomial):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        LogisticRegression(mesh=object()).fit((X, Y2))
+    # The mesh (A.9, 9d) arrived with the distribution slice.
+    mesh = make_mesh((2, 1), devices=[torch.device("cpu")] * 2)
+    np.testing.assert_allclose(LogisticRegression(mesh=mesh).fit((X, Y2)).weights,
+                               LogisticRegression().fit((X, Y2)).weights, rtol=0, atol=1e-10)
     # The serving signature arrived with the composition slice.
     assert binomial[0].serving_signature().name == "logreg.predict"
 

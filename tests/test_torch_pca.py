@@ -24,6 +24,7 @@ from spark_rapids_ml_tpu.core.data import Vectors as JaxVectors
 from spark_rapids_ml_tpu.feature import PCA as JaxPCA
 from spark_rapids_ml_tpu.feature import PCAModel as JaxPCAModel
 from spark_rapids_ml_tpu_torch import device as port_device
+from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh
 from spark_rapids_ml_tpu_torch.core import persistence
 from spark_rapids_ml_tpu_torch.core.data import DataFrame, Vectors
 from spark_rapids_ml_tpu_torch.feature import PCA, PCAModel
@@ -206,7 +207,7 @@ def test_k_and_row_count_errors():
 def test_routes_of_later_slices_raise_not_implemented():
     """The randomized, wide ``auto`` and streaming routes arrived with the
     streaming/sketch slice and ``useGemm=False`` with the packed route, and
-    now fit; a mesh still raises, naming its item."""
+    now fit, and so does a mesh (the distribution slice)."""
     x = _data(30, 6, 5)
     assert PCA().setK(2).setSolver("randomized").fit(x).pc.shape == (6, 2)
     wide = np.random.default_rng(5).standard_normal((12, 4096))
@@ -214,8 +215,9 @@ def test_routes_of_later_slices_raise_not_implemented():
     assert PCA().setK(2).fit(iter([x[:10], x[10:]])).pc.shape == (6, 2)
     assert PCA().setK(2).fit(lambda: iter([x])).pc.shape == (6, 2)
     assert PCA().setK(2).setUseGemm(False).fit(x).pc.shape == (6, 2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        PCA(mesh=object()).setK(2).fit(x)
+    mesh = make_mesh((4, 1), devices=[torch.device("cpu")] * 4)
+    np.testing.assert_allclose(np.abs(PCA(mesh=mesh).setK(2).fit(x).pc),
+                               np.abs(PCA().setK(2).fit(x).pc), rtol=0, atol=1e-10)
     out = list(PCA().setK(2).fit(x).transform(iter([x])))
     assert len(out) == 1 and out[0].shape == (30, 2)
 
@@ -256,8 +258,8 @@ def test_float64_precision_requests_resolve_to_native_float64():
 def test_backend_aliases_store_the_reference_spelling():
     assert PCA().setCovarianceBackend("cuda").getCovarianceBackend() == "pallas"
     assert PCA().setCovarianceBackend("torch").getCovarianceBackend() == "xla"
-    # The estimator-only deployMode (gang fits) waits for the distribution slice.
-    assert {p.name for p in PCA().params} == {p.name for p in JaxPCA().params} - {"deployMode"}
+    # deployMode (gang fits) arrived with the distribution slice.
+    assert {p.name for p in PCA().params} == {p.name for p in JaxPCA().params}
     assert {p.name for p in PCAModel().params} == {p.name for p in JaxPCAModel().params}
 
 

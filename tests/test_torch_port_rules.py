@@ -61,7 +61,9 @@ def test_every_port_module_imports_without_jax():
                  "core.membudget", "native", "ops.dbscan", "models.dbscan", "ops.trees",
                  "models.random_forest", "serving", "serving.signature", "pipeline_fusion",
                  "pipeline_fusion.fuser", "pipeline", "tuning", "observability.metrics",
-                 "serving.admission", "serving.batcher", "serving.registry", "serving.server"):
+                 "serving.admission", "serving.batcher", "serving.registry", "serving.server",
+                 "parallel", "parallel.mesh", "parallel.collectives", "parallel.distributed",
+                 "parallel.distributed_cov", "core.moments"):
         assert f"spark_rapids_ml_tpu_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"

@@ -557,10 +557,10 @@ def test_feature_subset_resolution_matches_the_reference():
                                  "RandomForestClassificationModel", "RandomForestRegressionModel"])
 def test_defaults_match_the_reference(cls):
     ours, theirs = getattr(port_rf, cls)(), getattr(jax_rf, cls)()
-    # deployMode (gang fits) waits for ROADMAP A.9.
-    assert {p.name for p in ours.params} == {p.name for p in theirs.params} - {"deployMode"}
+    # deployMode (gang fits) arrived with the distribution slice.
+    assert {p.name for p in ours.params} == {p.name for p in theirs.params}
     for p in theirs.params:
-        if theirs.hasDefault(p) and p.name != "deployMode":
+        if theirs.hasDefault(p):
             assert ours.getOrDefault(p.name) == theirs.getOrDefault(p), p.name
 
 

@@ -29,6 +29,7 @@ from spark_rapids_ml_tpu.core import serving as jserving
 from spark_rapids_ml_tpu.feature import PCA as JaxPCA
 from spark_rapids_ml_tpu.linalg.row_matrix import RowMatrix as JaxRowMatrix
 from spark_rapids_ml_tpu_torch import device as port_device
+from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh
 from spark_rapids_ml_tpu_torch.core import data as tdata
 from spark_rapids_ml_tpu_torch.core import serving as tserving
 from spark_rapids_ml_tpu_torch.feature import PCA
@@ -338,8 +339,9 @@ def test_row_matrix_stream_guards():
             Mat(lambda: iter([x]), backend="pallas")
     packed = RowMatrix(lambda: iter([x]), use_gemm=False).compute_covariance()
     assert_close("packed stream cov", packed, np.cov(x.T), rtol=0, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        RowMatrix(lambda: iter([x]), mesh=object())
+    mesh = make_mesh((2, 1), devices=[torch.device("cpu")] * 2)
+    meshed = RowMatrix(lambda: iter([x[:11], x[11:]]), mesh=mesh).compute_covariance()
+    assert_close("mesh stream cov", meshed, np.cov(x.T), rtol=0, atol=1e-12)
 
 
 # --- models/pca.py: streaming fits and transform -----------------------------
