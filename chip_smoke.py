@@ -4415,6 +4415,240 @@ def mesh_phases(gen: torch.Generator) -> dict:
     return {"a": a["out"], "b": b, "c": c["out"], "d": d}
 
 
+# --- (e) the sharded families: configs 11, 7, 8, 13, 12 and 9 on a (4, 1) mesh --
+
+SH_MESH = (4, 1)
+SH_WALL_LIMIT_S = 120.0
+SH_SEED = SEED + 300        # the group's data: drawn anew from its own seed
+
+
+def _timed(fn, repeats: int = 3):
+    """``(fn()'s last result, the median of ``repeats`` host walls around
+    it and a synchronize)``; the first run warms the caches."""
+    times = []
+    for _ in range(repeats):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times.append(time.perf_counter() - t0)
+    return out, statistics.median(times)
+
+
+def phase_sharded_knn(items: torch.Tensor, queries: torch.Tensor) -> dict:
+    """(e1) Config 11: ``NearestNeighbors(mesh=...).setK(10)`` on the 1M x 96
+    items, 10,000 queries, euclidean and cosine, against the single-device
+    search of the same rows: indices equal, distances within 1e-5
+    relative. Walls are medians of 3 runs; the mesh's first search,
+    which includes its upload, is timed alone."""
+    out = {"phase": "sharded_knn", "mesh": list(SH_MESH), "walls_s": {}}
+    mesh = _mesh_of(SH_MESH)
+    for metric in ("euclidean", "cosine"):
+        single = NearestNeighbors().setK(NB_K).setMetric(metric).fit(items)
+        (d1, i1), out["walls_s"][f"{metric}_single"] = _timed(lambda: single.kneighbors(queries))
+        model = NearestNeighbors(mesh=mesh).setK(NB_K).setMetric(metric).fit(items)
+        _, out["walls_s"][f"{metric}_mesh_first"] = _timed(lambda: model.kneighbors(queries), repeats=1)
+        (d2, i2), out["walls_s"][f"{metric}_mesh"] = _timed(lambda: model.kneighbors(queries))
+        out[metric] = {"indices_equal": bool(torch.equal(i1, i2)),
+                       "indices_differing": int((i1 != i2).sum()),
+                       "dist_rel": float(((d2.double() - d1.double()).abs()
+                                          / d1.double().abs().clamp_min(1e-30)).max())}
+        if metric == "euclidean":
+            out["exact"] = i1
+    exact = out.pop("exact")
+    emit(out)
+    for metric in ("euclidean", "cosine"):
+        require(out[metric]["indices_equal"], f"(e1) {metric}: mesh indices differ from the single device's")
+        require(out[metric]["dist_rel"] <= 1e-5, f"(e1) {metric}: mesh distances {out[metric]['dist_rel']:.2e}")
+    out["exact"] = exact
+    return out
+
+
+def _ann_pair(items, queries, exact, algo: str, params: dict, refine: bool = False) -> dict:
+    """A single-device index and a mesh-built one of ``algo``: build and
+    search walls, the mesh search of the single-device index (its
+    indices exactly), the mesh build's centroids (and codebooks) against
+    the single-device build's, and both recalls against ``exact``."""
+    mesh = _mesh_of(SH_MESH)
+    res = {"walls_s": {}}
+    est = ApproximateNearestNeighbors().setK(NB_K).setMetric("sqeuclidean").setAlgorithm(algo).setSeed(SEED)
+    single, res["walls_s"]["build_single"] = _timed(lambda: est.setAlgoParams(params).fit(items), repeats=1)
+    (d1, i1), res["walls_s"]["search_single"] = _timed(lambda: single.kneighbors(queries))
+    single.setMesh(mesh)
+    (d2, i2), res["walls_s"]["search_mesh_of_single_index"] = _timed(lambda: single.kneighbors(queries))
+    built, res["walls_s"]["build_mesh"] = _timed(
+        lambda: est.copy().setMesh(mesh).setAlgoParams(params).fit(items), repeats=1)
+    (_, i3), res["walls_s"]["search_mesh_built"] = _timed(lambda: built.kneighbors(queries))
+    res.update({
+        "mesh_search_indices_equal": bool(torch.equal(i1, i2)),
+        "mesh_search_dist_rel": float(((d2.double() - d1.double()).abs()
+                                       / d1.double().abs().clamp_min(1e-30)).max()),
+        "centroids_rel": _rel(built._index.centroids, single._index.centroids),
+        "recall_single": recall_of(i1, exact), "recall_mesh_built": recall_of(i3, exact),
+    })
+    if algo == "ivfpq":
+        res["codebooks_rel"] = _rel(built._index.codebooks, single._index.codebooks)
+    res["l_max"] = {"single": int(single._index.list_ids.shape[1]), "mesh_built": int(built._index.list_ids.shape[1])}
+    if refine:
+        single.setMesh(None)
+        single.set(single.algoParams, dict(params, refine_ratio=4))
+        built.set(built.algoParams, dict(params, refine_ratio=4))
+        (_, r1), res["walls_s"]["refine4_single"] = _timed(lambda: single.kneighbors(queries))
+        single.setMesh(mesh)
+        (_, r2), res["walls_s"]["refine4_mesh_of_single_index"] = _timed(lambda: single.kneighbors(queries))
+        (_, r3), res["walls_s"]["refine4_mesh_built"] = _timed(lambda: built.kneighbors(queries))
+        res.update({"refine4_indices_equal": bool(torch.equal(r1, r2)),
+                    "refine4_recall_single": recall_of(r1, exact), "refine4_recall_mesh_built": recall_of(r3, exact)})
+    return res
+
+
+def _require_ann(tag: str, res: dict) -> None:
+    require(res["mesh_search_indices_equal"], f"{tag} the mesh search of the single-device index differs")
+    require(res["centroids_rel"] <= 1e-4, f"{tag} mesh-built centroids {res['centroids_rel']:.2e} from single")
+    require(abs(res["recall_mesh_built"] - res["recall_single"]) <= 0.01,
+            f"{tag} recall {res['recall_mesh_built']:.4f} against {res['recall_single']:.4f} single")
+
+
+def phase_sharded_ann(items: torch.Tensor, queries: torch.Tensor, exact: torch.Tensor,
+                      gen: torch.Generator) -> dict:
+    """(e2) Config 7's ``ivfflat`` (nlist 1,024, nprobe 32) and ``brute`` on
+    (e1)'s items and queries; (e3) config 8's ``ivfpq`` (nlist 512, nprobe
+    16, M 32, 3 + 3 iterations) on 1M x 128 items and 2,000 queries, with
+    ``refine_ratio`` 4. Each: the mesh search of the single-device index
+    returns its indices, the mesh-built index's centroids are within 1e-4
+    relative of the single-device build's and its recall against exact
+    within 0.01 of the single-device build's."""
+    out = {"phase": "sharded_ann", "mesh": list(SH_MESH)}
+    mesh = _mesh_of(SH_MESH)
+    brute = ApproximateNearestNeighbors().setK(NB_K).setMetric("sqeuclidean").setAlgorithm("brute")
+    (d1, i1), t1 = _timed(lambda: brute.fit(items).kneighbors(queries))
+    (d2, i2), t2 = _timed(lambda: brute.copy().setMesh(mesh).fit(items).kneighbors(queries))
+    out["config7_brute"] = {"walls_s": {"single_fit_and_search": t1, "mesh_fit_upload_and_search": t2},
+                            "indices_equal": bool(torch.equal(i1, i2)), "dist_rel": rel_err(d2, d1)}
+    out["config7_ivfflat"] = _ann_pair(items, queries, exact, "ivfflat", {"nlist": NB_LISTS, "nprobe": NB_PROBE})
+    torch.cuda.empty_cache()
+    items8 = torch.randn((NB_N, PQ_D), generator=gen, device=gen.device)
+    queries8 = torch.randn((PQ_Q, PQ_D), generator=gen, device=gen.device)
+    _, exact8 = knn_f64(queries8, items8, NB_K, "sqeuclidean")
+    out["config8_ivfpq"] = _ann_pair(items8, queries8, exact8, "ivfpq", PQ_PARAMS, refine=True)
+    del items8, queries8
+    emit(out)
+    require(out["config7_brute"]["indices_equal"], "(e2) brute: mesh indices differ from the single device's")
+    require(out["config7_brute"]["dist_rel"] <= 1e-5, "(e2) brute: mesh distances differ")
+    _require_ann("(e2) ivfflat:", out["config7_ivfflat"])
+    pq = out["config8_ivfpq"]
+    _require_ann("(e3) ivfpq:", pq)
+    require(pq["refine4_indices_equal"], "(e3) refine_ratio 4: the mesh search differs")
+    require(abs(pq["refine4_recall_mesh_built"] - pq["refine4_recall_single"]) <= 0.01,
+            "(e3) refine_ratio 4: the mesh-built recall differs")
+    return out
+
+
+def phase_sharded_umap(gen: torch.Generator) -> dict:
+    """(e4) Config 13: ``UMAP(mesh=...)`` on 50,000 x 64 blobs -> 2-D (200
+    epochs, k = 15), beside the single-device fit (K4 on): the mesh kNN
+    graph's indices equal the single-device graph's; trustworthiness
+    (k = 10, the 2,000-row subsample) > 0.85 and within 0.03 of the
+    single-device fit's; K4 never launched on the mesh."""
+    mesh = _mesh_of(SH_MESH)
+    truth = torch.randn((UM_BLOBS, UM_D), generator=gen, device=gen.device) * UM_SCALE
+    x, _ = umap_blobs(UM_N, truth, gen)
+    sub = torch.randperm(UM_N, generator=gen, device=gen.device)[:UM_SUB]
+    out = {"phase": "sharded_umap", "mesh": list(SH_MESH), "walls_s": {}}
+    (_, i1), out["walls_s"]["graph_single"] = _timed(lambda: _knn_excluding_self(x, UM_K, "euclidean", approx=True))
+    (_, i2), out["walls_s"]["graph_mesh"] = _timed(
+        lambda: _knn_excluding_self(x, UM_K, "euclidean", mesh, approx=True))
+    single, out["walls_s"]["fit_single"] = _timed(lambda: umap_estimator().fit(x))
+    k4_before = k4.launches["tail_accumulate"]
+    model, out["walls_s"]["fit_mesh"] = _timed(lambda: umap_estimator().setMesh(mesh).fit(x))
+    out.update({"graph_indices_equal": bool(torch.equal(i1, i2)), "graph_indices_differing": int((i1 != i2).sum()),
+                "k4_launches_on_mesh": k4.launches["tail_accumulate"] - k4_before,
+                "trust_single": _umap_trust(x, single._emb_raw, sub),
+                "trust_mesh": _umap_trust(x, model._emb_raw, sub),
+                "finite": bool(torch.isfinite(model._emb_raw).all())})
+    emit(out)
+    require(out["graph_indices_equal"], "(e4) the mesh kNN graph differs from the single-device graph")
+    require(out["k4_launches_on_mesh"] == 0, "(e4) K4 launched on the mesh")
+    require(out["finite"] and out["trust_mesh"] > 0.85, f"(e4) mesh trustworthiness {out['trust_mesh']:.4f}")
+    require(abs(out["trust_mesh"] - out["trust_single"]) <= 0.03,
+            f"(e4) trustworthiness {out['trust_mesh']:.4f} against {out['trust_single']:.4f} single")
+    return out
+
+
+def phase_sharded_dbscan_forest(gen: torch.Generator) -> dict:
+    """(e5) Config 12: ``DBSCAN(mesh=...).setEps(2.0).setMinSamples(8)`` on
+    100,000 x 16 blobs: labels and core mask equal to the single-device
+    fit's. (e6) Config 9: ``RandomForestClassifier(mesh=...)``, 8 trees,
+    depth 6, 16 bins, on 500,000 x 16: every ``Forest`` field bitwise the
+    single-device fit from the same draws; the regressor's RMSE within
+    1 % of its single-device fit's."""
+    mesh = _mesh_of(SH_MESH)
+    out = {"phase": "sharded_dbscan_forest", "mesh": list(SH_MESH), "walls_s": {}}
+    centres = torch.randn((DB_BLOBS, DB_D), generator=gen, device=gen.device) * 12.0
+    x = dbscan_blobs(DB_N, centres, gen)
+    est = DBSCAN().setEps(DB_EPS).setMinSamples(DB_MIN_SAMPLES)
+    single, out["walls_s"]["dbscan_single"] = _timed(lambda: est.fit(x))
+    model, out["walls_s"]["dbscan_mesh"] = _timed(lambda: est.copy().setMesh(mesh).fit(x))
+    out["dbscan"] = {"labels_equal": bool(np.array_equal(model.labels_, single.labels_)),
+                     "labels_differing": int((model.labels_ != single.labels_).sum()),
+                     "core_equal": bool(np.array_equal(model.core_mask_, single.core_mask_)),
+                     "clusters": int(model.labels_.max()) + 1}
+    del x
+    xf, margin = forest_rows(gen)
+    y = (margin > 0).to(torch.float32)
+    clf = (RandomForestClassifier().setNumTrees(RF_TREES).setMaxDepth(RF_DEPTH).setMaxBins(RF_BINS)
+           .setNumClasses(2).setSeed(SEED))
+    f1, out["walls_s"]["forest_single"] = _timed(lambda: clf.fit((xf, y)))
+    f2, out["walls_s"]["forest_mesh"] = _timed(lambda: clf.copy().setMesh(mesh).fit((xf, y)))
+    out["forest"] = {f: bool(torch.equal(getattr(f1._forest, f), getattr(f2._forest, f)))
+                     for f in f1._forest._fields}
+    reg = RandomForestRegressor().setNumTrees(RF_TREES).setMaxDepth(RF_DEPTH).setMaxBins(RF_BINS).setSeed(SEED)
+    r1, out["walls_s"]["regressor_single"] = _timed(lambda: reg.fit((xf, margin)))
+    r2, out["walls_s"]["regressor_mesh"] = _timed(lambda: reg.copy().setMesh(mesh).fit((xf, margin)))
+    rmse = [float(torch.sqrt(torch.mean((r.predict(xf) - margin) ** 2))) for r in (r1, r2)]
+    out["regressor"] = {"rmse_single": rmse[0], "rmse_mesh": rmse[1], "rmse_rel": abs(rmse[1] - rmse[0]) / rmse[0]}
+    emit(out)
+    require(out["dbscan"]["labels_equal"] and out["dbscan"]["core_equal"],
+            f"(e5) mesh DBSCAN differs from the single-device fit: {out['dbscan']}")
+    require(all(out["forest"].values()), f"(e6) mesh forest fields differ: {out['forest']}")
+    require(out["regressor"]["rmse_rel"] <= 0.01, f"(e6) regressor RMSE {out['regressor']}")
+    return out
+
+
+def sharded_phases() -> dict:
+    """Group (e), the sharded families: configs 11, 7, 8, 13, 12 and 9 at
+    full shape on a (4, 1) mesh of the one card, each beside its
+    single-device fit of the same rows (walls: medians of 3 runs, the
+    IVF / PQ builds one run each); no fallback to the CPU or to one
+    device. Its own seed; prints its wall, within ``SH_WALL_LIMIT_S``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SH_SEED)
+    t0 = time.perf_counter()
+    walls = {}
+    t = time.perf_counter()
+    items = torch.randn((NB_N, NB_D), generator=gen, device=gen.device)
+    queries = torch.randn((NB_Q, NB_D), generator=gen, device=gen.device)
+    knn_out = phase_sharded_knn(items, queries)
+    walls["e1_config11"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ann_out = phase_sharded_ann(items, queries, knn_out.pop("exact"), gen)
+    walls["e2_e3_configs7_8"] = time.perf_counter() - t
+    del items, queries
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    umap_out = phase_sharded_umap(gen)
+    walls["e4_config13"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    df_out = phase_sharded_dbscan_forest(gen)
+    walls["e5_e6_configs12_9"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    emit({"phases": "sharded", "wall_s": wall, "phase_wall_s": walls})
+    require(wall <= SH_WALL_LIMIT_S, f"the sharded phases took {wall:.1f} s, over their {SH_WALL_LIMIT_S:.0f} s")
+    return {"knn": knn_out, "ann": ann_out, "umap": umap_out, "dbscan_forest": df_out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -4467,6 +4701,8 @@ def main() -> int:
     serving_phases(gen)
     torch.cuda.empty_cache()
     mesh_phases(gen)
+    torch.cuda.empty_cache()
+    sharded_phases()
 
     k1_f32 = times["k1_f32"]
     measured = {

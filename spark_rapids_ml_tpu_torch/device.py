@@ -13,6 +13,7 @@ On ``"cuda"`` there is no quiet fallback: without a usable card,
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 PLATFORMS = ("cuda", "cpu")
@@ -67,3 +68,16 @@ def device_of(x: torch.Tensor) -> torch.device:
     if x.device.type == "cuda":
         use_ieee_fp32_matmul()
     return x.device
+
+
+def seeded_generator(device, *seeds: int) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from one seed, or from
+    several folded into one (where the reference folds a key,
+    ``fold_in(key(seed), i)``)."""
+    gen = torch.Generator(device=device)
+    if len(seeds) == 1:
+        gen.manual_seed(int(seeds[0]))
+    else:
+        words = [int(s) & 0xFFFFFFFFFFFFFFFF for s in seeds]
+        gen.manual_seed(int(np.random.SeedSequence(words).generate_state(1, dtype=np.uint64)[0]))
+    return gen

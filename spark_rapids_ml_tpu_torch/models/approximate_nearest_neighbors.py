@@ -30,8 +30,15 @@ carries the reference's index across.
 A re-iterable stream becomes a streamed brute index (``brute`` /
 ``brute_approx`` only), which neither pickles nor saves. Persistence
 saves the items (and ids); the index is rebuilt from ``seed`` at the first
-``kneighbors`` after a load. A mesh raises ``NotImplementedError``
-(ROADMAP A.9, item 18).
+``kneighbors`` after a load.
+
+With a mesh (``ApproximateNearestNeighbors(mesh=...)`` or ``setMesh`` on
+the model) the IVF build shards its rows over the data axis
+(``ops/ann.py``), an IVF search splits the queries over it
+(:func:`ops.ann.ann_search_sharded`), and ``brute`` / ``brute_approx``
+search the items placed over it once (:func:`ops.knn.shard_items`,
+:func:`ops.knn.knn_sharded`), ``refine_ratio`` re-ranking as on one
+device. A streamed index refuses a mesh.
 """
 
 from __future__ import annotations
@@ -61,7 +68,6 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     save_rows,
 )
 from spark_rapids_ml_tpu_torch.models.nearest_neighbors import (
-    MESH_ITEM,
     ONE_SHOT_MESSAGE,
     STREAM_MESH_MESSAGE,
     STREAM_PICKLE_MESSAGE,
@@ -76,12 +82,22 @@ from spark_rapids_ml_tpu_torch.models.nearest_neighbors import (
 from spark_rapids_ml_tpu_torch.ops.ann import (
     IVFIndex,
     IVFPQIndex,
+    ann_search_sharded,
     build_ivf_index,
     build_ivfpq_index,
     dispatch_search,
     index_to,
 )
-from spark_rapids_ml_tpu_torch.ops.knn import METRICS, _smallest_k, knn, knn_host_streamed, unit_rows
+from spark_rapids_ml_tpu_torch.ops.knn import (
+    METRICS,
+    _smallest_k,
+    knn,
+    knn_host_streamed,
+    knn_sharded,
+    shard_items,
+    unit_rows,
+)
+from spark_rapids_ml_tpu_torch.parallel.mesh import require_one_process
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 _ALGORITHMS = ("ivfflat", "ivfpq", "brute", "brute_approx")
@@ -210,13 +226,13 @@ class ApproximateNearestNeighbors(_ANNParams, Estimator, MLReadable):
                 raise ValueError(STREAM_MESH_MESSAGE)
             return self._copyValues(ApproximateNearestNeighborsModel(self.uid, items_stream=dataset))
         if self.mesh is not None:
-            raise NotImplementedError(MESH_ITEM)
+            require_one_process(self.mesh, "the sharded ANN index")
         id_col = self.getIdCol()
         items = matrix_like(extract_features(dataset, self.getInputCol(), drop=id_col))
         ids = extract_ids(dataset, id_col)
         if self.getK() > items.shape[0]:
             raise ValueError(f"k={self.getK()} exceeds item count {items.shape[0]}")
-        model = self._copyValues(ApproximateNearestNeighborsModel(self.uid, items, ids))
+        model = self._copyValues(ApproximateNearestNeighborsModel(self.uid, items, ids, mesh=self.mesh))
         if model.getAlgorithm() in ("ivfflat", "ivfpq"):
             with TraceRange("ann build index", TraceColor.YELLOW):
                 model._build_index()
@@ -228,7 +244,7 @@ class ApproximateNearestNeighborsModel(_ANNParams, Model, LazyHostState):
     exact search for the brute algorithms)."""
 
     _lazy_host_fields = {"_items_raw": ("_items_np", None)}
-    _pickle_clear = ("_items_dev", "_index", "_index_cast")
+    _pickle_clear = ("_items_dev", "_index", "_index_cast", "_sharded_brute")
 
     def __init__(
         self,
@@ -247,6 +263,7 @@ class ApproximateNearestNeighborsModel(_ANNParams, Model, LazyHostState):
         self._index: Optional[IVFIndex | IVFPQIndex] = None
         self._index_cast = None  # (device, dtype, index) for the queries' device
         self._items_dev = None  # (device, dtype, items) for the exact searches
+        self._sharded_brute = None  # (dtype, (item blocks, mask blocks)) on the mesh
 
     def __getstate__(self):
         if self._items_stream is not None:
@@ -259,6 +276,7 @@ class ApproximateNearestNeighborsModel(_ANNParams, Model, LazyHostState):
 
     def setMesh(self, mesh) -> "ApproximateNearestNeighborsModel":
         self.mesh = mesh
+        self._sharded_brute = None
         return self
 
     def _effective_nlist(self) -> int:
@@ -310,10 +328,11 @@ class ApproximateNearestNeighborsModel(_ANNParams, Model, LazyHostState):
                 m_subspaces=self._effective_m(int(items.shape[1])),
                 n_bits=int(params.get("n_bits", 8)),
                 pq_iters=int(params.get("pq_iters", 10)),
+                mesh=self.mesh,
                 **common,
             )
         else:
-            self._index = build_ivf_index(items, **common)
+            self._index = build_ivf_index(items, mesh=self.mesh, **common)
         self._index_cast = None
 
     def _index_on(self, device: torch.device, dtype: torch.dtype):
@@ -356,22 +375,26 @@ class ApproximateNearestNeighborsModel(_ANNParams, Model, LazyHostState):
         k = self.getK() if k is None else k
         if not 1 <= k <= n_items:
             raise ValueError(f"k must be in [1, {n_items}], got {k}")
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_ITEM)
         metric = self.getMetric()
         q, device_q = query_rows(queries, self.getInputCol(), self.getIdCol())
         if metric == "cosine":
             q = unit_rows(q)
         with TraceRange("ann search", TraceColor.PURPLE):
-            if self.getAlgorithm() in ("brute", "brute_approx"):
-                d2, idx = knn(
-                    q, self._search_items_on(q.device, q.dtype), k=k, metric="sqeuclidean",
-                    approx=self.getAlgorithm() == "brute_approx",
-                )
+            approx = self.getAlgorithm() == "brute_approx"
+            if self.getAlgorithm() in ("brute", "brute_approx") and self.mesh is not None:
+                xs, mask = self._sharded_search_items(q.dtype)
+                d2, idx = knn_sharded(q, xs, mask, self.mesh, k=k, approx=approx)
+            elif self.getAlgorithm() in ("brute", "brute_approx"):
+                d2, idx = knn(q, self._search_items_on(q.device, q.dtype), k=k, metric="sqeuclidean",
+                              approx=approx)
             else:
                 index = self._index_on(q.device, q.dtype)
                 n_probe = self._effective_nprobe(index.n_lists)
-                search = dispatch_search(index)
+                if self.mesh is not None:
+                    def search(ix, qs, kk, npr):
+                        return ann_search_sharded(self.mesh, ix, qs, kk, npr)
+                else:
+                    search = dispatch_search(index)
                 if isinstance(index, IVFPQIndex):
                     # Over-fetch by the quantized distance, then re-rank the
                     # shortlist exactly (FAISS IndexRefineFlat, cuML refine_ratio).
@@ -387,6 +410,16 @@ class ApproximateNearestNeighborsModel(_ANNParams, Model, LazyHostState):
         elif metric == "cosine":
             d2 = d2 / 2.0
         return results_out(d2, idx, device_q)
+
+    def _sharded_search_items(self, dtype: torch.dtype):
+        """The (normalized) search items over the mesh in the queries'
+        dtype, placed once per dtype."""
+        if self._sharded_brute is None or self._sharded_brute[0] != dtype:
+            raw = self._items_raw
+            src = raw if is_device_array(raw) else np.asarray(raw)
+            metric = "cosine" if self.getMetric() == "cosine" else "sqeuclidean"
+            self._sharded_brute = (dtype, shard_items(src, self.mesh, metric=metric, dtype=dtype))
+        return self._sharded_brute[1]
 
     def _kneighbors_streamed(self, queries: Any, k: Optional[int]):
         """One pass over the streamed item blocks with a running top-k."""

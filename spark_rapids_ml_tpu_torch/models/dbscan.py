@@ -19,7 +19,10 @@ compares ‖q‖² − 2q·x + ‖x‖² with eps², a cancellation that float32
 across the cut once the rows lie far from the origin. Labels and the core
 mask come back to the host (numpy), as in the reference.
 
-A mesh raises ``NotImplementedError`` (ROADMAP A.9, item 18).
+With a mesh (``DBSCAN(mesh=...)``, ``setMesh``, or ``setDeployMode("gang")``
+at a world of one) the fit runs :func:`ops.dbscan.dbscan_labels_sharded`:
+the query rows split over the data axis, the point set whole on every
+position; labels and the core mask are the single-device fit's.
 """
 
 from __future__ import annotations
@@ -43,11 +46,9 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     save_metadata,
     save_rows,
 )
-from spark_rapids_ml_tpu_torch.ops.dbscan import dbscan_labels, relabel_consecutive
+from spark_rapids_ml_tpu_torch.ops.dbscan import dbscan_labels, dbscan_labels_sharded, relabel_consecutive
 from spark_rapids_ml_tpu_torch.ops.knn import knn_sq_euclidean
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
-
-MESH_ITEM = "the mesh route of DBSCAN is not ported yet: ROADMAP A.9, item 18"
 
 
 def _rows_on_device(x: Any) -> torch.Tensor:
@@ -125,22 +126,23 @@ class DBSCAN(_DBSCANParams, Estimator, MLReadable):
         return self
 
     def setMesh(self, mesh) -> "DBSCAN":
-        if mesh is not None:
-            raise NotImplementedError(MESH_ITEM)
-        self.mesh = None
+        self.mesh = mesh
         return self
 
     def fit(self, dataset: Any) -> "DBSCANModel":
         """Cluster the rows: a tensor where it lives, host rows in float64
-        on the platform's device. Overrides ``fit`` (not ``_fit``), as the
-        reference does. A gang fit (``deployMode="gang"``) needs the
-        sharded route and raises its ROADMAP item."""
+        on the platform's device; over the mesh when one is set. Overrides
+        ``fit`` (not ``_fit``), as the reference does, so a gang fit
+        (``deployMode="gang"``) joins the gang here."""
         if self.getDeployMode() == "gang":
-            raise NotImplementedError(MESH_ITEM)
+            self._join_gang()
         x = matrix_like(extract_features(dataset, self.getFeaturesCol()))
         xd = _rows_on_device(x)
         with TraceRange("dbscan fit", TraceColor.RED):
-            labels, core = dbscan_labels(xd, self.getEps(), self.getMinSamples())
+            if self.mesh is not None:
+                labels, core = dbscan_labels_sharded(self.mesh, xd, self.getEps(), self.getMinSamples())
+            else:
+                labels, core = dbscan_labels(xd, self.getEps(), self.getMinSamples())
         model = DBSCANModel(
             self.uid,
             fitted=xd if is_device_array(x) else x,

@@ -41,8 +41,10 @@ per data shard with its statistics summed over the data axis
 (``ops/kmeans.py``), on the ``xla`` route: the kernels' blockers include
 a mesh, as in the reference. A streaming source refuses a mesh.
 
-Left out until its ROADMAP item: the checkpointed Lloyd (A.7b) is
-switched on by knobs the port does not read yet, so no fit reaches it.
+Left out until its ROADMAP item: the checkpointed Lloyd (A.7b). Where
+the reference would segment Lloyd (``TPUML_CHECKPOINT_DIR`` with a
+positive ``TPUML_CHECKPOINT_EVERY``, any backend but an explicit
+``"fused"``), the fit raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -90,6 +92,7 @@ from spark_rapids_ml_tpu_torch.ops.kmeans import (
 )
 from spark_rapids_ml_tpu_torch.ops.precision import pallas_precision, resolve_policy, validate_mode
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
+from spark_rapids_ml_tpu_torch.utils.envknobs import reject_checkpoint
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 
@@ -383,6 +386,8 @@ class KMeans(_KMeansParams, Estimator, MLReadable):
                 init = random_init(xs, mask, gen, k)
             else:
                 init = kmeans_plusplus_init(xs, mask, gen, k)
+            if self.getBackend() != "fused":
+                reject_checkpoint("kmeans.lloyd")
             backend = self._resolve_backend(
                 w_host, n * k, d=d, k=k, dtype=dtype, device=device
             )

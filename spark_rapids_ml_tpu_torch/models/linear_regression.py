@@ -34,8 +34,10 @@ sufficient statistics and ``psum_data`` sums them; the solvers run on the
 reduced O(d²) statistics and need no collective. A mesh fit takes a list
 of blocks as host partitions, not as a stream.
 
-Left out until its ROADMAP item: the resumable FISTA (A.9, robustness) is
-switched on by knobs the port does not read yet, so no fit reaches it.
+Left out until its ROADMAP item: the resumable FISTA (A.9, robustness).
+Where the reference would segment FISTA (``TPUML_CHECKPOINT_DIR`` with a
+positive ``TPUML_CHECKPOINT_EVERY``), the fit raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ from spark_rapids_ml_tpu_torch.ops.linear import (
 )
 from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
+from spark_rapids_ml_tpu_torch.utils.envknobs import reject_checkpoint
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 
@@ -328,6 +331,7 @@ class LinearRegression(_LinearRegressionParams, Estimator, MLReadable):
                     "the exact normal-equation solve has no iteration to seed"
                 )
             return solve_normal(xtx, xty, x_sum, y_sum, count, reg_param=self.getRegParam(), **common)
+        reject_checkpoint("linreg.fista")
         coef, intercept, _ = solve_elastic_net(
             xtx, xty, x_sum, y_sum, count,
             reg_param=self.getRegParam(),

@@ -36,8 +36,11 @@ shard and over the data axis (``ops/logistic.py``); a gang agrees on the
 class count first (``allgather_host_max``). A streaming source refuses a
 mesh.
 
-Left out until its ROADMAP item: the resumable L-BFGS (A.9, robustness)
-is switched on by knobs the port does not read yet, so no fit reaches it.
+Left out until its ROADMAP item: the resumable L-BFGS (A.9, robustness).
+Where the reference would segment L-BFGS (``TPUML_CHECKPOINT_DIR`` with a
+positive ``TPUML_CHECKPOINT_EVERY``, an in-memory fit with
+``elasticNetParam`` 0 or ``regParam`` 0), the fit raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -77,7 +80,7 @@ from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy, validate_mod
 from spark_rapids_ml_tpu_torch.parallel.collectives import process_count
 from spark_rapids_ml_tpu_torch.parallel.distributed import allgather_host_max
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
-from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice
+from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice, reject_checkpoint
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 
@@ -341,6 +344,7 @@ class LogisticRegression(_LogisticRegressionParams, Estimator, MLReadable):
             )
             enet = self.getElasticNetParam()
             if enet == 0.0 or self.getRegParam() == 0.0:
+                reject_checkpoint("logistic.lbfgs")
                 init_w = init_b = None
                 if self._initial_weights is not None:
                     init_w, init_b = self._initial_weights

@@ -21,8 +21,12 @@ streamed index: each ``kneighbors`` streams the blocks through
 :func:`ops.knn.knn_host_streamed`, so the item count is bounded by the
 source, not by device memory. Such a model neither pickles nor saves.
 
-A mesh (the sharded index) raises ``NotImplementedError`` (ROADMAP A.9,
-item 18).
+With a mesh (``NearestNeighbors(mesh=...)`` or ``setMesh`` on the
+model) the first ``kneighbors`` places the items over the mesh's data axis
+in the queries' dtype (:func:`ops.knn.shard_items`, cosine rows
+normalized first) and keeps that upload, keyed by metric and dtype;
+every search runs :func:`ops.knn.knn_sharded` on it, which returns the
+single-device search's neighbours. A streamed index refuses a mesh.
 """
 
 from __future__ import annotations
@@ -53,10 +57,9 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     save_metadata,
     save_rows,
 )
-from spark_rapids_ml_tpu_torch.ops.knn import METRICS, knn, knn_host_streamed
+from spark_rapids_ml_tpu_torch.ops.knn import METRICS, knn, knn_host_streamed, knn_sharded, shard_items
+from spark_rapids_ml_tpu_torch.parallel.mesh import require_one_process
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
-
-MESH_ITEM = "the sharded neighbour index (a mesh) is not ported yet: ROADMAP A.9, item 18"
 
 ONE_SHOT_MESSAGE = (
     "a streamed {what} index needs a RE-ITERABLE source (a zero-arg iterator "
@@ -179,20 +182,20 @@ class NearestNeighbors(_NearestNeighborsParams, Estimator, MLReadable):
                 raise ValueError(STREAM_MESH_MESSAGE)
             return self._copyValues(NearestNeighborsModel(self.uid, items_stream=dataset))
         if self.mesh is not None:
-            raise NotImplementedError(MESH_ITEM)
+            require_one_process(self.mesh, "the sharded kNN index")
         id_col = self.getIdCol()
         items = matrix_like(extract_features(dataset, self.getInputCol(), drop=id_col))
         ids = extract_ids(dataset, id_col)
         if self.getK() > items.shape[0]:
             raise ValueError(f"k={self.getK()} exceeds item count {items.shape[0]}")
-        return self._copyValues(NearestNeighborsModel(self.uid, items, ids))
+        return self._copyValues(NearestNeighborsModel(self.uid, items, ids, mesh=self.mesh))
 
 
 class NearestNeighborsModel(_NearestNeighborsParams, Model, LazyHostState):
     """Indexed item set; ``kneighbors`` runs the blocked distance GEMM."""
 
     _lazy_host_fields = {"_items_raw": ("_items_np", None)}
-    _pickle_clear = ("_items_dev",)
+    _pickle_clear = ("_items_dev", "_sharded")
 
     def __init__(
         self,
@@ -208,6 +211,7 @@ class NearestNeighborsModel(_NearestNeighborsParams, Model, LazyHostState):
         self.ids = None if ids is None else np.asarray(ids)
         self.mesh = mesh
         self._items_dev = None  # (device, dtype, tensor): the host items' copy
+        self._sharded = None  # ((metric, dtype), (item blocks, mask blocks)) on the mesh
         self._items_stream = items_stream
 
     def __getstate__(self):
@@ -221,6 +225,7 @@ class NearestNeighborsModel(_NearestNeighborsParams, Model, LazyHostState):
 
     def setMesh(self, mesh) -> "NearestNeighborsModel":
         self.mesh = mesh
+        self._sharded = None
         return self
 
     def _items_on(self, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
@@ -247,12 +252,25 @@ class NearestNeighborsModel(_NearestNeighborsParams, Model, LazyHostState):
         k = self.getK() if k is None else k
         if not 1 <= k <= n_items:
             raise ValueError(f"k must be in [1, {n_items}], got {k}")
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_ITEM)
         q, device_q = query_rows(queries, self.getInputCol(), self.getIdCol())
+        metric = self.getMetric()
         with TraceRange("knn", TraceColor.PURPLE):
-            d, idx = knn(q, self._items_on(q.device, q.dtype), k=k, metric=self.getMetric())
+            if self.mesh is not None:
+                xs, mask = self._sharded_items(metric, q.dtype)
+                d, idx = knn_sharded(q, xs, mask, self.mesh, k=k, metric=metric)
+            else:
+                d, idx = knn(q, self._items_on(q.device, q.dtype), k=k, metric=metric)
         return results_out(d, idx, device_q)
+
+    def _sharded_items(self, metric: str, dtype: torch.dtype):
+        """The items over the mesh in the queries' dtype, placed once per
+        metric and dtype (cosine rows are normalized in the upload)."""
+        key = (metric, dtype)
+        if self._sharded is None or self._sharded[0] != key:
+            raw = self._items_raw
+            src = raw if is_device_array(raw) else np.asarray(raw)
+            self._sharded = (key, shard_items(src, self.mesh, metric=metric, dtype=dtype))
+        return self._sharded[1]
 
     def _kneighbors_streamed(self, queries: Any, k: Optional[int]):
         """One pass over the streamed item blocks with a running top-k;

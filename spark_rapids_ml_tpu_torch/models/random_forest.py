@@ -26,9 +26,13 @@ Models save in Spark's ``EnsembleModelReadWrite`` layout (``metadata``,
 NodeData schema), so either package, and Spark, loads the other's saves.
 
 The fit has no streaming route: over the fit memory budget
-(``core/membudget.py``) a host input raises ``FitMemoryError``. Left out
-until their ROADMAP items: a mesh (A.9, item 18) raises
-``NotImplementedError``. The per-device copies of the forest are
+(``core/membudget.py``) a host input raises ``FitMemoryError``; a mesh fit
+passes unpriced, as in the reference. With a mesh (``mesh=``, ``setMesh``,
+or ``setDeployMode("gang")`` at a world of one) the fit quantizes, bins and
+draws as on one device and grows over the mesh
+(:func:`ops.trees.grow_forest_sharded`, one histogram sum a level): a
+classification forest is bitwise the single-device one. The per-device
+copies of the forest are
 registered with ``core/serving`` (``note_device_cache``), which drops
 them when the model retires from a serving registry.
 
@@ -66,16 +70,17 @@ from spark_rapids_ml_tpu_torch.core.serving import note_device_cache, serve_bloc
 from spark_rapids_ml_tpu_torch.models.linear_regression import _extract_xy
 from spark_rapids_ml_tpu_torch.ops.trees import (
     Forest,
+    bin_features,
     feature_importances,
     fit_forest_fused,
     forest_predict_proba,
     forest_predict_reg,
+    grow_forest_sharded,
+    quantize_features,
     sample_weights,
 )
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
-
-MESH_ITEM = "the mesh route of the random forest is not ported yet: ROADMAP A.9, item 18"
 
 
 def _proba_kernel(x, forest, *, depth: int):
@@ -305,14 +310,16 @@ def _forest_draws(seed: int, device: torch.device) -> torch.Generator:
 
 
 def _fit_forest(params: _RandomForestParams, x, row_stats, impurity: str, classification: bool,
-                stats_integral: bool = False) -> Forest:
+                stats_integral: bool = False, mesh=None) -> Forest:
     """The shared fit: the memory guard, the draws, then quantize, bin and
-    grow (:func:`ops.trees.fit_forest_fused`)."""
+    grow (:func:`ops.trees.fit_forest_fused`), over ``mesh`` when one is
+    given (:func:`ops.trees.grow_forest_sharded`; the draws, edges and bins
+    are the single-device fit's)."""
     n, d = int(x.shape[0]), int(x.shape[1])
     fit_memory_guard(
         "random_forest", x, can_stream=False,
         why_cannot_stream="RandomForest has no streaming fit (histogram growth needs the binned matrix resident)",
-        dtype=np.float32, ledger_families=("rf",),
+        mesh=mesh, dtype=np.float32, ledger_families=("rf",),
         extra_bytes=0 if is_device_array(row_stats) else np.asarray(row_stats).size * 4,
     )
     n_bins = min(params.getMaxBins(), max(2, n))
@@ -324,12 +331,17 @@ def _fit_forest(params: _RandomForestParams, x, row_stats, impurity: str, classi
     # stats_integral: a plain one-hot (no weightCol), whose products with
     # the 256-clamped integer weights are exact in bf16 by construction.
     exact = classification and (stats_integral or _hist_exact_in_bf16(row_stats, w))
-    return fit_forest_fused(
-        xd, _on_device(row_stats, xd.device), w, generator=gen,
+    grow = dict(
         max_depth=params.getMaxDepth(), n_bins=n_bins, impurity=impurity, feat_subset=m,
         min_instances=params.getMinInstancesPerNode(), min_info_gain=params.getMinInfoGain(),
         exact_counts=exact,
     )
+    rs = _on_device(row_stats, xd.device)
+    if mesh is not None:
+        edges = quantize_features(xd, n_bins)
+        return grow_forest_sharded(mesh, bin_features(xd, edges), rs, w, edges.to(torch.float32),
+                                   generator=gen, **grow)
+    return fit_forest_fused(xd, rs, w, generator=gen, **grow)
 
 
 def _forest_depth(forest: Forest) -> int:
@@ -429,9 +441,7 @@ class RandomForestClassifier(_RandomForestParams, Estimator, MLReadable):
         self._setDefault(impurity="gini", probabilityCol="probability", rawPredictionCol="rawPrediction")
 
     def setMesh(self, mesh) -> "RandomForestClassifier":
-        if mesh is not None:
-            raise NotImplementedError(MESH_ITEM)
-        self.mesh = None
+        self.mesh = mesh
         return self
 
     def getProbabilityCol(self) -> str:
@@ -487,7 +497,8 @@ class RandomForestClassifier(_RandomForestParams, Estimator, MLReadable):
             if w is not None:
                 row_stats *= w[:, None].astype(np.float32)
         with TraceRange("rf-classifier fit", TraceColor.GREEN):
-            forest = _fit_forest(self, x, row_stats, self.getImpurity(), True, stats_integral=w is None)
+            forest = _fit_forest(self, x, row_stats, self.getImpurity(), True, stats_integral=w is None,
+                                 mesh=self.mesh)
         model = RandomForestClassificationModel(self.uid, forest, numFeatures=int(x.shape[1]), numClasses=n_classes)
         return self._copyValues(model)
 
@@ -584,9 +595,7 @@ class RandomForestRegressor(_RandomForestParams, Estimator, MLReadable):
         self._setDefault(impurity="variance")
 
     def setMesh(self, mesh) -> "RandomForestRegressor":
-        if mesh is not None:
-            raise NotImplementedError(MESH_ITEM)
-        self.mesh = None
+        self.mesh = mesh
         return self
 
     def setImpurity(self, v: str):
@@ -619,7 +628,7 @@ class RandomForestRegressor(_RandomForestParams, Estimator, MLReadable):
             if w is not None:
                 row_stats *= w[:, None]
         with TraceRange("rf-regressor fit", TraceColor.GREEN):
-            forest = _fit_forest(self, x, row_stats, "variance", False)
+            forest = _fit_forest(self, x, row_stats, "variance", False, mesh=self.mesh)
         forest = forest._replace(leaf_value=forest.leaf_value + y_mean)
         model = RandomForestRegressionModel(self.uid, forest, numFeatures=int(x.shape[1]))
         return self._copyValues(model)

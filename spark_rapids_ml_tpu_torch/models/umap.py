@@ -26,9 +26,20 @@ Random numbers come from ``torch.Generator``s seeded by ``seed`` (fit)
 and ``seed + 1`` (transform): the reference's results are matched in
 distribution, not bit for bit. A host input passes the fit memory guard
 (``core/membudget.py``) priced in float32; UMAP has no streaming fit, so
-over budget is a ``FitMemoryError``. Left out until their ROADMAP items: a
-mesh (A.12b, item 18) and the checkpointed layout (A.12a, robustness
-slice).
+over budget is a ``FitMemoryError``; a mesh fit passes unpriced, as in the
+reference.
+
+With a mesh (``UMAP(mesh=...)``) both heavy stages shard over its data
+axis: the kNN graph (:func:`ops.knn.knn_sharded` over the rows placed by
+:func:`ops.knn.shard_items`, k + 1 neighbours) and the layout SGD
+(:func:`ops.umap.optimize_layout_sharded`, one delta sum an epoch). K4
+stays off a mesh, as the reference keeps its tail kernel off one. The
+draws are the single-device fit's, so a pooled mesh fit equals the
+single-device ``index_add_`` fit up to the order of its sums. Left out
+until its ROADMAP item: the checkpointed layout (A.12a, robustness
+slice); where the reference would checkpoint it (a single-device fit with
+``TPUML_CHECKPOINT_UMAP=1`` and the global knobs), the fit raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,21 +65,20 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     save_metadata,
 )
 from spark_rapids_ml_tpu_torch.ops.kernels.umap import build_tail_plan, plan_feasible
-from spark_rapids_ml_tpu_torch.ops.knn import knn
+from spark_rapids_ml_tpu_torch.ops.knn import knn, knn_sharded, shard_items
 from spark_rapids_ml_tpu_torch.ops.umap import (
     FuzzyGraph,
     find_ab_params,
     fuzzy_simplicial_set,
     optimize_layout,
+    optimize_layout_sharded,
     smooth_knn_dist,
     spectral_init,
 )
-from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice
+from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice, reject_checkpoint
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 _SPECTRAL_CAP = 8192  # a dense-Laplacian eigh above this would dominate the fit
-
-MESH_ITEM = "the mesh route of UMAP (sharded kNN and layout) is not ported yet: ROADMAP A.12b (with item 18)"
 
 
 class _UMAPParams(Params):
@@ -234,11 +244,17 @@ class _UMAPParams(Params):
         return 500 if n <= 10_000 else 200
 
 
-def _knn_excluding_self(x: torch.Tensor, k: int, metric: str, approx: bool = False):
+def _knn_excluding_self(x: torch.Tensor, k: int, metric: str, mesh=None, approx: bool = False):
     """kNN of x against itself with the self match removed: the self
     column (wherever ties put it) is pushed to +inf and the k + 1 window
-    re-sorted stably, as the reference's ``jnp.argsort`` does."""
-    d, idx = knn(x, x, k + 1, metric=metric, approx=approx)
+    re-sorted stably, as the reference's ``jnp.argsort`` does. With a
+    mesh the rows are placed over it as the item set and searched by
+    :func:`ops.knn.knn_sharded`."""
+    if mesh is not None:
+        items, item_mask = shard_items(x, mesh, metric=metric)
+        d, idx = knn_sharded(x, items, item_mask, mesh, k + 1, metric=metric, approx=approx)
+    else:
+        d, idx = knn(x, x, k + 1, metric=metric, approx=approx)
     rows = torch.arange(x.shape[0], device=x.device)[:, None]
     d = torch.where(idx == rows, torch.full_like(d, float("inf")), d)
     order = torch.argsort(d, dim=1, stable=True)
@@ -284,8 +300,6 @@ class UMAP(_UMAPParams, Estimator, MLReadable):
         return self
 
     def _fit(self, dataset: Any) -> "UMAPModel":
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_ITEM)
         rows = extract_features(dataset, self.getFeaturesCol())
         # The kNN graph and the epoch SGD need the whole matrix on the
         # device: no streaming rung, so over budget is a FitMemoryError up
@@ -294,7 +308,7 @@ class UMAP(_UMAPParams, Estimator, MLReadable):
             "umap", rows, can_stream=False,
             why_cannot_stream="UMAP has no streaming fit (the kNN graph "
                               "and epoch SGD need the full matrix resident)",
-            dtype=np.float32, ledger_families=("umap",),
+            mesh=self.mesh, dtype=np.float32, ledger_families=("umap",),
         )
         device_in = is_device_array(rows)
         x_in = matrix_like(rows)
@@ -311,18 +325,18 @@ class UMAP(_UMAPParams, Estimator, MLReadable):
             gen.manual_seed(self.getSeed())
             with TraceRange("umap graph", TraceColor.BLUE):
                 dists, idx = _knn_excluding_self(
-                    x, k, self.getMetric(), approx=self.getBuildAlgo() == "brute_approx"
+                    x, k, self.getMetric(), self.mesh, approx=self.getBuildAlgo() == "brute_approx"
                 )
                 graph = fuzzy_simplicial_set(idx, dists)
                 # The tail route (TPUML_UMAP_SCATTER): "auto" takes K4 over a
                 # per-fit tail sort on a CUDA layout and index_add_
                 # elsewhere; "pallas" takes K4's wrapper wherever the plan is
                 # feasible (its plain version on a CPU tensor); "xla" takes
-                # index_add_.
+                # index_add_. A mesh fit keeps its own scatter.
                 scatter = env_choice("TPUML_UMAP_SCATTER", ("auto", "pallas", "xla"), "auto")
                 want_k4 = scatter == "pallas" or (scatter == "auto" and x.device.type == "cuda")
                 tail_plan = None
-                if want_k4 and plan_feasible(n, k, dim):
+                if want_k4 and self.mesh is None and plan_feasible(n, k, dim):
                     tail_plan = build_tail_plan(graph.indices, n, dim)
             if self._init_embedding is not None:
                 if self._init_embedding.shape != (n, dim):
@@ -334,20 +348,24 @@ class UMAP(_UMAPParams, Estimator, MLReadable):
                 emb0 = spectral_init(graph, n, dim, gen)
             else:
                 emb0 = 10.0 * (2.0 * torch.rand((n, dim), generator=gen, device=x.device) - 1.0)
+            layout = dict(
+                n_epochs=self._auto_epochs(n),
+                neg_rate=self.getNegativeSampleRate(),
+                neg_pool=self.getNegativePoolSize(),
+                learning_rate=self.getLearningRate(),
+                repulsion=self.getRepulsionStrength(),
+                a=a,
+                b=b,
+            )
             with TraceRange("umap layout", TraceColor.PURPLE):
-                emb = optimize_layout(
-                    emb0.to(torch.float32),
-                    graph,
-                    gen,
-                    n_epochs=self._auto_epochs(n),
-                    neg_rate=self.getNegativeSampleRate(),
-                    neg_pool=self.getNegativePoolSize(),
-                    learning_rate=self.getLearningRate(),
-                    repulsion=self.getRepulsionStrength(),
-                    a=a,
-                    b=b,
-                    tail_plan=tail_plan,
-                )
+                if self.mesh is not None:
+                    emb = optimize_layout_sharded(self.mesh, emb0.to(torch.float32), graph, gen,
+                                                  seed=self.getSeed(), **layout).to(x.device)
+                else:
+                    # Checkpointing is opt-in (TPUML_CHECKPOINT_UMAP=1) and
+                    # single-device, as in the reference.
+                    reject_checkpoint("umap.layout", umap=True)
+                    emb = optimize_layout(emb0.to(torch.float32), graph, gen, tail_plan=tail_plan, **layout)
 
         # Device fits keep the layout and the train rows where they lie;
         # the model's host float64 views convert lazily.

@@ -33,19 +33,33 @@ and sums the M table gathers in the reference's order, m = 0..M−1.
 Setting ``n_probe = n_lists`` makes either search exact. The quantizer's
 draws cannot reproduce JAX's threefry, so a port-built index differs from
 the reference's for the same seed (ROADMAP C); an index carried across
-(``interop``) searches the same lists in both. ``ann_search_sharded``
-waits for the mesh slice.
+(``interop``) searches the same lists in both.
+
+Over a mesh the build shards its rows over the data axis: the quantizer's
+k-means++ and Lloyd run on the ``ShardedRows`` (the mesh KMeans of
+``ops/kmeans.py``) and each shard assigns its own rows; the PQ codebooks
+train on the residual matrix sharded once, each subspace a column slice
+of it, padding weighted 0. The draws are those of the single-device build,
+and the quantizer and codebook Lloyds sum their statistics in float64
+(``stats_dtype``), so a mesh-built index equals the single-device build:
+float32 sums taken in another order would move the centres by an ulp and
+flip the near-tie assignments of a few rows, and from there the lists.
+:func:`ann_search_sharded` splits the queries over the data axis against
+the index whole on every position; results are per query, so nothing is
+merged across shards.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.ops.kmeans import (
+    RowShards,
+    as_row_shards,
     assign_clusters,
     assign_clusters_blocked,
     kmeans_plusplus_init,
@@ -53,9 +67,13 @@ from spark_rapids_ml_tpu_torch.ops.kmeans import (
 )
 from spark_rapids_ml_tpu_torch.ops.knn import _merge, _nonneg, _smallest_k
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
+from spark_rapids_ml_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    require_one_process,
+    shard_tensor_rows,
+    weights_as_mask,
+)
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
-
-MESH_ITEM = "the mesh ANN search (ann_search_sharded) is not ported yet: ROADMAP A.9, item 18"
 
 #: Above this 4·n·n_lists the quantizer's final assignment is row-blocked
 #: (the reference's rule: the full (n, n_lists) float32 matrix would
@@ -112,18 +130,6 @@ def index_to(index, device: torch.device, dtype: torch.dtype):
     ))
 
 
-def _generator(device: torch.device, *seeds: int) -> torch.Generator:
-    """A generator on ``device`` seeded from one seed, or from several
-    folded into one (the reference's ``fold_in(key(seed + 1), m)``)."""
-    gen = torch.Generator(device=device)
-    if len(seeds) == 1:
-        gen.manual_seed(int(seeds[0]))
-    else:
-        words = [int(s) & 0xFFFFFFFFFFFFFFFF for s in seeds]
-        gen.manual_seed(int(np.random.SeedSequence(words).generate_state(1, dtype=np.uint64)[0]))
-    return gen
-
-
 def _items_on_device(items) -> Tuple[torch.Tensor, np.ndarray]:
     """(the items on their compute device, the items on the host): a
     tensor stays where it lives and is copied to the host once for the
@@ -140,20 +146,24 @@ def _items_on_device(items) -> Tuple[torch.Tensor, np.ndarray]:
 
 def _coarse_quantizer(x: torch.Tensor, n_lists: int, seed: int, kmeans_iters: int,
                       mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """k-means++ and Lloyd over the rows of ``x`` where they live:
-    (centroids (n_lists, d), labels (n,))."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_ITEM)
+    """k-means++ and Lloyd over the rows of ``x`` where they live, or over
+    them sharded on ``mesh``'s data axis: (centroids (n_lists, d), labels
+    (n,)), the row padding stripped."""
     n = int(x.shape[0])
-    mask = torch.ones(n, dtype=x.dtype, device=x.device)
-    init = kmeans_plusplus_init(x, mask, _generator(x.device, seed), n_lists)
-    centroids, _, _ = lloyd(x, mask, init, max_iter=kmeans_iters, tol=1e-4)
-    if 4 * n * n_lists > BLOCKED_ASSIGN_BYTES:
-        bump_counter("ann.quantizer.blocked_assign")
-        labels, _ = assign_clusters_blocked(x, centroids)
+    if mesh is None:
+        shards = RowShards([x], [torch.ones(n, dtype=x.dtype, device=x.device)], [0], n, x.device)
     else:
-        labels, _ = assign_clusters(x, centroids)
-    return centroids, labels
+        require_one_process(mesh, "the mesh IVF build")
+        shards = as_row_shards(shard_tensor_rows(x, mesh))
+    init = kmeans_plusplus_init(shards, None, _device.seeded_generator(shards.device, seed), n_lists)
+    centroids, _, _ = lloyd(shards, None, init, max_iter=kmeans_iters, tol=1e-4,
+                            stats_dtype=torch.float64)
+    blocked = 4 * n * n_lists > BLOCKED_ASSIGN_BYTES
+    if blocked:
+        bump_counter("ann.quantizer.blocked_assign")
+    assign = assign_clusters_blocked if blocked else assign_clusters
+    labels = [assign(xi, centroids.to(xi.device))[0].to(shards.device) for xi in shards.x]
+    return centroids, labels[0] if len(labels) == 1 else torch.cat(labels)
 
 
 def _pack_lists(items: np.ndarray, labels: np.ndarray, n_lists: int):
@@ -187,8 +197,9 @@ def build_ivf_index(
 ) -> IVFIndex:
     """Train the coarse quantizer and pack the inverted lists. ``items``
     is a host matrix or a tensor; the quantizer runs where the tensor
-    lives (a host matrix goes to :func:`device.resolve_device`), the
-    packing on the host, and the index lands on the quantizer's device."""
+    lives (a host matrix goes to :func:`device.resolve_device`), or over
+    ``mesh``, the packing on the host, and the index lands on the items'
+    device."""
     n = int(items.shape[0])
     if not 1 <= n_lists <= n:
         raise ValueError(f"n_lists must be in [1, {n}], got {n_lists}")
@@ -199,7 +210,7 @@ def build_ivf_index(
         lists, list_mask, list_ids = _pack_lists(host, labels.cpu().numpy(), n_lists)
     dev = x.device
     return IVFIndex(
-        centroids=centroids,
+        centroids=centroids.to(dev),
         lists=torch.from_numpy(lists).to(dev),
         list_mask=torch.from_numpy(list_mask).to(dev),
         list_ids=torch.from_numpy(list_ids).to(dev),
@@ -290,12 +301,20 @@ def build_ivfpq_index(
     r_sub = residuals.reshape(-1, m_subspaces, ds)
     w = flat.list_mask.reshape(-1)
     dev = residuals.device
+    sharded = None if mesh is None else _shard_residuals(residuals.reshape(-1, d), w, mesh)
     codebooks, codes = [], []
     with TraceRange("ann pq codebooks", TraceColor.YELLOW):
         for m in range(m_subspaces):
             rm = r_sub[:, m, :].contiguous()
-            init = kmeans_plusplus_init(rm, w, _generator(dev, seed + 1, m), n_codes)
-            cb, _, _ = lloyd(rm, w, init, max_iter=pq_iters, tol=1e-4)
+            gen = _device.seeded_generator(dev if sharded is None else sharded.device, seed + 1, m)
+            if sharded is None:
+                init = kmeans_plusplus_init(rm, w, gen, n_codes)
+                cb, _, _ = lloyd(rm, w, init, max_iter=pq_iters, tol=1e-4, stats_dtype=torch.float64)
+            else:
+                rm_s = _column_slice(sharded, m * ds, (m + 1) * ds)
+                init = kmeans_plusplus_init(rm_s, None, gen, n_codes)
+                cb, _, _ = lloyd(rm_s, None, init, max_iter=pq_iters, tol=1e-4, stats_dtype=torch.float64)
+                cb = cb.to(dev)
             code_m, _ = assign_clusters(rm, cb)
             codebooks.append(cb)
             codes.append(code_m.to(torch.uint8))
@@ -344,13 +363,58 @@ def ivfpq_search(
     return _probe_scaffold(index, queries, k, n_probe, block_q, dot, list_d2)
 
 
+def _shard_residuals(r: torch.Tensor, w: torch.Tensor, mesh) -> RowShards:
+    """The (rows, d) residual matrix sharded over the mesh once, its list
+    mask as the row weights (padding weighs 0)."""
+    sr = shard_tensor_rows(r, mesh)
+    weights = weights_as_mask(w.cpu().numpy(), sr.n_pad, r.dtype, mesh)
+    return as_row_shards(sr.fold_weights(weights))
+
+
+def _column_slice(shards: RowShards, lo: int, hi: int) -> RowShards:
+    """Columns [lo, hi) of every shard's rows, where each shard lives."""
+    return shards._replace(x=[xi[:, lo:hi].contiguous() for xi in shards.x])
+
+
 def dispatch_search(index):
     """The one home of the index-type → search dispatch."""
     return ivfpq_search if isinstance(index, IVFPQIndex) else ivf_search
 
 
-def ann_search_sharded(*args, **kwargs):
-    raise NotImplementedError(MESH_ITEM)
+def ann_search_sharded(
+    mesh,
+    index,
+    queries: torch.Tensor,
+    k: int,
+    n_probe: int,
+    block_q: int = 1024,
+    precision: str = "highest",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The IVF-Flat or IVF-PQ search over a mesh: the queries, zero-padded
+    to a multiple of the data axis, split over it; each shard probes the
+    whole index (copied once to each distinct device) for its queries.
+    Results are per query, so the shards' results are joined in order on
+    the queries' device and the padding is cut."""
+    require_one_process(mesh, "the mesh ANN search")
+    grid = mesh.grid
+    dp = int(mesh.shape[DATA_AXIS])
+    nq = int(queries.shape[0])
+    pad = (-nq) % dp
+    qp = torch.nn.functional.pad(queries, (0, 0, 0, pad)) if pad else queries
+    per = (nq + pad) // dp
+    search = dispatch_search(index)
+    dev = queries.device
+    copies = {index.centroids.device: index}
+    out_d: List[torch.Tensor] = []
+    out_i: List[torch.Tensor] = []
+    for i in range(grid.shape[0]):
+        pos = grid[i, 0]
+        if pos not in copies:
+            copies[pos] = index_to(index, pos, index.centroids.dtype)
+        d2, ids = search(copies[pos], qp[i * per:(i + 1) * per].to(pos), k, n_probe, block_q, precision)
+        out_d.append(d2.to(dev))
+        out_i.append(ids.to(dev))
+    return torch.cat(out_d)[:nq], torch.cat(out_i)[:nq]
 
 
 __all__ = [

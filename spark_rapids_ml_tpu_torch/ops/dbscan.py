@@ -29,13 +29,18 @@ The eps test is a cancellation: ‖q‖² − 2q·x + ‖x‖² against eps², s
 from the origin float32 rounds pairs across the cut. The estimator
 computes host input in float64 (``models/dbscan.py``).
 
-The sharded route (``dbscan_labels_sharded``) raises
-``NotImplementedError`` (ROADMAP A.9, item 18).
+Over a mesh (:func:`dbscan_labels_sharded`) the query rows split over the
+data axis and the point set stays whole on every position: each shard
+counts its rows' eps-neighbours and runs its part of every sweep with the
+same :func:`_eps_sweep` against the whole set (``x_items``), the core mask
+and each round's labels are gathered in shard order, and the pointer
+jumping runs on the gathered vector. Integer counts and minima, so the
+labels are the single-device fit's.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,10 +48,20 @@ import torch
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.ops.knn import _block_sq_distances
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
+from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, require_one_process
 
 _INT_MAX = torch.iinfo(torch.int32).max
 
-SHARDED_ITEM = "the mesh DBSCAN (dbscan_labels_sharded) is not ported yet: ROADMAP A.9, item 18"
+
+def _pad_rows(x: torch.Tensor, block: int) -> Tuple[torch.Tensor, int]:
+    """``x`` zero-padded along its rows to a multiple of ``block``, and the
+    number of blocks."""
+    n = int(x.shape[0])
+    n_blocks = -(-n // block)
+    pad = n_blocks * block - n
+    if pad:
+        x = torch.cat([x, torch.zeros((pad,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)])
+    return x, n_blocks
 
 
 def _eps_sweep(
@@ -58,26 +73,34 @@ def _eps_sweep(
     block_q: int,
     block_i: int,
     dot: Callable,
+    x_items: Optional[torch.Tensor] = None,
+    valid_items: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One blocked sweep over the epsilon graph of ``x`` against itself.
+    """One blocked sweep over the epsilon graph of the query rows ``x``
+    against the item rows ``x_items`` (default ``x`` itself, with
+    ``valid``; a distinct item set is the mesh's case: a shard's rows
+    against the whole set).
 
     For every query block, every item block's (Bq, Bi) boolean adjacency
     (``d2 <= eps_sq``, masked to valid rows, self-pairs included) goes
     through ``per_block(adj, j0)`` and folds into the block's result with
-    ``combine``. ``valid`` None means every row is real. Returns the
+    ``combine``. A mask of None means every row is real. Returns the
     per-query results, (n,)."""
-    n = int(x.shape[0])
+    if x_items is None:
+        x_items, valid_items = x, valid
+    n, n_items = int(x.shape[0]), int(x_items.shape[0])
     outs = []
     for q0 in range(0, n, block_q):
         qb = x[q0:q0 + block_q]
         q_sq = torch.sum(qb * qb, dim=1)
         acc = None
-        for j0 in range(0, n, block_i):
-            d2 = _block_sq_distances(qb, x[j0:j0 + block_i], q_sq, dot)
+        for j0 in range(0, n_items, block_i):
+            d2 = _block_sq_distances(qb, x_items[j0:j0 + block_i], q_sq, dot)
             adj = d2 <= eps_sq
             del d2
+            if valid_items is not None:
+                adj &= valid_items[None, j0:j0 + block_i]
             if valid is not None:
-                adj &= valid[None, j0:j0 + block_i]
                 adj &= valid[q0:q0 + block_q, None]
             part = per_block(adj, j0)
             acc = part if acc is None else combine(acc, part)
@@ -94,13 +117,16 @@ def _valid_mask(x: torch.Tensor, row_mask) -> Optional[torch.Tensor]:
     return None if row_mask is None else torch.as_tensor(row_mask, device=x.device).to(torch.bool)
 
 
-def _eps_neighbor_counts(x, valid, eps_sq, block_q: int, block_i: int, dot) -> torch.Tensor:
-    """(n,) int32 eps-neighbour counts, self included."""
+def _eps_neighbor_counts(x, valid, eps_sq, block_q: int, block_i: int, dot,
+                         x_items=None, valid_items=None) -> torch.Tensor:
+    """(n,) int32 eps-neighbour counts, self included: the one home of the
+    counting sweep (single-device and sharded)."""
     return _eps_sweep(
         x, valid, eps_sq,
         per_block=lambda adj, j0: torch.sum(adj, dim=1, dtype=torch.int32),
         combine=torch.add,
         block_q=block_q, block_i=block_i, dot=dot,
+        x_items=x_items, valid_items=valid_items,
     )
 
 
@@ -123,16 +149,19 @@ def core_point_mask(
     return core if valid is None else core & valid
 
 
-def _min_core_neighbor_label(x, valid, core, labels, eps_sq, block_q: int, block_i: int, dot) -> torch.Tensor:
+def _min_core_neighbor_label(x, valid, core, labels, eps_sq, block_q: int, block_i: int, dot,
+                             x_items=None, valid_items=None) -> torch.Tensor:
     """For every point, the minimum label over its CORE eps-neighbours
-    (itself included when core); ``_INT_MAX`` where it has none."""
+    (itself included when core); ``_INT_MAX`` where it has none. ``core``
+    and ``labels`` describe the item set (the query set on one device)."""
     masked_labels = torch.where(core, labels, torch.full_like(labels, _INT_MAX))
 
     def per_block(adj, j0):
         lab = masked_labels[j0:j0 + adj.shape[1]]
         return torch.where(adj, lab[None, :], _INT_MAX).amin(dim=1)
 
-    return _eps_sweep(x, valid, eps_sq, per_block, torch.minimum, block_q, block_i, dot)
+    return _eps_sweep(x, valid, eps_sq, per_block, torch.minimum, block_q, block_i, dot,
+                      x_items=x_items, valid_items=valid_items)
 
 
 def _compress_labels(labels: torch.Tensor, core: torch.Tensor, n: int) -> torch.Tensor:
@@ -216,8 +245,100 @@ def relabel_consecutive(labels: np.ndarray) -> np.ndarray:
     return out
 
 
-def dbscan_labels_sharded(*args, **kwargs):
-    raise NotImplementedError(SHARDED_ITEM)
+class _QueryShard(NamedTuple):
+    """One data shard of the mesh DBSCAN: its query rows and their mask,
+    the whole point set and its mask on the shard's device, and the
+    shard's first global row."""
+
+    xq: torch.Tensor
+    vq: torch.Tensor
+    x_all: torch.Tensor
+    v_all: torch.Tensor
+    offset: int
+
+
+def _gather(parts: List[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The shards' pieces of a per-row vector joined in shard order."""
+    return torch.cat([p.to(device) for p in parts])
+
+
+def dbscan_labels_sharded(
+    mesh,
+    x: Any,
+    eps: float,
+    min_pts: int,
+    block_q: int = 2048,
+    block_i: int = 8192,
+    precision: str = "highest",
+    return_sweeps: bool = False,
+):
+    """DBSCAN over a mesh: the query rows split over the data axis, the
+    point set whole on every position. ``x`` is a tensor (where it lives)
+    or a host matrix (to the mesh's first device, in its own dtype).
+    Returns ``(labels (n,) int32, core_mask (n,) bool)`` on the first
+    device, as :func:`dbscan_labels` returns them (and the sweep count
+    with ``return_sweeps``)."""
+    require_one_process(mesh, "the mesh DBSCAN")
+    first = mesh.first_device
+    x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x)).to(first)
+    _device.device_of(x)
+    n = int(x.shape[0])
+    dp = int(mesh.shape[DATA_AXIS])
+    xp, _ = _pad_rows(x, dp)
+    n_tot = int(xp.shape[0])
+    n_loc = n_tot // dp
+    validp = torch.arange(n_tot, device=x.device) < n
+    eps_sq = _eps_sq(x, eps)
+    dot = make_dot(precision)
+    grid = mesh.grid
+    whole = {}
+    shards = []
+    for i in range(dp):
+        dev = grid[i, 0]
+        if dev not in whole:
+            whole[dev] = (xp.to(dev), validp.to(dev))
+        x_all, v_all = whole[dev]
+        off = i * n_loc
+        shards.append(_QueryShard(x_all[off:off + n_loc], v_all[off:off + n_loc], x_all, v_all, off))
+    sweep = dict(block_q=block_q, block_i=block_i, dot=dot)
+
+    core_loc = []
+    for sh in shards:
+        counts = _eps_neighbor_counts(sh.xq, sh.vq, eps_sq.to(sh.xq.device), x_items=sh.x_all,
+                                      valid_items=sh.v_all, **sweep)
+        core_loc.append((counts >= min_pts) & sh.vq)
+    core = _gather(core_loc, first)
+
+    def neighbour_labels(labels):
+        return [_min_core_neighbor_label(sh.xq, sh.vq, core.to(sh.xq.device), labels.to(sh.xq.device),
+                                         eps_sq.to(sh.xq.device), x_items=sh.x_all, valid_items=sh.v_all,
+                                         **sweep)
+                for sh in shards]
+
+    labels = torch.where(core, torch.arange(n_tot, dtype=torch.int32, device=first), _INT_MAX)
+    sweeps = 0
+    changed = True
+    while changed:
+        new = []
+        for sh, c_loc, neigh in zip(shards, core_loc, neighbour_labels(labels)):
+            lab_loc = labels[sh.offset:sh.offset + n_loc].to(neigh.device)
+            new.append(torch.where(c_loc, torch.minimum(lab_loc, neigh), lab_loc))
+        jumped = _compress_labels(_gather(new, first), core, n_tot)
+        changed = bool(torch.any(jumped != labels))
+        labels = jumped
+        sweeps += 1
+
+    out = []
+    for sh, c_loc, neigh in zip(shards, core_loc, neighbour_labels(labels)):
+        lab_loc = labels[sh.offset:sh.offset + n_loc].to(neigh.device)
+        border = ~c_loc & (neigh < _INT_MAX) & sh.vq
+        lab_loc = torch.where(border, neigh, lab_loc)
+        lab_loc = torch.where(lab_loc == _INT_MAX, -1, lab_loc)
+        out.append(torch.where(sh.vq, lab_loc, -1))
+    labels, core = _gather(out, first)[:n], core[:n]
+    if return_sweeps:
+        return labels, core, sweeps
+    return labels, core
 
 
 __all__ = ["core_point_mask", "dbscan_labels", "dbscan_labels_sharded", "relabel_consecutive"]

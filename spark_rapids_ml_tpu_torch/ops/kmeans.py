@@ -31,9 +31,11 @@ Over a mesh (:class:`RowShards`, built from a ``ShardedRows`` by
 statistics where it lives, the sums meet in ``psum_data`` and the centre
 update runs on the first device. The seeding draws its uniforms for the
 global row order from the one generator and splits them by shard, and
-its top-t choices and candidate rows are taken over all shards, so a mesh
-fit draws what the single-device fit draws and differs from it only in
-the order of its sums.
+its top-t choices and candidate rows are taken over all shards, and each
+step's candidate potentials are summed in float64 (so the greedy choice
+does not turn on the order of the sums), so a mesh fit draws what the
+single-device fit draws and differs from it only in the order of its
+sums.
 
 Left for later slices: ``lloyd_resumable``/``_lloyd_segment``
 (checkpointed Lloyd).
@@ -179,13 +181,22 @@ def assign_clusters_blocked(
     return torch.cat(labels), torch.cat(d2s)
 
 
-def _assign_and_accumulate(xb, mb, x2b, centers, k: int, dot: Callable):
+def _assign_and_accumulate(xb, mb, x2b, centers, k: int, dot: Callable,
+                           stats_dtype: Optional[torch.dtype] = None):
     """One block's assignment and sufficient statistics: (sums (k, d),
-    counts (k,), cost). The one-hot carries the row weights."""
+    counts (k,), cost). The one-hot carries the row weights.
+    ``stats_dtype=torch.float64`` sums each row into its cluster in
+    float64 (``index_add_``) instead of the float32 one-hot product."""
     d2 = _sq_dists(xb, centers, x2b, dot)
     labels = torch.argmin(d2, dim=1)
     min_d2 = torch.gather(d2, 1, labels[:, None])[:, 0]
     del d2
+    if stats_dtype is not None:
+        w = mb.to(stats_dtype)
+        sums = torch.zeros((k, xb.shape[1]), dtype=stats_dtype, device=xb.device)
+        sums.index_add_(0, labels, xb.to(stats_dtype) * w[:, None])
+        counts = torch.zeros((k,), dtype=stats_dtype, device=xb.device).index_add_(0, labels, w)
+        return sums, counts, torch.sum(min_d2.to(stats_dtype) * w)
     one_hot = torch.zeros((xb.shape[0], k), dtype=xb.dtype, device=xb.device)
     one_hot.scatter_(1, labels[:, None], mb[:, None].to(xb.dtype))
     sums = dot(one_hot.T, xb)
@@ -194,39 +205,45 @@ def _assign_and_accumulate(xb, mb, x2b, centers, k: int, dot: Callable):
     return sums, counts, cost
 
 
-def _shard_stats(x, mask, x2, centers, dot: Callable, block_rows: Optional[int]):
+def _shard_stats(x, mask, x2, centers, dot: Callable, block_rows: Optional[int],
+                 stats_dtype: Optional[torch.dtype] = None):
     """One shard's (sums (k, d), counts (k,), cost); ``block_rows`` walks
     its rows in blocks so only a (block, k) distance matrix exists at a
     time (the last block may be short)."""
     k = centers.shape[0]
     n = x.shape[0]
     if block_rows is None or n <= block_rows:
-        return _assign_and_accumulate(x, mask, x2, centers, k, dot)
-    sums = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
-    counts = torch.zeros((k,), dtype=x.dtype, device=x.device)
-    cost = torch.zeros((), dtype=x.dtype, device=x.device)
+        return _assign_and_accumulate(x, mask, x2, centers, k, dot, stats_dtype)
+    acc = stats_dtype or x.dtype
+    sums = torch.zeros((k, x.shape[1]), dtype=acc, device=x.device)
+    counts = torch.zeros((k,), dtype=acc, device=x.device)
+    cost = torch.zeros((), dtype=acc, device=x.device)
     for i in range(0, n, block_rows):
         j = slice(i, i + block_rows)
-        sb, cb, jb = _assign_and_accumulate(x[j], mask[j], x2[j], centers, k, dot)
+        sb, cb, jb = _assign_and_accumulate(x[j], mask[j], x2[j], centers, k, dot, stats_dtype)
         sums, counts, cost = sums + sb, counts + cb, cost + jb
     return sums, counts, cost
 
 
 def lloyd_step(x, mask, centers, x2, dot: Dot, cosine: bool = False,
-               block_rows: Optional[int] = None):
+               block_rows: Optional[int] = None, stats_dtype: Optional[torch.dtype] = None):
     """One Lloyd iteration: (new_centers, cost). ``dot`` is a mode name or
     a matmul callable. ``x`` is a tensor (with ``mask`` and ``x2``) or
     :class:`RowShards` (``x2`` then one tensor per shard): each shard's
-    statistics are summed over the data axis before the update."""
+    statistics are summed over the data axis before the update.
+    ``stats_dtype=torch.float64`` sums the statistics and divides in
+    float64, so the centres hardly depend on the order of the sums (the
+    IVF quantizer's choice: a mesh build then equals a single-device
+    build)."""
     dot = _as_dot(dot)
     shards = as_row_shards(x, mask)
     x2s = [x2] if isinstance(x2, torch.Tensor) else x2
-    stats = [_shard_stats(xi, mi, x2i, centers.to(xi.device), dot, block_rows)
+    stats = [_shard_stats(xi, mi, x2i, centers.to(xi.device), dot, block_rows, stats_dtype)
              for xi, mi, x2i in zip(shards.x, shards.mask, x2s)]
     sums, counts, cost = (psum_data(list(parts), shards.device) for parts in zip(*stats))
     new_centers = torch.where(
-        counts[:, None] > 0, sums / torch.clamp(counts, min=1.0)[:, None], centers
-    )
+        counts[:, None] > 0, sums / torch.clamp(counts, min=1.0)[:, None], centers.to(sums.dtype)
+    ).to(centers.dtype)
     if cosine:
         new_centers = normalize_rows(new_centers)
     return new_centers, cost
@@ -253,12 +270,14 @@ def lloyd(
     precision: str = "highest",
     cosine: bool = False,
     block_rows: Optional[int] = None,
+    stats_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Full Lloyd fit: (centers, cost, n_iter). Stops when no center moves
     more than ``tol`` (euclidean) or at ``max_iter``, then evaluates the
     cost once more at the converged centers. With ``cosine`` the centers
     stay unit-normalized (rows must already be). ``x`` is a tensor with
-    its ``mask``, or :class:`RowShards` / a ``ShardedRows`` over a mesh."""
+    its ``mask``, or :class:`RowShards` / a ``ShardedRows`` over a mesh.
+    ``stats_dtype``: :func:`lloyd_step`'s."""
     dot = make_dot(precision)
     shards = as_row_shards(x, mask)
     block_rows = _auto_block_rows(shards.n, init_centers.shape[0], block_rows, len(shards.x))
@@ -267,11 +286,13 @@ def lloyd(
     moved = torch.tensor(math.inf, dtype=centers.dtype)
     it = 0
     while bool(moved > tol * tol) and it < max_iter:
-        new_centers, _ = lloyd_step(shards, None, centers, x2, dot, cosine=cosine, block_rows=block_rows)
+        new_centers, _ = lloyd_step(shards, None, centers, x2, dot, cosine=cosine, block_rows=block_rows,
+                                    stats_dtype=stats_dtype)
         moved = torch.max(torch.sum((new_centers - centers) ** 2, dim=1))
         centers = new_centers
         it += 1
-    _, cost = lloyd_step(shards, None, centers, x2, dot, cosine=cosine, block_rows=block_rows)
+    _, cost = lloyd_step(shards, None, centers, x2, dot, cosine=cosine, block_rows=block_rows,
+                         stats_dtype=stats_dtype)
     return centers, cost, it
 
 
@@ -431,7 +452,7 @@ def kmeans_plusplus_init(
             d2c = torch.clamp(
                 x2i[None, :] - 2.0 * dot(xc.to(xi.device), xi.T) + c2.to(xi.device)[:, None], min=0.0
             )
-            pots.append(torch.sum(torch.minimum(md[None, :], d2c) * mi[None, :], dim=1))
+            pots.append(torch.sum(torch.minimum(md[None, :], d2c) * mi[None, :], dim=1, dtype=torch.float64))
             d2cs.append(d2c)
         best = torch.argmin(psum_data(pots, dev))
         centers[i] = xc[best]

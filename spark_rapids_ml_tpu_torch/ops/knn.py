@@ -21,23 +21,30 @@ block by block (beyond device memory): each block is copied to the
 queries' device one ahead of its use (``core/serving.prefetch_blocks``),
 merged into the running (nq, k) state by :func:`_merge_block_topk` (the
 same merge as the resident loop, so the result does not depend on the
-block sizes) and then freed. The sharded search waits for its slice and
-raises ``NotImplementedError``.
+block sizes) and then freed.
+
+:func:`shard_items` places the items row-sharded over a mesh's data axis
+(padded with masked rows to a multiple of it; features whole), and
+:func:`knn_sharded` takes each shard's local top-k where it lives and
+merges the shards' candidates, joined in shard order, with the same
+int64-key top-k: ties go to the lower global index, so the result is the
+single-device search's. A mesh route takes the whole matrix in one
+process (``parallel.mesh.require_one_process``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.serving import prefetch_blocks, upload_block
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
+from spark_rapids_ml_tpu_torch.parallel.mesh import require_one_process
 
 METRICS = ("euclidean", "sqeuclidean", "cosine")
-
-SHARDED_ITEM = "the sharded kNN (shard_items, knn_sharded) is not ported yet: ROADMAP A.9, item 18"
 
 
 def _nonneg(d2: torch.Tensor) -> torch.Tensor:
@@ -224,12 +231,84 @@ def knn_host_streamed(
     return best_d, best_i
 
 
-def shard_items(*args, **kwargs):
-    raise NotImplementedError(SHARDED_ITEM)
+def shard_items(items: Any, mesh, metric: str = "euclidean",
+                dtype: Optional[torch.dtype] = None) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Place an (n, d) item matrix (host or tensor) over the mesh for
+    :func:`knn_sharded`: rows padded with zeros to a multiple of the data
+    axis and split over it, one (n / shards, d) block per data shard on
+    its first device (features whole: the model axis adds nothing to the
+    merge), in ``dtype`` (default the items'). ``metric="cosine"``
+    normalizes the rows before placement, so the index is ready for cosine
+    search. Returns (item blocks, mask blocks: 1 real, 0 padding)."""
+    require_one_process(mesh, "the sharded kNN index")
+    x = items if isinstance(items, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(items))
+    if dtype is not None:
+        x = x.to(dtype)
+    grid = mesh.grid
+    dp = int(grid.shape[0])
+    n = int(x.shape[0])
+    n_shard = -(-n // dp)
+    blocks, masks = [], []
+    for i in range(dp):
+        dev = grid[i, 0]
+        blk = x[i * n_shard:(i + 1) * n_shard].to(dev)
+        if metric == "cosine":
+            blk = unit_rows(blk)
+        real = int(blk.shape[0])
+        if real < n_shard:
+            blk = torch.nn.functional.pad(blk, (0, 0, 0, n_shard - real))
+        mask = torch.zeros(n_shard, dtype=blk.dtype, device=dev)
+        mask[:real] = 1.0
+        blocks.append(blk.contiguous())
+        masks.append(mask)
+    return blocks, masks
 
 
-def knn_sharded(*args, **kwargs):
-    raise NotImplementedError(SHARDED_ITEM)
+def knn_sharded(
+    queries: torch.Tensor,
+    items: List[torch.Tensor],
+    item_mask: List[torch.Tensor],
+    mesh,
+    k: int,
+    precision: str = "highest",
+    metric: str = "sqeuclidean",
+    approx: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over items placed by :func:`shard_items`, queries whole.
+
+    Each shard searches its block where it lives (the resident blocked
+    search, masked rows at +inf) for its local top ``min(k, shard rows)``
+    and offsets the indices by its first global row; the candidates of all
+    shards, joined in shard order on the queries' device, go through one
+    final int64-key top-k. Indices are global item rows (int32).
+    ``metric``: "sqeuclidean" (default) | "euclidean" | "cosine" (the
+    items sharded with ``metric="cosine"``; the queries are normalized
+    here). ``approx`` is exact (module docstring)."""
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    require_one_process(mesh, "the sharded kNN search")
+    dev = _device.device_of(queries)
+    if metric == "cosine":
+        queries = unit_rows(queries)
+    n_shard = int(items[0].shape[0])
+    k_loc = min(k, n_shard)
+    cand_d, cand_i = [], []
+    for i, (xb, mb) in enumerate(zip(items, item_mask)):
+        d, idx = knn_sq_euclidean(queries.to(xb.device), xb, k_loc, item_mask=mb,
+                                  precision=precision, approx=approx)
+        idx = torch.where(idx >= 0, idx + i * n_shard, idx)
+        cand_d.append(d.to(dev))
+        cand_i.append(idx.to(dev))
+    cand_d = torch.cat(cand_d, dim=1)
+    cand_i = torch.cat(cand_i, dim=1)
+    pos = _smallest_k(cand_d, k)
+    d2 = torch.gather(cand_d, 1, pos)
+    idx = torch.gather(cand_i, 1, pos)
+    if metric == "euclidean":
+        return torch.sqrt(d2), idx
+    if metric == "cosine":
+        return d2 / 2.0, idx
+    return d2, idx
 
 
 __all__ = ["knn", "knn_host_streamed", "knn_sharded", "knn_sq_euclidean", "shard_items"]

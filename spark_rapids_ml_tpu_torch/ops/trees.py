@@ -35,9 +35,15 @@ the fit's ``torch.Generator``; JAX's threefry draws cannot be reproduced,
 so the tests pass JAX's in.
 
 ``_select_feature`` (the reference's unrolled select that avoids TPU
-gathers) is one ``torch.gather`` here. The sharded growth
-(``grow_forest_sharded``) raises ``NotImplementedError`` (ROADMAP A.9,
-item 18).
+gathers) is one ``torch.gather`` here.
+
+Over a mesh (:func:`grow_forest_sharded`) the rows, their stats and the
+weights' row axis split over the data axis, padded with zero weight; each
+shard builds its partial histograms where it lives and one ``psum_data``
+a level (and one for the bottom totals) merges them, so every split
+decision is taken once on the merged histogram and every shard routes its
+rows by it. Integer classification counts sum exactly, so such a forest
+is bitwise the single-device forest from the same draws.
 """
 
 from __future__ import annotations
@@ -50,8 +56,8 @@ import torch
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.lazy_state import to_host
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
-
-SHARDED_ITEM = "the mesh forest growth (grow_forest_sharded) is not ported yet: ROADMAP A.9, item 18"
+from spark_rapids_ml_tpu_torch.parallel.collectives import psum_data
+from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, require_one_process
 
 CLASSIFICATION = ("gini", "entropy")
 
@@ -186,6 +192,20 @@ def _level_histogram(
 ) -> torch.Tensor:
     """(T, n_nodes, d, n_bins, S) float32 histogram of one level: per
     row block, one (T·M, rows) x (rows, d·B) one-hot product per stat."""
+    hist = _level_histogram_sum(node_idx, weights, x_binned, row_stats, offset, n_nodes, n_bins,
+                                block_rows, precision)
+    return _level_hist_f32(hist, int(x_binned.shape[1]), n_bins)
+
+
+def _level_hist_f32(hist: torch.Tensor, d: int, n_bins: int) -> torch.Tensor:
+    T, n_nodes, _, S = hist.shape
+    return hist.to(torch.float32).reshape(T, n_nodes, d, n_bins, S)
+
+
+def _level_histogram_sum(node_idx, weights, x_binned, row_stats, offset: int, n_nodes: int,
+                         n_bins: int, block_rows: int, precision: str = "highest") -> torch.Tensor:
+    """The (T, n_nodes, d·B, S) level histogram in the precision's
+    accumulation dtype (before the float32 rounding)."""
     T, n = node_idx.shape
     d = int(x_binned.shape[1])
     S = int(row_stats.shape[1])
@@ -204,7 +224,7 @@ def _level_histogram(
         for s in range(S):
             a = node_oh * (w_b * rs_b[None, :, s])[:, None, :]
             hist[..., s] += dot(a.reshape(T * n_nodes, bs), bin_oh).reshape(T, n_nodes, d * n_bins)
-    return hist.to(torch.float32).reshape(T, n_nodes, d, n_bins, S)
+    return hist
 
 
 def _node_totals(
@@ -218,6 +238,13 @@ def _node_totals(
 ) -> torch.Tensor:
     """(T, n_nodes, S) float32 per-node stat totals, one product per row
     block."""
+    return _node_totals_sum(node_idx, weights, row_stats, offset, n_nodes, block_rows,
+                            precision).to(torch.float32)
+
+
+def _node_totals_sum(node_idx, weights, row_stats, offset: int, n_nodes: int, block_rows: int,
+                     precision: str = "highest") -> torch.Tensor:
+    """The per-node totals in the precision's accumulation dtype."""
     T, n = node_idx.shape
     S = int(row_stats.shape[1])
     dot, acc = _hist_dot(precision)
@@ -229,7 +256,7 @@ def _node_totals(
         node_oh = (local[:, None, :] == nodes[None, :, None]).to(torch.float32)
         a = node_oh * weights[:, None, s0:s0 + block_rows]
         tot += dot(a.reshape(T * n_nodes, bs), row_stats[s0:s0 + block_rows]).reshape(T, n_nodes, S)
-    return tot.to(torch.float32)
+    return tot
 
 
 def split_level(
@@ -296,6 +323,14 @@ def _level_uniforms(uniforms, generator, level: int, shape, device) -> torch.Ten
     return torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
 
 
+class _Rows(NamedTuple):
+    """One shard of a forest fit's rows, on its device."""
+
+    x_binned: torch.Tensor  # (rows, d) int32
+    row_stats: torch.Tensor  # (rows, S)
+    weights: torch.Tensor  # (T, rows)
+
+
 def grow_forest(
     x_binned: torch.Tensor,  # (n, d) int32
     row_stats: torch.Tensor,  # (n, S) float32
@@ -322,14 +357,75 @@ def grow_forest(
     ``hist_precision`` None takes the reference's rule: ``default`` (a
     bf16 product, exact) for classification counts that are integers
     (``exact_counts``), ``highest`` otherwise."""
-    T, n = weights.shape
-    dev = x_binned.device
     _device.device_of(x_binned)
+    return _grow([_Rows(x_binned, row_stats, weights)], edges, uniforms, generator, x_binned.device,
+                 max_depth=max_depth, n_bins=n_bins, impurity=impurity, feat_subset=feat_subset,
+                 min_instances=min_instances, min_info_gain=min_info_gain, block_rows=block_rows,
+                 exact_counts=exact_counts, hist_precision=hist_precision)
+
+
+def grow_forest_sharded(
+    mesh,
+    x_binned: torch.Tensor,
+    row_stats: torch.Tensor,
+    weights: torch.Tensor,
+    edges: torch.Tensor,
+    uniforms: Optional[Sequence[torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+    **kwargs,
+) -> Forest:
+    """:func:`grow_forest` (its keywords) over a mesh: the rows, their stats and the
+    weights' row axis zero-padded (padding weighs 0) to a multiple of the
+    data axis and split over it, each shard on its first device. The
+    partial histograms meet in one ``psum_data`` a level on the mesh's
+    first device, where the split search runs (and the uniforms are drawn)
+    and the forest lands."""
+    require_one_process(mesh, "the mesh forest growth")
+    grid = mesh.grid
+    dp = int(mesh.shape[DATA_AXIS])
+    n = int(x_binned.shape[0])
+    pad = (-n) % dp
+    if pad:
+        x_binned = torch.nn.functional.pad(x_binned, (0, 0, 0, pad))
+        row_stats = torch.nn.functional.pad(row_stats, (0, 0, 0, pad))
+        weights = torch.nn.functional.pad(weights, (0, pad))
+    rows = (n + pad) // dp
+    shards = []
+    for i in range(dp):
+        dev = grid[i, 0]
+        sl = slice(i * rows, (i + 1) * rows)
+        shards.append(_Rows(x_binned[sl].to(dev), row_stats[sl].to(dev), weights[:, sl].to(dev)))
+    _device.device_of(shards[0].x_binned)
+    return _grow(shards, edges, uniforms, generator, mesh.first_device, **kwargs)
+
+
+def _grow(
+    shards: Sequence[_Rows],
+    edges: torch.Tensor,
+    uniforms: Optional[Sequence[torch.Tensor]],
+    generator: Optional[torch.Generator],
+    dev: torch.device,
+    *,
+    max_depth: int,
+    n_bins: int,
+    impurity: str,
+    feat_subset: int,
+    min_instances: int = 1,
+    min_info_gain: float = 0.0,
+    block_rows: int = 4096,
+    exact_counts: bool = True,
+    hist_precision: Optional[str] = None,
+) -> Forest:
+    """The level-order growth over row shards: each shard's histogram
+    where it lives, their sum on ``dev``, the split search there, and each
+    shard's rows routed by it. One shard is the single-device fit."""
+    T = int(shards[0].weights.shape[0])
+    d = int(shards[0].x_binned.shape[1])
     n_total = 2 ** (max_depth + 1) - 1
-    s_out = int(row_stats.shape[1]) if impurity in CLASSIFICATION else 1
+    s_out = int(shards[0].row_stats.shape[1]) if impurity in CLASSIFICATION else 1
     if hist_precision is None:
         hist_precision = "default" if impurity in CLASSIFICATION and exact_counts else "highest"
-    d = int(x_binned.shape[1])
+    edges = edges.to(dev)
 
     feature = torch.full((T, n_total), -1, dtype=torch.int32, device=dev)
     threshold = torch.zeros((T, n_total), dtype=torch.float32, device=dev)
@@ -339,11 +435,15 @@ def grow_forest(
     node_gain = torch.zeros((T, n_total), dtype=torch.float32, device=dev)
     node_imp = torch.zeros((T, n_total), dtype=torch.float32, device=dev)
 
-    node_idx = torch.zeros((T, n), dtype=torch.int32, device=dev)  # every row at the root
+    # Every row at the root.
+    node_idx = [torch.zeros((T, int(sh.x_binned.shape[0])), dtype=torch.int32, device=sh.x_binned.device)
+                for sh in shards]
     for level in range(max_depth):
         offset, m_nodes = 2 ** level - 1, 2 ** level
-        hist = _level_histogram(node_idx, weights, x_binned, row_stats, offset, m_nodes, n_bins,
-                                block_rows, hist_precision)
+        hist = _level_hist_f32(psum_data([
+            _level_histogram_sum(ni, sh.weights, sh.x_binned, sh.row_stats, offset, m_nodes, n_bins,
+                                 block_rows, hist_precision)
+            for ni, sh in zip(node_idx, shards)], dev), d, n_bins)
         u = None
         if feat_subset < d:
             u = _level_uniforms(uniforms, generator, level, (T, m_nodes, d), dev)
@@ -359,20 +459,14 @@ def grow_forest(
         node_weight[:, sl] = w_parent
         node_gain[:, sl] = torch.where(split_ok, best_gain, 0.0)
         node_imp[:, sl] = _impurity(total, impurity)[0]
-
-        # Route: rows of a leaf retire (-1), rows of a split descend.
-        local = node_idx - offset
-        active = (local >= 0) & (local < m_nodes)
-        lc = torch.clamp(local, 0, m_nodes - 1).long()
-        f_r = torch.gather(best_f, 1, lc)
-        b_r = torch.gather(best_b, 1, lc)
-        ok_r = torch.gather(split_ok, 1, lc)
-        child = 2 * node_idx + 1 + (_select_feature(x_binned, f_r) > b_r).to(torch.int32)
-        node_idx = torch.where(active & ok_r, child, torch.where(active, -1, node_idx))
+        node_idx = [_route(ni, sh.x_binned, best_f, best_b, split_ok, offset, m_nodes)
+                    for ni, sh in zip(node_idx, shards)]
 
     # Bottom level: every surviving node is a leaf.
     offset, m_nodes = 2 ** max_depth - 1, 2 ** max_depth
-    total = _node_totals(node_idx, weights, row_stats, offset, m_nodes, block_rows, hist_precision)
+    total = psum_data([_node_totals_sum(ni, sh.weights, sh.row_stats, offset, m_nodes, block_rows,
+                                        hist_precision)
+                       for ni, sh in zip(node_idx, shards)], dev).to(torch.float32)
     sl = slice(offset, offset + m_nodes)
     is_leaf[:, sl] = True
     leaf_value[:, sl, :] = _leaf_prediction(total, impurity)
@@ -380,6 +474,20 @@ def grow_forest(
     node_weight[:, sl] = w_bottom
     node_imp[:, sl] = imp_bottom
     return Forest(feature, threshold, is_leaf, leaf_value, node_weight, node_gain, node_imp)
+
+
+def _route(node_idx, x_binned, best_f, best_b, split_ok, offset: int, m_nodes: int) -> torch.Tensor:
+    """Rows of a leaf retire (-1), rows of a split descend to its child."""
+    dev = node_idx.device
+    best_f, best_b, split_ok = best_f.to(dev), best_b.to(dev), split_ok.to(dev)
+    local = node_idx - offset
+    active = (local >= 0) & (local < m_nodes)
+    lc = torch.clamp(local, 0, m_nodes - 1).long()
+    f_r = torch.gather(best_f, 1, lc)
+    b_r = torch.gather(best_b, 1, lc)
+    ok_r = torch.gather(split_ok, 1, lc)
+    child = 2 * node_idx + 1 + (_select_feature(x_binned, f_r) > b_r).to(torch.int32)
+    return torch.where(active & ok_r, child, torch.where(active, -1, node_idx))
 
 
 def fit_forest_fused(
@@ -397,10 +505,6 @@ def fit_forest_fused(
     edges = quantize_features(x, grow_kwargs["n_bins"], max_sample_rows)
     return grow_forest(bin_features(x, edges), row_stats, weights, edges.to(torch.float32),
                        uniforms, generator, **grow_kwargs)
-
-
-def grow_forest_sharded(*args, **kwargs):
-    raise NotImplementedError(SHARDED_ITEM)
 
 
 def forest_apply(x: torch.Tensor, forest: Forest, max_depth: int) -> torch.Tensor:

@@ -16,21 +16,35 @@ reproduced here, so a test feeds the epoch the indices JAX drew instead.
 
 The tail side of the attraction (a scatter over random tails) goes
 through kernel K4 (:mod:`ops.kernels.umap`) when a tail plan is given,
-else through ``index_add_``. Left for later slices (ROADMAP): the
-checkpointed ``_layout_segment`` / ``optimize_layout_resumable`` (A.12a,
-the robustness slice) and the mesh's ``_sharded_layout_fn`` /
-``optimize_layout_sharded`` (A.12b, with item 18).
+else through ``index_add_``.
+
+Over a mesh (:func:`optimize_layout_sharded`, fit mode) the edges shard
+by head row over the data axis, padded head rows at weight 0. Each shard
+accumulates its tail scatter (``index_add_``; K4 stays off a mesh, as the
+reference keeps its tail kernel off one) and its head block into a local
+(n, dim) delta where it lives; the deltas are summed once an epoch by
+``psum_data`` and every position applies the same update. The pooled
+negatives are drawn as :func:`optimize_layout` draws them, so the mesh
+layout equals the single-device one up to the order of its sums; the
+per-edge mode draws per shard, from one generator per shard seeded from
+the fit's seed and the shard index (the reference folds its key with the
+shard index). Left for a later slice (ROADMAP): the checkpointed
+``_layout_segment`` / ``optimize_layout_resumable`` (A.12a, the
+robustness slice).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from spark_rapids_ml_tpu_torch.device import seeded_generator
 from spark_rapids_ml_tpu_torch.ops.kernels.umap import TailPlan, tail_accumulate
+from spark_rapids_ml_tpu_torch.parallel.collectives import psum_data
+from spark_rapids_ml_tpu_torch.parallel.mesh import require_one_process
 
 
 class FuzzyGraph(NamedTuple):
@@ -204,6 +218,140 @@ def optimize_layout(
     return y
 
 
+class _HeadShard(NamedTuple):
+    """One data shard's edges: its head rows [row0, row0 + rows) of the
+    padded layout, their tails and weights (padded rows weigh 0)."""
+
+    device: torch.device
+    row0: int
+    dst: torch.Tensor     # (rows, k) int64
+    w: torch.Tensor       # (rows, k)
+    w_sum: torch.Tensor   # (rows,)
+
+
+def _head_shards(mesh, graph: FuzzyGraph) -> Tuple[List[_HeadShard], int]:
+    """The graph's edges split by head row over the data axis, each on
+    its shard's first device: (shards, padded row count)."""
+    grid = mesh.grid
+    dp = int(grid.shape[0])
+    n, k = graph.indices.shape
+    rows = -(-int(n) // dp)
+    shards = []
+    for i in range(dp):
+        dev = grid[i, 0]
+        row0 = i * rows
+        dst = graph.indices[row0:row0 + rows].long().to(dev)
+        w = graph.weight[row0:row0 + rows].to(dev)
+        pad = rows - int(dst.shape[0])
+        if pad:
+            dst = torch.cat([dst, torch.zeros((pad, k), dtype=dst.dtype, device=dev)])
+            w = torch.cat([w, torch.zeros((pad, k), dtype=w.dtype, device=dev)])
+        shards.append(_HeadShard(dev, row0, dst, w, torch.sum(w, dim=1)))
+    return shards, rows * dp
+
+
+def _make_sharded_epoch_fn(
+    mesh, graph: FuzzyGraph,
+    *, n_epochs: int, neg_rate: int, neg_pool: int, learning_rate: float,
+    repulsion: float, a: float, b: float,
+) -> Tuple[Callable, int]:
+    """One epoch of the mesh layout SGD (fit mode): ``epoch(ep, y_pad,
+    neg)`` returns the next padded layout. ``y_pad`` is the (n_pad, dim)
+    layout on the mesh's first device (rows past n are 0 and stay 0);
+    ``neg`` is the epoch's pool (neg_pool,) in pooled mode, else one
+    (rows · k, neg_rate) draw per shard. Returns (epoch, n_pad)."""
+    shards, n_pad = _head_shards(mesh, graph)
+    k = int(graph.indices.shape[1])
+    first = mesh.first_device
+    cap = 4.0 * k * neg_rate / neg_pool if neg_pool > 0 else None
+
+    def shard_delta(i: int, sh: _HeadShard, alpha: float, y: torch.Tensor, neg) -> torch.Tensor:
+        rows = int(sh.dst.shape[0])
+        dim = int(y.shape[1])
+        yh = y[sh.row0:sh.row0 + rows]  # (rows, dim): the head block is a slice
+        diff = yh[:, None, :] - y[sh.dst]  # (rows, k, dim)
+        d2 = torch.sum(diff * diff, dim=2)
+        att = (-2.0 * a * b * torch.pow(torch.clamp_min(d2, 1e-12), b - 1.0)) / (1.0 + a * torch.pow(d2, b))
+        g_att = torch.clamp((att * sh.w)[:, :, None] * diff, -4.0, 4.0)
+        if neg_pool > 0:
+            pool = y[neg.to(sh.device)]  # (s, dim)
+            yh2 = torch.sum(yh * yh, dim=1)
+            p2 = torch.sum(pool * pool, dim=1)
+            d2n = torch.clamp_min(yh2[:, None] + p2[None, :] - 2.0 * (yh @ pool.T), 0.0)
+            rep = (2.0 * repulsion * b) / ((0.001 + d2n) * (1.0 + a * torch.pow(d2n, b)))
+            c = rep * (sh.w_sum[:, None] * (neg_rate / neg_pool))
+            c = torch.minimum(c, cap / torch.sqrt(d2n + 1e-12))
+            grad_head = torch.sum(g_att, dim=1) + (torch.sum(c, dim=1, keepdim=True) * yh - c @ pool)
+        else:
+            yn = y[neg[i].to(sh.device).reshape(rows, k, neg_rate)]  # (rows, k, m, dim)
+            diff_n = yh[:, None, None, :] - yn
+            d2n = torch.sum(diff_n * diff_n, dim=3)
+            rep = (2.0 * repulsion * b) / ((0.001 + d2n) * (1.0 + a * torch.pow(d2n, b)))
+            g_rep = torch.clamp((rep * sh.w[:, :, None])[:, :, :, None] * diff_n, -4.0, 4.0)
+            grad_head = torch.sum(g_att + torch.sum(g_rep, dim=2), dim=1)
+        delta = torch.zeros((n_pad, dim), dtype=y.dtype, device=sh.device)
+        delta.index_add_(0, sh.dst.reshape(-1), (-alpha * g_att).reshape(-1, dim))
+        delta[sh.row0:sh.row0 + rows] += alpha * grad_head
+        return delta
+
+    def epoch(ep: int, y_pad: torch.Tensor, neg) -> torch.Tensor:
+        alpha = learning_rate * (1.0 - float(ep) / n_epochs)
+        copies = {first: y_pad}
+        deltas = []
+        for i, sh in enumerate(shards):
+            if sh.device not in copies:
+                copies[sh.device] = y_pad.to(sh.device)
+            deltas.append(shard_delta(i, sh, alpha, copies[sh.device], neg))
+        # One collective an epoch: every position applies the same update.
+        return y_pad + psum_data(deltas, first)
+
+    return epoch, n_pad
+
+
+def optimize_layout_sharded(
+    mesh,
+    embedding: torch.Tensor,
+    graph: FuzzyGraph,
+    gen: torch.Generator,
+    *,
+    n_epochs: int,
+    neg_rate: int = 5,
+    neg_pool: int = 256,
+    learning_rate: float = 1.0,
+    repulsion: float = 1.0,
+    a: float = 1.577,
+    b: float = 0.895,
+    seed: int = 0,
+) -> torch.Tensor:
+    """The synchronous-epoch layout SGD over a mesh (fit mode), from
+    ``embedding`` (n, dim): ``n_epochs`` epochs of
+    :func:`_make_sharded_epoch_fn` on the mesh's first device. Pooled mode
+    draws each epoch's pool from ``gen`` as :func:`optimize_layout` does;
+    the per-edge mode (``neg_pool = 0``) draws each shard's negatives from
+    its own generator, seeded from ``seed`` and the shard index."""
+    require_one_process(mesh, "the mesh UMAP layout")
+    n, dim = int(embedding.shape[0]), int(embedding.shape[1])
+    epoch, n_pad = _make_sharded_epoch_fn(
+        mesh, graph, n_epochs=n_epochs, neg_rate=neg_rate, neg_pool=neg_pool,
+        learning_rate=learning_rate, repulsion=repulsion, a=a, b=b,
+    )
+    first = mesh.first_device
+    y = torch.nn.functional.pad(embedding.to(device=first, dtype=torch.float32), (0, 0, 0, n_pad - n))
+    k = int(graph.indices.shape[1])
+    grid = mesh.grid
+    rows = n_pad // int(grid.shape[0])
+    shard_gens = [seeded_generator(grid[i, 0], seed, i) for i in range(grid.shape[0])]
+    for ep in range(n_epochs):
+        if neg_pool > 0:
+            neg: Union[torch.Tensor, List[torch.Tensor]] = torch.randint(
+                0, n, (neg_pool,), generator=gen, device=gen.device).to(first)
+        else:
+            neg = [torch.randint(0, n, (rows * k, neg_rate), generator=g, device=grid[i, 0])
+                   for i, g in enumerate(shard_gens)]
+        y = epoch(ep, y, neg)
+    return y[:n]
+
+
 def spectral_init(graph: FuzzyGraph, n: int, dim: int, gen: torch.Generator) -> torch.Tensor:
     """Normalised-Laplacian spectral embedding of the fuzzy graph (one
     dense symmetric ``eigh``, cuSOLVER on the card; the estimator uses it
@@ -229,6 +377,7 @@ __all__ = [
     "fuzzy_simplicial_set",
     "negative_shape",
     "optimize_layout",
+    "optimize_layout_sharded",
     "smooth_knn_dist",
     "spectral_init",
 ]

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch import device as _device
-from spark_rapids_ml_tpu_torch.parallel.collectives import all_gather_model
+from spark_rapids_ml_tpu_torch.parallel.collectives import all_gather_model, process_count
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -85,6 +85,22 @@ def _default_devices() -> List[torch.device]:
     if first.type == "cpu":
         return [first]
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+GANG_ITEM = (
+    "{what} in a gang of {world} processes is not ported yet: the reference's "
+    "route takes the whole matrix on every process, not process-local rows: "
+    "ROADMAP A.9, item 18 (gang)"
+)
+
+
+def require_one_process(mesh: Mesh, what: str) -> None:
+    """The sharded neighbour, ANN, UMAP, DBSCAN and forest routes shard the
+    whole matrix over this process's positions; in a gang of more than one
+    process they raise ``NotImplementedError``."""
+    world = max(int(mesh.processes), process_count())
+    if world > 1:
+        raise NotImplementedError(GANG_ITEM.format(what=what, world=world))
 
 
 def make_mesh(

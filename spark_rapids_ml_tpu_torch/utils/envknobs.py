@@ -119,6 +119,19 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "off: a failed device batch errors its requests; cpu: refused "
          "(NotImplementedError): the port does not fall back to the CPU",
          default="off", choices=("off", "cpu")),
+    # checkpoint / resume (the reference's robustness/checkpoint.py; not
+    # ported: a fit these would segment raises, reject_checkpoint)
+    Knob("TPUML_CHECKPOINT_EVERY", "int", "checkpoint",
+         "solver iterations per segment (0 = monolithic); with "
+         "TPUML_CHECKPOINT_DIR, a positive value raises NotImplementedError "
+         "in the fits the reference checkpoints", default=0),
+    Knob("TPUML_CHECKPOINT_DIR", "str", "checkpoint",
+         "checkpoint root reachable by every gang member"),
+    Knob("TPUML_CHECKPOINT_KEEP", "int", "checkpoint",
+         "snapshots retained per fit", default=2),
+    Knob("TPUML_CHECKPOINT_UMAP", "choice", "checkpoint",
+         "1 opts UMAP layout SGD into the global checkpoint knobs",
+         default="0", choices=("0", "1")),
     # observability (observability/events.py)
     Knob("TPUML_EVENT_LOG", "str", "observability",
          "JSON-lines event sink: a file path or 'stderr' (unset = off)"),
@@ -152,6 +165,13 @@ AUTOTUNE_ITEM = (
     "TPUML_AUTOTUNE=on (the autotuner's committed decisions) is not ported "
     "yet: it needs the cost ledger and the tuner of the observability item "
     "(ROADMAP A.9)"
+)
+
+
+CHECKPOINT_ITEM = (
+    "{solver}: a checkpointed fit (TPUML_CHECKPOINT_DIR with a positive "
+    "TPUML_CHECKPOINT_EVERY) is not ported yet: ROADMAP A.9, robustness: "
+    "checkpoint (step 3)"
 )
 
 
@@ -225,3 +245,21 @@ def reject_autotune() -> None:
     does with the tuner off."""
     if env_choice(AUTOTUNE_ENV, ("off", "on"), "off") == "on":
         raise NotImplementedError(AUTOTUNE_ITEM)
+
+
+def reject_checkpoint(solver: str, umap: bool = False) -> None:
+    """Where the reference builds a ``FitCheckpointer``
+    (``robustness/checkpoint.py::FitCheckpointer.for_fit``): with
+    ``TPUML_CHECKPOINT_DIR`` set and ``TPUML_CHECKPOINT_EVERY`` positive
+    (for UMAP's layout also ``TPUML_CHECKPOINT_UMAP=1``), raise
+    ``NotImplementedError`` naming ``solver``; otherwise the fit runs
+    unsegmented, as the reference's does with the knobs unset. Malformed
+    values raise :class:`EnvKnobError` first, as they do there."""
+    if umap and not env_int("TPUML_CHECKPOINT_UMAP", 0, minimum=0):
+        return
+    every = env_int("TPUML_CHECKPOINT_EVERY", 0, minimum=0)
+    base = env_str("TPUML_CHECKPOINT_DIR")
+    if every <= 0 or not base:
+        return
+    env_int("TPUML_CHECKPOINT_KEEP", 2, minimum=1)
+    raise NotImplementedError(CHECKPOINT_ITEM.format(solver=solver))

@@ -269,10 +269,24 @@ def test_n_probe_out_of_range_matches_the_reference(n_probe):
 
 
 def test_the_mesh_search_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="A.9, item 18"):
-        ann.ann_search_sharded(None, None, None, 1, 1)
-    with pytest.raises(NotImplementedError, match="A.9, item 18"):
-        ann.build_ivf_index(ITEMS, 4, mesh=object())
+    """Ported since: the mesh search of the reference's index returns its
+    single-device neighbours, and a mesh build is the port's single-device
+    build up to the order of its sums."""
+    mesh = _mesh()
+    jindex = _jax_ivf(4)
+    q = torch.from_numpy(QUERIES)
+    _hold("mesh search", ann.ann_search_sharded(mesh, _carried(jindex), q, 5, 2),
+          jax_ann.ivf_search(jindex, jnp.asarray(QUERIES), k=5, n_probe=2))
+    built = ann.build_ivf_index(torch.from_numpy(ITEMS), 4, mesh=mesh)
+    single = ann.build_ivf_index(torch.from_numpy(ITEMS), 4)
+    assert torch.equal(built.list_ids, single.list_ids)
+    assert_close("centroids", built.centroids, single.centroids, rtol=1e-10, atol=1e-12)
+
+
+def _mesh():
+    from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh((4, 2), devices=[torch.device("cpu")] * 8)
 
 
 # --- IVF-PQ ---------------------------------------------------------------------------
@@ -495,11 +509,17 @@ def test_a_streamed_model_neither_pickles_nor_saves(tmp_path):
 
 
 def test_a_mesh_is_left_for_a_later_slice():
-    with pytest.raises(NotImplementedError, match="A.9, item 18"):
-        ApproximateNearestNeighbors(mesh=object()).fit(ITEMS)
-    model = ApproximateNearestNeighbors().setAlgorithm("brute").fit(ITEMS).setMesh(object())
-    with pytest.raises(NotImplementedError, match="A.9, item 18"):
-        model.kneighbors(QUERIES)
+    """Ported since: every algorithm on a mesh (the estimator's, or one set
+    on a fitted model) finds the single-device neighbours; a streamed
+    index still refuses a mesh."""
+    q = torch.from_numpy(QUERIES)
+    for algo in ALGOS:
+        est = ApproximateNearestNeighbors().setK(5).setAlgorithm(algo).setAlgoParams(ALGOS[algo])
+        want = est.fit(ITEMS).kneighbors(q)
+        _hold(f"mesh {algo}", est.copy().setMesh(_mesh()).fit(ITEMS).kneighbors(q), want)
+        _hold(f"set mesh {algo}", est.fit(ITEMS).setMesh(_mesh()).kneighbors(q), want)
+    with pytest.raises(ValueError, match="single-device"):
+        ApproximateNearestNeighbors(mesh=_mesh()).setAlgorithm("brute").fit(lambda: iter([ITEMS]))
 
 
 def test_a_pickled_model_rebuilds_the_same_index():

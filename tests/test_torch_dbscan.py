@@ -198,8 +198,17 @@ def test_relabel_consecutive_matches_the_reference(seed):
 
 
 def test_the_sharded_route_names_its_item():
-    with pytest.raises(NotImplementedError, match=r"A\.9, item 18"):
-        ops.dbscan_labels_sharded(None, np.zeros((4, 2)), 0.5, 2)
+    """The sharded route runs on one process's mesh (labels and core mask
+    as on one device) and names its item in a gang of several processes."""
+    from spark_rapids_ml_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    x = np.concatenate([np.zeros((3, 2)), np.full((2, 2), 5.0)])
+    labels, core = ops.dbscan_labels_sharded(make_mesh((4, 1), devices=[torch.device("cpu")] * 4), x, 0.5, 2)
+    assert labels.tolist() == [0, 0, 0, 3, 3] and core.all()
+    gang = np.empty((1, 1), dtype=object)
+    gang[0, 0] = torch.device("cpu")
+    with pytest.raises(NotImplementedError, match=r"A\.9, item 18 \(gang\)"):
+        ops.dbscan_labels_sharded(Mesh(gang, processes=2), x, 0.5, 2)
 
 
 # --- the reference's sklearn bars ------------------------------------------
@@ -375,10 +384,16 @@ def test_errors_match_the_reference(call):
 
 
 def test_a_mesh_names_its_item():
-    with pytest.raises(NotImplementedError, match=r"A\.9, item 18"):
-        DBSCAN().setMesh(object())
-    with pytest.raises(NotImplementedError, match=r"A\.9, item 18"):
-        DBSCAN(mesh=object())
+    """Ported since: ``setMesh`` and ``mesh=`` fit over the mesh, with the
+    single-device labels and core mask."""
+    from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((8, 1), devices=[torch.device("cpu")] * 8)
+    single = DBSCAN().setEps(0.6).setMinSamples(5).fit(X_EST)
+    for est in (DBSCAN().setMesh(mesh), DBSCAN(mesh=mesh)):
+        model = est.setEps(0.6).setMinSamples(5).fit(X_EST)
+        assert np.array_equal(model.labels_, single.labels_)
+        assert np.array_equal(model.core_mask_, single.core_mask_)
 
 
 def test_cuda_platform_without_a_card_raises(monkeypatch):

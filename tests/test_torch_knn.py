@@ -19,6 +19,7 @@ from spark_rapids_ml_tpu.ops.knn import knn as jax_knn
 from spark_rapids_ml_tpu_torch import device as port_device
 from spark_rapids_ml_tpu_torch.models.umap import _knn_excluding_self
 from spark_rapids_ml_tpu_torch.ops import knn as port_knn
+from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh
 from spark_rapids_ml_tpu_torch.utils.testing import assert_close
 
 METRICS = ("euclidean", "sqeuclidean", "cosine")
@@ -137,9 +138,28 @@ def test_refusals_and_waiting_routes():
         port_knn.knn(q, q, 1, metric="manhattan")
     with pytest.raises(ValueError, match="exceeds streamed item count 3"):
         port_knn.knn_host_streamed(q, [q.numpy()], 4)
-    for fn in (port_knn.shard_items, port_knn.knn_sharded):
-        with pytest.raises(NotImplementedError, match="A.9, item 18"):
-            fn(q)
+    # The sharded search runs on a mesh of this process's positions; a
+    # gang of several processes is left for later (the reference's route
+    # takes the whole matrix on every process).
+    mesh = make_mesh((2, 1), devices=[torch.device("cpu")] * 2)
+    xs, mask = port_knn.shard_items(q.numpy(), mesh)
+    with pytest.raises(ValueError, match="unknown metric"):
+        port_knn.knn_sharded(q, xs, mask, mesh, 1, metric="manhattan")
+    d, idx = port_knn.knn_sharded(q, xs, mask, mesh, 3)
+    assert torch.equal(idx, torch.tensor([[0, 1, 2]] * 3, dtype=torch.int32)) and torch.all(d == 0)
+    for call in (lambda: port_knn.shard_items(q, _gang_mesh()),
+                 lambda: port_knn.knn_sharded(q, xs, mask, _gang_mesh(), 1)):
+        with pytest.raises(NotImplementedError, match=r"A\.9, item 18 \(gang\)"):
+            call()
+
+
+def _gang_mesh():
+    """A one-position mesh that says it spans two processes."""
+    from spark_rapids_ml_tpu_torch.parallel.mesh import Mesh
+
+    devices = np.empty((1, 1), dtype=object)
+    devices[0, 0] = torch.device("cpu")
+    return Mesh(devices, processes=2)
 
 
 def test_auto_block_items_is_the_reference_rule():

@@ -12,8 +12,12 @@ up to sign, ratios 1e-10; covariances 1e-10; logistic 1e-5 with equal
 ``numIter``; linear 1e-7; KMeans centres 1e-8).
 
 The in-process cases need no gang: ``GangReinitWarning``, ``member_env``,
-``deployMode`` and ``TPUML_GANG_FIT``, and the process-local entry points
-in a process of their own (where they equal the reference's).
+``deployMode`` and ``TPUML_GANG_FIT``, the process-local entry points in a
+process of their own (where they equal the reference's), and a gang of
+one of each sharded family (neighbours, ANN, UMAP, DBSCAN, forests), which
+fits on the global mesh and equals its (1, 1) mesh fit bit for bit. In a
+2-rank gang those families raise ``NotImplementedError`` naming "item 18
+(gang)": the reference's routes take the whole matrix on every process.
 """
 
 import os
@@ -89,6 +93,13 @@ def _worker(case: str, port: int, out: str) -> None:
         model = LogisticRegression().setDeployMode("gang").setRegParam(0.01).fit((x, y_bin))
         res["weights"], res["intercepts"] = model.weights, model.intercepts
         res["num_iter"] = np.asarray(model.numIter)
+    if case == "sharded":
+        for family, fit in sharded_fits(x, y_bin).items():
+            try:
+                fit(lambda est: est.setDeployMode("gang"))
+                res[family] = np.asarray("fitted")
+            except NotImplementedError as exc:
+                res[family] = np.asarray(str(exc))
     if case == "linear_kmeans":
         model = LinearRegression().setDeployMode("gang").setRegParam(0.1).fit((x, y_lin))
         res["coef"], res["intercept"] = model.coefficients, np.asarray(model.intercept)
@@ -326,20 +337,65 @@ def test_a_gang_of_one_fits_on_the_global_mesh(monkeypatch, cpu_platform):
     _components_close(model.pc, PCA().setDeployMode("single").setK(3).fit(x).pc, 1e-10)
 
 
-def test_a_gang_fit_of_a_family_without_a_mesh_route_names_its_item(monkeypatch, cpu_platform):
+def sharded_fits(x, y_bin) -> dict:
+    """One fit of each sharded family, its estimator set up by ``setup``
+    (the deploy mode or a mesh), returning arrays to compare."""
     from spark_rapids_ml_tpu_torch.classification import RandomForestClassifier
     from spark_rapids_ml_tpu_torch.clustering import DBSCAN
     from spark_rapids_ml_tpu_torch.manifold import UMAP
+    from spark_rapids_ml_tpu_torch.neighbors import ApproximateNearestNeighbors, NearestNeighbors
+
+    def nearest_neighbors(setup):
+        return setup(NearestNeighbors().setK(4)).fit(x).kneighbors(x[:20])
+
+    def ann(setup):
+        est = ApproximateNearestNeighbors().setK(4).setAlgoParams({"nlist": 6, "nprobe": 2})
+        return setup(est).fit(x).kneighbors(x[:20])
+
+    def umap(setup):
+        return (setup(UMAP().setNNeighbors(6).setNEpochs(20).setSeed(0)).fit(x).embedding,)
+
+    def dbscan(setup):
+        model = setup(DBSCAN().setEps(1.2).setMinSamples(4)).fit(x)
+        return model.labels_, model.core_mask_
+
+    def random_forest(setup):
+        model = setup(RandomForestClassifier().setNumTrees(4).setMaxDepth(3).setSeed(1)).fit((x, y_bin))
+        return tuple(t.numpy() for t in model._forest)
+
+    return {"nearest_neighbors": nearest_neighbors, "ann": ann, "umap": umap, "dbscan": dbscan,
+            "random_forest": random_forest}
+
+
+@pytest.mark.parametrize("family", ["nearest_neighbors", "ann", "umap", "dbscan", "random_forest"])
+def test_a_gang_fit_of_a_family_without_a_mesh_route_names_its_item(monkeypatch, cpu_platform, family):
+    """Each sharded family now has its mesh route: a gang of one fits on
+    the global (1, 1) mesh and equals the family's (1, 1) mesh fit."""
+    from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh
 
     monkeypatch.delenv("TPUML_NUM_PROCESSES", raising=False)
     monkeypatch.delenv("TPUML_COORDINATOR", raising=False)
+    monkeypatch.setenv("TPUML_UMAP_SCATTER", "xla")
     x, y_bin, _ = dataset()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        RandomForestClassifier().setDeployMode("gang").fit((x, y_bin))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        DBSCAN().setDeployMode("gang").fit(x)
-    with pytest.raises(NotImplementedError, match="A.12b"):
-        UMAP().setDeployMode("gang").fit(x)
+    fit = sharded_fits(x, y_bin)[family]
+    estimators = []
+
+    def gang(est):
+        estimators.append(est)
+        return est.setDeployMode("gang")
+
+    got = fit(gang)
+    assert estimators[0].mesh is not None and estimators[0].mesh.shape == {"data": 1, "model": 1}
+    want = fit(lambda est: est.setMesh(make_mesh((1, 1), devices=[torch.device("cpu")])))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_a_gang_of_two_refuses_the_sharded_families(tmp_path):
+    results = _run_gang("sharded", tmp_path)
+    for family in ("nearest_neighbors", "ann", "umap", "dbscan", "random_forest"):
+        message = str(results[0][family])
+        assert "item 18 (gang)" in message and "2 processes" in message, (family, message)
 
 
 @pytest.mark.parametrize("merge", ["psum", "allgather"])

@@ -24,6 +24,7 @@ from spark_rapids_ml_tpu_torch import device as port_device
 from spark_rapids_ml_tpu_torch import interop, native
 from spark_rapids_ml_tpu_torch.core.data import DataFrame, HostArrayBlockReader
 from spark_rapids_ml_tpu_torch.neighbors import NearestNeighbors, NearestNeighborsModel
+from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh
 from spark_rapids_ml_tpu_torch.utils.testing import assert_close
 
 METRICS = ("euclidean", "sqeuclidean", "cosine")
@@ -216,11 +217,16 @@ def test_errors_match_the_reference(case):
 
 
 def test_a_mesh_is_left_for_a_later_slice():
-    with pytest.raises(NotImplementedError, match="A.9, item 18"):
-        NearestNeighbors(mesh=object()).fit(ITEMS)
-    model = NearestNeighbors().fit(ITEMS).setMesh(object())
-    with pytest.raises(NotImplementedError, match="A.9, item 18"):
-        model.kneighbors(QUERIES)
+    """Ported since: a mesh on the estimator or on a fitted model searches
+    the sharded index and finds the single-device neighbours; a streamed
+    index still refuses a mesh, as in the reference."""
+    mesh = make_mesh((4, 2), devices=[torch.device("cpu")] * 8)
+    want_d, want_i = NearestNeighbors().setK(K).fit(ITEMS).kneighbors(QUERIES)
+    for model in (NearestNeighbors(mesh=mesh).setK(K).fit(ITEMS),
+                  NearestNeighbors().setK(K).fit(ITEMS).setMesh(mesh)):
+        d, idx = model.kneighbors(QUERIES)
+        assert np.array_equal(idx, want_i)
+        assert_close("mesh distances", d, want_d, rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="single-device"):
         NearestNeighbors(mesh=object()).fit(lambda: iter([ITEMS]))
 

@@ -602,10 +602,20 @@ def test_an_input_over_the_fit_memory_budget_is_refused(monkeypatch):
 
 
 def test_unported_routes_name_their_items():
-    with pytest.raises(NotImplementedError, match=r"A\.9, item 18"):
-        RandomForestClassifier().setMesh(object())
-    with pytest.raises(NotImplementedError, match=r"A\.9, item 18"):
-        RandomForestRegressor(mesh=object())
+    """The mesh route is ported since: ``setMesh`` and ``mesh=`` grow the
+    single-device forest (the classifier bitwise, the regressor's
+    predictions within 1e-5); the serving signature is checked below."""
+    from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((4, 2), devices=[torch.device("cpu")] * 8)
+    est = RandomForestClassifier().setNumTrees(3).setMaxDepth(3).setSeed(4)
+    single = est.fit((X, Y_CLASS))
+    ours = est.copy().setMesh(mesh).fit((X, Y_CLASS))
+    for f in Forest._fields:
+        assert torch.equal(getattr(ours._forest, f), getattr(single._forest, f)), f
+    reg = RandomForestRegressor(mesh=mesh).setNumTrees(3).setMaxDepth(3).setSeed(4).fit((X, Y_REG))
+    want = RandomForestRegressor().setNumTrees(3).setMaxDepth(3).setSeed(4).fit((X, Y_REG))
+    assert_close("mesh regressor", reg.predict(X), want.predict(X), rtol=1e-5, atol=1e-5)
     model = _fixed(RandomForestRegressor()).setNumTrees(1).setMaxDepth(1).fit((X, Y_REG))
     # The serving signatures arrived with the composition slice; an
     # unfitted model has none, as in the reference.

@@ -380,8 +380,25 @@ def test_fit_forest_fused_matches_the_reference(kind):
 
 
 def test_grow_forest_sharded_names_its_item():
-    with pytest.raises(NotImplementedError, match=r"A\.9, item 18"):
-        pt.grow_forest_sharded(None)
+    """The sharded growth runs on one process's mesh (bitwise the
+    single-device gini forest) and names its item in a gang of several
+    processes."""
+    from spark_rapids_ml_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    x, rs = _task("gini")
+    n, d = x.shape
+    w, _, uniforms = _draws(jax.random.key(2), 3, n, d, 3)
+    edges = pt.quantize_features(torch.from_numpy(x), 8)
+    args = (pt.bin_features(torch.from_numpy(x), edges), torch.from_numpy(rs), torch.from_numpy(w.copy()), edges,
+            uniforms)
+    kw = dict(max_depth=3, n_bins=8, impurity="gini", feat_subset=3)
+    mesh = make_mesh((8, 1), devices=[torch.device("cpu")] * 8)
+    for f, a, b in zip(FIELDS, pt.grow_forest_sharded(mesh, *args, **kw), pt.grow_forest(*args, **kw)):
+        assert _bits_equal(a, b), f
+    gang = np.empty((1, 1), dtype=object)
+    gang[0, 0] = torch.device("cpu")
+    with pytest.raises(NotImplementedError, match=r"A\.9, item 18 \(gang\)"):
+        pt.grow_forest_sharded(Mesh(gang, processes=2), *args, **kw)
 
 
 # --- prediction --------------------------------------------------------------

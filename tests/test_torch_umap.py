@@ -393,8 +393,14 @@ def test_fit_refusals(rng):
     x = rng.normal(size=(30, 5))
     with pytest.raises(ValueError, match="shape"):
         UMAP().setNNeighbors(5).setInitEmbedding(np.zeros((10, 2))).fit(x)
-    with pytest.raises(NotImplementedError, match="A.12b"):
-        UMAP(mesh=object()).fit(x)
+    # A mesh fit is ported since (tests/test_torch_mesh_neighbours.py holds
+    # it); only a gang of several processes is refused.
+    from spark_rapids_ml_tpu_torch.parallel.mesh import Mesh
+
+    gang = np.empty((1, 1), dtype=object)
+    gang[0, 0] = torch.device("cpu")
+    with pytest.raises(NotImplementedError, match=r"item 18 \(gang\)"):
+        UMAP(mesh=Mesh(gang, processes=2)).setNNeighbors(5).fit(x)
 
 
 def test_copy_keeps_the_init_embedding(rng):
