@@ -133,6 +133,22 @@ counters set to 0 just before and read just after:
   equal bit for bit to (a)'s (1, 1) fit; (d) KMeans (config 3), linear
   (config 4) and logistic (config 10) on (4, 1) and (2, 2) meshes against
   their single-device and float64 fits.
+- robustness, last, within its own 60 s, on data drawn on the card from
+  its own seed: (a) a host PCA fit (262,144 x 1,024, ``pallas``) under
+  ``ingest.device_put=2`` bitwise the clean fit with 2 failed attempts
+  counted and K1 launched as in one fit; under ``always`` one
+  ``RetryExhaustedError`` and the device memory back; under ``:fatal``
+  one attempt; config 3's rows on the host, degraded to the streaming
+  KMeans fit, recovering from ``solver.segment=1:oom`` bitwise the explicit
+  reader fit of the halved blocks; (b) a save under
+  ``persistence.write=1`` round-tripping bitwise, and an overwrite killed
+  midway leaving the previous model; (c) configs 3 (KMeans k = 100,
+  ``xla``), 4 (elastic-net FISTA), 10 (L-BFGS) and 13 (UMAP, K4 every
+  epoch) checkpointed: segmented bitwise the monolithic fit, a fit killed
+  at its first segment boundary resumed bitwise with fewer iterations,
+  K4's 200 launches across the killed and the resumed layout; (d) a child
+  process (``--robust-child``) frozen at its first segment boundary and
+  SIGKILLed, its snapshot resumed here bitwise.
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -147,9 +163,11 @@ a directory without the package. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -178,7 +196,7 @@ from spark_rapids_ml_tpu_torch.ops import umap as ops_umap  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.kernels import umap as k4  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.eigh import sign_flip  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.randomized import draw_omega, randomized_pca  # noqa: E402
-from spark_rapids_ml_tpu_torch.utils.tracing import counter_value  # noqa: E402
+from spark_rapids_ml_tpu_torch.utils.tracing import clear_counters, counter_value  # noqa: E402
 from spark_rapids_ml_tpu_torch.regression import LinearRegression, RandomForestRegressor  # noqa: E402
 from spark_rapids_ml_tpu_torch.classification import (  # noqa: E402
     LogisticRegression,
@@ -187,7 +205,8 @@ from spark_rapids_ml_tpu_torch.classification import (  # noqa: E402
 )
 from spark_rapids_ml_tpu_torch import native  # noqa: E402
 from spark_rapids_ml_tpu_torch.core import membudget  # noqa: E402
-from spark_rapids_ml_tpu_torch.core.data import HostArrayBlockReader  # noqa: E402
+from spark_rapids_ml_tpu_torch.core.data import HostArrayBlockReader, fit_block_rows  # noqa: E402
+from spark_rapids_ml_tpu_torch.robustness import InjectedFault, RetryExhaustedError, inject  # noqa: E402
 from spark_rapids_ml_tpu_torch.robustness.degrade import DegradationWarning  # noqa: E402
 from spark_rapids_ml_tpu_torch.neighbors import (  # noqa: E402
     ApproximateNearestNeighbors,
@@ -4649,6 +4668,356 @@ def sharded_phases() -> dict:
     return {"knn": knn_out, "ann": ann_out, "umap": umap_out, "dbscan_forest": df_out}
 
 
+RB_PCA_N = 262_144          # (a): 1,024 features (bench.py's width), rows cut to keep the group's time
+RB_STREAM_ITERS = 3         # (a): Lloyd passes of the OOM-recovered streaming KMeans fit
+RB_EVERY = {"config3_kmeans": 1, "config4_enet": 20, "config10_lbfgs": 5, "config13_umap": 50}
+RB_SEED = SEED + 400        # the group's data: drawn anew from its own seed
+RB_KILL_UID = "robust-kill"
+RB_CHILD_TIMEOUT_S = 90
+RB_WALL_LIMIT_S = 60.0
+
+
+def robust_config3_rows() -> torch.Tensor:
+    """Config 3's 20M x 16 float32 blobs from the group's own seed: (c)'s
+    fits and (d)'s child draw the same rows on the same card."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(RB_SEED)
+    return planted_blobs(KM_N, KM_D, KM_K, gen)[0]
+
+
+def _config3_kmeans(uid: str = "robust-km") -> KMeans:
+    return KMeans(uid=uid).setK(KM_K).setSeed(SEED).setBackend("xla")
+
+
+def _ckpt_files(root: str) -> list:
+    return glob.glob(os.path.join(root, "*", "ckpt-*.npz"))
+
+
+def phase_robust_placement(gen: torch.Generator) -> dict:
+    """(f-a) A host PCA fit (1,024 features, ``pallas``: K1 on the host
+    partition) under ``ingest.device_put=2`` is bitwise the clean fit, with
+    2 failed attempts on the ``retry.*`` counters and K1 launched as often
+    as in one clean fit; under ``always`` it raises ``RetryExhaustedError``
+    and the device memory comes back; under ``:fatal`` it raises after one
+    attempt. Then config 3's rows on the host, degraded to the streaming
+    KMeans fit under a 256 MiB budget, meet ``solver.segment=1:oom``: the
+    fit halves its block rows once and equals the explicit reader fit of
+    the halved blocks (C4's recovery, driven by the spec)."""
+    out = {"phase": "robust_placement", "rows": RB_PCA_N, "d": D}
+    host = planted(RB_PCA_N, D, gen).cpu().numpy()
+    est = PCA().setK(K).setCovarianceBackend("pallas")
+    attempts = "retry.ingest.device_put.attempts"
+    walls, launches, tries = {"clean": [], "faulted": []}, {"clean": [], "faulted": []}, {"clean": [], "faulted": []}
+    fired = []
+    for run in ("clean", "faulted") * 3:
+        k0, a0 = k1.launches, counter_value(attempts)
+        with (inject("ingest.device_put=2") if run == "faulted" else contextlib.nullcontext()) as plan:
+            sync()
+            t0 = time.perf_counter()
+            model = est.fit(host)
+            sync()
+        walls[run].append(time.perf_counter() - t0)
+        launches[run].append(k1.launches - k0)
+        tries[run].append(counter_value(attempts) - a0)
+        if run == "clean":
+            clean = model
+        else:
+            faulted = model
+            fired.append(len(plan.fired))
+    out["walls_s"] = {run: statistics.median(w) for run, w in walls.items()}
+    out["k1_launches"] = launches
+    out["placement_attempts"] = tries
+    out["failed_attempts"] = [f - c for f, c in zip(tries["faulted"], tries["clean"])]
+    out["bitwise_equal"] = _same_pca(clean, faulted)
+    sync()
+    mem0 = torch.cuda.memory_allocated()
+    exhausted = None
+    with inject("ingest.device_put=always") as plan:
+        try:
+            est.fit(host)
+        except RetryExhaustedError as exc:
+            exhausted = f"{exc.attempts} {type(exc.__cause__).__name__}"
+    sync()
+    out["exhausted"] = {"error": exhausted, "invocations": plan.invocations("ingest.device_put"),
+                        "allocated_before": mem0, "allocated_after": torch.cuda.memory_allocated()}
+    with inject("ingest.device_put=always:fatal") as plan:
+        try:
+            est.fit(host)
+            fatal = None
+        except InjectedFault as exc:
+            fatal = type(exc).__name__
+    out["fatal"] = {"error": fatal, "invocations": plan.invocations("ingest.device_put")}
+    del host
+
+    xk_host = robust_config3_rows().cpu().numpy()
+    torch.cuda.empty_cache()
+    km = KMeans().setK(KM_K).setSeed(SEED).setMaxIter(RB_STREAM_ITERS).setBackend("xla")
+    with knob(TPUML_FIT_MEM_BUDGET=SMALL_BUDGET, TPUML_FIT_BLOCK_ROWS=KM_ST_BLOCK):
+        halved = fit_block_rows("kmeans", width=KM_D, itemsize=4) // 2
+        h0 = counter_value("fit.oom.block_halved")
+        with inject("solver.segment=1:oom") as plan, warnings.catch_warnings():
+            warnings.simplefilter("ignore", DegradationWarning)
+            t0 = time.perf_counter()
+            recovered = km.fit(xk_host)
+            rec_wall = time.perf_counter() - t0
+        halvings = counter_value("fit.oom.block_halved") - h0
+    t0 = time.perf_counter()
+    explicit = km.fit(HostArrayBlockReader(xk_host, block_rows=halved))
+    out["stream_oom"] = {
+        "fired": plan.fired, "block_halved": halvings, "halved_block_rows": halved,
+        "recovered_wall_s": rec_wall, "explicit_wall_s": time.perf_counter() - t0,
+        "bitwise_equal": bool(np.array_equal(recovered.clusterCenters(), explicit.clusterCenters())
+                              and recovered.trainingCost == explicit.trainingCost
+                              and recovered.numIter == explicit.numIter)}
+    del xk_host
+    out["clean_model"] = clean
+    emit({k: v for k, v in out.items() if k != "clean_model"})
+    require(out["bitwise_equal"], "(f-a) the retried placement's PCA differs from the clean fit")
+    require(out["failed_attempts"] == [2, 2, 2] and fired == [2, 2, 2],
+            f"(f-a) failed attempts {out['failed_attempts']}, fired {fired}")
+    require(launches["faulted"] == launches["clean"] and min(launches["clean"]) > 0,
+            f"(f-a) K1 launches {launches}")
+    require(exhausted == "3 InjectedFault", f"(f-a) exhaustion gave {exhausted}")
+    require(out["exhausted"]["allocated_after"] == mem0, f"(f-a) exhaustion kept memory: {out['exhausted']}")
+    require(fatal == "InjectedFault" and out["fatal"]["invocations"] == 1, f"(f-a) the fatal fault: {out['fatal']}")
+    require(halvings == 1 and plan.fired == [("solver.segment", 0)] and out["stream_oom"]["bitwise_equal"],
+            f"(f-a) the streaming OOM recovery: {out['stream_oom']}")
+    return out
+
+
+def phase_robust_persistence(model, tmp: str) -> dict:
+    """(f-b) A save under ``persistence.write=1`` round-trips bitwise; an
+    overwrite killed midway (``:fatal``) leaves the previous model in
+    place, loadable and bitwise."""
+    path = os.path.join(tmp, "pca")
+    with inject("persistence.write=1") as plan:
+        t0 = time.perf_counter()
+        model.write.overwrite().save(path)
+        wall = time.perf_counter() - t0
+    roundtrip = _same_pca(PCAModel.load(path), model)
+    other = PCAModel("other", -model.pc, model.explainedVariance)
+    with inject("persistence.write=always:fatal"):
+        try:
+            other.write.overwrite().save(path)
+            killed = None
+        except InjectedFault as exc:
+            killed = type(exc).__name__
+    kept = _same_pca(PCAModel.load(path), model)
+    out = {"phase": "robust_persistence", "fired": plan.fired, "save_wall_s": wall,
+           "roundtrip_bitwise": roundtrip, "killed": killed, "previous_kept_bitwise": kept,
+           "stray_temp_dirs": glob.glob(os.path.join(tmp, ".pca.tmp-save*"))}
+    emit(out)
+    require(plan.fired == [("persistence.write", 0)] and roundtrip, f"(f-b) the retried save: {out}")
+    require(killed == "InjectedFault" and kept and not out["stray_temp_dirs"], f"(f-b) the killed save: {out}")
+    return out
+
+
+def _robust_family(name: str, fit, read, tmp: str, **knobs) -> dict:
+    """(f-c) for one family: the monolithic and the segmented fit (medians
+    of 3 walls; bitwise equal), then a fit killed at its first segment
+    boundary (``checkpoint.segment=1:fatal``) and a refit that resumes
+    from its snapshot: bitwise the uninterrupted fit, with strictly fewer
+    solver iterations and the reference's sum rule."""
+    root = tempfile.mkdtemp(prefix=f"ckpt-{name}-", dir=tmp)
+    out = {"family": name, "every": RB_EVERY[name]}
+    with knob(TPUML_CHECKPOINT_DIR=root, TPUML_CHECKPOINT_EVERY=0, **knobs):
+        mono, out["monolithic_wall_s"] = _timed(fit)
+    want = read(mono)
+    k4_0 = k4.launches["tail_accumulate"]
+    with knob(TPUML_CHECKPOINT_DIR=root, TPUML_CHECKPOINT_EVERY=RB_EVERY[name], **knobs):
+        clear_counters("checkpoint")
+        seg, out["segmented_wall_s"] = _timed(fit)
+        out["segmented_equal"] = read(seg) == want
+        out["snapshots_per_fit"] = counter_value("checkpoint.write") / 3
+        out["segments_per_fit"] = counter_value("checkpoint.segments") / 3
+        full = counter_value("checkpoint.solver_iters") // 3
+        out["k4_launches_per_fit"] = (k4.launches["tail_accumulate"] - k4_0) / 3
+        clear_counters("checkpoint")
+        k4_0 = k4.launches["tail_accumulate"]
+        with inject("checkpoint.segment=1:fatal"):
+            try:
+                fit()
+                killed = None
+            except InjectedFault as exc:
+                killed = type(exc).__name__
+        killed_iters = counter_value("checkpoint.solver_iters")
+        out["files_after_kill"] = len(_ckpt_files(root))
+        clear_counters("checkpoint")
+        t0 = time.perf_counter()
+        resumed = fit()
+        sync()
+        out["resumed_wall_s"] = time.perf_counter() - t0
+        out["k4_launches_killed_and_resumed"] = k4.launches["tail_accumulate"] - k4_0
+    out.update({"killed": killed, "solver_iters": full, "killed_iters": killed_iters,
+                "restored": counter_value("checkpoint.restore"),
+                "restored_step": counter_value("checkpoint.restore.steps"),
+                "resumed_iters": counter_value("checkpoint.solver_iters"),
+                "resumed_equal": read(resumed) == want, "files_left": len(_ckpt_files(root))})
+    out["want"] = want
+    return out
+
+
+def _require_family(res: dict) -> None:
+    name = res["family"]
+    require(res["segmented_equal"], f"(f-c) {name}: the segmented fit differs from the monolithic fit")
+    require(res["segments_per_fit"] >= 2 and res["snapshots_per_fit"] == res["segments_per_fit"],
+            f"(f-c) {name}: {res['segments_per_fit']} segments, {res['snapshots_per_fit']} snapshots a fit")
+    require(res["killed"] == "InjectedFault" and res["files_after_kill"] >= 1, f"(f-c) {name}: the kill {res}")
+    require(res["resumed_equal"] and res["restored"] == 1, f"(f-c) {name}: the resumed fit {res}")
+    require(res["resumed_iters"] < res["solver_iters"]
+            and res["resumed_iters"] + res["restored_step"] == res["solver_iters"],
+            f"(f-c) {name}: iterations {res}")
+    require(res["files_left"] == 0, f"(f-c) {name}: a completed fit left snapshots")
+
+
+def _umap_with_uid(uid: str) -> UMAP:
+    return (UMAP(uid=uid).setNNeighbors(UM_K).setNComponents(UM_DIM).setNEpochs(UM_EPOCHS)
+            .setBuildAlgo("brute_approx").setInit("random").setSeed(SEED))
+
+
+def phase_robust_checkpoints(gen: torch.Generator, tmp: str) -> dict:
+    """(f-c) Configs 3 (KMeans k = 100, ``xla``), 4 (elastic-net FISTA), 10
+    (L-BFGS) and 13 (UMAP, K4 every epoch, ``TPUML_CHECKPOINT_UMAP=1``) at
+    full shape: segmented = monolithic and killed-then-resumed =
+    uninterrupted, bitwise; UMAP's killed and resumed fits launch K4 200
+    times between them (no epoch is lost: the kill lands after a committed
+    snapshot). The index_add_ tail route's segmented layout is recorded."""
+    res = {}
+    x = robust_config3_rows()
+    res["config3_kmeans"] = _robust_family(
+        "config3_kmeans", lambda: _config3_kmeans().fit(x),
+        lambda m: (m.clusterCenters().tobytes(), m.trainingCost, m.numIter), tmp)
+    del x
+    torch.cuda.empty_cache()
+    xg, w_true = glm_rows(gen)
+    yl = xg @ w_true + 0.1 * torch.randn(GLM_N, generator=gen, device=xg.device)
+    res["config4_enet"] = _robust_family(
+        "config4_enet",
+        lambda: LinearRegression(uid="robust-enet").setRegParam(0.1).setElasticNetParam(0.5).fit((xg, yl)),
+        lambda m: (m.coefficients.tobytes(), m.intercept), tmp)
+    del yl
+    margin = (xg - xg.mean(dim=0)) / xg.std(dim=0) @ w_true + 0.5 * torch.randn(GLM_N, generator=gen,
+                                                                                 device=xg.device)
+    yb = (margin > 0).float()
+    del margin
+    res["config10_lbfgs"] = _robust_family(
+        "config10_lbfgs",
+        lambda: LogisticRegression(uid="robust-logreg").setRegParam(0.01).setMaxIter(20).setTol(0.0)
+        .fit((xg, yb)),
+        lambda m: (m.coefficients.tobytes(), m.intercept, m.numIter), tmp)
+    del xg, yb
+    torch.cuda.empty_cache()
+    truth = torch.randn((UM_BLOBS, UM_D), generator=gen, device=gen.device) * UM_SCALE
+    xu, _ = umap_blobs(UM_N, truth, gen)
+
+    def read_umap(m):
+        return m._emb_raw.cpu().numpy().tobytes()
+
+    res["config13_umap"] = _robust_family("config13_umap", lambda: _umap_with_uid("robust-umap").fit(xu),
+                                          read_umap, tmp, TPUML_CHECKPOINT_UMAP=1)
+    root = tempfile.mkdtemp(prefix="ckpt-umap-xla-", dir=tmp)
+    with knob(TPUML_UMAP_SCATTER="xla", TPUML_CHECKPOINT_DIR=root, TPUML_CHECKPOINT_UMAP=1):
+        with knob(TPUML_CHECKPOINT_EVERY=0):
+            mono = read_umap(_umap_with_uid("robust-umap-xla").fit(xu))
+            again = read_umap(_umap_with_uid("robust-umap-xla").fit(xu))
+        with knob(TPUML_CHECKPOINT_EVERY=RB_EVERY["config13_umap"]):
+            seg = read_umap(_umap_with_uid("robust-umap-xla").fit(xu))
+    index_add = {"monolithic_repeat_equal": mono == again, "segmented_equal": seg == mono}
+    summary = {name: {k: v for k, v in r.items() if k != "want"} for name, r in res.items()}
+    emit({"phase": "robust_checkpoints", "families": summary, "umap_index_add_route": index_add})
+    for r in res.values():
+        _require_family(r)
+    u = res["config13_umap"]
+    require(u["k4_launches_per_fit"] == UM_EPOCHS and u["k4_launches_killed_and_resumed"] == UM_EPOCHS,
+            f"(f-c) K4 launches: {u['k4_launches_per_fit']} a fit, "
+            f"{u['k4_launches_killed_and_resumed']} killed and resumed")
+    return res
+
+
+def robust_child_main(argv) -> int:
+    """(f-d)'s child: config 3's KMeans fit with checkpoints on, started by
+    :func:`phase_robust_kill` with ``TPUML_FAULTS`` freezing it at its
+    first segment boundary, where it is SIGKILLed."""
+    port_device.set_platform("cuda")
+    port_device.use_ieee_fp32_matmul()
+    _config3_kmeans(RB_KILL_UID).fit(robust_config3_rows())
+    print("robust child completed", flush=True)
+    return 0
+
+
+def phase_robust_kill(want, tmp: str) -> dict:
+    """(f-d) A child process fits config 3's KMeans with checkpoints on and
+    freezes at its first segment boundary (``checkpoint.segment=always:
+    stall``, after the snapshot committed); once the first ``ckpt-*.npz``
+    exists the parent SIGKILLs it, tearing its CUDA context down. A refit
+    here resumes from that snapshot and is bitwise (c)'s uninterrupted fit."""
+    root = tempfile.mkdtemp(prefix="ckpt-kill-", dir=tmp)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPUML_")}
+    env.update(TPUML_CHECKPOINT_DIR=root, TPUML_CHECKPOINT_EVERY=str(RB_EVERY["config3_kmeans"]),
+               TPUML_FAULTS="checkpoint.segment=always:stall")
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--robust-child"], env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        while not _ckpt_files(root) and child.poll() is None and time.perf_counter() - t0 < RB_CHILD_TIMEOUT_S:
+            time.sleep(0.02)
+        first_snapshot_s = time.perf_counter() - t0
+        files = _ckpt_files(root)
+        if child.poll() is None:
+            child.send_signal(signal.SIGKILL)
+        _, stderr = child.communicate(timeout=30)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    with knob(TPUML_CHECKPOINT_DIR=root, TPUML_CHECKPOINT_EVERY=RB_EVERY["config3_kmeans"]):
+        clear_counters("checkpoint")
+        t1 = time.perf_counter()
+        m = _config3_kmeans(RB_KILL_UID).fit(robust_config3_rows())
+        wall = time.perf_counter() - t1
+    out = {"phase": "robust_kill", "first_snapshot_s": first_snapshot_s, "snapshots_at_kill": [os.path.basename(f)
+           for f in files], "child_returncode": child.returncode, "resume_wall_s": wall,
+           "restored": counter_value("checkpoint.restore"), "restored_step": counter_value("checkpoint.restore.steps"),
+           "resumed_iters": counter_value("checkpoint.solver_iters"),
+           "resumed_equal": (m.clusterCenters().tobytes(), m.trainingCost, m.numIter) == want}
+    emit(out)
+    require(files and child.returncode == -signal.SIGKILL, f"(f-d) the child was not killed after a snapshot: "
+            f"{out}; {stderr[-2000:]}")
+    require(out["restored"] == 1 and out["restored_step"] == RB_EVERY["config3_kmeans"] and out["resumed_equal"],
+            f"(f-d) the resumed fit: {out}")
+    return out
+
+
+def robustness_phases() -> dict:
+    """Group (f), robustness: (a) placement under faults, (b) persistence
+    under faults, (c) checkpointed fits at configs 3, 4, 10 and 13, (d) a
+    real kill; its own seed, within ``RB_WALL_LIMIT_S``. Walls are medians
+    of 3 where (c) says so; checkpoints go to a temporary directory."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(RB_SEED)
+    t0 = time.perf_counter()
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="robust-") as tmp:
+        t = time.perf_counter()
+        a = phase_robust_placement(gen)
+        walls["a_placement"] = time.perf_counter() - t
+        t = time.perf_counter()
+        b = phase_robust_persistence(a.pop("clean_model"), tmp)
+        walls["b_persistence"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        c = phase_robust_checkpoints(gen, tmp)
+        walls["c_checkpoints"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        d = phase_robust_kill(c["config3_kmeans"]["want"], tmp)
+        walls["d_kill"] = time.perf_counter() - t
+    wall = time.perf_counter() - t0
+    emit({"phases": "robustness", "wall_s": wall, "phase_wall_s": walls})
+    require(wall <= RB_WALL_LIMIT_S, f"the robustness phases took {wall:.1f} s, over their {RB_WALL_LIMIT_S:.0f} s")
+    return {"placement": a, "persistence": b, "checkpoints": c, "kill": d}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -4703,6 +5072,8 @@ def main() -> int:
     mesh_phases(gen)
     torch.cuda.empty_cache()
     sharded_phases()
+    torch.cuda.empty_cache()
+    robustness_phases()
 
     k1_f32 = times["k1_f32"]
     measured = {
@@ -4734,4 +5105,6 @@ def main() -> int:
 if __name__ == "__main__":
     if "--mesh-rank" in sys.argv:
         sys.exit(mesh_rank_main(sys.argv))
+    if "--robust-child" in sys.argv:
+        sys.exit(robust_child_main(sys.argv))
     sys.exit(main())

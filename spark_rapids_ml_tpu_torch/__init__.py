@@ -30,8 +30,10 @@ Layer map (the reference's, one for one):
   - ``device``                — where entry points compute (CUDA by default)
   - ``utils.tracing``         — NVTX ranges and plain counters
   - ``utils.envknobs``        — the ``TPUML_*`` knobs the port reads
-  - ``robustness`` / ``observability`` — OOM classification, degradation
-    records and the JSON-lines event sink of the fit memory guard
+  - ``robustness``            — fault injection (``TPUML_FAULTS``), the
+    retry policy, checkpointed fits that resume mid-solve
+    (``TPUML_CHECKPOINT_*``), OOM classification, degradation records
+  - ``observability``         — the JSON-lines event sink and metrics
 """
 
 from spark_rapids_ml_tpu_torch.version import __version__

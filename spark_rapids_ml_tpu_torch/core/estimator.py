@@ -6,9 +6,10 @@ delegates to the family's ``_fit`` and returns a ``Model`` (a
 reference: a device OOM that escaped the family's own recovery re-raises
 as the structured ``core.membudget.FitMemoryError``. ``deployMode`` (env
 twin ``TPUML_GANG_FIT``) makes a fit one member of a
-``torch.distributed`` gang, as in the reference. Left out until their
-slices: the run recorder around ``fit``, ``partial_fit`` and fit
-checkpointing.
+``torch.distributed`` gang, as in the reference, and
+:meth:`Estimator._fit_checkpointer` hands the segmented solvers their
+checkpointer (``robustness/checkpoint.py``). Left out until their slices:
+the run recorder around ``fit`` and ``partial_fit``.
 """
 
 from __future__ import annotations
@@ -95,11 +96,36 @@ class Estimator(Params):
         except RuntimeError as exc:
             failure = exc
         device_id = self.getOrDefault("gpuId") if self.hasParam("gpuId") else -1
-        reraise_if_oom(failure, type(self).__name__, device_id)
-        raise failure
+        try:
+            reraise_if_oom(failure, type(self).__name__, device_id)
+            raise failure
+        finally:
+            # The raised error's traceback holds this frame: drop the
+            # frame's reference to it, or the two form a cycle that keeps
+            # whatever the failed fit placed alive until a collection.
+            failure = None
 
     def _fit(self, dataset: Any):
         raise NotImplementedError
+
+    def _fit_checkpointer(self, solver: str, data=()):
+        """This fit's checkpoint handle (``robustness/checkpoint.py``), or
+        None when the ``TPUML_CHECKPOINT_*`` knobs leave checkpointing off,
+        the default, in which case nothing is computed and the fit keeps
+        its monolithic solver.
+
+        Identity is (estimator uid, parameter hash, data fingerprint): the
+        checkpointer finds the newest valid snapshot under
+        ``TPUML_CHECKPOINT_DIR``, the segmented solver resumes mid-solve
+        bit for bit, and a completed fit removes its snapshots. A forced
+        segment length (``_force_segment_every``, ``partial_fit``'s) gives
+        a disk-free segmenter when the knobs are off."""
+        from spark_rapids_ml_tpu_torch.robustness.checkpoint import EphemeralSegmenter, FitCheckpointer
+
+        ckpt = FitCheckpointer.for_fit(self, solver=solver, data=data)
+        if ckpt is None and getattr(self, "_force_segment_every", 0):
+            return EphemeralSegmenter(self._force_segment_every)
+        return ckpt
 
 
 class Model(Transformer, MLReadable):

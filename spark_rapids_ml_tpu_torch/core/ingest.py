@@ -4,9 +4,13 @@ A ``torch.Tensor`` is consumed in place where it lives, in its own
 floating dtype (an integral tensor is cast there). Host data densifies
 into one matrix at :func:`default_dtype` (or the ``dtype`` the caller
 pins) and goes to :func:`device.resolve_device`, which raises on the
-``"cuda"`` platform without a card. The reference's retry policy, fault
-points and CPU degradation are left out: a CPU degrade would be a
-fallback that hides the device.
+``"cuda"`` platform without a card. Every host->device placement is one
+retry unit of the shared policy with one ``ingest.device_put`` fault site
+(:func:`guarded_placement`; a device OOM between attempts reclaims the
+caches first), as in the reference; :func:`place_array` is the guarded
+upload of any other whole-array input of a fit. The reference's CPU
+degradation is left out: a CPU degrade would be a fallback that hides the
+device.
 
 With a mesh the rows come back as a
 :class:`~spark_rapids_ml_tpu_torch.parallel.mesh.ShardedRows`, as the
@@ -30,7 +34,7 @@ and :func:`to_host_f64`.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, TypeVar
 
 import numpy as np
 import torch
@@ -38,7 +42,11 @@ import torch
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.data import as_matrix, as_partitions, is_device_array
 from spark_rapids_ml_tpu_torch.core.lazy_state import to_host
+from spark_rapids_ml_tpu_torch.robustness.faults import fault_point
+from spark_rapids_ml_tpu_torch.robustness.retry import default_policy, is_oom_error
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
+
+T = TypeVar("T")
 
 _NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -46,6 +54,40 @@ _NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 def numpy_dtype(dtype: torch.dtype):
     """The numpy twin of a floating torch dtype (float32 or float64)."""
     return _NUMPY_DTYPE[dtype]
+
+
+def guarded_placement(place: Callable[[], T], device: Optional[torch.device] = None) -> T:
+    """Run one host->device placement as one retry unit of the shared
+    policy (``ingest.device_put``), its fault site first and its copy in an
+    ``ingest H2D`` range. Placement is pure, so an attempt re-runs
+    whole; after a device OOM the caches are reclaimed (on ``device``'s
+    allocator too) before the next attempt, and a failed attempt's frames
+    are cleared by the policy, so nothing it placed stays allocated."""
+
+    def attempt():
+        fault_point("ingest.device_put")
+        with TraceRange("ingest H2D", TraceColor.CYAN):
+            return place()
+
+    def reclaim(_attempt: int, exc: BaseException) -> None:
+        if is_oom_error(exc):
+            from spark_rapids_ml_tpu_torch.core.serving import reclaim_device_memory
+
+            reclaim_device_memory(device if device is not None and device.type == "cuda" else None)
+
+    return default_policy().run(attempt, name="ingest.device_put", on_retry=reclaim)
+
+
+def place_array(arr: Any, dtype: Optional[torch.dtype] = None, device: Optional[torch.device] = None) -> torch.Tensor:
+    """Guarded upload of a whole-array fit input beside :func:`prepare_rows`
+    (a PCA partition, the sketch's host matrix): the same fault site,
+    retry policy and OOM reclaim. A tensor is moved or cast where asked,
+    with no fault site, as the reference leaves device inputs alone."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device=device, dtype=dtype)
+    host = np.asarray(arr)
+    dev = device if device is not None else _device.resolve_device()
+    return guarded_placement(lambda: torch.as_tensor(host).to(device=dev, dtype=dtype), dev)
 
 
 def default_dtype() -> torch.dtype:
@@ -90,8 +132,7 @@ def prepare_rows(
             parts = as_partitions(rows, dtype=_NUMPY_DTYPE[dt])
             host = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
             dev = _device.resolve_device(device_id)
-            with TraceRange("ingest H2D", TraceColor.CYAN):
-                x = torch.from_numpy(np.ascontiguousarray(host)).to(dev)
+            x = guarded_placement(lambda: torch.from_numpy(np.ascontiguousarray(host)).to(dev), dev)
         n, d = int(x.shape[0]), int(x.shape[1])
         mask = torch.ones(n, dtype=_mask_dtype(x.dtype), device=x.device)
         if weights is not None:
@@ -118,16 +159,17 @@ def _prepare_rows_mesh(rows: Any, mesh, dtype: Optional[torch.dtype], weights) -
             raise ValueError(f"tensor input must be 2-D, got {rows.dim()}-D")
         x = rows if rows.is_floating_point() else rows.to(dtype or default_dtype())
         _device.device_of(x)
-        with TraceRange("ingest H2D", TraceColor.CYAN):
-            sharded = shard_tensor_rows(x, mesh)
+        # Resharding a live tensor is pure placement: one retry unit.
+        sharded = guarded_placement(lambda: shard_tensor_rows(x, mesh), mesh.first_device)
     else:
         dt = dtype or default_dtype()
         parts = as_partitions(rows, dtype=_NUMPY_DTYPE[dt])
-        with TraceRange("ingest H2D", TraceColor.CYAN):
-            if gang:
-                sharded = shard_rows_process_local(parts, mesh, dtype=_NUMPY_DTYPE[dt])
-            else:
-                sharded = shard_rows_from_partitions(parts, mesh, dtype=_NUMPY_DTYPE[dt])
+        # The host partitions' placement loop is its own retry unit
+        # (parallel/mesh.place_host_rows).
+        if gang:
+            sharded = shard_rows_process_local(parts, mesh, dtype=_NUMPY_DTYPE[dt])
+        else:
+            sharded = shard_rows_from_partitions(parts, mesh, dtype=_NUMPY_DTYPE[dt])
     sharded = sharded.with_masks(_mask_dtype(sharded.dtype))
     if weights is not None:
         # Weights are local like the rows: checked against this process's
@@ -150,7 +192,8 @@ def _combine_weights(mask: torch.Tensor, weights, n_true: int) -> torch.Tensor:
         raise ValueError(
             f"weight vector has {w_host.shape[0]} entries but the data has {n_true} rows"
         )
-    return mask * torch.from_numpy(w_host).to(device=mask.device, dtype=mask.dtype)
+    w = guarded_placement(lambda: torch.from_numpy(w_host).to(device=mask.device, dtype=mask.dtype), mask.device)
+    return mask * w
 
 
 def matrix_like(x: Any):

@@ -20,9 +20,13 @@ registered with :func:`allow_persisted_package`; directories written by
 upstream Spark name JVM classes, which :func:`resolve_component_class`
 maps through :data:`_SPARK_CLASS_ALIASES`.
 
-Left out until the robustness slice: the fault-injection point and the
-retry policy around the write. ``MLWriter.save`` keeps the reference's
-directory-level atomicity (write a temp sibling, then ``os.replace``).
+``MLWriter.save`` is atomic at the directory level, as the reference's:
+the model is written to a hidden temp sibling and ``os.replace``d into
+place once complete, under the shared retry policy (``persistence.write``,
+a fault site in :func:`save_data` / :func:`save_rows`), so a failed
+overwrite keeps the previous model and a save killed midway is invisible
+to ``load``. :func:`atomic_file_write` is the single-file twin that the
+checkpoint snapshots use.
 
 Matrix UDT struct: (type: int8 [1=dense], numRows, numCols, colPtrs,
 rowIndices, values: float64[], isTransposed). Vector UDT struct:
@@ -49,8 +53,33 @@ try:
 except ImportError:  # pragma: no cover - the card's image has no pyarrow
     _HAS_ARROW = False
 
+from spark_rapids_ml_tpu_torch.observability.events import emit
+from spark_rapids_ml_tpu_torch.robustness.faults import fault_point
+from spark_rapids_ml_tpu_torch.robustness.retry import default_policy
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
 from spark_rapids_ml_tpu_torch.version import __version__
+
+
+def atomic_file_write(path: str, data: bytes) -> None:
+    """Write ``data`` to ``path`` atomically: a hidden temp sibling on the
+    same filesystem, fsync, then ``os.replace``. A writer killed at any
+    point leaves the previous file or a temp sibling no reader looks at,
+    never a truncated ``path`` (the checkpoint snapshots'
+    writer, ``robustness/checkpoint.py``)."""
+    parent = os.path.dirname(os.path.abspath(path)) or "."
+    tmp = os.path.join(parent, f".{os.path.basename(path)}.tmp-write-{uuid.uuid4().hex[:12]}")
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            try:
+                os.remove(tmp)
+            except OSError:  # pragma: no cover - best-effort cleanup
+                pass
 
 
 def _matrix_struct(m: np.ndarray) -> dict:
@@ -307,6 +336,10 @@ def _write_data(path: str, columns: Dict[str, tuple], npz: Dict[str, Any]) -> No
     ``npz``: name -> the array the ``.npz`` fallback stores."""
     data_dir = os.path.join(path, "data")
     os.makedirs(data_dir, exist_ok=True)
+    # After the directory exists, before any data file: a fault here
+    # leaves the half-written layout (metadata, no data) that the atomic
+    # MLWriter.save keeps invisible to load().
+    fault_point("persistence.write")
     if not _HAS_ARROW:
         np.savez(
             os.path.join(data_dir, "part-00000.npz"),
@@ -386,7 +419,9 @@ def load_rows(path: str) -> Dict[str, list]:
 
 class MLWriter:
     """Spark-style ``model.write.overwrite().save(path)`` chain; ``save``
-    is atomic at the directory level (temp sibling, then ``os.replace``)."""
+    is atomic at the directory level (temp sibling, then ``os.replace``),
+    and the complete write runs under the shared retry policy, each
+    attempt against a fresh temp directory."""
 
     def __init__(self, instance):
         self._instance = instance
@@ -404,13 +439,20 @@ class MLWriter:
         tmp = os.path.join(
             parent, f".{os.path.basename(path)}.tmp-save-{uuid.uuid4().hex[:12]}"
         )
+
+        def _write_complete():
+            if os.path.exists(tmp):  # a failed earlier attempt
+                shutil.rmtree(tmp)
+            self._instance._save_impl(tmp)
+
         try:
             with TraceRange("persistence save", TraceColor.WHITE):
-                self._instance._save_impl(tmp)
+                default_policy().run(_write_complete, name="persistence.write")
                 if os.path.exists(path):  # _overwrite, checked above
                     shutil.rmtree(path)
                 os.replace(tmp, path)
             bump_counter("persistence.write")
+            emit("persistence", action="write", path=path, model=type(self._instance).__name__)
         finally:
             if os.path.exists(tmp):
                 shutil.rmtree(tmp, ignore_errors=True)

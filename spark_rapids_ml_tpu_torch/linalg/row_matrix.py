@@ -55,6 +55,7 @@ from spark_rapids_ml_tpu_torch.core.data import (
     is_streaming_source,
     iter_stream_blocks,
 )
+from spark_rapids_ml_tpu_torch.core.ingest import place_array
 from spark_rapids_ml_tpu_torch.ops.covariance import (
     centered_gram,
     centered_gram_packed,
@@ -278,7 +279,7 @@ class RowMatrix:
             device = self._device()
             state = welford_init(self.num_cols, dtype=self.dtype, device=device)
             for part in self.partitions:
-                blk = torch.as_tensor(part).to(device=device, dtype=self.dtype)
+                blk = place_array(part, dtype=self.dtype, device=device)
                 state = welford_add_block(state, blk)
             return state[1]
 
@@ -414,7 +415,7 @@ class RowMatrix:
         acc = None
         for part in self.partitions:
             with TraceRange("gemm", TraceColor.GREEN):
-                blk = torch.as_tensor(part).to(device=device, dtype=self.dtype)
+                blk = place_array(part, dtype=self.dtype, device=device)
                 gram = self._gram(blk, mean)
             acc = gram if acc is None else acc + gram
         return acc / (self.num_rows - 1)
@@ -462,7 +463,7 @@ class RowMatrix:
         device = self._device()
         acc = None
         for part in self.partitions:
-            blk = torch.as_tensor(part).to(device=device, dtype=self.dtype)
+            blk = place_array(part, dtype=self.dtype, device=device)
             packed = centered_gram_packed(blk, mean)
             acc = packed if acc is None else acc + packed
         return triu_to_full(acc) / (self.num_rows - 1)

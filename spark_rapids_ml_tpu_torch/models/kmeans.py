@@ -41,10 +41,12 @@ per data shard with its statistics summed over the data axis
 (``ops/kmeans.py``), on the ``xla`` route: the kernels' blockers include
 a mesh, as in the reference. A streaming source refuses a mesh.
 
-Left out until its ROADMAP item: the checkpointed Lloyd (A.7b). Where
-the reference would segment Lloyd (``TPUML_CHECKPOINT_DIR`` with a
-positive ``TPUML_CHECKPOINT_EVERY``, any backend but an explicit
-``"fused"``), the fit raises ``NotImplementedError``.
+With ``TPUML_CHECKPOINT_DIR`` set and ``TPUML_CHECKPOINT_EVERY``
+positive, Lloyd runs segmented (``ops/kmeans.lloyd_resumable``) on the
+``xla`` route, on one device or a mesh, snapshots its state after every
+segment and resumes mid-solve from the newest valid snapshot, bitwise the
+monolithic ``xla`` fit; an explicit ``"fused"`` backend is never
+checkpointed, as in the reference.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ from spark_rapids_ml_tpu_torch.ops.kmeans import (
     assign_clusters,
     kmeans_plusplus_init,
     lloyd,
+    lloyd_resumable,
     lloyd_streaming,
     normalize_rows,
     random_init,
@@ -92,7 +95,6 @@ from spark_rapids_ml_tpu_torch.ops.kmeans import (
 )
 from spark_rapids_ml_tpu_torch.ops.precision import pallas_precision, resolve_policy, validate_mode
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
-from spark_rapids_ml_tpu_torch.utils.envknobs import reject_checkpoint
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 
@@ -386,8 +388,21 @@ class KMeans(_KMeansParams, Estimator, MLReadable):
                 init = random_init(xs, mask, gen, k)
             else:
                 init = kmeans_plusplus_init(xs, mask, gen, k)
+            # Preemption tolerance (robustness/checkpoint.py): with the
+            # TPUML_CHECKPOINT_* knobs set, Lloyd runs segmented on the
+            # xla route and resumes mid-solve; never under an explicit
+            # "fused", whose kernels keep no state between iterations.
+            ckpt = None
             if self.getBackend() != "fused":
-                reject_checkpoint("kmeans.lloyd")
+                data = (xs.x, xs.mask, init) if self.mesh is not None else (xs, mask, init)
+                ckpt = self._fit_checkpointer("kmeans.lloyd", data=data)
+            if ckpt is not None:
+                with TraceRange("kmeans lloyd", TraceColor.PURPLE):
+                    centers, cost, n_iter = lloyd_resumable(
+                        xs, mask, init, ckpt, max_iter=self.getMaxIter(), tol=self.getTol(),
+                        cosine=cosine, precision=precision, mesh=self.mesh,
+                    )
+                return self._copyValues(KMeansModel(self.uid, centers, trainingCost=cost, numIter=n_iter))
             backend = self._resolve_backend(
                 w_host, n * k, d=d, k=k, dtype=dtype, device=device
             )

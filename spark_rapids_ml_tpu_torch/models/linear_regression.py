@@ -34,10 +34,10 @@ sufficient statistics and ``psum_data`` sums them; the solvers run on the
 reduced O(d²) statistics and need no collective. A mesh fit takes a list
 of blocks as host partitions, not as a stream.
 
-Left out until its ROADMAP item: the resumable FISTA (A.9, robustness).
-Where the reference would segment FISTA (``TPUML_CHECKPOINT_DIR`` with a
-positive ``TPUML_CHECKPOINT_EVERY``), the fit raises
-``NotImplementedError``.
+With ``TPUML_CHECKPOINT_DIR`` set and ``TPUML_CHECKPOINT_EVERY`` positive,
+the elastic-net FISTA (in-memory, streamed or on a mesh) runs segmented
+(``ops/linear.solve_elastic_net_resumable``), snapshots its carry after
+every segment and resumes mid-solve, bitwise the monolithic solve.
 """
 
 from __future__ import annotations
@@ -79,12 +79,12 @@ from spark_rapids_ml_tpu_torch.ops.linear import (
     predict_linear,
     regression_metrics,
     solve_elastic_net,
+    solve_elastic_net_resumable,
     solve_normal,
     solve_normal_host,
 )
 from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
-from spark_rapids_ml_tpu_torch.utils.envknobs import reject_checkpoint
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 
@@ -331,7 +331,21 @@ class LinearRegression(_LinearRegressionParams, Estimator, MLReadable):
                     "the exact normal-equation solve has no iteration to seed"
                 )
             return solve_normal(xtx, xty, x_sum, y_sum, count, reg_param=self.getRegParam(), **common)
-        reject_checkpoint("linreg.fista")
+        # With the TPUML_CHECKPOINT_* knobs set the proximal loop runs
+        # segmented and resumes mid-solve (robustness/checkpoint.py): the
+        # loop, not the one statistics pass, is what a preemption loses.
+        ckpt = self._fit_checkpointer("linreg.fista", data=(xtx, xty, x_sum, y_sum, count))
+        if ckpt is not None:
+            coef, intercept, _ = solve_elastic_net_resumable(
+                xtx, xty, x_sum, y_sum, count,
+                reg_param=self.getRegParam(),
+                elastic_net_param=self.getElasticNetParam(),
+                checkpointer=ckpt,
+                init_coef=init_coef,
+                mesh=self.mesh,
+                **common,
+            )
+            return coef, intercept
         coef, intercept, _ = solve_elastic_net(
             xtx, xty, x_sum, y_sum, count,
             reg_param=self.getRegParam(),

@@ -36,11 +36,12 @@ shard and over the data axis (``ops/logistic.py``); a gang agrees on the
 class count first (``allgather_host_max``). A streaming source refuses a
 mesh.
 
-Left out until its ROADMAP item: the resumable L-BFGS (A.9, robustness).
-Where the reference would segment L-BFGS (``TPUML_CHECKPOINT_DIR`` with a
-positive ``TPUML_CHECKPOINT_EVERY``, an in-memory fit with
-``elasticNetParam`` 0 or ``regParam`` 0), the fit raises
-``NotImplementedError``.
+With ``TPUML_CHECKPOINT_DIR`` set and ``TPUML_CHECKPOINT_EVERY`` positive,
+the in-memory L-BFGS fit (one device or a mesh) runs segmented
+(``ops/logistic.fit_logistic_resumable``), snapshots the host optimizer
+state after every segment and resumes mid-solve, bitwise the monolithic
+fit. The elastic net (FISTA) and the streaming fit are not checkpointed,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ from spark_rapids_ml_tpu_torch.ops.logistic import (
     classification_metrics,
     fit_logistic,
     fit_logistic_elastic_net,
+    fit_logistic_resumable,
     fit_logistic_streaming,
     predict_logistic,
     streaming_label_feature_stats,
@@ -80,7 +82,7 @@ from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy, validate_mod
 from spark_rapids_ml_tpu_torch.parallel.collectives import process_count
 from spark_rapids_ml_tpu_torch.parallel.distributed import allgather_host_max
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
-from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice, reject_checkpoint
+from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 
@@ -344,7 +346,6 @@ class LogisticRegression(_LogisticRegressionParams, Estimator, MLReadable):
             )
             enet = self.getElasticNetParam()
             if enet == 0.0 or self.getRegParam() == 0.0:
-                reject_checkpoint("logistic.lbfgs")
                 init_w = init_b = None
                 if self._initial_weights is not None:
                     init_w, init_b = self._initial_weights
@@ -353,8 +354,19 @@ class LogisticRegression(_LogisticRegressionParams, Estimator, MLReadable):
                         raise ValueError(
                             f"initial model weights {init_w.shape} != expected ({d}, {c_expect})"
                         )
-                result = fit_logistic(xs, ys, mask, reg_param=self.getRegParam(),
-                                      init_w=init_w, init_b=init_b, **common)
+                # Preemption tolerance: the TPUML_CHECKPOINT_* knobs route the
+                # solve through the segmented solver (robustness/checkpoint.py).
+                # A mesh fit's fingerprint is of its real rows at the true
+                # width, so any mesh shape resumes the same snapshot.
+                data = (([xs.local_rows(i) for i in range(len(xs.blocks))], ys, xs.masks)
+                        if self.mesh is not None else (xs, ys, mask))
+                ckpt = self._fit_checkpointer("logistic.lbfgs", data=data)
+                if ckpt is not None:
+                    result = fit_logistic_resumable(xs, ys, mask, ckpt, reg_param=self.getRegParam(),
+                                                    init_w=init_w, init_b=init_b, **common)
+                else:
+                    result = fit_logistic(xs, ys, mask, reg_param=self.getRegParam(),
+                                          init_w=init_w, init_b=init_b, **common)
             else:
                 if self._initial_weights is not None:
                     raise ValueError(

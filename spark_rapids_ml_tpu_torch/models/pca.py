@@ -64,6 +64,7 @@ from spark_rapids_ml_tpu_torch.core.data import (
 )
 from spark_rapids_ml_tpu_torch.core import membudget
 from spark_rapids_ml_tpu_torch.core.estimator import Estimator, HasInputCol, HasOutputCol, Model
+from spark_rapids_ml_tpu_torch.core.ingest import place_array
 from spark_rapids_ml_tpu_torch.core.lazy_state import LazyHostState
 from spark_rapids_ml_tpu_torch.core.params import Param, gt, toBoolean, toInt, toString
 from spark_rapids_ml_tpu_torch.core.persistence import (
@@ -390,7 +391,7 @@ class PCA(_PCAParams, Estimator, MLReadable):
             _device.device_of(rows)  # on a CUDA tensor: TF32 off, as "highest" needs
             x = rows
         else:
-            x = torch.from_numpy(as_matrix(rows)).to(_device.resolve_device(self.getGpuId()))
+            x = place_array(as_matrix(rows), device=_device.resolve_device(self.getGpuId()))
         n, d = (x.n, x.d) if self.mesh is not None else x.shape
         if not 1 <= k <= min(n, d):
             raise ValueError(f"k must be in [1, {min(n, d)}], got {k}")

@@ -35,11 +35,15 @@ axis: the kNN graph (:func:`ops.knn.knn_sharded` over the rows placed by
 (:func:`ops.umap.optimize_layout_sharded`, one delta sum an epoch). K4
 stays off a mesh, as the reference keeps its tail kernel off one. The
 draws are the single-device fit's, so a pooled mesh fit equals the
-single-device ``index_add_`` fit up to the order of its sums. Left out
-until its ROADMAP item: the checkpointed layout (A.12a, robustness
-slice); where the reference would checkpoint it (a single-device fit with
-``TPUML_CHECKPOINT_UMAP=1`` and the global knobs), the fit raises
-``NotImplementedError``.
+single-device ``index_add_`` fit up to the order of its sums.
+
+With ``TPUML_CHECKPOINT_UMAP=1`` on top of the global checkpoint knobs, a
+single-device fit runs its layout segmented
+(:func:`ops.umap.optimize_layout_resumable`, on the same tail route, K4
+included), snapshots the layout and the generator's state after every
+segment and resumes mid-schedule, bitwise the uninterrupted fit; the graph
+and the init are recomputed on resume. A mesh layout is not checkpointed,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -71,11 +75,13 @@ from spark_rapids_ml_tpu_torch.ops.umap import (
     find_ab_params,
     fuzzy_simplicial_set,
     optimize_layout,
+    optimize_layout_resumable,
     optimize_layout_sharded,
     smooth_knn_dist,
     spectral_init,
 )
-from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice, reject_checkpoint
+from spark_rapids_ml_tpu_torch.robustness.checkpoint import umap_opt_in
+from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 _SPECTRAL_CAP = 8192  # a dense-Laplacian eigh above this would dominate the fit
@@ -363,9 +369,14 @@ class UMAP(_UMAPParams, Estimator, MLReadable):
                                                   seed=self.getSeed(), **layout).to(x.device)
                 else:
                     # Checkpointing is opt-in (TPUML_CHECKPOINT_UMAP=1) and
-                    # single-device, as in the reference.
-                    reject_checkpoint("umap.layout", umap=True)
-                    emb = optimize_layout(emb0.to(torch.float32), graph, gen, tail_plan=tail_plan, **layout)
+                    # single-device, as in the reference: only the epoch
+                    # SGD segments; the graph and init recompute on resume.
+                    ckpt = self._fit_checkpointer("umap.layout", data=(x, emb0)) if umap_opt_in() else None
+                    if ckpt is not None:
+                        emb = optimize_layout_resumable(emb0.to(torch.float32), graph, gen, ckpt,
+                                                        tail_plan=tail_plan, **layout)
+                    else:
+                        emb = optimize_layout(emb0.to(torch.float32), graph, gen, tail_plan=tail_plan, **layout)
 
         # Device fits keep the layout and the train rows where they lie;
         # the model's host float64 views convert lazily.

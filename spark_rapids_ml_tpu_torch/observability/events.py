@@ -44,8 +44,8 @@ EVENT_LOG_ENV = "TPUML_EVENT_LOG"
 
 #: The record kinds the port writes and the fields each must carry (the
 #: reference's ``SCHEMA`` entries for them): run scopes, the degradation
-#: records, the fit memory guard's, the pipeline fuser's and the serving
-#: layer's.
+#: records, the fit memory guard's, the pipeline fuser's, the serving
+#: layer's, and the fault, retry, checkpoint and persistence records.
 SCHEMA = {
     "run": frozenset({"action", "kind", "label"}),
     "degrade": frozenset({"what", "why", "fallback"}),
@@ -53,6 +53,11 @@ SCHEMA = {
     "pipeline_fusion": frozenset({"action", "pipeline"}),
     "serving": frozenset({"action"}),
     "registry_rollback": frozenset({"model", "alias", "version", "previous"}),
+    "fault": frozenset({"action"}),
+    "retry": frozenset({"site", "attempt", "outcome"}),
+    "checkpoint": frozenset({"action", "step"}),
+    "gang_resize": frozenset({"action", "from_members", "to_members"}),
+    "persistence": frozenset({"action", "path"}),
 }
 
 

@@ -37,8 +37,11 @@ does not turn on the order of the sums), so a mesh fit draws what the
 single-device fit draws and differs from it only in the order of its
 sums.
 
-Left for later slices: ``lloyd_resumable``/``_lloyd_segment``
-(checkpointed Lloyd).
+:func:`lloyd_resumable` is the checkpointed Lloyd (``robustness/
+checkpoint.py``): :func:`lloyd` and it run the same :func:`_lloyd_segment`,
+so a segmented fit issues the monolithic fit's launches in the same order
+and equals it bitwise; each streaming pass is a ``solver.segment`` fault
+site.
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ from spark_rapids_ml_tpu_torch.core.serving import prefetch_blocks, upload_block
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
 from spark_rapids_ml_tpu_torch.parallel.collectives import all_reduce_sum, allreduce_slots, in_gang, psum_data
 from spark_rapids_ml_tpu_torch.parallel.mesh import ShardedRows
+from spark_rapids_ml_tpu_torch.robustness.checkpoint import replicate_state_onto_mesh, segment_boundary
+from spark_rapids_ml_tpu_torch.robustness.faults import fault_point
+from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
 
 Dot = Union[str, Callable]
 
@@ -261,6 +267,53 @@ def _auto_block_rows(n: int, k: int, block_rows: Optional[int], data_shards: int
     return n + 1
 
 
+def _lloyd_continues(moved, it: int, tol: float, max_iter: int) -> bool:
+    """The reference's stopping rule: go on while some center moved more
+    than ``tol`` and ``it < max_iter`` (the comparison in the state's
+    dtype, one host sync)."""
+    return it < max_iter and bool(moved > tol * tol)
+
+
+def _lloyd_prep(x: Any, mask: Optional[torch.Tensor], k: int, block_rows: Optional[int]):
+    """``(shards, x2, block_rows)``: the rows as :class:`RowShards`, each
+    shard's squared row norms, and the resolved block size; computed once
+    and shared by every segment."""
+    shards = as_row_shards(x, mask)
+    block_rows = _auto_block_rows(shards.n, k, block_rows, len(shards.x))
+    return shards, [torch.sum(xi * xi, dim=1) for xi in shards.x], block_rows
+
+
+def _lloyd_segment(shards: RowShards, x2, centers, moved, it: int, cost, tol: float, max_iter: int,
+                   every: int, dot: Callable, cosine: bool, block_rows: int,
+                   stats_dtype: Optional[torch.dtype] = None):
+    """Up to ``every`` Lloyd iterations from an explicit state ``(centers,
+    moved, it, cost)``: :func:`lloyd`'s loop body and stopping rule with a
+    segment budget, so a run of segments issues the monolithic loop's
+    launches in the same order."""
+    seg = 0
+    while seg < every and _lloyd_continues(moved, it, tol, max_iter):
+        new_centers, cost = lloyd_step(shards, None, centers, x2, dot, cosine=cosine, block_rows=block_rows,
+                                       stats_dtype=stats_dtype)
+        moved = torch.max(torch.sum((new_centers - centers) ** 2, dim=1))
+        centers = new_centers
+        it += 1
+        seg += 1
+    return centers, moved, it, cost
+
+
+def _lloyd_final_cost(shards: RowShards, x2, centers, dot: Callable, cosine: bool, block_rows: int,
+                      stats_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The cost at the converged centers that :func:`lloyd` ends with."""
+    return lloyd_step(shards, None, centers, x2, dot, cosine=cosine, block_rows=block_rows,
+                      stats_dtype=stats_dtype)[1]
+
+
+def _lloyd_init_state(centers: torch.Tensor, device: torch.device) -> tuple:
+    """The state before the first iteration: (centers, moved = inf, 0, cost 0)."""
+    return (centers.to(device), torch.tensor(math.inf, dtype=centers.dtype), 0,
+            torch.zeros((), dtype=centers.dtype, device=device))
+
+
 def lloyd(
     x: Any,
     mask: Optional[torch.Tensor],
@@ -279,21 +332,54 @@ def lloyd(
     its ``mask``, or :class:`RowShards` / a ``ShardedRows`` over a mesh.
     ``stats_dtype``: :func:`lloyd_step`'s."""
     dot = make_dot(precision)
-    shards = as_row_shards(x, mask)
-    block_rows = _auto_block_rows(shards.n, init_centers.shape[0], block_rows, len(shards.x))
-    x2 = [torch.sum(xi * xi, dim=1) for xi in shards.x]
-    centers = init_centers.to(shards.device)
-    moved = torch.tensor(math.inf, dtype=centers.dtype)
-    it = 0
-    while bool(moved > tol * tol) and it < max_iter:
-        new_centers, _ = lloyd_step(shards, None, centers, x2, dot, cosine=cosine, block_rows=block_rows,
-                                    stats_dtype=stats_dtype)
-        moved = torch.max(torch.sum((new_centers - centers) ** 2, dim=1))
-        centers = new_centers
-        it += 1
-    _, cost = lloyd_step(shards, None, centers, x2, dot, cosine=cosine, block_rows=block_rows,
-                         stats_dtype=stats_dtype)
-    return centers, cost, it
+    shards, x2, block_rows = _lloyd_prep(x, mask, init_centers.shape[0], block_rows)
+    centers, moved, it, cost = _lloyd_init_state(init_centers, shards.device)
+    centers, _, it, _ = _lloyd_segment(shards, x2, centers, moved, it, cost, tol, max_iter, max_iter,
+                                       dot, cosine, block_rows, stats_dtype)
+    return centers, _lloyd_final_cost(shards, x2, centers, dot, cosine, block_rows, stats_dtype), it
+
+
+def lloyd_resumable(
+    x: Any,
+    mask: Optional[torch.Tensor],
+    init_centers: torch.Tensor,
+    checkpointer,
+    max_iter: int = 20,
+    tol: float = 1e-4,
+    precision: str = "highest",
+    cosine: bool = False,
+    block_rows: Optional[int] = None,
+    stats_dtype: Optional[torch.dtype] = None,
+    mesh=None,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Preemption-tolerant :func:`lloyd`: a host loop of segments of
+    ``checkpointer.every`` iterations, the state ``(centers, moved, it,
+    cost)`` snapshotted after each, and the fit resumed mid-solve from the
+    newest valid snapshot. The same returns, bitwise, on one device or
+    over a mesh (``x`` as there; ``mesh`` places a restored state)."""
+    dot = make_dot(precision)
+    shards, x2, block_rows = _lloyd_prep(x, mask, init_centers.shape[0], block_rows)
+    centers, moved, it, cost = _lloyd_init_state(init_centers, shards.device)
+    state = (centers, moved, np.int64(it), cost)
+    restored = checkpointer.restore_latest(template=state)
+    if restored is not None:
+        _, state = restored
+        if mesh is not None:
+            state = replicate_state_onto_mesh(state, mesh)
+    centers, moved, it, cost = state[0], state[1], int(state[2]), state[3]
+    while _lloyd_continues(moved, it, tol, max_iter):
+        with TraceRange("segment kmeans.lloyd", TraceColor.PURPLE):
+            fault_point("solver.segment")
+            start = it
+            centers, moved, it, cost = _lloyd_segment(shards, x2, centers, moved, it, cost, tol, max_iter,
+                                                      checkpointer.every, dot, cosine, block_rows, stats_dtype)
+            bump_counter("checkpoint.segments")
+            bump_counter("checkpoint.solver_iters", it - start)
+        checkpointer.save_async(it, (centers, moved, np.int64(it), cost))
+        segment_boundary(checkpointer)
+    final_cost = _lloyd_final_cost(shards, x2, centers, dot, cosine, block_rows, stats_dtype)
+    checkpointer.finalize_success()
+    return centers, final_cost, it
 
 
 def block_suff_stats(xb: torch.Tensor, centers: torch.Tensor, precision: str = "highest"):
@@ -365,6 +451,7 @@ def lloyd_streaming(
         return normalize_rows(xb) if cosine else xb
 
     def one_pass(cs):
+        fault_point("solver.segment")
         sums = torch.zeros((k, d), dtype=cs.dtype, device=device)
         counts = torch.zeros((k,), dtype=cs.dtype, device=device)
         cost = torch.zeros((), dtype=cs.dtype, device=device)

@@ -28,12 +28,14 @@ The optimizer state is O(d·c) and lives on the host in float64 numpy, as
 scipy's does in the reference's streaming fit; the objective callback
 moves the parameters to the device, evaluates there, and returns value and
 gradient in one readback. Each line-search trial is one evaluation and
-one sync.
+one sync. :class:`LbfgsState` is that state as a flat tuple of host
+arrays, and :func:`run` goes on from one for a bounded number of
+iterations: the segments of the checkpointed logistic fit.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -247,20 +249,54 @@ class _Memory:
         return -vec
 
 
-def minimize(value_and_grad: ValueAndGrad, x0: np.ndarray, max_iter: int, tol: float) -> LbfgsResult:
-    """Minimize with the reference's loop contract (see the module
-    docstring). ``value_and_grad(params)`` takes and returns float64
-    numpy; ``x0`` is the start."""
+class LbfgsState(NamedTuple):
+    """The whole optimizer state between iterations, as flat host float64
+    arrays and int64 counts (a checkpoint snapshot's leaves). ``value`` is
+    +inf before the first evaluation, which makes the next iteration
+    evaluate the objective first, as an unevaluated start does."""
+
+    params: np.ndarray
+    value: np.float64
+    grad: np.ndarray
+    it: np.int64
+    gnorm: np.float64
+    n_evals: np.int64
+    trials: np.int64
+    mem_count: np.int64
+    mem_params: np.ndarray
+    mem_grad: np.ndarray
+    mem_dparams: np.ndarray
+    mem_dgrads: np.ndarray
+    mem_rhos: np.ndarray
+
+
+def init_state(x0: np.ndarray) -> LbfgsState:
+    """The state at ``x0``, before any evaluation."""
     params = np.asarray(x0, dtype=np.float64).copy()
-    memory = _Memory(MEMORY_SIZE, params.shape[0])
-    value = grad = None
-    it = n_evals = trials = 0
-    gnorm = np.inf
-    while it < max_iter and gnorm > tol:
-        if value is None or not np.isfinite(value):
+    mem = _Memory(MEMORY_SIZE, params.shape[0])
+    i64, f64 = np.int64, np.float64
+    return LbfgsState(params, f64(np.inf), np.zeros_like(params), i64(0), f64(np.inf), i64(0), i64(0),
+                      i64(mem.count), mem.params, mem.grad, mem.dparams, mem.dgrads, mem.rhos)
+
+
+def run(value_and_grad: ValueAndGrad, state: LbfgsState, max_iter: int, tol: float,
+        every: Optional[int] = None) -> LbfgsState:
+    """Up to ``every`` iterations (all of them when None) from ``state``
+    with the reference's loop contract (see the module docstring); the
+    returned state resumes exactly where this run stopped."""
+    mem = _Memory(MEMORY_SIZE, state.params.shape[0])
+    mem.count = int(state.mem_count)
+    mem.params, mem.grad = state.mem_params, state.mem_grad
+    mem.dparams, mem.dgrads, mem.rhos = (np.array(a, dtype=np.float64)
+                                         for a in (state.mem_dparams, state.mem_dgrads, state.mem_rhos))
+    params, value, grad = state.params, state.value, state.grad
+    it, gnorm, n_evals, trials = int(state.it), state.gnorm, int(state.n_evals), int(state.trials)
+    seg = 0
+    while (every is None or seg < every) and it < max_iter and gnorm > tol:
+        if not np.isfinite(value):
             value, grad = value_and_grad(params)
             n_evals += 1
-        updates = memory.direction(grad, params)
+        updates = mem.direction(grad, params)
         stepsize, new_value, new_grad, count = zoom_linesearch(value_and_grad, params, updates, value, grad)
         n_evals += count
         trials += count
@@ -268,4 +304,16 @@ def minimize(value_and_grad: ValueAndGrad, x0: np.ndarray, max_iter: int, tol: f
         gnorm = float(np.sqrt(np.dot(grad, grad)))
         value, grad = new_value, new_grad
         it += 1
-    return LbfgsResult(params, it, n_evals, trials)
+        seg += 1
+    i64, f64 = np.int64, np.float64
+    return LbfgsState(params, f64(value), np.asarray(grad, dtype=np.float64), i64(it), f64(gnorm),
+                      i64(n_evals), i64(trials), i64(mem.count), mem.params, mem.grad, mem.dparams,
+                      mem.dgrads, mem.rhos)
+
+
+def minimize(value_and_grad: ValueAndGrad, x0: np.ndarray, max_iter: int, tol: float) -> LbfgsResult:
+    """Minimize with the reference's loop contract (see the module
+    docstring). ``value_and_grad(params)`` takes and returns float64
+    numpy; ``x0`` is the start."""
+    st = run(value_and_grad, init_state(x0), max_iter, tol)
+    return LbfgsResult(st.params, int(st.it), int(st.n_evals), int(st.trials))

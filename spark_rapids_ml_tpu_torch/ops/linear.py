@@ -16,7 +16,10 @@ Where the reference's jitted programs keep control flow on the device,
 the port reads a scalar back: :func:`solve_normal` reads once whether the
 Cholesky solve is finite (the reference computes both branches and
 selects), and :func:`solve_elastic_net`'s FISTA loop reads its stopping
-test once an iteration.
+test once an iteration. :func:`solve_elastic_net_resumable` is the
+checkpointed FISTA: it and :func:`solve_elastic_net` run the same
+:func:`_enet_segment`, so they agree bitwise. Each streamed block of
+:func:`normal_eq_stats_streaming` is a ``solver.segment`` fault site.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ from spark_rapids_ml_tpu_torch.ops.linalg import soft_threshold
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
 from spark_rapids_ml_tpu_torch.parallel.collectives import psum_data
 from spark_rapids_ml_tpu_torch.parallel.mesh import ShardedRows
-from spark_rapids_ml_tpu_torch.utils.tracing import bump_counter
+from spark_rapids_ml_tpu_torch.robustness.checkpoint import replicate_state_onto_mesh, segment_boundary
+from spark_rapids_ml_tpu_torch.robustness.faults import fault_point
+from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -142,6 +147,56 @@ def regression_metrics(y: torch.Tensor, pred: torch.Tensor, mask: torch.Tensor):
     return mse, torch.sqrt(mse), mae, r2
 
 
+def _enet_prep(xtx, xty, x_sum, y_sum, count, reg_param: float, elastic_net_param: float,
+               fit_intercept: bool, standardization: bool):
+    """:func:`solve_elastic_net`'s reduction before the loop, shared by
+    every segment of a resumable solve: ``(a_quad, b_lin, lip, thresh,
+    x_mean, y_mean)``, the quadratic form, its Lipschitz constant (the
+    largest eigenvalue) and the soft-threshold levels."""
+    n = count
+    a, b, x_mean, y_mean, w2 = _centered_moments(
+        xtx, xty, x_sum, y_sum, count, fit_intercept, standardization
+    )
+    d = a.shape[0]
+    w1 = torch.sqrt(w2) if standardization else torch.ones(d, dtype=a.dtype, device=a.device)
+    alpha = elastic_net_param
+    a_quad = a / n + reg_param * (1.0 - alpha) * torch.diag(w2)
+    b_lin = b / n
+    l1 = reg_param * alpha * w1
+    lip = torch.clamp(torch.max(torch.linalg.eigvalsh(a_quad)), min=1e-12)
+    return a_quad, b_lin, lip, l1 / lip, x_mean, y_mean
+
+
+def _enet_init(a_quad: torch.Tensor, init_coef) -> tuple:
+    """The carry before the first iteration, ``(coef, z, t, it, delta)``:
+    zeros, or a warm start from an original-space solution with the
+    momentum restarted there."""
+    d = a_quad.shape[0]
+    if init_coef is None:
+        c = torch.zeros(d, dtype=a_quad.dtype, device=a_quad.device)
+    else:
+        c = torch.tensor(np.asarray(init_coef, dtype=np.float64)).to(dtype=a_quad.dtype, device=a_quad.device)
+    return c, c, 1.0, 0, float("inf")
+
+
+def _enet_segment(a_quad, b_lin, lip, thresh, tol: float, c, z, t: float, it: int, delta: float,
+                  max_iter: int, every: int):
+    """Up to ``every`` FISTA iterations from an explicit carry ``(coef, z,
+    t, it, delta)``: :func:`solve_elastic_net`'s body and stopping rule
+    with a segment budget. ``t`` and ``delta`` live on the host (one
+    readback an iteration)."""
+    seg = 0
+    while seg < every and it < max_iter and delta > tol:
+        grad = a_quad @ z - b_lin
+        c_new = soft_threshold(z - grad / lip, thresh)
+        t_new = (1.0 + float(np.sqrt(1.0 + 4.0 * t * t))) / 2.0
+        z = c_new + ((t - 1.0) / t_new) * (c_new - c)
+        delta = float(torch.max(torch.abs(c_new - c)))
+        c, t, it, seg = c_new, t_new, it + 1, seg + 1
+        bump_counter("linear.fista.iterations")
+    return c, z, t, it, delta
+
+
 def solve_elastic_net(
     xtx, xty, x_sum, y_sum, count,
     reg_param: float,
@@ -163,34 +218,53 @@ def solve_elastic_net(
     original-space solution with the momentum restarted there. Returns
     ``(coefficients, intercept, n_iter)``; the FISTA step count ``t``
     lives on the host in float64."""
-    n = count
-    a, b, x_mean, y_mean, w2 = _centered_moments(
-        xtx, xty, x_sum, y_sum, count, fit_intercept, standardization
+    a_quad, b_lin, lip, thresh, x_mean, y_mean = _enet_prep(
+        xtx, xty, x_sum, y_sum, count, reg_param, elastic_net_param, fit_intercept, standardization
     )
-    d = a.shape[0]
-    w1 = torch.sqrt(w2) if standardization else torch.ones(d, dtype=a.dtype, device=a.device)
-    alpha = elastic_net_param
-    a_quad = a / n + reg_param * (1.0 - alpha) * torch.diag(w2)
-    b_lin = b / n
-    l1 = reg_param * alpha * w1
-    lip = torch.clamp(torch.max(torch.linalg.eigvalsh(a_quad)), min=1e-12)
-    thresh = l1 / lip
+    c, z, t, it, delta = _enet_init(a_quad, init_coef)
+    c, _, _, it, _ = _enet_segment(a_quad, b_lin, lip, thresh, tol, c, z, t, it, delta, max_iter, max_iter)
+    return c, _intercept(fit_intercept, y_mean, x_mean, c), it
 
-    if init_coef is None:
-        c = torch.zeros(d, dtype=a.dtype, device=a.device)
-    else:
-        c = torch.tensor(np.asarray(init_coef, dtype=np.float64)).to(dtype=a.dtype, device=a.device)
-    z, t, it = c, 1.0, 0
-    while it < max_iter:
-        grad = a_quad @ z - b_lin
-        c_new = soft_threshold(z - grad / lip, thresh)
-        t_new = (1.0 + float(np.sqrt(1.0 + 4.0 * t * t))) / 2.0
-        z = c_new + ((t - 1.0) / t_new) * (c_new - c)
-        delta = torch.max(torch.abs(c_new - c))
-        c, t, it = c_new, t_new, it + 1
-        bump_counter("linear.fista.iterations")
-        if not float(delta) > tol:
-            break
+
+def solve_elastic_net_resumable(
+    xtx, xty, x_sum, y_sum, count,
+    reg_param: float,
+    elastic_net_param: float,
+    checkpointer,
+    fit_intercept: bool = True,
+    standardization: bool = True,
+    max_iter: int = 2000,
+    tol: float = 1e-7,
+    init_coef=None,
+    mesh=None,
+):
+    """Preemption-tolerant :func:`solve_elastic_net`: a host loop of FISTA
+    segments of ``checkpointer.every`` iterations, the carry ``(coef, z, t,
+    it, delta)`` snapshotted after each, the solve resumed mid-way from
+    the newest valid snapshot. The same returns, bitwise; ``mesh`` places
+    a restored carry."""
+    a_quad, b_lin, lip, thresh, x_mean, y_mean = _enet_prep(
+        xtx, xty, x_sum, y_sum, count, reg_param, elastic_net_param, fit_intercept, standardization
+    )
+    c, z, t, it, delta = _enet_init(a_quad, init_coef)
+    restored = checkpointer.restore_latest(
+        template=(c, z, np.float64(t), np.int64(it), np.float64(delta)))
+    if restored is not None:
+        _, state = restored
+        if mesh is not None:
+            state = replicate_state_onto_mesh(state, mesh)
+        c, z, t, it, delta = state[0], state[1], float(state[2]), int(state[3]), float(state[4])
+    while it < max_iter and delta > tol:
+        with TraceRange("segment linear.enet", TraceColor.PURPLE):
+            fault_point("solver.segment")
+            start = it
+            c, z, t, it, delta = _enet_segment(a_quad, b_lin, lip, thresh, tol, c, z, t, it, delta,
+                                               max_iter, checkpointer.every)
+            bump_counter("checkpoint.segments")
+            bump_counter("checkpoint.solver_iters", it - start)
+        checkpointer.save_async(it, (c, z, np.float64(t), np.int64(it), np.float64(delta)))
+        segment_boundary(checkpointer)
+    checkpointer.finalize_success()
     return c, _intercept(fit_intercept, y_mean, x_mean, c), it
 
 
@@ -262,6 +336,7 @@ def normal_eq_stats_streaming(
         if pair is None:
             continue
         xj, yj = pair
+        fault_point("solver.segment")
         if d is None:
             d = xj.shape[1]
         elif xj.shape[1] != d:

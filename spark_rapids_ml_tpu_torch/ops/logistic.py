@@ -51,7 +51,9 @@ from spark_rapids_ml_tpu_torch.ops.linalg import soft_threshold
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
 from spark_rapids_ml_tpu_torch.parallel.collectives import psum_data
 from spark_rapids_ml_tpu_torch.parallel.mesh import ShardedRows
-from spark_rapids_ml_tpu_torch.utils.tracing import bump_counter
+from spark_rapids_ml_tpu_torch.robustness.checkpoint import segment_boundary
+from spark_rapids_ml_tpu_torch.robustness.faults import fault_point
+from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
 
 
 class LogisticFit(NamedTuple):
@@ -302,38 +304,43 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to(torch.float64).cpu().numpy()
 
 
-def fit_logistic(
-    x: torch.Tensor,
-    y: torch.Tensor,
-    mask: torch.Tensor,
-    n_classes: int,
-    reg_param: float = 0.0,
-    fit_intercept: bool = True,
-    standardization: bool = True,
-    max_iter: int = 100,
-    tol: float = 1e-6,
-    precision: str = "highest",
-    multinomial: bool = False,
-    init_w=None,
-    init_b=None,
-    fused: bool = True,
-) -> LogisticFit:
-    """Binomial (one sigmoid column) or multinomial (``n_classes``
-    softmax columns, also at 2 classes when ``multinomial``) logistic
-    regression by L-BFGS, where ``x`` lives.
+def _logistic_prep(x, mask, fit_intercept: bool, standardization: bool):
+    """The standardizer inputs of :func:`fit_logistic`, ``(offset, scale,
+    n)``, computed once and shared by every segment of a resumable fit.
+    ``x`` and ``mask`` may be lists of data shards."""
+    dev = x[0].device if isinstance(x, list) else x.device
+    n = psum_data([torch.sum(m) for m in mask], dev) if isinstance(mask, list) else torch.sum(mask)
+    offset, scale = _standardizer(x, mask, fit_intercept, standardization)
+    return offset, scale, n
 
-    ``y``: (n,) integer labels in [0, n_classes); ``mask``: (n,) row
-    weights. ``init_w`` (d, c) / ``init_b`` (c,) warm-start from an
-    original-space solution (default zeros). Over a mesh ``x`` is a
-    ``ShardedRows``, ``y`` its per-shard labels and ``mask`` unused (the
-    weights ride in ``x``): each evaluation is one sum over the data axis
-    of value and gradient, and the L-BFGS state stays on the host in
-    float64, identical on every process of a gang."""
+
+class _LbfgsProblem(NamedTuple):
+    """What the L-BFGS segments and the finalization share: the objective,
+    the host start ``theta0``, the host callback (one readback an
+    evaluation) and ``unpack``, which turns ``theta`` into ``(w, b)`` on
+    the device. No field refers back to the tuple, so a finished fit's
+    objective (and the rows it holds) is freed at once, not at a
+    collection."""
+
+    loss: "LogisticLoss"
+    theta0: np.ndarray
+    value_and_grad: Callable
+    unpack: Callable
+    offset: torch.Tensor
+    scale: torch.Tensor
+    c: int
+    dot: Callable
+
+
+def _lbfgs_problem(x, y, mask, n_classes, reg_param, fit_intercept, standardization, precision,
+                   multinomial, init_w, init_b, fused) -> _LbfgsProblem:
+    """:func:`fit_logistic`'s set-up: standardizer, targets, objective and
+    the start (zeros, or an original-space warm start mapped into the
+    standardized space)."""
     c = _n_columns(n_classes, multinomial)
     x, y, mask, d, dtype, dev = _shards(x, y, mask)
     dot = make_dot(precision)
-    n = psum_data([torch.sum(m) for m in mask], dev) if isinstance(mask, list) else torch.sum(mask)
-    offset, scale = _standardizer(x, mask, fit_intercept, standardization)
+    offset, scale, n = _logistic_prep(x, mask, fit_intercept, standardization)
     y_target = [_targets(yi, c, dtype) for yi in y] if isinstance(y, list) else _targets(y, c, dtype)
     loss = LogisticLoss(x, y_target, mask, offset, scale, n, reg_param, c, fit_intercept, dot,
                         fused=fused)
@@ -365,18 +372,102 @@ def fit_logistic(
         return float(out[0]), out[1:]
 
     theta0 = np.concatenate([_to_host(w0).ravel(), _to_host(b0)])
-    res = lbfgs.minimize(value_and_grad, theta0, max_iter=max_iter, tol=tol)
-    w, b = unpack(res.params)
+    return _LbfgsProblem(loss, theta0, value_and_grad, unpack, offset, scale, c, dot)
 
-    if c > 1 and reg_param == 0.0:
+
+def _logistic_finalize(problem: _LbfgsProblem, theta: np.ndarray, reg_param: float, fit_intercept: bool,
+                       fused: bool):
+    """The tail after the solve: the identifiability pivot of an
+    unregularized softmax, the back-map to the original feature space and
+    the final objective. Returns ``(w_orig, b_orig, final_loss)``."""
+    w, b = problem.unpack(theta)
+    if problem.c > 1 and reg_param == 0.0:
         # Identifiability pivot for unregularized softmax (Spark's centering).
         w = w - torch.mean(w, dim=1, keepdim=True)
         b = b - torch.mean(b)
-    w_orig = w / scale[:, None]
-    b_orig = b - dot(offset, w_orig) if fit_intercept else b
+    w_orig = w / problem.scale[:, None]
+    b_orig = b - problem.dot(problem.offset, w_orig) if fit_intercept else b
     with torch.no_grad():
-        final_loss = loss.value_and_grad(w, b)[0] if fused else loss(w, b)
+        final_loss = problem.loss.value_and_grad(w, b)[0] if fused else problem.loss(w, b)
+    return w_orig, b_orig, final_loss
+
+
+def fit_logistic(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    mask: torch.Tensor,
+    n_classes: int,
+    reg_param: float = 0.0,
+    fit_intercept: bool = True,
+    standardization: bool = True,
+    max_iter: int = 100,
+    tol: float = 1e-6,
+    precision: str = "highest",
+    multinomial: bool = False,
+    init_w=None,
+    init_b=None,
+    fused: bool = True,
+) -> LogisticFit:
+    """Binomial (one sigmoid column) or multinomial (``n_classes``
+    softmax columns, also at 2 classes when ``multinomial``) logistic
+    regression by L-BFGS, where ``x`` lives.
+
+    ``y``: (n,) integer labels in [0, n_classes); ``mask``: (n,) row
+    weights. ``init_w`` (d, c) / ``init_b`` (c,) warm-start from an
+    original-space solution (default zeros). Over a mesh ``x`` is a
+    ``ShardedRows``, ``y`` its per-shard labels and ``mask`` unused (the
+    weights ride in ``x``): each evaluation is one sum over the data axis
+    of value and gradient, and the L-BFGS state stays on the host in
+    float64, identical on every process of a gang."""
+    problem = _lbfgs_problem(x, y, mask, n_classes, reg_param, fit_intercept, standardization, precision,
+                             multinomial, init_w, init_b, fused)
+    res = lbfgs.minimize(problem.value_and_grad, problem.theta0, max_iter=max_iter, tol=tol)
+    w_orig, b_orig, final_loss = _logistic_finalize(problem, res.params, reg_param, fit_intercept, fused)
     return LogisticFit(w_orig, b_orig, res.n_iter, final_loss)
+
+
+def fit_logistic_resumable(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    mask: torch.Tensor,
+    checkpointer,
+    n_classes: int,
+    reg_param: float = 0.0,
+    fit_intercept: bool = True,
+    standardization: bool = True,
+    max_iter: int = 100,
+    tol: float = 1e-6,
+    precision: str = "highest",
+    multinomial: bool = False,
+    init_w=None,
+    init_b=None,
+    fused: bool = True,
+) -> LogisticFit:
+    """Preemption-tolerant :func:`fit_logistic`: a host loop of L-BFGS
+    segments of ``checkpointer.every`` iterations (``ops/lbfgs.run``), the
+    optimizer state (:class:`~spark_rapids_ml_tpu_torch.ops.lbfgs.LbfgsState`,
+    host float64) snapshotted after each, the fit resumed mid-solve from the
+    newest valid snapshot. The same returns, bitwise. Over a mesh ``x`` is a
+    ``ShardedRows`` as for :func:`fit_logistic`; the state lives on the
+    host, so a restored one needs no placement (the reference's ``mesh=``)."""
+    problem = _lbfgs_problem(x, y, mask, n_classes, reg_param, fit_intercept, standardization, precision,
+                             multinomial, init_w, init_b, fused)
+    state = lbfgs.init_state(problem.theta0)
+    restored = checkpointer.restore_latest(template=tuple(state))
+    if restored is not None:
+        state = lbfgs.LbfgsState(*restored[1])
+    while int(state.it) < max_iter and state.gnorm > tol:
+        with TraceRange("segment logistic.lbfgs", TraceColor.PURPLE):
+            fault_point("solver.segment")
+            start = int(state.it)
+            state = lbfgs.run(problem.value_and_grad, state, max_iter, tol, every=checkpointer.every)
+            bump_counter("checkpoint.segments")
+            bump_counter("checkpoint.solver_iters", int(state.it) - start)
+        checkpointer.save_async(int(state.it), tuple(state))
+        segment_boundary(checkpointer)
+    w_orig, b_orig, final_loss = _logistic_finalize(problem, state.params, reg_param, fit_intercept, fused)
+    checkpointer.finalize_success()
+    return LogisticFit(w_orig, b_orig, int(state.it), final_loss)
 
 
 def default_start_vector(d: int, dtype: torch.dtype, device) -> torch.Tensor:
@@ -570,6 +661,7 @@ def fit_logistic_streaming(
         return xj.to(dtype), yj
 
     def fun_grad(theta):
+        fault_point("solver.segment")
         bump_counter("logistic.stream.passes")
         w = theta[: d * c].reshape(d, c)
         b = theta[d * c:] if fit_intercept else np.zeros(c)

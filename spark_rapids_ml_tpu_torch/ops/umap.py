@@ -28,9 +28,12 @@ negatives are drawn as :func:`optimize_layout` draws them, so the mesh
 layout equals the single-device one up to the order of its sums; the
 per-edge mode draws per shard, from one generator per shard seeded from
 the fit's seed and the shard index (the reference folds its key with the
-shard index). Left for a later slice (ROADMAP): the checkpointed
-``_layout_segment`` / ``optimize_layout_resumable`` (A.12a, the
-robustness slice).
+shard index).
+
+:func:`optimize_layout_resumable` is the checkpointed layout: it and
+:func:`optimize_layout` run the same :func:`_layout_segment`, and its
+snapshot carries the generator's state, so a resumed layout equals the
+uninterrupted one bitwise.
 """
 
 from __future__ import annotations
@@ -45,6 +48,9 @@ from spark_rapids_ml_tpu_torch.device import seeded_generator
 from spark_rapids_ml_tpu_torch.ops.kernels.umap import TailPlan, tail_accumulate
 from spark_rapids_ml_tpu_torch.parallel.collectives import psum_data
 from spark_rapids_ml_tpu_torch.parallel.mesh import require_one_process
+from spark_rapids_ml_tpu_torch.robustness.checkpoint import segment_boundary
+from spark_rapids_ml_tpu_torch.robustness.faults import fault_point
+from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
 
 
 class FuzzyGraph(NamedTuple):
@@ -184,6 +190,20 @@ def _make_epoch_fn(
     return epoch
 
 
+def _layout_segment(epoch: Callable, y: torch.Tensor, gen: torch.Generator, ep_start: int, ep_stop: int,
+                    shape: Tuple[int, ...], n_ref: int,
+                    negatives: Optional[Callable[[int], torch.Tensor]] = None) -> torch.Tensor:
+    """Epochs [ep_start, ep_stop) of :func:`optimize_layout` from an
+    explicit layout, each with its negatives drawn from ``gen`` (or given
+    by ``negatives(ep)``): the one loop the monolithic and the segmented
+    layouts share, so both issue the same launches and draws."""
+    for ep in range(ep_start, ep_stop):
+        neg = (negatives(ep) if negatives is not None
+               else torch.randint(0, n_ref, shape, generator=gen, device=y.device))
+        y = epoch(ep, y, neg)
+    return y
+
+
 def optimize_layout(
     embedding: torch.Tensor,
     graph: FuzzyGraph,
@@ -212,9 +232,62 @@ def optimize_layout(
     )
     n_ref = n if target is None else int(target.shape[0])
     shape = negative_shape(n, int(graph.indices.shape[1]), neg_rate, neg_pool)
-    y = embedding
-    for ep in range(n_epochs):
-        y = epoch(ep, y, torch.randint(0, n_ref, shape, generator=gen, device=y.device))
+    return _layout_segment(epoch, embedding, gen, 0, n_epochs, shape, n_ref)
+
+
+def optimize_layout_resumable(
+    embedding: torch.Tensor,
+    graph: FuzzyGraph,
+    gen: torch.Generator,
+    checkpointer,
+    *,
+    n_epochs: int,
+    neg_rate: int = 5,
+    neg_pool: int = 256,
+    learning_rate: float = 1.0,
+    repulsion: float = 1.0,
+    a: float = 1.577,
+    b: float = 0.895,
+    move_other: bool = True,
+    target: Optional[torch.Tensor] = None,
+    tail_plan: Optional[TailPlan] = None,
+    negatives: Optional[Callable[[int], torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Preemption-tolerant :func:`optimize_layout`: ``checkpointer.every``
+    epochs a segment, the state ``(layout, generator state, epoch)``
+    snapshotted after each, resumed mid-schedule from the newest valid
+    snapshot. The generator's state (a CUDA generator's Philox seed and
+    offset) rides the snapshot, so the resumed epochs draw what the
+    uninterrupted fit drew, and the layout equals it bitwise. The same
+    ``tail_plan`` as the monolithic fit routes every epoch's tail through
+    K4. ``negatives(ep)``, when given, supplies each epoch's draws instead
+    (tests pass JAX's)."""
+    n, dim = embedding.shape
+    epoch = _make_epoch_fn(
+        (n, dim), graph, target,
+        n_epochs=n_epochs, neg_rate=neg_rate, neg_pool=neg_pool,
+        learning_rate=learning_rate, repulsion=repulsion, a=a, b=b,
+        move_other=move_other, tail_plan=tail_plan,
+    )
+    n_ref = n if target is None else int(target.shape[0])
+    shape = negative_shape(n, int(graph.indices.shape[1]), neg_rate, neg_pool)
+    y, ep = embedding, 0
+    restored = checkpointer.restore_latest(template=(y, gen.get_state(), np.int64(0)))
+    if restored is not None:
+        _, (y, gen_state, ep) = restored
+        gen.set_state(gen_state)
+        ep = int(ep)
+    while ep < n_epochs:
+        stop = min(ep + checkpointer.every, n_epochs)
+        with TraceRange("segment umap.layout", TraceColor.PURPLE):
+            fault_point("solver.segment")
+            y = _layout_segment(epoch, y, gen, ep, stop, shape, n_ref, negatives)
+            bump_counter("checkpoint.segments")
+            bump_counter("checkpoint.solver_iters", stop - ep)
+        ep = stop
+        checkpointer.save_async(stop, (y, gen.get_state(), np.int64(stop)))
+        segment_boundary(checkpointer)
+    checkpointer.finalize_success()
     return y
 
 
@@ -377,6 +450,7 @@ __all__ = [
     "fuzzy_simplicial_set",
     "negative_shape",
     "optimize_layout",
+    "optimize_layout_resumable",
     "optimize_layout_sharded",
     "smooth_knn_dist",
     "spectral_init",

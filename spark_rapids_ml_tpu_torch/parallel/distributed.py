@@ -16,10 +16,16 @@ use gloo: NCCL refuses two ranks on one GPU). Every handshake is an
 ``all_reduce`` (``parallel/collectives.allreduce_slots``), the one
 collective both backends take on CUDA and CPU tensors alike.
 
-Left out until their items: ``bringup_executor`` needs the Spark resource
+The bring-up and the psum moment merge run under the shared retry policy
+with their fault sites (``distributed.initialize``, ``collective.psum``),
+as in the reference; a fault spec is the same on every process, so the
+gang retries in lockstep, and each site fires before any collective. A
+restored solver state is placed for a mesh fit by
+``robustness/checkpoint.replicate_state_onto_mesh``.
+
+Left out until its item: ``bringup_executor`` needs the Spark resource
 discovery (``spark/resources.py``) and raises naming ROADMAP A.9's Spark
-item; the elastic resume (``replicate_state_onto_mesh``) waits for the
-checkpoint item.
+item.
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ from spark_rapids_ml_tpu_torch.parallel.mesh import (
     model_axis_size,
     place_host_rows,
 )
+from spark_rapids_ml_tpu_torch.robustness.faults import fault_point
+from spark_rapids_ml_tpu_torch.robustness.retry import default_policy
 from spark_rapids_ml_tpu_torch.utils.envknobs import EnvKnobError, env_int, env_str
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
@@ -149,7 +157,11 @@ def initialize(
     kwargs = {}
     if heartbeat_timeout_seconds is not None:
         kwargs["timeout"] = datetime.timedelta(seconds=int(heartbeat_timeout_seconds))
-    with TraceRange("distributed bring-up", TraceColor.BLUE):
+
+    def _bring_up():
+        # The coordinator connect is the flaky step of a gang bring-up
+        # (members race the coordinator's bind): one retry unit.
+        fault_point("distributed.initialize")
         dist.init_process_group(
             backend=backend,
             init_method="tcp://" + coordinator_address,
@@ -157,6 +169,9 @@ def initialize(
             rank=int(process_id),
             **kwargs,
         )
+
+    with TraceRange("distributed bring-up", TraceColor.BLUE):
+        default_policy().run(_bring_up, name="distributed.initialize")
     _initialized = True
     _init_record = {
         "coordinator_address": coordinator_address,
@@ -356,7 +371,12 @@ def streaming_covariance_process_local(
     gram = gram.to(torch.float64)
     s = s.to(torch.float64)
     if merge == "psum":
-        return _psum_merge_moments(shift, gram, s, n_local, counts, d, center)
+        # One retry unit around the whole merge: the rebase is host math
+        # and the sum deterministic, so a re-run is exact.
+        return default_policy().run(
+            lambda: _psum_merge_moments(shift, gram, s, n_local, counts, d, center),
+            name="collective.psum",
+        )
     packed = torch.cat([torch.from_numpy(np.asarray(shift, dtype=np.float64)).to(device),
                         s, gram.reshape(-1)])
     gathered = allreduce_slots(packed).cpu().numpy()
@@ -383,7 +403,8 @@ def _psum_merge_moments(shift, gram: torch.Tensor, s: torch.Tensor, n_local: int
     """Rebase this process's moments onto the common shift (exact closed
     form, host float64), then one ``all_reduce`` of ``[gram | sum]``. The
     exact integer row count comes from the counts handshake, never from
-    the float payload."""
+    the float payload. The fault site comes before the first collective."""
+    fault_point("collective.psum")
     shifts = allreduce_slots(torch.from_numpy(np.asarray(shift, dtype=np.float64))).numpy()
     weights = counts.astype(np.float64)
     common = (shifts * weights[:, None]).sum(axis=0) / max(weights.sum(), 1.0)

@@ -257,7 +257,8 @@ def place_host_rows(parts: List[np.ndarray], mesh: Mesh, d: int, np_dtype, rows_
     """Place this process's host blocks (``sum(rows) <= rows_per × local
     data shards``) over its mesh positions without concatenating them:
     each shard's rows are assembled from the blocks they span, one shard
-    at a time (the host peak is one shard)."""
+    at a time (the host peak is one shard). The placement loop is one
+    retry unit with one ``ingest.device_put`` site."""
     grid = mesh.grid
     dp, mp = grid.shape
     d_pad = d + ((-d) % mp)
@@ -280,14 +281,23 @@ def place_host_rows(parts: List[np.ndarray], mesh: Mesh, d: int, np_dtype, rows_
         return block
 
     valid = _valid_counts(n_local, rows_per, dp)
-    blocks, masks = [], []
-    for i in range(dp):
-        block = rows_slice(i * rows_per, (i + 1) * rows_per)
-        blocks.append([_to_device(block[:, j * cols_per:(j + 1) * cols_per], grid[i, j])
-                       for j in range(mp)])
-        mask = np.zeros(rows_per, dtype=np_dtype)
-        mask[: valid[i]] = 1.0
-        masks.append(_to_device(mask, grid[i, 0]))
+
+    def place_shards():
+        blocks, masks = [], []
+        for i in range(dp):
+            block = rows_slice(i * rows_per, (i + 1) * rows_per)
+            blocks.append([_to_device(block[:, j * cols_per:(j + 1) * cols_per], grid[i, j])
+                           for j in range(mp)])
+            mask = np.zeros(rows_per, dtype=np_dtype)
+            mask[: valid[i]] = 1.0
+            masks.append(_to_device(mask, grid[i, 0]))
+        return blocks, masks
+
+    # Pure host->device placement: the whole loop is one retry unit with
+    # one fault site, as the reference's.
+    from spark_rapids_ml_tpu_torch.core.ingest import guarded_placement
+
+    blocks, masks = guarded_placement(place_shards, mesh.first_device)
     offsets = [offset + i * rows_per for i in range(dp)]
     return ShardedRows(mesh, blocks, masks, int(n_global), int(d), valid, offsets)
 

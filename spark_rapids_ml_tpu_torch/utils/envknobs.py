@@ -119,12 +119,20 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "off: a failed device batch errors its requests; cpu: refused "
          "(NotImplementedError): the port does not fall back to the CPU",
          default="off", choices=("off", "cpu")),
-    # checkpoint / resume (the reference's robustness/checkpoint.py; not
-    # ported: a fit these would segment raises, reject_checkpoint)
+    # fault injection and the retry policy (robustness/faults.py, retry.py)
+    Knob("TPUML_FAULTS", "str", "robustness",
+         "deterministic fault-injection spec (site=N[:fatal|:torn];...)"),
+    Knob("TPUML_RETRY_MAX_ATTEMPTS", "int", "robustness",
+         "attempts per recoverable operation", default=3),
+    Knob("TPUML_RETRY_BASE_DELAY", "float", "robustness",
+         "first backoff in seconds (doubles per attempt)", default=0.05),
+    Knob("TPUML_RETRY_MAX_DELAY", "float", "robustness",
+         "backoff cap in seconds", default=2.0),
+    Knob("TPUML_RETRY_DEADLINE", "float", "robustness",
+         "overall wall-clock retry budget in seconds"),
+    # checkpoint / resume (robustness/checkpoint.py)
     Knob("TPUML_CHECKPOINT_EVERY", "int", "checkpoint",
-         "solver iterations per segment (0 = monolithic); with "
-         "TPUML_CHECKPOINT_DIR, a positive value raises NotImplementedError "
-         "in the fits the reference checkpoints", default=0),
+         "solver iterations per segment (0 = monolithic)", default=0),
     Knob("TPUML_CHECKPOINT_DIR", "str", "checkpoint",
          "checkpoint root reachable by every gang member"),
     Knob("TPUML_CHECKPOINT_KEEP", "int", "checkpoint",
@@ -167,12 +175,6 @@ AUTOTUNE_ITEM = (
     "(ROADMAP A.9)"
 )
 
-
-CHECKPOINT_ITEM = (
-    "{solver}: a checkpointed fit (TPUML_CHECKPOINT_DIR with a positive "
-    "TPUML_CHECKPOINT_EVERY) is not ported yet: ROADMAP A.9, robustness: "
-    "checkpoint (step 3)"
-)
 
 
 def _require_registered(name: str) -> None:
@@ -246,20 +248,3 @@ def reject_autotune() -> None:
     if env_choice(AUTOTUNE_ENV, ("off", "on"), "off") == "on":
         raise NotImplementedError(AUTOTUNE_ITEM)
 
-
-def reject_checkpoint(solver: str, umap: bool = False) -> None:
-    """Where the reference builds a ``FitCheckpointer``
-    (``robustness/checkpoint.py::FitCheckpointer.for_fit``): with
-    ``TPUML_CHECKPOINT_DIR`` set and ``TPUML_CHECKPOINT_EVERY`` positive
-    (for UMAP's layout also ``TPUML_CHECKPOINT_UMAP=1``), raise
-    ``NotImplementedError`` naming ``solver``; otherwise the fit runs
-    unsegmented, as the reference's does with the knobs unset. Malformed
-    values raise :class:`EnvKnobError` first, as they do there."""
-    if umap and not env_int("TPUML_CHECKPOINT_UMAP", 0, minimum=0):
-        return
-    every = env_int("TPUML_CHECKPOINT_EVERY", 0, minimum=0)
-    base = env_str("TPUML_CHECKPOINT_DIR")
-    if every <= 0 or not base:
-        return
-    env_int("TPUML_CHECKPOINT_KEEP", 2, minimum=1)
-    raise NotImplementedError(CHECKPOINT_ITEM.format(solver=solver))

@@ -69,3 +69,16 @@ def bump_counter(name: str, amount: int = 1) -> None:
 def counter_value(name: str) -> int:
     with _counters_lock:
         return _counters.get(name, 0)
+
+
+def counters(prefix: str = "") -> Dict[str, int]:
+    """Snapshot of every counter whose name starts with ``prefix``."""
+    with _counters_lock:
+        return {k: v for k, v in _counters.items() if k.startswith(prefix)}
+
+
+def clear_counters(prefix: str = "") -> None:
+    """Drop every counter whose name starts with ``prefix``."""
+    with _counters_lock:
+        for k in [k for k in _counters if k.startswith(prefix)]:
+            del _counters[k]

@@ -1,14 +1,16 @@
 """The ``TPUML_CHECKPOINT_*`` knobs in the port.
 
-The reference segments and checkpoints a fit when ``TPUML_CHECKPOINT_DIR``
-is set and ``TPUML_CHECKPOINT_EVERY`` is positive
+The port segments and checkpoints a fit where the reference does, when
+``TPUML_CHECKPOINT_DIR`` is set and ``TPUML_CHECKPOINT_EVERY`` is positive
 (``robustness/checkpoint.py::FitCheckpointer.for_fit``): KMeans' Lloyd
-(any backend but an explicit ``fused``), the linear FISTA, the logistic
-L-BFGS and, with ``TPUML_CHECKPOINT_UMAP=1`` as well, the single-device
-UMAP layout. The port has no checkpointer yet, so exactly those fits raise
-``NotImplementedError`` naming the checkpoint step; every other fit, and
-every fit with the knobs unset or disabled, runs as before. The knobs are
-registered with the reference's kinds, defaults and choices.
+(any backend but an explicit ``fused``, on one device or a mesh), the
+linear FISTA (in memory or streamed), the logistic L-BFGS and, with
+``TPUML_CHECKPOINT_UMAP=1`` as well, the single-device UMAP layout. Those
+fits run segmented, write snapshots and equal the knobs-off fit bitwise;
+every other fit, and every fit with the knobs unset or disabled, runs as
+before and writes nothing. The knobs are registered with the reference's
+kinds, defaults and choices. (The resume itself is held in
+``tests/test_torch_checkpoint.py``.)
 """
 
 import numpy as np
@@ -23,8 +25,8 @@ from spark_rapids_ml_tpu_torch.manifold import UMAP
 from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh
 from spark_rapids_ml_tpu_torch.regression import LinearRegression
 from spark_rapids_ml_tpu_torch.utils import envknobs
+from spark_rapids_ml_tpu_torch.utils.tracing import clear_counters, counter_value
 
-CHECKPOINT = r"robustness: checkpoint \(step 3\)"
 KNOBS = ("TPUML_CHECKPOINT_EVERY", "TPUML_CHECKPOINT_DIR", "TPUML_CHECKPOINT_KEEP", "TPUML_CHECKPOINT_UMAP")
 
 _RNG = np.random.default_rng(55)
@@ -86,12 +88,25 @@ def test_the_checkpoint_knobs_are_the_reference_registry(name):
     assert (ours.kind, ours.default, tuple(ours.choices)) == (theirs.kind, theirs.default, tuple(theirs.choices))
 
 
+def _segmented(fit, monkeypatch, tmp_path, umap="1"):
+    """``fit()`` with the knobs off, then with them on: the knobs-on fit's
+    segment count and result. A completed fit leaves no snapshot."""
+    want = fit()
+    clear_counters("checkpoint")
+    _arm(monkeypatch, tmp_path, every="1", umap=umap)
+    got = fit()
+    assert counter_value("checkpoint.completed") == 1 and not list(tmp_path.rglob("ckpt-*.npz"))
+    return counter_value("checkpoint.segments"), got, want
+
+
 @pytest.mark.parametrize("family", list(CHECKPOINTED))
 def test_a_fit_the_reference_would_checkpoint_raises(family, monkeypatch, tmp_path):
-    _arm(monkeypatch, tmp_path, umap="1")
-    solver = family.replace("_streamed", "")
-    with pytest.raises(NotImplementedError, match=rf"{solver}: .*{CHECKPOINT}"):
-        CHECKPOINTED[family]()
+    """Where the reference checkpoints a fit the port now does too: the
+    same knobs drive a segmented fit equal to the knobs-off fit (the name
+    is kept from when the port refused these fits)."""
+    segments, got, want = _segmented(CHECKPOINTED[family], monkeypatch, tmp_path)
+    assert segments >= 2 and counter_value("checkpoint.write") == segments
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("family", list(CHECKPOINTED))
@@ -105,6 +120,7 @@ def test_with_the_knobs_unset_or_disabled_a_fit_runs_as_before(family, monkeypat
 
 
 def test_the_fits_the_reference_never_checkpoints_run(monkeypatch, tmp_path):
+    clear_counters("checkpoint")
     _arm(monkeypatch, tmp_path)
     KMeans().setK(3).setSeed(1).setBackend("fused").fit(X.astype(np.float32))
     LinearRegression().setRegParam(0.1).fit((X, Y_LIN))  # the exact normal-equation solve
@@ -113,8 +129,14 @@ def test_the_fits_the_reference_never_checkpoints_run(monkeypatch, tmp_path):
     monkeypatch.setenv("TPUML_CHECKPOINT_UMAP", "1")
     mesh = make_mesh((2, 1), devices=[torch.device("cpu")] * 2)
     UMAP(mesh=mesh).setNNeighbors(5).setNEpochs(3).fit(X)  # the mesh layout never checkpoints
-    with pytest.raises(NotImplementedError, match=CHECKPOINT):
-        KMeans(mesh=mesh).setK(3).setSeed(1).fit(X)
+    assert counter_value("checkpoint.segments") == 0 and not list(tmp_path.rglob("ckpt-*.npz"))
+    # A mesh Lloyd does checkpoint: segmented, equal to its knobs-off fit.
+    monkeypatch.setenv("TPUML_CHECKPOINT_EVERY", "0")
+    want = KMeans(mesh=mesh).setK(3).setSeed(1).fit(X).clusterCenters()
+    monkeypatch.setenv("TPUML_CHECKPOINT_EVERY", "2")
+    got = KMeans(mesh=mesh).setK(3).setSeed(1).fit(X).clusterCenters()
+    assert counter_value("checkpoint.segments") >= 1
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("name,value", [("TPUML_CHECKPOINT_EVERY", "-1"), ("TPUML_CHECKPOINT_EVERY", "two"),

@@ -57,7 +57,8 @@ def test_every_port_module_imports_without_jax():
                  "ops.covariance", "core.serving", "core.data", "ops.linear", "ops.lbfgs",
                  "ops.logistic", "ops.metrics", "models.linear_regression",
                  "models.logistic_regression", "regression", "classification", "evaluation",
-                 "utils.envknobs", "robustness.retry", "robustness.degrade", "observability.events",
+                 "utils.envknobs", "robustness.retry", "robustness.degrade", "robustness.faults",
+                 "robustness.checkpoint", "observability.events",
                  "core.membudget", "native", "ops.dbscan", "models.dbscan", "ops.trees",
                  "models.random_forest", "serving", "serving.signature", "pipeline_fusion",
                  "pipeline_fusion.fuser", "pipeline", "tuning", "observability.metrics",
