@@ -149,6 +149,24 @@ counters set to 0 just before and read just after:
   K4's 200 launches across the killed and the resumed layout; (d) a child
   process (``--robust-child``) frozen at its first segment boundary and
   SIGKILLed, its snapshot resumed here bitwise.
+- the continuous-training lifecycle, last, within its own 60 s, on data
+  drawn on the card from its own seeds: (a) config 5's width, a 1,048,576
+  x 1,024 float32 tensor folded by ``PCA.partial_fit`` in 4 calls of
+  262,144 rows through K1's float64 route (one launch a call, as its plan
+  says), the merged moments within 1e-12 of one call, the fit within 1e-5
+  (components) and 1e-6 (ratios) of an on-card float64 fit, the previous
+  moments untouched; (b) config 3: the incumbent fitted on ``auto`` (K2, 3
+  launches), then ``partial_fit`` on 2,000,000 fresh rows warm-seeded from
+  it, with strictly fewer solver iterations than the cold call, which is
+  bitwise an ``xla`` fit; (c) configs 4 and 10 likewise, warm within 1e-4
+  of cold; (d) a ``LifecycleController`` over a started ``ServingRuntime``:
+  a ``DriftMonitor`` fed from served distances quiet, then firing on
+  shifted blobs; a drifted cycle flipping to version 2 under single-row
+  traffic (every response attributed, none shed), a gated cycle rejected,
+  ``watch`` rolling back to version 1; (e) a child controller
+  (``--lifecycle-child``) SIGKILLed in its refit stage, its cycle resumed
+  here with one registered version and centres bitwise an uninterrupted
+  cycle's.
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -166,6 +184,7 @@ import contextlib
 import glob
 import json
 import os
+import pickle
 import re
 import signal
 import statistics
@@ -5018,6 +5037,493 @@ def robustness_phases() -> dict:
     return {"placement": a, "persistence": b, "checkpoints": c, "kill": d}
 
 
+# --- (g) lifecycle: partial_fit, the journaled controller, drift, a kill ----
+
+LC_SEED = SEED + 500        # the group's data: drawn anew from its own seeds
+LC_PCA_N = 1_048_576        # (a): config 5's width, the rows one card holds with a float64 reference
+LC_PCA_CALLS = 4            # (a): partial_fit calls of 262,144 rows each
+LC_CYCLE_N = 2_000_000      # (b)-(e): fresh rows a refit or a cycle takes (a tenth of config 3's table)
+LC_SHIFT = 4.0              # (d): every blob centre moves by this much in every feature
+LC_WINDOW = 500             # (d): served single rows per drift window
+LC_CHILD_TIMEOUT_S = 90
+LC_WALL_LIMIT_S = 60.0
+LC_KILL_SPEC = "refit.ingest=1@1:fatal"  # the second hit of refit.ingest: the refit stage
+#: The refits' Lloyd tolerance (a distance): half the blobs' unit noise, so a
+#: refit stops once its centres move less than the sampling noise. At the
+#: default 1e-4 a warm and a cold refit both run 2 iterations on blobs this far
+#: apart (the second moves the float32 centres by exactly 0).
+LC_TOL = 0.5
+
+
+def lc_generator(offset: int) -> torch.Generator:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LC_SEED + offset)
+    return gen
+
+
+def lc_truth() -> torch.Tensor:
+    """Config 3's k = 100 blob centres over 16 features, from the group's
+    seed: the parent and (e)'s child draw the same blobs."""
+    return KM_SCALE * torch.randn((KM_K, KM_D), generator=lc_generator(0), device="cuda")
+
+
+def blob_rows(n: int, truth: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """n fresh rows around ``truth`` with unit noise, made on the card."""
+    x = torch.empty((n, truth.shape[1]), device=truth.device)
+    x.normal_(generator=gen)
+    x += truth[torch.randint(0, truth.shape[0], (n,), generator=gen, device=truth.device)]
+    return x
+
+
+def lc_cycle_rows(truth: torch.Tensor) -> np.ndarray:
+    """(e)'s cycle: 2,000,000 rows of the shifted blobs from their own seed,
+    as the host rows a controller ingests."""
+    return blob_rows(LC_CYCLE_N, truth + LC_SHIFT, lc_generator(5)).cpu().numpy()
+
+
+def lc_kmeans() -> KMeans:
+    """The refitting estimator of (b), (d) and (e): config 3's KMeans."""
+    return KMeans().setK(KM_K).setSeed(SEED).setTol(LC_TOL)
+
+
+def lc_score(model, x, y) -> float:
+    """Minus the mean squared distance of the held-out rows to their
+    nearest centre, computed on the card (``computeCost``)."""
+    return -model.computeCost(x) / x.shape[0]
+
+
+def _moments_fields(mom) -> tuple:
+    return (mom.n_rows, mom.shift.tobytes(), mom.sum.tobytes(), mom.gram.tobytes())
+
+
+def phase_lifecycle_pca() -> dict:
+    """(g-a) Config 5's width: a 1,048,576 x 1,024 float32 CUDA tensor
+    folded by ``PCA.partial_fit`` in 4 calls of 262,144 rows, against one
+    call over all the rows and the on-card float64 fit. Every CUDA block
+    folds through K1's float64 route (one launch a block, as its plan says);
+    the previous model's moments are left as they were after each call."""
+    x = planted(LC_PCA_N, D, lc_generator(1))
+    est = PCA().setK(K)
+    rows = LC_PCA_N // LC_PCA_CALLS
+    model, walls, launches, want_launches, prev_kept = None, [], [], [], []
+    for i in range(LC_PCA_CALLS):
+        block = x[i * rows:(i + 1) * rows]
+        before = None if model is None else _moments_fields(model._moments)
+        k1.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        nxt = est.partial_fit(block, model=model)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        launches.append(k1.launches)
+        want_launches.append(-(-rows // k1.launch_rows(rows, D, torch.float64)))
+        if model is not None:
+            prev_kept.append(_moments_fields(model._moments) == before)
+        model = nxt
+    k1.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    one = est.partial_fit(x)
+    sync()
+    one_wall = time.perf_counter() - t0
+    one_launches = k1.launches
+    mean = sum(x[i:i + rows].double().sum(dim=0) for i in range(0, LC_PCA_N, rows)) / LC_PCA_N
+    gram = sum(f64_gram(x[i:i + rows], mean) for i in range(0, LC_PCA_N, rows))
+    w, v = torch.linalg.eigh(gram / (LC_PCA_N - 1))
+    w, v = torch.flip(w, (0,)), sign_flip(torch.flip(v, (1,)))
+    ev64 = (w / w.clamp_min(0).sum())[:K].cpu().numpy()
+    pc64 = v[:, :K].cpu().numpy()
+    del x, gram
+    torch.cuda.empty_cache()
+    m, o = model._moments, one._moments
+    out = {
+        "phase": "lifecycle_pca", "rows": LC_PCA_N, "d": D, "calls": LC_PCA_CALLS,
+        "partial_fit_wall_s": walls, "one_call_wall_s": one_wall,
+        "k1_launches_per_call": launches, "k1_launches_planned": want_launches,
+        "k1_launches_one_call": one_launches,
+        "merged_vs_one": {"n": [m.n_rows, o.n_rows], "sum_rel": _rel_max(m.sum, o.sum),
+                          "gram_rel": _rel_max(m.gram, o.gram)},
+        "pc_vs_f64_max_abs": _pc_err_aligned(model.pc, pc64),
+        "ev_vs_f64_max_abs": float(np.abs(model.explainedVariance - ev64).max()),
+        "previous_moments_kept": prev_kept,
+    }
+    emit(out)
+    require(launches == want_launches and min(launches) > 0
+            and one_launches == -(-LC_PCA_N // k1.launch_rows(LC_PCA_N, D, torch.float64)),
+            f"(g-a) K1 launches {launches} / {one_launches}, planned {want_launches}")
+    require(m.n_rows == o.n_rows == LC_PCA_N and out["merged_vs_one"]["sum_rel"] <= 1e-12
+            and out["merged_vs_one"]["gram_rel"] <= 1e-12, f"(g-a) merged moments: {out['merged_vs_one']}")
+    require(out["pc_vs_f64_max_abs"] <= 1e-5 and out["ev_vs_f64_max_abs"] <= 1e-6,
+            f"(g-a) against the float64 fit: {out['pc_vs_f64_max_abs']}, {out['ev_vs_f64_max_abs']}")
+    require(all(prev_kept) and len(prev_kept) == LC_PCA_CALLS - 1, f"(g-a) a previous model moved: {prev_kept}")
+    return out
+
+
+def _iters(fn):
+    before = counter_value("checkpoint.solver_iters")
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, counter_value("checkpoint.solver_iters") - before, time.perf_counter() - t0
+
+
+def _kmeans_bits(m) -> tuple:
+    return (m.clusterCenters().tobytes(), m.trainingCost, m.numIter)
+
+
+def phase_lifecycle_kmeans(truth: torch.Tensor) -> dict:
+    """(g-b) Config 3: the incumbent fitted by ``fit`` on ``auto`` over
+    20M x 16 (K2, 3 launches), then ``partial_fit`` on a fresh 2,000,000-row
+    draw from the same blobs, warm-seeded from the incumbent, against
+    ``partial_fit(model=None)`` of the same rows: strictly fewer solver
+    iterations; the cold call bitwise a ``setBackend("xla")`` fit (the
+    segmented route takes ``xla``, so K2 does not launch there)."""
+    x = blob_rows(KM_N, truth, lc_generator(2))
+    kk.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    incumbent = KMeans().setK(KM_K).setSeed(SEED).fit(x)
+    sync()
+    fit_wall = time.perf_counter() - t0
+    k2 = kk.launches["assign_stats_fused"]
+    del x
+    torch.cuda.empty_cache()
+    x2 = blob_rows(LC_CYCLE_N, truth, lc_generator(3))
+    est = lc_kmeans()
+    kk.reset_launches()
+    warm, warm_iters, warm_wall = _iters(lambda: est.partial_fit(x2, model=incumbent))
+    cold, cold_iters, cold_wall = _iters(lambda: est.partial_fit(x2))
+    pf_k2 = kk.launches["assign_stats_fused"] + kk.launches["assign_stats_packed"]
+    plain = est.copy().setBackend("xla").fit(x2)
+    out = {"phase": "lifecycle_kmeans", "incumbent_rows": KM_N, "refit_rows": LC_CYCLE_N, "k": KM_K,
+           "incumbent_fit_wall_s": fit_wall, "incumbent_k2_launches": k2, "incumbent_num_iter": incumbent.numIter,
+           "warm": {"solver_iters": warm_iters, "wall_s": warm_wall, "cost": warm.trainingCost},
+           "cold": {"solver_iters": cold_iters, "wall_s": cold_wall, "cost": cold.trainingCost},
+           "partial_fit_k2_k3_launches": pf_k2, "cold_bitwise_xla_fit": _kmeans_bits(cold) == _kmeans_bits(plain)}
+    emit(out)
+    require(k2 == 3, f"(g-b) the incumbent's fit launched K2 {k2} times, not 3")
+    require(0 < warm_iters < cold_iters, f"(g-b) warm {warm_iters} iterations, cold {cold_iters}")
+    require(out["cold_bitwise_xla_fit"], "(g-b) the cold partial_fit differs from the xla fit")
+    require(pf_k2 == 0, f"(g-b) the segmented refits launched K2/K3 {pf_k2} times")
+    return {"out": out, "incumbent": incumbent}
+
+
+def phase_lifecycle_glm() -> dict:
+    """(g-c) Configs 4 (elastic net) and 10 (logistic) at full shape: a
+    previous model fitted on one draw of 11M x 28 rows seeds ``partial_fit``
+    on a second draw. Warm runs strictly fewer solver iterations than cold;
+    cold is bitwise a plain fit; warm is within 1e-4 of max|w| (linear) or
+    1e-4 in the float64 objective (logistic) of cold."""
+    gen = lc_generator(4)
+    out = {"phase": "lifecycle_glm"}
+    x_a, w_true = glm_rows(gen)
+    x_b = torch.randn_like(x_a)
+    mu, sd = x_a.mean(dim=0), x_a.std(dim=0)
+    x_b.mul_(sd).add_(mu)
+    for name in ("config4_enet", "config10_logistic"):
+        if name == "config4_enet":
+            def make():
+                return LinearRegression().setRegParam(0.1).setElasticNetParam(0.5)
+
+            ya = x_a @ w_true + 0.1 * torch.randn(GLM_N, generator=gen, device=x_a.device)
+            yb = x_b @ w_true + 0.1 * torch.randn(GLM_N, generator=gen, device=x_a.device)
+        else:
+            def make():
+                return LogisticRegression().setRegParam(0.01).setMaxIter(100)
+
+            ya = (((x_a - mu) / sd) @ w_true + 0.5 * torch.randn(GLM_N, generator=gen, device=x_a.device) > 0).float()
+            yb = (((x_b - mu) / sd) @ w_true + 0.5 * torch.randn(GLM_N, generator=gen, device=x_a.device) > 0).float()
+        prev = make().fit((x_a, ya))
+        warm, warm_iters, warm_wall = _iters(lambda: make().partial_fit((x_b, yb), model=prev))
+        cold, cold_iters, cold_wall = _iters(lambda: make().partial_fit((x_b, yb)))
+        plain = make().fit((x_b, yb))
+        res = {"warm": {"solver_iters": warm_iters, "wall_s": warm_wall},
+               "cold": {"solver_iters": cold_iters, "wall_s": cold_wall}}
+        if name == "config4_enet":
+            res["cold_bitwise_plain_fit"] = (cold.coefficients.tobytes() == plain.coefficients.tobytes()
+                                             and cold.intercept == plain.intercept)
+            res["warm_vs_cold_rel_max_w"] = _rel_max(warm.coefficients, cold.coefficients)
+            ok = res["warm_vs_cold_rel_max_w"] <= 1e-4
+        else:
+            res["cold_bitwise_plain_fit"] = (cold.weights.tobytes() == plain.weights.tobytes()
+                                             and cold.intercepts.tobytes() == plain.intercepts.tobytes()
+                                             and cold.numIter == plain.numIter)
+            sigma = f64_stddev(x_b)
+            f_warm = logistic_objective64(x_b, yb, warm.weights, warm.intercepts, 0.01, sigma)
+            f_cold = logistic_objective64(x_b, yb, cold.weights, cold.intercepts, 0.01, sigma)
+            res.update(objective_warm=f_warm, objective_cold=f_cold, num_iter=[warm.numIter, cold.numIter],
+                       objective_rel=abs(f_warm - f_cold) / abs(f_cold))
+            ok = res["objective_rel"] <= 1e-4
+        out[name] = res
+        del ya, yb
+        require(0 < warm_iters < cold_iters, f"(g-c) {name}: warm {warm_iters} iterations, cold {cold_iters}")
+        require(res["cold_bitwise_plain_fit"], f"(g-c) {name}: the cold partial_fit differs from a plain fit")
+        require(ok, f"(g-c) {name}: warm against cold {res}")
+    emit(out)
+    return out
+
+
+@contextlib.contextmanager
+def stage_clock(marks: list):
+    """Record when each journal stage commits (the controller's stage
+    walls are the gaps between commits)."""
+    from spark_rapids_ml_tpu_torch.lifecycle.journal import CycleJournal
+
+    real = CycleJournal.mark
+
+    def timed(self, stage, payload=None):
+        real(self, stage, payload)
+        marks.append((stage, time.perf_counter()))
+
+    CycleJournal.mark = timed
+    try:
+        yield marks
+    finally:
+        CycleJournal.mark = real
+
+
+def _timed_cycle(ctrl, x) -> tuple:
+    marks = []
+    with stage_clock(marks):
+        t0 = time.perf_counter()
+        outcome = ctrl.run_cycle(x)
+        wall = time.perf_counter() - t0
+    walls, last = {}, t0
+    for stage, t in marks:
+        walls[stage] = t - last
+        last = t
+    walls["after_flip"] = t0 + wall - last
+    return outcome, {"wall_s": wall, "stage_walls_s": walls}
+
+
+class _Traffic:
+    """Single-row requests on a thread of their own while a cycle runs:
+    every response's version, and every shed or failed request."""
+
+    def __init__(self, rt, rows: np.ndarray):
+        self.rt, self.rows = rt, rows
+        self.versions, self.errors = [], []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        i = 0
+        while not self.stop.is_set():
+            try:
+                fut = self.rt.submit("km@prod", self.rows[i % len(self.rows)])
+                label = int(np.asarray(fut.result(timeout=30)).reshape(-1)[0])
+                self.versions.append((fut.model_name, fut.model_version, 0 <= label < KM_K))
+            except Exception as exc:  # every failure is counted and fails the phase
+                self.errors.append(repr(exc))
+            i += 1
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        time.sleep(0.05)
+        self.stop.set()
+        self.thread.join(timeout=60)
+
+
+def _serve_window(rt, dm, rows: np.ndarray, centres: dict) -> set:
+    """Serve ``rows`` one at a time and feed the monitor each row's
+    distance to the nearest centre of the version that answered."""
+    versions = set()
+    for row in rows:
+        fut = rt.submit("km@prod", row)
+        fut.result(timeout=30)
+        v = fut.model_version
+        versions.add(v)
+        if v not in centres:
+            centres[v] = np.asarray(rt.registry.resolve("km", v).model.clusterCenters(), dtype=np.float64)
+        dm.observe(float(np.linalg.norm(centres[v] - row, axis=1).min()))
+    return versions
+
+
+def phase_lifecycle_controller(truth: torch.Tensor, incumbent, tmp: str) -> dict:
+    """(g-d) A ``LifecycleController`` over a started ``ServingRuntime`` at
+    config 3's width, the incumbent from (b) as version 1. A
+    ``DriftMonitor`` fed from served distances stays quiet on the blobs and
+    fires on the shifted blobs; a cycle on 2,000,000 shifted rows flips to
+    version 2 while single rows keep flowing (every response attributed,
+    none shed); a cycle with a prohibitive ``gate_margin`` is rejected and
+    version 2 keeps serving; ``watch`` with a regressed score rolls back to
+    version 1."""
+    from spark_rapids_ml_tpu_torch.lifecycle import DriftMonitor, LifecycleController
+    from spark_rapids_ml_tpu_torch.serving import ServingRuntime
+
+    shifted = truth + LC_SHIFT
+    plain_rows = blob_rows(3 * LC_WINDOW, truth, lc_generator(6)).double().cpu().numpy()
+    shifted_rows = blob_rows(2 * LC_WINDOW, shifted, lc_generator(7)).double().cpu().numpy()
+    out = {"phase": "lifecycle_controller", "cycle_rows": LC_CYCLE_N}
+    with ServingRuntime() as rt:
+        rt.register("km", incumbent, alias="prod", warm_buckets=(1,))
+        ctrl = LifecycleController(lc_kmeans(), rt, "km", score_fn=lc_score,
+                                   directory=os.path.join(tmp, "controller"), model=incumbent)
+        dm = DriftMonitor("km", threshold=0.25, min_count=LC_WINDOW)
+        centres = {}
+        ticks = []
+        for rows in (plain_rows[:LC_WINDOW], plain_rows[LC_WINDOW:2 * LC_WINDOW], shifted_rows[:LC_WINDOW]):
+            t0 = time.perf_counter()
+            served = _serve_window(rt, dm, rows, centres)
+            ticks.append({"versions": sorted(served), "psi": dm.tick(), "window_s": time.perf_counter() - t0})
+        out["drift_ticks"] = ticks
+        x_cycle = blob_rows(LC_CYCLE_N, shifted, lc_generator(8)).cpu().numpy()
+        with _Traffic(rt, shifted_rows[LC_WINDOW:]) as traffic:
+            flip, out["flip_cycle"] = _timed_cycle(ctrl, x_cycle)
+            time.sleep(0.2)
+        dm.rebaseline()
+        out["flip_cycle"].update(outcome=vars(flip).copy(), data_npz_bytes=os.path.getsize(
+            os.path.join(tmp, "controller", f"cycle_{flip.cycle}_data.npz")))
+        versions = [v for _, v, _ in traffic.versions]
+        out["traffic"] = {"requests": len(traffic.versions), "errors": traffic.errors[:5],
+                          "by_version": {str(v): versions.count(v) for v in sorted(set(versions))},
+                          "attributed": all(n == "km" and v in (1, 2) and ok for n, v, ok in traffic.versions),
+                          "last_version": versions[-1] if versions else None}
+        ctrl.gate_margin = 1e9
+        x_reject = blob_rows(LC_CYCLE_N, shifted, lc_generator(9)).cpu().numpy()
+        reject, out["rejected_cycle"] = _timed_cycle(ctrl, x_reject)
+        out["rejected_cycle"]["outcome"] = vars(reject).copy()
+        after_reject = rt.submit("km@prod", shifted_rows[0])
+        after_reject.result(timeout=30)
+        rolled = ctrl.watch(flip.candidate_score - 10.0 * abs(flip.candidate_score))
+        after_rollback = rt.submit("km@prod", shifted_rows[0])
+        after_rollback.result(timeout=30)
+        out["rollback"] = {"to": rolled, "aliases": rt.registry.aliases("km"),
+                           "served_after_reject": after_reject.model_version,
+                           "served_after_rollback": after_rollback.model_version,
+                           "versions": rt.registry.versions("km")}
+    emit(out)
+    require([t["psi"] is None for t in ticks] == [True, True, False] and ticks[2]["psi"] > 0.25,
+            f"(g-d) drift ticks: {ticks}")
+    require(flip.action == "flipped" and flip.version == 2 and flip.cycle == 0,
+            f"(g-d) the drifted cycle: {flip}")
+    require(out["traffic"]["attributed"] and not traffic.errors and out["traffic"]["requests"] > 0
+            and out["traffic"]["last_version"] == 2, f"(g-d) traffic through the flip: {out['traffic']}")
+    require(reject.action == "rejected" and reject.version is None and out["rollback"]["served_after_reject"] == 2,
+            f"(g-d) the gated cycle: {reject}, {out['rollback']}")
+    require(rolled == 1 and out["rollback"]["aliases"] == {"prod": 1} and out["rollback"]["served_after_rollback"] == 1
+            and out["rollback"]["versions"] == [1, 2], f"(g-d) the rollback: {out['rollback']}")
+    return out
+
+
+def lifecycle_child_main(argv) -> int:
+    """(g-e)'s child: a controller over (d)'s shape whose cycle is killed in
+    its refit stage (``LC_KILL_SPEC``); it SIGKILLs itself there."""
+    from spark_rapids_ml_tpu_torch.lifecycle import LifecycleController
+    from spark_rapids_ml_tpu_torch.robustness import InjectedFault, inject
+    from spark_rapids_ml_tpu_torch.serving import ServingRuntime
+
+    directory, incumbent_path = argv[argv.index("--lifecycle-child") + 1:][:2]
+    port_device.set_platform("cuda")
+    port_device.use_ieee_fp32_matmul()
+    with open(incumbent_path, "rb") as f:
+        incumbent = pickle.load(f)
+    ctrl = LifecycleController(lc_kmeans(), ServingRuntime(), "km", score_fn=lc_score,
+                               directory=directory, model=incumbent)
+    x = lc_cycle_rows(lc_truth())
+    with inject(LC_KILL_SPEC):
+        try:
+            ctrl.run_cycle(x)
+        except InjectedFault:
+            with open(os.path.join(directory, "cycle.json")) as f:
+                print("lifecycle child stages " + json.dumps(sorted(json.load(f)["stages"])), flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+    print("lifecycle child completed", flush=True)
+    return 0
+
+
+def phase_lifecycle_kill(truth: torch.Tensor, incumbent, tmp: str) -> dict:
+    """(g-e) A child controller (``--lifecycle-child``) SIGKILLs itself in
+    its refit stage at (d)'s shape; the parent rebuilds the runtime and
+    resumes the SAME cycle id: the registry holds exactly one version, and
+    the incumbent's centres are bitwise those of an uninterrupted cycle on
+    the same rows (the candidate pickled by plain ``pickle`` on the way)."""
+    from spark_rapids_ml_tpu_torch.lifecycle import LifecycleController
+    from spark_rapids_ml_tpu_torch.serving import ServingRuntime
+
+    incumbent_path = os.path.join(tmp, "incumbent_b.pkl")
+    with open(incumbent_path, "wb") as f:
+        pickle.dump(incumbent, f, protocol=pickle.HIGHEST_PROTOCOL)
+    killed_dir = os.path.join(tmp, "killed")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPUML_")}
+    env["TPUML_RETRY_BASE_DELAY"] = "0"
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--lifecycle-child", killed_dir,
+                              incumbent_path], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        stdout, stderr = child.communicate(timeout=LC_CHILD_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    child_s = time.perf_counter() - t0
+    x = lc_cycle_rows(truth)
+    with ServingRuntime() as rt:
+        ctrl = LifecycleController(lc_kmeans(), rt, "km", score_fn=lc_score,
+                                   directory=killed_dir, model=incumbent)
+        clear_counters("lifecycle")
+        resumed, timing = _timed_cycle(ctrl, x)
+        replayed = counter_value("lifecycle.stage.replayed")
+        versions = rt.registry.versions("km")
+        got = ctrl.model.clusterCenters()
+    with ServingRuntime() as rt:
+        ref = LifecycleController(lc_kmeans(), rt, "km", score_fn=lc_score,
+                                  directory=os.path.join(tmp, "uninterrupted"), model=incumbent)
+        clean, clean_timing = _timed_cycle(ref, x)
+        want = ref.model.clusterCenters()
+    out = {"phase": "lifecycle_kill", "spec": LC_KILL_SPEC, "child_returncode": child.returncode,
+           "child_s": child_s, "child_stdout": stdout.strip().splitlines()[-1:],
+           "resumed": {"outcome": vars(resumed).copy(), "stages_replayed": replayed, **timing},
+           "uninterrupted": {"outcome": vars(clean).copy(), **clean_timing},
+           "registry_versions": versions, "incumbent_bitwise_uninterrupted": got.tobytes() == want.tobytes()}
+    emit(out)
+    require(child.returncode == -signal.SIGKILL and 'lifecycle child stages ["ingest"]' in stdout,
+            f"(g-e) the child was not killed in its refit: {out}; {stderr[-2000:]}")
+    require(resumed.cycle == clean.cycle == 0 and resumed.action == clean.action == "flipped"
+            and replayed == 1 and versions == [1], f"(g-e) the resumed cycle: {out}")
+    require(out["incumbent_bitwise_uninterrupted"], "(g-e) the resumed cycle's centres differ")
+    return out
+
+
+def lifecycle_phases() -> dict:
+    """Group (g), the continuous-training lifecycle: (a) PCA partial_fit at
+    config 5's width through K1's float64 route, (b) config 3's warm and
+    cold refits after a K2 fit, (c) configs 4 and 10's warm and cold
+    refits, (d) the journaled controller over a started runtime with a
+    drift monitor, (e) a SIGKILLed controller resumed; its own seeds,
+    within ``LC_WALL_LIMIT_S``."""
+    t0 = time.perf_counter()
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="lifecycle-") as tmp, knob(TPUML_RETRY_BASE_DELAY=0):
+        t = time.perf_counter()
+        a = phase_lifecycle_pca()
+        walls["a_pca"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        truth = lc_truth()
+        t = time.perf_counter()
+        b = phase_lifecycle_kmeans(truth)
+        walls["b_kmeans"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        c = phase_lifecycle_glm()
+        walls["c_glm"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        d = phase_lifecycle_controller(truth, b["incumbent"], tmp)
+        walls["d_controller"] = time.perf_counter() - t
+        t = time.perf_counter()
+        e = phase_lifecycle_kill(truth, b["incumbent"], tmp)
+        walls["e_kill"] = time.perf_counter() - t
+    wall = time.perf_counter() - t0
+    emit({"phases": "lifecycle", "wall_s": wall, "phase_wall_s": walls})
+    require(wall <= LC_WALL_LIMIT_S, f"the lifecycle phases took {wall:.1f} s, over their {LC_WALL_LIMIT_S:.0f} s")
+    return {"pca": a, "kmeans": b["out"], "glm": c, "controller": d, "kill": e}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -5074,6 +5580,8 @@ def main() -> int:
     sharded_phases()
     torch.cuda.empty_cache()
     robustness_phases()
+    torch.cuda.empty_cache()
+    lifecycle_phases()
 
     k1_f32 = times["k1_f32"]
     measured = {
@@ -5107,4 +5615,6 @@ if __name__ == "__main__":
         sys.exit(mesh_rank_main(sys.argv))
     if "--robust-child" in sys.argv:
         sys.exit(robust_child_main(sys.argv))
+    if "--lifecycle-child" in sys.argv:
+        sys.exit(lifecycle_child_main(sys.argv))
     sys.exit(main())

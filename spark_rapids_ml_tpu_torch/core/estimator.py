@@ -8,8 +8,10 @@ as the structured ``core.membudget.FitMemoryError``. ``deployMode`` (env
 twin ``TPUML_GANG_FIT``) makes a fit one member of a
 ``torch.distributed`` gang, as in the reference, and
 :meth:`Estimator._fit_checkpointer` hands the segmented solvers their
-checkpointer (``robustness/checkpoint.py``). Left out until their slices:
-the run recorder around ``fit`` and ``partial_fit``.
+checkpointer (``robustness/checkpoint.py``). :meth:`Estimator.partial_fit`
+is the continuous-training entry (``lifecycle/partial_fit.py``). Left out
+until its slice: the run recorder around ``fit`` (ROADMAP A.9, the
+observability item).
 """
 
 from __future__ import annotations
@@ -107,6 +109,20 @@ class Estimator(Params):
 
     def _fit(self, dataset: Any):
         raise NotImplementedError
+
+    def partial_fit(self, dataset: Any, *, model=None):
+        """Incremental refit: fit over ``dataset`` (the NEW rows only),
+        seeding the segmented solver from ``model``'s solution — the
+        continuous-training entry (``lifecycle/partial_fit.py``). With
+        ``model=None`` this is the zero state: bit-identical to a
+        from-scratch fit of ``dataset``. Supported for KMeans (center
+        seed), LogisticRegression (L-BFGS seed), LinearRegression (FISTA
+        seed), and PCA (exact streaming-moment merge, where ``dataset``
+        accumulates rather than replaces); other families raise
+        ``TypeError``."""
+        from spark_rapids_ml_tpu_torch.lifecycle.partial_fit import partial_fit
+
+        return partial_fit(self, dataset, model=model)
 
     def _fit_checkpointer(self, solver: str, data=()):
         """This fit's checkpoint handle (``robustness/checkpoint.py``), or

@@ -1,4 +1,4 @@
-"""Shifted second-moment accumulator — pure numpy, picklable. Port of
+"""Shifted second-moment accumulator — numpy fields, picklable. Port of
 the reference's ``core/moments.py`` (the port keeps its own copy).
 
 The wire-format twin of the native C++ ``SprAccumulator``
@@ -9,6 +9,14 @@ plain-numpy object that serializes across process boundaries — the
 stats are computed on executors and merged by the combOp
 (RapidsRowMatrix.scala:226-233). fp64 vectorized numpy; for the
 in-process hot path prefer the native accumulator (Kahan-compensated C++).
+
+A tensor block folds where it lives (the port's addition; the reference
+casts every block to host float64): it is cast to float64 on its device,
+its ``Σ(x−K)ᵀ(x−K)`` about the shift K is kernel K1's float64 route
+(``ops/kernels/covariance.centered_gram_cuda`` with ``mean = K``; a CPU
+tensor takes K1's plain version), ``Σ(x−K)`` is a float64 sum on the
+device, and only the (d, d) and (d,) results come back to the numpy
+fields. A CUDA block raises where K1 does not build.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 
 class ShiftedMoments:
@@ -30,7 +39,9 @@ class ShiftedMoments:
         self.sum = np.zeros(n_cols, dtype=np.float64)
         self.gram = np.zeros((n_cols, n_cols), dtype=np.float64)
 
-    def add_block(self, block: np.ndarray) -> "ShiftedMoments":
+    def add_block(self, block) -> "ShiftedMoments":
+        if isinstance(block, torch.Tensor):
+            return self._add_tensor(block)
         block = np.asarray(block, dtype=np.float64)
         if block.ndim != 2 or block.shape[1] != self.n_cols:
             raise ValueError(f"block must be (rows, {self.n_cols}), got {block.shape}")
@@ -42,6 +53,27 @@ class ShiftedMoments:
         self.sum += s.sum(axis=0)
         self.gram += s.T @ s
         self.n_rows += block.shape[0]
+        return self
+
+    def _add_tensor(self, block: torch.Tensor) -> "ShiftedMoments":
+        from spark_rapids_ml_tpu_torch.ops.kernels.covariance import centered_gram_cuda
+
+        if block.dim() != 2 or block.shape[1] != self.n_cols:
+            raise ValueError(f"block must be (rows, {self.n_cols}), got {tuple(block.shape)}")
+        n = int(block.shape[0])
+        if n == 0:
+            return self
+        x = block.detach().to(torch.float64).contiguous()
+        shift = x[0].cpu().numpy().copy() if self.shift is None else self.shift
+        k = torch.from_numpy(shift).to(x.device)
+        gram = centered_gram_cuda(x, k).cpu().numpy()
+        s = (x - k).sum(dim=0).cpu().numpy()
+        # Committed only once the block has folded: a block that raises
+        # leaves the moments as they were.
+        self.shift = shift
+        self.gram += gram
+        self.sum += s
+        self.n_rows += n
         return self
 
     def merge(self, other: "ShiftedMoments") -> "ShiftedMoments":

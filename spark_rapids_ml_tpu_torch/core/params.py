@@ -114,14 +114,46 @@ class Params:
         self.uid = uid or _random_uid(type(self).__name__)
         self._paramMap: Dict[Param, Any] = {}
         self._defaultParamMap: Dict[Param, Any] = {}
+        self._bind_params()
+
+    def _bind_params(self) -> None:
+        """Re-bind the class-level Param declarations to this instance."""
         self._params: Dict[str, Param] = {}
-        # Re-bind class-level Param declarations to this instance.
         for klass in reversed(type(self).__mro__):
             for name, attr in vars(klass).items():
                 if isinstance(attr, Param):
                     bound = Param(self.uid, attr.name, attr.doc, attr.type_converter)
                     setattr(self, name, bound)
                     self._params[attr.name] = bound
+
+    # --- pickling (by value: no Param object, so no type converter, is pickled) ---
+
+    def __getstate__(self):
+        """The instance state with the param maps keyed by name and the
+        per-instance ``Param`` objects left out: their type converters may
+        be lambdas, which plain ``pickle`` refuses. ``__setstate__`` binds
+        them again from the class declarations, as ``__init__`` does."""
+        state = super().__getstate__()
+        state = dict(state) if state else {}
+        for name in [n for n, v in state.items() if isinstance(v, Param)]:
+            del state[name]
+        state.pop("_params", None)
+        state["_paramMap"] = {p.name: v for p, v in self._paramMap.items()}
+        state["_defaultParamMap"] = {p.name: v for p, v in self._defaultParamMap.items()}
+        return state
+
+    def __setstate__(self, state):
+        state = dict(state)
+        user = state.pop("_paramMap")
+        defaults = state.pop("_defaultParamMap")
+        parent = getattr(super(), "__setstate__", None)
+        if parent is not None:
+            parent(state)
+        else:
+            self.__dict__.update(state)
+        self._bind_params()
+        self._paramMap = {self._params[name]: v for name, v in user.items()}
+        self._defaultParamMap = {self._params[name]: v for name, v in defaults.items()}
 
     # --- introspection ---
 

@@ -16,7 +16,11 @@ builds a ``PipelineModel`` from one such description per stage, and
 :func:`train_validation_split_model_from_numpy` wrap a carried-across
 best model with the reference validator's metrics. The IVF quantizer's draws
 cannot be reproduced here, so the ANN model also takes the reference's
-index arrays: both packages then probe the same lists. The second route
+index arrays: both packages then probe the same lists.
+:func:`shifted_moments_from_numpy` carries a reference ``ShiftedMoments``
+(its numpy fields) across, and ``pca_model_from_numpy(..., moments=...)``
+puts it on the model as its ``_moments``, so a PCA ``partial_fit`` started
+in the JAX package continues here. The second route
 is persistence: a model saved by either package loads in the other
 (``PCAModel.load``, ``KMeansModel.load``, ``UMAPModel.load``,
 ``LinearRegressionModel.load``, ``LogisticRegressionModel.load``,
@@ -41,6 +45,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from spark_rapids_ml_tpu_torch.core.moments import ShiftedMoments
 from spark_rapids_ml_tpu_torch.models.approximate_nearest_neighbors import ApproximateNearestNeighborsModel
 from spark_rapids_ml_tpu_torch.models.dbscan import DBSCANModel
 from spark_rapids_ml_tpu_torch.models.kmeans import KMeansModel
@@ -59,17 +64,41 @@ def pca_model_from_numpy(
     explained_variance,
     uid: Optional[str] = None,
     params: Optional[Dict[str, Any]] = None,
+    moments: Optional[ShiftedMoments] = None,
 ) -> PCAModel:
     """A port ``PCAModel`` holding ``pc`` (d, k) and ``explained_variance``
     (k,) as float64, with every param of ``params`` that the model has
-    set on it (reference-only params such as ``deployMode`` are skipped)."""
+    set on it (reference-only params such as ``deployMode`` are skipped),
+    and ``moments`` (from :func:`shifted_moments_from_numpy`) as the
+    streaming moments a ``partial_fit`` continues from."""
     pc = np.asarray(pc, dtype=np.float64)
     ev = np.asarray(explained_variance, dtype=np.float64)
     if pc.ndim != 2 or ev.shape != (pc.shape[1],):
         raise ValueError(
             f"pc must be (d, k) and explained_variance (k,), got {pc.shape} and {ev.shape}"
         )
-    return _with_params(PCAModel(uid, pc, ev), params)
+    if moments is not None and moments.n_cols != pc.shape[0]:
+        raise ValueError(f"moments have {moments.n_cols} columns, pc has {pc.shape[0]} rows")
+    model = _with_params(PCAModel(uid, pc, ev), params)
+    if moments is not None:
+        model._moments = moments
+    return model
+
+
+def shifted_moments_from_numpy(n_rows: int, shift, sum, gram) -> ShiftedMoments:
+    """The port's ``ShiftedMoments`` with the reference's fields: ``n_rows``
+    rows seen, ``shift`` (d,) (None before the first row), ``sum`` (d,) and
+    ``gram`` (d, d), copied as float64."""
+    gram = np.array(gram, dtype=np.float64)
+    if gram.ndim != 2 or gram.shape[0] != gram.shape[1]:
+        raise ValueError(f"gram must be (d, d), got {gram.shape}")
+    d = gram.shape[0]
+    mom = ShiftedMoments(d)
+    mom.n_rows = int(n_rows)
+    mom.shift = None if shift is None else np.array(shift, dtype=np.float64).reshape(d)
+    mom.sum = np.array(sum, dtype=np.float64).reshape(d)
+    mom.gram = gram
+    return mom
 
 
 def kmeans_model_from_numpy(

@@ -362,14 +362,11 @@ class _ForestModel(_RandomForestParams, Model):
 
     def __getstate__(self):
         # Pickles carry the forest on the host, never live device buffers.
-        state = dict(self.__dict__)
+        state = super().__getstate__()
         if self._forest is not None:
             state["_forest"] = Forest(*(t.cpu() for t in self._forest))
         state["_forest_dev"] = {}
         return state
-
-    def __setstate__(self, state):
-        self.__dict__.update(state)
 
     @property
     def featureImportances(self) -> np.ndarray:

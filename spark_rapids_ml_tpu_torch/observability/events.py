@@ -45,7 +45,8 @@ EVENT_LOG_ENV = "TPUML_EVENT_LOG"
 #: The record kinds the port writes and the fields each must carry (the
 #: reference's ``SCHEMA`` entries for them): run scopes, the degradation
 #: records, the fit memory guard's, the pipeline fuser's, the serving
-#: layer's, and the fault, retry, checkpoint and persistence records.
+#: layer's, the fault, retry, checkpoint and persistence records, and the
+#: continuous-training lifecycle's.
 SCHEMA = {
     "run": frozenset({"action", "kind", "label"}),
     "degrade": frozenset({"what", "why", "fallback"}),
@@ -58,6 +59,7 @@ SCHEMA = {
     "checkpoint": frozenset({"action", "step"}),
     "gang_resize": frozenset({"action", "from_members", "to_members"}),
     "persistence": frozenset({"action", "path"}),
+    "lifecycle": frozenset({"action"}),
 }
 
 

@@ -140,6 +140,35 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
     Knob("TPUML_CHECKPOINT_UMAP", "choice", "checkpoint",
          "1 opts UMAP layout SGD into the global checkpoint knobs",
          default="0", choices=("0", "1")),
+    # continuous-training lifecycle (lifecycle/controller.py)
+    Knob("TPUML_LIFECYCLE_DIR", "str", "lifecycle",
+         "journal + candidate-model directory for the continuous-"
+         "training controller; the crash-safe cycle resumes from here "
+         "after a kill (unset: the controller requires an explicit "
+         "journal_dir argument)"),
+    Knob("TPUML_LIFECYCLE_HOLDOUT", "float", "lifecycle",
+         "fraction of each ingested batch held out for the quality "
+         "gate (never trained on)", default=0.2),
+    Knob("TPUML_LIFECYCLE_GATE_MARGIN", "float", "lifecycle",
+         "how much worse than the incumbent (in score units) the "
+         "candidate may be and still flip; 0 = candidate must be at "
+         "least as good", default=0.0),
+    Knob("TPUML_LIFECYCLE_REGRESS_TOL", "float", "lifecycle",
+         "relative post-flip live-score drop vs the gate's candidate "
+         "score that triggers the automatic registry rollback",
+         default=0.1),
+    Knob("TPUML_LIFECYCLE_EVERY", "int", "lifecycle",
+         "solver iterations per segment when partial_fit forces the "
+         "segmented solver without TPUML_CHECKPOINT_* set (the warm-"
+         "seed iteration counters ride the segment loop)", default=8),
+    # drift triggers (lifecycle/drift.py)
+    Knob("TPUML_DRIFT_THRESHOLD", "float", "drift",
+         "population-stability-index threshold between the reference "
+         "and live serving-score distributions above which a drift "
+         "tick fires a refit", default=0.25),
+    Knob("TPUML_DRIFT_MIN_COUNT", "int", "drift",
+         "observations in the live window before a drift tick may "
+         "fire (small windows make PSI noise, not signal)", default=50),
     # observability (observability/events.py)
     Knob("TPUML_EVENT_LOG", "str", "observability",
          "JSON-lines event sink: a file path or 'stderr' (unset = off)"),

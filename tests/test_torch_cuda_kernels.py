@@ -139,6 +139,45 @@ def test_empty_rows_give_zeros(cuda):
     assert torch.equal(out, torch.zeros((9, 9), device=cuda))
 
 
+def test_moments_fold_cuda_blocks_through_k1_in_float64(cuda):
+    """``ShiftedMoments.add_block`` on CUDA blocks: K1's float64 route,
+    one launch a block at these sizes, within 1e-12 (relative to the
+    largest entry) of the numpy route on the same rows, shift bitwise."""
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch.core.moments import ShiftedMoments
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    x = torch.randn((100_003, 256), generator=gen, device=cuda) * 3.0 + 7.0
+    splits = (0, 1, 65_536, 100_003)
+    dev, host = ShiftedMoments(256), ShiftedMoments(256)
+    k1.reset_launches()
+    for a, b in zip(splits, splits[1:]):
+        dev.add_block(x[a:b])
+        host.add_block(x[a:b].cpu().numpy().astype(np.float64))
+    assert k1.launches == 3
+    assert np.array_equal(dev.shift, host.shift) and dev.n_rows == host.n_rows
+    assert np.abs(dev.gram - host.gram).max() <= 1e-12 * np.abs(host.gram).max()
+    assert np.abs(dev.sum - host.sum).max() <= 1e-12 * np.abs(host.sum).max()
+
+
+def test_moments_without_a_k1_build_raise(cuda, monkeypatch):
+    """No fallback: a CUDA block whose kernel cannot load raises, and the
+    moments are left as they were."""
+    from spark_rapids_ml_tpu_torch.core.moments import ShiftedMoments
+    from spark_rapids_ml_tpu_torch.ops.kernels import _build
+
+    def no_build(name):
+        raise RuntimeError(f"{name}: no build")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    mom = ShiftedMoments(8)
+    with pytest.raises(RuntimeError, match="no build"):
+        mom.add_block(torch.randn((32, 8), device=cuda))
+    assert mom.n_rows == 0 and mom.shift is None and not mom.sum.any() and not mom.gram.any()
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     x = torch.randn((64, 32), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):

@@ -64,7 +64,8 @@ def test_every_port_module_imports_without_jax():
                  "pipeline_fusion.fuser", "pipeline", "tuning", "observability.metrics",
                  "serving.admission", "serving.batcher", "serving.registry", "serving.server",
                  "parallel", "parallel.mesh", "parallel.collectives", "parallel.distributed",
-                 "parallel.distributed_cov", "core.moments"):
+                 "parallel.distributed_cov", "core.moments", "lifecycle", "lifecycle.partial_fit",
+                 "lifecycle.journal", "lifecycle.drift", "lifecycle.controller"):
         assert f"spark_rapids_ml_tpu_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
