@@ -687,8 +687,9 @@ def phase_profile(xm: torch.Tensor) -> dict:
     device_ms = {}
     for avg in prof.key_averages():
         # Device-side events only (kernels, copies, sets): a host op's
-        # device time repeats that of the kernels it launched.
-        if avg.device_type == DeviceType.CUDA and avg.self_device_time_total > 0:
+        # device time repeats that of the kernels it launched, and a
+        # range's span on the device's timeline that of its kernels.
+        if avg.device_type == DeviceType.CUDA and avg.self_device_time_total > 0 and not _is_annotation(avg):
             device_ms[avg.key] = device_ms.get(avg.key, 0.0) + avg.self_device_time_total / 1e3
     require(bool(np.isfinite(ev).all()), "profiled fit gave non-finite explained variance")
     busy_ms = sum(device_ms.values())
@@ -976,12 +977,19 @@ def phase_kmeans_times(x, model, model16, peaks) -> dict:
     return out
 
 
+def _is_annotation(evt) -> bool:
+    """A range's span on the device's timeline (every ``TraceRange`` is a
+    ``record_function`` while a profiler runs), not a kernel."""
+    flag = getattr(evt, "is_user_annotation", False)
+    return bool(flag() if callable(flag) else flag)
+
+
 def _device_ms_by_kernel(prof) -> dict:
     from torch.autograd import DeviceType
 
     device_ms = {}
     for avg in prof.key_averages():
-        if avg.device_type == DeviceType.CUDA and avg.self_device_time_total > 0:
+        if avg.device_type == DeviceType.CUDA and avg.self_device_time_total > 0 and not _is_annotation(avg):
             device_ms[avg.key] = device_ms.get(avg.key, 0.0) + avg.self_device_time_total / 1e3
     return device_ms
 
@@ -1265,7 +1273,8 @@ def phase_umap_profile(x: torch.Tensor) -> dict:
         "window_ms": window_ms, "device_busy_ms": busy_ms,
         "device_idle_share": (1.0 - busy_ms / window_ms) if busy_ms else None,
         "kernels_launched": sum(avg.count for avg in prof.key_averages()
-                                if avg.device_type.name == "CUDA" and avg.self_device_time_total > 0),
+                                if avg.device_type.name == "CUDA" and avg.self_device_time_total > 0
+                                and not _is_annotation(avg)),
         "top_device_ms": [{"kernel": k[:80], "ms": v} for k, v in top],
     }
     emit(out)
@@ -2869,7 +2878,7 @@ def _range_split(fit, module, names) -> dict:
         start, ns = evt.start_ns(), evt.duration_ns()
         if evt.name() in spans:
             spans[evt.name()].append((start, start + ns))
-        else:
+        elif not _is_annotation(evt):
             kernels.append((start, ns / 1e6, evt.name()))
     starts = {name: sorted(v) for name, v in spans.items()}
     keys = {name: [a for a, _ in v] for name, v in starts.items()}
@@ -5524,6 +5533,489 @@ def lifecycle_phases() -> dict:
     return {"pca": a, "kmeans": b["out"], "glm": c, "controller": d, "kill": e}
 
 
+# --- observability: traces and probes on the card ---------------------------
+
+OB_SEED = 19
+OB_WALL_LIMIT_S = 60.0
+OB_GANG_N = 262_144          # (c): rows a rank, config 5's width
+OB_HEARTBEAT_S = 0.2         # (c): the ranks' heartbeat interval
+OB_RANK_TIMEOUT_S = 60
+OB_CHILD_TIMEOUT_S = 45
+OB_CHILD_ROWS = 65_536       # (e): the fatal child's host PCA rows (x 128)
+OB_RANGES = 10_000           # (f): ranges timed in each state
+OB_SLO_BREACH = "serving.p99_ms<=0.001"
+OB_SLO_HOLD = "serving.p99_ms<=10000"
+
+
+def _obs_records(tdir: str) -> list:
+    return [json.loads(line) for path in sorted(glob.glob(os.path.join(tdir, "events-*.jsonl")))
+            for line in open(path) if line.strip()]
+
+
+@contextlib.contextmanager
+def telemetry_dir(path: str):
+    """``TPUML_TELEMETRY_DIR`` set and the port's sink wired to its shard
+    for the block; the sink is off again after."""
+    from spark_rapids_ml_tpu_torch.observability import events
+
+    with knob(TPUML_TELEMETRY_DIR=path):
+        events.configure()
+        try:
+            yield path
+        finally:
+            events.flush_telemetry()
+    events.configure("")
+
+
+def _range_device_span_ms(prof, names) -> dict:
+    """Each named range's extent on the device's timeline: its
+    ``record_function`` annotation there, from its first kernel to its
+    last, idle gaps included (a kernel launched through ``ctypes``, as
+    K1 is, is charged to no host-side op, but lies inside the span)."""
+    out = {}
+    for avg in prof.key_averages():
+        if avg.key in names and _is_annotation(avg):
+            out[avg.key] = out.get(avg.key, 0.0) + avg.self_device_time_total / 1e3
+    return out
+
+
+def phase_obs_pca(gen: torch.Generator, tmp: str) -> dict:
+    """(a) Config 5's width: ``PCA().setK(16)`` on the ``pallas`` route over
+    a 1,048,576 x 1,024 float32 tensor, untraced and under
+    ``TPUML_TELEMETRY_DIR``: the report's stages and device memory, K1
+    launched as in the untraced fit, components and ratios bitwise, walls
+    (median of 3) each way, and one traced fit under ``torch.profiler`` for
+    its stage totals (host time) beside its device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_ml_tpu_torch.observability import events
+
+    x = planted(MS_N, D, gen)
+    est = PCA().setK(K).setCovarianceBackend("pallas")
+    est.fit(x)
+    sync()
+    k1.reset_launches()
+    plain = est.fit(x)
+    plain_launches = k1.launches
+    untraced_wall = wall_s(lambda: est.fit(x).pc)
+    tdir = os.path.join(tmp, "a-telemetry")
+    with telemetry_dir(tdir):
+        torch.cuda.reset_peak_memory_stats()
+        k1.reset_launches()
+        traced = est.fit(x)
+        traced_launches = k1.launches
+        traced_wall = wall_s(lambda: est.fit(x).pc)
+        k1.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # One small kernel and a sync first, so the fit's first kernels
+            # do not fall in the session's start-up.
+            torch.ones(1, device=x.device).add_(1.0)
+            sync()
+            profiled = est.fit(x)
+            sync()
+        profiled_launches = k1.launches
+    rep = traced.fit_report()
+    stages = rep.stage_totals()
+    prof_stages = profiled.fit_report().stage_totals()
+    recs = _obs_records(tdir)
+    problems = [p for r in recs for p in events.validate_record(r)]
+    mem = rep.device_memory.get(str(torch.cuda.current_device()), {})
+    top = sorted(_device_ms_by_kernel(prof).items(), key=lambda kv: -kv[1])[:8]
+    out = {
+        "phase": "obs_pca", "what": "PCA().setK(16).setCovarianceBackend('pallas'), 1,048,576 x 1,024 f32",
+        "k1_launches": {"untraced": plain_launches, "traced": traced_launches, "profiled": profiled_launches},
+        "bitwise": {"pc": bool(np.array_equal(traced.pc, plain.pc)),
+                    "ratio": bool(np.array_equal(traced.explainedVariance, plain.explainedVariance))},
+        "fit_wall_s_median_of_3": {"untraced": untraced_wall, "traced": traced_wall},
+        "stage_tree": [n["name"] for n in rep.stage_tree()],
+        "stage_totals_host_ms": {k: v["seconds"] * 1e3 for k, v in stages.items()},
+        "profiled_fit": {
+            "stage_totals_host_ms": {k: v["seconds"] * 1e3 for k, v in prof_stages.items()},
+            "stage_device_span_ms": _range_device_span_ms(prof, set(prof_stages)),
+            "top_device_ms": [{"kernel": k[:80], "ms": v} for k, v in top],
+        },
+        "device_memory": mem, "tensor_bytes": x.numel() * x.element_size(),
+        "shard_records": len(recs), "span_records": sum(r["event"] == "span" for r in recs),
+        "invalid_records": problems[:5],
+    }
+    emit(out)
+    require(plain_launches == traced_launches == 1, f"(o-a) K1 launches {out['k1_launches']}")
+    require(all(out["bitwise"].values()), f"(o-a) the traced fit differs: {out['bitwise']}")
+    require({"compute cov", "auto eigh"} <= set(stages), f"(o-a) the report's stages: {sorted(stages)}")
+    require(mem.get("peak_bytes_in_use", 0) >= out["tensor_bytes"], f"(o-a) device memory {mem}")
+    require(not problems and out["span_records"] > 0 and any(r["event"] == "report" for r in recs),
+            f"(o-a) the shard: {problems[:5]}")
+    return out
+
+
+def phase_obs_kmeans(gen: torch.Generator, tmp: str) -> dict:
+    """(b) Config 3 under ``TPUML_PROFILE_DIR``: ``KMeans().setK(100)
+    .setSeed(0)`` on 20M x 16 float32 blobs writes one Chrome trace that
+    parses and holds K2's kernel by its symbol and the port's range names;
+    K2 launches as in the same untraced fit, with the same centres; a
+    nested ``maybe_profile`` yields None."""
+    from spark_rapids_ml_tpu_torch.observability import profiling
+
+    x, _ = planted_blobs(KM_N, KM_D, KM_K, gen)
+    est = KMeans().setK(KM_K).setSeed(0)
+    kk.reset_launches()
+    plain = est.fit(x)
+    plain_launches = kk.launches["assign_stats_fused"]
+    pdir = os.path.join(tmp, "b-profile")
+    with knob(TPUML_PROFILE_DIR=pdir):
+        kk.reset_launches()
+        t0 = time.perf_counter()
+        traced = est.fit(x)
+        traced_launches = kk.launches["assign_stats_fused"]
+        wall = time.perf_counter() - t0
+        with profiling.maybe_profile("obs-outer") as outer, profiling.maybe_profile("obs-inner") as inner:
+            pass
+    traces = sorted(glob.glob(os.path.join(pdir, "fit_KMeans-*.trace.json")))
+    doc = json.load(open(traces[0])) if len(traces) == 1 else {"traceEvents": []}
+    names = {e.get("name", "") for e in doc["traceEvents"]}
+    k2 = sorted({n for n in names if "assign_stats_" in n})
+    ranges = sorted(n for n in names if n.startswith("kmeans") or n.startswith("ingest"))
+    out = {
+        "phase": "obs_kmeans", "what": "KMeans().setK(100).setSeed(0), 20M x 16 f32, TPUML_PROFILE_DIR",
+        "k2_launches": {"untraced": plain_launches, "profiled": traced_launches},
+        "centres_bitwise": bool(np.array_equal(traced.clusterCenters(), plain.clusterCenters())),
+        "profiled_fit_wall_s": wall, "trace_files": [os.path.basename(t) for t in traces],
+        "trace_bytes": os.path.getsize(traces[0]) if traces else 0, "trace_events": len(doc["traceEvents"]),
+        "k2_symbols": [n[:120] for n in k2], "range_names": ranges,
+        "nested": {"outer": outer is not None, "inner": inner},
+    }
+    emit(out)
+    require(len(traces) == 1, f"(o-b) trace files {traces}")
+    require(plain_launches == traced_launches >= 1, f"(o-b) K2 launches {out['k2_launches']}")
+    require(out["centres_bitwise"], "(o-b) the profiled fit's centres differ")
+    require(bool(k2) and "kmeans fit" in names, f"(o-b) the trace lacks K2 or the ranges: {k2} {ranges}")
+    require(outer is not None and inner is None, f"(o-b) nested maybe_profile: {out['nested']}")
+    return out
+
+
+def obs_rank_main(argv) -> int:
+    """One rank of (o-c), started by :func:`phase_obs_gang` with
+    ``member_env`` (the trace carrier) and ``TPUML_TELEMETRY_DIR``: joins
+    the gloo gang on the one card and fits gang PCA on its 262,144 x 1,024
+    rows inside ``heartbeat_scope``."""
+    from spark_rapids_ml_tpu_torch.observability.heartbeat import heartbeat_scope
+
+    args = dict(zip(argv[1::2], argv[2::2]))
+    rank = int(args["--obs-rank"])
+    port_device.set_platform("cuda")
+    port_device.use_ieee_fp32_matmul()
+    gang.initialize(coordinator_address=f"127.0.0.1:{args['--obs-port']}", backend="gloo")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(OB_SEED + rank)
+    x = planted(OB_GANG_N, D, gen)
+    with heartbeat_scope(process_id=rank, interval=OB_HEARTBEAT_S):
+        model = PCA().setDeployMode("gang").setK(K).fit(x)
+    np.savez(os.path.join(args["--obs-out"], f"obs-rank{rank}.npz"), pc=model.pc, ev=model.explainedVariance)
+    torch.distributed.destroy_process_group()
+    print(f"obs rank {rank} ok", flush=True)
+    return 0
+
+
+def phase_obs_gang(tmp: str) -> dict:
+    """(c) Two gloo ranks on the one card, spawned with ``member_env`` inside
+    one run scope and sharded under one telemetry dir: the port's
+    ``trace.assemble`` gives one trace with both process indices,
+    heartbeats from both ranks and a critical path; its Chrome trace loads;
+    the ranks' components are bitwise equal."""
+    from spark_rapids_ml_tpu_torch.observability import events, trace
+
+    tdir = os.path.join(tmp, "c-telemetry")
+    with contextlib.closing(__import__("socket").socket()) as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = {**os.environ, "TPUML_TELEMETRY_DIR": tdir}
+    with events.run_scope("job", "obs-gang"):
+        trace_id = events.current_trace().trace_id
+        envs = [gang.member_env(rank, 2, base=base) for rank in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--obs-rank", str(rank),
+                               "--obs-port", str(port), "--obs-out", tmp],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for rank, env in enumerate(envs)]
+    try:
+        outs = [p.communicate(timeout=OB_RANK_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0 and f"obs rank {rank} ok" in stdout, f"(o-c) rank {rank}: {stderr[-2000:]}")
+    ranks = [np.load(os.path.join(tmp, f"obs-rank{r}.npz")) for r in range(2)]
+    t1 = time.perf_counter()
+    merged = trace.assemble(tdir)
+    assemble_s = time.perf_counter() - t1
+    chrome = json.loads(json.dumps(trace.chrome_trace(merged["records"])))
+    beats = sorted({r["process"] for r in merged["records"] if r["event"] == "heartbeat"})
+    cells = list(merged["traces"].values())
+    out = {
+        "phase": "obs_gang", "ranks": 2, "rows_per_rank": OB_GANG_N, "wall_s": wall, "assemble_s": assemble_s,
+        "records": merged["record_count"], "manifests": len(merged["manifests"]),
+        "traces": [{k: c[k] for k in ("trace_id", "spans", "events", "roots", "processes")} for c in cells],
+        "critical_path": [s["name"] for s in cells[0]["critical_path"]] if cells else [],
+        "heartbeat_processes": beats, "chrome_span_events": sum(e.get("ph") == "X" for e in chrome["traceEvents"]),
+        "problems": (merged["problems"] + merged["orphan_problems"])[:5],
+        "bitwise": bool(np.array_equal(ranks[0]["pc"], ranks[1]["pc"])
+                        and np.array_equal(ranks[0]["ev"], ranks[1]["ev"])),
+    }
+    emit(out)
+    require(not out["problems"] and out["manifests"] == 2, f"(o-c) the merge: {out['problems']}")
+    require(len(cells) == 1 and cells[0]["trace_id"] == trace_id and cells[0]["processes"] == [0, 1],
+            f"(o-c) traces {out['traces']}")
+    require(beats == [0, 1] and out["critical_path"] and out["chrome_span_events"] > 0, f"(o-c) {out}")
+    require(out["bitwise"], "(o-c) the ranks' components differ")
+    return out
+
+
+def phase_obs_slo(gen: torch.Generator, tmp: str) -> dict:
+    """(d) Config 16's model behind the in-process ``ServingRuntime``
+    (16 closed-loop threads x 150 single rows, batched 16 / 5 ms), with
+    ``TPUML_SLO`` first a p99 objective the burst must breach, then one
+    that holds: the breach reaches a subscribed ``DriftMonitor`` as one
+    vote, the recover record after an idle window is no vote. The same
+    loop runs once more with a telemetry sink on, for what recording
+    costs a request."""
+    from spark_rapids_ml_tpu_torch.lifecycle.drift import DriftMonitor
+    from spark_rapids_ml_tpu_torch.observability import slo
+    from spark_rapids_ml_tpu_torch.observability.metrics import gauge
+    from spark_rapids_ml_tpu_torch.serving import ServingRuntime
+
+    dev = gen.device
+    c64 = torch.randn((KM_K, KM_D), generator=gen, device=dev, dtype=torch.float64) * KM_SCALE
+    model = KMeansModel("obs16", c64.cpu().numpy())
+    total = SV_THREADS * SV_REQUESTS
+    rows = c64[torch.randint(0, KM_K, (total,), generator=gen, device=dev)]
+    probes = (rows + 4.0 * torch.randn(rows.shape, generator=gen, device=dev, dtype=torch.float64)) \
+        .cpu().numpy().reshape(SV_THREADS, SV_REQUESTS, KM_D)
+
+    def burst(monitor=None) -> dict:
+        rt = ServingRuntime(max_batch=SV_THREADS, max_delay_ms=5.0, queue_limit=4 * total)
+        rt.register("km", model)
+        rt.warm("km", buckets=[1 << p for p in range(5)])
+        if monitor is not None:
+            monitor.tick()  # absorb the history before the burst
+        wall, _, lat = _closed_loop(rt, probes)
+        rt.close()
+        cell = monitor.tick()["serving.p99_ms"] if monitor is not None else None
+        return {"rows_per_s": total / wall, "p99_ms": float(np.percentile(lat, 99)), "slo": cell}
+
+    votes, edges = [], []
+    try:
+        with knob(TPUML_SLO=OB_SLO_BREACH):
+            mon = slo.SloMonitor()
+            dm = DriftMonitor("obs16", threshold=10.0, min_count=50)
+            mon.subscribe(dm.on_slo_breach)
+            mon.subscribe(edges.append)
+            breach = burst(mon)
+            votes.append(dm._slo_votes)
+            recover = mon.tick()["serving.p99_ms"]  # an idle window
+            votes.append(dm._slo_votes)
+        with knob(TPUML_SLO=OB_SLO_HOLD):
+            hold = burst(slo.SloMonitor())
+    finally:
+        gauge(slo.BURN_GAUGE).remove(objective="serving.p99_ms")
+    with telemetry_dir(os.path.join(tmp, "d-telemetry")):
+        recorded = burst()
+    out = {
+        "phase": "obs_slo", "model": [KM_K, KM_D], "threads": SV_THREADS, "requests": total,
+        "breach": breach, "edges": [e["action"] for e in edges], "votes_after_breach_and_recover": votes,
+        "recover": recover, "hold": hold, "with_telemetry_sink": recorded,
+        "sink_over_no_sink_rows_s": recorded["rows_per_s"] / hold["rows_per_s"],
+        "timing": "host clock, closed loop",
+    }
+    emit(out)
+    require(breach["slo"]["breached"] and breach["slo"]["window"] >= total, f"(o-d) no breach: {breach}")
+    require(out["edges"] == ["breach", "recover"] and votes == [1, 1], f"(o-d) edges {out['edges']}, votes {votes}")
+    require(not hold["slo"]["breached"] and hold["slo"]["window"] >= total, f"(o-d) the holding SLO: {hold}")
+    return out
+
+
+def obs_child_main(argv) -> int:
+    """(o-e)'s children: ``fatal`` dies of an injected fatal fault in a host
+    PCA fit; ``sigterm`` waits, with the SIGTERM flush installed, for the
+    parent's signal; ``clean`` bumps a counter and exits."""
+    from spark_rapids_ml_tpu_torch.observability import events
+    from spark_rapids_ml_tpu_torch.utils.tracing import TraceRange, bump_counter
+
+    kind = argv[argv.index("--obs-child") + 1]
+    if kind == "fatal":
+        port_device.set_platform("cuda")
+        x = np.random.default_rng(OB_SEED).standard_normal((OB_CHILD_ROWS, 128))
+        PCA().setK(K).fit(x)  # TPUML_FAULTS kills it
+        return 0
+    port_device.set_platform("cpu")
+    bump_counter("obs.child.counter", 3)
+    if kind == "sigterm":
+        events.install_sigterm_flush()
+        with events.run_scope("job", "obs-sigterm"), TraceRange("waiting for SIGTERM"):
+            print("obs child ready", flush=True)
+            time.sleep(OB_CHILD_TIMEOUT_S)
+    return 0
+
+
+def start_obs_children(tmp: str) -> dict:
+    """(e)'s three children, started together (they run while (c)'s ranks
+    do): ``fatal`` with ``TPUML_FLIGHT=256``, ``TPUML_FLIGHT_DIR`` and a
+    fatal ``ingest.device_put`` fault; ``sigterm`` with a telemetry dir;
+    ``clean`` with ``TPUML_METRICS_DUMP``. The working directory of each is
+    ``tmp``, where no dump may land."""
+    clean_env = {k: v for k, v in os.environ.items() if not k.startswith("TPUML_")}
+    paths = {"flight": os.path.join(tmp, "e-flight"), "telemetry": os.path.join(tmp, "e-telemetry"),
+             "dump": os.path.join(tmp, "e-clean.prom")}
+    envs = {
+        "fatal": {**clean_env, "TPUML_FLIGHT": "256", "TPUML_FLIGHT_DIR": paths["flight"],
+                  "TPUML_FAULTS": "ingest.device_put=1:fatal"},
+        "sigterm": {**clean_env, "TPUML_FLIGHT": "256", "TPUML_TELEMETRY_DIR": paths["telemetry"]},
+        "clean": {**clean_env, "TPUML_METRICS_DUMP": paths["dump"]},
+    }
+    procs = {kind: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--obs-child", kind], env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=tmp)
+             for kind, env in envs.items()}
+    return {"procs": procs, "paths": paths, "t0": time.perf_counter()}
+
+
+def phase_obs_children(tmp: str, started: dict) -> dict:
+    """(e) The children of :func:`start_obs_children`: the fatal one leaves
+    ``flight-<pid>.json`` holding the fault record; the SIGTERMed one its
+    manifest and flight dump in its telemetry dir; the clean one its
+    ``TPUML_METRICS_DUMP``. Then the exposition of this process's registry
+    parses back to its values."""
+    from spark_rapids_ml_tpu_torch.observability import metrics
+
+    procs, paths, t0 = started["procs"], started["paths"], started["t0"]
+    fdir, tdir, dump = paths["flight"], paths["telemetry"], paths["dump"]
+    try:
+        term = procs["sigterm"]
+        ready = term.stdout.readline()
+        if "ready" in ready:
+            term.send_signal(signal.SIGTERM)
+        outs = {kind: p.communicate(timeout=OB_CHILD_TIMEOUT_S) for kind, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    codes = {kind: p.returncode for kind, p in procs.items()}
+    fatal_dumps = glob.glob(os.path.join(fdir, "flight-*.json"))
+    fatal = json.load(open(fatal_dumps[0])) if len(fatal_dumps) == 1 else {}
+    fires = [r for r in fatal.get("ring", []) if r.get("event") == "fault" and r.get("action") == "fire"]
+    tpid = term.pid
+    term_files = sorted(os.path.basename(f) for f in glob.glob(os.path.join(tdir, "*")))
+    term_flight = os.path.join(tdir, f"flight-{tpid}.json")
+    parsed = metrics.parse_exposition(open(dump).read()) if os.path.exists(dump) else {}
+    metrics.counter("obs.exposition.check").inc(2)
+    metrics.counter("obs.exposition.check").inc(5, site="a b")
+    snap = metrics.default_registry.snapshot()
+    text = metrics.parse_exposition(metrics.default_registry.render_prometheus())
+    mismatched = []
+    for series, v in snap["counters"].items():
+        base, brace, labels = series.partition("{")
+        name = metrics._prom_name(base)
+        if text.get(name, {}).get("series", {}).get(name + brace + labels) != float(v):
+            mismatched.append(series)
+    out = {
+        "phase": "obs_children", "wall_s": wall, "returncodes": codes, "ready_line": ready.strip(),
+        "fatal": {"dumps": [os.path.basename(f) for f in fatal_dumps], "reason": fatal.get("reason"),
+                  "detail": fatal.get("detail"), "fault_fires": [r.get("site") for r in fires],
+                  "stray_dumps_in_cwd": sorted(os.path.basename(f) for f in glob.glob(os.path.join(tmp, "flight-*")))},
+        "sigterm": {"files": term_files,
+                    "flight_reason": json.load(open(term_flight)).get("reason") if os.path.exists(term_flight) else None},
+        "clean": {"dump_series": parsed.get("tpuml_obs_child_counter", {}).get("series")},
+        "exposition_round_trip": {"counters": len(snap["counters"]), "mismatched": mismatched[:5]},
+    }
+    emit(out)
+    require(codes["fatal"] == 1 and fatal.get("reason") == "fatal" and fires
+            and fires[0].get("site") == "ingest.device_put", f"(o-e) the fatal child: {out['fatal']}; "
+            f"{outs['fatal'][1][-1500:]}")
+    require(not out["fatal"]["stray_dumps_in_cwd"], "(o-e) a dump landed in the working directory")
+    require(codes["sigterm"] == 143 and f"manifest-{tpid}.json" in term_files
+            and out["sigterm"]["flight_reason"] == "sigterm", f"(o-e) the SIGTERMed child: {out['sigterm']}; "
+            f"{outs['sigterm'][1][-1500:]}")
+    require(codes["clean"] == 0 and out["clean"]["dump_series"] == {"tpuml_obs_child_counter": 3.0},
+            f"(o-e) the clean child's dump: {out['clean']}")
+    require(not mismatched and snap["counters"], f"(o-e) the exposition round trip: {mismatched[:5]}")
+    return out
+
+
+def phase_obs_range_cost() -> dict:
+    """(f) One ``TraceRange`` enter + exit, median of 10,000 on this host,
+    in three states: no sink and no run scope, under a run scope (a span
+    record into the run), and with a telemetry sink (a span record written
+    to the shard); beside an empty pair of clock reads."""
+    from spark_rapids_ml_tpu_torch.observability import events
+    from spark_rapids_ml_tpu_torch.utils.tracing import TraceRange
+
+    def median_us(body) -> float:
+        samples = []
+        for _ in range(OB_RANGES):
+            t0 = time.perf_counter_ns()
+            body()
+            samples.append(time.perf_counter_ns() - t0)
+        return statistics.median(samples) / 1e3
+
+    def one_range():
+        with TraceRange("obs range cost"):
+            pass
+
+    events.configure("")
+    out = {"phase": "obs_range_cost", "ranges": OB_RANGES, "clock_pair_us": median_us(lambda: None),
+           "off_us": median_us(one_range)}
+    with events.run_scope("job", "range-cost"):
+        out["run_scope_us"] = median_us(one_range)
+    with tempfile.TemporaryDirectory() as tdir, telemetry_dir(tdir):
+        out["telemetry_sink_us"] = median_us(one_range)
+    out["timing"] = "host clock (perf_counter_ns) around enter + exit, median"
+    emit(out)
+    require(out["off_us"] < out["telemetry_sink_us"], f"(o-f) {out}")
+    return out
+
+
+def observability_phases(card: str) -> dict:
+    """Group (o), traces and probes: (a) a traced config-5 PCA fit bitwise
+    an untraced one, (b) config 3 under ``TPUML_PROFILE_DIR``, (c) a 2-rank
+    gang's merged trace, (d) SLO votes over config 16's runtime, (e) flight
+    dumps, a SIGTERM flush and a metrics dump, (f) a range's cost; its own
+    seed, within ``OB_WALL_LIMIT_S``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(OB_SEED)
+    t0 = time.perf_counter()
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="obs-") as tmp:
+        def gang_and_children():
+            # (e)'s children start with (c)'s ranks: both wait mostly on
+            # interpreters and CUDA contexts coming up.
+            started = start_obs_children(tmp)
+            try:
+                phase_obs_gang(tmp)
+            except BaseException:
+                for p in started["procs"].values():
+                    p.kill()
+                    p.wait()
+                raise
+            phase_obs_children(tmp, started)
+
+        for name, run in (("a_pca", lambda: phase_obs_pca(gen, tmp)),
+                          ("b_kmeans", lambda: phase_obs_kmeans(gen, tmp)),
+                          ("c_gang_and_e_children", gang_and_children),
+                          ("d_slo", lambda: phase_obs_slo(gen, tmp)),
+                          ("f_range_cost", phase_obs_range_cost)):
+            t = time.perf_counter()
+            run()
+            walls[name] = time.perf_counter() - t
+            torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    emit({"phases": "observability", "card": card, "wall_s": wall, "phase_wall_s": walls})
+    require(wall <= OB_WALL_LIMIT_S, f"the observability phases took {wall:.1f} s, over their {OB_WALL_LIMIT_S:.0f} s")
+    return walls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -5582,6 +6074,8 @@ def main() -> int:
     robustness_phases()
     torch.cuda.empty_cache()
     lifecycle_phases()
+    torch.cuda.empty_cache()
+    observability_phases(info["nvidia_smi"])
 
     k1_f32 = times["k1_f32"]
     measured = {
@@ -5617,4 +6111,8 @@ if __name__ == "__main__":
         sys.exit(robust_child_main(sys.argv))
     if "--lifecycle-child" in sys.argv:
         sys.exit(lifecycle_child_main(sys.argv))
+    if "--obs-rank" in sys.argv:
+        sys.exit(obs_rank_main(sys.argv))
+    if "--obs-child" in sys.argv:
+        sys.exit(obs_child_main(sys.argv))
     sys.exit(main())

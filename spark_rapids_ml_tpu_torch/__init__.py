@@ -28,12 +28,15 @@ Layer map (the reference's, one for one):
   - ``parallel``              — device meshes, row sharding, the collectives
     of the mesh routes and the ``torch.distributed`` gang bring-up
   - ``device``                — where entry points compute (CUDA by default)
-  - ``utils.tracing``         — NVTX ranges and plain counters
+  - ``utils.tracing``         — span-recording ranges (NVTX on CUDA) and
+    the counter aliases over the metrics registry
   - ``utils.envknobs``        — the ``TPUML_*`` knobs the port reads
   - ``robustness``            — fault injection (``TPUML_FAULTS``), the
     retry policy, checkpointed fits that resume mid-solve
     (``TPUML_CHECKPOINT_*``), OOM classification, degradation records
-  - ``observability``         — the JSON-lines event sink and metrics
+  - ``observability``         — the event log and telemetry shards, the
+    metrics registry and its exposition, fit reports, profiler sessions,
+    heartbeats, SLOs, the flight recorder and gang trace assembly
 """
 
 from spark_rapids_ml_tpu_torch.version import __version__

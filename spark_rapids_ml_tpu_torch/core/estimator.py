@@ -9,9 +9,12 @@ twin ``TPUML_GANG_FIT``) makes a fit one member of a
 ``torch.distributed`` gang, as in the reference, and
 :meth:`Estimator._fit_checkpointer` hands the segmented solvers their
 checkpointer (``robustness/checkpoint.py``). :meth:`Estimator.partial_fit`
-is the continuous-training entry (``lifecycle/partial_fit.py``). Left out
-until its slice: the run recorder around ``fit`` (ROADMAP A.9, the
-observability item).
+is the continuous-training entry (``lifecycle/partial_fit.py``). Every
+``fit`` runs under the run recorder (``observability/report.py``), as in
+the reference: a ``fit`` run scope (a nested fit — a CrossValidator's, a
+pipeline stage's, ``partial_fit``'s — joins the outer run), optionally a
+``torch.profiler`` session (``TPUML_PROFILE_DIR``), and the finished
+report on the model as :meth:`Model.fit_report`.
 """
 
 from __future__ import annotations
@@ -89,8 +92,26 @@ class Estimator(Params):
              num_processes=gang.process_count(), process_id=gang.process_index())
 
     def fit(self, dataset: Any):
-        """Fit ``dataset`` and return the fitted model. A raw device OOM
-        never escapes: it re-raises as ``FitMemoryError``."""
+        """Fit ``dataset`` and return the fitted model, instrumented: the
+        call runs under a ``fit`` run scope (a fresh ``run_id``
+        standalone, the ambient one inside a caller's scope), optionally
+        inside a ``TPUML_PROFILE_DIR`` profiler session, and the finished
+        :class:`~spark_rapids_ml_tpu_torch.observability.report.RunReport`
+        (stage tree, counter deltas, device memory) hangs off the model as
+        ``model.fit_report()``. Families implement :meth:`_fit`; an
+        estimator that overrides ``fit`` opts out, as in the reference.
+
+        A raw device OOM never escapes: it re-raises as
+        ``FitMemoryError``."""
+        from spark_rapids_ml_tpu_torch.observability.report import RunRecorder
+
+        with RunRecorder("fit", type(self).__name__) as rec:
+            model = self._fit_guarded(dataset)
+        rec.attach(model)
+        return model
+
+    def _fit_guarded(self, dataset: Any):
+        """The gang join and :meth:`_fit`, with the OOM safety net."""
         try:
             if self.getDeployMode() == "gang":
                 self._join_gang()
@@ -146,3 +167,13 @@ class Estimator(Params):
 
 class Model(Transformer, MLReadable):
     """A fitted transformer; carries a parent uid via copyValues like Spark."""
+
+    _fit_report = None
+
+    def fit_report(self):
+        """The :class:`~spark_rapids_ml_tpu_torch.observability.report.RunReport`
+        of the fit that produced this model (stage-timing tree, counter
+        deltas, checkpoint activity, device memory), or None for models
+        built outside an instrumented fit (loaded from disk, unpickled
+        from a report-less model, hand-constructed)."""
+        return self._fit_report

@@ -124,10 +124,9 @@ class DriftMonitor:
 
     def on_slo_breach(self, record: Optional[dict] = None) -> None:
         """An SLO error-budget breach as a refit vote. Wired as a
-        subscriber of an SLO monitor (the reference's
-        ``observability/slo.py``, not ported yet: ROADMAP A.9, the
-        observability item; recover records are ignored), it does NOT fire a
-        refit by itself — model staleness is only one of the ways a
+        subscriber of an SLO monitor
+        (``observability.slo.SloMonitor.subscribe``; recover records are
+        ignored), it does NOT fire a refit by itself — model staleness is only one of the ways a
         gang burns budget. It lowers the next tick's window floor so
         the drift evidence already on hand gets evaluated NOW instead
         of waiting out ``min_count``: a drifted model under a burning

@@ -41,7 +41,7 @@ import torch.distributed as dist
 
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.moments import ShiftedMoments
-from spark_rapids_ml_tpu_torch.observability.events import emit
+from spark_rapids_ml_tpu_torch.observability.events import emit, inject_env, set_process_index
 from spark_rapids_ml_tpu_torch.parallel.collectives import (
     all_reduce_sum,
     allreduce_slots,
@@ -178,6 +178,9 @@ def initialize(
         "num_processes": int(num_processes),
         "process_id": int(process_id),
     }
+    # Stamp the event envelope with this process's gang rank, so every
+    # later record (and telemetry shard) is attributable in a merge.
+    set_process_index(int(process_id))
     emit("distributed", action="initialize", coordinator=coordinator_address,
          num_processes=int(num_processes), process_id=int(process_id), backend=backend)
 
@@ -223,14 +226,19 @@ def global_mesh(shape: Optional[Tuple[int, int]] = None) -> Mesh:
 
 def member_env(process_id: int, num_processes: int, base: Optional[Dict[str, str]] = None) -> Dict[str, str]:
     """The environment of one spawned gang member: ``base`` (default this
-    process's environment) plus the member's gang coordinates; an
-    inherited coordinator address is dropped, and the repo root rides
-    ``PYTHONPATH``. The reference also injects its trace carrier here;
-    that waits for the port's observability item (ROADMAP A.9)."""
+    process's environment) plus the member's gang coordinates and the
+    trace carrier (``events.inject_env``: ``TPUML_TRACE_ID`` /
+    ``TPUML_TRACE_PARENT``), so the member's telemetry shard joins the
+    launcher's trace with its own process index. Spawn every member
+    inside one run or trace scope to give them one trace: with none, each
+    call begins a trace of its own, as in the reference. An inherited
+    coordinator address is dropped, and the repo root rides
+    ``PYTHONPATH``."""
     env = dict(base if base is not None else os.environ)
     env["TPUML_PROCESS_ID"] = str(int(process_id))
     env["TPUML_NUM_PROCESSES"] = str(int(num_processes))
     env.pop("TPUML_COORDINATOR", None)
+    inject_env(env)
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     existing = env.get("PYTHONPATH")
     if existing:

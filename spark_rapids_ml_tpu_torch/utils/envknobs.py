@@ -169,9 +169,64 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
     Knob("TPUML_DRIFT_MIN_COUNT", "int", "drift",
          "observations in the live window before a drift tick may "
          "fire (small windows make PSI noise, not signal)", default=50),
-    # observability (observability/events.py)
+    # observability (observability/*)
     Knob("TPUML_EVENT_LOG", "str", "observability",
          "JSON-lines event sink: a file path or 'stderr' (unset = off)"),
+    Knob("TPUML_PROFILE_DIR", "str", "observability",
+         "wrap top-level fits in a torch.profiler session writing a "
+         "Chrome-trace JSON file here"),
+    Knob("TPUML_METRICS_DUMP", "str", "observability",
+         "write a metrics snapshot at exit (.prom = Prometheus text)"),
+    Knob("TPUML_GANG_HEARTBEAT_EVERY", "float", "observability",
+         "seconds between gang heartbeat records (0 disables)",
+         default=5.0),
+    Knob("TPUML_TELEMETRY_DIR", "str", "observability",
+         "per-process telemetry shards (events-<pid>.jsonl + metrics + "
+         "manifest) land here; outranks TPUML_EVENT_LOG"),
+    Knob("TPUML_TRACE_ID", "str", "observability",
+         "trace-context carrier: the trace id a launcher injected into "
+         "this process (inject_env/extract_env)"),
+    Knob("TPUML_TRACE_PARENT", "str", "observability",
+         "trace-context carrier: the launcher span id this process's "
+         "root spans parent to"),
+    # the cost ledger (not ported: ROADMAP A.9, step 5's costs; raises)
+    Knob("TPUML_COST_LEDGER", "choice", "observability",
+         "1 records per-program costs (not ported; raises)",
+         default="0", choices=("0", "1")),
+    Knob("TPUML_COST_LEDGER_DUMP", "str", "observability",
+         "write the cost-ledger document here at exit (not ported; raises)"),
+    # the ops plane and lockcheck (not ported: step 5's ops plane; raise)
+    Knob("TPUML_LOCKCHECK", "choice", "lockcheck",
+         "off: plain threading primitives; warn / strict: the lock "
+         "sanitizer (not ported; warn and strict raise)",
+         default="off", choices=("off", "warn", "strict")),
+    Knob("TPUML_LOCKCHECK_STALL_MS", "float", "lockcheck",
+         "the lock sanitizer's stall watchdog (not ported; raises)",
+         default=30000.0),
+    Knob("TPUML_LOCKCHECK_GRAPH", "str", "lockcheck",
+         "the lock sanitizer's order graph dump (not ported; raises)"),
+    Knob("TPUML_OPS_PORT", "int", "ops-plane",
+         "per-process ops HTTP server port (not ported; raises)"),
+    Knob("TPUML_OPS_STALL_S", "float", "ops-plane",
+         "gang-heartbeat age above which /healthz reports unhealthy "
+         "(not ported; raises)", default=30.0),
+    # SLOs and the flight recorder (observability/slo.py, flightrec.py)
+    Knob("TPUML_SLO", "str", "ops-plane",
+         "declared service-level objectives, e.g. "
+         "'serving.p95_ms<=50;shed.rate<=0.01;freshness.age_s<=600'; "
+         "evaluated on rolling windows, published as slo.burn_rate "
+         "gauges + slo events (unset: SLO layer off)"),
+    Knob("TPUML_SLO_EVERY_MS", "float", "ops-plane",
+         "milliseconds between background SLO evaluation ticks when "
+         "the monitor thread is started", default=1000.0),
+    Knob("TPUML_FLIGHT", "int", "ops-plane",
+         "flight-recorder ring size: keep the last N event records in "
+         "memory (even with no event sink configured) and dump them as "
+         "flight-<pid>.json on fatal exception or SIGTERM (0 = recorder off)",
+         default=0),
+    Knob("TPUML_FLIGHT_DIR", "str", "ops-plane",
+         "directory for flight-recorder dumps (default: the active "
+         "TPUML_TELEMETRY_DIR, else the process working directory)"),
     # the autotuner's committed decisions (not ported: ROADMAP A.9)
     Knob("TPUML_AUTOTUNE", "choice", "autotune",
          "on = measured-cost decisions (not ported; raises); off = the "
@@ -267,6 +322,40 @@ def env_choice(name: str, choices: Sequence[str], default: str) -> str:
     if value not in choices:
         raise EnvKnobError(name, raw, f"one of {'|'.join(choices)}")
     return value
+
+
+STEP5_LATER_ITEM = "ROADMAP A.9, step 5 (costs / ops plane / lockcheck)"
+
+#: The knobs of step 5's later parts, each with the value that leaves it
+#: off (None: any value turns it on).
+STEP5_LATER_KNOBS = {
+    "TPUML_COST_LEDGER": "0",
+    "TPUML_COST_LEDGER_DUMP": None,
+    "TPUML_OPS_PORT": None,
+    "TPUML_OPS_STALL_S": None,
+    "TPUML_LOCKCHECK": "off",
+    "TPUML_LOCKCHECK_STALL_MS": None,
+    "TPUML_LOCKCHECK_GRAPH": None,
+}
+
+
+def reject_step5_later(*names: str) -> None:
+    """Where the reference reads a knob of step 5's later parts (the cost
+    ledger, the ops plane, the lock sanitizer): raise
+    ``NotImplementedError`` naming the knob and the item when it is set to
+    anything but its off value, so none is ignored silently."""
+    for name in names:
+        _require_registered(name)
+        raw = os.environ.get(name)
+        if raw is None or not raw.strip():
+            continue
+        off = STEP5_LATER_KNOBS[name]
+        if off is not None and raw.strip().lower() == off:
+            continue
+        raise NotImplementedError(
+            f"{name}={raw!r} is not ported yet: the cost ledger, the ops plane "
+            f"and the lock sanitizer are {STEP5_LATER_ITEM}; unset it"
+        )
 
 
 def reject_autotune() -> None:

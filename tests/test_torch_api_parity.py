@@ -81,14 +81,9 @@ def test_the_port_adds_no_public_method(name):
     assert _public_methods(ours), name
 
 
-#: Reference methods the port still lacks, each with the ROADMAP step it
-#: waits for.
-NOT_YET_PORTED = {"fit_report": "ROADMAP A.9, step 5 (the observability item)"}
-
-
 @pytest.mark.parametrize("name", list(PAIRS))
 def test_the_port_has_every_reference_method(name):
     port_module, jax_module = PAIRS[name]
     ours, theirs = getattr(port_module, name), getattr(jax_module, name)
-    missing = _public_methods(theirs) - _public_methods(ours) - set(NOT_YET_PORTED)
+    missing = _public_methods(theirs) - _public_methods(ours)
     assert not missing, f"{name} lacks the reference's public methods {sorted(missing)}"

@@ -521,11 +521,12 @@ def test_events_are_written_in_the_reference_shape(monkeypatch, tmp_path):
         monkeypatch.delenv("TPUML_EVENT_LOG")
         tevents.configure()
     records = [json.loads(line) for line in log.read_text().splitlines()]
-    assert tevents.emitted_count() - n0 == len(records) == 3
+    assert tevents.emitted_count() - n0 == len(records)
+    for rec in records:  # the fits' run, span, counters and report records too
+        assert jevents.validate_record(rec) == []
+    records = [r for r in records if r["event"] in ("fit_admission", "degrade")]
     assert [(r["event"], r.get("action")) for r in records] == [
         ("fit_admission", "degrade"), ("degrade", None), ("fit_admission", "reject")]
-    for rec in records:
-        assert jevents.validate_record(rec) == []
     assert records[0]["needed_bytes"] == _needed("pca") and records[0]["budget_bytes"] == 1
     assert not tevents.enabled()
 

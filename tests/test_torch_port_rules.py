@@ -65,7 +65,10 @@ def test_every_port_module_imports_without_jax():
                  "serving.admission", "serving.batcher", "serving.registry", "serving.server",
                  "parallel", "parallel.mesh", "parallel.collectives", "parallel.distributed",
                  "parallel.distributed_cov", "core.moments", "lifecycle", "lifecycle.partial_fit",
-                 "lifecycle.journal", "lifecycle.drift", "lifecycle.controller"):
+                 "lifecycle.journal", "lifecycle.drift", "lifecycle.controller",
+                 "observability", "observability.report", "observability.profiling",
+                 "observability.heartbeat", "observability.slo", "observability.flightrec",
+                 "observability.trace", "utils.tracing"):
         assert f"spark_rapids_ml_tpu_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"

@@ -596,12 +596,25 @@ def test_gauge_function_remove_and_kind_clash():
         reg.gauge("c")
 
 
-def test_text_exposition_names_its_item():
-    for fn in (lambda: metrics.default_registry.render_prometheus(),
-               lambda: metrics.parse_exposition(""),
-               lambda: metrics.dump_snapshot("x.prom")):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-            fn()
+def test_text_exposition_names_its_item(tmp_path):
+    # The exposition is ported: the same registry operations give the
+    # reference's bytes, and parsing them gives back the registry's values.
+    ours, theirs = metrics.Registry(), jmetrics.Registry()
+    for reg in (ours, theirs):
+        reg.counter("rt.count", "requests served").inc(3, model="a\\c d")
+        reg.gauge("rt.gauge").set(2.5, host="x")
+        h = reg.histogram("rt.lat", "latency", buckets=(1.0, 2.0, 5.0))
+        for v in (0.5, 1.5, 99.0):
+            h.observe(v)
+    text = ours.render_prometheus()
+    assert text == theirs.render_prometheus()
+    doc = metrics.parse_exposition(text)
+    assert doc == jmetrics.parse_exposition(text)
+    assert doc["tpuml_rt_count"]["series"] == {'tpuml_rt_count{model="a\\c d"}': 3.0}
+    assert doc["tpuml_rt_lat"]["series"]["tpuml_rt_lat_count"] == 3.0
+    path = str(tmp_path / "m.prom")
+    metrics.dump_snapshot(path, ours)
+    assert open(path).read() == text
 
 
 def test_run_scope_joins_the_ambient_run_and_roots_a_trace():
