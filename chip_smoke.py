@@ -167,6 +167,24 @@ counters set to 0 just before and read just after:
   (``--lifecycle-child``) SIGKILLed in its refit stage, its cycle resumed
   here with one registered version and centres bitwise an uninterrupted
   cycle's.
+- the cost ledger and the autotuner, last, group (p), within its own 60 s,
+  with ``TPUML_PEAK_FLOPS`` / ``TPUML_PEAK_BYTES_PER_SEC`` at the card's
+  fp32 and HBM peaks: (a) config 5's ``pallas`` PCA fit and transforms
+  under ``TPUML_COST_LEDGER=1``, bitwise the unledgered ones with as many
+  K1 launches, every entry's flops its analytic count, every roofline
+  utilization at most 1, device time (CUDA events) beside host enqueue
+  time, and the HBM sampler naming the span where a 4 GiB host input grew
+  the peak; (b) configs 15 and 3's bucket ladders under the ledger (no
+  retrace), a wandering batch size on a cache of two (eviction refills),
+  a seeded bucket bypass (one ``RetraceStormWarning``), measured bytes
+  within [output bytes, the graph pool], measured admission, and a
+  replay's host wall with the ledger off and on; (c) config 16's runtime
+  under ``TPUML_AUTOTUNE=on``: an exact rung for a hot 12-row batch,
+  bitwise the eager kernel, the batcher's window from measured walls,
+  rows/s off and on; (d) streaming KMeans and PCA under a 256 MiB budget
+  on the tuner's block rows, an injected OOM halving once into the store,
+  each bitwise its explicit reader fit; (e) the precision gate's probe on
+  the card, and a second process (``--tune-child``) reading its decision.
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -193,6 +211,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import warnings
 
 import numpy as np
@@ -215,7 +234,9 @@ from spark_rapids_ml_tpu_torch.ops import umap as ops_umap  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.kernels import umap as k4  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.eigh import sign_flip  # noqa: E402
 from spark_rapids_ml_tpu_torch.ops.randomized import draw_omega, randomized_pca  # noqa: E402
-from spark_rapids_ml_tpu_torch.utils.tracing import clear_counters, counter_value  # noqa: E402
+from spark_rapids_ml_tpu_torch.utils.tracing import clear_counters, counter_value, counters  # noqa: E402
+from spark_rapids_ml_tpu_torch.observability import autotune as port_autotune  # noqa: E402
+from spark_rapids_ml_tpu_torch.observability import costs as port_costs  # noqa: E402
 from spark_rapids_ml_tpu_torch.regression import LinearRegression, RandomForestRegressor  # noqa: E402
 from spark_rapids_ml_tpu_torch.classification import (  # noqa: E402
     LogisticRegression,
@@ -6016,6 +6037,472 @@ def observability_phases(card: str) -> dict:
     return walls
 
 
+# ---------------------------------------------------------------------------
+# group (p): the cost ledger and the autotuner
+# ---------------------------------------------------------------------------
+
+CO_SEED = SEED + 700
+CO_WALL_LIMIT_S = 60.0
+#: The peaks the kernel table's bound column uses for this card (PERF.md
+#: §6): fp32 67 TFLOP/s outside the tensor cores, HBM 3.35 TB/s.
+CO_PEAK_FLOPS = 67e12
+CO_PEAK_BYTES = 3.35e12
+CO_TRANSFORM_SIZES = (3, 100, 4_097)   # (a): transforms through the program cache
+CO_HOST_CALLS = 50                     # (a): host enqueue time, median of this many calls
+CO_WANDER = (5, 40, 300, 5, 40, 300, 5, 40)  # (b): a wandering batch size on a cache of two
+CO_BYPASS_ROWS = (16, 12, 11, 10)      # (b): rows forced inside the 16-row bucket
+CO_REPLAY_ROWS = 100                   # (b): the replay timed with the ledger off and on
+CO_HOT_N = 12                          # (c): a hot batch size that is no power of two
+CO_HOT_MIN = 4
+CO_KM_N = 5_000_000                    # (d): config 3's table cut to a quarter (the group's time), over the budget
+CO_KM_ITERS = 3
+CO_PCA_N = 262_144                     # (d): config 5's width, rows cut as group (f)'s
+CO_BUDGET = 256 << 20
+
+
+def _rearm():
+    """Re-read the ledger's and the tuner's knobs (the block's)."""
+    port_costs.reset_for_tests()
+    port_autotune.reset_for_tests()
+    return port_costs.active(), port_autotune.active()
+
+
+def _compile_counts() -> dict:
+    return {k: v for k, v in counters("compile.").items() if v}
+
+
+def _graph_pool_reserved(prog) -> int:
+    """Bytes the caching allocator has reserved in one graph's private pool."""
+    pool = tuple(prog.graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id") or ()) == pool)
+
+
+def phase_cost_pca(gen: torch.Generator) -> dict:
+    """(p-a) Config 5's ``pallas`` PCA fit (K1's float32 route) and three
+    transforms through the program cache, with the ledger off and on:
+    bitwise, as many K1 launches; the fit's ``RunReport.costs`` holds the
+    Gram's program, every entry's flops is its count, every roofline row's
+    utilization is at most 1; device time per program beside its host
+    enqueue time. Then the same rows from the host (float64 placement,
+    K1's float64 route) under the HBM sampler: ``.hbm`` names the span
+    where the 4 GiB input grew the peak."""
+    from spark_rapids_ml_tpu_torch.core.serving import bucket_rows
+
+    x = planted(MS_N, D, gen)
+    est = PCA().setK(K).setCovarianceBackend("pallas")
+    est.fit(x)
+    sync()
+    k1.reset_launches()
+    off = est.fit(x)
+    off_launches = k1.launches
+    off_outs = [off.transform(x[:n]) for n in CO_TRANSFORM_SIZES]
+    with knob(TPUML_COST_LEDGER="1"):
+        _rearm()
+        k1.reset_launches()
+        on = est.fit(x)
+        sync()
+        on_launches = k1.launches
+        on_outs = [on.transform(x[:n]) for n in CO_TRANSFORM_SIZES]
+        host_ms = {}
+        for n in CO_TRANSFORM_SIZES:
+            xb = x[:n]
+            sync()
+            times = []
+            for _ in range(CO_HOST_CALLS):
+                t0 = time.perf_counter()
+                on.transform(xb)
+                times.append(time.perf_counter() - t0)
+            sync()
+            host_ms[n] = statistics.median(times) * 1e3
+        rep = on.fit_report()
+        doc = port_costs.ledger_snapshot()
+    sig = on.serving_signature()
+    gram_count = k1.cost(MS_N, D, torch.float32)
+    programs, bad_counts, over_one = [], [], []
+    for e in doc["entries"]:
+        if e["family"] == "covariance.gram":
+            want = gram_count
+            host = rep.stage_totals().get("compute cov", {}).get("seconds", 0.0) * 1e3
+        elif e["family"] == "pca.transform":
+            want = sig.cost(e["rows"], dtype=torch.float32)
+            n = next(m for m in CO_TRANSFORM_SIZES if bucket_rows(m) == e["rows"])
+            host = host_ms[n]
+        else:
+            want, host = None, None
+        if want is not None and (e["flops"] != want["flops"] or e["bytes_accessed"] != want["bytes_accessed"]):
+            bad_counts.append(e["key"])
+        row = port_costs.roofline_row(e)
+        if row["utilization"] is not None and row["utilization"] > 1.0:
+            over_one.append(e["key"])
+        programs.append({
+            "family": e["family"], "spec": e["spec"], "kind": e["kind"], "invocations": e["invocations"],
+            "device_ms_per_call": e["wall_seconds"] / max(e["invocations"], 1) * 1e3,
+            "host_enqueue_ms": host, "flops": e["flops"], "bytes_accessed": e["bytes_accessed"],
+            "temp_bytes": e["temp_bytes"], "utilization": row["utilization"],
+            "achieved_tflop_s": (row["achieved_flops_per_sec"] or 0.0) / 1e12,
+            "achieved_tb_s": (row["achieved_bytes_per_sec"] or 0.0) / 1e12,
+        })
+    report_rows = [r["family"] for r in rep.costs]
+    bitwise = (bool(np.array_equal(on.pc, off.pc)) and bool(np.array_equal(on.explainedVariance, off.explainedVariance))
+               and all(torch.equal(a, b) for a, b in zip(on_outs, off_outs)))
+    host = x.cpu().numpy()
+    del x, off_outs, on_outs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()  # the earlier phases' peak would hide the placement's growth
+    with knob(TPUML_COST_LEDGER="1", TPUML_HBM_SAMPLE_EVERY_MS="2"):
+        _rearm()
+        hbm = est.fit(host).fit_report().hbm
+    _rearm()
+    grew = max(hbm.get("by_span", {}).items(), key=lambda kv: kv[1], default=(None, 0))
+    out = {
+        "phase": "cost_pca", "what": "PCA().setK(16).setCovarianceBackend('pallas'), 1,048,576 x 1,024 f32",
+        "k1_launches": {"off": off_launches, "on": on_launches}, "bitwise": bitwise,
+        "report_cost_rows": report_rows, "programs": programs, "counts_differ": bad_counts,
+        "utilization_over_one": over_one,
+        "hbm": {"delta": hbm.get("delta"), "by_span": hbm.get("by_span"), "largest": grew[0],
+                "largest_bytes": grew[1], "input_bytes": host.nbytes},
+        "timing": "device ms from CUDA events on the program's stream; host ms: the fit report's span, or the "
+                  "median host wall of a transform call without a synchronize",
+    }
+    emit(out)
+    require(off_launches == on_launches == 1, f"(p-a) K1 launches {out['k1_launches']}")
+    require(bitwise, "(p-a) the ledgered fit or transforms differ from the unledgered ones")
+    require("covariance.gram" in report_rows, f"(p-a) the fit report's costs: {report_rows}")
+    require(not bad_counts, f"(p-a) entries whose flops or bytes are not their counts: {bad_counts}")
+    require(not over_one, f"(p-a) roofline utilization above 1: {over_one}")
+    require(grew[1] >= host.nbytes, f"(p-a) no span grew the peak by the input's bytes: {out['hbm']}")
+    return out
+
+
+def phase_cost_serving(gen: torch.Generator) -> dict:
+    """(p-b) Serving under the ledger at configs 15 and 3 (PCA 1,024 -> 16,
+    KMeans k = 100 over 16): the bucket ladder's captures are classified
+    ``new_program`` / ``new_bucket``, none ``retrace``, each output bitwise
+    the eager kernel at its bucket; a wandering batch size on a cache of
+    two gives ``eviction_refill``; rows forced inside a bucket give one
+    ``RetraceStormWarning`` at ``TPUML_RETRACE_STORM``;
+    ``measured_request_bytes`` lies between the output bytes and the graph
+    pool's reserved bytes, and the runtime's admission prices measured;
+    the merged document validates; a replay's host wall with the ledger
+    off and on (median of 200)."""
+    from spark_rapids_ml_tpu_torch.core import serving as core_serving
+    from spark_rapids_ml_tpu_torch.core.serving import bucket_rows
+    from spark_rapids_ml_tpu_torch.models import kmeans as km_mod
+    from spark_rapids_ml_tpu_torch.models import pca as pca_mod
+    from spark_rapids_ml_tpu_torch.serving import ServingRuntime
+
+    dev = gen.device
+    q, _ = torch.linalg.qr(torch.randn((SV_D, SV_K), generator=gen, device=dev, dtype=torch.float64))
+    pca = PCAModel("co-pca", q.float().cpu().numpy(), np.full(SV_K, 1.0 / SV_K))
+    c64 = torch.randn((KM_K, KM_D), generator=gen, device=dev, dtype=torch.float64) * KM_SCALE
+    km = KMeansModel("co-km", c64.cpu().numpy())
+    n_max = max(SV_SIZES)
+    families = {
+        "pca.transform": (pca.transform, pca_mod._project_kernel, (pca._pc_device(torch.float32, dev),),
+                          {"precision": pca._serving_precision()},
+                          torch.randn((n_max, SV_D), generator=gen, device=dev)),
+        "kmeans.predict": (km.predict, km_mod._assign_kernel, (km._centers_on(dev, torch.float32),),
+                           {"cosine": False, "precision": km._serving_precision()},
+                           torch.randn((n_max, KM_D), generator=gen, device=dev) * KM_SCALE),
+    }
+    buckets = sorted({bucket_rows(n) for n in SV_SIZES})
+    out = {"phase": "cost_serving", "sizes": list(SV_SIZES), "buckets": buckets}
+    core_serving.clear_program_cache()
+    with knob(TPUML_COST_LEDGER="1", TPUML_RETRACE_STORM="3"):
+        _rearm()
+        clear_counters("compile.")
+        bitwise = True
+        for name, (call, kernel, weights, static, x) in families.items():
+            for n in SV_SIZES:
+                got = call(x[:n])
+                b = bucket_rows(n)
+                xp = torch.zeros((b, x.shape[1]), dtype=x.dtype, device=dev)
+                xp[:n] = x[:n]
+                bitwise &= bool(torch.equal(got, kernel(xp, *weights, **static)[:n]))
+        out["ladder_classes"] = _compile_counts()
+        out["ladder_bitwise_eager_at_bucket"] = bitwise
+        # Measured bytes against each graph's pool.
+        measured = []
+        with core_serving._LOCK:
+            progs = [p for p in core_serving._PROGRAMS.values() if p.name == "pca.transform"]
+        pca_w = families["pca.transform"][2]
+        for prog in progs:
+            mrb = port_costs.measured_request_bytes(prog.fn, prog.static, prog.bucket, prog.d, prog.dtype, pca_w)
+            out_bytes = prog.bucket * SV_K * 4
+            measured.append({"bucket": prog.bucket, "measured_request_bytes": mrb, "output_bytes": out_bytes,
+                             "pool_reserved_bytes": _graph_pool_reserved(prog)})
+        out["measured"] = sorted(measured, key=lambda m: m["bucket"])
+        # Admission: the first request of a bucket is declared, the next measured.
+        m0, d0 = counter_value("serving.admission.measured"), counter_value("serving.admission.declared")
+        rows3 = torch.randn((3, SV_D), generator=gen, device=dev, dtype=torch.float64).cpu().numpy()
+        with ServingRuntime(max_batch=8, max_delay_ms=1.0) as rt:
+            rt.register("pca", pca)
+            first = rt.submit("pca", rows3).result(timeout=60)
+            second = rt.submit("pca", rows3).result(timeout=60)
+        out["admission"] = {"measured": counter_value("serving.admission.measured") - m0,
+                            "declared": counter_value("serving.admission.declared") - d0,
+                            "answers_equal": bool(np.array_equal(first, second))}
+        # A wandering batch size on a cache of two.
+        with knob(TPUML_SERVING_CACHE_SIZE="2"):
+            c0 = _compile_counts()
+            call, _, _, _, x = families["kmeans.predict"]
+            for n in CO_WANDER:
+                call(x[:n])
+            c1 = _compile_counts()
+        out["wander_classes"] = {k: c1.get(k, 0) - c0.get(k, 0) for k in c1 if c1.get(k, 0) != c0.get(k, 0)}
+        # Rows forced inside the 16-row bucket: the storm.
+        _, kernel, weights, static, _ = families["kmeans.predict"]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for rows in CO_BYPASS_ROWS:
+                core_serving._get_program(kernel, rows, KM_D, torch.float32, dev, weights, static, "co.bypass")
+        storms = [str(w.message) for w in caught if issubclass(w.category, port_costs.RetraceStormWarning)]
+        snap = port_costs.ledger_snapshot()
+        out["storm_warnings"] = storms
+        out["retraces"] = snap["retraces"]
+        merged = port_costs.merge_ledger_docs([snap])
+        out["merged_problems"] = port_costs.validate_ledger(merged)
+        out["merged_entries"] = len(merged["entries"])
+        # The ledger's cost per request: one replay, off and on, twice.
+        call, _, _, _, x = families["pca.transform"]
+        xb = x[:CO_REPLAY_ROWS]
+        replay = {}
+        for state in ("on_1", "off_1", "on_2", "off_2"):
+            if state.startswith("off"):
+                port_costs.configure(enable=False)
+            else:
+                port_costs.configure(enable=True)
+            replay[state] = _median_call_ms(lambda: call(xb))
+        out["replay_call_ms_median_of_200"] = replay
+    _rearm()
+    core_serving.clear_program_cache()
+    emit(out)
+    classes = out["ladder_classes"]
+    require(out["ladder_bitwise_eager_at_bucket"], "(p-b) a ledgered replay differs from the eager kernel at its bucket")
+    require(classes.get("compile.new_program") == 2 and classes.get("compile.new_bucket") == 2 * (len(buckets) - 1)
+            and "compile.retrace" not in classes, f"(p-b) the ladder's classes: {classes}")
+    require(out["wander_classes"].get("compile.eviction_refill", 0) >= 3
+            and "compile.retrace" not in out["wander_classes"], f"(p-b) the wandering size: {out['wander_classes']}")
+    require(len(storms) == 1 and out["retraces"]["families"].get("co.bypass") == len(CO_BYPASS_ROWS) - 1,
+            f"(p-b) the storm: {storms}, {out['retraces']}")
+    for m in out["measured"]:
+        require(m["measured_request_bytes"] is not None
+                and m["output_bytes"] <= m["measured_request_bytes"] <= m["pool_reserved_bytes"],
+                f"(p-b) measured bytes out of [output, pool]: {m}")
+    require(out["admission"]["measured"] >= 1 and out["admission"]["answers_equal"], f"(p-b) admission: {out['admission']}")
+    require(not out["merged_problems"], f"(p-b) the merged document: {out['merged_problems'][:3]}")
+    return out
+
+
+def phase_cost_tuner_runtime(gen: torch.Generator, tmp: str) -> dict:
+    """(p-c) Config 16's runtime (KMeans k = 100, d = 16) with
+    ``TPUML_AUTOTUNE=on`` and a fresh store: a 12-row batch seen
+    ``TPUML_AUTOTUNE_HOT_MIN`` times earns an exact rung, bitwise the eager
+    kernel at that rung; the batcher's window is the tuner's p95 of the
+    measured walls; 16 closed-loop threads x 150 single rows, rows/s with
+    the tuner off and on (recorded, no gain claimed), every answer equal to
+    a float64 assignment off the margin band."""
+    from spark_rapids_ml_tpu_torch.models import kmeans as km_mod
+    from spark_rapids_ml_tpu_torch.serving import ServingRuntime
+
+    dev = gen.device
+    c64 = torch.randn((KM_K, KM_D), generator=gen, device=dev, dtype=torch.float64) * KM_SCALE
+    model = KMeansModel("co16", c64.cpu().numpy())
+    total = SV_THREADS * SV_REQUESTS
+    idx = torch.randint(0, KM_K, (total,), generator=gen, device=dev)
+    rows = c64[idx] + 4.0 * torch.randn((total, KM_D), generator=gen, device=dev, dtype=torch.float64)
+    labels64, band = _assign_f64(rows, c64)
+    probes = rows.cpu().numpy().reshape(SV_THREADS, SV_REQUESTS, KM_D)
+    x_hot = rows[:CO_HOT_N].float()
+
+    def closed_loop() -> dict:
+        rt = ServingRuntime(max_batch=SV_THREADS, max_delay_ms=5.0, queue_limit=4 * total)
+        rt.register("km", model)
+        rt.warm("km", buckets=[1 << p for p in range(5)])
+        wall, answers, _ = _closed_loop(rt, probes)
+        first = types.SimpleNamespace(version=types.SimpleNamespace(signature=model.serving_signature()))
+        window = rt._batcher._delay_s_for(first)
+        rt.close()
+        got = torch.from_numpy(answers.reshape(-1)).to(dev)
+        off = got != labels64
+        return {"rows_per_s": total / wall, "window_s": window, "differ_off_band": int((off & ~band).sum())}
+
+    out = {"phase": "cost_tuner_runtime", "model": [KM_K, KM_D], "hot_rows": CO_HOT_N, "hot_min": CO_HOT_MIN}
+    # The serving precision is pinned: (e) is the gate's own phase.
+    with knob(TPUML_PRECISION_SERVING="f32"):
+        out["tuner_off"] = closed_loop()
+        with knob(TPUML_AUTOTUNE="on", TPUML_TUNE_STORE=os.path.join(tmp, "runtime.json"),
+                  TPUML_AUTOTUNE_HOT_MIN=str(CO_HOT_MIN)):
+            _, tuner = _rearm()
+            outs = [model.predict(x_hot) for _ in range(CO_HOT_MIN + 2)]
+            weights = (model._centers_on(dev, torch.float32),)
+            eager = km_mod._assign_kernel(x_hot, *weights, cosine=False, precision=model._serving_precision())
+            out["rung"] = tuner.peek_serving_bucket("kmeans.predict", KM_D, CO_HOT_N, 16)
+            out["rung_outputs_bitwise_eager"] = all(bool(torch.equal(o, eager)) for o in outs[CO_HOT_MIN - 1:])
+            out["tuner_on"] = closed_loop()
+            out["tuner_on"]["tuner_window_s"] = tuner.recommend_delay_s("kmeans.predict", 0.005)
+            out["tuner_on"]["wall_samples"] = tuner.snapshot()["wall_samples"]
+            out["ladders"] = tuner.snapshot()["ladders"]
+            out["store_decisions"] = sorted(d["knob"] for d in tuner.store.snapshot())
+    _rearm()
+    out["on_over_off_rows_s"] = out["tuner_on"]["rows_per_s"] / out["tuner_off"]["rows_per_s"]
+    emit(out)
+    require(out["rung"] == CO_HOT_N and out["rung_outputs_bitwise_eager"], f"(p-c) the rung: {out['rung']}")
+    require(out["tuner_on"]["window_s"] == out["tuner_on"]["tuner_window_s"] != 0.005,
+            f"(p-c) the batcher's window: {out['tuner_on']}")
+    for run in ("tuner_off", "tuner_on"):
+        require(out[run]["differ_off_band"] == 0, f"(p-c) {run}: an answer differs from float64")
+    return out
+
+
+def phase_cost_streaming(gen: torch.Generator, tmp: str) -> dict:
+    """(p-d) Streaming under the tuner: config 3's KMeans (rows cut to 5M)
+    and config 5's PCA (262,144 x 1,024) from the host, degraded under a
+    256 MiB fit budget, take the tuner's block rows; ``solver.segment=1:oom``
+    halves the KMeans block once through ``note_oom``, and both decisions
+    land in the store; each result equals the explicit block-reader fit at
+    the block that was used."""
+    x_km = planted_blobs(CO_KM_N, KM_D, KM_K, gen)[0].cpu().numpy()
+    x_pca = planted(CO_PCA_N, D, gen).cpu().numpy()
+    km = KMeans().setK(KM_K).setSeed(SEED).setMaxIter(CO_KM_ITERS).setBackend("xla")
+    est = PCA().setK(K)
+    out = {"phase": "cost_streaming", "budget_bytes": CO_BUDGET}
+    with knob(TPUML_AUTOTUNE="on", TPUML_TUNE_STORE=os.path.join(tmp, "stream.json"), TPUML_FIT_MEM_BUDGET=CO_BUDGET,
+              TPUML_PRECISION_KMEANS="f32", TPUML_PRECISION_PCA="f32"), warnings.catch_warnings():
+        warnings.simplefilter("ignore", DegradationWarning)
+        _, tuner = _rearm()
+        first = {"kmeans": fit_block_rows("kmeans", width=KM_D, itemsize=4),
+                 "pca": fit_block_rows("pca", width=D, itemsize=4)}
+        h0 = counter_value("fit.oom.block_halved")
+        with inject("solver.segment=1:oom") as plan:
+            recovered = km.fit(x_km)
+        halvings = counter_value("fit.oom.block_halved") - h0
+        streamed = est.fit(x_pca)
+        used = {fam: tuner.store.get("fit_block_rows", fam)["value"] for fam in ("kmeans", "pca")}
+        ceiling = tuner.store.get("fit_oom_ceiling", "kmeans")
+    with knob(TPUML_PRECISION_KMEANS="f32", TPUML_PRECISION_PCA="f32"):
+        _rearm()
+        explicit_km = km.fit(HostArrayBlockReader(x_km, block_rows=used["kmeans"]))
+        explicit_pca = est.fit(HostArrayBlockReader(x_pca, block_rows=used["pca"]))
+    out.update({
+        "tuner_first_block_rows": first, "used_block_rows": used, "fired": plan.fired, "block_halved": halvings,
+        "oom_ceiling": ceiling["value"] if ceiling else None,
+        "kmeans_bitwise": bool(np.array_equal(recovered.clusterCenters(), explicit_km.clusterCenters())
+                               and recovered.trainingCost == explicit_km.trainingCost
+                               and recovered.numIter == explicit_km.numIter),
+        "pca_bitwise": bool(np.array_equal(streamed.pc, explicit_pca.pc)
+                            and np.array_equal(streamed.explainedVariance, explicit_pca.explainedVariance)),
+    })
+    emit(out)
+    require(halvings == 1 and plan.fired == [("solver.segment", 0)]
+            and used["kmeans"] == max(membudget.MIN_BLOCK_ROWS, first["kmeans"] // 2), f"(p-d) the KMeans block: {out}")
+    require(out["oom_ceiling"] is not None and used["pca"] == first["pca"], f"(p-d) the store: {out}")
+    require(out["kmeans_bitwise"] and out["pca_bitwise"], f"(p-d) a streamed fit differs from its reader fit: {out}")
+    return out
+
+
+def tune_child_main(argv) -> int:
+    """``chip_smoke.py --tune-child STORE``: a fresh process reads the
+    committed serving precision from the store; a probe would fail it."""
+    from spark_rapids_ml_tpu_torch.ops import precision
+
+    port_device.set_platform("cuda")
+    port_device.use_ieee_fp32_matmul()
+    store = argv[argv.index("--tune-child") + 1]
+    probed = []
+
+    def refuse(a, b, mode, repeats=3):
+        probed.append(mode)
+        raise RuntimeError("the committed mode was probed again")
+
+    precision._time_probe = refuse
+    with knob(TPUML_AUTOTUNE="on", TPUML_TUNE_STORE=store):
+        _rearm()
+        mode = precision.resolve_policy("serving")
+    print(json.dumps({"mode": mode, "probed": probed}), flush=True)
+    return 0
+
+
+def phase_cost_precision(tmp: str) -> dict:
+    """(p-e) The precision gate on the card: with a fresh store the probe
+    GEMM (512 x 256 x 256) is timed in f32, bf16x3 and bf16 (CUDA events,
+    after a warm-up) and one mode commits for ``serving`` (and f32 or
+    bf16x3 for ``pca``); a committed bf16x3 or bf16 passed its parity
+    bound; a second process reads the committed mode without probing."""
+    from spark_rapids_ml_tpu_torch.ops import precision
+
+    store = os.path.join(tmp, "precision.json")
+    walls = {}
+    real = precision._time_probe
+
+    def spy(a, b, mode, repeats=3):
+        res, wall = real(a, b, mode, repeats)
+        walls.setdefault(mode, []).append(wall)
+        return res, wall
+
+    with knob(TPUML_AUTOTUNE="on", TPUML_TUNE_STORE=store):
+        _, tuner = _rearm()
+        precision._time_probe = spy
+        try:
+            modes = {fam: precision.resolve_policy(fam) for fam in ("serving", "pca")}
+        finally:
+            precision._time_probe = real
+        decisions = {d["key"]: d for d in tuner.store.snapshot() if d["knob"] == precision.PRECISION_KNOB}
+    _rearm()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPUML_")}
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--tune-child", store],
+                           capture_output=True, text=True, timeout=OB_CHILD_TIMEOUT_S, env=env)
+    got = json.loads(child.stdout.strip().splitlines()[-1]) if child.returncode == 0 else {"error": child.stderr[-2000:]}
+    out = {"phase": "cost_precision", "probe": "512 x 256 x 256 f32 operands", "modes": modes,
+           "probe_walls_ms": {m: [w * 1e3 for w in ws] for m, ws in walls.items()},
+           "decisions": {k: {"value": d["value"], "metric": d["metric"], "evidence": d["evidence"],
+                             "rejected": d["rejected"]} for k, d in decisions.items()},
+           "second_process": got}
+    emit(out)
+    for fam, mode in modes.items():
+        dec = decisions[fam]
+        require(dec["value"] == mode, f"(p-e) {fam}: resolved {mode}, store {dec['value']}")
+        if mode in precision.REL_TOL:
+            err = float(next(e for e in dec["evidence"] if e.startswith("max_rel_err=")).split("=")[1])
+            require(err <= precision.REL_TOL[mode], f"(p-e) {fam}: {mode} committed at error {err}")
+    require(got.get("mode") == modes["serving"] and got.get("probed") == [], f"(p-e) the second process: {got}")
+    return out
+
+
+def costs_phases(card: str) -> dict:
+    """Group (p), the cost ledger and the autotuner: (a) config 5's PCA fit
+    and transforms under the ledger, (b) serving at configs 15 and 3 under
+    it, (c) config 16's runtime under the tuner, (d) streaming and recovery
+    under the tuner, (e) the precision gate; with ``TPUML_PEAK_FLOPS`` and
+    ``TPUML_PEAK_BYTES_PER_SEC`` at the card's fp32 and HBM peaks, its own
+    seed, within ``CO_WALL_LIMIT_S``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(CO_SEED)
+    print(f"{card}; TPUML_PEAK_FLOPS={CO_PEAK_FLOPS:.4g} TPUML_PEAK_BYTES_PER_SEC={CO_PEAK_BYTES:.4g}", flush=True)
+    t0 = time.perf_counter()
+    walls = {}
+    with knob(TPUML_PEAK_FLOPS=CO_PEAK_FLOPS, TPUML_PEAK_BYTES_PER_SEC=CO_PEAK_BYTES), \
+            tempfile.TemporaryDirectory(prefix="costs-") as tmp:
+        try:
+            for name, run in (("a_pca", lambda: phase_cost_pca(gen)),
+                              ("b_serving", lambda: phase_cost_serving(gen)),
+                              ("c_tuner_runtime", lambda: phase_cost_tuner_runtime(gen, tmp)),
+                              ("d_streaming", lambda: phase_cost_streaming(gen, tmp)),
+                              ("e_precision", lambda: phase_cost_precision(tmp))):
+                t = time.perf_counter()
+                run()
+                walls[name] = time.perf_counter() - t
+                torch.cuda.empty_cache()
+        finally:
+            _rearm()
+    wall = time.perf_counter() - t0
+    emit({"phases": "costs", "card": card, "wall_s": wall, "phase_wall_s": walls,
+          "peaks": {"flops_per_sec": CO_PEAK_FLOPS, "bytes_per_sec": CO_PEAK_BYTES}})
+    require(wall <= CO_WALL_LIMIT_S, f"the cost phases took {wall:.1f} s, over their {CO_WALL_LIMIT_S:.0f} s")
+    return walls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -6076,6 +6563,8 @@ def main() -> int:
     lifecycle_phases()
     torch.cuda.empty_cache()
     observability_phases(info["nvidia_smi"])
+    torch.cuda.empty_cache()
+    costs_phases(info["nvidia_smi"])
 
     k1_f32 = times["k1_f32"]
     measured = {
@@ -6115,4 +6604,6 @@ if __name__ == "__main__":
         sys.exit(obs_rank_main(sys.argv))
     if "--obs-child" in sys.argv:
         sys.exit(obs_child_main(sys.argv))
+    if "--tune-child" in sys.argv:
+        sys.exit(tune_child_main(sys.argv))
     sys.exit(main())

@@ -27,7 +27,7 @@ from typing import Any, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from spark_rapids_ml_tpu_torch.utils.envknobs import env_int, reject_autotune
+from spark_rapids_ml_tpu_torch.utils.envknobs import env_int
 
 try:
     import scipy.sparse as _sp
@@ -49,16 +49,23 @@ def fit_block_rows(
 ) -> int:
     """Rows per block of the fit-path block readers and of a degraded
     streaming fit: ``TPUML_FIT_BLOCK_ROWS`` when it is set (an integer
-    >= 1), else :data:`DEFAULT_FIT_BLOCK_ROWS`. The signature is the
-    reference's; ``family``, ``width`` and ``itemsize`` size the
-    autotuner's recommendation there, which is not ported: with
-    ``TPUML_AUTOTUNE=on`` and the block knob unset this raises
-    ``NotImplementedError`` (ROADMAP A.9)."""
+    >= 1). Otherwise, with ``TPUML_AUTOTUNE=on``, the autotuner's
+    recommendation for ``family`` — a committed tune-store decision, or
+    the largest block fitting measured device headroom, sized with
+    ``width`` / ``itemsize`` when the caller knows the matrix shape, and
+    kept below any block the ledger saw run out of memory; without
+    headroom to size from it is :data:`DEFAULT_FIT_BLOCK_ROWS`. Off, the
+    default."""
     explicit = env_int(FIT_BLOCK_ROWS_ENV, None, minimum=1)
     if explicit is not None:
         return explicit
-    reject_autotune()
-    return DEFAULT_FIT_BLOCK_ROWS
+    from spark_rapids_ml_tpu_torch.observability import autotune as _autotune
+
+    tuner = _autotune.active()
+    if tuner is None:
+        return DEFAULT_FIT_BLOCK_ROWS
+    return tuner.recommend_block_rows(family or "fit", default=DEFAULT_FIT_BLOCK_ROWS, width=width,
+                                      itemsize=itemsize)
 
 
 class SparseVector:

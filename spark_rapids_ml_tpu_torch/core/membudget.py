@@ -6,10 +6,13 @@ larger than the card's free memory dies inside ``prepare_rows``'
 
   1. **Pricing** — :func:`padded_input_bytes` mirrors what the port's
      ``prepare_rows`` places: the rows in the fit's dtype plus the row
-     mask, padded to the mesh's axes as the placement pads them. The cost
-     ledger is not ported (ROADMAP A.9), so :func:`ledger_measured_bytes`
-     is None and every decision is priced "declared"
-     (counter ``fit.admission.declared``).
+     mask, padded to the mesh's axes as the placement pads them. Once a
+     family's programs were captured under the cost ledger
+     (``TPUML_COST_LEDGER=1``, on CUDA), :func:`ledger_measured_bytes`
+     adds their measured temp + output bytes on top (counter
+     ``fit.admission.measured``; else ``.declared``), and with
+     ``TPUML_AUTOTUNE=on`` a family's fitted bytes model prices the input
+     (counter ``fit.admission.model_priced``).
   2. **Admission** — :func:`fit_memory_guard` prices a host input against
      :func:`fit_mem_budget` (``TPUML_FIT_MEM_BUDGET``; unset = the free
      memory of the fit's card, :func:`free_hbm_bytes`; 0 = gate off).
@@ -20,7 +23,10 @@ larger than the card's free memory dies inside ``prepare_rows``'
      :func:`run_streaming_with_recovery` treat a device OOM
      (``robustness/retry.is_oom_error``) as a retryable degradation:
      reclaim, then stream at halved block rows, then raise the structured
-     error. The reroute runs after the ``except`` block is left and the
+     error. With the autotuner on, the streaming attempt measures and
+     commits its block size, and an OOM is recorded as the tuner's
+     evidence (:meth:`Autotuner.note_oom`): no later recommendation for
+     the family reaches that block again. The reroute runs after the ``except`` block is left and the
      failed attempt's traceback is cleared: in PyTorch a live traceback
      holds the failed attempt's frames, and with them its CUDA tensors.
 
@@ -48,7 +54,7 @@ from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.observability.events import emit
 from spark_rapids_ml_tpu_torch.robustness.degrade import record_degradation
 from spark_rapids_ml_tpu_torch.robustness.retry import is_oom_error
-from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice, env_int, reject_autotune
+from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice, env_int
 from spark_rapids_ml_tpu_torch.utils.tracing import bump_counter
 
 T = TypeVar("T")
@@ -166,9 +172,24 @@ def padded_input_bytes(n: int, d: int, dtype: Any, mesh: Any = None) -> int:
 
 
 def ledger_measured_bytes(*family_prefixes: str) -> Optional[int]:
-    """The cost ledger's measured bytes for a fit family: always None,
-    as the ledger is not ported (ROADMAP A.9)."""
-    return None
+    """The cost ledger's measured temp + output bytes for this fit family:
+    the largest measurement across entries whose family starts with one
+    of the prefixes, or None when nothing matching was measured (ledger
+    off, or no capture on CUDA yet). A measurement from a differently
+    shaped run still bounds the working set better than nothing."""
+    from spark_rapids_ml_tpu_torch.observability import costs
+
+    ledger = costs.active()
+    if ledger is None:
+        return None
+    best: Optional[int] = None
+    for entry in ledger.entries():
+        if not any(entry.family.startswith(p) for p in family_prefixes):
+            continue
+        measured = entry.measured_request_bytes()
+        if measured and (best is None or measured > best):
+            best = measured
+    return best
 
 
 def measured_or_declared(measured: Optional[int], declared: int, counter_prefix: str) -> int:
@@ -250,8 +271,17 @@ def fit_memory_guard(
         from spark_rapids_ml_tpu_torch.core.ingest import default_dtype
 
         dtype = default_dtype()
-    reject_autotune()  # the reference prices through the tuner's model here
     declared = padded_input_bytes(n, d, dtype) + int(extra_bytes)
+    # The autotuner's decision (d): with a fitted bytes model for the
+    # family, price through it instead of the padding arithmetic.
+    from spark_rapids_ml_tpu_torch.observability import autotune as _autotune
+
+    tuner = _autotune.active()
+    if tuner is not None:
+        model_priced = tuner.price_input_bytes(family, n)
+        if model_priced is not None:
+            bump_counter("fit.admission.model_priced")
+            declared = model_priced + int(extra_bytes)
     measured = ledger_measured_bytes(*ledger_families) if ledger_families else None
     # Input placement is unavoidable either way; a measurement would bound
     # the solver's working set on top of it.
@@ -346,22 +376,36 @@ def run_streaming_with_recovery(
     ``TPUML_FIT_OOM_RETRIES`` attempts. The first attempt uses the block
     size an explicit streaming fit would (``fit_block_rows(family,
     width=, itemsize=)``), so an undisturbed degraded fit is bit-identical
-    to the explicit one."""
+    to the explicit one. With the autotuner on (and no ``block_rows``
+    pinned), each attempt is a measured trial of its block size
+    (:meth:`Autotuner.measure_and_commit`), and an OOM caps the family's
+    later recommendations below the block that failed."""
     from spark_rapids_ml_tpu_torch.core.data import HostArrayBlockReader, fit_block_rows
+    from spark_rapids_ml_tpu_torch.observability import autotune as _autotune
 
+    tuner = _autotune.active()
     if block_rows:
         block = int(block_rows)
+        tuner = None  # a pinned block: nothing to tune or record
     else:
-        reject_autotune()  # the reference measures and commits block sizes here
         block = fit_block_rows(
             family, width=int(matrix.shape[1]), itemsize=int(np.dtype(matrix.dtype).itemsize)
         )
     attempts = fit_oom_retries()
     last: Optional[BaseException] = None
     for attempt in range(attempts):
-        result, failure = _run_classified(
-            lambda: fit_with_reader(HostArrayBlockReader(matrix, block_rows=block))
-        )
+        if tuner is not None:
+            result, failure = _run_classified(
+                lambda: tuner.measure_and_commit(
+                    "fit_block_rows", family, block,
+                    lambda: fit_with_reader(HostArrayBlockReader(matrix, block_rows=block)),
+                    rows=int(matrix.shape[0]),
+                )[0]
+            )
+        else:
+            result, failure = _run_classified(
+                lambda: fit_with_reader(HostArrayBlockReader(matrix, block_rows=block))
+            )
         if failure is None:
             if attempt:
                 bump_counter("fit.oom.recovered")
@@ -373,6 +417,8 @@ def run_streaming_with_recovery(
         last = failure
         bump_counter("fit.oom.events")
         _reclaim(device_id)
+        if tuner is not None:
+            tuner.note_oom(family, block)
         if attempt + 1 < attempts:
             block = max(MIN_BLOCK_ROWS, block // 2)
             bump_counter("fit.oom.block_halved")

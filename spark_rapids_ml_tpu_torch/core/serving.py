@@ -6,7 +6,9 @@ reference's ``core/serving.py``.
     the next power of two (at least :data:`MIN_ROW_BUCKET`), zero-padded,
     and its outputs are sliced back to ``n`` rows. Every serving kernel is
     row-wise, so padding rows never reach a real row's output. Features
-    are never bucketed.
+    are never bucketed. With ``TPUML_AUTOTUNE=on`` a hot batch size earns
+    an exact-fit rung (:func:`ladder_bucket_rows`), at most
+    ``MAX_LADDER_RUNGS`` per (model, width), each one more graph.
   - **Program cache** (:func:`serve_rows`): one program per (kernel,
     static config, bucket, width, dtype, device, weights), in an LRU of
     ``TPUML_SERVING_CACHE_SIZE`` entries (32). On a CUDA device a program
@@ -28,6 +30,11 @@ reference's ``core/serving.py``.
     copy's event has fired; block k+1's copy is in flight while block k
     computes, and block k's result comes back to pinned memory and is
     handed on only after block k+1 is dispatched.
+  - **Cost ledger** (``TPUML_COST_LEDGER=1``, ``observability/costs``):
+    each capture is recorded with its counted work, its bytes and the
+    retrace watchdog's classification (``new_program``, ``new_bucket``,
+    ``eviction_refill``, ``retrace``), each replay timed between CUDA
+    events on its stream, and each bypass run recorded as a fallback.
   - **Device-cache hooks** (:func:`note_device_cache`,
     :func:`invalidate_device_caches`): the model families register their
     device copies of their weights, so a retired version or a cache reset
@@ -61,6 +68,7 @@ from __future__ import annotations
 import gc
 import itertools
 import threading
+import time
 import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
@@ -71,6 +79,8 @@ import torch
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.data import _block_to_dense, dense_block
 from spark_rapids_ml_tpu_torch.core.ingest import numpy_dtype
+from spark_rapids_ml_tpu_torch.observability import autotune as _autotune
+from spark_rapids_ml_tpu_torch.observability import costs as _costs
 from spark_rapids_ml_tpu_torch.observability.events import emit, run_scope
 from spark_rapids_ml_tpu_torch.observability.metrics import ROW_BUCKETS, gauge, histogram
 from spark_rapids_ml_tpu_torch.serving.signature import tree_leaves, tree_map
@@ -110,6 +120,23 @@ def bucket_rows(n: int, min_bucket: int = MIN_ROW_BUCKET) -> int:
     return 1 << (n - 1).bit_length()
 
 
+def ladder_bucket_rows(n: int, *, name: str, width: int, observe: bool = True) -> int:
+    """The bucket one serving request of ``n`` rows runs at: the pow-2
+    :func:`bucket_rows` value unless the autotuner's learned
+    per-(model, width) ladder has an exact-fit rung (which may sit below
+    :data:`MIN_ROW_BUCKET`). ``observe=True`` also feeds the request into
+    the ladder's traffic histogram; admission pricing peeks with
+    ``observe=False`` so one request is not counted twice. With the tuner
+    off this IS ``bucket_rows``."""
+    bucket = bucket_rows(n)
+    tuner = _autotune.active()
+    if tuner is None:
+        return bucket
+    if observe:
+        return tuner.serving_bucket(name, width, n, bucket)
+    return tuner.peek_serving_bucket(name, width, n, bucket)
+
+
 def _capacity() -> int:
     return env_int(CACHE_SIZE_ENV, DEFAULT_CACHE_SIZE, minimum=1)
 
@@ -139,8 +166,9 @@ class _Program:
     captured graph, elsewhere it runs the kernel on the padded bucket."""
 
     def __init__(self, fn: Callable, weights: tuple, static: dict, bucket: int, d: int,
-                 dtype: torch.dtype, device: torch.device):
+                 dtype: torch.dtype, device: torch.device, name: str = ""):
         self.fn = fn
+        self.name = name
         self.weights = weights  # held: the graph reads them by address
         self.ptrs = frozenset(leaf.data_ptr() for leaf in tree_leaves(weights)
                               if isinstance(leaf, torch.Tensor))
@@ -156,12 +184,13 @@ class _Program:
         self.static_out: Any = None
         self.event: Optional[torch.cuda.Event] = None  # end of the last use
         self.dirty = 0  # rows of static_x that may hold a caller's data
+        self.ledger_key: Optional[str] = None  # set when the cost ledger recorded it
 
     @property
     def is_graph(self) -> bool:
         return self.device.type == "cuda"
 
-    def capture(self) -> None:
+    def capture(self, measure: bool = False) -> Optional[dict]:
         """Capture the kernel at this bucket (the caller holds
         ``_CAPTURE_LOCK``): one warm-up call on the capture stream (lazy
         cuBLAS handles and module loads happen outside the capture), then
@@ -169,7 +198,12 @@ class _Program:
         stay legal meanwhile. The static input is allocated inside the
         capture, from the graph's own pool like its outputs: a long-lived
         buffer carved from the shared pool would pin the whole cached
-        segment it sits in. Raises if the kernel cannot be captured."""
+        segment it sits in. Raises if the kernel cannot be captured.
+
+        ``measure=True`` (the cost ledger) returns the program's bytes:
+        the device's allocator peak is reset before the capture, and its
+        growth across it, less the static input and outputs, is what the
+        graph's pool holds beyond them (``temp_bytes``)."""
         with torch.cuda.device(self.device):
             stream = _capture_stream(self.device)
             current = torch.cuda.current_stream(self.device)
@@ -179,14 +213,25 @@ class _Program:
                 self.fn(warm, *self.weights, **self.static)
             stream.synchronize()
             del warm
+            if measure:
+                torch.cuda.reset_peak_memory_stats(self.device)
+                base = torch.cuda.memory_allocated(self.device)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
                 static_x = torch.empty((self.bucket, self.d), dtype=self.dtype, device=self.device)
                 out = self.fn(static_x, *self.weights, **self.static)
+            memory = None
+            if measure:
+                grown = torch.cuda.max_memory_allocated(self.device) - base
+                in_bytes = static_x.numel() * static_x.element_size()
+                out_bytes = _costs.tensor_bytes(out)
+                memory = {"argument_bytes": in_bytes + _costs.tensor_bytes(self.weights), "output_bytes": out_bytes,
+                          "temp_bytes": max(grown - in_bytes - out_bytes, 0)}
             static_x.zero_()
             self.event = torch.cuda.Event()
             self.event.record(current)
         self.graph, self.static_x, self.static_out = graph, static_x, out
+        return memory
 
     def run(self, x: torch.Tensor, n: int) -> Any:
         """The outputs for the ``n`` rows of ``x`` (a tensor on the CPU or
@@ -201,7 +246,12 @@ class _Program:
             else:
                 xp = torch.zeros((self.bucket, self.d), dtype=self.dtype, device=self.device)
                 xp[:n].copy_(x)
-            out = self.fn(xp, *weights, **self.static)
+            led = _costs.active() if self.ledger_key is not None else None
+            if led is None:
+                out = self.fn(xp, *weights, **self.static)
+            else:
+                out = _costs.timed_invocation(led, self.ledger_key, n, self.device,
+                                              lambda: self.fn(xp, *weights, **self.static))
             return tree_map(lambda leaf: _take(leaf, n, self.bucket, copy=False), out)
         with self.lock:
             if self.closed:
@@ -213,7 +263,11 @@ class _Program:
             if self.dirty > n:
                 self.static_x[n:self.dirty].zero_()
             self.dirty = n
-            self.graph.replay()
+            led = _costs.active() if self.ledger_key is not None else None
+            if led is None:
+                self.graph.replay()
+            else:
+                _costs.timed_invocation(led, self.ledger_key, n, self.device, self.graph.replay, stream=stream)
             out = tree_map(lambda leaf: _take(leaf, n, self.bucket, copy=True), self.static_out)
             self.event = torch.cuda.Event()
             self.event.record(stream)
@@ -237,6 +291,10 @@ class _Program:
 _LOCK = threading.RLock()
 _PROGRAMS: "OrderedDict[tuple, _Program]" = OrderedDict()  # guarded by _LOCK
 _STATS = {"hits": 0, "misses": 0, "evictions": 0, "compiles": 0, "bypass": 0}  # guarded by _LOCK
+# The cache keys the LRU (or a ladder commit) dropped while the cost ledger
+# was on, so the retrace watchdog tells a refill from a retrace.
+_EVICTED_KEYS: set = set()  # guarded by _LOCK
+_MAX_EVICTED_KEYS = 4096
 _CAPTURE_LOCK = threading.Lock()  # one capture at a time, per process
 _CAPTURE_STREAMS: Dict[str, torch.cuda.Stream] = {}  # guarded by _CAPTURE_LOCK
 _COPY_STREAMS: Dict[str, torch.cuda.Stream] = {}  # guarded by _LOCK
@@ -276,10 +334,20 @@ def _kernel_name(fn: Callable) -> str:
     return getattr(fn, "__name__", str(fn))
 
 
+def _note_evicted(key: tuple) -> None:
+    """Remember a dropped key for the watchdog (caller holds ``_LOCK``)."""
+    if _costs.active() is not None:
+        if len(_EVICTED_KEYS) >= _MAX_EVICTED_KEYS:
+            _EVICTED_KEYS.clear()
+        _EVICTED_KEYS.add(key)
+
+
 def _get_program(fn: Callable, bucket: int, d: int, dtype: torch.dtype, device: torch.device,
-                 args: tuple, static: dict) -> _Program:
+                 args: tuple, static: dict, name: str = "") -> _Program:
     """The cached program for this key, captured (or, off CUDA, built) on
-    a miss; over capacity the least recently used entries are closed."""
+    a miss; over capacity the least recently used entries are closed.
+    With the cost ledger on, a new program is recorded (counted work,
+    bytes, the watchdog's classification)."""
     key = (fn, tuple(sorted(static.items())), bucket, d, dtype, str(device), _weights_key(args))
     with _LOCK:
         prog = _PROGRAMS.get(key)
@@ -299,17 +367,30 @@ def _get_program(fn: Callable, bucket: int, d: int, dtype: torch.dtype, device: 
             prog = _PROGRAMS.get(key)  # another thread captured it meanwhile
         if prog is not None:
             return prog
-        prog = _Program(fn, args, dict(static), bucket, d, dtype, device)
+        led = _costs.active()
+        t0 = time.perf_counter()
+        prog = _Program(fn, args, dict(static), bucket, d, dtype, device, name)
+        memory = None
         if prog.is_graph:
             with TraceRange(f"serving capture {_kernel_name(fn)}", TraceColor.YELLOW):
-                prog.capture()
+                memory = prog.capture(measure=led is not None)
+        if led is not None:
+            with _LOCK:
+                refill = key in _EVICTED_KEYS
+                _EVICTED_KEYS.discard(key)
+            prog.ledger_key = _costs.record_aot(
+                fn, name=name or _kernel_name(fn), static=static, rows=bucket, d=d, dtype=dtype, args=args,
+                identity=_weights_key(args), cost=_costs.kernel_cost(fn, bucket, d, dtype, args, static),
+                memory=memory, compile_seconds=time.perf_counter() - t0, evicted=refill,
+            )
         with _LOCK:
             _STATS["compiles"] += 1
             bump_counter("serving.compile")
             emit("serving", action="compile", kernel=_kernel_name(fn), bucket=bucket)
             _PROGRAMS[key] = prog
             while len(_PROGRAMS) > _capacity():
-                _, old = _PROGRAMS.popitem(last=False)
+                old_key, old = _PROGRAMS.popitem(last=False)
+                _note_evicted(old_key)
                 evicted.append(old)
                 _STATS["evictions"] += 1
                 bump_counter("serving.cache.evict")
@@ -330,15 +411,32 @@ def program_cache_stats() -> dict:
         return out
 
 
-def _drop_programs(match: Callable[[_Program], bool]) -> int:
-    """Close and remove every entry ``match`` selects; returns how many."""
+def _drop_programs(match: Callable[[_Program], bool], refill: bool = False) -> int:
+    """Close and remove every entry ``match`` selects; returns how many.
+    ``refill=True`` tells the retrace watchdog that a later capture of a
+    dropped key refills it."""
     with _LOCK:
         keys = [k for k, prog in _PROGRAMS.items() if match(prog)]
         dropped = [_PROGRAMS.pop(k) for k in keys]
+        if refill:
+            for k in keys:
+                _note_evicted(k)
         _publish_cache_size()
     for prog in dropped:
         prog.close()
     return len(dropped)
+
+
+def drop_shadowed_programs(name: str, width: int, ladder: tuple, admitted: int) -> int:
+    """After the autotuner admits rung ``admitted`` for (``name``,
+    ``width``): close the cached programs of the bucket that size padded
+    into before (the next rung above it, else its pow-2 bucket), which its
+    traffic has left; a request that still needs one re-captures it as an
+    eviction refill. Each close waits for the graph's last replay."""
+    above = [r for r in ladder if r > admitted]
+    old = min(above) if above else bucket_rows(admitted)
+    return _drop_programs(lambda prog: prog.name == name and prog.d == width and prog.bucket == old,
+                          refill=True)
 
 
 def evict_programs(weights: Any) -> int:
@@ -361,8 +459,13 @@ def clear_program_cache() -> None:
     with _LOCK:
         for k in _STATS:
             _STATS[k] = 0
+        _EVICTED_KEYS.clear()
         models = list(_DEVICE_CACHED_MODELS)
     _drop_programs(lambda prog: True)
+    ledger = _costs.active()
+    if ledger is not None:
+        # A reset is a reconfiguration boundary: its refills are no retraces.
+        ledger.reset_families()
     for model in models:
         invalidate_device_caches(model)
 
@@ -479,18 +582,31 @@ def _serve_rows_impl(fn, x, args, *, name, static, to_host, device, dtype):
             out = fn(xt.to(device), *args, **static)
         else:
             _observe_batch(n)
-            bucket = bucket_rows(n)
+            bucket = ladder_bucket_rows(n, name=name, width=d)
             if bucket > stream_block_rows():
                 with _LOCK:
                     _STATS["bypass"] += 1
                 bump_counter("serving.cache.bypass")
-                out = fn(xt.to(device), *args, **static)
+                led = _costs.active()
+                if led is None:
+                    out = fn(xt.to(device), *args, **static)
+                else:
+                    out = _serve_bypass_ledgered(led, fn, xt.to(device), args, name, static)
             else:
                 out = None
                 while out is None:  # None: the entry was evicted between fetch and run
-                    prog = _get_program(fn, bucket, d, xt.dtype, device, args, static)
+                    prog = _get_program(fn, bucket, d, xt.dtype, device, args, static, name)
                     out = prog.run(xt, n)
     return tree_map(to_numpy, out) if to_host else out
+
+
+def _serve_bypass_ledgered(led, fn, xd, args, name, static):
+    """One eager run above the capture bound, recorded as a fallback of
+    its own shape and timed."""
+    n, d = int(xd.shape[0]), int(xd.shape[1])
+    lkey = _costs.record_fallback(fn, name=name, static=static, args=(xd, *args),
+                                  cost=lambda: _costs.kernel_cost(fn, n, d, xd.dtype, args, static))
+    return _costs.timed_invocation(led, lkey, n, xd.device, lambda: fn(xd, *args, **static))
 
 
 def to_numpy(out: Any) -> Any:

@@ -71,7 +71,9 @@ from spark_rapids_ml_tpu_torch.ops.eigh import (
     eigh_topk,
     sign_flip,
 )
+from spark_rapids_ml_tpu_torch.observability.costs import ledgered_call
 from spark_rapids_ml_tpu_torch.ops.kernels.covariance import centered_gram_cuda
+from spark_rapids_ml_tpu_torch.ops.kernels.covariance import cost as gram_cost
 from spark_rapids_ml_tpu_torch.ops.linalg import resolve_precision, triu_to_full
 from spark_rapids_ml_tpu_torch.parallel.collectives import process_count
 from spark_rapids_ml_tpu_torch.parallel.distributed_cov import distributed_mean_and_covariance
@@ -101,7 +103,8 @@ def _pca_fit_device(x, k, center, precision, eigen_solver, eigen_iters, mesh=Non
         )
         return _pca_from_cov(cov[:d, :d], k, eigen_solver, eigen_iters)
     mean = torch.mean(x, dim=0) if center else torch.zeros((d,), dtype=x.dtype, device=x.device)
-    cov = centered_gram(x, mean, precision=precision) / (n - 1)
+    cov = ledgered_call(centered_gram, (x, mean), static={"precision": precision}, name="covariance.gram",
+                        cost=lambda: gram_cost(n, d, x.dtype)) / (n - 1)
     return _pca_from_cov(cov, k, eigen_solver, eigen_iters)
 
 
@@ -291,9 +294,15 @@ class RowMatrix:
         return torch.zeros(self.num_cols, dtype=self.dtype, device=self._device())
 
     def _gram(self, blk: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
+        """One block's centered Gram: K1 on the ``pallas`` backend, else
+        the plain GEMM; a cost-ledger program ``covariance.gram`` either
+        way, counted as K1's work (``ops/kernels/covariance.cost``)."""
+        n, d = int(blk.shape[0]), int(blk.shape[1])
         if self.backend == "pallas":
-            return centered_gram_cuda(blk.contiguous(), mean.contiguous())
-        return centered_gram(blk, mean, precision=self.precision)
+            return ledgered_call(centered_gram_cuda, (blk.contiguous(), mean.contiguous()), static={},
+                                 name="covariance.gram", cost=lambda: gram_cost(n, d, blk.dtype))
+        return ledgered_call(centered_gram, (blk, mean), static={"precision": self.precision},
+                             name="covariance.gram", cost=lambda: gram_cost(n, d, blk.dtype))
 
     def compute_covariance(self) -> torch.Tensor:
         if self._stream is not None:

@@ -87,6 +87,7 @@ from spark_rapids_ml_tpu_torch.ops.kmeans import (
     assign_clusters,
     kmeans_plusplus_init,
     lloyd,
+    lloyd_iteration_cost,
     lloyd_resumable,
     lloyd_streaming,
     normalize_rows,
@@ -94,6 +95,7 @@ from spark_rapids_ml_tpu_torch.ops.kmeans import (
     reservoir_sample_rows,
 )
 from spark_rapids_ml_tpu_torch.ops.precision import pallas_precision, resolve_policy, validate_mode
+from spark_rapids_ml_tpu_torch.observability import costs as _costs
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
@@ -107,6 +109,21 @@ def _assign_kernel(x, centers, *, cosine: bool, precision: str = "highest"):
         centers = normalize_rows(centers)
     labels, _ = assign_clusters(x, centers, precision=precision)
     return labels
+
+
+def _assign_cost(rows, d, dtype, weights, static):
+    """The assignment's work: K2's count of the score products
+    (``ops/kernels/kmeans.cost``); rows and centres read once, int64
+    labels written once."""
+    from spark_rapids_ml_tpu_torch.ops.kernels.kmeans import cost
+
+    k = int(weights[0].shape[0])
+    item = _costs.itemsize(dtype)
+    return {"flops": cost(rows, d, k)["flops"], "transcendentals": 0.0,
+            "bytes_accessed": float((rows * d + k * d) * item + 8 * rows)}
+
+
+_costs.register_cost(_assign_kernel, _assign_cost)
 
 
 class _KMeansParams(Params):
@@ -408,20 +425,20 @@ class KMeans(_KMeansParams, Estimator, MLReadable):
             )
             if backend == "fused":
                 with TraceRange("kmeans lloyd fused", TraceColor.PURPLE):
-                    centers, cost, n_iter = lloyd_fused(
-                        xs.to(torch.float32).contiguous(),
-                        init,
-                        max_iter=self.getMaxIter(),
-                        tol=self.getTol(),
-                        precision=pallas_precision(precision),
-                        cosine=cosine,
-                        packed=packed_feasible(d, k),
+                    centers, cost, n_iter = _costs.ledgered_call(
+                        lloyd_fused, (xs.to(torch.float32).contiguous(), init),
+                        static=dict(max_iter=self.getMaxIter(), tol=self.getTol(),
+                                    precision=pallas_precision(precision), cosine=cosine,
+                                    packed=packed_feasible(d, k)),
+                        name="kmeans.lloyd.fused", cost=lambda: lloyd_iteration_cost(n, d, k),
                     )
             else:
                 with TraceRange("kmeans lloyd", TraceColor.PURPLE):
-                    centers, cost, n_iter = lloyd(
-                        xs, mask, init, max_iter=self.getMaxIter(), tol=self.getTol(),
-                        cosine=cosine, precision=precision,
+                    centers, cost, n_iter = _costs.ledgered_call(
+                        lloyd, (xs, mask, init),
+                        static=dict(max_iter=self.getMaxIter(), tol=self.getTol(), cosine=cosine,
+                                    precision=precision),
+                        name="kmeans.lloyd", cost=lambda: lloyd_iteration_cost(n, d, k),
                     )
         model = KMeansModel(self.uid, centers, trainingCost=cost, numIter=n_iter)
         return self._copyValues(model)

@@ -84,6 +84,7 @@ from spark_rapids_ml_tpu_torch.ops.linear import (
     solve_normal_host,
 )
 from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy
+from spark_rapids_ml_tpu_torch.observability import costs as _costs
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
@@ -92,6 +93,17 @@ from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 def _predict_kernel(x, coef, intercept, *, precision: str = "highest"):
     """Serving kernel: X·coef + b, the coefficients at the batch dtype."""
     return predict_linear(x, coef.to(x.dtype), intercept.to(x.dtype), precision=precision)
+
+
+def _predict_cost(rows, d, dtype, weights, static):
+    """The prediction's work: one (rows, d) · (d, 1) GEMM plus the
+    intercept read."""
+    out = _costs.gemm_cost(rows, d, 1, _costs.itemsize(dtype))
+    out["bytes_accessed"] += _costs.itemsize(dtype)
+    return out
+
+
+_costs.register_cost(_predict_kernel, _predict_cost)
 
 
 class _LinearRegressionParams(Params):

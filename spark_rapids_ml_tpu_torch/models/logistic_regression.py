@@ -81,6 +81,7 @@ from spark_rapids_ml_tpu_torch.ops.logistic import (
 from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy, validate_mode
 from spark_rapids_ml_tpu_torch.parallel.collectives import process_count
 from spark_rapids_ml_tpu_torch.parallel.distributed import allgather_host_max
+from spark_rapids_ml_tpu_torch.observability import costs as _costs
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
@@ -96,6 +97,23 @@ def _forward_kernel(x, w, b, *, n_classes: int = 0, threshold: float, precision:
     if w.shape[1] == 1 and threshold != 0.5:
         labels = (probs[:, 1] > threshold).to(torch.int32)
     return labels, probs, raw
+
+
+def _forward_cost(rows, d, dtype, weights, static):
+    """The forward pass's work: one (rows, d) · (d, c) GEMM for the
+    margins, one exponential per margin; the weights and intercepts read
+    once, int32 labels and two (rows, max(2, c)) blocks written once."""
+    w = weights[0]
+    c = int(w.shape[1])
+    item = w.element_size()
+    out = _costs.gemm_cost(rows, d, c, item)
+    n_out = max(2, c)
+    out["transcendentals"] = float(rows * c)
+    out["bytes_accessed"] = float((rows * d + d * c + c) * item + 4 * rows + 2 * rows * n_out * item)
+    return out
+
+
+_costs.register_cost(_forward_kernel, _forward_cost)
 
 
 def _select_labels(outs):

@@ -86,6 +86,7 @@ from spark_rapids_ml_tpu_torch.parallel.mesh import (
     model_axis_size,
     shard_rows_from_partitions,
 )
+from spark_rapids_ml_tpu_torch.observability import costs as _costs
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
@@ -97,6 +98,15 @@ def _project_kernel(x, pc, *, precision: str = "highest"):
     """Serving kernel: rows onto the principal subspace (components
     follow the batch dtype)."""
     return project_rows(x, pc.to(x.dtype), precision=precision)
+
+
+def _project_cost(rows, d, dtype, weights, static):
+    """The projection's work: one (rows, d) · (d, k) GEMM."""
+    k = int(weights[0].shape[1])
+    return dict(_costs.gemm_cost(rows, d, k, _costs.itemsize(dtype)), out_width=k)
+
+
+_costs.register_cost(_project_kernel, _project_cost)
 
 
 class _PCAParams(HasInputCol, HasOutputCol):

@@ -79,6 +79,7 @@ from spark_rapids_ml_tpu_torch.ops.trees import (
     quantize_features,
     sample_weights,
 )
+from spark_rapids_ml_tpu_torch.observability import costs as _costs
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
@@ -92,6 +93,23 @@ def _proba_kernel(x, forest, *, depth: int):
 def _reg_kernel(x, forest, *, depth: int):
     """Serving kernel: (n,) mean leaf values."""
     return forest_predict_reg(x.to(torch.float32), forest, depth)
+
+
+def _forest_cost(rows, d, dtype, weights, static):
+    """A forest's routing work: one comparison per row, tree and level;
+    the rows and the routing tensors (feature, threshold, is_leaf,
+    leaf_value) read once, the float32 (rows, S) means written once."""
+    forest = weights[0]
+    trees = int(forest.feature.shape[0])
+    width = int(forest.leaf_value.shape[-1])
+    routing = sum(t.numel() * t.element_size()
+                  for t in (forest.feature, forest.threshold, forest.is_leaf, forest.leaf_value))
+    return {"flops": float(rows * trees * int(static["depth"])), "transcendentals": 0.0,
+            "bytes_accessed": float(rows * d * 4 + routing + 4 * rows * width)}
+
+
+_costs.register_cost(_proba_kernel, _forest_cost)
+_costs.register_cost(_reg_kernel, _forest_cost)
 
 
 def _select_argmax(outs):

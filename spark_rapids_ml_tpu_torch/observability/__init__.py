@@ -18,15 +18,22 @@
     breach and recover records to subscribers.
   - :mod:`flightrec` — the crash dump of the flight ring.
   - :mod:`trace`     — one merged trace from a telemetry directory.
+  - :mod:`costs`     — the program cost ledger (``TPUML_COST_LEDGER``):
+    counted work, measured bytes and device-time walls per captured
+    graph, bypass run and solver segment; the retrace watchdog; the HBM
+    sampler; measured admission pricing. Armed from the environment at
+    import, as in the reference.
+  - :mod:`autotune`  — the ledger-driven autotuner (``TPUML_AUTOTUNE``):
+    block rows, the serving bucket ladder, the batcher's window,
+    admission pricing and the precision gate.
 
-The reference's cost ledger (``costs.py``), autotuner, ops server
-(``opsplane.py``) and lock sanitizer are ROADMAP A.9 step 5's later
-parts. The reference starts its ops server at import when
-``TPUML_OPS_PORT`` is set and reads ``TPUML_LOCKCHECK*`` as its modules
-make their locks, so importing this package with any of those knobs (or
-``TPUML_OPS_STALL_S``) set raises ``NotImplementedError`` naming the
-item. Like the reference, it starts the SLO monitor at import when
-``TPUML_SLO`` declares objectives.
+The reference's ops server (``opsplane.py``) and lock sanitizer are
+ROADMAP A.9 step 5's last part. The reference starts its ops server at
+import when ``TPUML_OPS_PORT`` is set and reads ``TPUML_LOCKCHECK*`` as
+its modules make their locks, so importing this package with any of
+those knobs (or ``TPUML_OPS_STALL_S``) set raises ``NotImplementedError``
+naming the item. Like the reference, it starts the SLO monitor at import
+when ``TPUML_SLO`` declares objectives.
 """
 
 from spark_rapids_ml_tpu_torch.utils.envknobs import reject_step5_later
@@ -69,6 +76,17 @@ from spark_rapids_ml_tpu_torch.observability.profiling import (  # noqa: F401
     PROFILE_DIR_ENV,
     maybe_profile,
 )
+from spark_rapids_ml_tpu_torch.observability.costs import (  # noqa: F401
+    COST_LEDGER_ENV,
+    HbmSampler,
+    Ledger,
+    ProgramCost,
+    RetraceStormWarning,
+    ledger_snapshot,
+    merge_ledger_docs,
+    validate_ledger,
+)
+from spark_rapids_ml_tpu_torch.observability import autotune  # noqa: F401
 from spark_rapids_ml_tpu_torch.observability import flightrec  # noqa: F401
 from spark_rapids_ml_tpu_torch.observability import slo  # noqa: F401
 from spark_rapids_ml_tpu_torch.observability.slo import (  # noqa: F401
@@ -77,7 +95,7 @@ from spark_rapids_ml_tpu_torch.observability.slo import (  # noqa: F401
     parse_slo,
 )
 
-#: The knobs of step 5's later parts that the reference reads when its
+#: The knobs of step 5's last part that the reference reads when its
 #: observability package is imported.
 IMPORT_TIME_LATER_KNOBS = (
     "TPUML_OPS_PORT", "TPUML_OPS_STALL_S",

@@ -514,9 +514,8 @@ def flush_telemetry() -> Optional[str]:
         roots = sorted(_trace_roots)
     if tele is None:
         return None
-    # The reference writes its cost-ledger shard (costs-<pid>.json) and
-    # the ops port here; both belong to step 5's later parts.
-    reject_step5_later("TPUML_COST_LEDGER", "TPUML_COST_LEDGER_DUMP", "TPUML_OPS_PORT")
+    # The reference reports its ops port here (step 5's last part).
+    reject_step5_later("TPUML_OPS_PORT")
     from spark_rapids_ml_tpu_torch.observability.metrics import dump_snapshot
 
     pid = os.getpid()
@@ -525,12 +524,22 @@ def flush_telemetry() -> Optional[str]:
         dump_snapshot(metrics_path)
     except OSError:  # pragma: no cover - best-effort snapshot
         metrics_path = None
+    # The cost-ledger shard rides the same dir (costs-<pid>.json), so a
+    # gang's ledgers merge into one cost view; written only when armed.
+    costs_path = None
+    try:
+        from spark_rapids_ml_tpu_torch.observability import costs as _costs
+
+        if _costs.active() is not None:
+            costs_path = _costs.dump_ledger(os.path.join(tele["dir"], f"costs-{pid}.json"))
+    except Exception:  # pragma: no cover - best-effort shard
+        costs_path = None
     manifest = {
         "pid": pid,
         "process": _resolve_process_index(),
         "shard": os.path.basename(tele["shard"]),
         "metrics": os.path.basename(metrics_path) if metrics_path else None,
-        "costs": None,
+        "costs": os.path.basename(costs_path) if costs_path else None,
         "ops_port": None,
         "trace_roots": roots,
         "emitted": emitted,

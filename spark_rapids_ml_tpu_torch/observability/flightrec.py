@@ -12,10 +12,10 @@ the instrumented path and NOTHING when disarmed.
 Python stacks, a metrics snapshot and trace roots — into
 ``TPUML_FLIGHT_DIR`` (default: the active telemetry dir, else the
 working directory). Its ``locks`` entry is the empty list the reference
-writes with its lock sanitizer off, and ``costs`` is None: the sanitizer
-and the cost ledger are ROADMAP A.9 step 5's later parts, and so is the
-reference's third trigger, the lock sanitizer's stall strike. The
-triggers here:
+writes with its lock sanitizer off, and ``costs`` is the cost ledger's
+snapshot while ``TPUML_COST_LEDGER`` is armed (None otherwise). The lock
+sanitizer is ROADMAP A.9 step 5's last part, and so is the reference's
+third trigger, its stall strike. The triggers here:
 
   - **fatal exception** — ``sys.excepthook`` / ``threading.excepthook``
     chain (the original hooks still run), installed by :func:`arm`;
@@ -118,7 +118,12 @@ def build_doc(reason: str, detail: Optional[dict] = None) -> dict:
         doc["metrics"] = default_registry.snapshot()
     except Exception:  # pragma: no cover - a scrape bug must not lose the ring
         doc["metrics"] = None
-    doc["costs"] = None
+    try:
+        from spark_rapids_ml_tpu_torch.observability import costs as _costs
+
+        doc["costs"] = _costs.ledger_snapshot() if _costs.active() is not None else None
+    except Exception:  # pragma: no cover - a ledger bug must not lose the ring
+        doc["costs"] = None
     return doc
 
 
@@ -200,7 +205,7 @@ def arm() -> None:
     ``events._configure_flight`` whenever ``TPUML_FLIGHT`` is set). The
     previous hooks keep running after ours. The reference also hooks its
     lock sanitizer's stall strikes here; that waits for the sanitizer
-    (ROADMAP A.9, step 5's later parts)."""
+    (ROADMAP A.9, step 5's last part)."""
     global _armed, _prev_excepthook, _prev_threading_excepthook
     with _arm_lock:
         if _armed:

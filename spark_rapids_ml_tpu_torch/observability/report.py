@@ -17,11 +17,15 @@ and the finished :class:`RunReport` hangs off the model
     keys ``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_limit``), also
     published as ``device.memory.*`` gauges.
 
-``RunReport.costs`` and ``.hbm`` stay empty: the cost ledger is ROADMAP
-A.9 step 5's later part, and ``TPUML_COST_LEDGER`` raises at the recorder.
-:func:`serving_report` reads the router and the autotuner in the
-reference, and waits for item 17b. :func:`gang_report` merges a gang's
-telemetry shards.
+With the cost ledger armed (``TPUML_COST_LEDGER=1``), ``RunReport.costs``
+holds one roofline row per program the run touched (``costs.run_delta``:
+counted flops and bytes, device-time walls on the card, utilization
+against the declared peaks), and ``.hbm`` the HBM sampler's peak growth
+attributed to the spans (``costs.attribute_hbm_growth``; needs
+``TPUML_HBM_SAMPLE_EVERY_MS``). :func:`serving_report` reads the router
+and the autotuner in the reference, and waits for item 17b.
+:func:`gang_report` merges a gang's telemetry shards, cost shards
+included.
 """
 
 from __future__ import annotations
@@ -29,10 +33,10 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, List, Optional
 
+from spark_rapids_ml_tpu_torch.observability import costs as _costs
 from spark_rapids_ml_tpu_torch.observability import events
 from spark_rapids_ml_tpu_torch.observability.metrics import default_registry, gauge
 from spark_rapids_ml_tpu_torch.observability.profiling import maybe_profile
-from spark_rapids_ml_tpu_torch.utils.envknobs import reject_step5_later
 
 SERVING_REPORT_ITEM = (
     "serving_report is not ported yet: the reference's reads the distributed "
@@ -144,10 +148,13 @@ class RunReport:
         self.counters = counters
         self.device_memory = device_memory
         self.ok = ok
-        #: Per-program cost-ledger rows for this run, and HBM growth by
-        #: span: empty until the cost ledger is ported (ROADMAP A.9, step
-        #: 5's later part).
+        #: Per-program cost-ledger rows for this run (costs.run_delta):
+        #: counted flops/bytes, invocation/wall deltas, achieved rates,
+        #: roofline utilization when device peaks are declared. Empty when
+        #: TPUML_COST_LEDGER is off.
         self.costs = costs or []
+        #: HBM watermark growth attributed to spans
+        #: (costs.attribute_hbm_growth); empty without the sampler.
         self.hbm = hbm or {}
 
     def stage_tree(self) -> List[dict]:
@@ -168,8 +175,8 @@ class RunReport:
         }
 
     def cost_table(self) -> List[dict]:
-        """The run's per-program flops/bytes attribution (empty until the
-        cost ledger is ported)."""
+        """The run's per-program flops/bytes attribution (empty when the
+        cost ledger is off)."""
         return self.costs
 
     def top_hot_spot(self) -> Optional[dict]:
@@ -296,14 +303,16 @@ class RunRecorder:
         self._profile = None
 
     def __enter__(self) -> "RunRecorder":
-        reject_step5_later("TPUML_COST_LEDGER", "TPUML_COST_LEDGER_DUMP")
         self._profile = maybe_profile(f"{self.kind}:{self.label}")
         self._profile.__enter__()
         self._scope = events.run_scope(self.kind, self.label)
         self._ctx = self._scope.__enter__()
         self._span_start = self._ctx.span_count()
         self._t0 = time.monotonic()
+        self._t0_perf = time.perf_counter()
         self._counters0 = default_registry.counters_snapshot()
+        ledger = _costs.active()
+        self._ledger0 = ledger.invocation_snapshot() if ledger is not None else None
         return self
 
     def __exit__(self, exc_type, exc, tb):
@@ -317,6 +326,13 @@ class RunRecorder:
                 if k.startswith(_REPORT_PREFIXES)
                 and v != self._counters0.get(k, 0)
             }
+            cost_rows: List[dict] = []
+            hbm: dict = {}
+            if self._ledger0 is not None and _costs.active() is not None:
+                cost_rows = _costs.run_delta(self._ledger0)
+                smp = _costs.sampler()
+                if smp is not None:
+                    hbm = _costs.attribute_hbm_growth(smp.window(self._t0_perf, time.perf_counter()), spans)
             self.report = RunReport(
                 run_id=self._ctx.run_id,
                 kind=self.kind,
@@ -326,6 +342,8 @@ class RunRecorder:
                 counters=delta,
                 device_memory=device_memory_stats(),
                 ok=exc_type is None,
+                costs=cost_rows,
+                hbm=hbm,
             )
             if events.enabled():
                 events.emit("counters", counters=delta, kind=self.kind,
@@ -364,9 +382,9 @@ def gang_report(telemetry_dir: Optional[str] = None) -> dict:
     gauges — with the per-member breakdown kept alongside, plus one
     entry per assembled trace (span count, member processes, critical
     path). This is what a launcher prints after a gang fit to see all N
-    members at once. The reference also merges the members' cost-ledger
-    shards here; the port writes none (the ledger is step 5's later
-    part)."""
+    members at once. The members' cost-ledger shards (``costs-<pid>.json``)
+    merge into one cost view under ``"costs"``: run counters sum, HBM
+    watermarks take the per-device max."""
     from spark_rapids_ml_tpu_torch.observability.events import telemetry_dir as _tdir
     from spark_rapids_ml_tpu_torch.observability.trace import assemble
 
@@ -400,7 +418,7 @@ def gang_report(telemetry_dir: Optional[str] = None) -> dict:
                 "gauges": snap.get("gauges", {}),
             }
         )
-    return {
+    out = {
         "dir": tdir,
         "members": members,
         "merged": merged["metrics"]["merged"],
@@ -408,3 +426,7 @@ def gang_report(telemetry_dir: Optional[str] = None) -> dict:
         "problems": merged["problems"] + merged["orphan_problems"],
         "warnings": merged["warnings"],
     }
+    cost_docs = _costs.load_ledger_dir(tdir)
+    if cost_docs:
+        out["costs"] = {"members": len(cost_docs), "merged": _costs.merge_ledger_docs(cost_docs)}
+    return out

@@ -64,6 +64,16 @@ _SYMBOLS = {torch.float32: "centered_gram_f32", torch.float64: "centered_gram_f6
 _resident: dict = {}  # (device index, dtype) -> blocks per SM
 
 
+def cost(n: int, d: int, dtype: torch.dtype) -> dict:
+    """The work of one centered Gram, whichever route computes it (the
+    count the cost ledger records and the bound column of the kernel table
+    uses): n·d·(d+1) operations (the symmetric half, two per FMA); x and
+    the mean read once, the (d, d) Gram written once."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return {"flops": float(n * d * (d + 1)), "transcendentals": 0.0,
+            "bytes_accessed": float((n * d + d + d * d) * item)}
+
+
 def centered_gram_plain(x: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: ``(x − mean)ᵀ(x − mean)``."""
     b = x - mean

@@ -71,6 +71,16 @@ WORKSPACE_BYTES = 256 << 20
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+def cost(n: int, d: int, k: int) -> dict:
+    """The work of one assignment + statistics pass of K2 or K3 (and of
+    their plain version; the count the cost ledger records and the bound
+    column of the kernel table uses): 2·n·k·d operations (the score
+    products, two per FMA); float32 x and centres read once, the sums,
+    counts, cost and squared centre norms written once."""
+    return {"flops": 2.0 * n * k * d, "transcendentals": 0.0,
+            "bytes_accessed": float(4 * (n * d + k * d) + 4 * k * d + 8 * k + 4 + 4 * k)}
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0

@@ -52,6 +52,15 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def cost(n: int, e: int, dim: int) -> dict:
+    """The work of one tail accumulation (K4 or ``index_add_``; the count
+    the cost ledger records and the bound column of the kernel table
+    uses): e·dim additions; the float32 gradients, the int32 permutation
+    and offsets read once, the (n, dim) float32 output written once."""
+    return {"flops": float(e * dim), "transcendentals": 0.0,
+            "bytes_accessed": float(4 * e * dim + 4 * e + 4 * (n + 1) + 4 * n * dim)}
+
+
 class TailPlan(NamedTuple):
     """The per-fit edge sort, on the device of the graph."""
 

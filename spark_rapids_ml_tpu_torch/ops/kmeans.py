@@ -54,6 +54,7 @@ import torch
 
 from spark_rapids_ml_tpu_torch.core.data import _block_to_dense
 from spark_rapids_ml_tpu_torch.core.serving import prefetch_blocks, upload_block
+from spark_rapids_ml_tpu_torch.observability.costs import ledgered_call
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
 from spark_rapids_ml_tpu_torch.parallel.collectives import all_reduce_sum, allreduce_slots, in_gang, psum_data
 from spark_rapids_ml_tpu_torch.parallel.mesh import ShardedRows
@@ -231,6 +232,15 @@ def _shard_stats(x, mask, x2, centers, dot: Callable, block_rows: Optional[int],
     return sums, counts, cost
 
 
+def lloyd_iteration_cost(n: int, d: int, k: int) -> dict:
+    """The counted work of one Lloyd iteration over ``n`` rows: one
+    assignment + statistics pass (``ops/kernels/kmeans.cost``, K2's and
+    K3's count, which the plain route shares)."""
+    from spark_rapids_ml_tpu_torch.ops.kernels.kmeans import cost
+
+    return cost(n, d, k)
+
+
 def lloyd_step(x, mask, centers, x2, dot: Dot, cosine: bool = False,
                block_rows: Optional[int] = None, stats_dtype: Optional[torch.dtype] = None):
     """One Lloyd iteration: (new_centers, cost). ``dot`` is a mode name or
@@ -256,12 +266,22 @@ def lloyd_step(x, mask, centers, x2, dot: Dot, cosine: bool = False,
 
 
 def _auto_block_rows(n: int, k: int, block_rows: Optional[int], data_shards: int = 1) -> int:
-    """``block_rows=None``: unblocked (``n + 1``) while a device's (n, k)
-    float32 temporary (``n / data_shards`` rows) stays under ~9 GB, else
-    blocks of ~1 GB of temporaries (the reference's static rule; its
-    autotuner is not ported)."""
+    """``block_rows=None``: with ``TPUML_AUTOTUNE=on`` and device memory
+    to size from, the tuner's block (unblocked while the (n, k) float32
+    temporary fits the measured headroom, else the largest row block
+    whose slab does); otherwise the reference's static rule — unblocked
+    (``n + 1``) while a device's (n, k) float32 temporary (``n /
+    data_shards`` rows) stays under ~9 GB, else blocks of ~1 GB of
+    temporaries."""
     if block_rows is not None:
         return block_rows
+    from spark_rapids_ml_tpu_torch.observability import autotune as _autotune
+
+    tuner = _autotune.active()
+    if tuner is not None:
+        tuned = tuner.recommend_kmeans_block_rows(n, k, data_shards)
+        if tuned is not None:
+            return tuned
     if 4 * n * k // max(data_shards, 1) > 9_000_000_000:
         return max(8, (250_000_000 // max(k, 1) // 8) * 8)
     return n + 1
@@ -367,12 +387,17 @@ def lloyd_resumable(
         if mesh is not None:
             state = replicate_state_onto_mesh(state, mesh)
     centers, moved, it, cost = state[0], state[1], int(state[2]), state[3]
+    k, d = int(centers.shape[0]), int(centers.shape[1])
     while _lloyd_continues(moved, it, tol, max_iter):
         with TraceRange("segment kmeans.lloyd", TraceColor.PURPLE):
             fault_point("solver.segment")
             start = it
-            centers, moved, it, cost = _lloyd_segment(shards, x2, centers, moved, it, cost, tol, max_iter,
-                                                      checkpointer.every, dot, cosine, block_rows, stats_dtype)
+            centers, moved, it, cost = ledgered_call(
+                _lloyd_segment, (shards, x2, centers, moved, it, cost, tol),
+                static=dict(max_iter=max_iter, every=checkpointer.every, dot=dot, cosine=cosine,
+                            block_rows=block_rows, stats_dtype=stats_dtype),
+                name="kmeans.lloyd.segment", cost=lambda: lloyd_iteration_cost(shards.n, d, k),
+            )
             bump_counter("checkpoint.segments")
             bump_counter("checkpoint.solver_iters", it - start)
         checkpointer.save_async(it, (centers, moved, np.int64(it), cost))

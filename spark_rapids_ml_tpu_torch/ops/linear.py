@@ -32,6 +32,7 @@ import torch
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.serving import prefetch_blocks, upload_block
 from spark_rapids_ml_tpu_torch.ops.eigh import _eigh
+from spark_rapids_ml_tpu_torch.observability.costs import ledgered_call
 from spark_rapids_ml_tpu_torch.ops.linalg import soft_threshold
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
 from spark_rapids_ml_tpu_torch.parallel.collectives import psum_data
@@ -179,6 +180,14 @@ def _enet_init(a_quad: torch.Tensor, init_coef) -> tuple:
     return c, c, 1.0, 0, float("inf")
 
 
+def _enet_iteration_cost(d: int, item: int) -> dict:
+    """The counted work of one FISTA iteration: the (d, d) · (d,) product
+    of the gradient (2·d² operations) and the O(d) update; A read once,
+    b, z and c read and the new c and z written."""
+    return {"flops": float(2 * d * d + 8 * d), "transcendentals": 0.0,
+            "bytes_accessed": float((d * d + 5 * d) * item)}
+
+
 def _enet_segment(a_quad, b_lin, lip, thresh, tol: float, c, z, t: float, it: int, delta: float,
                   max_iter: int, every: int):
     """Up to ``every`` FISTA iterations from an explicit carry ``(coef, z,
@@ -254,12 +263,16 @@ def solve_elastic_net_resumable(
         if mesh is not None:
             state = replicate_state_onto_mesh(state, mesh)
         c, z, t, it, delta = state[0], state[1], float(state[2]), int(state[3]), float(state[4])
+    d = int(a_quad.shape[0])
     while it < max_iter and delta > tol:
         with TraceRange("segment linear.enet", TraceColor.PURPLE):
             fault_point("solver.segment")
             start = it
-            c, z, t, it, delta = _enet_segment(a_quad, b_lin, lip, thresh, tol, c, z, t, it, delta,
-                                               max_iter, checkpointer.every)
+            c, z, t, it, delta = ledgered_call(
+                _enet_segment, (a_quad, b_lin, lip, thresh, tol, c, z, t, it, delta),
+                static=dict(max_iter=max_iter, every=checkpointer.every),
+                name="linear.enet.segment", cost=lambda: _enet_iteration_cost(d, a_quad.element_size()),
+            )
             bump_counter("checkpoint.segments")
             bump_counter("checkpoint.solver_iters", it - start)
         checkpointer.save_async(it, (c, z, np.float64(t), np.int64(it), np.float64(delta)))

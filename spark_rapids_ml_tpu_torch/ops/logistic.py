@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.serving import prefetch_blocks, upload_block
+from spark_rapids_ml_tpu_torch.observability.costs import ledgered_call
 from spark_rapids_ml_tpu_torch.ops import lbfgs
 from spark_rapids_ml_tpu_torch.ops.linalg import soft_threshold
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
@@ -426,6 +427,26 @@ def fit_logistic(
     return LogisticFit(w_orig, b_orig, res.n_iter, final_loss)
 
 
+def _lbfgs_segment(x, value_and_grad, state, max_iter: int, tol: float, every: int):
+    """One L-BFGS segment (``ops/lbfgs.run``); ``x`` only names the rows'
+    shape in the cost ledger's entry."""
+    return lbfgs.run(value_and_grad, state, max_iter, tol, every=every)
+
+
+def _evaluation_cost(x, c: int) -> dict:
+    """The counted work of one objective evaluation over the rows (one
+    L-BFGS iteration's): the margins X·W and the gradient Xᵀ·R, 4·n·d·c
+    operations, one exponential per margin; x read once (the fused
+    sweep), the labels and row weights read once."""
+    if isinstance(x, ShardedRows):
+        n, d, item = int(x.n), int(x.d), x.blocks[0][0].element_size()
+    else:
+        parts = x if isinstance(x, list) else [x]
+        n, d, item = sum(int(p.shape[0]) for p in parts), int(parts[0].shape[1]), parts[0].element_size()
+    return {"flops": 4.0 * n * d * c, "transcendentals": float(n * c),
+            "bytes_accessed": float((n * d + 2 * n) * item)}
+
+
 def fit_logistic_resumable(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -460,7 +481,11 @@ def fit_logistic_resumable(
         with TraceRange("segment logistic.lbfgs", TraceColor.PURPLE):
             fault_point("solver.segment")
             start = int(state.it)
-            state = lbfgs.run(problem.value_and_grad, state, max_iter, tol, every=checkpointer.every)
+            state = ledgered_call(
+                _lbfgs_segment, (x, problem.value_and_grad, state, max_iter, tol),
+                static=dict(every=checkpointer.every),
+                name="logistic.lbfgs.segment", cost=lambda: _evaluation_cost(x, problem.c),
+            )
             bump_counter("checkpoint.segments")
             bump_counter("checkpoint.solver_iters", int(state.it) - start)
         checkpointer.save_async(int(state.it), tuple(state))

@@ -8,6 +8,8 @@ confusion matrix, and one sort plus cumulative scans for the AUC.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -63,6 +65,31 @@ def _pack_f32_keys(y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def binary_auc_device(y: torch.Tensor, s: torch.Tensor, metric: str = "areaUnderROC") -> torch.Tensor:
+    """Tie-grouped AUC (ROC or PR) on the device (:func:`_binary_auc`);
+    with the cost ledger on, a ``metrics.binary_auc`` program of its own
+    shape, counted as a sort of the n scores (:func:`auc_cost`)."""
+    from spark_rapids_ml_tpu_torch.observability import costs
+
+    led = costs.active()
+    if led is None:
+        return _binary_auc(y, s, metric=metric)
+    n = int(s.shape[0])
+    key = costs.record_fallback(_binary_auc, name="metrics.binary_auc", static={"metric": metric}, args=(y, s),
+                                cost=lambda: auc_cost(n))
+    return costs.timed_invocation(led, key, n, s.device, lambda: _binary_auc(y, s, metric=metric))
+
+
+def auc_cost(n: int) -> dict:
+    """The counted work of one AUC over n scores: a comparison sort,
+    n·log2(n) comparisons, moving 8-byte keys through 2·log2(n) passes
+    (the smoke's sort bound), plus the labels and scores read once and
+    two scans."""
+    passes = max(math.log2(max(n, 2)), 1.0)
+    return {"flops": float(n * passes + 4 * n), "transcendentals": 0.0,
+            "bytes_accessed": float(2 * 8 * n * passes + 16 * n)}
+
+
+def _binary_auc(y: torch.Tensor, s: torch.Tensor, metric: str = "areaUnderROC") -> torch.Tensor:
     """Tie-grouped AUC (ROC or PR), one sort and cumulative scans: one
     curve point per distinct score, trapezoids through ties, as the host
     evaluator computes it.

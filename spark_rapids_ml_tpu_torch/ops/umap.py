@@ -45,7 +45,9 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch.device import seeded_generator
+from spark_rapids_ml_tpu_torch.observability.costs import ledgered_call
 from spark_rapids_ml_tpu_torch.ops.kernels.umap import TailPlan, tail_accumulate
+from spark_rapids_ml_tpu_torch.ops.kernels.umap import cost as tail_cost
 from spark_rapids_ml_tpu_torch.parallel.collectives import psum_data
 from spark_rapids_ml_tpu_torch.parallel.mesh import require_one_process
 from spark_rapids_ml_tpu_torch.robustness.checkpoint import segment_boundary
@@ -129,6 +131,26 @@ def negative_shape(n: int, k: int, neg_rate: int, neg_pool: int) -> Tuple[int, .
     return (neg_pool,) if neg_pool > 0 else (n * k, neg_rate)
 
 
+def _tail_index_add(tail_g: torch.Tensor, dst_flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The tail accumulation's plain route: ``index_add_`` into zeros."""
+    return torch.zeros_like(like).index_add_(0, dst_flat, tail_g)
+
+
+def layout_epoch_cost(n: int, e: int, dim: int, neg_rate: int, neg_pool: int) -> dict:
+    """The counted work of one layout epoch over ``e`` edges: the
+    attraction (4·dim operations and one power per edge), the repulsion
+    (per edge and negative sample, or the pool's two (n, s, dim) products),
+    and the tail accumulation (``ops/kernels/umap.cost``, K4's count); the
+    layout read and written, the edges' targets and weights read once."""
+    if neg_pool > 0:
+        rep_flops, rep_pows = 4.0 * n * neg_pool * dim, n * neg_pool
+    else:
+        rep_flops, rep_pows = 4.0 * e * neg_rate * dim, e * neg_rate
+    tail = tail_cost(n, e, dim)
+    return {"flops": 4.0 * e * dim + rep_flops + tail["flops"], "transcendentals": float(e + rep_pows),
+            "bytes_accessed": float(2 * 4 * n * dim + 12 * e) + tail["bytes_accessed"]}
+
+
 def _make_epoch_fn(
     shape, graph: FuzzyGraph, target: Optional[torch.Tensor],
     *, n_epochs: int, neg_rate: int, neg_pool: int, learning_rate: float,
@@ -181,10 +203,13 @@ def _make_epoch_fn(
         delta = alpha * grad_head
         if move_tail:
             tail_g = (-alpha * g_att).reshape(-1, dim)
+            count = lambda: tail_cost(n, int(tail_g.shape[0]), dim)  # noqa: E731
             if tail_plan is not None:
-                delta = delta + tail_accumulate(tail_g, tail_plan)
+                delta = delta + ledgered_call(tail_accumulate, (tail_g, tail_plan), static={},
+                                              name="umap.tail", cost=count)
             else:
-                delta = delta + torch.zeros_like(y).index_add_(0, dst_flat, tail_g)
+                delta = delta + ledgered_call(_tail_index_add, (tail_g, dst_flat, y), static={},
+                                              name="umap.tail", cost=count)
         return y + delta
 
     return epoch
@@ -281,7 +306,11 @@ def optimize_layout_resumable(
         stop = min(ep + checkpointer.every, n_epochs)
         with TraceRange("segment umap.layout", TraceColor.PURPLE):
             fault_point("solver.segment")
-            y = _layout_segment(epoch, y, gen, ep, stop, shape, n_ref, negatives)
+            y = ledgered_call(
+                _layout_segment, (epoch, y, gen, ep, stop, shape, n_ref, negatives), static={},
+                name="umap.layout.segment",
+                cost=lambda: layout_epoch_cost(n, n * int(graph.indices.shape[1]), dim, neg_rate, neg_pool),
+            )
             bump_counter("checkpoint.segments")
             bump_counter("checkpoint.solver_iters", stop - ep)
         ep = stop

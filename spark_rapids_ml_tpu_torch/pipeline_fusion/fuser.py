@@ -34,6 +34,7 @@ import warnings
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from spark_rapids_ml_tpu_torch.observability import costs as _costs
 from spark_rapids_ml_tpu_torch.observability.events import emit
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, tree_leaves
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice
@@ -123,6 +124,20 @@ def composite_kernel(
                 out = selects[i](out)
         return out
 
+    def _fused_cost(rows, d, dtype, stage_weights, static):
+        """The stages' counts summed, each at the width its predecessor
+        hands it (``out_width``)."""
+        per_stage = _demux_static(static, len(kernels))
+        parts, width = [], d
+        for i, kernel in enumerate(kernels):
+            part = _costs.kernel_cost(kernel, rows, width, dtype, stage_weights[i], per_stage[i])
+            parts.append(part)
+            if part is None:
+                break
+            width = part.get("out_width", width)
+        return _costs.sum_costs(parts)
+
+    _costs.register_cost(_fused_pipeline, _fused_cost)
     _fused_pipeline.__name__ = "fused_" + "__".join(
         getattr(k, "__name__", "kernel").lstrip("_") for k in kernels
     )

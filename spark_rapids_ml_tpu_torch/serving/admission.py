@@ -10,10 +10,10 @@ queueing without bound:
     bucketed input block plus the kernel's outputs at that bucket (the
     signature's ``output_spec``), and the bytes of admitted, unfinished
     requests must stay within the budget. The reservation is released when
-    the request completes, sheds or times out. The reference prices with
-    the cost ledger's measured bytes once a program has compiled; that
-    ledger is the observability item's (ROADMAP A.9), so the port always
-    prices from the declared specs, as the reference does with it off.
+    the request completes, sheds or times out. Once the bucket's program
+    was captured under the cost ledger (``TPUML_COST_LEDGER=1``, on CUDA),
+    the server prices with its measured temp + output bytes instead
+    (counter ``serving.admission.measured``; else ``.declared``).
 
 :func:`execute_with_fallback` runs one batch on the accelerator path. A
 device failure fails that batch's futures with the error, as the

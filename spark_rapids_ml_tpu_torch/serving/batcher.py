@@ -9,9 +9,10 @@ the per-request futures.
 
 A batch is bounded two ways: ``TPUML_SERVE_MAX_BATCH`` rows per dispatch,
 and ``TPUML_SERVE_MAX_DELAY_MS`` of coalescing wait measured from the
-first request of the forming batch. The reference's autotuner may shorten
-that window from measured program walls; the tuner is the observability
-item's (ROADMAP A.9), so the window here is always the knob's.
+first request of the forming batch. With ``TPUML_AUTOTUNE=on`` the window
+follows the measured p95 program wall of the model's serving kernel
+(:meth:`MicroBatcher._delay_s_for`; on the card the ledger's walls are
+device time), falling back to the knob until enough walls were seen.
 
 Version atomicity follows from the coalescing key: a request admitted
 against version N only shares a batch with version N, so a hot swap
@@ -26,6 +27,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from spark_rapids_ml_tpu_torch.observability import autotune as _autotune
 from spark_rapids_ml_tpu_torch.observability.events import emit, trace_scope
 from spark_rapids_ml_tpu_torch.observability.metrics import histogram
 from spark_rapids_ml_tpu_torch.serving.admission import (
@@ -126,7 +128,7 @@ class MicroBatcher:
         batch fills or the window from ``first``'s enqueue closes."""
         batch = [first]
         rows = first.n
-        flush_at = first.enqueue_mono + self.max_delay_s
+        flush_at = first.enqueue_mono + self._delay_s_for(first)
         while rows < self.max_batch:
             for req in self._queue.drain_compatible(first.key, self.max_batch - rows):
                 if not self._fail_if_expired(req):
@@ -142,6 +144,16 @@ class MicroBatcher:
                         rows += req.n
                 break
         return batch
+
+    def _delay_s_for(self, first: Request) -> float:
+        """The coalescing window for the batch forming behind ``first``:
+        ``TPUML_SERVE_MAX_DELAY_MS`` unless the autotuner has measured the
+        p95 program wall of this model's serving kernel — a batch should
+        wait about the time one dispatch saves."""
+        tuner = _autotune.active()
+        if tuner is None:
+            return self.max_delay_s
+        return tuner.recommend_delay_s(first.version.signature.name, self.max_delay_s)
 
     def _fail_if_expired(self, req: Request) -> bool:
         now = time.monotonic()

@@ -33,7 +33,9 @@ from typing import Any, Iterable, List, Optional
 import numpy as np
 
 from spark_rapids_ml_tpu_torch.core.ingest import numpy_dtype
-from spark_rapids_ml_tpu_torch.core.serving import HOST_DTYPE, bucket_rows
+from spark_rapids_ml_tpu_torch.core.membudget import measured_or_declared
+from spark_rapids_ml_tpu_torch.core.serving import HOST_DTYPE, ladder_bucket_rows
+from spark_rapids_ml_tpu_torch.observability import costs as _costs
 from spark_rapids_ml_tpu_torch.observability.events import (
     begin_trace,
     current_trace_context,
@@ -48,6 +50,7 @@ from spark_rapids_ml_tpu_torch.serving.admission import (
     QUEUE_ENV,
     AdmissionQueue,
     Request,
+    signature_device,
 )
 from spark_rapids_ml_tpu_torch.serving.batcher import (
     DEFAULT_MAX_BATCH,
@@ -182,9 +185,19 @@ class ServingRuntime:
         dtype = np.dtype(numpy_dtype(HOST_DTYPE))
         xh = np.ascontiguousarray(xh, dtype=dtype)
         n = int(xh.shape[0])
-        bucket = bucket_rows(max(n, 1))
-        # Declared price: the bucketed input block and the outputs at that bucket.
-        cost = bucket * sig.n_features * dtype.itemsize + spec_bytes(sig.output_spec(bucket, HOST_DTYPE))
+        # observe=False: the execution path feeds the ladder's histogram;
+        # pricing agrees on the bucket without counting the request twice.
+        bucket = ladder_bucket_rows(max(n, 1), name=sig.name, width=sig.n_features, observe=False)
+        # The measured price once the bucket's program was captured under
+        # the cost ledger, else the declared one: the bucketed input block
+        # and the outputs at that bucket.
+        cost = measured_or_declared(
+            _costs.measured_request_bytes(sig.kernel, sig.static, bucket, sig.n_features, HOST_DTYPE,
+                                          sig.weights_on(signature_device(sig), host=True))
+            if _costs.active() is not None else None,
+            bucket * sig.n_features * dtype.itemsize + spec_bytes(sig.output_spec(bucket, HOST_DTYPE)),
+            "serving.admission",
+        )
         tc = current_trace_context() or begin_trace()
         req = Request(
             key=(mv.name, mv.version, int(xh.shape[1]), str(dtype)),

@@ -7,6 +7,10 @@ the row-wise serving kernel (the same function object its own
 kernel computes with, the static config it takes as keywords, and an
 output-spec callable.
 
+:meth:`ServingSignature.cost` is the analytic count of the kernel's work
+at a bucket (``observability/costs.register_cost``, the count the cost
+ledger records for its programs).
+
 ``output_spec(n, dtype)`` returns the kernel's output for an ``n``-row
 batch at ``dtype`` as tensors on the ``"meta"`` device, torch's
 counterpart of ``jax.ShapeDtypeStruct``: shapes and dtypes, no storage.
@@ -75,6 +79,16 @@ class ServingSignature:
     _cpu_weights: Optional[Tuple[Any, ...]] = field(default=None, repr=False, compare=False)
     # Copies of the weights on other devices than their own, by device.
     _moved: Dict[Tuple[str, bool], Tuple[Any, ...]] = field(default_factory=dict, repr=False, compare=False)
+
+    def cost(self, bucket: int, d: Optional[int] = None, dtype: Any = None) -> Optional[dict]:
+        """The kernel's counted work for ``bucket`` rows of ``d`` features
+        (default: its own) in ``dtype`` (default: the weights'):
+        ``{"flops", "transcendentals", "bytes_accessed"}``, or None when
+        the kernel has no registered count."""
+        from spark_rapids_ml_tpu_torch.observability.costs import kernel_cost
+
+        return kernel_cost(self.kernel, bucket, self.n_features if d is None else d,
+                           self.weights_dtype() if dtype is None else dtype, self.weights, self.static)
 
     def weights_dtype(self) -> torch.dtype:
         """Dtype of the first floating weight leaf (float32 if none)."""

@@ -189,12 +189,23 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
     Knob("TPUML_TRACE_PARENT", "str", "observability",
          "trace-context carrier: the launcher span id this process's "
          "root spans parent to"),
-    # the cost ledger (not ported: ROADMAP A.9, step 5's costs; raises)
+    # the program cost ledger (observability/costs.py)
     Knob("TPUML_COST_LEDGER", "choice", "observability",
-         "1 records per-program costs (not ported; raises)",
+         "1 records each program's counted work, measured memory and "
+         "device-time walls (captured graphs, bypass runs, solver segments)",
          default="0", choices=("0", "1")),
     Knob("TPUML_COST_LEDGER_DUMP", "str", "observability",
-         "write the cost-ledger document here at exit (not ported; raises)"),
+         "write the cost-ledger JSON document here at interpreter exit"),
+    Knob("TPUML_HBM_SAMPLE_EVERY_MS", "float", "observability",
+         "HBM watermark sampler period in ms (0 = off; needs the ledger)",
+         default=0.0),
+    Knob("TPUML_RETRACE_STORM", "int", "observability",
+         "unexpected retraces per program family before the storm warning",
+         default=3),
+    Knob("TPUML_PEAK_FLOPS", "float", "observability",
+         "declared device peak FLOP/s for roofline utilization estimates"),
+    Knob("TPUML_PEAK_BYTES_PER_SEC", "float", "observability",
+         "declared device peak HBM bytes/s for roofline utilization"),
     # the ops plane and lockcheck (not ported: step 5's ops plane; raise)
     Knob("TPUML_LOCKCHECK", "choice", "lockcheck",
          "off: plain threading primitives; warn / strict: the lock "
@@ -227,10 +238,19 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
     Knob("TPUML_FLIGHT_DIR", "str", "ops-plane",
          "directory for flight-recorder dumps (default: the active "
          "TPUML_TELEMETRY_DIR, else the process working directory)"),
-    # the autotuner's committed decisions (not ported: ROADMAP A.9)
+    # ledger-driven autotuner (observability/autotune.py)
     Knob("TPUML_AUTOTUNE", "choice", "autotune",
-         "on = measured-cost decisions (not ported; raises); off = the "
-         "static heuristics", default="off", choices=("off", "on")),
+         "on = measured-cost models drive block rows, the serving "
+         "bucket ladder, the batcher deadline, admission pricing and the "
+         "precision gate (implies the cost ledger); off = every static "
+         "heuristic unchanged bit-for-bit",
+         default="off", choices=("off", "on")),
+    Knob("TPUML_TUNE_STORE", "str", "autotune",
+         "persistent JSON of accepted autotune decisions (atomic "
+         "writes; corrupt files fall back to an empty store)"),
+    Knob("TPUML_AUTOTUNE_HOT_MIN", "int", "autotune",
+         "sightings of one exact batch size before the serving ladder "
+         "admits it as an exact-fit bucket", default=16),
     # mixed-precision policy (ops/precision.py)
     Knob("TPUML_PRECISION", "choice", "precision",
          "global GEMM precision mode for every policy-aware op family",
@@ -251,15 +271,6 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "objective (applies when LogisticRegression(fused=...) is not given)",
          default="1", choices=("0", "1")),
 )}
-
-AUTOTUNE_ENV = "TPUML_AUTOTUNE"
-AUTOTUNE_ITEM = (
-    "TPUML_AUTOTUNE=on (the autotuner's committed decisions) is not ported "
-    "yet: it needs the cost ledger and the tuner of the observability item "
-    "(ROADMAP A.9)"
-)
-
-
 
 def _require_registered(name: str) -> None:
     """Accessors refuse unregistered ``TPUML_*`` names (``TPUML_TEST_*``
@@ -324,13 +335,11 @@ def env_choice(name: str, choices: Sequence[str], default: str) -> str:
     return value
 
 
-STEP5_LATER_ITEM = "ROADMAP A.9, step 5 (costs / ops plane / lockcheck)"
+STEP5_LATER_ITEM = "ROADMAP A.9, step 5 (ops plane / lockcheck)"
 
-#: The knobs of step 5's later parts, each with the value that leaves it
+#: The knobs of step 5's last part, each with the value that leaves it
 #: off (None: any value turns it on).
 STEP5_LATER_KNOBS = {
-    "TPUML_COST_LEDGER": "0",
-    "TPUML_COST_LEDGER_DUMP": None,
     "TPUML_OPS_PORT": None,
     "TPUML_OPS_STALL_S": None,
     "TPUML_LOCKCHECK": "off",
@@ -340,10 +349,10 @@ STEP5_LATER_KNOBS = {
 
 
 def reject_step5_later(*names: str) -> None:
-    """Where the reference reads a knob of step 5's later parts (the cost
-    ledger, the ops plane, the lock sanitizer): raise
-    ``NotImplementedError`` naming the knob and the item when it is set to
-    anything but its off value, so none is ignored silently."""
+    """Where the reference reads a knob of step 5's last part (the ops
+    plane, the lock sanitizer): raise ``NotImplementedError`` naming the
+    knob and the item when it is set to anything but its off value, so
+    none is ignored silently."""
     for name in names:
         _require_registered(name)
         raw = os.environ.get(name)
@@ -353,16 +362,6 @@ def reject_step5_later(*names: str) -> None:
         if off is not None and raw.strip().lower() == off:
             continue
         raise NotImplementedError(
-            f"{name}={raw!r} is not ported yet: the cost ledger, the ops plane "
-            f"and the lock sanitizer are {STEP5_LATER_ITEM}; unset it"
+            f"{name}={raw!r} is not ported yet: the ops plane and the lock "
+            f"sanitizer are {STEP5_LATER_ITEM}; unset it"
         )
-
-
-def reject_autotune() -> None:
-    """Where the reference would consult its autotuner: with
-    ``TPUML_AUTOTUNE=on`` raise ``NotImplementedError`` (the tuner is not
-    ported); unset or ``off`` takes the static branch, as the reference
-    does with the tuner off."""
-    if env_choice(AUTOTUNE_ENV, ("off", "on"), "off") == "on":
-        raise NotImplementedError(AUTOTUNE_ITEM)
-

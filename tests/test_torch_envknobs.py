@@ -6,9 +6,10 @@ retries and degrade switch, ``ops/precision.resolve_policy``, the
 logistic ``fused`` default, the UMAP tail route), each held against its
 JAX twin on the same environment: equal values for valid settings, and
 for malformed ones the same exception type with the same message. With
-the autotuner off the two packages agree; ``TPUML_AUTOTUNE=on`` raises
-``NotImplementedError`` in the port wherever the reference would consult
-its tuner. The fits a knob changes are held to the JAX package at the
+the autotuner off the two packages agree; with ``TPUML_AUTOTUNE=on`` and
+no evidence each site where the reference consults its tuner decides
+what the static branch decides (the precision gate's probe walls
+injected, as the reference's tests do). The fits a knob changes are held to the JAX package at the
 tolerances of their own test files: logistic weights 1e-7 with equal
 ``numIter`` (``test_torch_logistic.py``), a pinned-layout UMAP fit 1e-4
 (``test_torch_umap.py``).
@@ -32,6 +33,8 @@ from spark_rapids_ml_tpu_torch.core import data as tdata
 from spark_rapids_ml_tpu_torch.core import membudget as tmb
 from spark_rapids_ml_tpu_torch.feature import PCA
 from spark_rapids_ml_tpu_torch.manifold import UMAP
+from spark_rapids_ml_tpu_torch.observability import autotune as tautotune
+from spark_rapids_ml_tpu_torch.observability import costs as tcosts
 from spark_rapids_ml_tpu_torch.ops import precision as tprec
 from spark_rapids_ml_tpu_torch.ops import umap as pou
 from spark_rapids_ml_tpu_torch.utils import envknobs as tknobs
@@ -205,13 +208,35 @@ AUTOTUNE_SITES = {
 }
 
 
+#: What a tuner holding no evidence decides where the static branch says
+#: ``off``: the precision gate commits its f32 incumbent (the same GEMM as
+#: the default ``highest``); every other site the static value.
+TUNED_WITHOUT_EVIDENCE = {"resolve_policy": "f32"}
+
+
 @pytest.mark.parametrize("site", list(AUTOTUNE_SITES))
 def test_autotune_on_is_not_ported(monkeypatch, site):
-    monkeypatch.setenv("TPUML_AUTOTUNE", "on")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        AUTOTUNE_SITES[site](monkeypatch)
+    """``TPUML_AUTOTUNE=on`` now works at each site (the name is kept from
+    when it raised): with no evidence it decides as the tuner off does."""
     monkeypatch.setenv("TPUML_AUTOTUNE", "off")
-    AUTOTUNE_SITES[site](monkeypatch)  # the static branch
+    tautotune.reset_for_tests()
+    static = AUTOTUNE_SITES[site](monkeypatch)
+    # Probe walls injected: f32 fastest, so the gate keeps the incumbent.
+    monkeypatch.setattr(tprec, "_time_probe",
+                        lambda a, b, mode, repeats=3: ((a @ b).numpy(), {"f32": 1.0}.get(mode, 2.0)))
+    monkeypatch.setenv("TPUML_AUTOTUNE", "on")
+    try:
+        tautotune.reset_for_tests()
+        assert tautotune.active() is not None and tcosts.active() is not None
+        tuned = AUTOTUNE_SITES[site](monkeypatch)
+        assert tuned == TUNED_WITHOUT_EVIDENCE.get(site, static)
+        if site == "resolve_policy":
+            assert tprec.make_dot(tuned) is tprec.make_dot(static)
+    finally:
+        monkeypatch.setenv("TPUML_AUTOTUNE", "off")
+        monkeypatch.delenv("TPUML_COST_LEDGER", raising=False)
+        tautotune.reset_for_tests()
+        tcosts.reset_for_tests()
 
 
 def test_explicit_settings_do_not_reach_the_tuner(monkeypatch):
@@ -224,8 +249,10 @@ def test_explicit_settings_do_not_reach_the_tuner(monkeypatch):
     assert tdata.HostArrayBlockReader(np.zeros((3, 2)), block_rows=2).block_rows == 2
     monkeypatch.setenv("TPUML_AUTOTUNE", "sometimes")
     monkeypatch.delenv("TPUML_FIT_BLOCK_ROWS")
+    # The knob is read where the tuner is configured (at import, as in the
+    # reference): a malformed value fails there, naming it.
     with pytest.raises(tknobs.EnvKnobError, match="TPUML_AUTOTUNE"):
-        tdata.fit_block_rows()
+        tautotune.configure()
 
 
 # --- the fits a knob changes --------------------------------------------------

@@ -17,8 +17,10 @@ twin on the CPU, after the reference's ``tests/test_observability.py``:
   and writes no record;
 - ``TPUML_PROFILE_DIR`` writes a Chrome trace holding the port's range
   names, and ``maybe_profile`` yields None under an open profiler;
-- each knob of ROADMAP A.9 step 5's later parts raises where the
-  reference would read it.
+- each knob of ROADMAP A.9 step 5's last part (the ops plane and the
+  lock sanitizer) raises where the reference would read it; the cost
+  ledger's knobs work where the reference reads them (the fit report's
+  ``costs``, the telemetry shard).
 """
 
 import importlib
@@ -48,6 +50,7 @@ from spark_rapids_ml_tpu_torch import observability as tobs
 from spark_rapids_ml_tpu_torch.classification import LogisticRegression
 from spark_rapids_ml_tpu_torch.clustering import KMeans
 from spark_rapids_ml_tpu_torch.feature import PCA
+from spark_rapids_ml_tpu_torch.observability import costs as tcosts
 from spark_rapids_ml_tpu_torch.observability import events as tevents
 from spark_rapids_ml_tpu_torch.observability import metrics as tmetrics
 from spark_rapids_ml_tpu_torch.observability import profiling as tprofiling
@@ -548,29 +551,61 @@ LATER_AT_IMPORT = ("TPUML_OPS_PORT", "TPUML_OPS_STALL_S", "TPUML_LOCKCHECK",
 def test_ops_plane_and_lockcheck_knobs_raise_at_import(monkeypatch, name, value):
     assert name in tobs.IMPORT_TIME_LATER_KNOBS
     monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9, step 5 \(costs / ops plane / lockcheck\)"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9, step 5 \(ops plane / lockcheck\)"):
         importlib.reload(tobs)
     monkeypatch.delenv(name)
     importlib.reload(tobs)
 
 
 @pytest.mark.parametrize("name,value", [("TPUML_COST_LEDGER", "1"), ("TPUML_COST_LEDGER_DUMP", "/tmp/led.json")])
-def test_cost_ledger_knobs_raise_at_the_fit(no_event_log, monkeypatch, name, value):
+def test_cost_ledger_knobs_raise_at_the_fit(no_event_log, monkeypatch, tmp_path, name, value):
+    """The cost ledger's knobs now work at the fit (the name is kept from
+    when they raised): ``TPUML_COST_LEDGER=1`` fills the report's
+    ``costs`` with the Gram's program, counted as K1's work; the dump
+    knob writes the document (here to a temporary path, at an explicit
+    call of the exit hook)."""
+    if name == "TPUML_COST_LEDGER_DUMP":
+        value = str(tmp_path / "led.json")
     monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match=rf"{name}=.*ROADMAP A\.9, step 5"):
-        PCA().setK(2).fit(_rows()[0])
+    monkeypatch.setenv("TPUML_COST_LEDGER", "1")
+    tcosts.reset_for_tests()
+    try:
+        x = _rows()[0]
+        report = PCA().setK(2).fit(x).fit_report()
+        gram = [r for r in report.costs if r["family"] == "covariance.gram"]
+        assert len(gram) == 1 and gram[0]["invocations"] == 1 and gram[0]["kind"] == "segment"
+        n, d = x.shape
+        assert gram[0]["flops"] == n * d * (d + 1) and gram[0]["wall_seconds"] > 0
+        if name == "TPUML_COST_LEDGER_DUMP":
+            tcosts._dump_at_exit()
+            assert tcosts.validate_ledger(json.load(open(value))) == []
+    finally:
+        monkeypatch.delenv("TPUML_COST_LEDGER")
+        tcosts.reset_for_tests()
 
 
 @pytest.mark.parametrize("name,value", [("TPUML_COST_LEDGER", "1"), ("TPUML_OPS_PORT", "9090")])
 def test_flush_telemetry_refuses_the_costs_shard_and_ops_port(tmp_path, monkeypatch, name, value):
+    """The ops port still raises (step 5's last part); the costs shard is
+    now written beside the manifest, which names it (the name is kept
+    from when both raised)."""
     monkeypatch.setenv(tevents.TELEMETRY_DIR_ENV, str(tmp_path / "t"))
     tevents.configure()
     try:
         monkeypatch.setenv(name, value)
-        with pytest.raises(NotImplementedError, match=name):
-            tevents.flush_telemetry()
+        if name == "TPUML_OPS_PORT":
+            with pytest.raises(NotImplementedError, match=name):
+                tevents.flush_telemetry()
+        else:
+            tcosts.reset_for_tests()
+            manifest = json.load(open(tevents.flush_telemetry()))
+            assert manifest["costs"] == f"costs-{os.getpid()}.json"
+            doc = json.load(open(tmp_path / "t" / manifest["costs"]))
+            assert tcosts.validate_ledger(doc) == [] and doc["pid"] == os.getpid()
     finally:
+        monkeypatch.delenv(name)
         monkeypatch.delenv(tevents.TELEMETRY_DIR_ENV)
+        tcosts.reset_for_tests()
         tevents.configure()
 
 
@@ -579,4 +614,4 @@ def test_later_knobs_at_their_off_values_are_quiet(no_event_log, monkeypatch):
     monkeypatch.setenv("TPUML_LOCKCHECK", "off")
     tknobs.reject_step5_later(*tknobs.STEP5_LATER_KNOBS)
     assert PCA().setK(2).fit(_rows()[0]).fit_report() is not None
-    assert set(tknobs.STEP5_LATER_KNOBS) == set(LATER_AT_IMPORT) | {"TPUML_COST_LEDGER", "TPUML_COST_LEDGER_DUMP"}
+    assert set(tknobs.STEP5_LATER_KNOBS) == set(LATER_AT_IMPORT)

@@ -37,6 +37,7 @@ from spark_rapids_ml_tpu.observability import trace as jtrace
 from spark_rapids_ml_tpu_torch import device as port_device
 from spark_rapids_ml_tpu_torch import interop
 from spark_rapids_ml_tpu_torch.lifecycle.drift import DriftMonitor
+from spark_rapids_ml_tpu_torch.observability import costs as tcosts
 from spark_rapids_ml_tpu_torch.observability import events as tevents
 from spark_rapids_ml_tpu_torch.observability import flightrec
 from spark_rapids_ml_tpu_torch.observability import slo
@@ -73,6 +74,11 @@ def flight(tmp_path, monkeypatch):
     """The flight ring armed (8 records), no event sink, dumps under
     ``tmp_path / "flight"``; teardown disarms the hooks and the ring."""
     d = tmp_path / "flight"
+    # The reference's tests leave its flight recorder's hooks installed
+    # (they restore them by hand). Chained behind the port's, its dump
+    # would land on the same path: arm the port's over the defaults.
+    monkeypatch.setattr(threading, "excepthook", threading.__excepthook__)
+    monkeypatch.setattr(sys, "excepthook", sys.__excepthook__)
     monkeypatch.setenv(tevents.FLIGHT_ENV, "8")
     monkeypatch.setenv(flightrec.FLIGHT_DIR_ENV, str(d))
     tevents.configure("")
@@ -246,6 +252,13 @@ def test_the_ring_captures_without_any_sink(flight):
     assert [r["seq"] for r in doc["ring"]] == list(range(12, 20))
     assert doc["threads"] and isinstance(doc["metrics"], dict) and doc["locks"] == [] and doc["costs"] is None
     assert flightrec.dump("test-ring") is None  # once per reason
+    # With the cost ledger armed, a dump carries its snapshot.
+    tcosts.configure(enable=True)
+    try:
+        doc = json.load(open(flightrec.dump("test-ring-ledger")))
+        assert tcosts.validate_ledger(doc["costs"]) == [] and doc["costs"]["pid"] == os.getpid()
+    finally:
+        tcosts.reset_for_tests()
 
 
 @pytest.mark.parametrize("flight_dir,telemetry_dir", [(True, True), (True, False), (False, True), (False, False)])

@@ -36,6 +36,7 @@ if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
 from spark_rapids_ml_tpu_torch import device as port_device  # noqa: E402
+from spark_rapids_ml_tpu_torch.observability import costs as tcosts  # noqa: E402
 from spark_rapids_ml_tpu_torch.observability import events as tevents  # noqa: E402
 from spark_rapids_ml_tpu_torch.observability import report as treport  # noqa: E402
 from spark_rapids_ml_tpu_torch.observability import trace as ttrace  # noqa: E402
@@ -208,6 +209,13 @@ def test_shard_manifest_and_metrics_snapshot(telemetry):
     assert manifest["pid"] == os.getpid() and manifest["shard"] == f"events-{os.getpid()}.jsonl"
     assert trace_id in manifest["trace_roots"] and manifest["emitted"] >= 3
     assert (manifest["costs"], manifest["ops_port"]) == (None, None)
+    # With the cost ledger armed, the manifest names its shard.
+    tcosts.configure(enable=True)
+    try:
+        armed = json.load(open(tevents.flush_telemetry()))
+        assert armed["costs"] == f"costs-{os.getpid()}.json" and (telemetry / armed["costs"]).exists()
+    finally:
+        tcosts.reset_for_tests()
     metrics = json.load(open(telemetry / f"metrics-{os.getpid()}.json"))
     assert metrics["counters"]["tracetest.shard.counter"] == 3
     recs = _shard(telemetry)
