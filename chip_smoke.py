@@ -6086,7 +6086,8 @@ def phase_cost_pca(gen: torch.Generator) -> dict:
     utilization is at most 1; device time per program beside its host
     enqueue time. Then the same rows from the host (float64 placement,
     K1's float64 route) under the HBM sampler: ``.hbm`` names the span
-    where the 4 GiB input grew the peak."""
+    where the 4 GiB input grew the peak, and ``mean center`` grows it by
+    at most the placed float64 block (the fold holds no (n, d) temporary)."""
     from spark_rapids_ml_tpu_torch.core.serving import bucket_rows
 
     x = planted(MS_N, D, gen)
@@ -6155,13 +6156,16 @@ def phase_cost_pca(gen: torch.Generator) -> dict:
         hbm = est.fit(host).fit_report().hbm
     _rearm()
     grew = max(hbm.get("by_span", {}).items(), key=lambda kv: kv[1], default=(None, 0))
+    placed = host.size * 8  # the rows placed as float64
+    centred = hbm.get("by_span", {}).get("mean center", 0)
     out = {
         "phase": "cost_pca", "what": "PCA().setK(16).setCovarianceBackend('pallas'), 1,048,576 x 1,024 f32",
         "k1_launches": {"off": off_launches, "on": on_launches}, "bitwise": bitwise,
         "report_cost_rows": report_rows, "programs": programs, "counts_differ": bad_counts,
         "utilization_over_one": over_one,
         "hbm": {"delta": hbm.get("delta"), "by_span": hbm.get("by_span"), "largest": grew[0],
-                "largest_bytes": grew[1], "input_bytes": host.nbytes},
+                "largest_bytes": grew[1], "input_bytes": host.nbytes, "placed_bytes": placed,
+                "mean_center_bytes": centred},
         "timing": "device ms from CUDA events on the program's stream; host ms: the fit report's span, or the "
                   "median host wall of a transform call without a synchronize",
     }
@@ -6172,6 +6176,7 @@ def phase_cost_pca(gen: torch.Generator) -> dict:
     require(not bad_counts, f"(p-a) entries whose flops or bytes are not their counts: {bad_counts}")
     require(not over_one, f"(p-a) roofline utilization above 1: {over_one}")
     require(grew[1] >= host.nbytes, f"(p-a) no span grew the peak by the input's bytes: {out['hbm']}")
+    require(centred <= placed, f"(p-a) mean center grew the peak by more than the placed block: {out['hbm']}")
     return out
 
 

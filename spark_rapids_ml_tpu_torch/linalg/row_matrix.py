@@ -60,7 +60,7 @@ from spark_rapids_ml_tpu_torch.ops.covariance import (
     centered_gram,
     centered_gram_packed,
     streaming_mean_and_covariance,
-    welford_add_block,
+    welford_add_mean,
     welford_init,
 )
 from spark_rapids_ml_tpu_torch.ops.eigh import (
@@ -280,11 +280,12 @@ class RowMatrix:
             if self._device_x is not None:
                 return torch.mean(self._device_x, dim=0)
             device = self._device()
-            state = welford_init(self.num_cols, dtype=self.dtype, device=device)
+            count, mean, _ = welford_init(self.num_cols, dtype=self.dtype, device=device)
             for part in self.partitions:
                 blk = place_array(part, dtype=self.dtype, device=device)
-                state = welford_add_block(state, blk)
-            return state[1]
+                count, mean = welford_add_mean((count, mean), blk)
+                del blk  # the next partition is placed with this one freed
+            return mean
 
     # --- covariance ---
 

@@ -62,14 +62,49 @@ def welford_init(d: int, dtype=torch.float64, device=None) -> tuple:
     )
 
 
+#: Elements per row chunk of :func:`_block_m2`: the (rows, d) temporaries
+#: of the squared deviations stay this size (32 MiB of float64) whatever
+#: the block's height.
+M2_CHUNK_ELEMENTS = 1 << 22
+
+
+def _block_m2(x: torch.Tensor, mean_b: torch.Tensor) -> torch.Tensor:
+    """Σ (x − mean_b)² by column, over row chunks of at most
+    :data:`M2_CHUNK_ELEMENTS` elements: no (n, d) temporary. A block of
+    one chunk sums exactly as the unchunked expression does."""
+    rows = max(1, M2_CHUNK_ELEMENTS // max(int(x.shape[1]), 1))
+    m2 = None
+    for start in range(0, x.shape[0], rows):
+        part = torch.sum((x[start:start + rows] - mean_b) ** 2, dim=0)
+        m2 = part if m2 is None else m2 + part
+    return m2
+
+
+def welford_add_mean(state: tuple, x: torch.Tensor) -> tuple:
+    """Merge one block's column means into ``(count, mean)``: the mean
+    half of :func:`welford_add_block`, with the same arithmetic, for a
+    caller that reads only the mean."""
+    count, mean = state
+    n_b = x.shape[0]
+    if n_b == 0:  # an empty partition contributes nothing
+        return state
+    mean_b = torch.mean(x, dim=0)
+    new_count = count + n_b
+    delta = mean_b - mean
+    return (new_count, mean + delta * (n_b / new_count))
+
+
 def welford_add_block(state: tuple, x: torch.Tensor) -> tuple:
-    """Merge one block's column stats into ``state`` (Chan et al.)."""
+    """Merge one block's column stats into ``state`` (Chan et al.). The
+    block's M2 is summed over row chunks (:func:`_block_m2`), so the fold
+    allocates nothing the size of the block (the reference's jitted step
+    fuses the same reduction)."""
     count, mean, m2 = state
     n_b = x.shape[0]
     if n_b == 0:  # an empty partition contributes nothing
         return state
     mean_b = torch.mean(x, dim=0)
-    m2_b = torch.sum((x - mean_b) ** 2, dim=0)
+    m2_b = _block_m2(x, mean_b)
     new_count = count + n_b
     delta = mean_b - mean
     new_mean = mean + delta * (n_b / new_count)

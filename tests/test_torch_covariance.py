@@ -193,6 +193,57 @@ def test_welford_column_stats_match_jax():
     assert_close("welford mean vs numpy", tstate[1], x.mean(axis=0), rtol=1e-12, atol=1e-12)
 
 
+def _old_welford_add_block(state, x):
+    """The fold as it was before M2 was chunked: one (n, d) deviation
+    tensor and its square (the formula the column means stay bitwise to)."""
+    count, mean, m2 = state
+    n_b = x.shape[0]
+    if n_b == 0:
+        return state
+    mean_b = torch.mean(x, dim=0)
+    m2_b = torch.sum((x - mean_b) ** 2, dim=0)
+    new_count = count + n_b
+    delta = mean_b - mean
+    new_mean = mean + delta * (n_b / new_count)
+    return (new_count, new_mean, m2 + m2_b + delta**2 * (count * n_b / new_count))
+
+
+_RAGGED = (0, 97, 0, 1, 230, 33)  # partition heights, two of them empty
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_column_means_are_bitwise_the_unchunked_fold(dtype):
+    from spark_rapids_ml_tpu_torch.linalg.row_matrix import RowMatrix
+
+    x = seeded_matrix(sum(_RAGGED), 11, 12, offset=4.0, dtype=dtype)
+    cuts = np.cumsum((0,) + _RAGGED)
+    parts = [x[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    mat = RowMatrix(parts)
+    state = tcov.welford_init(11, dtype=mat.dtype)
+    for p in parts:
+        state = _old_welford_add_block(state, torch.from_numpy(p).to(mat.dtype))
+    got = mat.column_means()
+    assert got.dtype == state[1].dtype and torch.equal(got, state[1])
+
+
+@pytest.mark.parametrize("chunk_elements", [1, 7 * 11, 1 << 22], ids=["row", "seven_rows", "one_chunk"])
+def test_chunked_m2_holds_the_unchunked_fold_and_jax(monkeypatch, chunk_elements):
+    monkeypatch.setattr(tcov, "M2_CHUNK_ELEMENTS", chunk_elements)
+    x = seeded_matrix(sum(_RAGGED), 11, 13, offset=3.0)
+    cuts = np.cumsum((0,) + _RAGGED)
+    parts = [x[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    new, old, jstate = tcov.welford_init(11), tcov.welford_init(11), jax_welford_init(11)
+    for p in parts:
+        new = tcov.welford_add_block(new, torch.from_numpy(p))
+        old = _old_welford_add_block(old, torch.from_numpy(p))
+        jstate = jax_welford_add_block(jstate, jnp.asarray(p))
+    assert torch.equal(new[0], old[0]) and torch.equal(new[1], old[1])
+    assert_close("chunked M2 vs unchunked", new[2], old[2].numpy(), rtol=1e-12, atol=0)
+    assert_close("chunked M2 vs JAX", new[2], np.asarray(jstate[2]), rtol=1e-12, atol=1e-12)
+    if chunk_elements >= x.size:
+        assert torch.equal(new[2], old[2])  # one chunk sums exactly as before
+
+
 #: The port's legacy names carry the TPU meaning of the reference's
 #: ``lax.Precision`` levels (DEFAULT = one bf16 pass, HIGH = the 3-pass
 #: split); XLA:CPU computes every level in full fp32, so the JAX side is

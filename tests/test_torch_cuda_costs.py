@@ -12,6 +12,7 @@ with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_costs.py``.
   later, and all of them at a snapshot).
 - A K1 PCA fit under the ledger: bitwise the unledgered fit, one launch,
   the Gram's entry counted as K1's work with a device-time wall.
+- Host column means grow the peak by the placed block, no more.
 - The HBM sampler reads the caching allocator of the card in use.
 - A ladder rung on the card: bitwise the eager kernel at the rung.
 """
@@ -111,6 +112,28 @@ def test_a_k1_fit_under_the_ledger(cuda):
     (row,) = [r for r in model.fit_report().costs if r["family"] == "covariance.gram"]
     assert row["flops"] == k1.cost(20_000, 96, torch.float32)["flops"] and row["invocations"] == 1
     assert row["wall_seconds"] > 0
+
+
+def test_mean_center_grows_the_peak_by_at_most_the_placed_block(cuda):
+    """Host column means fold each placed partition with no (n, d)
+    temporary: over the call the peak grows by the placed float64 block,
+    plus at most 1 MiB for the fold's (d,) vectors and the reduction's
+    workspace (the unfused fold grew it by three blocks)."""
+    from spark_rapids_ml_tpu_torch.linalg.row_matrix import RowMatrix
+
+    host = np.random.default_rng(6).normal(size=(262_144, 256)).astype(np.float32)
+    mat = RowMatrix([host])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mean = mat.column_means()
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - base
+    block = host.shape[0] * host.shape[1] * 8
+    assert mean.is_cuda and mean.dtype == torch.float64
+    assert grew <= block + (1 << 20), (grew, block)
+    np.testing.assert_allclose(mean.cpu().numpy(), host.mean(axis=0, dtype=np.float64), rtol=0, atol=1e-12)
 
 
 def test_the_sampler_reads_the_card(cuda):
