@@ -167,7 +167,7 @@ counters set to 0 just before and read just after:
   (``--lifecycle-child``) SIGKILLed in its refit stage, its cycle resumed
   here with one registered version and centres bitwise an uninterrupted
   cycle's.
-- the cost ledger and the autotuner, last, group (p), within its own 60 s,
+- the cost ledger and the autotuner, group (p), within its own 60 s,
   with ``TPUML_PEAK_FLOPS`` / ``TPUML_PEAK_BYTES_PER_SEC`` at the card's
   fp32 and HBM peaks: (a) config 5's ``pallas`` PCA fit and transforms
   under ``TPUML_COST_LEDGER=1``, bitwise the unledgered ones with as many
@@ -184,7 +184,23 @@ counters set to 0 just before and read just after:
   rows/s off and on; (d) streaming KMeans and PCA under a 256 MiB budget
   on the tuner's block rows, an injected OOM halving once into the store,
   each bitwise its explicit reader fit; (e) the precision gate's probe on
-  the card, and a second process (``--tune-child``) reading its decision.
+  the card, and a second process (``--tune-child``) reading its decision;
+  (a) also holds ``mean center``'s peak growth to the placed block.
+- the lock sanitizer and the ops plane, last, group (q), within its own
+  60 s: the same work here with the sanitizer off and in a child
+  (``--opsplane-child``) under ``TPUML_LOCKCHECK=strict`` with its ops
+  server on an ephemeral port, the cost ledger on in both, bitwise alike:
+  (a) config 5's ``pallas`` PCA fit (K1) and config 3's KMeans (K2, 3
+  launches); (b) config 15's bucket ladder and config 16's closed loop,
+  unbatched and batched, rows/s off and under ``strict``, no violation,
+  the order graph acyclic when read back from the child's exit dump,
+  ``lockcheck.hold_ms`` labelled by the serving locks; (c) a scraper on
+  ``/metrics``, ``/varz``, ``/healthz`` and ``/tracez`` every 50 ms during
+  config 16's batched loop: every answer 200 and carrying the runtime and
+  the ledger's ``covariance.gram`` family, the scrape latency and the
+  rows/s with and without it; (d) ``/healthz`` flips on a failing probe,
+  a stale manual heartbeat and a stall strike on a wedged registry (one
+  event, one flight dump showing both threads, the waiter served).
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -6158,6 +6174,16 @@ def phase_cost_pca(gen: torch.Generator) -> dict:
     grew = max(hbm.get("by_span", {}).items(), key=lambda kv: kv[1], default=(None, 0))
     placed = host.size * 8  # the rows placed as float64
     centred = hbm.get("by_span", {}).get("mean center", 0)
+    # What the fold's own reduction takes: torch.mean over a block of the
+    # placed shape (its values do not matter), alone.
+    blk = torch.zeros(host.shape, dtype=torch.float64, device="cuda")
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.mean(blk, dim=0)
+    sync()
+    reduction = torch.cuda.max_memory_allocated() - base
+    del blk
     out = {
         "phase": "cost_pca", "what": "PCA().setK(16).setCovarianceBackend('pallas'), 1,048,576 x 1,024 f32",
         "k1_launches": {"off": off_launches, "on": on_launches}, "bitwise": bitwise,
@@ -6165,7 +6191,7 @@ def phase_cost_pca(gen: torch.Generator) -> dict:
         "utilization_over_one": over_one,
         "hbm": {"delta": hbm.get("delta"), "by_span": hbm.get("by_span"), "largest": grew[0],
                 "largest_bytes": grew[1], "input_bytes": host.nbytes, "placed_bytes": placed,
-                "mean_center_bytes": centred},
+                "mean_center_bytes": centred, "mean_reduction_bytes": reduction},
         "timing": "device ms from CUDA events on the program's stream; host ms: the fit report's span, or the "
                   "median host wall of a transform call without a synchronize",
     }
@@ -6508,6 +6534,434 @@ def costs_phases(card: str) -> dict:
     return walls
 
 
+# --- group (q): the lock sanitizer and the ops plane -----------------------
+
+OP_SEED = SEED + 800        # the group's data: drawn anew from its own seeds, alike in both processes
+OP_WALL_LIMIT_S = 60.0
+OP_STALL_MS = 100           # the child's TPUML_LOCKCHECK_STALL_MS
+OP_HOLD_S = 1.0             # (d): a wedged registry held ten times the watchdog's threshold
+OP_OPS_STALL_S = 1.0        # (d): the child's TPUML_OPS_STALL_S
+OP_SCRAPE_EVERY_S = 0.05    # (c): one round of the four endpoints, then this pause
+OP_MEM_BUDGET = 1 << 30     # (b): config 16's runtime's admission budget (on /varz)
+OP_CHILD_TIMEOUT_S = 150
+OP_SERVING_LOCKS = ("serving.batcher", "serving.admission", "serving.registry", "core_serving.programs")
+
+
+def op_generator(offset: int) -> torch.Generator:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(OP_SEED + offset)
+    return gen
+
+
+def op_fits() -> dict:
+    """(q-a) Config 5's ``pallas`` PCA fit on a 1,048,576 x 1,024 float32
+    device tensor (K1, one launch, after a 4,096-row fit that warms a
+    fresh process) and config 3's KMeans, k = 100 on ``auto`` over 20M x
+    16 (K2, 3 launches): the fitted arrays, the launches and the walls."""
+    x = planted(MS_N, D, op_generator(0))
+    PCA().setK(K).setCovarianceBackend("pallas").fit(x[:4096])  # a fresh process's first fit warms its handles
+    k1.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    pca = PCA().setK(K).setCovarianceBackend("pallas").fit(x)
+    sync()
+    pca_wall = time.perf_counter() - t0
+    k1_launches = k1.launches
+    del x
+    torch.cuda.empty_cache()
+    gen = op_generator(1)
+    truth = KM_SCALE * torch.randn((KM_K, KM_D), generator=gen, device=gen.device)
+    x = blob_rows(KM_N, truth, op_generator(2))
+    kk.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    km = KMeans().setK(KM_K).setSeed(SEED).fit(x)
+    sync()
+    km_wall = time.perf_counter() - t0
+    k2_launches = kk.launches["assign_stats_fused"]
+    del x
+    torch.cuda.empty_cache()
+    arrays = {"pca_pc": np.asarray(pca.pc), "pca_ev": np.asarray(pca.explainedVariance),
+              "km_centers": np.asarray(km.clusterCenters()), "km_cost": np.asarray(km.trainingCost),
+              "km_iters": np.asarray(km.numIter)}
+    return {"arrays": arrays, "k1_launches": k1_launches, "k2_launches": k2_launches,
+            "pca_fit_wall_s": pca_wall, "kmeans_fit_wall_s": km_wall}
+
+
+def op_ladder() -> dict:
+    """(q-b) Config 15's bucket ladder: a ``PCAModel`` (1,024 -> 16) over
+    float32 device batches of 1 to 65,536 rows, each a captured program."""
+    gen = op_generator(3)
+    q, _ = torch.linalg.qr(torch.randn((SV_D, SV_K), generator=gen, device=gen.device, dtype=torch.float64))
+    pca = PCAModel("op-pca", q.float().cpu().numpy(), np.full(SV_K, 1.0 / SV_K))
+    x = torch.randn((max(SV_SIZES), SV_D), generator=gen, device=gen.device)
+    s0 = _serving_stats()
+    arrays = {f"ladder_{n}": pca.transform(x[:n]).cpu().numpy() for n in SV_SIZES}
+    return {"arrays": arrays, "captures": _serving_stats()["compiles"] - s0["compiles"]}
+
+
+def op_runtime(max_batch: int, delay_ms: float, model, total: int):
+    """Config 16's runtime: config 3's KMeans as ``km`` version 1 with a
+    ``prod`` alias, an admission budget, the buckets up to ``max_batch``
+    warmed."""
+    from spark_rapids_ml_tpu_torch.serving import ServingRuntime
+
+    rt = ServingRuntime(max_batch=max_batch, max_delay_ms=delay_ms, queue_limit=4 * total, mem_budget=OP_MEM_BUDGET)
+    rt.register("km", model)
+    rt.set_alias("km", "prod", 1)
+    rt.warm("km", buckets=[1 << p for p in range(9) if (1 << p) <= max_batch])
+    return rt
+
+
+def op_config16(passes, scrape=None) -> dict:
+    """(q-b) Config 16's closed loop, 16 threads x 150 single rows through a
+    ``ServingRuntime``, for each (label, max_batch, delay ms) of
+    ``passes``; ``scrape(rt)`` (a context manager) wraps the passes whose
+    label ends in ``_scraped``. Each pass runs inside an open span, which
+    encloses the scraper's whole life."""
+    from spark_rapids_ml_tpu_torch.utils.tracing import TraceRange
+
+    gen = op_generator(4)
+    c64 = torch.randn((KM_K, KM_D), generator=gen, device=gen.device, dtype=torch.float64) * KM_SCALE
+    model = KMeansModel("op16", c64.cpu().numpy())
+    total = SV_THREADS * SV_REQUESTS
+    idx = torch.randint(0, KM_K, (total,), generator=gen, device=gen.device)
+    rows = c64[idx] + 4.0 * torch.randn((total, KM_D), generator=gen, device=gen.device, dtype=torch.float64)
+    probes = rows.cpu().numpy().reshape(SV_THREADS, SV_REQUESTS, KM_D)
+    arrays, runs = {}, {}
+    for label, max_batch, delay_ms in passes:
+        rt = op_runtime(max_batch, delay_ms, model, total)
+        try:
+            # The span opens before the scraper starts and closes after it
+            # stops, so every /tracez answer sees it open.
+            with TraceRange(f"opsplane config 16 {label}"), \
+                    (scrape(rt) if label.endswith("_scraped") else contextlib.nullcontext()) as scraper:
+                wall, answers, lat = _closed_loop(rt, probes)
+        finally:
+            rt.close()
+        arrays[f"c16_{label}"] = answers
+        runs[label] = {"max_batch": max_batch, "wall_s": wall, "rows_per_s": total / wall,
+                       "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99))}
+        if scraper is not None:
+            runs[label]["scrape"] = scraper.summary()
+    return {"arrays": arrays, "runs": runs}
+
+
+def _http(url: str, timeout: float = 10.0) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, resp.read().decode("utf-8")
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode("utf-8")
+
+
+class Scraper:
+    """(q-c) A thread that GETs ``/metrics``, ``/varz``, ``/healthz`` and
+    ``/tracez`` in turn, then pauses ``OP_SCRAPE_EVERY_S``, until the block
+    ends; it keeps every status, every latency and every body's check."""
+
+    PATHS = ("/metrics", "/varz", "/healthz", "/tracez")
+
+    def __init__(self, url: str, rt):
+        self.url, self.rt = url, rt
+        self.stop = threading.Event()
+        self.statuses, self.problems = [], []
+        self.lat_ms = {p: [] for p in self.PATHS}
+        self.thread = threading.Thread(target=self._run, name="opsplane-scraper", daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        deadline = time.perf_counter() + 30
+        while len(self.lat_ms["/tracez"]) < 1 and self.thread.is_alive() and time.perf_counter() < deadline:
+            time.sleep(0.01)  # one whole round, however short the block
+        self.stop.set()
+        self.thread.join(timeout=30)
+        require(not self.thread.is_alive(), "(q-c) the scraper did not stop")
+
+    def _check(self, path: str, body: str) -> None:
+        from spark_rapids_ml_tpu_torch.observability.metrics import parse_exposition
+
+        if path == "/metrics":
+            if "tpuml_serving_batch_dispatch" not in parse_exposition(body):
+                self.problems.append("/metrics lacks the batcher's dispatch counter")
+            return
+        doc = json.loads(body)
+        if path == "/varz":
+            mine = [s for s in doc["serving"] if s["runtime"] == self.rt.runtime_id]
+            km = mine[0]["models"].get("km", {}) if mine else {}
+            if not mine or km.get("versions") != [1] or km.get("aliases") != {"prod": 1} \
+                    or mine[0]["mem_budget"] != OP_MEM_BUDGET or mine[0]["queue_limit"] != self.rt.queue_limit:
+                self.problems.append(f"/varz serving: {mine}")
+            if "covariance.gram" not in ((doc.get("costs") or {}).get("families") or {}):
+                self.problems.append(f"/varz costs: {doc.get('costs')}")
+        elif path == "/healthz":
+            if not doc["ok"]:
+                self.problems.append(f"/healthz: {doc}")
+        elif not any(s["name"].startswith("opsplane config 16") for t in doc["open"].values() for s in t["spans"]):
+            self.problems.append("/tracez shows no open span of the loop")
+
+    def _run(self) -> None:
+        while not self.stop.is_set():
+            for path in self.PATHS:
+                t0 = time.perf_counter()
+                status, body = _http(self.url + path)
+                self.lat_ms[path].append((time.perf_counter() - t0) * 1e3)
+                self.statuses.append(status)
+                try:
+                    self._check(path, body)
+                except (ValueError, KeyError, TypeError) as exc:
+                    self.problems.append(f"{path}: {type(exc).__name__}: {exc}")
+            self.stop.wait(OP_SCRAPE_EVERY_S)
+
+    def summary(self) -> dict:
+        every = [v for lat in self.lat_ms.values() for v in lat]
+        return {"rounds": len(self.lat_ms["/varz"]), "statuses": sorted(set(self.statuses)),
+                "p50_ms": float(np.percentile(every, 50)) if every else None,
+                "p99_ms": float(np.percentile(every, 99)) if every else None,
+                "p50_ms_by_path": {p: float(np.percentile(v, 50)) for p, v in self.lat_ms.items() if v},
+                "problems": self.problems[:5]}
+
+
+def op_flips(tmp: str) -> dict:
+    """(q-d) ``/healthz`` flips: a failing probe (503, then 200 once it is
+    removed); a heartbeat whose manual beats stop for longer than
+    ``TPUML_OPS_STALL_S`` (503 on ``heartbeat``, 200 after a beat); a
+    thread holding the serving registry's lock ``OP_HOLD_S`` while another
+    waits for it: one ``lockcheck`` stall event, one flight dump with
+    reason ``stall`` whose ``locks`` shows the holder's held lock and the
+    waiter's waited one, ``/healthz``'s ``lockcheck`` check false, and the
+    waiter gets the lock; nothing raises."""
+    from spark_rapids_ml_tpu_torch.observability import events, flightrec, opsplane
+    from spark_rapids_ml_tpu_torch.observability.heartbeat import GangHeartbeat
+    from spark_rapids_ml_tpu_torch.serving import ServingRuntime
+
+    url = f"http://127.0.0.1:{opsplane.active_port()}/healthz"
+    out = {"start": _http(url)[0]}
+    opsplane.add_probe("opsplane_smoke.failing", lambda: False)
+    out["probe_failing"] = _http(url)[0]
+    opsplane.remove_probe("opsplane_smoke.failing")
+    out["probe_removed"] = _http(url)[0]
+
+    hb = GangHeartbeat(process_id=0, interval=0, manual=True).start()
+    try:
+        out["beating"] = _http(url)[0]
+        t0 = time.perf_counter()
+        status, body = _http(url)
+        while status != 503 and time.perf_counter() - t0 < 10 * OP_OPS_STALL_S:
+            time.sleep(0.05)
+            status, body = _http(url)
+        out["stale_heartbeat"] = {"status": status, "after_s": time.perf_counter() - t0,
+                                  "check": json.loads(body)["checks"]["heartbeat"]}
+        hb.beat()
+        out["beat_again"] = _http(url)[0]
+    finally:
+        hb.stop()
+
+    log = os.path.join(tmp, "q-events.jsonl")
+    flight = os.path.join(tmp, "q-flight")
+    events.configure(log)
+    flightrec.reset()
+    flightrec.arm()
+    rt = ServingRuntime(start=False)
+    lock = rt.registry._lock
+    release = threading.Event()
+    got = {}
+
+    def holder():
+        with lock:
+            release.wait(OP_HOLD_S)
+
+    def waiter():
+        t = time.perf_counter()
+        got["snapshot"] = rt.registry.snapshot()
+        got["waited_s"] = time.perf_counter() - t
+
+    h = threading.Thread(target=holder, name="wedged-registry")
+    w = threading.Thread(target=waiter, name="registry-reader")
+    with knob(TPUML_FLIGHT_DIR=flight):
+        try:
+            h.start()
+            while not lock.locked():
+                time.sleep(0.001)
+            w.start()
+            w.join(timeout=30)
+            release.set()
+            h.join(timeout=30)
+        finally:
+            flightrec.disarm()
+            events.configure(None)
+    rt.close()
+    health = json.loads(_http(url)[1])
+    recs = [json.loads(line) for line in open(log) if line.strip()]
+    stalls = [r for r in recs if r.get("event") == "lockcheck"]
+    dumps = sorted(glob.glob(os.path.join(flight, "flight-*.json")))
+    doc = json.load(open(dumps[0])) if dumps else {}
+    out["stall"] = {
+        "waiter_got_the_lock": "snapshot" in got and not w.is_alive(), "waited_s": got.get("waited_s"),
+        "lockcheck_events": [(r["action"], r["lock"]) for r in stalls], "flight_dumps": len(dumps),
+        "flight_reason": doc.get("reason"), "flight_locks": doc.get("locks"),
+        "healthz_lockcheck": health["checks"]["lockcheck"], "healthz_ok": health["ok"],
+    }
+    return out
+
+
+def opsplane_child_main(argv) -> int:
+    """(q)'s child, started with ``TPUML_LOCKCHECK=strict``: (a) and (b)
+    as the parent runs them, (b)'s batched loop again under (c)'s
+    scraper, then (d); it writes its arrays and readings beside each
+    other and fails on any check of its own."""
+    from spark_rapids_ml_tpu_torch.observability import costs as child_costs
+    from spark_rapids_ml_tpu_torch.observability import opsplane
+    from spark_rapids_ml_tpu_torch.observability.metrics import default_registry
+    from spark_rapids_ml_tpu_torch.utils import lockcheck
+
+    out_dir = argv[argv.index("--opsplane-child") + 1]
+    port_device.set_platform("cuda")
+    port_device.use_ieee_fp32_matmul()
+    torch.backends.cudnn.allow_tf32 = False
+    require(lockcheck.mode() == "strict" and child_costs.active() is not None, "(q) the child's knobs")
+    require(opsplane.active_port() is not None, "(q) TPUML_OPS_PORT=0 started no ops server at import")
+    url = f"http://127.0.0.1:{opsplane.active_port()}"
+    fits = op_fits()
+    ladder = op_ladder()
+    c16 = op_config16((("unbatched", 1, 0.0), ("batched", SV_THREADS, 5.0), ("batched_scraped", SV_THREADS, 5.0)),
+                      scrape=lambda rt: Scraper(url, rt))
+    before_flips = lockcheck.violations()
+    holds = default_registry.snapshot()["histograms"].get("lockcheck.hold_ms", {})
+    held_by = sorted({k.split('lock="', 1)[1].split('"', 1)[0] for k in holds if 'lock="' in k})
+    flips = op_flips(out_dir)
+    readings = {
+        "k1_launches": fits["k1_launches"], "k2_launches": fits["k2_launches"],
+        "pca_fit_wall_s": fits["pca_fit_wall_s"], "kmeans_fit_wall_s": fits["kmeans_fit_wall_s"],
+        "ladder_captures": ladder["captures"], "config16": c16["runs"], "violations_before_flips": before_flips,
+        "hold_ms_locks": held_by, "flips": flips, "ops_port": opsplane.active_port(),
+    }
+    np.savez(os.path.join(out_dir, "q-child.npz"), **fits["arrays"], **ladder["arrays"], **c16["arrays"])
+    with open(os.path.join(out_dir, "q-child.json"), "w") as fh:
+        json.dump(readings, fh, default=str)
+    opsplane.stop()
+    return 0
+
+
+def phase_opsplane(card: str, tmp: str) -> dict:
+    """(q) The same work with the sanitizer off here and under ``strict`` in
+    a child (with the ops server on an ephemeral port, the cost ledger on
+    in both): bitwise alike; the child's readings checked; its order graph,
+    read back from its exit dump, acyclic, with (d)'s stall its only
+    violation."""
+    with knob(TPUML_COST_LEDGER="1"):
+        _rearm()
+        fits = op_fits()
+        ladder = op_ladder()
+        c16 = op_config16((("unbatched", 1, 0.0), ("batched", SV_THREADS, 5.0)))
+    _rearm()
+    torch.cuda.empty_cache()
+    ours = {**fits["arrays"], **ladder["arrays"], **c16["arrays"]}
+    graph_path = os.path.join(tmp, "q-graph.json")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPUML_")}
+    env.update(TPUML_LOCKCHECK="strict", TPUML_LOCKCHECK_STALL_MS=str(OP_STALL_MS),
+               TPUML_LOCKCHECK_GRAPH=graph_path, TPUML_OPS_PORT="0", TPUML_OPS_STALL_S=str(OP_OPS_STALL_S),
+               TPUML_COST_LEDGER="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--opsplane-child", tmp], env=env, cwd=tmp,
+                          capture_output=True, text=True, timeout=OP_CHILD_TIMEOUT_S)
+    child_wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"(q) the strict child failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    theirs = dict(np.load(os.path.join(tmp, "q-child.npz")))
+    child = json.load(open(os.path.join(tmp, "q-child.json")))
+    graph = json.load(open(graph_path))
+    # Each array of the child against this process's; the scraped loop's
+    # answers against the unscraped batched loop's here.
+    pairs = {k: (v, ours.get(k.replace("_scraped", ""))) for k, v in theirs.items()}
+    differ = sorted(set(ours) - set(theirs)) + sorted(
+        k for k, (a, b) in pairs.items() if b is None or a.dtype != b.dtype or a.tobytes() != b.tobytes())
+    names = sorted(set(graph["edges"]) | {d for dsts in graph["edges"].values() for d in dsts})
+    flips = child["flips"]
+    out = {
+        "phase": "opsplane", "card": card, "child_wall_s": child_wall,
+        "a": {"k1_launches": {"off": fits["k1_launches"], "strict": child["k1_launches"]},
+              "k2_launches": {"off": fits["k2_launches"], "strict": child["k2_launches"]},
+              "pca_fit_wall_s": {"off": fits["pca_fit_wall_s"], "strict": child["pca_fit_wall_s"]},
+              "kmeans_fit_wall_s": {"off": fits["kmeans_fit_wall_s"], "strict": child["kmeans_fit_wall_s"]}},
+        "b": {"ladder_captures": {"off": ladder["captures"], "strict": child["ladder_captures"]},
+              "config16_rows_per_s": {
+                  "off": {k: v["rows_per_s"] for k, v in c16["runs"].items()},
+                  "strict": {k: v["rows_per_s"] for k, v in child["config16"].items()}},
+              "config16_p99_ms": {"off": {k: v["p99_ms"] for k, v in c16["runs"].items()},
+                                  "strict": {k: v["p99_ms"] for k, v in child["config16"].items()}},
+              "hold_ms_locks": child["hold_ms_locks"],
+              "violations_before_flips": child["violations_before_flips"],
+              "graph_locks": names, "graph_edges": sum(len(v) for v in graph["edges"].values()),
+              "graph_acyclic": _acyclic(graph["edges"]),
+              "graph_violations": [(v["kind"], v["lock"]) for v in graph["violations"]]},
+        "c": child["config16"]["batched_scraped"]["scrape"],
+        "d": flips, "arrays_compared": len(pairs), "differ": differ,
+        "timing": "walls and rows/s on the host clock; scrape latency per GET, host clock",
+    }
+    emit(out)
+    require(not differ, f"(q) strict results differ from the sanitizer-off ones: {differ}")
+    require(fits["k1_launches"] == child["k1_launches"] == 1, f"(q-a) K1 launches {out['a']['k1_launches']}")
+    require(fits["k2_launches"] == child["k2_launches"] == 3, f"(q-a) K2 launches {out['a']['k2_launches']}")
+    require(child["violations_before_flips"] == [], f"(q-b) violations: {child['violations_before_flips']}")
+    require(out["b"]["graph_acyclic"], f"(q-b) the order graph has a cycle: {graph['edges']}")
+    require(out["b"]["graph_violations"] == [("stall", "serving.registry")],
+            f"(q-b) the dump's violations: {out['b']['graph_violations']}")
+    require(set(OP_SERVING_LOCKS) <= set(child["hold_ms_locks"]),
+            f"(q-b) lockcheck.hold_ms lacks a serving lock: {child['hold_ms_locks']}")
+    require(out["c"]["statuses"] == [200] and out["c"]["rounds"] >= 1 and not out["c"]["problems"],
+            f"(q-c) the scrapes: {out['c']}")
+    require((flips["start"], flips["probe_failing"], flips["probe_removed"]) == (200, 503, 200),
+            f"(q-d) the probe flip: {flips}")
+    stale = flips["stale_heartbeat"]
+    require(flips["beating"] == 200 and stale["status"] == 503 and stale["check"]["ok"] is False
+            and flips["beat_again"] == 200, f"(q-d) the heartbeat flip: {flips}")
+    st = flips["stall"]
+    waited = {s["thread"] for s in st["flight_locks"] or [] if s["waiting"] == "serving.registry"}
+    holding = {s["thread"] for s in st["flight_locks"] or [] if "serving.registry" in s["held"]}
+    require(st["waiter_got_the_lock"] and st["lockcheck_events"] == [["stall", "serving.registry"]]
+            and st["flight_dumps"] == 1 and st["flight_reason"] == "stall"
+            and waited == {"registry-reader"} and holding == {"wedged-registry"}
+            and st["healthz_lockcheck"] == {"ok": False, "stall_strikes": 1} and not st["healthz_ok"],
+            f"(q-d) the stall strike: {st}")
+    return out
+
+
+def _acyclic(edges: dict) -> bool:
+    state = {}
+
+    def visit(node) -> bool:
+        state[node] = 1
+        for nxt in edges.get(node, ()):
+            if state.get(nxt) == 1 or (nxt not in state and not visit(nxt)):
+                return False
+        state[node] = 2
+        return True
+
+    return all(state.get(n) == 2 or visit(n) for n in list(edges))
+
+
+def opsplane_phases(card: str) -> dict:
+    """Group (q), the lock sanitizer and the ops plane, within
+    ``OP_WALL_LIMIT_S``: (a) configs 5 and 3's fits, (b) config 15's ladder
+    and config 16's closed loop, off here and under ``strict`` in a child,
+    bitwise alike; (c) the child's ops server scraped under config 16's
+    traffic; (d) ``/healthz`` flips on a probe, a stale heartbeat and a
+    stall strike."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="opsplane-") as tmp:
+        out = phase_opsplane(card, tmp)
+    wall = time.perf_counter() - t0
+    emit({"phases": "opsplane", "card": card, "wall_s": wall})
+    require(wall <= OP_WALL_LIMIT_S, f"the opsplane phases took {wall:.1f} s, over their {OP_WALL_LIMIT_S:.0f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -6570,6 +7024,8 @@ def main() -> int:
     observability_phases(info["nvidia_smi"])
     torch.cuda.empty_cache()
     costs_phases(info["nvidia_smi"])
+    torch.cuda.empty_cache()
+    opsplane_phases(info["nvidia_smi"])
 
     k1_f32 = times["k1_f32"]
     measured = {
@@ -6611,4 +7067,6 @@ if __name__ == "__main__":
         sys.exit(obs_child_main(sys.argv))
     if "--tune-child" in sys.argv:
         sys.exit(tune_child_main(sys.argv))
+    if "--opsplane-child" in sys.argv:
+        sys.exit(opsplane_child_main(sys.argv))
     sys.exit(main())

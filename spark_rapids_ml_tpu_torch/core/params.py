@@ -11,16 +11,17 @@ default map, validated by type converters, and JSON-serializable for the
 DefaultParamsWriter-style persistence in
 :mod:`spark_rapids_ml_tpu_torch.core.persistence`.
 
-Port of the reference's ``core/params.py``; the uid lock is a plain
-``threading.Lock`` (the reference's lock sanitizer waits for a later slice).
+Port of the reference's ``core/params.py``; the uid lock is made by the
+lock sanitizer's factory (``params.uid``, :mod:`..utils.lockcheck`).
 """
 
 from __future__ import annotations
 
 import numbers
-import threading
 import uuid
 from typing import Any, Callable, Dict, Iterator, List, Optional
+
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 
 
 class Param:
@@ -93,7 +94,7 @@ def gt(bound: float) -> Callable[[Any], Any]:
     return check
 
 
-_uid_lock = threading.Lock()
+_uid_lock = make_lock("params.uid")
 
 
 def _random_uid(prefix: str) -> str:

@@ -67,7 +67,6 @@ from __future__ import annotations
 
 import gc
 import itertools
-import threading
 import time
 import weakref
 from collections import OrderedDict
@@ -85,6 +84,7 @@ from spark_rapids_ml_tpu_torch.observability.events import emit, run_scope
 from spark_rapids_ml_tpu_torch.observability.metrics import ROW_BUCKETS, gauge, histogram
 from spark_rapids_ml_tpu_torch.serving.signature import tree_leaves, tree_map
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice, env_int
+from spark_rapids_ml_tpu_torch.utils.lockcheck import guarded, make_lock, make_rlock
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
 
 #: Smallest row bucket: a single scored row and a 3-row batch share one program.
@@ -177,7 +177,7 @@ class _Program:
         self.d = d
         self.dtype = dtype
         self.device = device
-        self.lock = threading.Lock()
+        self.lock = make_lock("core_serving.program")
         self.closed = False
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static_x: Optional[torch.Tensor] = None
@@ -288,16 +288,16 @@ class _Program:
             self.weights = ()
 
 
-_LOCK = threading.RLock()
-_PROGRAMS: "OrderedDict[tuple, _Program]" = OrderedDict()  # guarded by _LOCK
-_STATS = {"hits": 0, "misses": 0, "evictions": 0, "compiles": 0, "bypass": 0}  # guarded by _LOCK
+_LOCK = make_rlock("core_serving.programs")
+_PROGRAMS: "OrderedDict[tuple, _Program]" = OrderedDict()  # guarded-by: _LOCK
+_STATS = {"hits": 0, "misses": 0, "evictions": 0, "compiles": 0, "bypass": 0}  # guarded-by: _LOCK
 # The cache keys the LRU (or a ladder commit) dropped while the cost ledger
 # was on, so the retrace watchdog tells a refill from a retrace.
-_EVICTED_KEYS: set = set()  # guarded by _LOCK
+_EVICTED_KEYS: set = set()  # guarded-by: _LOCK
 _MAX_EVICTED_KEYS = 4096
-_CAPTURE_LOCK = threading.Lock()  # one capture at a time, per process
-_CAPTURE_STREAMS: Dict[str, torch.cuda.Stream] = {}  # guarded by _CAPTURE_LOCK
-_COPY_STREAMS: Dict[str, torch.cuda.Stream] = {}  # guarded by _LOCK
+_CAPTURE_LOCK = make_lock("core_serving.capture")  # one capture at a time, per process
+_CAPTURE_STREAMS: Dict[str, torch.cuda.Stream] = {}  # guarded by _CAPTURE_LOCK (held by capture())
+_COPY_STREAMS: Dict[str, torch.cuda.Stream] = {}  # guarded-by: _LOCK
 
 
 def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
@@ -316,7 +316,11 @@ def _copy_stream(device: torch.device) -> "torch.cuda.Stream":
 
 
 def _publish_cache_size() -> None:
-    """``serving.cache.size`` gauge, set under ``_LOCK``."""
+    """``serving.cache.size`` gauge, set from a size read under ``_LOCK``.
+    Every call site holds ``_LOCK`` — the interprocedural lock-guarded
+    pass proves it statically, ``guarded()`` asserts it at runtime when
+    the sanitizer is armed."""
+    guarded(_LOCK, "core.serving._PROGRAMS")
     gauge("serving.cache.size", "program cache entries").set(len(_PROGRAMS))
 
 
@@ -495,7 +499,7 @@ _DEVICE_CACHE_ATTRS = ("_centers_dev", "_wb_dev", "_coef_dev")
 _DEVICE_CACHE_DICTS = ("_pc_dev_cache", "_forest_dev")
 
 #: Models that populated a device-weight cache (held weakly).
-_DEVICE_CACHED_MODELS: "weakref.WeakSet" = weakref.WeakSet()  # guarded by _LOCK
+_DEVICE_CACHED_MODELS: "weakref.WeakSet" = weakref.WeakSet()  # guarded-by: _LOCK
 
 
 def note_device_cache(model: Any) -> None:

@@ -31,11 +31,12 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 SOURCE = PACKAGE_DIR.parent / "native" / "src" / "tpuml_host.cpp"
@@ -44,10 +45,10 @@ LIB_NAME = "libtpuml_host.so"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 ABI_VERSION = 1
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None  # guarded by _lock
-_load_attempted = False  # guarded by _lock
-_build_error: Optional[str] = None  # guarded by _lock
+_lock = make_lock("native.loader")
+_lib: Optional[ctypes.CDLL] = None  # guarded-by: _lock
+_load_attempted = False  # guarded-by: _lock
+_build_error: Optional[str] = None  # guarded-by: _lock
 
 
 def library_path() -> Path:

@@ -26,17 +26,17 @@
   - :mod:`autotune`  — the ledger-driven autotuner (``TPUML_AUTOTUNE``):
     block rows, the serving bucket ladder, the batcher's window,
     admission pricing and the precision gate.
+  - :mod:`opsplane`  — the per-process ops server (``TPUML_OPS_PORT``):
+    ``/metrics``, ``/healthz``, ``/varz`` and ``/tracez`` over the live
+    registries.
 
-The reference's ops server (``opsplane.py``) and lock sanitizer are
-ROADMAP A.9 step 5's last part. The reference starts its ops server at
-import when ``TPUML_OPS_PORT`` is set and reads ``TPUML_LOCKCHECK*`` as
-its modules make their locks, so importing this package with any of
-those knobs (or ``TPUML_OPS_STALL_S``) set raises ``NotImplementedError``
-naming the item. Like the reference, it starts the SLO monitor at import
-when ``TPUML_SLO`` declares objectives.
+As in the reference, the ops server and the SLO monitor are armed from
+the environment at import (both no-ops, allocating nothing, when
+``TPUML_OPS_PORT`` / ``TPUML_SLO`` are unset). The lock sanitizer
+(``utils/lockcheck.py``, ``TPUML_LOCKCHECK``) makes every lock of the
+package.
 """
 
-from spark_rapids_ml_tpu_torch.utils.envknobs import reject_step5_later
 from spark_rapids_ml_tpu_torch.observability.metrics import (  # noqa: F401
     Counter,
     Gauge,
@@ -88,19 +88,19 @@ from spark_rapids_ml_tpu_torch.observability.costs import (  # noqa: F401
 )
 from spark_rapids_ml_tpu_torch.observability import autotune  # noqa: F401
 from spark_rapids_ml_tpu_torch.observability import flightrec  # noqa: F401
+from spark_rapids_ml_tpu_torch.observability import opsplane  # noqa: F401
 from spark_rapids_ml_tpu_torch.observability import slo  # noqa: F401
+from spark_rapids_ml_tpu_torch.observability.opsplane import (  # noqa: F401
+    OPS_PORT_ENV,
+    OpsServer,
+)
 from spark_rapids_ml_tpu_torch.observability.slo import (  # noqa: F401
     SLO_ENV,
     SloMonitor,
     parse_slo,
 )
 
-#: The knobs of step 5's last part that the reference reads when its
-#: observability package is imported.
-IMPORT_TIME_LATER_KNOBS = (
-    "TPUML_OPS_PORT", "TPUML_OPS_STALL_S",
-    "TPUML_LOCKCHECK", "TPUML_LOCKCHECK_STALL_MS", "TPUML_LOCKCHECK_GRAPH",
-)
-
-reject_step5_later(*IMPORT_TIME_LATER_KNOBS)
+# The live ops plane is env-armed at import, so EVERY process of a gang
+# gets its scrape endpoints and SLO evaluation without member-side code.
+opsplane.maybe_start_from_env()
 slo.maybe_start_from_env()

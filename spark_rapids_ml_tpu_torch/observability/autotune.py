@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -62,6 +61,7 @@ from spark_rapids_ml_tpu_torch.observability import costs as _costs
 from spark_rapids_ml_tpu_torch.observability.events import emit
 from spark_rapids_ml_tpu_torch.observability.metrics import default_registry
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice, env_int, env_str
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 
 def bump_counter(name: str, amount: int = 1) -> None:
     """``utils.tracing.bump_counter`` (which imports this package)."""
@@ -229,8 +229,8 @@ class TuneStore:
     def __init__(self, path: Optional[str] = None):
         self.path = path
         self.corrupt = False
-        self._lock = threading.Lock()
-        self._decisions: Dict[str, dict] = {}  # guarded by _lock
+        self._lock = make_lock("autotune.store")
+        self._decisions: Dict[str, dict] = {}  # guarded-by: _lock
         if path and os.path.exists(path):
             try:
                 with open(path) as f:
@@ -290,15 +290,15 @@ class Autotuner:
     def __init__(self, store: TuneStore, hot_min: int = DEFAULT_HOT_MIN):
         self.store = store
         self.hot_min = int(hot_min)
-        self._lock = threading.Lock()
-        # guarded by _lock
+        self._lock = make_lock("autotune.tuner")
+        # guarded-by: _lock
         self._batch_counts: Dict[tuple, Dict[int, int]] = {}
-        self._ladders: Dict[tuple, tuple] = {}  # guarded by _lock
-        self._ladder_sizes: set = set()  # guarded by _lock
-        self._walls: Dict[str, deque] = {}  # guarded by _lock
-        self._oom_ceiling: Dict[str, int] = {}  # guarded by _lock
-        self._models: Dict[str, FamilyModel] = {}  # guarded by _lock
-        self._models_stamp: Optional[tuple] = None  # guarded by _lock
+        self._ladders: Dict[tuple, tuple] = {}  # guarded-by: _lock
+        self._ladder_sizes: set = set()  # guarded-by: _lock
+        self._walls: Dict[str, deque] = {}  # guarded-by: _lock
+        self._oom_ceiling: Dict[str, int] = {}  # guarded-by: _lock
+        self._models: Dict[str, FamilyModel] = {}  # guarded-by: _lock
+        self._models_stamp: Optional[tuple] = None  # guarded-by: _lock
         for dec in store.snapshot():
             if dec.get("knob") == "serving_ladder":
                 fam, _, w = str(dec.get("key", "")).rpartition("|")
@@ -752,7 +752,7 @@ class Autotuner:
 # --- module state (one None check when off, like the ledger) ------------
 
 _TUNER: Optional[Autotuner] = None  # None = off: active() is one read
-_config_lock = threading.Lock()
+_config_lock = make_lock("autotune.config")
 
 
 def active() -> Optional[Autotuner]:

@@ -81,6 +81,7 @@ import numpy as np
 from spark_rapids_ml_tpu_torch.observability.events import emit
 from spark_rapids_ml_tpu_torch.observability.metrics import default_registry, gauge
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice, env_float, env_int, env_str
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 
 COST_LEDGER_ENV = "TPUML_COST_LEDGER"
 COST_DUMP_ENV = "TPUML_COST_LEDGER_DUMP"
@@ -269,15 +270,15 @@ class Ledger:
     retrace families, under one lock."""
 
     def __init__(self):
-        self._lock = threading.Lock()
-        self._entries: Dict[str, ProgramCost] = {}  # guarded by _lock
+        self._lock = make_lock("costs.ledger")
+        self._entries: Dict[str, ProgramCost] = {}  # guarded-by: _lock
         # (fn id, static, rows, d, dtype, args key) -> entry key: the
         # admission controller's measured-pricing index.
-        self._request_index: Dict[tuple, str] = {}  # guarded by _lock
+        self._request_index: Dict[tuple, str] = {}  # guarded-by: _lock
         # (family identity minus rows) -> {"rows": set, "retraces": n}
-        self._families: Dict[tuple, dict] = {}  # guarded by _lock
-        self._watermarks: Dict[str, Dict[str, int]] = {}  # guarded by _lock
-        self._retraces = 0  # guarded by _lock
+        self._families: Dict[tuple, dict] = {}  # guarded-by: _lock
+        self._watermarks: Dict[str, Dict[str, int]] = {}  # guarded-by: _lock
+        self._retraces = 0  # guarded-by: _lock
 
     # --- recording -----------------------------------------------------
 
@@ -442,7 +443,7 @@ class Ledger:
 
 _LEDGER: Optional[Ledger] = None  # None = disabled: active() is one read
 _SAMPLER: Optional["HbmSampler"] = None
-_config_lock = threading.Lock()
+_config_lock = make_lock("costs.config")
 
 
 def active() -> Optional[Ledger]:
@@ -607,9 +608,9 @@ class _DeviceTimer:
     CAPACITY = 1024
 
     def __init__(self):
-        self._lock = threading.Lock()
-        self._pending: "deque[tuple]" = deque()  # guarded by _lock
-        self._spare: Dict[int, List[tuple]] = {}  # guarded by _lock
+        self._lock = make_lock("costs.device_timer")
+        self._pending: "deque[tuple]" = deque()  # guarded-by: _lock
+        self._spare: Dict[int, List[tuple]] = {}  # guarded-by: _lock
 
     def begin(self, stream) -> Optional[tuple]:
         """A (start, end) pair with start recorded on ``stream``, or None
@@ -735,19 +736,24 @@ def record_aot(fn: Callable, *, name: str, static: dict, rows: int, d: int, dtyp
 
 #: (fn, static, aval key) -> ledger key of recorded fallbacks and segments:
 #: one record per distinct shape.
-_FALLBACK_KEYS: Dict[tuple, str] = {}  # guarded by _keys_lock
-_SEGMENT_KEYS: Dict[tuple, str] = {}  # guarded by _keys_lock
-_keys_lock = threading.Lock()
+_FALLBACK_KEYS: Dict[tuple, str] = {}  # guarded-by: _keys_lock
+_SEGMENT_KEYS: Dict[tuple, str] = {}  # guarded-by: _keys_lock
+_keys_lock = make_lock("costs.keys")
 
 
-def _record_once(cache: Dict[tuple, str], kind: str, fn: Callable, name: str, static: dict, args: tuple,
+def _keys_of(kind: str) -> Dict[tuple, str]:
+    """The key cache of ``kind`` (callers hold ``_keys_lock``)."""
+    return _FALLBACK_KEYS if kind == KIND_FALLBACK else _SEGMENT_KEYS
+
+
+def _record_once(kind: str, fn: Callable, name: str, static: dict, args: tuple,
                  cost: Optional[Callable[[], Optional[dict]]]) -> str:
     led = _LEDGER
     akey = args_aval_key(args)
     static_r = _static_repr(static)
     cache_key = (id(fn), static_r, akey)
     with _keys_lock:
-        key = cache.get(cache_key)
+        key = _keys_of(kind).get(cache_key)
     if key is not None:
         return key
     rows = _first_rows(args)
@@ -761,7 +767,7 @@ def _record_once(cache: Dict[tuple, str], kind: str, fn: Callable, name: str, st
         memory={"argument_bytes": tensor_bytes(args)},
     )
     with _keys_lock:
-        return cache.setdefault(cache_key, key)
+        return _keys_of(kind).setdefault(cache_key, key)
 
 
 def record_fallback(fn: Callable, *, name: str, static: dict, args: tuple,
@@ -771,7 +777,7 @@ def record_fallback(fn: Callable, *, name: str, static: dict, args: tuple,
     measured."""
     if _LEDGER is None:
         return ""
-    return _record_once(_FALLBACK_KEYS, KIND_FALLBACK, fn, name, static, args, cost)
+    return _record_once(KIND_FALLBACK, fn, name, static, args, cost)
 
 
 def _device_of(args: tuple) -> Any:
@@ -796,7 +802,7 @@ def ledgered_call(fn: Callable, args: tuple, *, static: dict, name: str,
     led = _LEDGER
     if led is None:
         return fn(*args, **static)
-    key = _record_once(_SEGMENT_KEYS, KIND_SEGMENT, fn, name, static, args, cost)
+    key = _record_once(KIND_SEGMENT, fn, name, static, args, cost)
     return timed_invocation(led, key, 0, _device_of(args), lambda: fn(*args, **static))
 
 

@@ -54,14 +54,14 @@ import itertools
 import json
 import os
 import sys
-import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
 import contextvars
 
-from spark_rapids_ml_tpu_torch.utils.envknobs import EnvKnobError, env_int, env_str, reject_step5_later
+from spark_rapids_ml_tpu_torch.utils.envknobs import EnvKnobError, env_int, env_str
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 
 EVENT_LOG_ENV = "TPUML_EVENT_LOG"
 TELEMETRY_DIR_ENV = "TPUML_TELEMETRY_DIR"
@@ -263,7 +263,7 @@ class RunContext:
         self.spans: deque = deque(maxlen=MAX_RUN_SPANS)
         self.t0_wall = time.time()
         self.t0_mono = time.monotonic()
-        self._lock = threading.Lock()
+        self._lock = make_lock("events.run_context")
 
     def add_span(self, record: dict) -> None:
         with self._lock:
@@ -333,7 +333,7 @@ _sink = _UNSET  # None = disabled: emit() is a single attribute check;
 # (_sink itself is deliberately NOT lock-guarded: the disabled fast path
 # reads it lock-free once, then re-checks under the lock before writing.)
 _sink_owned = False  # guarded-by: _sink_lock
-_sink_lock = threading.Lock()
+_sink_lock = make_lock("events.sink")
 _n_emitted = 0  # guarded-by: _sink_lock
 #: Active telemetry-dir sharding: {"dir": <dir>, "shard": <shard path>}.
 _telemetry: Optional[dict] = None  # guarded-by: _sink_lock
@@ -514,8 +514,6 @@ def flush_telemetry() -> Optional[str]:
         roots = sorted(_trace_roots)
     if tele is None:
         return None
-    # The reference reports its ops port here (step 5's last part).
-    reject_step5_later("TPUML_OPS_PORT")
     from spark_rapids_ml_tpu_torch.observability.metrics import dump_snapshot
 
     pid = os.getpid()
@@ -534,13 +532,22 @@ def flush_telemetry() -> Optional[str]:
             costs_path = _costs.dump_ledger(os.path.join(tele["dir"], f"costs-{pid}.json"))
     except Exception:  # pragma: no cover - best-effort shard
         costs_path = None
+    # The live ops port (when the ops server is up) rides the manifest so
+    # post-hoc tooling and gang aggregators can find the scrape endpoint.
+    ops_port = None
+    try:
+        from spark_rapids_ml_tpu_torch.observability import opsplane
+
+        ops_port = opsplane.active_port()
+    except Exception:  # pragma: no cover - manifest must always write
+        ops_port = None
     manifest = {
         "pid": pid,
         "process": _resolve_process_index(),
         "shard": os.path.basename(tele["shard"]),
         "metrics": os.path.basename(metrics_path) if metrics_path else None,
         "costs": os.path.basename(costs_path) if costs_path else None,
-        "ops_port": None,
+        "ops_port": ops_port,
         "trace_roots": roots,
         "emitted": emitted,
         # One (wall, mono) sample at a single instant — the merger's

@@ -9,16 +9,17 @@ sink is configured at all, so the recorder costs one deque append on
 the instrumented path and NOTHING when disarmed.
 
 :func:`dump` writes ``flight-<pid>.json`` — ring contents, all-thread
-Python stacks, a metrics snapshot and trace roots — into
-``TPUML_FLIGHT_DIR`` (default: the active telemetry dir, else the
-working directory). Its ``locks`` entry is the empty list the reference
-writes with its lock sanitizer off, and ``costs`` is the cost ledger's
-snapshot while ``TPUML_COST_LEDGER`` is armed (None otherwise). The lock
-sanitizer is ROADMAP A.9 step 5's last part, and so is the reference's
-third trigger, its stall strike. The triggers here:
+Python stacks, lockcheck held/waiting state (``locks``, empty with the
+sanitizer off), a metrics snapshot, the cost-ledger snapshot when armed
+(None otherwise), and trace roots — into ``TPUML_FLIGHT_DIR`` (default:
+the active telemetry dir, else the working directory). Three triggers:
 
   - **fatal exception** — ``sys.excepthook`` / ``threading.excepthook``
     chain (the original hooks still run), installed by :func:`arm`;
+  - **lockcheck stall strike** — a ``utils.lockcheck`` stall hook,
+    installed by :func:`arm`, so a wedged process documents itself
+    BEFORE anyone has to kill it (one dump per reason: a stall storm
+    makes one dump);
   - **SIGTERM** — ``events.install_sigterm_flush``, installed by the
     processes that own their main thread, not here: signal handlers are
     per-role policy.
@@ -38,15 +39,16 @@ import traceback
 from typing import Any, Dict, List, Optional
 
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_str
+from spark_rapids_ml_tpu_torch.utils import lockcheck
 
 FLIGHT_DIR_ENV = "TPUML_FLIGHT_DIR"
 
 #: The on-disk document marker (``trace.py`` keys on it).
 DOC_KIND = "tpuml-flight"
 
-_arm_lock = threading.Lock()
+_arm_lock = lockcheck.make_lock("flightrec.arm")
 _armed = False  # guarded-by: _arm_lock
-_dump_lock = threading.Lock()
+_dump_lock = lockcheck.make_lock("flightrec.dump")
 _dumped_reasons: set = set()  # guarded-by: _dump_lock
 _prev_excepthook = None
 _prev_threading_excepthook = None
@@ -110,7 +112,7 @@ def build_doc(reason: str, detail: Optional[dict] = None) -> dict:
         "mono": time.monotonic(),
         "ring": _ring_records(),
         "threads": _thread_stacks(),
-        "locks": [],
+        "locks": lockcheck.dump_state(),
         "trace_roots": sorted(_ev._trace_roots),
         "emitted": _ev.emitted_count(),
     }
@@ -164,13 +166,15 @@ def reset() -> None:
 
 
 def disarm() -> None:
-    """Put back the exception hooks :func:`arm` replaced (test isolation;
-    the reference's tests restore the hooks by hand)."""
+    """Put back the exception hooks :func:`arm` replaced and take back its
+    stall hook (test isolation; the reference's tests restore the hooks
+    by hand)."""
     global _armed, _prev_excepthook, _prev_threading_excepthook
     with _arm_lock:
         if not _armed:
             return
         _armed = False
+        lockcheck.remove_stall_hook(_on_stall)
         if sys.excepthook is _on_fatal and _prev_excepthook is not None:
             sys.excepthook = _prev_excepthook
         if threading.excepthook is _on_thread_fatal and _prev_threading_excepthook is not None:
@@ -200,12 +204,17 @@ def _on_thread_fatal(args) -> None:
         _prev_threading_excepthook(args)
 
 
+def _on_stall(violation: dict) -> None:
+    # dump_state() payloads ride the violation record already; keep the
+    # dump's own copy fresh rather than duplicating the strike's.
+    dump("stall", {"lock": violation.get("lock"),
+                   "waited_ms": violation.get("waited_ms")})
+
+
 def arm() -> None:
-    """Install the fatal-exception triggers (idempotent; called by
-    ``events._configure_flight`` whenever ``TPUML_FLIGHT`` is set). The
-    previous hooks keep running after ours. The reference also hooks its
-    lock sanitizer's stall strikes here; that waits for the sanitizer
-    (ROADMAP A.9, step 5's last part)."""
+    """Install the fatal-exception and stall-strike triggers (idempotent;
+    called by ``events._configure_flight`` whenever ``TPUML_FLIGHT`` is
+    set). The previous hooks keep running after ours."""
     global _armed, _prev_excepthook, _prev_threading_excepthook
     with _arm_lock:
         if _armed:
@@ -215,3 +224,4 @@ def arm() -> None:
         sys.excepthook = _on_fatal
         _prev_threading_excepthook = threading.excepthook
         threading.excepthook = _on_thread_fatal
+        lockcheck.add_stall_hook(_on_stall)

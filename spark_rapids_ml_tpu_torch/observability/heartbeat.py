@@ -29,6 +29,7 @@ from typing import Optional
 from spark_rapids_ml_tpu_torch.observability.events import emit
 from spark_rapids_ml_tpu_torch.observability.metrics import gauge
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_float
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 
 HEARTBEAT_EVERY_ENV = "TPUML_GANG_HEARTBEAT_EVERY"
 DEFAULT_INTERVAL = 5.0
@@ -64,7 +65,7 @@ class GangHeartbeat:
         self.manual = bool(manual)
         # The beat thread and the caller's thread (beat 1, stop, gauge
         # scrapes) both touch the beat state: one lock owns it.
-        self._lock = threading.Lock()
+        self._lock = make_lock("heartbeat.state")
         self.seq = 0  # guarded-by: _lock
         self._last = time.monotonic()  # guarded-by: _lock
         self._last_emit = float("-inf")  # guarded-by: _lock

@@ -28,11 +28,11 @@ from __future__ import annotations
 import atexit
 import json
 import re
-import threading
 import time
 from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_str
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 
 METRICS_DUMP_ENV = "TPUML_METRICS_DUMP"
 
@@ -77,7 +77,7 @@ class _Metric:
     def __init__(self, name: str, help: str):
         self.name = name
         self.help = help
-        self._lock = threading.Lock()
+        self._lock = make_lock(f"metrics.{name}")
         self._series: Dict[LabelKey, Union[int, float]] = {}  # guarded-by: _lock
 
     def _snapshot_series(self) -> Dict[LabelKey, Union[int, float]]:
@@ -221,7 +221,7 @@ class Registry:
     (:data:`default_registry`) backs the whole process."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("metrics.registry")
         self._metrics: Dict[str, _Metric] = {}  # guarded-by: _lock
 
     def _get(self, name: str, kind: type, help: str, **kwargs) -> _Metric:

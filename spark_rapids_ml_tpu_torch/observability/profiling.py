@@ -26,14 +26,14 @@ import contextlib
 import itertools
 import os
 import re
-import threading
 from typing import Optional
 
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_str
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 
 PROFILE_DIR_ENV = "TPUML_PROFILE_DIR"
 
-_lock = threading.Lock()
+_lock = make_lock("profiling.active")
 _active = False  # guarded-by: _lock
 _session_seq = itertools.count(1)
 

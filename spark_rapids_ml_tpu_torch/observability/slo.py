@@ -50,6 +50,7 @@ from spark_rapids_ml_tpu_torch.observability.metrics import (
     gauge,
 )
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_float, env_str
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 
 SLO_ENV = "TPUML_SLO"
 SLO_EVERY_ENV = "TPUML_SLO_EVERY_MS"
@@ -175,7 +176,7 @@ class SloMonitor:
     def __init__(self, spec: Optional[str] = None):
         raw = spec if spec is not None else (env_str(SLO_ENV) or "")
         self.objectives = parse_slo(raw)
-        self._lock = threading.Lock()
+        self._lock = make_lock("slo.monitor")
         self._prev: Dict[str, dict] = {}  # guarded-by: _lock
         self._breached: Dict[str, bool] = {}  # guarded-by: _lock
         self._sources: Dict[str, Callable[[], Optional[float]]] = {}
@@ -332,7 +333,7 @@ class SloMonitor:
 
 # --- the process singleton ----------------------------------------------
 
-_active_lock = threading.Lock()
+_active_lock = make_lock("slo.active")
 _monitor: Optional[SloMonitor] = None  # guarded-by: _active_lock
 
 

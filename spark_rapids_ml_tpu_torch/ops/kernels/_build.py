@@ -16,10 +16,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
+
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -30,8 +31,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}  # guarded by _lock
+_lock = make_lock("kernels.build")
+_loaded: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
 #: name -> nvcc's compiler output (ptxas register/spill report) of the
 #: build this process ran; empty for a library that was already built.
 build_logs: Dict[str, str] = {}

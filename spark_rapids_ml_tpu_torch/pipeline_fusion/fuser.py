@@ -29,7 +29,6 @@ calls.
 
 from __future__ import annotations
 
-import threading
 import warnings
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -38,6 +37,7 @@ from spark_rapids_ml_tpu_torch.observability import costs as _costs
 from spark_rapids_ml_tpu_torch.observability.events import emit
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, tree_leaves
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 from spark_rapids_ml_tpu_torch.utils.tracing import bump_counter
 
 FUSION_ENV = "TPUML_PIPELINE_FUSION"
@@ -88,8 +88,8 @@ class CompositeSignature(ServingSignature):
 
 #: Composite kernels by (stage kernels, stage selects): ONE function
 #: object per chain shape.
-_COMPOSITE_KERNELS: Dict[tuple, Callable] = {}  # guarded by _KERNEL_LOCK
-_KERNEL_LOCK = threading.Lock()
+_COMPOSITE_KERNELS: Dict[tuple, Callable] = {}  # guarded-by: _KERNEL_LOCK
+_KERNEL_LOCK = make_lock("pipeline_fusion.kernels")
 
 
 def _demux_static(static: Dict[str, Any], n_stages: int) -> List[Dict[str, Any]]:

@@ -59,6 +59,7 @@ import torch
 from spark_rapids_ml_tpu_torch.observability.events import current_trace_context, emit, trace_scope
 from spark_rapids_ml_tpu_torch.robustness.faults import InjectedFault, active_plan, fault_point
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_int, env_str
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
 
 SCHEMA_VERSION = 1
@@ -241,8 +242,8 @@ class FitCheckpointer:
         self.every = every
         self.keep = keep
         self.solver = solver
-        self._lock = threading.Lock()
-        self._pending: Optional[threading.Thread] = None  # guarded by _lock
+        self._lock = make_lock("checkpoint.pending")
+        self._pending: Optional[threading.Thread] = None  # guarded-by: _lock
 
     @classmethod
     def for_fit(cls, instance, solver: str, data: Sequence = ()) -> Optional["FitCheckpointer"]:

@@ -61,12 +61,12 @@ plan armed, :func:`fault_point` is one ``None`` check.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Dict, List, Optional, Tuple, Union
 
 from spark_rapids_ml_tpu_torch.observability.events import emit
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_str
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 
 KNOWN_SITES = frozenset(
     {
@@ -233,8 +233,8 @@ class FaultPlan:
 
     def __init__(self, schedules: Dict[str, Schedule]):
         self._schedules = dict(schedules)
-        self._counts: Dict[str, int] = {}  # guarded by _lock
-        self._lock = threading.Lock()
+        self._counts: Dict[str, int] = {}  # guarded-by: _lock
+        self._lock = make_lock("faults.plan")
         self.fired: List[Tuple[str, int]] = []
 
     def invocations(self, site: str) -> int:

@@ -24,7 +24,6 @@ would hide the device.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from concurrent.futures import Future
@@ -37,6 +36,7 @@ from spark_rapids_ml_tpu_torch.core.serving import serve_rows
 from spark_rapids_ml_tpu_torch.observability.events import TraceContext, emit
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, tree_leaves
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice
+from spark_rapids_ml_tpu_torch.utils.lockcheck import guarded, make_condition
 from spark_rapids_ml_tpu_torch.utils.tracing import bump_counter
 
 QUEUE_ENV = "TPUML_SERVE_QUEUE"
@@ -137,10 +137,10 @@ class AdmissionQueue:
     def __init__(self, limit: int, mem_budget: int = 0):
         self.limit = int(limit)
         self.mem_budget = int(mem_budget)
-        self._dq: "deque[Request]" = deque()  # guarded by _cond
-        self._cond = threading.Condition()
-        self._reserved = 0  # guarded by _cond
-        self._closed = False  # guarded by _cond
+        self._dq: "deque[Request]" = deque()  # guarded-by: _cond
+        self._cond = make_condition("serving.admission")
+        self._reserved = 0  # guarded-by: _cond
+        self._closed = False  # guarded-by: _cond
 
     def submit(self, req: Request) -> None:
         with self._cond:
@@ -156,8 +156,12 @@ class AdmissionQueue:
             self._cond.notify_all()
 
     def _shed(self, req: Request, reason: str) -> Overloaded:
-        """Count and log one shed and build its :class:`Overloaded` (runs
-        under ``_cond``)."""
+        """Count and log one shed and build its :class:`Overloaded`. Reads
+        queue state directly: it only runs under ``self._cond`` — the
+        lint's interprocedural guarded-by pass proves every call site holds
+        it, and ``guarded()`` asserts the same at runtime when the
+        sanitizer is armed."""
+        guarded(self._cond, "AdmissionQueue._dq")
         depth, reserved = len(self._dq), self._reserved
         bump_counter(f"serving.shed.{reason}")
         emit("serving", action="shed", reason=reason, model=req.key[0], version=req.key[1],

@@ -37,6 +37,7 @@ from spark_rapids_ml_tpu_torch.serving.admission import (
     execute_with_fallback,
 )
 from spark_rapids_ml_tpu_torch.serving.signature import tree_map
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
 
 MAX_BATCH_ENV = "TPUML_SERVE_MAX_BATCH"
@@ -76,8 +77,8 @@ class MicroBatcher:
         self._thread: Optional[threading.Thread] = None
         self._stop = False
         self._drain = True
-        self._inflight = 0  # guarded by _lock
-        self._lock = threading.Lock()
+        self._inflight = 0  # guarded-by: _lock
+        self._lock = make_lock("serving.batcher")
 
     def start(self) -> None:
         if self._thread is not None:

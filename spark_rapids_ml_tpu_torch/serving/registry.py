@@ -17,7 +17,6 @@ program (graph) that reads its weights.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Any, Dict, Iterable, List, Optional, Tuple, Type
 
@@ -34,6 +33,7 @@ from spark_rapids_ml_tpu_torch.core.serving import (
 from spark_rapids_ml_tpu_torch.observability.events import emit
 from spark_rapids_ml_tpu_torch.serving.admission import signature_device
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_rlock
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
 
 
@@ -67,14 +67,14 @@ class ModelRegistry:
     """Thread-safe versioned registry with alias pinning and warm-up."""
 
     def __init__(self):
-        self._lock = threading.RLock()
-        self._versions: Dict[str, Dict[int, ModelVersion]] = {}  # guarded by _lock
+        self._lock = make_rlock("serving.registry")
+        self._versions: Dict[str, Dict[int, ModelVersion]] = {}  # guarded-by: _lock
         # High-water version per name: a retired number is never reissued.
-        self._next: Dict[str, int] = {}  # guarded by _lock
-        self._aliases: Dict[str, Dict[str, int]] = {}  # guarded by _lock
+        self._next: Dict[str, int] = {}  # guarded-by: _lock
+        self._aliases: Dict[str, Dict[str, int]] = {}  # guarded-by: _lock
         # Where each (name, alias) pointed before its latest move: the
         # one-op rollback target (rolling back twice returns).
-        self._previous: Dict[Tuple[str, str], Optional[int]] = {}  # guarded by _lock
+        self._previous: Dict[Tuple[str, str], Optional[int]] = {}  # guarded-by: _lock
 
     def register(self, name: str, model: Any, *, alias: Optional[str] = None,
                  warm_buckets: Iterable[int] = (), warm_dtype: Any = None) -> ModelVersion:

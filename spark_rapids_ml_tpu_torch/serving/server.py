@@ -24,7 +24,6 @@ at the same bucket.
 
 from __future__ import annotations
 
-import threading
 import time
 import weakref
 from concurrent.futures import Future
@@ -43,6 +42,7 @@ from spark_rapids_ml_tpu_torch.observability.events import (
     new_run_id,
     trace_scope,
 )
+from spark_rapids_ml_tpu_torch.observability import opsplane
 from spark_rapids_ml_tpu_torch.observability.metrics import gauge
 from spark_rapids_ml_tpu_torch.serving.admission import (
     DEFAULT_QUEUE_LIMIT,
@@ -62,12 +62,13 @@ from spark_rapids_ml_tpu_torch.serving.batcher import (
 from spark_rapids_ml_tpu_torch.serving.registry import ModelRegistry, ModelVersion
 from spark_rapids_ml_tpu_torch.serving.signature import spec_bytes
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_float, env_int
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 from spark_rapids_ml_tpu_torch.utils.tracing import bump_counter
 
 #: Live runtimes, held weakly.
 _RUNTIMES: "weakref.WeakSet[ServingRuntime]" = weakref.WeakSet()
-_runtime_seq_lock = threading.Lock()
-_runtime_seq = 0  # guarded by _runtime_seq_lock
+_runtime_seq_lock = make_lock("serving.runtime_seq")
+_runtime_seq = 0  # guarded-by: _runtime_seq_lock
 
 
 def runtime_snapshots() -> List[dict]:
@@ -133,6 +134,10 @@ class ServingRuntime:
         if self._closed:
             raise RuntimeError("serving runtime is closed")
         self._batcher.start()
+        # Dispatcher-thread aliveness folds into this process's /healthz:
+        # a runtime whose dispatcher died (or never restarted after a
+        # stop) is unhealthy.
+        opsplane.add_probe(f"dispatcher.{self.runtime_id}", lambda: self._closed or self._batcher.running)
 
     @property
     def running(self) -> bool:
@@ -151,6 +156,7 @@ class ServingRuntime:
         self._queue.close()
         gauge("serving.queue.depth").remove(runtime=self.runtime_id)
         gauge("serving.inflight").remove(runtime=self.runtime_id)
+        opsplane.remove_probe(f"dispatcher.{self.runtime_id}")
         emit("serving", action="close", runtime=self.runtime_id, drain=drain)
 
     def __enter__(self) -> "ServingRuntime":

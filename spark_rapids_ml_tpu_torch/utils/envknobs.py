@@ -206,21 +206,26 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "declared device peak FLOP/s for roofline utilization estimates"),
     Knob("TPUML_PEAK_BYTES_PER_SEC", "float", "observability",
          "declared device peak HBM bytes/s for roofline utilization"),
-    # the ops plane and lockcheck (not ported: step 5's ops plane; raise)
+    # concurrency sanitizer (utils/lockcheck.py)
     Knob("TPUML_LOCKCHECK", "choice", "lockcheck",
-         "off: plain threading primitives; warn / strict: the lock "
-         "sanitizer (not ported; warn and strict raise)",
+         "off: plain threading primitives; warn: instrumented locks "
+         "emit lockcheck events on violations; strict: violations raise",
          default="off", choices=("off", "warn", "strict")),
     Knob("TPUML_LOCKCHECK_STALL_MS", "float", "lockcheck",
-         "the lock sanitizer's stall watchdog (not ported; raises)",
+         "blocking-acquire wait that triggers the stall watchdog's "
+         "all-threads lockcheck event (0 = watchdog off)",
          default=30000.0),
     Knob("TPUML_LOCKCHECK_GRAPH", "str", "lockcheck",
-         "the lock sanitizer's order graph dump (not ported; raises)"),
+         "write the runtime acquisition-order graph + violation log "
+         "here at interpreter exit"),
+    # live ops plane (observability/opsplane.py)
     Knob("TPUML_OPS_PORT", "int", "ops-plane",
-         "per-process ops HTTP server port (not ported; raises)"),
+         "per-process ops HTTP server port exposing /metrics /healthz "
+         "/varz /tracez; 0 binds an ephemeral port published in the "
+         "telemetry manifest (unset: no server)"),
     Knob("TPUML_OPS_STALL_S", "float", "ops-plane",
-         "gang-heartbeat age above which /healthz reports unhealthy "
-         "(not ported; raises)", default=30.0),
+         "gang-heartbeat age (seconds) above which /healthz reports the "
+         "process unhealthy (0 = heartbeat probe off)", default=30.0),
     # SLOs and the flight recorder (observability/slo.py, flightrec.py)
     Knob("TPUML_SLO", "str", "ops-plane",
          "declared service-level objectives, e.g. "
@@ -233,8 +238,8 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
     Knob("TPUML_FLIGHT", "int", "ops-plane",
          "flight-recorder ring size: keep the last N event records in "
          "memory (even with no event sink configured) and dump them as "
-         "flight-<pid>.json on fatal exception or SIGTERM (0 = recorder off)",
-         default=0),
+         "flight-<pid>.json on fatal exception, SIGTERM, or a lockcheck "
+         "stall strike (0 = recorder off)", default=0),
     Knob("TPUML_FLIGHT_DIR", "str", "ops-plane",
          "directory for flight-recorder dumps (default: the active "
          "TPUML_TELEMETRY_DIR, else the process working directory)"),
@@ -333,35 +338,3 @@ def env_choice(name: str, choices: Sequence[str], default: str) -> str:
     if value not in choices:
         raise EnvKnobError(name, raw, f"one of {'|'.join(choices)}")
     return value
-
-
-STEP5_LATER_ITEM = "ROADMAP A.9, step 5 (ops plane / lockcheck)"
-
-#: The knobs of step 5's last part, each with the value that leaves it
-#: off (None: any value turns it on).
-STEP5_LATER_KNOBS = {
-    "TPUML_OPS_PORT": None,
-    "TPUML_OPS_STALL_S": None,
-    "TPUML_LOCKCHECK": "off",
-    "TPUML_LOCKCHECK_STALL_MS": None,
-    "TPUML_LOCKCHECK_GRAPH": None,
-}
-
-
-def reject_step5_later(*names: str) -> None:
-    """Where the reference reads a knob of step 5's last part (the ops
-    plane, the lock sanitizer): raise ``NotImplementedError`` naming the
-    knob and the item when it is set to anything but its off value, so
-    none is ignored silently."""
-    for name in names:
-        _require_registered(name)
-        raw = os.environ.get(name)
-        if raw is None or not raw.strip():
-            continue
-        off = STEP5_LATER_KNOBS[name]
-        if off is not None and raw.strip().lower() == off:
-            continue
-        raise NotImplementedError(
-            f"{name}={raw!r} is not ported yet: the ops plane and the lock "
-            f"sanitizer are {STEP5_LATER_ITEM}; unset it"
-        )

@@ -42,6 +42,7 @@ from spark_rapids_ml_tpu_torch.observability.events import (
     enabled as _log_enabled,
 )
 from spark_rapids_ml_tpu_torch.observability.metrics import default_registry
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 
 
 class TraceColor(Enum):
@@ -61,7 +62,7 @@ class TraceColor(Enum):
 # Alias matching the reference class name for drop-in reads of calling code.
 NvtxColor = TraceColor
 
-_events_lock = threading.Lock()
+_events_lock = make_lock("tracing.events")
 _events: Deque[Tuple[str, float, float]] = deque(maxlen=4096)
 
 

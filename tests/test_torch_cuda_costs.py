@@ -114,25 +114,33 @@ def test_a_k1_fit_under_the_ledger(cuda):
     assert row["wall_seconds"] > 0
 
 
-def test_mean_center_grows_the_peak_by_at_most_the_placed_block(cuda):
+def test_mean_center_grows_the_peak_by_at_most_the_placed_block(cuda, monkeypatch):
     """Host column means fold each placed partition with no (n, d)
-    temporary: over the call the peak grows by the placed float64 block,
-    plus at most 1 MiB for the fold's (d,) vectors and the reduction's
-    workspace (the unfused fold grew it by three blocks)."""
-    from spark_rapids_ml_tpu_torch.linalg.row_matrix import RowMatrix
+    temporary: past its placement (the ``ingest H2D`` span, the block
+    itself) the fold grows the peak by at most the placed block (the
+    unfused fold grew it by two blocks); the means are float64's."""
+    from spark_rapids_ml_tpu_torch.linalg import row_matrix
 
-    host = np.random.default_rng(6).normal(size=(262_144, 256)).astype(np.float32)
-    mat = RowMatrix([host])
+    placed = []
+
+    def place_and_mark(*args, **kwargs):
+        blk = place_array(*args, **kwargs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()  # the fold's growth is measured from here
+        placed.append((blk.numel() * blk.element_size(), torch.cuda.memory_allocated()))
+        return blk
+
+    place_array = row_matrix.place_array
+    monkeypatch.setattr(row_matrix, "place_array", place_and_mark)
+    host = np.random.default_rng(6).normal(size=(524_288, 256)).astype(np.float32)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    mean = mat.column_means()
+    mean = row_matrix.RowMatrix([host]).column_means()
     torch.cuda.synchronize()
-    grew = torch.cuda.max_memory_allocated() - base
-    block = host.shape[0] * host.shape[1] * 8
-    assert mean.is_cuda and mean.dtype == torch.float64
-    assert grew <= block + (1 << 20), (grew, block)
+    (block, after_placement), = placed
+    grew = torch.cuda.max_memory_allocated() - after_placement
+    assert mean.is_cuda and mean.dtype == torch.float64 and block == host.size * 8
+    assert grew <= block, (grew, block)
     np.testing.assert_allclose(mean.cpu().numpy(), host.mean(axis=0, dtype=np.float64), rtol=0, atol=1e-12)
 
 

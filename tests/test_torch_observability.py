@@ -17,10 +17,10 @@ twin on the CPU, after the reference's ``tests/test_observability.py``:
   and writes no record;
 - ``TPUML_PROFILE_DIR`` writes a Chrome trace holding the port's range
   names, and ``maybe_profile`` yields None under an open profiler;
-- each knob of ROADMAP A.9 step 5's last part (the ops plane and the
-  lock sanitizer) raises where the reference would read it; the cost
-  ledger's knobs work where the reference reads them (the fit report's
-  ``costs``, the telemetry shard).
+- the knobs of the ops plane and the lock sanitizer, and the cost
+  ledger's, work where the reference reads them (the server at import,
+  instrumented locks, the order graph at exit; the fit report's
+  ``costs``, the telemetry shard and its ``ops_port``).
 """
 
 import importlib
@@ -538,23 +538,73 @@ def test_zero_interval_runs_no_thread(no_event_log, monkeypatch):
     assert GangHeartbeat().interval == 0.5
 
 
-# --- the knobs of step 5's later parts ----------------------------------------
+# --- the knobs of step 5's last part: the ops plane and the lock sanitizer ----
 
 LATER_AT_IMPORT = ("TPUML_OPS_PORT", "TPUML_OPS_STALL_S", "TPUML_LOCKCHECK",
                    "TPUML_LOCKCHECK_STALL_MS", "TPUML_LOCKCHECK_GRAPH")
+
+#: A fresh interpreter reports whether the package's module-level locks
+#: (made at import) are instrumented, and holds the events sink once.
+_IMPORT_PROBE = (
+    "from spark_rapids_ml_tpu_torch import observability as o\n"
+    "from spark_rapids_ml_tpu_torch.utils import lockcheck as lc\n"
+    "from spark_rapids_ml_tpu_torch.core import params, serving\n"
+    "with o.events._sink_lock:\n"
+    "    pass\n"
+    "print(lc.mode(), lc.is_instrumented(o.events._sink_lock), lc.is_instrumented(params._uid_lock),"
+    " lc.is_instrumented(serving._LOCK), len(lc.violations()))\n"
+)
+
+
+def _import_under(tmp_path, **knobs):
+    env = {**os.environ, "PYTHONPATH": str(REPO), **knobs}
+    r = subprocess.run([sys.executable, "-c", _IMPORT_PROBE], env=env, cwd=str(tmp_path),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    return r.stdout.split()
 
 
 @pytest.mark.parametrize("name,value", [("TPUML_OPS_PORT", "0"), ("TPUML_OPS_STALL_S", "30"),
                                         ("TPUML_LOCKCHECK", "warn"), ("TPUML_LOCKCHECK", "strict"),
                                         ("TPUML_LOCKCHECK_STALL_MS", "100"),
                                         ("TPUML_LOCKCHECK_GRAPH", "/tmp/g.json")])
-def test_ops_plane_and_lockcheck_knobs_raise_at_import(monkeypatch, name, value):
-    assert name in tobs.IMPORT_TIME_LATER_KNOBS
+def test_ops_plane_and_lockcheck_knobs_raise_at_import(monkeypatch, tmp_path, name, value):
+    """Each knob now works where the reference reads it (the name is kept
+    from when they raised): the ops port starts the server at import,
+    the stall limit is /healthz's heartbeat limit, an import under
+    ``warn`` / ``strict`` instruments the module-level locks, the stall
+    threshold is the watchdog's, and the graph knob writes the order
+    graph at exit (here to a temporary path)."""
+    from spark_rapids_ml_tpu_torch.observability import opsplane
+    from spark_rapids_ml_tpu_torch.utils import lockcheck
+
+    assert name in LATER_AT_IMPORT and tknobs.KNOBS[name].subsystem in ("ops-plane", "lockcheck")
+    if name in ("TPUML_LOCKCHECK", "TPUML_LOCKCHECK_GRAPH"):
+        graph = tmp_path / "g.json"
+        knobs = {"TPUML_LOCKCHECK": value if name == "TPUML_LOCKCHECK" else "warn",
+                 "TPUML_LOCKCHECK_GRAPH": str(graph)}
+        mode, *instrumented, n_violations = _import_under(tmp_path, **knobs)
+        assert mode == knobs["TPUML_LOCKCHECK"] and instrumented == ["True"] * 3 and n_violations == "0"
+        doc = json.loads(graph.read_text())
+        assert doc["kind"] == "tpuml-lockcheck-graph" and doc["mode"] == mode and doc["violations"] == []
+        return
+    assert opsplane.active() is None
     monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9, step 5 \(ops plane / lockcheck\)"):
+    try:
         importlib.reload(tobs)
-    monkeypatch.delenv(name)
-    importlib.reload(tobs)
+        if name == "TPUML_OPS_PORT":
+            assert opsplane.active_port() is not None and opsplane.active_port() > 0
+            assert tobs.OpsServer is opsplane.OpsServer
+        elif name == "TPUML_OPS_STALL_S":
+            assert opsplane.active() is None
+            assert opsplane.healthz_doc()["checks"]["heartbeat"]["limit_s"] == 30.0
+        else:
+            assert lockcheck.stall_ms() == 100.0
+    finally:
+        opsplane.stop()
+        monkeypatch.delenv(name)
+        importlib.reload(tobs)
+    assert opsplane.active() is None
 
 
 @pytest.mark.parametrize("name,value", [("TPUML_COST_LEDGER", "1"), ("TPUML_COST_LEDGER_DUMP", "/tmp/led.json")])
@@ -586,23 +636,28 @@ def test_cost_ledger_knobs_raise_at_the_fit(no_event_log, monkeypatch, tmp_path,
 
 @pytest.mark.parametrize("name,value", [("TPUML_COST_LEDGER", "1"), ("TPUML_OPS_PORT", "9090")])
 def test_flush_telemetry_refuses_the_costs_shard_and_ops_port(tmp_path, monkeypatch, name, value):
-    """The ops port still raises (step 5's last part); the costs shard is
-    now written beside the manifest, which names it (the name is kept
-    from when both raised)."""
+    """The manifest names the costs shard, written beside it, and the ops
+    server's bound port (the name is kept from when both raised; the
+    server binds an ephemeral port here, not the case's 9090)."""
+    from spark_rapids_ml_tpu_torch.observability import opsplane
+
     monkeypatch.setenv(tevents.TELEMETRY_DIR_ENV, str(tmp_path / "t"))
     tevents.configure()
     try:
-        monkeypatch.setenv(name, value)
         if name == "TPUML_OPS_PORT":
-            with pytest.raises(NotImplementedError, match=name):
-                tevents.flush_telemetry()
+            monkeypatch.setenv(name, "0")
+            srv = opsplane.maybe_start_from_env()
+            manifest = json.load(open(tevents.flush_telemetry()))
+            assert srv is not None and manifest["ops_port"] == srv.port == opsplane.active_port()
         else:
+            monkeypatch.setenv(name, value)
             tcosts.reset_for_tests()
             manifest = json.load(open(tevents.flush_telemetry()))
-            assert manifest["costs"] == f"costs-{os.getpid()}.json"
+            assert manifest["costs"] == f"costs-{os.getpid()}.json" and manifest["ops_port"] is None
             doc = json.load(open(tmp_path / "t" / manifest["costs"]))
             assert tcosts.validate_ledger(doc) == [] and doc["pid"] == os.getpid()
     finally:
+        opsplane.stop()
         monkeypatch.delenv(name)
         monkeypatch.delenv(tevents.TELEMETRY_DIR_ENV)
         tcosts.reset_for_tests()
@@ -610,8 +665,19 @@ def test_flush_telemetry_refuses_the_costs_shard_and_ops_port(tmp_path, monkeypa
 
 
 def test_later_knobs_at_their_off_values_are_quiet(no_event_log, monkeypatch):
+    """At their off values the step-5 knobs leave the package as it was:
+    plain ``threading`` primitives from the factories, no ops server, a
+    fit as before; the five knobs are registered with the reference's
+    kind, default and choices."""
+    from spark_rapids_ml_tpu.utils import envknobs as jknobs
+    from spark_rapids_ml_tpu_torch.observability import opsplane
+    from spark_rapids_ml_tpu_torch.utils import lockcheck
+
     monkeypatch.setenv("TPUML_COST_LEDGER", "0")
     monkeypatch.setenv("TPUML_LOCKCHECK", "off")
-    tknobs.reject_step5_later(*tknobs.STEP5_LATER_KNOBS)
+    assert type(lockcheck.make_lock("t.off")) is type(threading.Lock())
+    assert opsplane.maybe_start_from_env() is None and opsplane.active() is None
     assert PCA().setK(2).fit(_rows()[0]).fit_report() is not None
-    assert set(tknobs.STEP5_LATER_KNOBS) == set(LATER_AT_IMPORT)
+    for name in LATER_AT_IMPORT:
+        ours, theirs = tknobs.KNOBS[name], jknobs.KNOBS[name]
+        assert (ours.kind, ours.default, ours.choices) == (theirs.kind, theirs.default, theirs.choices)
