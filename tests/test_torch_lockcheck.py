@@ -77,6 +77,20 @@ def pkg(request):
         p.lc.reset()
 
 
+@pytest.fixture(autouse=True)
+def plain_metric_locks():
+    """Every metric first made in the port's process-wide registry while
+    a test ran the sanitizer on took an instrumented lock, and would go
+    on feeding ``lockcheck.hold_ms`` on every later read of the registry
+    (a ``/metrics`` render included). Hand each such metric back its
+    plain primitive once the test is over: the metric and its values
+    stay, the recording stops."""
+    yield
+    for m in tmetrics.default_registry.metrics().values():
+        if tlc.is_instrumented(m._lock):
+            m._lock = m._lock._inner
+
+
 @pytest.fixture
 def event_log(pkg, tmp_path):
     prev = pkg.env_str(pkg.events.EVENT_LOG_ENV)
