@@ -5264,7 +5264,7 @@ def phase_lifecycle_glm() -> dict:
     gen = lc_generator(4)
     out = {"phase": "lifecycle_glm"}
     x_a, w_true = glm_rows(gen)
-    x_b = torch.randn_like(x_a)
+    x_b = torch.randn(x_a.shape, generator=gen, dtype=x_a.dtype, device=x_a.device)
     mu, sd = x_a.mean(dim=0), x_a.std(dim=0)
     x_b.mul_(sd).add_(mu)
     for name in ("config4_enet", "config10_logistic"):

@@ -153,7 +153,14 @@ def _enet_prep(xtx, xty, x_sum, y_sum, count, reg_param: float, elastic_net_para
     """:func:`solve_elastic_net`'s reduction before the loop, shared by
     every segment of a resumable solve: ``(a_quad, b_lin, lip, thresh,
     x_mean, y_mean)``, the quadratic form, its Lipschitz constant (the
-    largest eigenvalue) and the soft-threshold levels."""
+    largest eigenvalue) and the soft-threshold levels.
+
+    The form and everything the loop carries are float64 whatever the
+    rows' dtype: the stopping rule ``max|c_new − c| ≤ tol`` (1e-7 by
+    default) is below a float32 step of a coefficient of magnitude ≥ 1
+    (1.19e-7), so float32 iterates would meet it only by standing still.
+    On float64 moments the casts are no-ops and the solve is the
+    reference's; ``x_mean`` and ``y_mean`` keep the fit's dtype."""
     n = count
     a, b, x_mean, y_mean, w2 = _centered_moments(
         xtx, xty, x_sum, y_sum, count, fit_intercept, standardization
@@ -161,9 +168,9 @@ def _enet_prep(xtx, xty, x_sum, y_sum, count, reg_param: float, elastic_net_para
     d = a.shape[0]
     w1 = torch.sqrt(w2) if standardization else torch.ones(d, dtype=a.dtype, device=a.device)
     alpha = elastic_net_param
-    a_quad = a / n + reg_param * (1.0 - alpha) * torch.diag(w2)
-    b_lin = b / n
-    l1 = reg_param * alpha * w1
+    a_quad = (a / n + reg_param * (1.0 - alpha) * torch.diag(w2)).to(torch.float64)
+    b_lin = (b / n).to(torch.float64)
+    l1 = (reg_param * alpha * w1).to(torch.float64)
     lip = torch.clamp(torch.max(torch.linalg.eigvalsh(a_quad)), min=1e-12)
     return a_quad, b_lin, lip, l1 / lip, x_mean, y_mean
 
@@ -232,6 +239,7 @@ def solve_elastic_net(
     )
     c, z, t, it, delta = _enet_init(a_quad, init_coef)
     c, _, _, it, _ = _enet_segment(a_quad, b_lin, lip, thresh, tol, c, z, t, it, delta, max_iter, max_iter)
+    c = c.to(xtx.dtype)
     return c, _intercept(fit_intercept, y_mean, x_mean, c), it
 
 
@@ -278,6 +286,7 @@ def solve_elastic_net_resumable(
         checkpointer.save_async(it, (c, z, np.float64(t), np.int64(it), np.float64(delta)))
         segment_boundary(checkpointer)
     checkpointer.finalize_success()
+    c = c.to(xtx.dtype)
     return c, _intercept(fit_intercept, y_mean, x_mean, c), it
 
 
