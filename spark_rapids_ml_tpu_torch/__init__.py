@@ -34,6 +34,9 @@ Layer map (the reference's, one for one):
   - ``robustness``            — fault injection (``TPUML_FAULTS``), the
     retry policy, checkpointed fits that resume mid-solve
     (``TPUML_CHECKPOINT_*``), OOM classification, degradation records
+  - ``spark``                 — the pyspark adapter (``Tpu*`` estimators),
+    numpy-only executor math, barrier-stage gang runs and ``gang_fit``,
+    the GPU discovery script and task-to-card binding
   - ``observability``         — the event log and telemetry shards, the
     metrics registry and its exposition, fit reports, profiler sessions,
     heartbeats, SLOs, the flight recorder and gang trace assembly

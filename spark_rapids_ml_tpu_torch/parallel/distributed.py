@@ -23,9 +23,9 @@ gang retries in lockstep, and each site fires before any collective. A
 restored solver state is placed for a mesh fit by
 ``robustness/checkpoint.replicate_state_onto_mesh``.
 
-Left out until its item: ``bringup_executor`` needs the Spark resource
-discovery (``spark/resources.py``) and raises naming ROADMAP A.9's Spark
-item.
+:func:`bringup_executor` is the one-call entry of a Spark executor (or
+any launcher's member): resolve its card, pin the process to it, then
+:func:`initialize`.
 """
 
 from __future__ import annotations
@@ -60,12 +60,6 @@ from spark_rapids_ml_tpu_torch.robustness.faults import fault_point
 from spark_rapids_ml_tpu_torch.robustness.retry import default_policy
 from spark_rapids_ml_tpu_torch.utils.envknobs import EnvKnobError, env_int, env_str
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
-
-BRINGUP_ITEM = (
-    "bringup_executor needs the Spark resource discovery (spark/resources.py), "
-    "which is not ported yet: ROADMAP A.9, the Spark item; call initialize() "
-    "after pinning the process to its device"
-)
 
 _initialized = False
 # The coordinates the active group was brought up with, compared against
@@ -185,10 +179,28 @@ def initialize(
          num_processes=int(num_processes), process_id=int(process_id), backend=backend)
 
 
-def bringup_executor(*args, **kwargs) -> None:
-    """The reference's one-call executor entry; not ported (see
-    :data:`BRINGUP_ITEM`)."""
-    raise NotImplementedError(BRINGUP_ITEM)
+def bringup_executor(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    chip_ordinal: Optional[int] = None,
+    heartbeat_timeout_seconds: Optional[int] = None,
+) -> None:
+    """One-call executor entry for the one-process-per-card deployment:
+    resolve this process's card (explicit ordinal > Spark task resource
+    ``"gpu"`` > 0, the ``gpuId`` semantics), pin the process to it
+    (``CUDA_VISIBLE_DEVICES``, before CUDA initializes), then join the
+    gang with :func:`initialize`. A Spark barrier task body reduces to::
+
+        bringup_executor()                       # env-driven
+        model = PCA(mesh=global_mesh()).fit(local_blocks)
+    """
+    from spark_rapids_ml_tpu_torch.spark.resources import pin_process_to_chip, resolve_device_ordinal
+
+    ordinal = resolve_device_ordinal(-1 if chip_ordinal is None else chip_ordinal)
+    pin_process_to_chip(ordinal)
+    initialize(coordinator_address, num_processes, process_id,
+               heartbeat_timeout_seconds=heartbeat_timeout_seconds)
 
 
 def _local_devices() -> List[torch.device]:

@@ -1,18 +1,23 @@
 """Degradation records — the part of the reference's
-``robustness/degrade.py`` the fit memory guard needs: the
-:class:`DegradationWarning` and :func:`record_degradation`, one warning,
-one counter and one event per degradation. The reference's CPU fallback
-(``TPUML_DEGRADE``) is not ported: a fit that fell back to the CPU would
-hide the device.
+``robustness/degrade.py`` the port needs: the :class:`DegradationWarning`
+and :func:`record_degradation`, one warning, one counter and one event
+per degradation, and :func:`run_degradable` without its fallback. The
+reference's CPU fallback (``TPUML_DEGRADE=cpu``) is not ported: a fit
+that fell back to the CPU would hide the device, so that mode is refused.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Optional
+from typing import Callable, Optional, TypeVar
 
 from spark_rapids_ml_tpu_torch.observability.events import emit
+from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice
 from spark_rapids_ml_tpu_torch.utils.tracing import bump_counter
+
+T = TypeVar("T")
+
+DEGRADE_ENV = "TPUML_DEGRADE"
 
 
 class DegradationWarning(UserWarning):
@@ -35,3 +40,16 @@ def record_degradation(
     warnings.warn(DegradationWarning(what, why, fallback_label or fallback), stacklevel=4)
     bump_counter("degrade.events")
     emit("degrade", what=what, why=why, fallback=fallback)
+
+
+def run_degradable(accel_fn: Callable[[], T], what: str) -> T:
+    """The reference's ``run_degradable`` without its CPU fallback: run
+    ``accel_fn`` and let its errors propagate (the reference's mode
+    ``off``). ``TPUML_DEGRADE=cpu`` raises ``NotImplementedError`` naming
+    ``what`` before anything runs."""
+    if env_choice(DEGRADE_ENV, ("off", "cpu"), "off") == "cpu":
+        raise NotImplementedError(
+            f"TPUML_DEGRADE=cpu: the port does not degrade the {what} to a "
+            "fallback run (it would hide the device); unset it or set it to off"
+        )
+    return accel_fn()

@@ -69,6 +69,15 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "1 routes Estimator.fit through gang deploy mode (each process "
          "feeds its local rows; collectives merge) — the env twin of "
          "setDeployMode('gang')", default="0", choices=("0", "1")),
+    Knob("TPUML_GANG_PORT", "int", "distributed",
+         "base coordinator port gang_fit derives member coordinates "
+         "from (stage attempt number offsets it)", default=8476),
+    # gang fit through the spark adapter (spark/adapter.py)
+    Knob("TPUML_GANG_FIT_MEMBERS", "int", "distributed",
+         "barrier gang members for adapter fits routed through the gang "
+         "deploy switch (input coalesces to this many partitions; 1 = "
+         "single-member gang, the only size a sequential local scheduler "
+         "can run)", default=1),
     # fit memory budget & streaming degradation (core/membudget.py)
     Knob("TPUML_FIT_MEM_BUDGET", "int", "fit-memory",
          "fit admission budget in device bytes (unset = the fit device's "
@@ -130,6 +139,9 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "backoff cap in seconds", default=2.0),
     Knob("TPUML_RETRY_DEADLINE", "float", "robustness",
          "overall wall-clock retry budget in seconds"),
+    Knob("TPUML_BARRIER_RESUBMITS", "int", "robustness",
+         "driver-side whole-stage resubmissions in barrier_gang_run",
+         default=1),
     # checkpoint / resume (robustness/checkpoint.py)
     Knob("TPUML_CHECKPOINT_EVERY", "int", "checkpoint",
          "solver iterations per segment (0 = monolithic)", default=0),

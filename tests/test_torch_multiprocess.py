@@ -20,6 +20,7 @@ fits on the global mesh and equals its (1, 1) mesh fit bit for bit. In a
 (gang)": the reference's routes take the whole matrix on every process.
 """
 
+import json
 import os
 import socket
 import subprocess
@@ -295,9 +296,31 @@ def test_member_env_matches_the_reference(monkeypatch):
     assert "TPUML_COORDINATOR" not in ours and base["TPUML_COORDINATOR"] == "host:1"
 
 
+_BRINGUP = r"""
+import json, os, sys
+import torch.distributed as dist
+from spark_rapids_ml_tpu_torch import device
+from spark_rapids_ml_tpu_torch.parallel import distributed as tdist
+device.set_platform("cpu")
+tdist.bringup_executor("127.0.0.1:" + sys.argv[1], 1, 0, chip_ordinal=2)
+print(json.dumps({"visible": os.environ.get("CUDA_VISIBLE_DEVICES"), "world": dist.get_world_size(),
+                  "rank": dist.get_rank(), "backend": dist.get_backend(),
+                  "mesh": list(tdist.global_mesh().grid.shape)}))
+dist.destroy_process_group()
+"""
+
+
 def test_bringup_executor_waits_for_the_spark_item():
-    with pytest.raises(NotImplementedError, match="A.9, the Spark item"):
-        tdist.bringup_executor()
+    """The Spark item is ported: ``bringup_executor`` pins the process to
+    its card and joins a gang (gloo, a world of one, in a process of its
+    own)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    r = subprocess.run([sys.executable, "-c", _BRINGUP, str(_free_port())], env=env,
+                       capture_output=True, text=True, timeout=TIMEOUT)
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got == {"visible": "2", "world": 1, "rank": 0, "backend": "gloo", "mesh": [1, 1]}
 
 
 @pytest.mark.parametrize("setting,mode", [(None, "single"), ("0", "single"), ("1", "gang")])

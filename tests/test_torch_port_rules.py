@@ -68,12 +68,30 @@ def test_every_port_module_imports_without_jax():
                  "lifecycle.journal", "lifecycle.drift", "lifecycle.controller",
                  "observability", "observability.report", "observability.profiling",
                  "observability.heartbeat", "observability.slo", "observability.flightrec",
-                 "observability.trace", "utils.tracing"):
+                 "observability.trace", "utils.tracing", "spark", "spark.resources",
+                 "spark.executor_math", "spark.barrier", "spark.adapter"):
         assert f"spark_rapids_ml_tpu_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
+        f"print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_spark_adapter_imports_without_jax_under_the_pyspark_stub():
+    """The gated body of ``spark/adapter.py`` (its ``try: import pyspark``
+    is allowed) and everything it reaches, with the stub as pyspark."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(REPO / 'tests' / 'pyspark_stub')!r})\n"
+        "from spark_rapids_ml_tpu_torch.spark import adapter, barrier, executor_math\n"
+        "assert adapter.HAS_PYSPARK\n"
+        "adapter._fit_forest_rdd, adapter.TpuUMAP, adapter.TpuLogisticRegression\n"
         f"print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
