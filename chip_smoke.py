@@ -201,6 +201,26 @@ counters set to 0 just before and read just after:
   rows/s with and without it; (d) ``/healthz`` flips on a failing probe,
   a stale manual heartbeat and a stall strike on a wedged registry (one
   event, one flight dump showing both threads, the waiter served).
+- the Spark layer, group (r), within its own 120 s, through the repo's
+  pyspark stub (``tests/pyspark_stub``: numpy, pandas, pyarrow and
+  cloudpickle; without pandas each UDF's numpy body runs on the partition
+  blocks, and a line says so), widths uncut and rows cut where the stub's
+  one-object-per-row DataFrame needs it: (a) the discovery script's
+  addresses are ``nvidia-smi``'s, and a child (``--spark-child``) that
+  ``bringup_executor`` pins joins an NCCL world of one and fits config 5's
+  PCA on ``global_mesh()`` bitwise its (1, 1) mesh fit; (b) ``TpuPCA`` at
+  config 5's 1,024 features, the driver's ``eigh`` on ``cuda:0``, against
+  a float64 oracle and the host eigensolve at 1e-9; (c) ``TpuKMeans`` at
+  config 3 and ``TpuLinearRegression`` at config 4 (its elastic net
+  refused); (d) ``TpuLogisticRegression`` at config 10 through
+  ``gang_fit``, bitwise the (1, 1) mesh fit; (e) config 9's forest,
+  configs 11 and 7's kNN and ANN and config 12's DBSCAN, each equal to
+  the port's direct fit; (f) ``TpuUMAP`` at config 13 uncut, K4 200
+  times, the layout bitwise a direct fit; (g) ``barrier.attempt=1``
+  refits bitwise, and a checkpointed ``gang_fit`` of config 4's elastic
+  net resumes mid-solve to the uninterrupted result. Each adapter fit's
+  wall prints beside the direct fit's, and its kernels' launches are
+  counted (``launches_spark`` in the ``kernels`` line).
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -6962,6 +6982,526 @@ def opsplane_phases(card: str) -> dict:
     return out
 
 
+# --- group (r): the Spark layer on the card, through the pyspark stub ---------
+
+SP_SEED = SEED + 900        # the group's data: drawn anew from its own seed
+SP_WALL_LIMIT_S = 120.0
+SP_PARTS = 4                # partitions of every stub DataFrame
+SP_PCA_N = 65_536           # (b): config 5's 1,024 features; rows cut to what the stub holds as rows
+SP_PCA_K = 16
+SP_CHILD_PCA_N = 262_144    # (a): the child's config-5 rows, made on the card (no stub)
+SP_CHILD_TIMEOUT_S = 90
+SP_KM_N = 100_000           # (c): config 3's 16 features, k = 100; rows cut (stub)
+SP_KM_ITERS = 20
+SP_GLM_N = 200_000          # (c), (d), (g): configs 4 and 10's 28 features; rows cut (stub)
+SP_RF_N = 65_536            # (e): config 9's 16 features, 8 trees, depth 6, 16 bins; rows cut to the
+                            # adapter's quantile-sample cap, so its edges are the core's
+SP_NB_N = 100_000           # (e): configs 11 and 7's 96 features; items cut (stub)
+SP_NB_Q = 1_000             # (e): queries
+SP_DB_N = 100_000           # (e): config 12's 100,000 x 16, uncut
+SP_CKPT_EVERY = 10          # (g): FISTA iterations a segment
+
+
+def _sp_chunks(x: np.ndarray, parts: int = SP_PARTS) -> list:
+    """The stub's partition layout of ``createDataFrame(..., numPartitions)``:
+    contiguous chunks of ceil(n / parts) rows."""
+    per = max(1, -(-x.shape[0] // parts))
+    return [x[i:i + per] for i in range(0, x.shape[0], per)]
+
+
+def _sp_df(spark, x: np.ndarray, y=None, parts: int = SP_PARTS):
+    from pyspark.ml.linalg import Vectors
+
+    if y is None:
+        rows = [[Vectors.dense(v)] for v in x]
+        return spark.createDataFrame(rows, ["features"], numPartitions=parts)
+    rows = [[Vectors.dense(v), float(t)] for v, t in zip(x, y)]
+    return spark.createDataFrame(rows, ["features", "label"], numPartitions=parts)
+
+
+def _sp_column(sp: dict, model, df, x: np.ndarray, col: str, body) -> np.ndarray:
+    """A model's output column for every row: through the stub's
+    ``pandas_udf`` when pandas is on the card, else the UDF's numpy body
+    on the same partition blocks."""
+    if sp["pandas"]:
+        vals = [getattr(r, col) for r in model.transform(df).collect()]
+        return np.stack([np.asarray(v.toArray() if hasattr(v, "toArray") else v) for v in vals])
+    return np.concatenate([np.asarray(body(b)) for b in _sp_chunks(x)])
+
+
+def _sp_neighbours(sp: dict, model, qdf, q: np.ndarray):
+    if sp["pandas"]:
+        rows = model.kneighbors(qdf).collect()
+        return np.stack([r.distances for r in rows]), np.stack([r.indices for r in rows])
+    outs = [model._core.kneighbors(sp["adapter"]._driver_rows(b), k=model.getOrDefault(model.k))
+            for b in _sp_chunks(q)]
+    return (np.concatenate([d.cpu().numpy() for d, _ in outs]),
+            np.concatenate([i.cpu().numpy() for _, i in outs]))
+
+
+def _sp_wall(fn):
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def _sp_launches() -> dict:
+    return {"centered_gram": k1.launches, **kk.launches, **k4.launches}
+
+
+def _sp_fit(sp: dict, fn):
+    """An adapter fit, timed, with every kernel's launch count set to 0
+    just before and read just after, summed into the group's counts."""
+    k1.reset_launches()
+    kk.reset_launches()
+    k4.reset_launches()
+    out, wall = _sp_wall(fn)
+    counts = _sp_launches()
+    for name, n in counts.items():
+        sp["launches"][name] += n
+    return out, wall, counts
+
+
+def _sp_same_splits(a, b) -> dict:
+    """The forest parity rule of ``tests/test_torch_spark_adapter.py``."""
+    from spark_rapids_ml_tpu_torch.core.lazy_state import to_host
+
+    fa, fb = to_host(a.feature), to_host(b.feature)
+    same = fa == fb
+    return {"same_feature_share": float(same.mean()),
+            "gain_max_abs": float(np.abs(to_host(a.node_gain) - to_host(b.node_gain)).max()),
+            "threshold_max_abs_same_feature": float(
+                np.abs(to_host(a.threshold)[same] - to_host(b.threshold)[same]).max())}
+
+
+def spark_child_main(argv) -> int:
+    """(a) in a process of its own: ``bringup_executor`` pins the card and
+    joins an NCCL world of one, then config 5's PCA on ``global_mesh()``
+    and on a (1, 1) mesh of the same rows."""
+    port = argv[argv.index("--spark-port") + 1]
+    out = argv[argv.index("--spark-out") + 1]
+    import torch.distributed as dist
+
+    port_device.set_platform("cuda")
+    gang.bringup_executor(f"127.0.0.1:{port}", 1, 0)
+    port_device.use_ieee_fp32_matmul()
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SP_SEED + 1)
+    x = planted(SP_CHILD_PCA_N, D, gen)
+    mesh = gang.global_mesh()
+    a = PCA(mesh=mesh).setK(K).fit(x)
+    b = PCA(mesh=make_mesh((1, 1))).setK(K).fit(x)
+    res = {"visible": visible, "backend": dist.get_backend(), "world": dist.get_world_size(),
+           "mesh": list(mesh.grid.shape),
+           "bitwise": bool(np.array_equal(a.pc, b.pc) and np.array_equal(a.explainedVariance, b.explainedVariance))}
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    print("spark child ok", flush=True)
+    return 0
+
+
+def phase_spark_resources(sp: dict, tmp: str) -> dict:
+    """(a) The discovery script's addresses are ``nvidia-smi``'s indices;
+    ``bringup_executor`` in a child pins the card, joins NCCL and fits
+    config 5's PCA on ``global_mesh()`` bitwise its (1, 1) mesh fit."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "spark_rapids_ml_tpu_torch", "spark",
+                          "discovery", "get_gpus_resources.sh")
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_VISIBLE_DEVICES"}
+    found = json.loads(subprocess.run(["bash", script], capture_output=True, text=True, check=True, env=env,
+                                      timeout=30).stdout)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=index", "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.split()
+    with contextlib.closing(__import__("socket").socket()) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out_path = os.path.join(tmp, "spark_child.json")
+    child_env = dict(env, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--spark-child", "--spark-port", str(port),
+                             "--spark-out", out_path], env=child_env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=SP_CHILD_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    child_wall = time.perf_counter() - t0
+    require(proc.returncode == 0 and "spark child ok" in stdout, f"(r-a) the bring-up child failed: {stderr[-2000:]}")
+    with open(out_path) as f:
+        child = json.load(f)
+    out = {"phase": "spark_resources", "discovered": found, "nvidia_smi_indices": smi, "child": child,
+           "child_wall_s": child_wall}
+    emit(out)
+    require(found == {"name": "gpu", "addresses": smi}, f"(r-a) discovery {found} against nvidia-smi {smi}")
+    require(child["visible"] == "0" and child["backend"] == "nccl" and child["world"] == 1
+            and child["mesh"] == [1, 1], f"(r-a) the child's bring-up: {child}")
+    require(child["bitwise"], "(r-a) the global_mesh PCA differs from the (1, 1) mesh fit")
+    return out
+
+
+def phase_spark_pca(sp: dict, gen: torch.Generator) -> dict:
+    """(b) ``TpuPCA`` at config 5's 1,024 features: the driver's ``eigh`` on
+    ``cuda:0``, held to a float64 numpy oracle and to the host eigensolve
+    at 1e-9 (sign-invariant); the transform through the stub."""
+    A, spark = sp["adapter"], sp["spark"]
+    x = planted_f64(SP_PCA_N, D, 32, gen).cpu().numpy()
+    df = _sp_df(spark, x)
+    calls = []
+    real = A._driver_device
+
+    def spy(gpu_id=-1):
+        dev = real(gpu_id)
+        calls.append(str(dev))
+        return dev
+
+    A._driver_device = spy
+    try:
+        model, wall, _ = _sp_fit(sp, lambda: A.TpuPCA(k=SP_PCA_K, inputCol="features", outputCol="pca").fit(df))
+    finally:
+        A._driver_device = real
+    host, host_wall, _ = _sp_fit(sp, lambda: A.TpuPCA(k=SP_PCA_K, inputCol="features").setUseCuSolverSVD(False).fit(df))
+    direct, direct_wall = _sp_wall(lambda: PCA().setK(SP_PCA_K).fit(torch.from_numpy(x).cuda()))
+    w, v = np.linalg.eigh(np.cov(x, rowvar=False))
+    oracle = v[:, ::-1][:, :SP_PCA_K]
+    pc = np.asarray(model.pc.toArray())
+    proj = _sp_column(sp, model, df, x, "pca", lambda b: b @ pc)
+    out = {"phase": "spark_pca", "config": "BASELINE config 5", "x": [SP_PCA_N, D, "float64"],
+           "partitions": SP_PARTS, "eigh_devices": calls,
+           "adapter_fit_wall_s": wall, "host_eigh_fit_wall_s": host_wall, "direct_fit_wall_s": direct_wall,
+           "pc_vs_f64_oracle": _pc_err_aligned(pc, oracle),
+           "pc_vs_host_eigh": _pc_err_aligned(pc, np.asarray(host.pc.toArray())),
+           "transform_max_abs": float(np.abs(proj - x @ pc).max()), "card": sp["card"]}
+    emit(out)
+    require(calls == ["cuda:0"], f"(r-b) the driver's eigh ran on {calls}")
+    require(out["pc_vs_f64_oracle"] <= 1e-9, f"(r-b) components against the float64 oracle: {out['pc_vs_f64_oracle']}")
+    require(out["pc_vs_host_eigh"] <= 1e-9, f"(r-b) components against the host eigh: {out['pc_vs_host_eigh']}")
+    require(out["transform_max_abs"] <= 1e-9, f"(r-b) transform: {out['transform_max_abs']}")
+    return out
+
+
+def phase_spark_kmeans_linear(sp: dict, gen: torch.Generator) -> dict:
+    """(c) ``TpuKMeans`` at config 3 (16 features, k = 100): finite
+    centres and predictions that are the float64 nearest centre on the
+    card; ``TpuLinearRegression`` at config 4 (28 features) against the
+    port's float64 fit on the card, and its elastic net refused."""
+    A, spark = sp["adapter"], sp["spark"]
+    xk, _ = planted_blobs(SP_KM_N, KM_D, KM_K, gen)
+    xk = xk.double().cpu().numpy()
+    dfk = _sp_df(spark, xk)
+    km, km_wall, _ = _sp_fit(sp, lambda: A.TpuKMeans(k=KM_K).setSeed(SEED).setMaxIter(SP_KM_ITERS).fit(dfk))
+    direct_km, direct_km_wall = _sp_wall(
+        lambda: KMeans().setK(KM_K).setSeed(SEED).setMaxIter(SP_KM_ITERS).fit(torch.from_numpy(xk).cuda()))
+    centres = np.stack(km.clusterCenters())
+    pred = _sp_column(sp, km, dfk, xk, "prediction", lambda b: np.argmin(A._sq_dists(b, centres), axis=1))
+    d64 = torch.cdist(torch.from_numpy(xk).cuda(), torch.from_numpy(centres).cuda(),
+                      compute_mode="donot_use_mm_for_euclid_dist")
+    nearest = torch.argmin(d64, dim=1).cpu().numpy()
+
+    x4 = planted_f64(SP_GLM_N, GLM_D, 8, gen)
+    w_true = torch.randn(GLM_D, generator=gen, device=x4.device, dtype=torch.float64)
+    y4 = x4 @ w_true + 0.1 * torch.randn(SP_GLM_N, generator=gen, device=x4.device, dtype=torch.float64)
+    x4n, y4n = x4.cpu().numpy(), y4.cpu().numpy()
+    df4 = _sp_df(spark, x4n, y4n)
+    lin, lin_wall, _ = _sp_fit(sp, lambda: A.TpuLinearRegression().setRegParam(0.1).fit(df4))
+    direct, direct_wall = _sp_wall(lambda: LinearRegression().setRegParam(0.1).fit((x4, y4)))
+    coef = np.asarray(lin.coefficients.toArray())
+    pred4 = _sp_column(sp, lin, df4, x4n, "prediction", lambda b: b @ coef + lin.intercept)
+    try:
+        A.TpuLinearRegression().setElasticNetParam(0.5).fit(df4)
+        enet_refused = False
+    except ValueError as exc:
+        enet_refused = "elasticNetParam" in str(exc)
+    out = {"phase": "spark_kmeans_linear",
+           "kmeans": {"config": "BASELINE config 3", "x": [SP_KM_N, KM_D, "float64"], "k": KM_K,
+                      "adapter_fit_wall_s": km_wall, "direct_fit_wall_s": direct_km_wall,
+                      "finite": bool(np.isfinite(centres).all()), "centres": list(centres.shape),
+                      "predictions_not_f64_nearest": int(np.sum(pred != nearest))},
+           "linear": {"config": "BASELINE config 4", "x": [SP_GLM_N, GLM_D, "float64"],
+                      "adapter_fit_wall_s": lin_wall, "direct_fit_wall_s": direct_wall,
+                      "coef_rel_vs_direct": float(np.abs(coef - direct.coefficients).max()
+                                                  / np.abs(direct.coefficients).max()),
+                      "intercept_abs_vs_direct": abs(lin.intercept - direct.intercept),
+                      "predict_max_abs": float(np.abs(pred4 - direct.predict(x4).cpu().numpy()).max()),
+                      "elastic_net_refused": enet_refused},
+           "card": sp["card"]}
+    emit(out)
+    require(out["kmeans"]["finite"] and centres.shape == (KM_K, KM_D), "(r-c) KMeans centres")
+    require(out["kmeans"]["predictions_not_f64_nearest"] == 0, f"(r-c) KMeans predictions: {out['kmeans']}")
+    require(out["linear"]["coef_rel_vs_direct"] <= 1e-9 and out["linear"]["intercept_abs_vs_direct"] <= 1e-9,
+            f"(r-c) linear against the direct fit: {out['linear']}")
+    require(out["linear"]["predict_max_abs"] <= 1e-8, f"(r-c) linear predictions: {out['linear']}")
+    require(enet_refused, "(r-c) the adapter's linear regression took an elastic net")
+    return out
+
+
+def phase_spark_logistic(sp: dict, gen: torch.Generator) -> dict:
+    """(d) ``TpuLogisticRegression`` at config 10 through ``gang_fit`` on
+    the card: bitwise the port's own fit on a (1, 1) mesh of the rows."""
+    A, spark = sp["adapter"], sp["spark"]
+    x = planted_f64(SP_GLM_N, GLM_D, 8, gen)
+    w_true = torch.randn(GLM_D, generator=gen, device=x.device, dtype=torch.float64)
+    mu, sd = x.mean(dim=0), x.std(dim=0)
+    y = ((((x - mu) / sd) @ w_true + 0.5 * torch.randn(SP_GLM_N, generator=gen, device=x.device,
+                                                         dtype=torch.float64)) > 0).double()
+    xn, yn = x.cpu().numpy(), y.cpu().numpy()
+    df = _sp_df(spark, xn, yn)
+    model, wall, _ = _sp_fit(sp, lambda: A.TpuLogisticRegression().setMaxIter(100).setRegParam(0.01).fit(df))
+    mesh = gang.global_mesh()
+    require(list(mesh.grid.shape) == [1, 1], f"(r-d) the member's mesh is {list(mesh.grid.shape)}, not (1, 1)")
+    direct, direct_wall = _sp_wall(
+        lambda: LogisticRegression(mesh=mesh).setMaxIter(100).setRegParam(0.01).fit((xn, yn)))
+    core = model._core
+    weights, intercepts = np.asarray(core.weights), np.asarray(core.intercepts)
+    pred = _sp_column(sp, model, df, xn, "prediction",
+                      lambda b: sp["executor_math"].logistic_forward(weights, intercepts, core.getThreshold(), b)[2])
+    out = {"phase": "spark_logistic", "config": "BASELINE config 10", "x": [SP_GLM_N, GLM_D, "float64"],
+           "adapter_fit_wall_s": wall, "direct_mesh_fit_wall_s": direct_wall, "num_iter": core.numIter,
+           "bitwise_mesh_fit": (core.coefficients.tobytes() == direct.coefficients.tobytes()
+                                and core.intercept == direct.intercept and core.numIter == direct.numIter),
+           "predictions_vs_direct": int(np.sum(pred != np.asarray(direct.predict(xn)).astype(float))),
+           "card": sp["card"]}
+    emit(out)
+    require(out["bitwise_mesh_fit"], f"(r-d) the gang fit differs from the (1, 1) mesh fit: {out}")
+    require(out["predictions_vs_direct"] == 0, f"(r-d) predictions: {out}")
+    return {"out": out, "df": df, "x": xn, "y": yn, "model": model}
+
+
+def phase_spark_neighbours(sp: dict, gen: torch.Generator) -> dict:
+    """(e) Config 9's forest, configs 11 and 7's kNN and ANN, config 12's
+    DBSCAN: each equal to the port's direct fit of the same rows, as the
+    parity tests define it."""
+    A, spark = sp["adapter"], sp["spark"]
+    out = {"phase": "spark_neighbours", "card": sp["card"]}
+    # Config 9: nothing drawn on the executors (no bootstrap), so the
+    # forest is the core's; the feature-subset draws are the core's.
+    x9 = torch.randn((SP_RF_N, RF_D), generator=gen, device="cuda", dtype=torch.float64)
+    margin = x9[:, 0] + 0.5 * x9[:, 1] * x9[:, 2] - 0.25 * x9[:, 3]
+    y9 = (margin > 0).double()
+    x9n, y9n = x9.cpu().numpy(), y9.cpu().numpy()
+    df9 = _sp_df(spark, x9n, y9n)
+
+    def rf(e):
+        return e.setNumTrees(RF_TREES).setMaxDepth(RF_DEPTH).setMaxBins(RF_BINS).setSeed(SEED).setBootstrap(False)
+
+    forest, rf_wall, _ = _sp_fit(sp, lambda: rf(A.TpuRandomForestClassifier()).fit(df9))
+    direct_rf, direct_rf_wall = _sp_wall(lambda: rf(RandomForestClassifier()).fit((x9n, y9n)))
+    from spark_rapids_ml_tpu_torch.core.lazy_state import to_host
+    from spark_rapids_ml_tpu_torch.models.random_forest import _forest_depth
+
+    f = forest._core._forest
+    fwd = (to_host(f.feature), to_host(f.threshold, np.float64), to_host(f.is_leaf),
+           to_host(f.leaf_value, np.float64), _forest_depth(f))
+    pred9 = _sp_column(sp, forest, df9, x9n, "prediction", lambda b: sp["executor_math"].forest_forward(*fwd, b)[2])
+    out["forest"] = dict(config="BASELINE config 9", x=[SP_RF_N, RF_D, "float64"], trees=RF_TREES,
+                         depth=RF_DEPTH, bins=RF_BINS, adapter_fit_wall_s=rf_wall, direct_fit_wall_s=direct_rf_wall,
+                         predictions_vs_direct=int(np.sum(pred9 != np.asarray(direct_rf.predict(x9n)))),
+                         **_sp_same_splits(f, direct_rf._forest))
+
+    # Configs 11 and 7: kNN (k = 10) and ANN (ivfflat, nlist 1024, nprobe 32).
+    items = torch.randn((SP_NB_N, NB_D), generator=gen, device="cuda", dtype=torch.float64).cpu().numpy()
+    q = torch.randn((SP_NB_Q, NB_D), generator=gen, device="cuda", dtype=torch.float64).cpu().numpy()
+    dfi, dfq = _sp_df(spark, items), _sp_df(spark, q)
+    items_t = torch.from_numpy(items).cuda()
+    for name, make, direct_make in (
+        ("knn_config11", lambda: A.TpuNearestNeighbors(k=NB_K),
+         lambda: NearestNeighbors().setK(NB_K)),
+        ("ann_config7", lambda: A.TpuApproximateNearestNeighbors(k=NB_K).setAlgorithm("ivfflat")
+         .setAlgoParams({"nlist": NB_LISTS, "nprobe": NB_PROBE}),
+         lambda: ApproximateNearestNeighbors().setK(NB_K).setAlgorithm("ivfflat")
+         .setAlgoParams({"nlist": NB_LISTS, "nprobe": NB_PROBE})),
+    ):
+        model, wall, _ = _sp_fit(sp, lambda: make().fit(dfi))
+        direct, direct_wall = _sp_wall(lambda: direct_make().fit(items_t))
+        d, i = _sp_neighbours(sp, model, dfq, q)
+        # The direct model searches the same partition blocks the UDF does.
+        dd = [direct.kneighbors(torch.from_numpy(b).cuda()) for b in _sp_chunks(q)]
+        d_want = np.concatenate([a.cpu().numpy() for a, _ in dd])
+        i_want = np.concatenate([b.cpu().numpy() for _, b in dd])
+        out[name] = {"items": [SP_NB_N, NB_D, "float64"], "queries": SP_NB_Q, "k": NB_K,
+                     "adapter_fit_wall_s": wall, "direct_fit_wall_s": direct_wall,
+                     "indices_differ": int(np.sum(i != i_want)),
+                     "distances_max_abs": float(np.abs(d - d_want).max())}
+
+    # Config 12: DBSCAN, eps 2.0, minSamples 8, 20 planted blobs.
+    centres = 12.0 * torch.randn((DB_BLOBS, DB_D), generator=gen, device="cuda")
+    x12 = dbscan_blobs(SP_DB_N, centres, gen).double().cpu().numpy()
+    df12 = _sp_df(spark, x12)
+    db, db_wall, _ = _sp_fit(sp, lambda: A.TpuDBSCAN().setEps(DB_EPS).setMinSamples(DB_MIN_SAMPLES).fit(df12))
+    direct_db, direct_db_wall = _sp_wall(
+        lambda: DBSCAN().setEps(DB_EPS).setMinSamples(DB_MIN_SAMPLES).fit(torch.from_numpy(x12).cuda()))
+    core = db._core
+    lab = _sp_column(sp, db, df12, x12, "prediction",
+                     A._FittedOrTransform(core.fitted, np.asarray(core.labels_, dtype=np.float64), core.transform))
+    out["dbscan_config12"] = {"x": [SP_DB_N, DB_D, "float64"], "adapter_fit_wall_s": db_wall,
+                              "direct_fit_wall_s": direct_db_wall,
+                              "labels_differ": int(np.sum(db.labels_ != direct_db.labels_)),
+                              "transform_differ": int(np.sum(lab != direct_db.labels_)),
+                              "clusters": int(len(set(db.labels_.tolist()) - {-1}))}
+    emit(out)
+    fo = out["forest"]
+    require(fo["predictions_vs_direct"] == 0 and fo["gain_max_abs"] <= 1e-6 and fo["same_feature_share"] >= 0.95
+            and fo["threshold_max_abs_same_feature"] <= 1e-6, f"(r-e) forest against the direct fit: {fo}")
+    for name in ("knn_config11", "ann_config7"):
+        r = out[name]
+        require(r["indices_differ"] == 0 and r["distances_max_abs"] <= (1e-10 if name.startswith("knn") else 1e-5),
+                f"(r-e) {name} against the direct fit: {r}")
+    dbo = out["dbscan_config12"]
+    require(dbo["labels_differ"] == 0 and dbo["transform_differ"] == 0, f"(r-e) DBSCAN: {dbo}")
+    return out
+
+
+def phase_spark_umap(sp: dict, gen: torch.Generator) -> dict:
+    """(f) ``TpuUMAP`` at config 13, uncut (50,000 x 64 -> 2-D): K4's
+    launch count read just around the adapter's fit, the layout bitwise a
+    direct port fit of the collected rows, training rows transformed to
+    their fitted coordinates."""
+    A, spark = sp["adapter"], sp["spark"]
+    truth = UM_SCALE * torch.randn((UM_BLOBS, UM_D), generator=gen, device="cuda")
+    x, _ = umap_blobs(UM_N, truth, gen)
+    xn = x.double().cpu().numpy()
+    df = _sp_df(spark, xn)
+
+    def est(e):
+        return e.setNNeighbors(UM_K).setNComponents(UM_DIM).setNEpochs(UM_EPOCHS).setSeed(SEED) \
+            .setBuildAlgo("brute_approx")
+
+    model, wall, counts = _sp_fit(sp, lambda: est(A.TpuUMAP()).fit(df))
+    launches = counts["tail_accumulate"]
+    direct, direct_wall = _sp_wall(lambda: est(UMAP()).fit(torch.from_numpy(xn).cuda()))
+    core = model._core
+    emb = _sp_column(sp, model, df, xn, "embedding",
+                     A._FittedOrTransform(core.trainData, np.asarray(core.embedding, dtype=np.float64),
+                                          core.transform))
+    out = {"phase": "spark_umap", "config": "BASELINE config 13", "x": [UM_N, UM_D, "float64"],
+           "epochs": UM_EPOCHS, "k4_launches": launches, "adapter_fit_wall_s": wall, "direct_fit_wall_s": direct_wall,
+           "layout_bitwise_direct": np.asarray(model.embedding).tobytes() == np.asarray(direct.embedding).tobytes(),
+           "transform_fitted_exact": bool(np.array_equal(emb, np.asarray(model.embedding, dtype=np.float64))),
+           "card": sp["card"]}
+    emit(out)
+    require(launches == UM_EPOCHS, f"(r-f) the adapter's UMAP fit launched K4 {launches} times, not {UM_EPOCHS}")
+    require(out["layout_bitwise_direct"], "(r-f) the adapter's layout differs from the direct fit's")
+    require(out["transform_fitted_exact"], "(r-f) training rows did not transform to their fitted coordinates")
+    return {"out": out, "launches": launches}
+
+
+def phase_spark_barrier(sp: dict, logistic: dict, tmp: str) -> dict:
+    """(g) ``barrier.attempt=1`` relaunches the stage and the refit is
+    bitwise (d)'s; a checkpointed ``gang_fit`` of config 4's elastic net
+    killed mid-solve (a fault at its third segment boundary) resumes to
+    the uninterrupted result."""
+    A, spark = sp["adapter"], sp["spark"]
+    from spark_rapids_ml_tpu_torch.spark.barrier import gang_fit
+
+    df = logistic["df"]
+    with inject("barrier.attempt=1") as plan:
+        refit, wall, _ = _sp_fit(sp, lambda: A.TpuLogisticRegression().setMaxIter(100).setRegParam(0.01).fit(df))
+    first = logistic["model"]._core
+    relaunch = {"fired": [list(f) for f in plan.fired], "wall_s": wall,
+                "bitwise": (refit._core.coefficients.tobytes() == first.coefficients.tobytes()
+                            and refit._core.intercept == first.intercept)}
+    x, y = logistic["x"], logistic["y"]
+    yl = x @ np.linspace(-1.0, 1.0, GLM_D) + 0.1 * np.random.default_rng(SP_SEED).normal(size=x.shape[0])
+    rdd = _sp_df(spark, x, yl, parts=1).select("features", "label").rdd
+
+    def enet():
+        return LinearRegression(uid="spark-enet").setRegParam(0.1).setElasticNetParam(0.5)
+
+    os.environ["TPUML_CHECKPOINT_EVERY"] = str(SP_CKPT_EVERY)
+    try:
+        whole, whole_wall, _ = _sp_fit(sp, lambda: gang_fit(enet(), rdd, labeled=True,
+                                                      checkpoint_dir=os.path.join(tmp, "ck-whole"))[0])
+        clear_counters("checkpoint")
+        with inject("checkpoint.segment=1@2") as plan2:
+            resumed, resumed_wall, _ = _sp_fit(sp, lambda: gang_fit(enet(), rdd, labeled=True,
+                                                              checkpoint_dir=os.path.join(tmp, "ck-kill"))[0])
+    finally:
+        del os.environ["TPUML_CHECKPOINT_EVERY"]
+    resume = {"fired": [list(f) for f in plan2.fired], "uninterrupted_wall_s": whole_wall,
+              "resumed_wall_s": resumed_wall, "restores": counter_value("checkpoint.restore"),
+              "restored_steps": counter_value("checkpoint.restore.steps"),
+              "bitwise": (resumed.coefficients.tobytes() == whole.coefficients.tobytes()
+                          and resumed.intercept == whole.intercept)}
+    out = {"phase": "spark_barrier", "relaunch": relaunch, "resume": resume, "card": sp["card"]}
+    emit(out)
+    require(relaunch["fired"] == [["barrier.attempt", 0]] and relaunch["bitwise"], f"(r-g) relaunch: {relaunch}")
+    require(resume["fired"] == [["checkpoint.segment", 2]] and resume["restores"] >= 1
+            and resume["restored_steps"] >= 1 and resume["bitwise"], f"(r-g) resume: {resume}")
+    return out
+
+
+@contextlib.contextmanager
+def pyspark_stub():
+    """The repo's pyspark stub (``tests/pyspark_stub``) first on
+    ``sys.path`` for the block, and the port's adapter imported against
+    it; ``sys.path`` and ``sys.modules`` are restored after."""
+    import importlib
+
+    stub = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "pyspark_stub")
+    saved = {n: m for n, m in sys.modules.items() if n.startswith("pyspark")}
+    for n in saved:
+        del sys.modules[n]
+    sys.path.insert(0, stub)
+    was = sys.modules.pop("spark_rapids_ml_tpu_torch.spark.adapter", None)
+    try:
+        adapter = importlib.import_module("spark_rapids_ml_tpu_torch.spark.adapter")
+        require(adapter.HAS_PYSPARK, "the pyspark stub did not import as pyspark")
+        yield adapter
+    finally:
+        sys.path.remove(stub)
+        for n in [n for n in sys.modules if n.startswith("pyspark")]:
+            del sys.modules[n]
+        sys.modules.update(saved)
+        sys.modules.pop("spark_rapids_ml_tpu_torch.spark.adapter", None)
+        if was is not None:
+            sys.modules["spark_rapids_ml_tpu_torch.spark.adapter"] = was
+
+
+def spark_phases(card: str) -> dict:
+    """Group (r), the Spark layer through the repo's pyspark stub, within
+    ``SP_WALL_LIMIT_S``: (a) resources and ``bringup_executor``; (b)
+    config 5's PCA; (c) config 3's KMeans and config 4's linear
+    regression; (d) config 10's logistic regression through ``gang_fit``;
+    (e) config 9's forest, configs 11 and 7's kNN and ANN, config 12's
+    DBSCAN; (f) config 13's UMAP, K4 200 times; (g) the barrier relaunch
+    and a checkpointed gang fit resumed mid-solve. Its own seed."""
+    import importlib.util
+
+    from spark_rapids_ml_tpu_torch.spark import executor_math
+
+    t0 = time.perf_counter()
+    has_pandas = importlib.util.find_spec("pandas") is not None
+    emit({"phases": "spark", "pandas_on_card": has_pandas,
+          "transforms": "the stub's pandas_udf" if has_pandas
+          else "pandas is not installed: each UDF's numpy body runs on the partition blocks"})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SP_SEED)
+    with tempfile.TemporaryDirectory(prefix="spark-") as tmp, pyspark_stub() as adapter:
+        from pyspark.sql import SparkSession
+
+        spark = SparkSession.builder.master("local[4]").getOrCreate()
+        sp = {"adapter": adapter, "executor_math": executor_math, "pandas": has_pandas, "card": card,
+              "spark": spark, "launches": dict.fromkeys(_sp_launches(), 0)}
+        res = {"a": phase_spark_resources(sp, tmp)}
+        res["b"] = phase_spark_pca(sp, gen)
+        res["c"] = phase_spark_kmeans_linear(sp, gen)
+        logistic = phase_spark_logistic(sp, gen)
+        res["d"] = logistic["out"]
+        res["e"] = phase_spark_neighbours(sp, gen)
+        umap = phase_spark_umap(sp, gen)
+        res["f"] = umap["out"]
+        res["g"] = phase_spark_barrier(sp, logistic, tmp)
+    wall = time.perf_counter() - t0
+    emit({"phases": "spark", "card": card, "wall_s": wall, "adapter_fit_launches": sp["launches"]})
+    require(wall <= SP_WALL_LIMIT_S, f"the spark phases took {wall:.1f} s, over their {SP_WALL_LIMIT_S:.0f} s")
+    res["launches"] = sp["launches"]
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -7026,6 +7566,8 @@ def main() -> int:
     costs_phases(info["nvidia_smi"])
     torch.cuda.empty_cache()
     opsplane_phases(info["nvidia_smi"])
+    torch.cuda.empty_cache()
+    spark = spark_phases(info["nvidia_smi"])
 
     k1_f32 = times["k1_f32"]
     measured = {
@@ -7043,7 +7585,7 @@ def main() -> int:
         m = measured[name]
         rows.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": m["launches"], "max_abs_err": m["max_abs_err"],
+            "launches": m["launches"], "launches_spark": spark["launches"][name], "max_abs_err": m["max_abs_err"],
             "ms": m["kernel_ms"], "kernel_ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })
@@ -7069,4 +7611,6 @@ if __name__ == "__main__":
         sys.exit(tune_child_main(sys.argv))
     if "--opsplane-child" in sys.argv:
         sys.exit(opsplane_child_main(sys.argv))
+    if "--spark-child" in sys.argv:
+        sys.exit(spark_child_main(sys.argv))
     sys.exit(main())

@@ -238,7 +238,9 @@ def gang_fit(
     mesh (``parallel.distributed.global_mesh``), and every member returns
     the identical whole-dataset model (the driver keeps ``models[0]``).
 
-    All of :func:`barrier_gang_run`'s machinery rides along. ``port``
+    All of :func:`barrier_gang_run`'s machinery rides along; the member
+    keeps the estimator's uid, so with ``checkpoint_dir`` a relaunched
+    attempt resumes from the snapshots of the attempt it replaces. ``port``
     defaults to ``TPUML_GANG_PORT``. The contract stub runs barrier tasks
     one after another on the driver, so only single-member gangs (one
     partition) run under it; a real cluster schedules members together.
@@ -262,6 +264,10 @@ def gang_fit(
         os.environ.update(gang_env)
         try:
             member = estimator.copy().setDeployMode("gang")
+            # A copy draws a fresh uid; the member keeps the estimator's,
+            # since a checkpoint's identity is uid + param hash and a
+            # relaunched attempt must find the snapshots of the one before.
+            member.uid = estimator.uid
             return [member.fit(local)]
         finally:
             for k, v in saved.items():

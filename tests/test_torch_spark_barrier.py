@@ -407,6 +407,32 @@ class TestGangFitPublicAPI:
         ref = LinearRegression().fit((x, y))
         np.testing.assert_allclose(models[0].coefficients, ref.coefficients, atol=1e-12, rtol=0)
 
+    def test_a_checkpointed_gang_fit_killed_mid_solve_resumes(self, stub_spark, rng, tmp_path, monkeypatch):
+        """The member keeps the estimator's uid (a copy would draw a new
+        one each attempt and never find its snapshots): a fault at the
+        third segment boundary relaunches the stage, and the refit
+        resumes to the uninterrupted result."""
+        from spark_rapids_ml_tpu_torch.regression import LinearRegression
+
+        x = rng.normal(size=(400, 6)) * np.linspace(0.5, 4.0, 6) + 2.0
+        y = x @ np.linspace(-1.0, 1.0, 6) + 0.1 * rng.normal(size=400)
+        rdd = suite._vector_df(stub_spark, x, extra={"label": list(y)}, n_parts=1).select("features", "label").rdd
+        monkeypatch.setenv(EVERY_ENV, "2")
+
+        def enet():
+            return LinearRegression(uid="gang-enet").setRegParam(0.1).setElasticNetParam(0.5)
+
+        (whole,) = gang_fit(enet(), rdd, labeled=True, checkpoint_dir=str(tmp_path / "whole"))
+        clear_counters("checkpoint")
+        with inject("checkpoint.segment=1@2") as plan:
+            (resumed,) = gang_fit(enet(), rdd, labeled=True, checkpoint_dir=str(tmp_path / "kill"))
+        assert plan.fired == [("checkpoint.segment", 2)]
+        assert counter_value("checkpoint.restore") == 1
+        assert counter_value("checkpoint.restore.steps") == 6
+        assert resumed.uid == whole.uid == "gang-enet"
+        assert resumed.coefficients.tobytes() == whole.coefficients.tobytes()
+        assert resumed.intercept == whole.intercept
+
     def test_gang_fit_logistic_is_bitwise_its_mesh_fit(self, stub_spark, rng):
         """The adapter's logistic route: the member's gang fit equals the
         port's own fit on a (1, 1) mesh of the same rows, bit for bit."""
