@@ -42,12 +42,18 @@ def record_degradation(
     emit("degrade", what=what, why=why, fallback=fallback)
 
 
+def degrade_mode() -> str:
+    """``TPUML_DEGRADE``: ``"off"`` (the default) or ``"cpu"``, which the
+    port refuses where the reference would fall back."""
+    return env_choice(DEGRADE_ENV, ("off", "cpu"), "off")
+
+
 def run_degradable(accel_fn: Callable[[], T], what: str) -> T:
     """The reference's ``run_degradable`` without its CPU fallback: run
     ``accel_fn`` and let its errors propagate (the reference's mode
     ``off``). ``TPUML_DEGRADE=cpu`` raises ``NotImplementedError`` naming
     ``what`` before anything runs."""
-    if env_choice(DEGRADE_ENV, ("off", "cpu"), "off") == "cpu":
+    if degrade_mode() == "cpu":
         raise NotImplementedError(
             f"TPUML_DEGRADE=cpu: the port does not degrade the {what} to a "
             "fallback run (it would hide the device); unset it or set it to off"

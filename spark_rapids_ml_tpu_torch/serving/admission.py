@@ -34,14 +34,13 @@ import numpy as np
 
 from spark_rapids_ml_tpu_torch.core.serving import serve_rows
 from spark_rapids_ml_tpu_torch.observability.events import TraceContext, emit
+from spark_rapids_ml_tpu_torch.robustness.degrade import degrade_mode
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, tree_leaves
-from spark_rapids_ml_tpu_torch.utils.envknobs import env_choice
 from spark_rapids_ml_tpu_torch.utils.lockcheck import guarded, make_condition
 from spark_rapids_ml_tpu_torch.utils.tracing import bump_counter
 
 QUEUE_ENV = "TPUML_SERVE_QUEUE"
 MEM_BUDGET_ENV = "TPUML_SERVE_MEM_BUDGET"
-DEGRADE_ENV = "TPUML_DEGRADE"
 
 DEFAULT_QUEUE_LIMIT = 1024
 
@@ -251,7 +250,7 @@ def execute_with_fallback(sig: ServingSignature, x: np.ndarray):
     signature's device, with the weights the family's host route uses. A
     device failure propagates to the batch's futures; ``TPUML_DEGRADE=cpu``
     raises ``NotImplementedError`` (module docstring)."""
-    if env_choice(DEGRADE_ENV, ("off", "cpu"), "off") == "cpu":
+    if degrade_mode() == "cpu":
         raise NotImplementedError(DEGRADE_REFUSED)
     device = signature_device(sig)
     return serve_rows(sig.kernel, x, sig.weights_on(device, host=True), static=sig.static,

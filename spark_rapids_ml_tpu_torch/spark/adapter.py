@@ -313,14 +313,7 @@ if HAS_PYSPARK:  # pragma: no cover - no pyspark in the CI image
 
         if port_device.get_platform() == "cpu":
             return torch.device("cpu")
-        ordinal = resolve_device_ordinal(gpu_id)
-        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if ordinal >= count:
-            raise ValueError(
-                f"gpuId/task resource resolved to card {ordinal}, but only "
-                f"{count} device(s) are visible"
-            )
-        return port_device.resolve_device(ordinal)
+        return port_device.resolve_device(resolve_device_ordinal(gpu_id))
 
     def _collect_features(dataset, features_col):
         """Materialize the feature vectors on the driver (partition-

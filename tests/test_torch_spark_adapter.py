@@ -190,10 +190,10 @@ class TestParity:
 
         ours, _, spark = stub
         df = _df(spark, rng.normal(size=(20, 3)))
-        monkeypatch.setattr(port_device, "get_platform", lambda: "cuda")
+        monkeypatch.setattr(port_device, "_platform", "cuda")
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-        with pytest.raises(ValueError, match="card 3, but only 1 device"):
+        with pytest.raises(ValueError, match="gpuId=3 but only 1 CUDA device"):
             ours.TpuPCA(k=2, inputCol="features").setGpuId(3).fit(df)
 
     def test_kmeans_centres_are_bitwise(self, stub, rng):
