@@ -203,15 +203,16 @@ counters set to 0 just before and read just after:
   event, one flight dump showing both threads, the waiter served).
 - the Spark layer, group (r), within its own 120 s, through the repo's
   pyspark stub (``tests/pyspark_stub``: numpy, pandas, pyarrow and
-  cloudpickle; without pandas each UDF's numpy body runs on the partition
-  blocks, and a line says so), widths uncut and rows cut where the stub's
+  cloudpickle; the group fails without pandas, which the stub's
+  ``pandas_udf`` needs), widths uncut and rows cut where the stub's
   one-object-per-row DataFrame needs it: (a) the discovery script's
   addresses are ``nvidia-smi``'s, and a child (``--spark-child``) that
   ``bringup_executor`` pins joins an NCCL world of one and fits config 5's
   PCA on ``global_mesh()`` bitwise its (1, 1) mesh fit; (b) ``TpuPCA`` at
   config 5's 1,024 features, the driver's ``eigh`` on ``cuda:0``, against
   a float64 oracle and the host eigensolve at 1e-9; (c) ``TpuKMeans`` at
-  config 3 and ``TpuLinearRegression`` at config 4 (its elastic net
+  config 3, its centres within 1e-9 of a plain float64 Lloyd from the
+  same seeding, and ``TpuLinearRegression`` at config 4 (its elastic net
   refused); (d) ``TpuLogisticRegression`` at config 10 through
   ``gang_fit``, bitwise the (1, 1) mesh fit; (e) config 9's forest,
   configs 11 and 7's kNN and ANN and config 12's DBSCAN, each equal to
@@ -2585,12 +2586,12 @@ PQ_BLOCK = 262_144          # (c): rows per host block of the streamed brute ind
 SAVE_N = 50_000             # (d): items of the saved ivfflat model (a 1M-item model's
                             # vector rows took 98.7 s to save and load)
 SAVE_PARAMS = {"nlist": 64, "nprobe": 8}
-F64_CHUNK = 512             # query rows per chunk of the float64 brute force
+NB_F64_CHUNK = 512          # query rows per chunk of the float64 brute force
 NB_WALL_LIMIT_S = 60.0
 
 
 def knn_f64(queries: torch.Tensor, items: torch.Tensor, k: int, metric: str = "euclidean"):
-    """Exact top-k in float64 on the card, ``F64_CHUNK`` queries at a time:
+    """Exact top-k in float64 on the card, ``NB_F64_CHUNK`` queries at a time:
     (distances under ``metric``, indices)."""
     q64, x64 = queries.double(), items.double()
     if metric == "cosine":
@@ -2598,8 +2599,8 @@ def knn_f64(queries: torch.Tensor, items: torch.Tensor, k: int, metric: str = "e
         x64 = x64 / x64.norm(dim=1, keepdim=True)
     x_sq = (x64 * x64).sum(dim=1)
     out_d, out_i = [], []
-    for s in range(0, q64.shape[0], F64_CHUNK):
-        qb = q64[s:s + F64_CHUNK]
+    for s in range(0, q64.shape[0], NB_F64_CHUNK):
+        qb = q64[s:s + NB_F64_CHUNK]
         d2 = ((qb * qb).sum(dim=1)[:, None] - 2.0 * (qb @ x64.T) + x_sq[None, :]).clamp_min_(0.0)
         d, i = torch.topk(d2, k, dim=1, largest=False, sorted=True)
         out_d.append(d)
@@ -6993,6 +6994,7 @@ SP_CHILD_PCA_N = 262_144    # (a): the child's config-5 rows, made on the card (
 SP_CHILD_TIMEOUT_S = 90
 SP_KM_N = 100_000           # (c): config 3's 16 features, k = 100; rows cut (stub)
 SP_KM_ITERS = 20
+SP_KM_CENTRE_TOL = 1e-9     # (c): relative to the largest centre coordinate; sums in another order
 SP_GLM_N = 200_000          # (c), (d), (g): configs 4 and 10's 28 features; rows cut (stub)
 SP_RF_N = 65_536            # (e): config 9's 16 features, 8 trees, depth 6, 16 bins; rows cut to the
                             # adapter's quantile-sample cap, so its edges are the core's
@@ -7019,24 +7021,47 @@ def _sp_df(spark, x: np.ndarray, y=None, parts: int = SP_PARTS):
     return spark.createDataFrame(rows, ["features", "label"], numPartitions=parts)
 
 
-def _sp_column(sp: dict, model, df, x: np.ndarray, col: str, body) -> np.ndarray:
-    """A model's output column for every row: through the stub's
-    ``pandas_udf`` when pandas is on the card, else the UDF's numpy body
-    on the same partition blocks."""
-    if sp["pandas"]:
-        vals = [getattr(r, col) for r in model.transform(df).collect()]
-        return np.stack([np.asarray(v.toArray() if hasattr(v, "toArray") else v) for v in vals])
-    return np.concatenate([np.asarray(body(b)) for b in _sp_chunks(x)])
+def _sp_column(model, df, col: str) -> np.ndarray:
+    """A model's output column for every row, through the adapter's
+    transform and the stub's ``pandas_udf``."""
+    vals = [getattr(r, col) for r in model.transform(df).collect()]
+    return np.stack([np.asarray(v.toArray() if hasattr(v, "toArray") else v) for v in vals])
 
 
-def _sp_neighbours(sp: dict, model, qdf, q: np.ndarray):
-    if sp["pandas"]:
-        rows = model.kneighbors(qdf).collect()
-        return np.stack([r.distances for r in rows]), np.stack([r.indices for r in rows])
-    outs = [model._core.kneighbors(sp["adapter"]._driver_rows(b), k=model.getOrDefault(model.k))
-            for b in _sp_chunks(q)]
-    return (np.concatenate([d.cpu().numpy() for d, _ in outs]),
-            np.concatenate([i.cpu().numpy() for _, i in outs]))
+def _sp_neighbours(model, qdf):
+    rows = model.kneighbors(qdf).collect()
+    return np.stack([r.distances for r in rows]), np.stack([r.indices for r in rows])
+
+
+def sp_lloyd_reference(x: np.ndarray, k: int, seed: int, iters: int, tol: float) -> tuple:
+    """``TpuKMeans``' semantics written plainly, for (r) (c) to hold the
+    adapter's centres against: ``takeSample``'s uniform draw of 10 k rows
+    (without replacement, numpy's generator from ``seed``, as the stub
+    draws it), k-means++ on that sample with a second such generator, then
+    float64 Lloyd over every row on the card until the largest centre
+    shift is under ``tol``. Returns (centres, iterations)."""
+    pick = np.random.default_rng(seed)
+    sample = x[pick.choice(x.shape[0], size=min(max(10 * k, k), x.shape[0]), replace=False)]
+    rng = np.random.default_rng(seed)
+    centres = [sample[rng.integers(sample.shape[0])]]
+    d2 = ((sample - centres[0]) ** 2).sum(axis=1)
+    while len(centres) < k:
+        c = sample[rng.choice(sample.shape[0], p=d2 / d2.sum() if d2.sum() > 0 else None)]
+        centres.append(c)
+        d2 = np.minimum(d2, ((sample - c) ** 2).sum(axis=1))
+    xt = torch.from_numpy(x).cuda()
+    c = torch.from_numpy(np.stack(centres)).cuda()
+    done = 0
+    for done in range(1, iters + 1):
+        a = torch.cdist(xt, c, compute_mode="donot_use_mm_for_euclid_dist").argmin(dim=1)
+        counts = torch.bincount(a, minlength=k).double()
+        sums = torch.zeros_like(c).index_add_(0, a, xt)
+        new = torch.where(counts[:, None] > 0, sums / counts.clamp(min=1.0)[:, None], c)
+        shift = float((new - c).norm(dim=1).max())
+        c = new
+        if shift < tol:
+            break
+    return c.cpu().numpy(), done
 
 
 def _sp_wall(fn):
@@ -7169,7 +7194,7 @@ def phase_spark_pca(sp: dict, gen: torch.Generator) -> dict:
     w, v = np.linalg.eigh(np.cov(x, rowvar=False))
     oracle = v[:, ::-1][:, :SP_PCA_K]
     pc = np.asarray(model.pc.toArray())
-    proj = _sp_column(sp, model, df, x, "pca", lambda b: b @ pc)
+    proj = _sp_column(model, df, "pca")
     out = {"phase": "spark_pca", "config": "BASELINE config 5", "x": [SP_PCA_N, D, "float64"],
            "partitions": SP_PARTS, "eigh_devices": calls,
            "adapter_fit_wall_s": wall, "host_eigh_fit_wall_s": host_wall, "direct_fit_wall_s": direct_wall,
@@ -7185,19 +7210,22 @@ def phase_spark_pca(sp: dict, gen: torch.Generator) -> dict:
 
 
 def phase_spark_kmeans_linear(sp: dict, gen: torch.Generator) -> dict:
-    """(c) ``TpuKMeans`` at config 3 (16 features, k = 100): finite
-    centres and predictions that are the float64 nearest centre on the
-    card; ``TpuLinearRegression`` at config 4 (28 features) against the
+    """(c) ``TpuKMeans`` at config 3 (16 features, k = 100): centres
+    within 1e-9 of :func:`sp_lloyd_reference` on the same rows and
+    predictions that are the float64 nearest centre on the card;
+    ``TpuLinearRegression`` at config 4 (28 features) against the
     port's float64 fit on the card, and its elastic net refused."""
     A, spark = sp["adapter"], sp["spark"]
     xk, _ = planted_blobs(SP_KM_N, KM_D, KM_K, gen)
     xk = xk.double().cpu().numpy()
     dfk = _sp_df(spark, xk)
-    km, km_wall, _ = _sp_fit(sp, lambda: A.TpuKMeans(k=KM_K).setSeed(SEED).setMaxIter(SP_KM_ITERS).fit(dfk))
+    km_est = A.TpuKMeans(k=KM_K).setSeed(SEED).setMaxIter(SP_KM_ITERS)
+    km, km_wall, _ = _sp_fit(sp, lambda: km_est.fit(dfk))
     direct_km, direct_km_wall = _sp_wall(
         lambda: KMeans().setK(KM_K).setSeed(SEED).setMaxIter(SP_KM_ITERS).fit(torch.from_numpy(xk).cuda()))
     centres = np.stack(km.clusterCenters())
-    pred = _sp_column(sp, km, dfk, xk, "prediction", lambda b: np.argmin(A._sq_dists(b, centres), axis=1))
+    ref_centres, ref_iters = sp_lloyd_reference(xk, KM_K, SEED, SP_KM_ITERS, km_est.getOrDefault(km_est.tol))
+    pred = _sp_column(km, dfk, "prediction")
     d64 = torch.cdist(torch.from_numpy(xk).cuda(), torch.from_numpy(centres).cuda(),
                       compute_mode="donot_use_mm_for_euclid_dist")
     nearest = torch.argmin(d64, dim=1).cpu().numpy()
@@ -7210,7 +7238,7 @@ def phase_spark_kmeans_linear(sp: dict, gen: torch.Generator) -> dict:
     lin, lin_wall, _ = _sp_fit(sp, lambda: A.TpuLinearRegression().setRegParam(0.1).fit(df4))
     direct, direct_wall = _sp_wall(lambda: LinearRegression().setRegParam(0.1).fit((x4, y4)))
     coef = np.asarray(lin.coefficients.toArray())
-    pred4 = _sp_column(sp, lin, df4, x4n, "prediction", lambda b: b @ coef + lin.intercept)
+    pred4 = _sp_column(lin, df4, "prediction")
     try:
         A.TpuLinearRegression().setElasticNetParam(0.5).fit(df4)
         enet_refused = False
@@ -7220,6 +7248,8 @@ def phase_spark_kmeans_linear(sp: dict, gen: torch.Generator) -> dict:
            "kmeans": {"config": "BASELINE config 3", "x": [SP_KM_N, KM_D, "float64"], "k": KM_K,
                       "adapter_fit_wall_s": km_wall, "direct_fit_wall_s": direct_km_wall,
                       "finite": bool(np.isfinite(centres).all()), "centres": list(centres.shape),
+                      "reference_lloyd_iterations": ref_iters,
+                      "centres_max_abs_vs_reference": float(np.abs(centres - ref_centres).max()),
                       "predictions_not_f64_nearest": int(np.sum(pred != nearest))},
            "linear": {"config": "BASELINE config 4", "x": [SP_GLM_N, GLM_D, "float64"],
                       "adapter_fit_wall_s": lin_wall, "direct_fit_wall_s": direct_wall,
@@ -7231,6 +7261,8 @@ def phase_spark_kmeans_linear(sp: dict, gen: torch.Generator) -> dict:
            "card": sp["card"]}
     emit(out)
     require(out["kmeans"]["finite"] and centres.shape == (KM_K, KM_D), "(r-c) KMeans centres")
+    require(out["kmeans"]["centres_max_abs_vs_reference"] <= SP_KM_CENTRE_TOL * max(1.0, float(np.abs(ref_centres).max())),
+            f"(r-c) KMeans centres against the plain Lloyd reference: {out['kmeans']}")
     require(out["kmeans"]["predictions_not_f64_nearest"] == 0, f"(r-c) KMeans predictions: {out['kmeans']}")
     require(out["linear"]["coef_rel_vs_direct"] <= 1e-9 and out["linear"]["intercept_abs_vs_direct"] <= 1e-9,
             f"(r-c) linear against the direct fit: {out['linear']}")
@@ -7256,9 +7288,7 @@ def phase_spark_logistic(sp: dict, gen: torch.Generator) -> dict:
     direct, direct_wall = _sp_wall(
         lambda: LogisticRegression(mesh=mesh).setMaxIter(100).setRegParam(0.01).fit((xn, yn)))
     core = model._core
-    weights, intercepts = np.asarray(core.weights), np.asarray(core.intercepts)
-    pred = _sp_column(sp, model, df, xn, "prediction",
-                      lambda b: sp["executor_math"].logistic_forward(weights, intercepts, core.getThreshold(), b)[2])
+    pred = _sp_column(model, df, "prediction")
     out = {"phase": "spark_logistic", "config": "BASELINE config 10", "x": [SP_GLM_N, GLM_D, "float64"],
            "adapter_fit_wall_s": wall, "direct_mesh_fit_wall_s": direct_wall, "num_iter": core.numIter,
            "bitwise_mesh_fit": (core.coefficients.tobytes() == direct.coefficients.tobytes()
@@ -7290,13 +7320,8 @@ def phase_spark_neighbours(sp: dict, gen: torch.Generator) -> dict:
 
     forest, rf_wall, _ = _sp_fit(sp, lambda: rf(A.TpuRandomForestClassifier()).fit(df9))
     direct_rf, direct_rf_wall = _sp_wall(lambda: rf(RandomForestClassifier()).fit((x9n, y9n)))
-    from spark_rapids_ml_tpu_torch.core.lazy_state import to_host
-    from spark_rapids_ml_tpu_torch.models.random_forest import _forest_depth
-
     f = forest._core._forest
-    fwd = (to_host(f.feature), to_host(f.threshold, np.float64), to_host(f.is_leaf),
-           to_host(f.leaf_value, np.float64), _forest_depth(f))
-    pred9 = _sp_column(sp, forest, df9, x9n, "prediction", lambda b: sp["executor_math"].forest_forward(*fwd, b)[2])
+    pred9 = _sp_column(forest, df9, "prediction")
     out["forest"] = dict(config="BASELINE config 9", x=[SP_RF_N, RF_D, "float64"], trees=RF_TREES,
                          depth=RF_DEPTH, bins=RF_BINS, adapter_fit_wall_s=rf_wall, direct_fit_wall_s=direct_rf_wall,
                          predictions_vs_direct=int(np.sum(pred9 != np.asarray(direct_rf.predict(x9n)))),
@@ -7317,7 +7342,7 @@ def phase_spark_neighbours(sp: dict, gen: torch.Generator) -> dict:
     ):
         model, wall, _ = _sp_fit(sp, lambda: make().fit(dfi))
         direct, direct_wall = _sp_wall(lambda: direct_make().fit(items_t))
-        d, i = _sp_neighbours(sp, model, dfq, q)
+        d, i = _sp_neighbours(model, dfq)
         # The direct model searches the same partition blocks the UDF does.
         dd = [direct.kneighbors(torch.from_numpy(b).cuda()) for b in _sp_chunks(q)]
         d_want = np.concatenate([a.cpu().numpy() for a, _ in dd])
@@ -7334,9 +7359,7 @@ def phase_spark_neighbours(sp: dict, gen: torch.Generator) -> dict:
     db, db_wall, _ = _sp_fit(sp, lambda: A.TpuDBSCAN().setEps(DB_EPS).setMinSamples(DB_MIN_SAMPLES).fit(df12))
     direct_db, direct_db_wall = _sp_wall(
         lambda: DBSCAN().setEps(DB_EPS).setMinSamples(DB_MIN_SAMPLES).fit(torch.from_numpy(x12).cuda()))
-    core = db._core
-    lab = _sp_column(sp, db, df12, x12, "prediction",
-                     A._FittedOrTransform(core.fitted, np.asarray(core.labels_, dtype=np.float64), core.transform))
+    lab = _sp_column(db, df12, "prediction")
     out["dbscan_config12"] = {"x": [SP_DB_N, DB_D, "float64"], "adapter_fit_wall_s": db_wall,
                               "direct_fit_wall_s": direct_db_wall,
                               "labels_differ": int(np.sum(db.labels_ != direct_db.labels_)),
@@ -7373,10 +7396,7 @@ def phase_spark_umap(sp: dict, gen: torch.Generator) -> dict:
     model, wall, counts = _sp_fit(sp, lambda: est(A.TpuUMAP()).fit(df))
     launches = counts["tail_accumulate"]
     direct, direct_wall = _sp_wall(lambda: est(UMAP()).fit(torch.from_numpy(xn).cuda()))
-    core = model._core
-    emb = _sp_column(sp, model, df, xn, "embedding",
-                     A._FittedOrTransform(core.trainData, np.asarray(core.embedding, dtype=np.float64),
-                                          core.transform))
+    emb = _sp_column(model, df, "embedding")
     out = {"phase": "spark_umap", "config": "BASELINE config 13", "x": [UM_N, UM_D, "float64"],
            "epochs": UM_EPOCHS, "k4_launches": launches, "adapter_fit_wall_s": wall, "direct_fit_wall_s": direct_wall,
            "layout_bitwise_direct": np.asarray(model.embedding).tobytes() == np.asarray(direct.embedding).tobytes(),
@@ -7471,20 +7491,19 @@ def spark_phases(card: str) -> dict:
     and a checkpointed gang fit resumed mid-solve. Its own seed."""
     import importlib.util
 
-    from spark_rapids_ml_tpu_torch.spark import executor_math
-
     t0 = time.perf_counter()
-    has_pandas = importlib.util.find_spec("pandas") is not None
-    emit({"phases": "spark", "pandas_on_card": has_pandas,
-          "transforms": "the stub's pandas_udf" if has_pandas
-          else "pandas is not installed: each UDF's numpy body runs on the partition blocks"})
+    require(importlib.util.find_spec("pandas") is not None,
+            "(r) needs pandas: the stub's pandas_udf runs every adapter transform")
+    import pandas
+
+    emit({"phases": "spark", "pandas": pandas.__version__, "transforms": "the stub's pandas_udf"})
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SP_SEED)
     with tempfile.TemporaryDirectory(prefix="spark-") as tmp, pyspark_stub() as adapter:
         from pyspark.sql import SparkSession
 
         spark = SparkSession.builder.master("local[4]").getOrCreate()
-        sp = {"adapter": adapter, "executor_math": executor_math, "pandas": has_pandas, "card": card,
+        sp = {"adapter": adapter, "card": card,
               "spark": spark, "launches": dict.fromkeys(_sp_launches(), 0)}
         res = {"a": phase_spark_resources(sp, tmp)}
         res["b"] = phase_spark_pca(sp, gen)

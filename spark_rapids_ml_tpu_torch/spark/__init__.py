@@ -23,8 +23,9 @@ error when a class is used.
 
 from spark_rapids_ml_tpu_torch.spark.resources import (
     pin_process_to_chip,
+    resolve_device_index,
     resolve_device_ordinal,
     task_gpu_address,
 )
 
-__all__ = ["pin_process_to_chip", "resolve_device_ordinal", "task_gpu_address"]
+__all__ = ["pin_process_to_chip", "resolve_device_index", "resolve_device_ordinal", "task_gpu_address"]

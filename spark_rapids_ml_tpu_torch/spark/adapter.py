@@ -58,7 +58,7 @@ if HAS_PYSPARK:  # pragma: no cover - no pyspark in the CI image
 
     from spark_rapids_ml_tpu_torch.core.moments import ShiftedMoments
     from spark_rapids_ml_tpu_torch.core.persistence import MLReadable
-    from spark_rapids_ml_tpu_torch.spark.resources import resolve_device_ordinal
+    from spark_rapids_ml_tpu_torch.spark.resources import resolve_device_index
 
     class _TpuEstimatorPersistence(MLReadable):
         """Estimator save/load (DefaultParamsWritable parity): metadata
@@ -303,17 +303,15 @@ if HAS_PYSPARK:  # pragma: no cover - no pyspark in the CI image
     # ------------------------------------------------------------------
 
     def _driver_device(gpu_id=-1):
-        """The driver's device: the card ``gpu_id`` or the Spark task
-        resource names (card 0 by default), or the CPU when the caller set
-        the platform to ``"cpu"``. An ordinal beyond the visible cards
-        raises; so does the ``"cuda"`` platform without a card."""
-        import torch
-
+        """Where this process's card work runs: the visible card ``gpu_id``
+        or the Spark task resource names (card 0 by default; inside an
+        executor's UDF the task's card at the index this process sees it
+        at), or the CPU when the caller set the platform to ``"cpu"``. An
+        index beyond the visible cards raises; so does the ``"cuda"``
+        platform without a card."""
         from spark_rapids_ml_tpu_torch import device as port_device
 
-        if port_device.get_platform() == "cpu":
-            return torch.device("cpu")
-        return port_device.resolve_device(resolve_device_ordinal(gpu_id))
+        return port_device.resolve_device(resolve_device_index(gpu_id))
 
     def _collect_features(dataset, features_col):
         """Materialize the feature vectors on the driver (partition-

@@ -238,9 +238,11 @@ def gang_fit(
     mesh (``parallel.distributed.global_mesh``), and every member returns
     the identical whole-dataset model (the driver keeps ``models[0]``).
 
-    All of :func:`barrier_gang_run`'s machinery rides along; the member
-    keeps the estimator's uid, so with ``checkpoint_dir`` a relaunched
-    attempt resumes from the snapshots of the attempt it replaces. ``port``
+    All of :func:`barrier_gang_run`'s machinery rides along. The member
+    of a gang of one keeps the estimator's uid, so with ``checkpoint_dir``
+    a relaunched attempt resumes from the snapshots of the attempt it
+    replaces; members of a larger gang draw fresh uids (the reference's
+    copy) and refit from the start. ``port
     defaults to ``TPUML_GANG_PORT``. The contract stub runs barrier tasks
     one after another on the driver, so only single-member gangs (one
     partition) run under it; a real cluster schedules members together.
@@ -264,10 +266,16 @@ def gang_fit(
         os.environ.update(gang_env)
         try:
             member = estimator.copy().setDeployMode("gang")
-            # A copy draws a fresh uid; the member keeps the estimator's,
-            # since a checkpoint's identity is uid + param hash and a
-            # relaunched attempt must find the snapshots of the one before.
-            member.uid = estimator.uid
+            if not gang_env:
+                # A copy draws a fresh uid; a gang of one keeps the
+                # estimator's, since a checkpoint's identity is uid + param
+                # hash and a relaunched attempt must find the snapshots of
+                # the one before. Members of a larger gang keep their fresh
+                # uids: their snapshots are named by step alone, so under
+                # one uid they would overwrite each other's, and members
+                # restoring different steps would run mismatched
+                # collectives.
+                member.uid = estimator.uid
             return [member.fit(local)]
         finally:
             for k, v in saved.items():

@@ -52,6 +52,28 @@ def resolve_device_ordinal(explicit: int = -1) -> int:
     return 0
 
 
+def visible_index(ordinal: int) -> int:
+    """The index this process's CUDA runtime gives card ``ordinal``: its
+    position in ``CUDA_VISIBLE_DEVICES`` when the variable lists it
+    (``cuda:0`` once :func:`pin_process_to_chip` ran, or where a cluster
+    manager isolates the task's cards), else the ordinal itself."""
+    listed = [a.strip() for a in os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")]
+    return listed.index(str(ordinal)) if str(ordinal) in listed else ordinal
+
+
+def resolve_device_index(explicit: int = -1) -> int:
+    """The torch device index of this process's card. An explicit
+    ``gpuId`` is already an index into the visible cards; the Spark task
+    resource names a host card, which :func:`visible_index` maps to the
+    index this process sees it at; 0 otherwise."""
+    if explicit >= 0:
+        return explicit
+    addr = task_gpu_address()
+    if addr is not None:
+        return visible_index(int(addr))
+    return 0
+
+
 def pin_process_to_chip(ordinal: int) -> None:
     """Restrict this process's CUDA view to card ``ordinal``.
 

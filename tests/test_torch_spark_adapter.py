@@ -196,6 +196,28 @@ class TestParity:
         with pytest.raises(ValueError, match="gpuId=3 but only 1 CUDA device"):
             ours.TpuPCA(k=2, inputCol="features").setGpuId(3).fit(df)
 
+    @pytest.mark.parametrize("visible, want", [("1", 0), ("0,1", 1), ("3,1", 1), (None, 1)])
+    def test_an_executor_resolves_its_task_card_at_the_index_it_sees(self, stub, monkeypatch, visible, want):
+        """Inside a UDF the task resource names a host card; once the
+        executor is pinned to it (or its cards are isolated) the process
+        sees that card at its position in ``CUDA_VISIBLE_DEVICES``."""
+        import pyspark
+        import torch
+        from types import SimpleNamespace
+
+        ours, _, _ = stub
+        ctx = SimpleNamespace(resources=lambda: {"gpu": SimpleNamespace(addresses=["1"])})
+        monkeypatch.setattr(pyspark.TaskContext, "get", staticmethod(lambda: ctx))
+        if visible is None:
+            monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+        else:
+            monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+        monkeypatch.setattr(port_device, "_platform", "cuda")
+        monkeypatch.setattr(port_device, "use_ieee_fp32_matmul", lambda: None)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1 if visible == "1" else 2)
+        assert ours._driver_device() == torch.device("cuda", want)
+
     def test_kmeans_centres_are_bitwise(self, stub, rng):
         _, _, spark = stub
         x = np.concatenate([c + rng.normal(scale=0.5, size=(70, 3)) for c in ([0, 0, 0], [6, 0, 2], [0, 7, 1])])

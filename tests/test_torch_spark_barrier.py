@@ -23,6 +23,7 @@ Port twins of the reference's barrier tests, each driving the port's
 import json
 import os
 import time
+import uuid
 
 import numpy as np
 import pytest
@@ -38,6 +39,7 @@ from spark_rapids_ml_tpu_torch.robustness.faults import disarm
 from spark_rapids_ml_tpu_torch.spark import barrier
 from spark_rapids_ml_tpu_torch.spark.barrier import _gang_extract, barrier_gang_run, gang_coordinates, gang_fit
 from spark_rapids_ml_tpu_torch.utils import tracing
+from spark_rapids_ml_tpu_torch.utils.envknobs import env_int
 from spark_rapids_ml_tpu_torch.utils.tracing import clear_counters, counter_value
 from test_torch_spark_adapter import install_stub
 
@@ -345,10 +347,29 @@ class TestBarrierGangRecovery:
         assert host1 == host0 and int(port1) == int(port0) + 1
 
 
+class _UidProbe:
+    """An estimator stand-in: ``copy`` draws a fresh uid, as a Params
+    copy does, and ``fit`` returns the uid its member fitted under and the
+    gang size the member saw."""
+
+    def __init__(self, uid):
+        self.uid = uid
+
+    def copy(self):
+        return _UidProbe(f"{type(self).__name__}_{uuid.uuid4().hex[:12]}")
+
+    def setDeployMode(self, mode):
+        return self
+
+    def fit(self, local):
+        return self.uid, env_int("TPUML_NUM_PROCESSES")
+
+
 class TestGangFitPublicAPI:
     """``gang_fit``: single-member gangs through the port's public fit
     with ``deployMode='gang'`` (the member fits on a (1, 1) mesh), equal
-    to the single-process fit to 1e-12, as in the suite."""
+    to the single-process fit to 1e-12, as in the suite; and which
+    members keep the estimator's uid."""
 
     def test_gang_fit_linear_matches_single_process(self, stub_spark, rng):
         from spark_rapids_ml_tpu_torch.regression import LinearRegression
@@ -432,6 +453,22 @@ class TestGangFitPublicAPI:
         assert resumed.uid == whole.uid == "gang-enet"
         assert resumed.coefficients.tobytes() == whole.coefficients.tobytes()
         assert resumed.intercept == whole.intercept
+
+    @pytest.mark.parametrize("parts", [1, 2])
+    def test_only_a_gang_of_one_keeps_the_estimators_uid(self, stub_spark, rng, parts):
+        """A checkpoint's snapshots are named by step alone under uid +
+        param hash, so members of a larger gang that shared the uid would
+        overwrite each other's in the shared checkpoint dir and could
+        restore different steps: they draw fresh uids and refit from the
+        start, and only a gang of one resumes."""
+        df = suite._vector_df(stub_spark, rng.normal(size=(40, 3)), n_parts=parts)
+        got = gang_fit(_UidProbe("gang-est"), df.select("features").rdd)
+        assert [n for _, n in got] == ([None] if parts == 1 else [2, 2])
+        uids = [u for u, _ in got]
+        if parts == 1:
+            assert uids == ["gang-est"]
+        else:
+            assert "gang-est" not in uids and len(set(uids)) == 2
 
     def test_gang_fit_logistic_is_bitwise_its_mesh_fit(self, stub_spark, rng):
         """The adapter's logistic route: the member's gang fit equals the

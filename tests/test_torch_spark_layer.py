@@ -5,8 +5,10 @@
   addresses of ``CUDA_VISIBLE_DEVICES``, else of ``nvidia-smi`` (a fake
   one on ``PATH`` here), else an empty list; never a Python fallback.
 - Resource resolution: the explicit ordinal, then the Spark task resource
-  ``"gpu"``, then 0; ``pin_process_to_chip`` sets ``CUDA_VISIBLE_DEVICES``
-  and raises, leaving it as it was, once CUDA is initialized.
+  ``"gpu"``, then 0; the task's card at its position in
+  ``CUDA_VISIBLE_DEVICES`` as the device index; ``pin_process_to_chip``
+  sets ``CUDA_VISIBLE_DEVICES`` and raises, leaving it as it was, once
+  CUDA is initialized.
 - The adapter's import gate without pyspark.
 - ``bringup_executor`` from a Spark task resource, in a process of its
   own (gloo, a world of one).
@@ -31,7 +33,12 @@ import spark_rapids_ml_tpu_torch
 from spark_rapids_ml_tpu.spark import executor_math as jem
 from spark_rapids_ml_tpu_torch import device as port_device
 from spark_rapids_ml_tpu_torch.spark import executor_math as tem
-from spark_rapids_ml_tpu_torch.spark import pin_process_to_chip, resolve_device_ordinal, task_gpu_address
+from spark_rapids_ml_tpu_torch.spark import (
+    pin_process_to_chip,
+    resolve_device_index,
+    resolve_device_ordinal,
+    task_gpu_address,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 SCRIPT = os.path.join(os.path.dirname(spark_rapids_ml_tpu_torch.__file__), "spark", "discovery",
@@ -110,6 +117,29 @@ class TestResources:
         monkeypatch.setitem(sys.modules, "pyspark", None)
         assert task_gpu_address() is None
         assert resolve_device_ordinal(-1) == 0
+
+    def test_a_pinned_task_sees_its_card_at_index_zero(self, monkeypatch):
+        monkeypatch.setitem(sys.modules, "pyspark", _fake_pyspark("1"))
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "1")
+        assert resolve_device_ordinal(-1) == 1  # the host card, which pinning names
+        assert resolve_device_index(-1) == 0  # the index this process sees it at
+
+    @pytest.mark.parametrize("visible, want", [("0,1,2,3", 2), ("3,2", 1), (None, 2), ("0,1", 2)])
+    def test_the_task_card_is_its_position_in_the_visible_list(self, monkeypatch, visible, want):
+        monkeypatch.setitem(sys.modules, "pyspark", _fake_pyspark("2"))
+        if visible is None:
+            monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+        else:
+            monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+        assert resolve_device_index(-1) == want
+
+    def test_an_explicit_gpu_id_is_already_a_visible_index(self, monkeypatch):
+        monkeypatch.setitem(sys.modules, "pyspark", _fake_pyspark("5"))
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "5")
+        assert resolve_device_index(0) == 0
+        assert resolve_device_index(-1) == 0
+        monkeypatch.setitem(sys.modules, "pyspark", None)
+        assert resolve_device_index(-1) == 0
 
     def test_pin_sets_the_visible_card_unconditionally(self, monkeypatch):
         monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0,1,2,3")
