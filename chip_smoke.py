@@ -222,6 +222,27 @@ counters set to 0 just before and read just after:
   net resumes mid-solve to the uninterrupted result. Each adapter fit's
   wall prints beside the direct fit's, and its kernels' launches are
   counted (``launches_spark`` in the ``kernels`` line).
+- the distributed serving tier, group (s), within its own 120 s, its
+  members spawned on ``cuda`` by the router (the platform on their
+  command line) and each exiting with its router or after 60 s without
+  one: (a) config 18 (``benchmarks/config18_router.py``) uncut, KMeans
+  k = 32 over 64 features to 8 closed-loop threads x 40 requests x 64
+  rows through gangs of 1, 2 and 4 members on the one card: rows/s of
+  each, the scaling from 1 to 4 (the reference's 0.4 floor gated, its 3x
+  bound recorded), every request completed, every member used, every
+  answer bitwise the model's predict on dyadic rows; on a 2-member gang
+  whose members admit 1 MiB each: (b) a hot swap under config 16's
+  closed loop (16 threads of single rows): nothing shed, every answer
+  its attributed version's, each caller's versions in order, a local
+  first/last table per version; (c) a 16,387-row request refused by
+  every member's budget, run on the router's sharded route (the default
+  mesh and a 4-shard mesh of the card) bitwise the members' answers in
+  64-row requests; (d) a ``LifecycleController`` cycle on config 5's PCA
+  (262,144 x 1,024 rows), its refit's K1 launches counted
+  (``launches_serving``), the flip on both members, a routed transform
+  against the model's; (e) an ``ElasticScaler`` join and retire under
+  load shedding nothing, and a member frozen by the stall grammar
+  retired by its heartbeat age, its parked requests answered elsewhere.
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -7521,6 +7542,459 @@ def spark_phases(card: str) -> dict:
     return res
 
 
+# --- (s) the distributed serving tier: config 18, a hot swap, the sharded
+# route, the controller over a router, an elastic episode ----------------
+
+# Config 18 (benchmarks/config18_router.py), uncut: KMeans k = 32 over 64
+# features, 8 closed-loop threads x 40 requests x 64 rows, max_batch 8,
+# max_delay 1 ms, buckets (64, 512) warmed, gangs of 1, 2 and 4 members
+# on the one card. The centres and rows are dyadic (integers over 4), so
+# every distance is exact in float64 and a routed answer is bitwise the
+# model's own predict.
+RT_WALL_LIMIT_S = 120.0
+RT_SEED = 18
+RT_THREADS = 8
+RT_REQUESTS = 40
+RT_ROWS = 64
+RT_D = 64
+RT_K = 32
+RT_MAX_BATCH = 8
+RT_DELAY_MS = 1.0
+RT_SWEEP = (1, 2, 4)
+RT_SCALING_BOUND = 3.0      # the reference's 4-vs-1 bound where 4 CPUs exist: recorded, not gated
+RT_FLOOR = 0.4              # the reference's non-collapse floor: gated
+RT_TIMEOUT_S = 60.0         # the router's connect/ack wait and each member's accept timeout
+RT_MEM_BUDGET = 1 << 20     # (b)-(e) gang: bytes each member admits, so (c)'s request sheds everywhere
+RT_BIG = 16_387             # (c): rows of the oversized request (4 shards do not divide it)
+RT_SWAP_THREADS = 16        # (b): config 16's closed loop of single rows
+RT_SWAP_REQUESTS = 60
+RT_PCA_N = 262_144          # (d): config 5's fresh rows, as group (g)'s
+RT_PCA_TOL = 1e-12          # (d): routed transform against the model's, relative to the largest value
+
+
+def rt_model(rng) -> KMeansModel:
+    return KMeansModel("bench-route", rng.integers(-16, 16, (RT_K, RT_D)) / 4.0)
+
+
+def rt_router(workers: int, **kw):
+    """A spawned gang on the card: each member is a ``--platform cuda``
+    child of the router, started with config 18's batching knobs."""
+    from spark_rapids_ml_tpu_torch.serving import RoutingRuntime
+
+    return RoutingRuntime(workers=workers, launch="spawn", max_batch=RT_MAX_BATCH, max_delay_ms=RT_DELAY_MS,
+                          queue_limit=4 * RT_THREADS * RT_REQUESTS, connect_timeout=RT_TIMEOUT_S, **kw)
+
+
+def rt_closed_loop(rt, name: str, probes: np.ndarray):
+    """``probes.shape[0]`` threads, one outstanding request each: the
+    wall, every answer (by thread and request), and any error."""
+    answers = [[None] * probes.shape[1] for _ in range(probes.shape[0])]
+    errors = []
+
+    def worker(tid: int) -> None:
+        for j in range(probes.shape[1]):
+            try:
+                answers[tid][j] = rt.submit(name, probes[tid, j]).result(timeout=RT_TIMEOUT_S)
+            except Exception as exc:  # noqa: BLE001 - counted and required below
+                errors.append(repr(exc))
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(probes.shape[0])]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    require(not any(t.is_alive() for t in threads), "(s) a closed-loop thread did not finish")
+    return wall, answers, errors
+
+
+def phase_router_config18(gangs: dict, card: str) -> dict:
+    """(s-a) Config 18's sweep: the same model and request stream through
+    gangs of 1, 2 and 4 members on the one card (``gangs``: each router
+    and the seconds it took to come up), each warmed, each closed after
+    its run. Rows/s of each gang (host clock, closed loop), the scaling
+    from 1 to 4, each member's completed count; every request completes,
+    every member takes traffic, every answer is bitwise the model's own
+    predict, and the scaling clears the reference's non-collapse floor."""
+    rng = np.random.default_rng(RT_SEED)
+    model = rt_model(rng)
+    probes = rng.integers(-16, 16, (RT_THREADS, RT_REQUESTS, RT_ROWS, RT_D)) / 4.0
+    want = np.asarray(model.predict(probes.reshape(-1, RT_D))).reshape(RT_THREADS, RT_REQUESTS, RT_ROWS)
+    total_rows = RT_THREADS * RT_REQUESTS * RT_ROWS
+    runs = {}
+    for workers in RT_SWEEP:
+        rt, up_s = gangs[workers]
+        try:
+            rt.register("km", model, warm_buckets=(RT_ROWS, RT_THREADS * RT_ROWS))
+            wall, answers, errors = rt_closed_loop(rt, "km", probes)
+            snap = rt.snapshot()
+        finally:
+            rt.close()
+        wrong = sum(1 for t in range(RT_THREADS) for j in range(RT_REQUESTS)
+                    if answers[t][j] is None or answers[t][j].tobytes() != want[t, j].tobytes())
+        completed = [m["completed"] for m in snap["members"]]
+        runs[workers] = {"up_s": up_s, "wall_s": wall, "rows_per_s": total_rows / wall,
+                         "completed": completed, "routed": [m["routed"] for m in snap["members"]],
+                         "errors": len(errors), "not_bitwise": wrong}
+    scaling = runs[4]["rows_per_s"] / runs[1]["rows_per_s"]
+    cpus = len(os.sched_getaffinity(0))
+    out = {"phase": "router_config18", "config": "benchmarks/config18_router.py", "model": [RT_K, RT_D],
+           "threads": RT_THREADS, "requests": RT_REQUESTS, "rows": RT_ROWS, "max_batch": RT_MAX_BATCH,
+           "max_delay_ms": RT_DELAY_MS, "gangs": runs, "scaling_4_over_1": scaling,
+           "scaling_floor": RT_FLOOR, "reference_bound_4_cpus": RT_SCALING_BOUND,
+           "reference_bound_met": scaling >= RT_SCALING_BOUND, "sched_getaffinity_cpus": cpus,
+           "timing": "host clock, closed loop; the members share one card, the gangs not yet run idle beside",
+           "card": card}
+    emit(out)
+    for workers, run in runs.items():
+        require(run["errors"] == 0 and sum(run["completed"]) == RT_THREADS * RT_REQUESTS,
+                f"(s-a) the {workers}-member gang completed {sum(run['completed'])}, {run['errors']} errors")
+        require(min(run["completed"]) > 0, f"(s-a) a member of the {workers}-member gang got no traffic")
+        require(run["not_bitwise"] == 0, f"(s-a) {run['not_bitwise']} answers of the {workers}-member gang "
+                                          "differ from the model's predict")
+    require(scaling >= RT_FLOOR, f"(s-a) the routing tier collapsed to {scaling:.2f}x (floor {RT_FLOOR})")
+    return out
+
+
+def phase_router_hot_swap(rt, card: str) -> dict:
+    """(s-b) A version-atomic hot swap under load: config 16's model (KMeans
+    k = 100 over 16 features, dyadic) served to 16 closed-loop threads of
+    single rows by 2 members; v2 registers, warms on both members and
+    takes the alias mid-stream. No request sheds or fails, every answer
+    is bitwise the prediction of the version it is attributed to, and a
+    local table keeps each (name, version)'s first and last reply. Each
+    caller's versions run v1 then v2 (a caller's next request starts after
+    its last reply); across callers, requests in flight at the flip may
+    still answer v1 after v2's first reply, which the table counts."""
+    rng = np.random.default_rng(RT_SEED + 1)
+    m1 = KMeansModel("sw-v1", rng.integers(-64, 64, (KM_K, KM_D)) / 4.0)
+    m2 = KMeansModel("sw-v2", rng.integers(-64, 64, (KM_K, KM_D)) / 4.0 + 8.0)
+    total = RT_SWAP_THREADS * RT_SWAP_REQUESTS
+    probes = rng.integers(-64, 64, (total, KM_D)) / 4.0
+    exp = {1: np.asarray(m1.predict(probes)), 2: np.asarray(m2.predict(probes))}
+    shed0 = counter_value("serving.router.shed") + counter_value("serving.router.rejected")
+    rt.register("km16", m1, alias="prod", warm_buckets=(1, 16))
+    t_start = time.perf_counter()
+    replies, errors, lock = [], [], threading.Lock()
+    started, swapped = threading.Event(), threading.Event()
+
+    def worker(tid: int) -> None:
+        local = []
+        for j in range(RT_SWAP_REQUESTS):
+            i = tid * RT_SWAP_REQUESTS + j
+            try:
+                fut = rt.submit("km16@prod", probes[i])
+                ans = fut.result(timeout=RT_TIMEOUT_S)
+                local.append((tid, i, time.perf_counter() - t_start, fut.model_name, fut.model_version, ans))
+            except Exception as exc:  # noqa: BLE001 - required below
+                errors.append(repr(exc))
+            if tid == 0 and j == RT_SWAP_REQUESTS // 5:
+                started.set()
+            if tid == 0 and j == RT_SWAP_REQUESTS // 2:
+                swapped.wait(timeout=RT_TIMEOUT_S)
+        with lock:
+            replies.extend(local)
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(RT_SWAP_THREADS)]
+    for t in threads:
+        t.start()
+    require(started.wait(timeout=RT_TIMEOUT_S), "(s-b) no request finished before the swap")
+    t_swap0 = time.perf_counter()
+    v2 = rt.register("km16", m2, warm_buckets=(1, 16)).version
+    rt.set_alias("km16", "prod", v2, warm_buckets=(1, 16))
+    swap_s = time.perf_counter() - t_swap0
+    swapped.set()
+    for t in threads:
+        t.join(timeout=300)
+    require(not any(t.is_alive() for t in threads), "(s-b) a submitting thread did not finish")
+    table = {}
+    for _, _, t_reply, name, version, _ in sorted(replies, key=lambda r: r[2]):
+        row = table.setdefault(f"{name}@{version}", {"requests": 0, "first_s": t_reply, "last_s": t_reply})
+        row["requests"] += 1
+        row["last_s"] = t_reply
+    wrong = sum(1 for _, i, _, _, v, ans in replies if ans.tobytes() != exp[v][i:i + 1].tobytes())
+    by_caller = {}
+    for tid, i, _, _, v, _ in sorted(replies, key=lambda r: r[1]):
+        by_caller.setdefault(tid, []).append(v)
+    monotone = all(seq == sorted(seq) for seq in by_caller.values())
+    first_v2 = table.get("km16@2", {}).get("first_s", float("inf"))
+    v1_after = sum(1 for _, _, t_reply, _, v, _ in replies if v == 1 and t_reply > first_v2)
+    shed = counter_value("serving.router.shed") + counter_value("serving.router.rejected") - shed0
+    out = {"phase": "router_hot_swap", "model": [KM_K, KM_D], "members": 2, "threads": RT_SWAP_THREADS,
+           "requests": RT_SWAP_REQUESTS, "replies": len(replies), "errors": len(errors), "shed": shed,
+           "not_its_versions_answer": wrong, "freshness": table, "each_caller_v1_then_v2": monotone,
+           "v1_replies_after_v2_first": v1_after, "swap_s": swap_s, "card": card}
+    emit(out)
+    require(not errors and shed == 0 and len(replies) == total, f"(s-b) shed {shed}, errors {errors[:3]}")
+    require(wrong == 0, f"(s-b) {wrong} answers are not their attributed version's")
+    require(set(table) == {"km16@1", "km16@2"}, f"(s-b) versions served: {sorted(table)}")
+    require(monotone, "(s-b) a caller saw v2 before v1")
+    require(table["km16@1"]["first_s"] < first_v2, "(s-b) v2 answered before v1's first reply")
+    return out
+
+
+def phase_router_oversized(rt, card: str) -> dict:
+    """(s-c) An oversized request: 16,387 rows of config 18's model, whose
+    declared bytes exceed the budget every member admits
+    (``RT_MEM_BUDGET``), so the router runs it on its sharded route,
+    once on the default mesh (the one card) and once on a 4-shard mesh of
+    the one card (16,387 rows pad to 16,388); each answer is bitwise the
+    members' answers to the same rows in 64-row requests."""
+    from spark_rapids_ml_tpu_torch.core.serving import bucket_rows
+    from spark_rapids_ml_tpu_torch.serving.signature import spec_bytes
+
+    rng = np.random.default_rng(RT_SEED + 2)
+    model = rt_model(rng)
+    mv = rt.register("big", model)
+    x = rng.integers(-16, 16, (RT_BIG, RT_D)) / 4.0
+    declared = bucket_rows(RT_BIG) * RT_D * 8 + spec_bytes(mv.signature.output_spec(bucket_rows(RT_BIG),
+                                                                                    torch.float64))
+    budgets = [m["mem_budget"] for m in rt.snapshot()["members"] if not m["dead"]]
+    before = counter_value("serving.router.oversized")
+    completed0 = sum(m["completed"] for m in rt.snapshot()["members"])
+    t0 = time.perf_counter()
+    whole = rt.submit("big", x).result(timeout=RT_TIMEOUT_S)
+    whole_s = time.perf_counter() - t0
+    old = rt._mesh
+    with rt._mesh_lock:
+        rt._mesh = make_mesh((4, 1), devices=[torch.device("cuda", 0)] * 4)
+    try:
+        t0 = time.perf_counter()
+        four = rt.submit("big", x).result(timeout=RT_TIMEOUT_S)
+        four_s = time.perf_counter() - t0
+    finally:
+        with rt._mesh_lock:
+            rt._mesh = old
+    oversized = counter_value("serving.router.oversized") - before
+    member_done = sum(m["completed"] for m in rt.snapshot()["members"]) - completed0
+    # The same rows as 64-row requests, a wave of max_batch at a time: a
+    # wave's priced bytes stay inside the members' budget.
+    t0 = time.perf_counter()
+    chunks = [x[i:i + RT_ROWS] for i in range(0, RT_BIG, RT_ROWS)]
+    parts = []
+    for w in range(0, len(chunks), RT_MAX_BATCH):
+        futs = rt.submit_many("big", chunks[w:w + RT_MAX_BATCH])
+        parts += [f.result(timeout=RT_TIMEOUT_S) for f in futs]
+    small = np.concatenate(parts)
+    small_s = time.perf_counter() - t0
+    out = {"phase": "router_oversized", "rows": RT_BIG, "declared_bytes": declared, "member_budgets": budgets,
+           "oversized_routes": oversized, "member_requests_during": member_done,
+           "sharded_wall_s": whole_s, "sharded_4_wall_s": four_s, "chunked_requests": len(chunks),
+           "chunked_wall_s": small_s, "bitwise_default_mesh": whole.tobytes() == small.tobytes(),
+           "bitwise_4_shards": four.tobytes() == small.tobytes(),
+           "bitwise_model": whole.tobytes() == np.asarray(model.predict(x)).tobytes(), "card": card}
+    emit(out)
+    require(budgets and all(b == RT_MEM_BUDGET for b in budgets) and declared > RT_MEM_BUDGET,
+            f"(s-c) budgets {budgets}, declared {declared}")
+    require(oversized == 2 and member_done == 0, f"(s-c) routes {oversized}, member requests {member_done}")
+    require(out["bitwise_default_mesh"] and out["bitwise_4_shards"] and out["bitwise_model"],
+            "(s-c) the sharded answer differs from the members'")
+    return out
+
+
+def rt_pca_score(model, x, y) -> float:
+    """Minus the mean squared reconstruction error of the held-out rows
+    about their mean, in float64 on the card."""
+    xt = torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    pc = torch.from_numpy(np.ascontiguousarray(model.pc)).cuda()
+    b = xt - xt.mean(dim=0)
+    r = b - (b @ pc) @ pc.T
+    return -float((r * r).sum()) / x.shape[0]
+
+
+def phase_router_controller(rt, card: str, tmp: str) -> dict:
+    """(s-d) One ``LifecycleController.run_cycle`` over the 2-member router
+    on config 5's PCA (1,024 features, k = 16): 262,144 fresh rows drawn
+    on the card as group (g)'s, ingested (journaled host float64), refit
+    by ``PCA.partial_fit``, whose host rows fold through K1's float64
+    route on the card (its launches counted around the cycle), gated,
+    registered, warmed on both members and flipped. Then 64 routed rows
+    transform as the new model does, within ``RT_PCA_TOL``."""
+    from spark_rapids_ml_tpu_torch.lifecycle import LifecycleController
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(RT_SEED + 3)
+    x = planted(RT_PCA_N, D, gen)
+    ctrl = LifecycleController(PCA().setK(K), rt, "pca5", score_fn=rt_pca_score,
+                               directory=os.path.join(tmp, "controller"), warm_buckets=(RT_ROWS,))
+    _reset_kernel_launches()
+    sync()
+    t0 = time.perf_counter()
+    outcome = ctrl.run_cycle(x)
+    sync()
+    cycle_s = time.perf_counter() - t0
+    launches = {"centered_gram": k1.launches, **kk.launches, **k4.launches}
+    del x
+    torch.cuda.empty_cache()
+    probe = planted(RT_ROWS, D, gen).double().cpu().numpy()
+    fut = rt.submit("pca5@prod", probe)
+    routed = fut.result(timeout=RT_TIMEOUT_S)
+    local = np.asarray(ctrl.model.transform(probe))
+    scale = float(np.abs(local).max())
+    err = float(np.abs(routed - local).max())
+    members = [st["snapshot"]["models"]["pca5"] for st in rt.member_status()]
+    out = {"phase": "router_controller", "config": "BASELINE config 5 width", "rows": RT_PCA_N, "d": D, "k": K,
+           "outcome": [outcome.cycle, outcome.action, outcome.version], "candidate_score": outcome.candidate_score,
+           "cycle_wall_s": cycle_s, "refit_launches": launches, "router_aliases": rt.registry.aliases("pca5"),
+           "member_aliases": [m["aliases"] for m in members], "routed_version": fut.model_version,
+           "routed_vs_model_max_abs": err, "routed_vs_model_rel": err / max(scale, 1e-300),
+           "routed_bitwise": routed.tobytes() == local.tobytes(), "card": card}
+    emit(out)
+    require((outcome.action, outcome.version) == ("flipped", 1), f"(s-d) the cycle ended {out['outcome']}")
+    require(launches["centered_gram"] >= 1, f"(s-d) the refit launched K1 {launches['centered_gram']} times")
+    require(out["router_aliases"] == {"prod": 1} and all(a == {"prod": 1} for a in out["member_aliases"]),
+            f"(s-d) aliases {out['router_aliases']} / {out['member_aliases']}")
+    require(fut.model_version == 1 and out["routed_vs_model_rel"] <= RT_PCA_TOL,
+            f"(s-d) routed transform {err} from the model's (scale {scale})")
+    return {"out": out, "launches": launches}
+
+
+def phase_router_elastic(rt, card: str) -> dict:
+    """(s-e) An ``ElasticScaler`` episode on the gang under single-row
+    load: one join (the scaler's scale-up on a shed vote) and one retire
+    (its scale-down on sustained idle), shedding nothing and every answer
+    bitwise; then a member joined with ``ipc.recv=always@K:stall`` (K its
+    replayed frames, so it freezes on its first routed request) is
+    retired by ``retire_stalled`` through the scaler's liveness tick
+    before its socket closes, and the requests parked on it complete
+    elsewhere."""
+    from spark_rapids_ml_tpu_torch.serving import ElasticScaler
+    from spark_rapids_ml_tpu_torch.utils.tracing import bump_counter
+
+    rng = np.random.default_rng(RT_SEED + 4)
+    model = rt_model(rng)
+    rt.register("el", model, warm_buckets=(1,))
+    probes = rng.integers(-16, 16, (400, RT_D)) / 4.0
+    want = np.asarray(model.predict(probes))
+    shed0 = counter_value("serving.router.shed") + counter_value("serving.router.rejected")
+    stop, errors, served, lock = threading.Event(), [], [0], threading.Lock()
+    wrong = [0]
+
+    def pound(tid: int) -> None:
+        i = tid
+        while not stop.is_set():
+            try:
+                ans = rt.submit("el", probes[i % 400]).result(timeout=RT_TIMEOUT_S)
+                with lock:
+                    served[0] += 1
+                    wrong[0] += ans.tobytes() != want[i % 400:i % 400 + 1].tobytes()
+            except Exception as exc:  # noqa: BLE001 - required below
+                errors.append(repr(exc))
+            i += 4
+
+    scaler = ElasticScaler(rt, min_members=2, max_members=3, hysteresis=1, cooldown_ms=0.0, high=1e9, low=-1.0)
+    threads = [threading.Thread(target=pound, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        t0 = time.perf_counter()
+        bump_counter("serving.router.shed")  # one shed vote: the scaler joins a member
+        up = scaler.tick()
+        join_s = time.perf_counter() - t0
+        live_after_join = rt.live_member_ids()
+        shed0 += 1
+        time.sleep(0.5)
+        scaler.low = 1e9  # sustained idle: the scaler retires the least-loaded member
+        t0 = time.perf_counter()
+        down = scaler.tick()
+        retire_s = time.perf_counter() - t0
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=RT_TIMEOUT_S)
+    live_after_retire = rt.live_member_ids()
+    shed = counter_value("serving.router.shed") + counter_value("serving.router.rejected") - shed0
+
+    # The stall: arm only the joiner, which inherits the environment.
+    spec = f"ipc.recv=always@{1 + len(rt._oplog)}:stall"
+    os.environ["TPUML_FAULTS"] = spec
+    try:
+        stalled = rt.add_member()
+    finally:
+        del os.environ["TPUML_FAULTS"]
+    futs = [rt.submit("el", probes[i]) for i in range(12)]
+    stall_scaler = ElasticScaler(rt, min_members=1, max_members=4, hysteresis=1000, cooldown_ms=0.0,
+                                 stall_after_s=1.0)
+    t0 = time.perf_counter()
+    action = None
+    while action is None and time.perf_counter() - t0 < 30.0:
+        action = stall_scaler.tick()
+        time.sleep(0.05)
+    stall_s = time.perf_counter() - t0
+    parked_ok = all(f.result(timeout=RT_TIMEOUT_S).tobytes() == want[i:i + 1].tobytes() for i, f in enumerate(futs))
+    snap = {m["member"]: m for m in rt.snapshot()["members"]}
+    out = {"phase": "router_elastic", "decisions": scaler.decisions, "join_s": join_s, "retire_s": retire_s,
+           "live_after_join": live_after_join, "live_after_retire": live_after_retire, "served": served[0],
+           "errors": len(errors), "shed": shed, "not_bitwise": wrong[0], "stall_spec": spec,
+           "stalled_member": stalled, "stall_decisions": [list(map(str, d)) for d in stall_scaler.decisions],
+           "stall_detect_s": stall_s, "stalled_dead": snap[stalled]["dead"], "parked_requests_ok": parked_ok,
+           "card": card}
+    emit(out)
+    require(up == "scale_up" and down == "scale_down" and len(live_after_join) == 3
+            and len(live_after_retire) == 2, f"(s-e) decisions {scaler.decisions}")
+    require(not errors and shed == 0 and wrong[0] == 0 and served[0] > 0,
+            f"(s-e) shed {shed}, errors {errors[:3]}, not bitwise {wrong[0]}")
+    require(action == "stall_retire" and stall_scaler.decisions == [("stall_retire", (stalled,))]
+            and snap[stalled]["dead"] and parked_ok, f"(s-e) the stall: {out['stall_decisions']}")
+    return out
+
+
+def router_phases(card: str) -> dict:
+    """Group (s), the distributed serving tier on the card, within
+    ``RT_WALL_LIMIT_S``: four gangs come up together (members start in
+    parallel), then (a) config 18's sweep over the gangs of 1, 2 and 4
+    members; then on the other, a 2-member gang whose members admit
+    ``RT_MEM_BUDGET`` bytes each: (e) an ``ElasticScaler`` join, retire
+    and stall retire (first, while its op log is short, so a join replays
+    little), (b) a hot swap under config 16's closed loop, (c) an
+    oversized request on the sharded route, (d) a ``LifecycleController``
+    cycle on config 5's PCA (K1 in the refit). Members are spawned on
+    ``cuda`` with the router's platform; every member exits when its
+    router closes, or after ``RT_TIMEOUT_S`` without one."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    prev = os.environ.get("TPUML_ROUTER_CONNECT_TIMEOUT")
+    os.environ["TPUML_ROUTER_CONNECT_TIMEOUT"] = str(RT_TIMEOUT_S)
+
+    def up(workers: int, **kw):
+        t = time.perf_counter()
+        rt = rt_router(workers, **kw)
+        return rt, time.perf_counter() - t
+
+    pending = {}
+    try:
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            pending = {w: pool.submit(up, w) for w in RT_SWEEP}
+            pending["g"] = pool.submit(up, 2, mem_budget=RT_MEM_BUDGET)
+        gangs = {key: fut.result() for key, fut in pending.items()}
+        emit({"phase": "router_up", "up_s": {str(k): v[1] for k, v in gangs.items()},
+              "wall_s": time.perf_counter() - t0, "card": card})
+        res = {"a": phase_router_config18(gangs, card)}
+        rt = gangs["g"][0]
+        with tempfile.TemporaryDirectory(prefix="router-") as tmp:
+            res["e"] = phase_router_elastic(rt, card)
+            res["b"] = phase_router_hot_swap(rt, card)
+            res["c"] = phase_router_oversized(rt, card)
+            ctrl = phase_router_controller(rt, card, tmp)
+            res["d"] = ctrl["out"]
+    finally:
+        for fut in pending.values():
+            if fut.done() and fut.exception() is None:
+                fut.result()[0].close()
+        if prev is None:
+            os.environ.pop("TPUML_ROUTER_CONNECT_TIMEOUT", None)
+        else:
+            os.environ["TPUML_ROUTER_CONNECT_TIMEOUT"] = prev
+    wall = time.perf_counter() - t0
+    emit({"phases": "router", "card": card, "wall_s": wall, "refit_launches": ctrl["launches"]})
+    require(wall <= RT_WALL_LIMIT_S, f"the router phases took {wall:.1f} s, over their {RT_WALL_LIMIT_S:.0f} s")
+    res["launches"] = ctrl["launches"]
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -7587,6 +8061,8 @@ def main() -> int:
     opsplane_phases(info["nvidia_smi"])
     torch.cuda.empty_cache()
     spark = spark_phases(info["nvidia_smi"])
+    torch.cuda.empty_cache()
+    router = router_phases(info["nvidia_smi"])
 
     k1_f32 = times["k1_f32"]
     measured = {
@@ -7604,7 +8080,8 @@ def main() -> int:
         m = measured[name]
         rows.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": m["launches"], "launches_spark": spark["launches"][name], "max_abs_err": m["max_abs_err"],
+            "launches": m["launches"], "launches_spark": spark["launches"][name],
+            "launches_serving": router["launches"][name], "max_abs_err": m["max_abs_err"],
             "ms": m["kernel_ms"], "kernel_ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })

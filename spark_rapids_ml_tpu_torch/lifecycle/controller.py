@@ -1,13 +1,17 @@
 """LifecycleController — the journaled refit→swap state machine.
 
-Port of the reference's ``lifecycle/controller.py``. Two differences by
-design: candidates and incumbents are pickled with plain :mod:`pickle`
+Port of the reference's ``lifecycle/controller.py``. The runtime is
+anything with the registry façade: the in-process
+:class:`~spark_rapids_ml_tpu_torch.serving.server.ServingRuntime` or the
+replicated :class:`~spark_rapids_ml_tpu_torch.serving.router.RoutingRuntime`,
+whose register, warm, flip and rollback take the router's zero-shed
+paths (every member warms before the alias moves). One difference by
+design: candidates and incumbents are journaled with plain :mod:`pickle`
 (port models pickle by value, ``core/params.py``), where the reference
-goes through its serving tier's cloudpickle codec; and the runtime is the
-port's in-process :class:`~spark_rapids_ml_tpu_torch.serving.server.ServingRuntime`
-(the replicated router is ROADMAP A.9, item 17b). A tensor batch is
-copied to the host at ingest, which journals host float64 rows as the
-reference does.
+goes through its serving tier's cloudpickle codec; a router still ships
+the candidate to its members through that codec (``serving/ipc.py``). A
+tensor batch is copied to the host at ingest, which journals host
+float64 rows as the reference does.
 
 One :meth:`run_cycle` call takes a batch of fresh rows through
 
@@ -119,10 +123,10 @@ class LifecycleController:
         model: Optional[Any] = None,
         policy: Optional[RetryPolicy] = None,
     ):
-        """``runtime`` is anything with the registry façade: the port's
-        :class:`~spark_rapids_ml_tpu_torch.serving.server.ServingRuntime`
-        (``register``, ``warm``, ``set_alias``, ``rollback`` and
-        ``registry.versions``). ``score_fn(model, X, y) -> float``, higher
+        """``runtime`` is anything with the registry façade (``register``,
+        ``warm``, ``set_alias``, ``rollback`` and ``registry.versions``):
+        the port's :class:`~spark_rapids_ml_tpu_torch.serving.server.ServingRuntime`
+        or :class:`~spark_rapids_ml_tpu_torch.serving.router.RoutingRuntime`. ``score_fn(model, X, y) -> float``, higher
         is better, drives both the gate and :meth:`watch`."""
         directory = directory or env_str("TPUML_LIFECYCLE_DIR")
         if not directory:
@@ -305,7 +309,9 @@ class LifecycleController:
         self._stage(journal, "warm", "refit.swap", do_warm)
 
         # -- flip: the alias moves only after warm has compiled the
-        # candidate's buckets, so no request waits on a capture --
+        # candidate's buckets, so no request waits on a capture (a router
+        # warms every member and broadcasts before its own alias moves:
+        # zero-shed) --
         def do_flip() -> Dict[str, Any]:
             self.runtime.set_alias(self.name, self.alias, version)
             return {"version": version}

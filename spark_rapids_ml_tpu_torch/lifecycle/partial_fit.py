@@ -20,7 +20,11 @@ different families behind one verb:
   eigensolve re-runs on the merged covariance, so PCA's ``dataset``
   accumulates across calls while the solver families' ``dataset``
   replaces. A tensor's rows fold on its own device through kernel K1's
-  float64 route; host rows fold in host float64, as in the reference.
+  float64 route. Host rows fold where the platform computes: on the
+  ``"cuda"`` platform they go to the card as float64 and take the same K1
+  route (a refit of journaled host rows, as the lifecycle controller's,
+  runs on the card); on ``"cpu"`` they fold in host float64, as in the
+  reference.
 
 This module is the single dispatch point; ``Estimator.partial_fit``
 delegates here.
@@ -79,7 +83,8 @@ def partial_fit(estimator: Any, dataset: Any, *, model: Optional[Any] = None):
 
 def _new_moments(dataset: Any, input_col: Optional[str]):
     """The new rows' :class:`ShiftedMoments`: a tensor (or a stream's
-    tensor blocks) on its device, host rows in host float64."""
+    tensor blocks) on its device; host rows as float64 on the platform's
+    device (:func:`_placed`)."""
     from spark_rapids_ml_tpu_torch.core.data import (
         _block_to_dense,
         as_matrix,
@@ -94,7 +99,7 @@ def _new_moments(dataset: Any, input_col: Optional[str]):
     if is_streaming_source(rows):
         new_mom = None
         for blk in iter_stream_blocks(rows):
-            part = blk if is_device_array(blk) else np.asarray(_block_to_dense(blk), dtype=np.float64)
+            part = blk if is_device_array(blk) else _placed(np.asarray(_block_to_dense(blk), dtype=np.float64))
             if part.shape[0] == 0:
                 continue
             if new_mom is None:
@@ -106,7 +111,20 @@ def _new_moments(dataset: Any, input_col: Optional[str]):
     x = rows if is_device_array(rows) else np.asarray(as_matrix(rows), dtype=np.float64)
     if x.ndim != 2 or x.shape[0] == 0:
         raise ValueError(f"partial_fit needs a non-empty (n, d) batch, got {tuple(x.shape)}")
-    return ShiftedMoments(x.shape[1]).add_block(x)
+    return ShiftedMoments(x.shape[1]).add_block(x if is_device_array(x) else _placed(x))
+
+
+def _placed(host: np.ndarray):
+    """Host float64 rows where they fold: on the card (a float64 tensor,
+    so K1's float64 route) on the ``"cuda"`` platform, unchanged on the
+    CPU platform. Raises on ``"cuda"`` without a card."""
+    from spark_rapids_ml_tpu_torch import device as _device
+
+    if _device.get_platform() != "cuda" or host.size == 0:
+        return host
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(host)).to(_device.resolve_device())
 
 
 def _partial_fit_pca(estimator, dataset, model):

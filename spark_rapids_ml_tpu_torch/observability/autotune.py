@@ -37,10 +37,10 @@ The decision points that consult it when on:
     (``serving/batcher.MicroBatcher._delay_s_for``);
 (d) ``core.membudget.fit_memory_guard`` prices admission through the
     fitted bytes model;
-(e) the precision gate ``ops.precision.tune_precision``.
-
-:meth:`Autotuner.recommend_shard_rows` is ported, but only the reference's
-router reads it (ROADMAP item 17b).
+(e) the precision gate ``ops.precision.tune_precision``;
+(f) the router's shard threshold, :meth:`Autotuner.recommend_shard_rows`
+    (``serving/router.RoutingRuntime._is_oversized``), and the elastic
+    scaler's latency budget from :meth:`Autotuner.recommend_delay_s`.
 
 This module imports :mod:`observability.costs`; costs does not import
 this module, so the two hooks it needs there (the row-bucket probe of the

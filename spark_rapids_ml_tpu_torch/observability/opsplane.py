@@ -16,8 +16,8 @@ imports the package, serving the live registries:
     finally EOFs;
   - ``/varz`` — one JSON document: counters/gauges/histograms, the
     cost-ledger rollup, autotune incumbents, serving registry
-    versions+aliases, and admission budgets. ``routers`` is always
-    ``[]``: the routing tier is not ported yet (ROADMAP A.7, item 17b);
+    versions+aliases, admission budgets, and every live router's
+    snapshot (``routers``);
   - ``/tracez`` — recent closed spans plus every thread's currently-open
     span stack (``utils.tracing.open_spans``).
 
@@ -196,15 +196,20 @@ def varz_doc() -> dict:
     except Exception:  # pragma: no cover
         doc["autotune"] = None
     # Serving registries + admission budgets: every live in-process
-    # runtime (queue_limit, mem_budget, models/versions/aliases).
+    # runtime (queue_limit, mem_budget, models/versions/aliases) and
+    # every live router.
     try:
         from spark_rapids_ml_tpu_torch.serving import server as _server_mod
 
         doc["serving"] = _server_mod.runtime_snapshots()
     except Exception:
         doc["serving"] = []
-    # No routing tier in this package yet (ROADMAP A.7, item 17b).
-    doc["routers"] = []
+    try:
+        from spark_rapids_ml_tpu_torch.serving import router as _router_mod
+
+        doc["routers"] = _router_mod.router_snapshots()
+    except Exception:
+        doc["routers"] = []
     return doc
 
 

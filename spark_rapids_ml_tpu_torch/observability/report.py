@@ -22,9 +22,10 @@ holds one roofline row per program the run touched (``costs.run_delta``:
 counted flops and bytes, device-time walls on the card, utilization
 against the declared peaks), and ``.hbm`` the HBM sampler's peak growth
 attributed to the spans (``costs.attribute_hbm_growth``; needs
-``TPUML_HBM_SAMPLE_EVERY_MS``). :func:`serving_report` reads the router
-and the autotuner in the reference, and waits for item 17b.
-:func:`gang_report` merges a gang's telemetry shards, cost shards
+``TPUML_HBM_SAMPLE_EVERY_MS``). :func:`serving_report` is the
+steady-state serving picture: the program cache, every live in-process
+runtime and router, the cost ledger's rollup and the autotuner's
+decisions. :func:`gang_report` merges a gang's telemetry shards, cost shards
 included.
 """
 
@@ -37,11 +38,7 @@ from spark_rapids_ml_tpu_torch.observability import costs as _costs
 from spark_rapids_ml_tpu_torch.observability import events
 from spark_rapids_ml_tpu_torch.observability.metrics import default_registry, gauge
 from spark_rapids_ml_tpu_torch.observability.profiling import maybe_profile
-
-SERVING_REPORT_ITEM = (
-    "serving_report is not ported yet: the reference's reads the distributed "
-    "serving tier's routers and the autotuner, ROADMAP A.9, item 17b"
-)
+from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 
 #: Counter prefixes a report folds into its summary.
 _REPORT_PREFIXES = ("serving.", "checkpoint.", "retry.", "gang.", "ingest.",
@@ -366,10 +363,64 @@ class RunRecorder:
 # --- the serving-side report ------------------------------------------
 
 
+_serve_lock = make_lock("report.serving")
+
+
 def serving_report() -> dict:
-    """Not ported: the reference's reads the routers of the distributed
-    serving tier and the autotuner (:data:`SERVING_REPORT_ITEM`)."""
-    raise NotImplementedError(SERVING_REPORT_ITEM)
+    """Steady-state serving picture: program-cache stats (size from the
+    lock-guarded gauge, not hit/miss arithmetic), the ``serving.``
+    counters, the ``serving.batch_rows`` histogram, and, when the online
+    runtime is live, one snapshot per runtime (queue depth, inflight,
+    reserved budget bytes, registered models/versions/aliases) plus the
+    request-latency and batch-fill histograms its micro-batcher
+    populates; with the cost ledger armed, the per-program ledger and its
+    family rollup; with the autotuner armed, its decisions; with a
+    routing tier live, every router's per-member view and the router-clock
+    latency histogram. The reference's keys."""
+    from spark_rapids_ml_tpu_torch.core.serving import program_cache_stats
+
+    with _serve_lock:
+        stats = program_cache_stats()
+        counters = dict(default_registry.counters_snapshot("serving."))
+        hist = default_registry.histogram("serving.batch_rows").value()
+    out = {
+        "cache": stats,
+        "cache_size_gauge": default_registry.gauge("serving.cache.size").value(),
+        "counters": counters,
+        "batch_rows": hist,
+    }
+    ledger_doc = _costs.ledger_snapshot()
+    if ledger_doc is not None:
+        # Where the FLOPs and bytes went: the full per-program ledger
+        # plus its per-family rollup.
+        out["costs"] = ledger_doc
+        out["cost_rollup"] = _costs.family_rollup(ledger_doc)
+    from spark_rapids_ml_tpu_torch.observability import autotune as _autotune
+
+    tune_doc = _autotune.tuner_snapshot()
+    if tune_doc is not None:
+        # What the ledger DECIDED: committed knob values, the learned
+        # bucket ladders, and the fitted per-family cost models.
+        out["autotune"] = tune_doc
+    from spark_rapids_ml_tpu_torch.serving import batcher as _batcher
+    from spark_rapids_ml_tpu_torch.serving.router import router_snapshots
+    from spark_rapids_ml_tpu_torch.serving.server import runtime_snapshots
+
+    runtimes = runtime_snapshots()
+    if runtimes:
+        out["runtimes"] = runtimes
+        # The batcher's own constructors, so a report scraped before the
+        # first dispatch still registers them with the right buckets.
+        out["request_latency_ms"] = _batcher._latency_hist().value()
+        out["batch_fill"] = _batcher._fill_hist().value()
+    routers = router_snapshots()
+    if routers:
+        # The distributed tier's front door(s): per-member depth,
+        # outstanding, shed and backoff as the router sees them, plus the
+        # router-clock latency histogram over routed requests.
+        out["routers"] = routers
+        out["routed_latency_ms"] = default_registry.histogram("serving.router.latency_ms").value()
+    return out
 
 
 # --- the gang-wide report ----------------------------------------------

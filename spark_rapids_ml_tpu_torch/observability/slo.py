@@ -12,10 +12,9 @@ over the metrics the serving tier already publishes — no new
 instrumentation on the hot path:
 
   - ``serving.pNN_ms`` — the tail of the window's latency distribution
-    (the in-process runtime's ``serving.request.latency_ms``; the
-    router's ``serving.router.latency_ms`` is read first when present,
-    and comes with the distributed tier, ROADMAP A.9 item 17b), as
-    bucket deltas between ticks.
+    (``serving.router.latency_ms`` when routing, else the in-process
+    runtime's ``serving.request.latency_ms``), as bucket deltas between
+    ticks.
     The error budget is the objective's own tail mass (p95<=50 allows
     5% of requests over 50ms); the published burn rate is
     actual-tail-mass / allowed-tail-mass, so burn > 1 = budget burning
@@ -29,8 +28,8 @@ instrumentation on the hot path:
 Every tick sets the ``slo.burn_rate{objective=...}`` gauge; breach and
 recovery edges emit structured ``slo`` events (a first-class SCHEMA
 type) and notify subscribers — the lifecycle ``DriftMonitor`` subscribes
-breaches as refit votes (``DriftMonitor.on_slo_breach``); the router's
-scaler, which reads the gauge as a scale-up vote, is item 17b.
+breaches as refit votes (``DriftMonitor.on_slo_breach``), and the
+router's ``ElasticScaler`` reads the gauge as a scale-up vote.
 """
 
 from __future__ import annotations

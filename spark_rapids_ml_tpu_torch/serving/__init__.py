@@ -7,12 +7,16 @@ admission with structured :class:`Overloaded` and
 :class:`DeadlineExceeded`; and the :class:`ServingRuntime` façade over
 them. See each module's docstring.
 
+The distributed tier scales that façade across processes:
+:class:`RoutingRuntime` (``router.py``) spreads micro-batches over N
+``worker.py`` member processes (``ipc.py`` frames the socket hop) with
+backpressure-weighted routing, a replicated registry with
+version-atomic hot swap, and a sharded path for requests too big for any
+one member; :class:`ElasticScaler` (``elastic.py``) grows and shrinks the
+gang from its load signals.
+
 The runtime names load on first use, so ``core/serving`` (which the
 runtime builds on) can import ``serving.signature`` without a cycle.
-
-The distributed tier (``RoutingRuntime``, ``router_snapshots``,
-``ElasticScaler``: the reference's router, worker, ipc and elastic
-modules) is not ported: ROADMAP A.9, item 17b.
 """
 
 import importlib
@@ -29,11 +33,10 @@ _RUNTIME = {
     "ModelVersion": "registry",
     "ServingRuntime": "server",
     "runtime_snapshots": "server",
+    "RoutingRuntime": "router",
+    "router_snapshots": "router",
+    "ElasticScaler": "elastic",
 }
-
-#: The reference's distributed serving tier, not ported.
-DISTRIBUTED_ITEM = "the distributed serving tier is not ported yet: ROADMAP A.9, item 17b"
-_DISTRIBUTED = frozenset({"ElasticScaler", "RoutingRuntime", "router_snapshots"})
 
 __all__ = ["ServingSignature", "spec_bytes", *sorted(_RUNTIME)]
 
@@ -41,6 +44,4 @@ __all__ = ["ServingSignature", "spec_bytes", *sorted(_RUNTIME)]
 def __getattr__(name: str):
     if name in _RUNTIME:
         return getattr(importlib.import_module(f"{__name__}.{_RUNTIME[name]}"), name)
-    if name in _DISTRIBUTED:
-        raise NotImplementedError(f"{name}: {DISTRIBUTED_ITEM}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

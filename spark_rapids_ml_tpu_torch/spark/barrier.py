@@ -19,9 +19,11 @@ the WHOLE stage when any task fails.
   - :func:`gang_fit` — one barrier stage whose members each call the
     public ``Estimator.fit`` with ``deployMode='gang'``.
 
+  - :func:`serving_gang_run` — the serving tier's members as one barrier
+    stage (``RoutingRuntime(launch="barrier")``).
+
 Works the same against genuine pyspark and the contract stub
-(``tests/pyspark_stub``). :func:`serving_gang_run` needs the distributed
-serving tier and raises until it is ported.
+(``tests/pyspark_stub``).
 """
 
 from __future__ import annotations
@@ -41,11 +43,6 @@ DEFAULT_COORDINATOR_PORT = 8476
 # and trust the scheduler; raise it when the cluster's stage budget is too
 # small for the failure domain.
 BARRIER_RESUBMITS_ENV = "TPUML_BARRIER_RESUBMITS"
-
-SERVING_ITEM = (
-    "serving_gang_run needs the distributed serving tier (serving.worker), "
-    "which is not ported yet: ROADMAP A.9, item 17b"
-)
 
 
 def barrier_gang_run(
@@ -288,10 +285,35 @@ def gang_fit(
 
 
 def serving_gang_run(rdd, rendezvous: str, policy: Optional[RetryPolicy] = None) -> list:
-    """The serving tier's members as one barrier stage (each partition's
-    body is ``serving.worker.serve_member``). Not ported yet: raises
-    ``NotImplementedError`` naming ROADMAP A.9, item 17b."""
-    raise NotImplementedError(SERVING_ITEM)
+    """Run serving-tier members as ONE barrier stage: each partition's
+    task body is :func:`serving.worker.serve_member` (publish a contact
+    card into ``rendezvous``, accept the router connection, serve until
+    shutdown). Partition elements are member ids (ints); an empty
+    partition falls back to its partition id, so the common
+    ``parallelize(range(n), n)`` roster works with either convention.
+    A member serves on its executor's platform (``device.set_platform``).
+
+    Blocks until the whole gang drains (the router's ``close``), so the
+    router runs it on a background thread. All of
+    :func:`barrier_gang_run`'s machinery (launch barrier, whole-stage
+    relaunch, per-member heartbeats, the trace/telemetry carrier)
+    applies unchanged; the trace carrier is what merges every member's
+    serving events into the router's trace. The contract stub runs
+    barrier tasks sequentially on the driver, so only a single-member
+    gang runs under the stub; a real cluster schedules members
+    concurrently."""
+    from spark_rapids_ml_tpu_torch.serving.worker import serve_member
+
+    def task(ctx, it):
+        members = sorted(int(i) for i in it)
+        if not members:
+            try:
+                members = [int(ctx.partitionId())] if ctx is not None else [0]
+            except Exception:
+                members = [0]
+        return [serve_member(m, rendezvous) for m in members]
+
+    return barrier_gang_run(rdd, task, policy=policy)
 
 
 __all__ = [

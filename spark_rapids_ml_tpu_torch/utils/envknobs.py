@@ -287,6 +287,47 @@ KNOBS: Dict[str, Knob] = {k.name: k for k in (
          "1 = fused one-sweep logistic loss+grad; 0 = two-sweep autograd "
          "objective (applies when LogisticRegression(fused=...) is not given)",
          default="1", choices=("0", "1")),
+    # distributed serving tier (serving/router.py + serving/worker.py)
+    Knob("TPUML_ROUTER_WORKERS", "int", "serving-router",
+         "member processes a RoutingRuntime launches", default=2),
+    Knob("TPUML_ROUTER_RENDEZVOUS", "str", "serving-router",
+         "rendezvous directory of member-<id>.json contact cards "
+         "(set by the router for spawned members)", default=None),
+    Knob("TPUML_ROUTER_MEMBER", "int", "serving-router",
+         "this process's member index in the serving gang "
+         "(set by the router for spawned members)", default=None),
+    Knob("TPUML_ROUTER_CONNECT_TIMEOUT", "float", "serving-router",
+         "seconds the router waits for member rendezvous/acks and a "
+         "member waits for the router connection", default=120.0),
+    Knob("TPUML_ROUTER_SHARD_ROWS", "int", "serving-router",
+         "requests with at least this many rows bypass members for the "
+         "router's sharded path (0 = budget-driven only)",
+         default=0),
+    # elastic gang scaler (serving/elastic.py + router liveness)
+    Knob("TPUML_ELASTIC_MIN", "int", "serving-elastic",
+         "lower bound on live serving members the scaler may retire "
+         "down to", default=1),
+    Knob("TPUML_ELASTIC_MAX", "int", "serving-elastic",
+         "upper bound on live serving members the scaler may join up "
+         "to", default=4),
+    Knob("TPUML_ELASTIC_EVERY_MS", "float", "serving-elastic",
+         "milliseconds between scaler ticks (signal sample + decision)",
+         default=200.0),
+    Knob("TPUML_ELASTIC_HIGH", "float", "serving-elastic",
+         "mean per-member depth (outstanding + reported queue) above "
+         "which a tick votes scale-UP", default=4.0),
+    Knob("TPUML_ELASTIC_LOW", "float", "serving-elastic",
+         "mean per-member depth below which a tick votes scale-DOWN",
+         default=0.5),
+    Knob("TPUML_ELASTIC_HYSTERESIS", "int", "serving-elastic",
+         "consecutive agreeing ticks before a scale decision executes",
+         default=3),
+    Knob("TPUML_ELASTIC_COOLDOWN_MS", "float", "serving-elastic",
+         "milliseconds after a join/retire during which the scaler only "
+         "observes", default=1000.0),
+    Knob("TPUML_ELASTIC_STALL_S", "float", "serving-elastic",
+         "reported member heartbeat age above which the member is "
+         "force-retired as stalled (0 = stall retire off)", default=0.0),
 )}
 
 def _require_registered(name: str) -> None:

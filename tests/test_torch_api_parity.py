@@ -1,8 +1,9 @@
 """API parity both ways: every public method of a ported estimator, model,
-evaluator, pipeline, tuning or lifecycle class exists on its reference twin (the port
-adds none the reference lacks), and every public method of the reference
-class exists on its port twin, except ``fit_report``, which waits for the
-observability item (ROADMAP A.9, step 5). ``partial_fit`` is ported
+evaluator, pipeline, tuning, lifecycle or routing-tier class exists on its
+reference twin (the port adds none the reference lacks), and every public
+method of the reference class exists on its port twin, except
+``fit_report``, which waits for the observability item (ROADMAP A.9,
+step 5). ``partial_fit`` is ported
 (``lifecycle/partial_fit.py``)."""
 
 import inspect
@@ -18,6 +19,7 @@ import spark_rapids_ml_tpu.manifold as jax_manifold
 import spark_rapids_ml_tpu.neighbors as jax_neighbors
 import spark_rapids_ml_tpu.pipeline as jax_pipeline
 import spark_rapids_ml_tpu.regression as jax_regression
+import spark_rapids_ml_tpu.serving as jax_serving
 import spark_rapids_ml_tpu.tuning as jax_tuning
 import spark_rapids_ml_tpu_torch.classification as classification
 import spark_rapids_ml_tpu_torch.clustering as clustering
@@ -28,6 +30,7 @@ import spark_rapids_ml_tpu_torch.manifold as manifold
 import spark_rapids_ml_tpu_torch.neighbors as neighbors
 import spark_rapids_ml_tpu_torch.pipeline as pipeline
 import spark_rapids_ml_tpu_torch.regression as regression
+import spark_rapids_ml_tpu_torch.serving as serving
 import spark_rapids_ml_tpu_torch.tuning as tuning
 
 PAIRS = {
@@ -64,6 +67,8 @@ PAIRS = {
     "CycleJournal": (lifecycle, jax_lifecycle),
     "DriftMonitor": (lifecycle, jax_lifecycle),
     "LifecycleController": (lifecycle, jax_lifecycle),
+    "RoutingRuntime": (serving, jax_serving),
+    "ElasticScaler": (serving, jax_serving),
 }
 
 

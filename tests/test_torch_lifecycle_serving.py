@@ -9,8 +9,7 @@ the JAX model's on the same dyadic centres. The closed loop runs in both
 packages on the same rows: the same drift ticks fire (PSI within 1e-5
 relative: the port's KMeans fits host rows in float32), and the cycles end
 alike. The loadgen ``FreshnessTable`` and the router cases
-(``RoutingRuntime``) wait for the distributed serving tier (ROADMAP A.9,
-step 7).
+(``RoutingRuntime``) are in ``tests/test_torch_lifecycle_router.py``.
 """
 
 from __future__ import annotations

@@ -480,9 +480,27 @@ def test_a_report_pickles_with_its_model(no_event_log):
     assert back.fit_report().summary() == model.fit_report().summary()
 
 
-def test_serving_report_names_its_item():
-    with pytest.raises(NotImplementedError, match=r"A\.9, item 17b"):
-        tobs.serving_report()
+def test_serving_report_has_the_references_sections():
+    """With a live in-process runtime in each package, the serving report
+    has the reference's sections; the cost, tuner and router sections
+    appear only where those are live, in both."""
+    from spark_rapids_ml_tpu.observability.report import serving_report as jax_serving_report
+    from spark_rapids_ml_tpu.serving import ServingRuntime as JaxServingRuntime
+    from spark_rapids_ml_tpu_torch.serving import ServingRuntime
+
+    ours_rt, theirs_rt = ServingRuntime(start=False), JaxServingRuntime(start=False)
+    try:
+        ours, theirs = tobs.serving_report(), jax_serving_report()
+    finally:
+        ours_rt.close()
+        theirs_rt.close()
+    optional = {"costs", "cost_rollup", "autotune", "routers", "routed_latency_ms"}
+    assert set(ours) - optional == set(theirs) - optional
+    assert {"cache", "cache_size_gauge", "counters", "batch_rows", "runtimes",
+            "request_latency_ms", "batch_fill"} <= set(ours)
+    mine = next(r for r in ours["runtimes"] if r["runtime"] == ours_rt.runtime_id)
+    assert set(mine) == set(theirs["runtimes"][0])
+    assert all(name.startswith("serving.") for name in ours["counters"])
 
 
 def test_device_memory_stats_are_empty_on_the_cpu():

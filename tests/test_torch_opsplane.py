@@ -18,7 +18,7 @@ After the reference's ``tests/test_opsplane.py``:
 - the live registry as ``/varz`` serves it equals the metrics shard
   ``flush_telemetry`` writes beside a manifest that names the bound port
   (the in-process half of the reference's live-equals-post-hoc check; the
-  reference's gang ``/statusz`` needs the routing tier, ROADMAP A.7).
+  gang ``/statusz`` half is ``tests/test_torch_opsplane_gang.py``).
 
 Every server binds port 0 on 127.0.0.1 and is closed by its test; every
 request has a timeout.

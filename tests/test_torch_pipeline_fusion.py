@@ -509,3 +509,70 @@ class TestFuserUnit:
         per = _demux_static(static, 2)
         assert per == [{"precision": "f32"}, {"n_classes": 3, "threshold": 0.5}]
         assert per == jax_fuser._demux_static(static, 2)
+
+
+class TestServingIntegration:
+    """A fused pipeline is one versioned servable (the reference's
+    ``TestServingIntegration``; its load-by-path case is
+    ``tests/test_torch_serving_runtime.py``'s)."""
+
+    def test_register_warm_submit(self, data):
+        from spark_rapids_ml_tpu_torch.serving import ServingRuntime
+
+        x, y = data
+        model = Pipeline(stages=CHAINS["pca-logistic"]()).fit((x, y))
+        rt = ServingRuntime()
+        try:
+            mv = rt.register("pipe", model, alias="prod", warm_buckets=(8, 32))
+            assert isinstance(mv.signature, CompositeSignature)
+            out = rt.submit("pipe@prod", x[:20]).result(timeout=60)
+            assert np.asarray(out).tobytes() == np.asarray(model.transform(x[:20])).tobytes()
+        finally:
+            rt.close()
+
+    def test_hot_swap_fused_pipeline_version_pure(self, data):
+        """Swap prod from fused v1 to fused v2 under threaded load: every
+        answer is bitwise v1's or v2's, and the loadgen's freshness table,
+        reading the port's futures, shows v2 serving, first seen no
+        earlier than v1."""
+        import threading
+
+        from tools.tpuml_loadgen import FreshnessTable
+
+        from spark_rapids_ml_tpu_torch.serving import ServingRuntime
+
+        x, y = data
+        m1 = Pipeline(stages=[PCA().setK(4), KMeans().setK(3).setSeed(7)]).fit((x, y))
+        m2 = Pipeline(stages=[PCA().setK(5), KMeans().setK(4).setSeed(11)]).fit((x, y))
+        exp1, exp2 = np.asarray(m1.transform(x)), np.asarray(m2.transform(x))
+        rt = ServingRuntime(max_batch=16, max_delay_ms=2.0)
+        fresh, collected, lock = FreshnessTable(), [], threading.Lock()
+        try:
+            v1 = rt.register("pipe", m1, alias="prod")
+
+            def worker(tid):
+                local = []
+                for j in range(20):
+                    i = (tid * 20 + j) % x.shape[0]
+                    fut = rt.submit("pipe@prod", x[i])
+                    local.append((i, np.asarray(fut.result(timeout=60))))
+                    fresh.note(fut)
+                with lock:
+                    collected.extend(local)
+
+            threads = [threading.Thread(target=worker, args=(t,)) for t in range(4)]
+            for t in threads:
+                t.start()
+            v2 = rt.register("pipe", m2)
+            rt.set_alias("pipe", "prod", v2.version)
+            for t in threads:
+                t.join(timeout=120)
+        finally:
+            rt.close()
+        assert len(collected) == 80
+        for i, out in collected:
+            assert out.tobytes() in (exp1[i:i + 1].tobytes(), exp2[i:i + 1].tobytes()), i
+        report = {r["version"]: r for r in fresh.report()}
+        assert v2.version in report, "swap target never served"
+        if v1.version in report:  # v1 may drain before any completion lands
+            assert report[v1.version]["first_seen_s"] <= report[v2.version]["first_seen_s"]

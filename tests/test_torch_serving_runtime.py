@@ -648,12 +648,18 @@ def test_admission_queue_and_batcher_alone(models):
     assert not batcher.running and batcher.inflight() == 0
 
 
-def test_distributed_names_raise_naming_17b():
+def test_the_distributed_names_are_the_routing_tier():
+    """``RoutingRuntime``, ``router_snapshots`` and ``ElasticScaler`` are
+    the port's routing tier, exported as the reference exports them."""
+    import spark_rapids_ml_tpu.serving as jax_serving
     import spark_rapids_ml_tpu_torch.serving as serving
+    from spark_rapids_ml_tpu_torch.serving import elastic, router
 
-    for name in ("RoutingRuntime", "router_snapshots", "ElasticScaler"):
-        with pytest.raises(NotImplementedError, match=r"item 17b"):
-            getattr(serving, name)
+    assert serving.RoutingRuntime is router.RoutingRuntime
+    assert serving.router_snapshots is router.router_snapshots
+    assert serving.ElasticScaler is elastic.ElasticScaler
+    assert set(jax_serving.__all__) <= set(serving.__all__)
+    assert isinstance(serving.router_snapshots(), list)
 
 
 def test_stress_many_threads_with_evictions(models, monkeypatch):

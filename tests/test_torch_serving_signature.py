@@ -240,18 +240,17 @@ def test_unfitted_models_raise_as_the_reference():
         LinearRegressionModel().serving_signature()
 
 
-def test_left_out_runtime_names_its_item():
-    """The in-process runtime is ported; the distributed tier names item
-    17b, and the device-cache hooks take the model, as the reference's."""
+def test_runtime_names_resolve_and_the_hooks_take_the_model():
+    """The in-process runtime and the distributed tier resolve from the
+    package, and the device-cache hooks take the model, as the
+    reference's."""
     import spark_rapids_ml_tpu_torch.serving as serving
-    from spark_rapids_ml_tpu_torch.serving import server
+    from spark_rapids_ml_tpu_torch.serving import router, server
 
-    for name in ("ServingRuntime", "ModelRegistry", "MicroBatcher"):
+    for name in ("ServingRuntime", "ModelRegistry", "MicroBatcher", "RoutingRuntime", "ElasticScaler"):
         assert getattr(serving, name).__name__ == name
     assert serving.ServingRuntime is server.ServingRuntime
-    for name in ("RoutingRuntime", "router_snapshots", "ElasticScaler"):
-        with pytest.raises(NotImplementedError, match=r"A\.9, item 17b"):
-            getattr(serving, name)
+    assert serving.router_snapshots is router.router_snapshots
     with pytest.raises(AttributeError):
         serving.no_such_name  # noqa: B018
     with pytest.raises(TypeError):

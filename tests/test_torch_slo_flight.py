@@ -1,8 +1,8 @@
 """The port's SLO monitor and flight recorder against the JAX package's,
 after the reference's ``tests/test_opsplane.py`` (``TestSloSpec``,
-``TestSloControlLoop``, ``TestFlightRecorder``; the ops server, the
-router's scaler and the lock sanitizer's stall strike are ROADMAP A.9
-step 5's later parts and item 17b).
+``TestSloControlLoop``, ``TestFlightRecorder``; the ops server and the
+lock sanitizer's stall strike are ``tests/test_torch_opsplane.py``'s, the
+router's scaler vote ``tests/test_torch_elastic_gang.py``'s).
 
 - ``parse_slo`` gives the reference's objectives and refuses what it
   refuses with its message; the monitor's burn rates for latency, shed

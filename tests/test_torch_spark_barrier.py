@@ -17,7 +17,9 @@ Port twins of the reference's barrier tests, each driving the port's
   heartbeats from both members, no stale gauges.
 - ``TestBarrierGangRecovery`` and ``TestGangFitPublicAPI``
   (``tests/spark_contract_suite.py``), through the port's modules.
-- ``serving_gang_run`` raises naming "A.9, item 17b".
+- ``serving_gang_run`` serves a one-member barrier gang behind a
+  ``RoutingRuntime(launch="barrier")`` (``tests/test_serving_router.py``'s
+  ``TestBarrierLaunch``).
 """
 
 import json
@@ -36,7 +38,6 @@ from spark_rapids_ml_tpu_torch.observability.metrics import default_registry
 from spark_rapids_ml_tpu_torch.robustness import InjectedFault, RetryExhaustedError, inject
 from spark_rapids_ml_tpu_torch.robustness.checkpoint import DIR_ENV, EVERY_ENV
 from spark_rapids_ml_tpu_torch.robustness.faults import disarm
-from spark_rapids_ml_tpu_torch.spark import barrier
 from spark_rapids_ml_tpu_torch.spark.barrier import _gang_extract, barrier_gang_run, gang_coordinates, gang_fit
 from spark_rapids_ml_tpu_torch.utils import tracing
 from spark_rapids_ml_tpu_torch.utils.envknobs import env_int
@@ -486,6 +487,26 @@ class TestGangFitPublicAPI:
         assert model.intercept == ref.intercept and model.numIter == ref.numIter
 
 
-def test_serving_gang_run_names_its_item():
-    with pytest.raises(NotImplementedError, match="A.9, item 17b"):
-        barrier.serving_gang_run(None, "/tmp/rendezvous")
+def test_serving_gang_run_serves_a_one_member_barrier_gang(stub_spark, tmp_path):
+    """``serving_gang_run`` runs ``serve_member`` as the barrier task: a
+    router launched on it serves bitwise the model's own predictions,
+    and the stage returns the member's summary once the router drains
+    it (the stub runs barrier tasks in order, so one member)."""
+    from pyspark.sql import RDD
+
+    from spark_rapids_ml_tpu_torch.clustering import KMeansModel
+    from spark_rapids_ml_tpu_torch.serving import RoutingRuntime
+
+    rng = np.random.default_rng(41)
+    model = KMeansModel("bar-km", rng.integers(-16, 16, size=(4, 8)) / 4.0)
+    rt = RoutingRuntime(workers=1, launch="barrier", rdd=RDD([[0]]), rendezvous=str(tmp_path / "rdv"),
+                        connect_timeout=60.0)
+    try:
+        rt.register("bar-km", model)
+        x = rng.integers(-16, 16, size=(6, 8)) / 4.0
+        out = rt.submit("bar-km", x).result(timeout=60.0)
+        assert out.tobytes() == np.asarray(model.predict(x)).tobytes()
+        assert rt.snapshot()["launch"] == "barrier"
+    finally:
+        rt.close()
+    assert rt._barrier_result == [[{"member": 0, "served": 1, "drain": True}]]
