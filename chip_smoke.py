@@ -243,6 +243,18 @@ counters set to 0 just before and read just after:
   against the model's; (e) an ``ElasticScaler`` join and retire under
   load shedding nothing, and a member frozen by the stall grammar
   retired by its heartbeat age, its parked requests answered elsewhere.
+- the sharded families in a gang, group (t), within its own 120 s: two
+  ranks on the one card (gloo with CUDA tensors; the script starts
+  itself as ``--gs-rank``), each holding the whole matrices uncut, fit
+  config 11's kNN, config 7's ``brute`` ANN (its ``ivfflat`` refused, as
+  the reference's IVF build fails in a gang), config 13's UMAP, config
+  12's DBSCAN and config 9's two forests with ``setDeployMode("gang")``;
+  this process then fits the same on a (2, 1) mesh of the card, each fit
+  twice (a fresh process's first calls, then the steady fit). The ranks
+  are bitwise equal and bitwise the (2, 1) fit, each second fit bitwise
+  its first; both walls print beside the one-process walls with the
+  bytes the fit gathered, and K1-K4 launch in no rank (``launches_gang``
+  in the ``kernels`` line).
 
 It times the kernels beside their bounds and profiles one fit of each
 path (device time by kernel, the device's idle share). It fails if
@@ -7995,6 +8007,233 @@ def router_phases(card: str) -> dict:
     return res
 
 
+# --- (t) the sharded families in a gang of two processes on the one card ----
+
+GS_RANKS = 2
+GS_WALL_LIMIT_S = 120.0
+GS_RANK_TIMEOUT_S = 90
+GS_SEED = SEED + 1100       # the group's data: drawn anew from its own seed, alike in every process
+
+
+def gs_data() -> dict:
+    """The group's whole matrices, drawn on the card from ``GS_SEED`` (every
+    process draws the same bits): config 11's 1M x 96 items and 10,000
+    queries (config 7's too), config 13's 50,000 x 64 blobs, config 12's
+    100,000 x 16 blobs and config 9's 500,000 x 16 rows."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(GS_SEED)
+    dev = gen.device
+    items = torch.randn((NB_N, NB_D), generator=gen, device=dev)
+    queries = torch.randn((NB_Q, NB_D), generator=gen, device=dev)
+    truth = torch.randn((UM_BLOBS, UM_D), generator=gen, device=dev) * UM_SCALE
+    x_umap, _ = umap_blobs(UM_N, truth, gen)
+    centres = torch.randn((DB_BLOBS, DB_D), generator=gen, device=dev) * 12.0
+    x_db = dbscan_blobs(DB_N, centres, gen)
+    xf, margin = forest_rows(gen)
+    return {"items": items, "queries": queries, "x_umap": x_umap, "x_db": x_db, "xf": xf, "margin": margin}
+
+
+def gs_fits(setup, in_gang: bool) -> tuple:
+    """Two fits of each family on the group's data, its estimator set up by
+    ``setup`` (the gang's deploy mode, or the parent's (2, 1) mesh): the
+    first pays a fresh process's first calls (kernel loading, cuBLAS
+    set-up, JIT-compiled elementwise kernels), the second is the steady
+    fit. Returns (the second fit's results as host arrays keyed
+    ``family/what``, each family's two walls (host clock around the fit
+    and a synchronize), the bytes the second fit gathered (counter
+    ``collectives.gather.bytes``), whether each family's two fits agree
+    bit for bit). In the gang, config 7's ``ivfflat`` fit records its
+    refusal. UMAP runs under ``torch.use_deterministic_algorithms``: its
+    epoch scatter is an ``index_add_``, whose float atomics would
+    otherwise order each run's sums anew."""
+    data = gs_data()
+    res, walls, gathered, repeat = {}, {}, {}, {}
+
+    def host(out: dict) -> dict:
+        return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for k, v in out.items()}
+
+    def run(name, fn):
+        fits = []
+        for _ in range(2):
+            before = counter_value("collectives.gather.bytes")
+            sync()
+            t = time.perf_counter()
+            out = fn()
+            sync()
+            fits.append((time.perf_counter() - t, host(out)))
+            gathered[name] = counter_value("collectives.gather.bytes") - before
+        walls[name] = {"first": fits[0][0], "second": fits[1][0]}
+        repeat[name] = all(np.array_equal(_bits(fits[0][1][k]), _bits(v)) for k, v in fits[1][1].items())
+        res.update({f"{name}/{k}": v for k, v in fits[1][1].items()})
+
+    def knn():
+        d, i = setup(NearestNeighbors().setK(NB_K)).fit(data["items"]).kneighbors(data["queries"])
+        return {"d": d, "i": i}
+
+    def brute():
+        est = ApproximateNearestNeighbors().setK(NB_K).setMetric("sqeuclidean").setAlgorithm("brute")
+        d, i = setup(est).fit(data["items"]).kneighbors(data["queries"])
+        return {"d": d, "i": i}
+
+    def umap():
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                return {"embedding": setup(umap_estimator()).fit(data["x_umap"])._emb_raw}
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    def dbscan():
+        model = setup(DBSCAN().setEps(DB_EPS).setMinSamples(DB_MIN_SAMPLES)).fit(data["x_db"])
+        return {"labels": model.labels_, "core": model.core_mask_}
+
+    def forests():
+        y = (data["margin"] > 0).to(torch.float32)
+        clf = setup(RandomForestClassifier().setNumTrees(RF_TREES).setMaxDepth(RF_DEPTH).setMaxBins(RF_BINS)
+                    .setNumClasses(2).setSeed(SEED)).fit((data["xf"], y))
+        reg = setup(RandomForestRegressor().setNumTrees(RF_TREES).setMaxDepth(RF_DEPTH).setMaxBins(RF_BINS)
+                    .setSeed(SEED)).fit((data["xf"], data["margin"]))
+        out = {f"classifier_{f}": t for f, t in zip(clf._forest._fields, clf._forest)}
+        out.update({f"regressor_{f}": t for f, t in zip(reg._forest._fields, reg._forest)})
+        return out
+
+    run("config11_knn", knn)
+    run("config7_brute", brute)
+    if in_gang:
+        ivf = (ApproximateNearestNeighbors().setK(NB_K).setMetric("sqeuclidean").setAlgorithm("ivfflat")
+               .setAlgoParams({"nlist": NB_LISTS, "nprobe": NB_PROBE}))
+        try:
+            setup(ivf).fit(data["items"])
+            refusal = "fitted"
+        except NotImplementedError as exc:
+            refusal = str(exc)
+        res["config7_ivfflat_refusal"] = np.asarray(refusal)
+    run("config13_umap", umap)
+    run("config12_dbscan", dbscan)
+    run("config9_forests", forests)
+    return res, walls, gathered, repeat
+
+
+def gs_rank_main(argv) -> int:
+    """One rank of (t), started by :func:`gang_sharded_phases`: joins the
+    2-rank gloo gang (CUDA tensors: NCCL refuses two ranks on one GPU),
+    fits every family on the whole matrices with ``setDeployMode("gang")``
+    and writes its results and K1-K4 launches to ``--gs-out``."""
+    args = dict(zip(argv[1::2], argv[2::2]))
+    rank, out_dir = int(args["--gs-rank"]), args["--gs-out"]
+    port_device.set_platform("cuda")
+    port_device.use_ieee_fp32_matmul()
+    torch.backends.cudnn.allow_tf32 = False
+    gang.initialize(coordinator_address=f"127.0.0.1:{args['--gs-port']}", backend="gloo")
+    _reset_kernel_launches()
+    t0 = time.perf_counter()
+    res, walls, gathered, repeat = gs_fits(lambda est: est.setDeployMode("gang"), in_gang=True)
+    res["meta"] = np.asarray(json.dumps({"walls": walls, "gathered": gathered, "launches": _sp_launches(),
+                                         "repeat_bitwise": repeat,
+                                         "wall_s": time.perf_counter() - t0,
+                                         "mesh": [gang.global_mesh().shape["data"], gang.process_count()]}))
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
+    torch.distributed.destroy_process_group()
+    print(f"gang rank {rank}/{GS_RANKS} ok", flush=True)
+    return 0
+
+
+def _spawn_gs_ranks(out_dir: str) -> list:
+    """Start (t)'s ranks (one per ``member_env``), wait for them under
+    ``GS_RANK_TIMEOUT_S``, and stop any that outlive it."""
+    with contextlib.closing(__import__("socket").socket()) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [
+        subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gs-rank", str(rank), "--gs-port", str(port),
+                          "--gs-out", out_dir], env=gang.member_env(rank, GS_RANKS),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(GS_RANKS)
+    ]
+    try:
+        outs = [p.communicate(timeout=GS_RANK_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"(t) rank {rank}/{GS_RANKS} failed: {stderr[-2000:]}")
+        require(f"gang rank {rank}/{GS_RANKS} ok" in stdout, f"(t) rank {rank}/{GS_RANKS} printed no result")
+    return [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(GS_RANKS)]
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    """An array's bits: floats as unsigned integers of their width."""
+    a = np.asarray(a)
+    return a.view(np.dtype(f"u{a.dtype.itemsize}")) if a.dtype.kind == "f" else a
+
+
+def gang_sharded_phases(card: str) -> dict:
+    """Group (t), within ``GS_WALL_LIMIT_S``: two ranks on the one card
+    (gloo with CUDA tensors), each holding the whole matrices, fit config
+    11's kNN, config 7's ``brute`` (its ``ivfflat`` refused, as the
+    reference's IVF build fails in a gang), config 13's UMAP, config 12's
+    DBSCAN and config 9's two forests with ``setDeployMode("gang")``, each
+    twice; then this process fits the same on a (2, 1) mesh of the card.
+    The ranks are bitwise equal and bitwise the (2, 1) fit, each second
+    fit bitwise its first; each rank's walls print beside the one-process
+    walls, with the bytes each fit gathered; K1-K4 launch in no rank
+    (``launches_gang``)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="gang-sharded-") as tmp:
+        ranks = _spawn_gs_ranks(tmp)
+    spawn_wall = time.perf_counter() - t0
+    meta = [json.loads(str(r.pop("meta"))) for r in ranks]
+    refusal = [str(r.pop("config7_ivfflat_refusal")) for r in ranks]
+    t = time.perf_counter()
+    mesh = _mesh_of((2, 1))
+    single, single_walls, single_gathered, single_repeat = gs_fits(lambda est: est.setMesh(mesh), in_gang=False)
+    single_wall = time.perf_counter() - t
+    keys = sorted(single)
+    same_ranks = {k: bool(np.array_equal(_bits(ranks[0][k]), _bits(ranks[1][k]))) for k in keys}
+    same_single = {k: bool(np.array_equal(_bits(ranks[0][k]), _bits(single[k]))) for k in keys}
+    families = list(single_walls)
+    out = {
+        "phase": "gang_sharded", "card": card, "ranks": GS_RANKS, "backend": "gloo (CUDA tensors)",
+        "mesh": meta[0]["mesh"],
+        "walls_s": {f: {"gang_rank0": meta[0]["walls"][f], "gang_rank1": meta[1]["walls"][f],
+                        "one_process_2x1": single_walls[f]} for f in families},
+        "gather_bytes": {f: {"gang_rank0": meta[0]["gathered"][f], "one_process_2x1": single_gathered[f]}
+                         for f in families},
+        "rank_wall_s": [m["wall_s"] for m in meta], "spawn_to_exit_s": spawn_wall,
+        "one_process_wall_s": single_wall,
+        "launches_gang": [m["launches"] for m in meta],
+        "ivfflat_refusal": refusal[0],
+        "ranks_bitwise_equal": all(same_ranks.values()), "bitwise_one_process_2x1": all(same_single.values()),
+        "repeat_bitwise": {"gang_rank0": meta[0]["repeat_bitwise"], "gang_rank1": meta[1]["repeat_bitwise"],
+                           "one_process_2x1": single_repeat},
+        "differing": sorted(k for k in keys if not (same_ranks[k] and same_single[k])),
+        "dbscan_clusters": int(single["config12_dbscan/labels"].max()) + 1,
+        "umap_finite": bool(np.isfinite(single["config13_umap/embedding"]).all()),
+    }
+    emit(out)
+    require(set(keys) == set(ranks[0]) == set(ranks[1]), "(t) the ranks returned other results than one process")
+    require(out["ranks_bitwise_equal"], f"(t) the ranks' results differ: {out['differing']}")
+    require(out["bitwise_one_process_2x1"], f"(t) the gang differs from the (2, 1) fit: {out['differing']}")
+    require(out["mesh"] == [GS_RANKS, GS_RANKS], f"(t) the gang's mesh {out['mesh']}")
+    require(all(all(r.values()) for r in out["repeat_bitwise"].values()),
+            f"(t) a family's second fit differs from its first: {out['repeat_bitwise']}")
+    for r in refusal:
+        require(r.startswith(f"the mesh IVF build in a gang of {GS_RANKS} processes is refused"),
+                f"(t) ivfflat in the gang: {r}")
+    for m in meta:
+        require(all(v == 0 for v in m["launches"].values()), f"(t) a kernel launched in the gang: {m['launches']}")
+        require(all(m["gathered"][f] > 0 for f in ("config11_knn", "config7_brute", "config12_dbscan")),
+                f"(t) a gathering family gathered nothing: {m['gathered']}")
+    require(out["dbscan_clusters"] > 1 and out["umap_finite"], "(t) the fits' output is degenerate")
+    wall = time.perf_counter() - t0
+    emit({"phases": "gang_sharded", "card": card, "wall_s": wall})
+    require(wall <= GS_WALL_LIMIT_S, f"the gang phases took {wall:.1f} s, over their {GS_WALL_LIMIT_S:.0f} s")
+    return {"out": out, "launches": {name: sum(m["launches"][name] for m in meta) for name in meta[0]["launches"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
@@ -8063,6 +8302,8 @@ def main() -> int:
     spark = spark_phases(info["nvidia_smi"])
     torch.cuda.empty_cache()
     router = router_phases(info["nvidia_smi"])
+    torch.cuda.empty_cache()
+    gang_sharded = gang_sharded_phases(info["nvidia_smi"])
 
     k1_f32 = times["k1_f32"]
     measured = {
@@ -8081,7 +8322,8 @@ def main() -> int:
         rows.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": m["launches"], "launches_spark": spark["launches"][name],
-            "launches_serving": router["launches"][name], "max_abs_err": m["max_abs_err"],
+            "launches_serving": router["launches"][name], "launches_gang": gang_sharded["launches"][name],
+            "max_abs_err": m["max_abs_err"],
             "ms": m["kernel_ms"], "kernel_ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })
@@ -8109,4 +8351,6 @@ if __name__ == "__main__":
         sys.exit(opsplane_child_main(sys.argv))
     if "--spark-child" in sys.argv:
         sys.exit(spark_child_main(sys.argv))
+    if "--gs-rank" in sys.argv:
+        sys.exit(gs_rank_main(sys.argv))
     sys.exit(main())

@@ -38,7 +38,12 @@ the model) the IVF build shards its rows over the data axis
 (:func:`ops.ann.ann_search_sharded`), and ``brute`` / ``brute_approx``
 search the items placed over it once (:func:`ops.knn.shard_items`,
 :func:`ops.knn.knn_sharded`), ``refine_ratio`` re-ranking as on one
-device. A streamed index refuses a mesh.
+device. In a gang every process fits the whole item matrix and passes the
+same queries (the reference's contract, not checked): ``brute`` and
+``brute_approx`` run there and every rank returns the same neighbours;
+the IVF build and the mesh IVF search raise ``NotImplementedError``,
+because the reference's own IVF routes fail in a gang (``ops/ann.py``).
+A streamed index refuses a mesh.
 """
 
 from __future__ import annotations
@@ -97,7 +102,6 @@ from spark_rapids_ml_tpu_torch.ops.knn import (
     shard_items,
     unit_rows,
 )
-from spark_rapids_ml_tpu_torch.parallel.mesh import require_one_process
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 _ALGORITHMS = ("ivfflat", "ivfpq", "brute", "brute_approx")
@@ -225,8 +229,6 @@ class ApproximateNearestNeighbors(_ANNParams, Estimator, MLReadable):
             if self.mesh is not None:
                 raise ValueError(STREAM_MESH_MESSAGE)
             return self._copyValues(ApproximateNearestNeighborsModel(self.uid, items_stream=dataset))
-        if self.mesh is not None:
-            require_one_process(self.mesh, "the sharded ANN index")
         id_col = self.getIdCol()
         items = matrix_like(extract_features(dataset, self.getInputCol(), drop=id_col))
         ids = extract_ids(dataset, id_col)

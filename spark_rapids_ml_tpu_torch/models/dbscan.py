@@ -19,10 +19,12 @@ compares ‖q‖² − 2q·x + ‖x‖² with eps², a cancellation that float32
 across the cut once the rows lie far from the origin. Labels and the core
 mask come back to the host (numpy), as in the reference.
 
-With a mesh (``DBSCAN(mesh=...)``, ``setMesh``, or ``setDeployMode("gang")``
-at a world of one) the fit runs :func:`ops.dbscan.dbscan_labels_sharded`:
-the query rows split over the data axis, the point set whole on every
-position; labels and the core mask are the single-device fit's.
+With a mesh (``DBSCAN(mesh=...)``, ``setMesh``, or ``setDeployMode("gang")``)
+the fit runs :func:`ops.dbscan.dbscan_labels_sharded`: the query rows
+split over the data axis, the point set whole on every position; labels
+and the core mask are the single-device fit's. In a gang every process
+fits the whole matrix, as in the reference (not checked), and every rank
+returns the same labels and core mask.
 """
 
 from __future__ import annotations

@@ -26,7 +26,11 @@ model) the first ``kneighbors`` places the items over the mesh's data axis
 in the queries' dtype (:func:`ops.knn.shard_items`, cosine rows
 normalized first) and keeps that upload, keyed by metric and dtype;
 every search runs :func:`ops.knn.knn_sharded` on it, which returns the
-single-device search's neighbours. A streamed index refuses a mesh.
+single-device search's neighbours. In a gang (``setDeployMode("gang")``
+or a ``global_mesh()``) every process fits the whole item matrix and
+passes the same queries, as in the reference (not checked); each holds
+its own positions' shards and every rank returns the same neighbours. A
+streamed index refuses a mesh.
 """
 
 from __future__ import annotations
@@ -58,7 +62,6 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     save_rows,
 )
 from spark_rapids_ml_tpu_torch.ops.knn import METRICS, knn, knn_host_streamed, knn_sharded, shard_items
-from spark_rapids_ml_tpu_torch.parallel.mesh import require_one_process
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
 
 ONE_SHOT_MESSAGE = (
@@ -181,8 +184,6 @@ class NearestNeighbors(_NearestNeighborsParams, Estimator, MLReadable):
             if self.mesh is not None:
                 raise ValueError(STREAM_MESH_MESSAGE)
             return self._copyValues(NearestNeighborsModel(self.uid, items_stream=dataset))
-        if self.mesh is not None:
-            require_one_process(self.mesh, "the sharded kNN index")
         id_col = self.getIdCol()
         items = matrix_like(extract_features(dataset, self.getInputCol(), drop=id_col))
         ids = extract_ids(dataset, id_col)

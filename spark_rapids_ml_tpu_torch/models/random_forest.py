@@ -28,10 +28,12 @@ NodeData schema), so either package, and Spark, loads the other's saves.
 The fit has no streaming route: over the fit memory budget
 (``core/membudget.py``) a host input raises ``FitMemoryError``; a mesh fit
 passes unpriced, as in the reference. With a mesh (``mesh=``, ``setMesh``,
-or ``setDeployMode("gang")`` at a world of one) the fit quantizes, bins and
-draws as on one device and grows over the mesh
-(:func:`ops.trees.grow_forest_sharded`, one histogram sum a level): a
-classification forest is bitwise the single-device one. The per-device
+or ``setDeployMode("gang")``) the fit quantizes, bins and draws as on one
+device and grows over the mesh (:func:`ops.trees.grow_forest_sharded`, one
+histogram sum a level): a classification forest is bitwise the
+single-device one. In a gang every process fits the whole matrix with the
+same seed, as in the reference (not checked), and every rank holds the
+same forest. The per-device
 copies of the forest are
 registered with ``core/serving`` (``note_device_cache``), which drops
 them when the model retires from a serving registry.

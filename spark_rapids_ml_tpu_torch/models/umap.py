@@ -35,7 +35,12 @@ axis: the kNN graph (:func:`ops.knn.knn_sharded` over the rows placed by
 (:func:`ops.umap.optimize_layout_sharded`, one delta sum an epoch). K4
 stays off a mesh, as the reference keeps its tail kernel off one. The
 draws are the single-device fit's, so a pooled mesh fit equals the
-single-device ``index_add_`` fit up to the order of its sums.
+single-device ``index_add_`` fit up to the order of its sums. In a gang
+(``setDeployMode("gang")`` or a ``global_mesh()``) every process fits the
+whole matrix with the same seed, as in the reference (not checked): the
+graph, the init and the pooled draws are the same on every rank, each
+rank runs its own positions' shards, and every rank returns the same
+embedding.
 
 With ``TPUML_CHECKPOINT_UMAP=1`` on top of the global checkpoint knobs, a
 single-device fit runs its layout segmented

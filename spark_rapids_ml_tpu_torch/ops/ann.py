@@ -47,6 +47,15 @@ flip the near-tie assignments of a few rows, and from there the lists.
 :func:`ann_search_sharded` splits the queries over the data axis against
 the index whole on every position; results are per query, so nothing is
 merged across shards.
+
+Neither mesh route runs in a gang of more than one process: both raise
+``NotImplementedError`` (``parallel.mesh.refuse_gang``), because the
+reference's own fail there. Its quantizer places every data shard of the
+global mesh from one process (``jax.make_array_from_single_device_arrays``
+refuses shards for devices the process cannot address), and its mesh
+search reads back a result that spans other processes' devices. The
+``brute`` algorithms' mesh search is :func:`ops.knn.knn_sharded`, which
+runs in a gang.
 """
 
 from __future__ import annotations
@@ -69,7 +78,7 @@ from spark_rapids_ml_tpu_torch.ops.knn import _merge, _nonneg, _smallest_k
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
 from spark_rapids_ml_tpu_torch.parallel.mesh import (
     DATA_AXIS,
-    require_one_process,
+    refuse_gang,
     shard_tensor_rows,
     weights_as_mask,
 )
@@ -79,6 +88,11 @@ from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump
 #: (the reference's rule: the full (n, n_lists) float32 matrix would
 #: exceed ~2 GB).
 BLOCKED_ASSIGN_BYTES = 2_000_000_000
+
+#: Why each IVF mesh route is refused in a gang: how the reference's fails.
+_GANG_BUILD = ("its quantizer's shard_rows places every data shard from each process, and "
+               "jax.make_array_from_single_device_arrays refuses shards for devices a process cannot address")
+_GANG_SEARCH = ("its search reads back a jax.Array that spans non-addressable devices, which JAX refuses")
 
 
 class IVFIndex(NamedTuple):
@@ -153,7 +167,6 @@ def _coarse_quantizer(x: torch.Tensor, n_lists: int, seed: int, kmeans_iters: in
     if mesh is None:
         shards = RowShards([x], [torch.ones(n, dtype=x.dtype, device=x.device)], [0], n, x.device)
     else:
-        require_one_process(mesh, "the mesh IVF build")
         shards = as_row_shards(shard_tensor_rows(x, mesh))
     init = kmeans_plusplus_init(shards, None, _device.seeded_generator(shards.device, seed), n_lists)
     centroids, _, _ = lloyd(shards, None, init, max_iter=kmeans_iters, tol=1e-4,
@@ -203,6 +216,8 @@ def build_ivf_index(
     n = int(items.shape[0])
     if not 1 <= n_lists <= n:
         raise ValueError(f"n_lists must be in [1, {n}], got {n_lists}")
+    if mesh is not None:
+        refuse_gang(mesh, "the mesh IVF build", _GANG_BUILD)
     x, host = _items_on_device(items)
     with TraceRange("ann quantizer", TraceColor.YELLOW):
         centroids, labels = _coarse_quantizer(x, n_lists, seed, kmeans_iters, mesh)
@@ -395,7 +410,7 @@ def ann_search_sharded(
     whole index (copied once to each distinct device) for its queries.
     Results are per query, so the shards' results are joined in order on
     the queries' device and the padding is cut."""
-    require_one_process(mesh, "the mesh ANN search")
+    refuse_gang(mesh, "the mesh IVF search", _GANG_SEARCH)
     grid = mesh.grid
     dp = int(mesh.shape[DATA_AXIS])
     nq = int(queries.shape[0])

@@ -35,7 +35,12 @@ counts its rows' eps-neighbours and runs its part of every sweep with the
 same :func:`_eps_sweep` against the whole set (``x_items``), the core mask
 and each round's labels are gathered in shard order, and the pointer
 jumping runs on the gathered vector. Integer counts and minima, so the
-labels are the single-device fit's.
+labels are the single-device fit's. In a gang every process passes the
+whole point set (the reference's contract, not checked) and sweeps the
+query rows of its own global positions (``parallel.mesh.data_positions``);
+the gathers cross the gang (``parallel.collectives.all_gather_data``), so
+every rank holds the same labels, tests the same ``changed`` and leaves
+the loop on the same sweep.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ import torch
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.ops.knn import _block_sq_distances
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
-from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, require_one_process
+from spark_rapids_ml_tpu_torch.parallel.collectives import all_gather_data
+from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, data_positions
 
 _INT_MAX = torch.iinfo(torch.int32).max
 
@@ -258,8 +264,9 @@ class _QueryShard(NamedTuple):
 
 
 def _gather(parts: List[torch.Tensor], device: torch.device) -> torch.Tensor:
-    """The shards' pieces of a per-row vector joined in shard order."""
-    return torch.cat([p.to(device) for p in parts])
+    """The shards' pieces of a per-row vector joined in global shard
+    order on ``device``, across the gang in one."""
+    return torch.cat(all_gather_data(parts, device))
 
 
 def dbscan_labels_sharded(
@@ -277,8 +284,8 @@ def dbscan_labels_sharded(
     or a host matrix (to the mesh's first device, in its own dtype).
     Returns ``(labels (n,) int32, core_mask (n,) bool)`` on the first
     device, as :func:`dbscan_labels` returns them (and the sweep count
-    with ``return_sweeps``)."""
-    require_one_process(mesh, "the mesh DBSCAN")
+    with ``return_sweeps``). In a gang every process passes the same
+    ``x`` and receives the same result."""
     first = mesh.first_device
     x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x)).to(first)
     _device.device_of(x)
@@ -293,12 +300,12 @@ def dbscan_labels_sharded(
     grid = mesh.grid
     whole = {}
     shards = []
-    for i in range(dp):
+    for i, g in enumerate(data_positions(mesh)):
         dev = grid[i, 0]
         if dev not in whole:
             whole[dev] = (xp.to(dev), validp.to(dev))
         x_all, v_all = whole[dev]
-        off = i * n_loc
+        off = g * n_loc
         shards.append(_QueryShard(x_all[off:off + n_loc], v_all[off:off + n_loc], x_all, v_all, off))
     sweep = dict(block_q=block_q, block_i=block_i, dot=dot)
 

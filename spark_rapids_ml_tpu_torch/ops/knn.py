@@ -26,10 +26,14 @@ block sizes) and then freed.
 :func:`shard_items` places the items row-sharded over a mesh's data axis
 (padded with masked rows to a multiple of it; features whole), and
 :func:`knn_sharded` takes each shard's local top-k where it lives and
-merges the shards' candidates, joined in shard order, with the same
-int64-key top-k: ties go to the lower global index, so the result is the
-single-device search's. A mesh route takes the whole matrix in one
-process (``parallel.mesh.require_one_process``).
+merges the shards' candidates, joined in global shard order, with the
+same int64-key top-k: ties go to the lower global index, so the result is
+the single-device search's. In a gang every process passes the whole
+item matrix (the reference's contract, not checked here) and the same
+queries; each places the shards of its own global positions
+(``parallel.mesh.data_positions``), and the candidates meet in one
+``parallel.collectives.all_gather_data``, so every rank returns the same
+neighbours.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ import torch
 from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.serving import prefetch_blocks, upload_block
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
-from spark_rapids_ml_tpu_torch.parallel.mesh import require_one_process
+from spark_rapids_ml_tpu_torch.parallel.collectives import all_gather_data
+from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, data_positions
 
 METRICS = ("euclidean", "sqeuclidean", "cosine")
 
@@ -239,19 +244,20 @@ def shard_items(items: Any, mesh, metric: str = "euclidean",
     its first device (features whole: the model axis adds nothing to the
     merge), in ``dtype`` (default the items'). ``metric="cosine"``
     normalizes the rows before placement, so the index is ready for cosine
-    search. Returns (item blocks, mask blocks: 1 real, 0 padding)."""
-    require_one_process(mesh, "the sharded kNN index")
+    search. In a gang ``items`` is the whole matrix on every process, and
+    each places only its own global positions' blocks. Returns (item
+    blocks, mask blocks: 1 real, 0 padding), one per local data shard."""
     x = items if isinstance(items, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(items))
     if dtype is not None:
         x = x.to(dtype)
     grid = mesh.grid
-    dp = int(grid.shape[0])
+    dp = int(mesh.shape[DATA_AXIS])
     n = int(x.shape[0])
     n_shard = -(-n // dp)
     blocks, masks = [], []
-    for i in range(dp):
+    for i, g in enumerate(data_positions(mesh)):
         dev = grid[i, 0]
-        blk = x[i * n_shard:(i + 1) * n_shard].to(dev)
+        blk = x[g * n_shard:(g + 1) * n_shard].to(dev)
         if metric == "cosine":
             blk = unit_rows(blk)
         real = int(blk.shape[0])
@@ -274,33 +280,35 @@ def knn_sharded(
     metric: str = "sqeuclidean",
     approx: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k over items placed by :func:`shard_items`, queries whole.
+    """Top-k over items placed by :func:`shard_items`, queries whole (in a
+    gang, the same queries on every process).
 
     Each shard searches its block where it lives (the resident blocked
     search, masked rows at +inf) for its local top ``min(k, shard rows)``
     and offsets the indices by its first global row; the candidates of all
-    shards, joined in shard order on the queries' device, go through one
-    final int64-key top-k. Indices are global item rows (int32).
+    shards, gathered in global shard order on the queries' device
+    (:func:`~spark_rapids_ml_tpu_torch.parallel.collectives.all_gather_data`),
+    go through one final int64-key top-k. Indices are global item rows
+    (int32).
     ``metric``: "sqeuclidean" (default) | "euclidean" | "cosine" (the
     items sharded with ``metric="cosine"``; the queries are normalized
     here). ``approx`` is exact (module docstring)."""
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
-    require_one_process(mesh, "the sharded kNN search")
     dev = _device.device_of(queries)
     if metric == "cosine":
         queries = unit_rows(queries)
     n_shard = int(items[0].shape[0])
     k_loc = min(k, n_shard)
     cand_d, cand_i = [], []
-    for i, (xb, mb) in enumerate(zip(items, item_mask)):
+    for g, xb, mb in zip(data_positions(mesh), items, item_mask):
         d, idx = knn_sq_euclidean(queries.to(xb.device), xb, k_loc, item_mask=mb,
                                   precision=precision, approx=approx)
-        idx = torch.where(idx >= 0, idx + i * n_shard, idx)
-        cand_d.append(d.to(dev))
-        cand_i.append(idx.to(dev))
-    cand_d = torch.cat(cand_d, dim=1)
-    cand_i = torch.cat(cand_i, dim=1)
+        idx = torch.where(idx >= 0, idx + g * n_shard, idx)
+        cand_d.append(d)
+        cand_i.append(idx)
+    cand_d = torch.cat(all_gather_data(cand_d, dev), dim=1)
+    cand_i = torch.cat(all_gather_data(cand_i, dev), dim=1)
     pos = _smallest_k(cand_d, k)
     d2 = torch.gather(cand_d, 1, pos)
     idx = torch.gather(cand_i, 1, pos)

@@ -43,7 +43,12 @@ shard builds its partial histograms where it lives and one ``psum_data``
 a level (and one for the bottom totals) merges them, so every split
 decision is taken once on the merged histogram and every shard routes its
 rows by it. Integer classification counts sum exactly, so such a forest
-is bitwise the single-device forest from the same draws.
+is bitwise the single-device forest from the same draws. In a gang every
+process passes the whole matrix and the same draws (the reference's
+contract, not checked) and keeps the rows of its own global positions
+(``parallel.mesh.data_positions``); the level sums cross the gang in
+``psum_data``, so every rank takes the same splits and holds the same
+forest.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ from spark_rapids_ml_tpu_torch import device as _device
 from spark_rapids_ml_tpu_torch.core.lazy_state import to_host
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot
 from spark_rapids_ml_tpu_torch.parallel.collectives import psum_data
-from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, require_one_process
+from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, data_positions
 
 CLASSIFICATION = ("gini", "entropy")
 
@@ -379,8 +384,8 @@ def grow_forest_sharded(
     data axis and split over it, each shard on its first device. The
     partial histograms meet in one ``psum_data`` a level on the mesh's
     first device, where the split search runs (and the uniforms are drawn)
-    and the forest lands."""
-    require_one_process(mesh, "the mesh forest growth")
+    and the forest lands. In a gang the rows are the whole matrix on every
+    process, each keeping its own positions' rows."""
     grid = mesh.grid
     dp = int(mesh.shape[DATA_AXIS])
     n = int(x_binned.shape[0])
@@ -391,9 +396,9 @@ def grow_forest_sharded(
         weights = torch.nn.functional.pad(weights, (0, pad))
     rows = (n + pad) // dp
     shards = []
-    for i in range(dp):
+    for i, g in enumerate(data_positions(mesh)):
         dev = grid[i, 0]
-        sl = slice(i * rows, (i + 1) * rows)
+        sl = slice(g * rows, (g + 1) * rows)
         shards.append(_Rows(x_binned[sl].to(dev), row_stats[sl].to(dev), weights[:, sl].to(dev)))
     _device.device_of(shards[0].x_binned)
     return _grow(shards, edges, uniforms, generator, mesh.first_device, **kwargs)

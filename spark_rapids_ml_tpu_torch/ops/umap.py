@@ -27,8 +27,12 @@ reference keeps its tail kernel off one) and its head block into a local
 negatives are drawn as :func:`optimize_layout` draws them, so the mesh
 layout equals the single-device one up to the order of its sums; the
 per-edge mode draws per shard, from one generator per shard seeded from
-the fit's seed and the shard index (the reference folds its key with the
-shard index).
+the fit's seed and the shard's global index (the reference folds its key
+with the shard index). In a gang every process passes the whole graph and
+layout and draws the same pool (the reference's contract, not checked);
+each builds the head shards of its own global positions
+(``parallel.mesh.data_positions``), the epoch's one ``psum_data`` crosses
+the gang, and every rank holds the same layout.
 
 :func:`optimize_layout_resumable` is the checkpointed layout: it and
 :func:`optimize_layout` run the same :func:`_layout_segment`, and its
@@ -49,7 +53,7 @@ from spark_rapids_ml_tpu_torch.observability.costs import ledgered_call
 from spark_rapids_ml_tpu_torch.ops.kernels.umap import TailPlan, tail_accumulate
 from spark_rapids_ml_tpu_torch.ops.kernels.umap import cost as tail_cost
 from spark_rapids_ml_tpu_torch.parallel.collectives import psum_data
-from spark_rapids_ml_tpu_torch.parallel.mesh import require_one_process
+from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, data_positions
 from spark_rapids_ml_tpu_torch.robustness.checkpoint import segment_boundary
 from spark_rapids_ml_tpu_torch.robustness.faults import fault_point
 from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
@@ -332,16 +336,17 @@ class _HeadShard(NamedTuple):
 
 
 def _head_shards(mesh, graph: FuzzyGraph) -> Tuple[List[_HeadShard], int]:
-    """The graph's edges split by head row over the data axis, each on
-    its shard's first device: (shards, padded row count)."""
+    """The graph's edges split by head row over the global data axis, the
+    shards of this process's positions each on its first device:
+    (shards, padded row count)."""
     grid = mesh.grid
-    dp = int(grid.shape[0])
+    dp = int(mesh.shape[DATA_AXIS])
     n, k = graph.indices.shape
     rows = -(-int(n) // dp)
     shards = []
-    for i in range(dp):
+    for i, g in enumerate(data_positions(mesh)):
         dev = grid[i, 0]
-        row0 = i * rows
+        row0 = g * rows
         dst = graph.indices[row0:row0 + rows].long().to(dev)
         w = graph.weight[row0:row0 + rows].to(dev)
         pad = rows - int(dst.shape[0])
@@ -361,7 +366,7 @@ def _make_sharded_epoch_fn(
     neg)`` returns the next padded layout. ``y_pad`` is the (n_pad, dim)
     layout on the mesh's first device (rows past n are 0 and stay 0);
     ``neg`` is the epoch's pool (neg_pool,) in pooled mode, else one
-    (rows · k, neg_rate) draw per shard. Returns (epoch, n_pad)."""
+    (rows · k, neg_rate) draw per local shard. Returns (epoch, n_pad)."""
     shards, n_pad = _head_shards(mesh, graph)
     k = int(graph.indices.shape[1])
     first = mesh.first_device
@@ -430,8 +435,9 @@ def optimize_layout_sharded(
     :func:`_make_sharded_epoch_fn` on the mesh's first device. Pooled mode
     draws each epoch's pool from ``gen`` as :func:`optimize_layout` does;
     the per-edge mode (``neg_pool = 0``) draws each shard's negatives from
-    its own generator, seeded from ``seed`` and the shard index."""
-    require_one_process(mesh, "the mesh UMAP layout")
+    its own generator, seeded from ``seed`` and the shard's global index.
+    In a gang every process passes the same ``embedding``, ``graph`` and
+    seeds, and returns the same layout."""
     n, dim = int(embedding.shape[0]), int(embedding.shape[1])
     epoch, n_pad = _make_sharded_epoch_fn(
         mesh, graph, n_epochs=n_epochs, neg_rate=neg_rate, neg_pool=neg_pool,
@@ -441,8 +447,8 @@ def optimize_layout_sharded(
     y = torch.nn.functional.pad(embedding.to(device=first, dtype=torch.float32), (0, 0, 0, n_pad - n))
     k = int(graph.indices.shape[1])
     grid = mesh.grid
-    rows = n_pad // int(grid.shape[0])
-    shard_gens = [seeded_generator(grid[i, 0], seed, i) for i in range(grid.shape[0])]
+    rows = n_pad // int(mesh.shape[DATA_AXIS])
+    shard_gens = [seeded_generator(grid[i, 0], seed, g) for i, g in enumerate(data_positions(mesh))]
     for ep in range(n_epochs):
         if neg_pool > 0:
             neg: Union[torch.Tensor, List[torch.Tensor]] = torch.randint(

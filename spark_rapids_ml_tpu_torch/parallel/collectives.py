@@ -19,6 +19,13 @@ its partial where it lives, and the partials meet here.
     only CUDA tensors, so an all-gather is an ``all_reduce`` of a
     zero-filled ``(world, ...)`` buffer in which each process fills its
     own slot (a sum of zeros and one value is exact).
+  - :func:`all_gather_data` — the data-axis all-gather of one block per
+    local data shard, every shard's block in global shard order on every
+    rank. It rides :func:`allreduce_slots` with the blocks' bits as
+    integers of the same width (bools as ``uint8``): a float sum would
+    turn ``-0.0`` into ``+0.0`` and may quiet a NaN, an integer sum of
+    zeros and one value returns its bits. The counter
+    ``collectives.gather.bytes`` adds the bytes each gather reduces.
 
 :func:`process_count` / :func:`process_index` take the place of
 ``jax.process_count()`` / ``jax.process_index()``: the gang's world size
@@ -27,10 +34,15 @@ and this process's rank, 1 and 0 outside a gang.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from spark_rapids_ml_tpu_torch.utils.tracing import bump_counter
+
+#: The integer type of each width a block's bits travel as.
+_BITS_AS = {1: torch.uint8, 4: torch.int32, 8: torch.int64}
 
 
 def in_gang() -> bool:
@@ -99,3 +111,25 @@ def allreduce_slots(own: torch.Tensor) -> torch.Tensor:
     buf = torch.zeros((process_count(),) + tuple(own.shape), dtype=own.dtype, device=own.device)
     buf[process_index()] = own
     return all_reduce_sum(buf)
+
+
+def all_gather_data(blocks: Sequence[torch.Tensor], device: Optional[torch.device] = None) -> List[torch.Tensor]:
+    """The all-gather over the data axis of one block per local data shard
+    (equal shapes and dtypes on every rank): every data shard's block in
+    global shard order (rank ``r``'s local shard ``i`` is shard
+    ``r × local shards + i``), on ``device`` (default the first block's),
+    the same bits on every rank. Outside a gang, the blocks themselves on
+    ``device``."""
+    if not blocks:
+        raise ValueError("all_gather_data needs at least one block")
+    device = blocks[0].device if device is None else device
+    local = [b.to(device) for b in blocks]
+    if not in_gang():
+        return local
+    dtype = local[0].dtype
+    stacked = torch.stack(local)
+    wire = stacked.to(torch.uint8) if dtype == torch.bool else stacked.view(_BITS_AS[stacked.element_size()])
+    gathered = allreduce_slots(wire)
+    bump_counter("collectives.gather.bytes", gathered.numel() * gathered.element_size())
+    out = gathered.to(torch.bool) if dtype == torch.bool else gathered.view(dtype)
+    return list(out.reshape((-1,) + tuple(stacked.shape[1:])).unbind(0))

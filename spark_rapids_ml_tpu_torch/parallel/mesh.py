@@ -25,7 +25,12 @@ card ``devices=[cuda0] * 4`` runs the four-shard route on the one card.
 
 In a ``torch.distributed`` gang every process holds a mesh over its own
 devices; ``processes`` says how many processes share the mesh, and the
-data axis of ``shape`` counts all of theirs.
+data axis of ``shape`` counts all of theirs. Process ``r``'s local data
+shard ``i`` is shard ``r × local data shards + i`` of the global data axis
+(:func:`data_positions`): a route that takes the whole matrix on every
+process, as the reference's sharded routes do (``jax.device_put`` of the
+same host array onto a global sharding), keeps the rows of those
+positions.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch import device as _device
-from spark_rapids_ml_tpu_torch.parallel.collectives import all_gather_model, process_count
+from spark_rapids_ml_tpu_torch.parallel.collectives import all_gather_model, process_count, process_index
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -87,20 +92,34 @@ def _default_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-GANG_ITEM = (
-    "{what} in a gang of {world} processes is not ported yet: the reference's "
-    "route takes the whole matrix on every process, not process-local rows: "
-    "ROADMAP A.9, item 18 (gang)"
+def data_positions(mesh: Mesh) -> List[int]:
+    """This process's positions on the mesh's global data axis, one per
+    local data shard in order: process ``r`` holds ``r × L + i`` for its
+    ``L`` local shards. A mesh whose ``processes`` is not the gang's size
+    raises ``ValueError`` naming both counts."""
+    world = process_count()
+    if int(mesh.processes) != world:
+        raise ValueError(
+            f"the mesh spans {int(mesh.processes)} processes but this gang has {world}: "
+            f"build a gang's mesh with parallel.distributed.global_mesh()"
+        )
+    local = int(mesh.grid.shape[0])
+    return [process_index() * local + i for i in range(local)]
+
+
+GANG_REFUSED = (
+    "{what} in a gang of {world} processes is refused: the reference's own route "
+    "fails there ({why}), and the port adds no route the reference lacks"
 )
 
 
-def require_one_process(mesh: Mesh, what: str) -> None:
-    """The sharded neighbour, ANN, UMAP, DBSCAN and forest routes shard the
-    whole matrix over this process's positions; in a gang of more than one
-    process they raise ``NotImplementedError``."""
+def refuse_gang(mesh: Mesh, what: str, why: str) -> None:
+    """Raise ``NotImplementedError`` for a mesh route that the reference
+    cannot run in a gang of more than one process (its IVF build and its
+    mesh IVF search); a one-process mesh passes."""
     world = max(int(mesh.processes), process_count())
     if world > 1:
-        raise NotImplementedError(GANG_ITEM.format(what=what, world=world))
+        raise NotImplementedError(GANG_REFUSED.format(what=what, world=world, why=why))
 
 
 def make_mesh(
@@ -324,26 +343,29 @@ def shard_rows_from_partitions(partitions: Sequence[Any], mesh: Mesh, dtype=None
 
 
 def shard_tensor_rows(x: torch.Tensor, mesh: Mesh) -> ShardedRows:
-    """Split a (n, d) tensor over the mesh where it lives: rows and
+    """Split a whole (n, d) tensor over the mesh where it lives: rows and
     features are zero-padded on its device when they do not divide the
-    axes, and each block moves to its position's device (a view when that
-    is the tensor's own device)."""
+    axes, and each of this process's positions (:func:`data_positions`)
+    takes its rows, moved to its device (a view when that is the tensor's
+    own device). In a gang every process passes the same matrix."""
     grid = mesh.grid
-    dp, mp = grid.shape
+    positions = data_positions(mesh)
+    dp, mp = int(mesh.shape[DATA_AXIS]), grid.shape[1]
     n, d = int(x.shape[0]), int(x.shape[1])
     pad_n, pad_d = (-n) % dp, (-d) % mp
     if pad_n or pad_d:
         x = torch.nn.functional.pad(x, (0, pad_d, 0, pad_n))
     rows_per, cols_per = (n + pad_n) // dp, (d + pad_d) // mp
-    valid = _valid_counts(n, rows_per, dp)
+    counts = _valid_counts(n, rows_per, dp)
+    valid = [counts[g] for g in positions]
     blocks, masks = [], []
-    for i in range(dp):
-        rows = x[i * rows_per:(i + 1) * rows_per]
+    for i, g in enumerate(positions):
+        rows = x[g * rows_per:(g + 1) * rows_per]
         blocks.append([rows[:, j * cols_per:(j + 1) * cols_per].to(grid[i, j]) for j in range(mp)])
         mask = torch.zeros(rows_per, dtype=x.dtype, device=grid[i, 0])
         mask[: valid[i]] = 1.0
         masks.append(mask)
-    return ShardedRows(mesh, blocks, masks, n, d, valid, [i * rows_per for i in range(dp)])
+    return ShardedRows(mesh, blocks, masks, n, d, valid, [g * rows_per for g in positions])
 
 
 def device_array_rows_on_mesh(x: torch.Tensor, mesh: Mesh, shard_features: bool = False) -> ShardedRows:

@@ -199,7 +199,8 @@ def test_relabel_consecutive_matches_the_reference(seed):
 
 def test_the_sharded_route_names_its_item():
     """The sharded route runs on one process's mesh (labels and core mask
-    as on one device) and names its item in a gang of several processes."""
+    as on one device) and refuses a mesh that says it spans more processes
+    than the gang has."""
     from spark_rapids_ml_tpu_torch.parallel.mesh import Mesh, make_mesh
 
     x = np.concatenate([np.zeros((3, 2)), np.full((2, 2), 5.0)])
@@ -207,7 +208,7 @@ def test_the_sharded_route_names_its_item():
     assert labels.tolist() == [0, 0, 0, 3, 3] and core.all()
     gang = np.empty((1, 1), dtype=object)
     gang[0, 0] = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match=r"A\.9, item 18 \(gang\)"):
+    with pytest.raises(ValueError, match=r"spans 2 processes but this gang has 1"):
         ops.dbscan_labels_sharded(Mesh(gang, processes=2), x, 0.5, 2)
 
 

@@ -138,9 +138,8 @@ def test_refusals_and_waiting_routes():
         port_knn.knn(q, q, 1, metric="manhattan")
     with pytest.raises(ValueError, match="exceeds streamed item count 3"):
         port_knn.knn_host_streamed(q, [q.numpy()], 4)
-    # The sharded search runs on a mesh of this process's positions; a
-    # gang of several processes is left for later (the reference's route
-    # takes the whole matrix on every process).
+    # The sharded search runs on a mesh of this process's positions; a mesh
+    # that says it spans more processes than the gang has is refused.
     mesh = make_mesh((2, 1), devices=[torch.device("cpu")] * 2)
     xs, mask = port_knn.shard_items(q.numpy(), mesh)
     with pytest.raises(ValueError, match="unknown metric"):
@@ -149,12 +148,13 @@ def test_refusals_and_waiting_routes():
     assert torch.equal(idx, torch.tensor([[0, 1, 2]] * 3, dtype=torch.int32)) and torch.all(d == 0)
     for call in (lambda: port_knn.shard_items(q, _gang_mesh()),
                  lambda: port_knn.knn_sharded(q, xs, mask, _gang_mesh(), 1)):
-        with pytest.raises(NotImplementedError, match=r"A\.9, item 18 \(gang\)"):
+        with pytest.raises(ValueError, match=r"spans 2 processes but this gang has 1"):
             call()
 
 
 def _gang_mesh():
-    """A one-position mesh that says it spans two processes."""
+    """A one-position mesh that says it spans two processes (this process
+    is in no gang)."""
     from spark_rapids_ml_tpu_torch.parallel.mesh import Mesh
 
     devices = np.empty((1, 1), dtype=object)

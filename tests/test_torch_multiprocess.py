@@ -15,9 +15,8 @@ The in-process cases need no gang: ``GangReinitWarning``, ``member_env``,
 ``deployMode`` and ``TPUML_GANG_FIT``, the process-local entry points in a
 process of their own (where they equal the reference's), and a gang of
 one of each sharded family (neighbours, ANN, UMAP, DBSCAN, forests), which
-fits on the global mesh and equals its (1, 1) mesh fit bit for bit. In a
-2-rank gang those families raise ``NotImplementedError`` naming "item 18
-(gang)": the reference's routes take the whole matrix on every process.
+fits on the global mesh and equals its (1, 1) mesh fit bit for bit. Those
+families in a 2-rank gang are ``tests/test_torch_gang_sharded.py``'s.
 """
 
 import json
@@ -94,13 +93,6 @@ def _worker(case: str, port: int, out: str) -> None:
         model = LogisticRegression().setDeployMode("gang").setRegParam(0.01).fit((x, y_bin))
         res["weights"], res["intercepts"] = model.weights, model.intercepts
         res["num_iter"] = np.asarray(model.numIter)
-    if case == "sharded":
-        for family, fit in sharded_fits(x, y_bin).items():
-            try:
-                fit(lambda est: est.setDeployMode("gang"))
-                res[family] = np.asarray("fitted")
-            except NotImplementedError as exc:
-                res[family] = np.asarray(str(exc))
     if case == "linear_kmeans":
         model = LinearRegression().setDeployMode("gang").setRegParam(0.1).fit((x, y_lin))
         res["coef"], res["intercept"] = model.coefficients, np.asarray(model.intercept)
@@ -412,13 +404,6 @@ def test_a_gang_fit_of_a_family_without_a_mesh_route_names_its_item(monkeypatch,
     want = fit(lambda est: est.setMesh(make_mesh((1, 1), devices=[torch.device("cpu")])))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-
-
-def test_a_gang_of_two_refuses_the_sharded_families(tmp_path):
-    results = _run_gang("sharded", tmp_path)
-    for family in ("nearest_neighbors", "ann", "umap", "dbscan", "random_forest"):
-        message = str(results[0][family])
-        assert "item 18 (gang)" in message and "2 processes" in message, (family, message)
 
 
 @pytest.mark.parametrize("merge", ["psum", "allgather"])

@@ -381,8 +381,8 @@ def test_fit_forest_fused_matches_the_reference(kind):
 
 def test_grow_forest_sharded_names_its_item():
     """The sharded growth runs on one process's mesh (bitwise the
-    single-device gini forest) and names its item in a gang of several
-    processes."""
+    single-device gini forest) and refuses a mesh that says it spans more
+    processes than the gang has."""
     from spark_rapids_ml_tpu_torch.parallel.mesh import Mesh, make_mesh
 
     x, rs = _task("gini")
@@ -397,7 +397,7 @@ def test_grow_forest_sharded_names_its_item():
         assert _bits_equal(a, b), f
     gang = np.empty((1, 1), dtype=object)
     gang[0, 0] = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match=r"A\.9, item 18 \(gang\)"):
+    with pytest.raises(ValueError, match=r"spans 2 processes but this gang has 1"):
         pt.grow_forest_sharded(Mesh(gang, processes=2), *args, **kw)
 
 

@@ -394,12 +394,13 @@ def test_fit_refusals(rng):
     with pytest.raises(ValueError, match="shape"):
         UMAP().setNNeighbors(5).setInitEmbedding(np.zeros((10, 2))).fit(x)
     # A mesh fit is ported since (tests/test_torch_mesh_neighbours.py holds
-    # it); only a gang of several processes is refused.
+    # it, tests/test_torch_gang_sharded.py a gang's); a mesh that says it
+    # spans more processes than the gang has is refused.
     from spark_rapids_ml_tpu_torch.parallel.mesh import Mesh
 
     gang = np.empty((1, 1), dtype=object)
     gang[0, 0] = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match=r"item 18 \(gang\)"):
+    with pytest.raises(ValueError, match=r"spans 2 processes but this gang has 1"):
         UMAP(mesh=Mesh(gang, processes=2)).setNNeighbors(5).fit(x)
 
 
