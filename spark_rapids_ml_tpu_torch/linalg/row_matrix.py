@@ -30,7 +30,9 @@ over the data axis (``parallel/distributed_cov.py``): host partitions are
 placed shard by shard (``shard_rows_from_partitions``; in a gang, this
 process's rows through ``shard_rows_process_local``), a tensor is split
 where it lives (its rows must divide the data axis, as in the
-reference), and a stream is split block by block
+reference; in a gang a member's tensor is its local rows and takes the
+process-local path, as ``core/ingest.py`` reads it), and a stream is
+split block by block
 (``streaming_mean_and_covariance_mesh``; in a gang each process streams
 its own blocks and the moments merge,
 ``streaming_covariance_process_local``). The eigensolve follows on the

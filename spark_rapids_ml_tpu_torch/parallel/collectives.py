@@ -22,7 +22,8 @@ its partial where it lives, and the partials meet here.
   - :func:`all_gather_data` — the data-axis all-gather of one block per
     local data shard, every shard's block in global shard order on every
     rank. It rides :func:`allreduce_slots` with the blocks' bits as
-    integers of the same width (bools as ``uint8``): a float sum would
+    integers of the same width (bools as ``uint8``; 2-byte bits widened to
+    ``int32``, which the backends sum): a float sum would
     turn ``-0.0`` into ``+0.0`` and may quiet a NaN, an integer sum of
     zeros and one value returns its bits. The counter
     ``collectives.gather.bytes`` adds the bytes each gather reduces.
@@ -41,8 +42,9 @@ import torch.distributed as dist
 
 from spark_rapids_ml_tpu_torch.utils.tracing import bump_counter
 
-#: The integer type of each width a block's bits travel as.
-_BITS_AS = {1: torch.uint8, 4: torch.int32, 8: torch.int64}
+#: The integer type of each width a block's bits are read as. Neither gloo
+#: nor NCCL sums int16, so 2-byte bits travel widened to int32.
+_BITS_AS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 def in_gang() -> bool:
@@ -122,14 +124,18 @@ def all_gather_data(blocks: Sequence[torch.Tensor], device: Optional[torch.devic
     ``device``."""
     if not blocks:
         raise ValueError("all_gather_data needs at least one block")
+    dtype = blocks[0].dtype
+    width = blocks[0].element_size()
+    if width not in _BITS_AS:
+        raise ValueError(f"all_gather_data moves elements of 1, 2, 4 or 8 bytes; {dtype} has {width}")
     device = blocks[0].device if device is None else device
     local = [b.to(device) for b in blocks]
     if not in_gang():
         return local
-    dtype = local[0].dtype
     stacked = torch.stack(local)
-    wire = stacked.to(torch.uint8) if dtype == torch.bool else stacked.view(_BITS_AS[stacked.element_size()])
-    gathered = allreduce_slots(wire)
+    bits = stacked.to(torch.uint8) if dtype == torch.bool else stacked.view(_BITS_AS[width])
+    gathered = allreduce_slots(bits.to(torch.int32) if width == 2 else bits)
     bump_counter("collectives.gather.bytes", gathered.numel() * gathered.element_size())
+    gathered = gathered.to(bits.dtype)
     out = gathered.to(torch.bool) if dtype == torch.bool else gathered.view(dtype)
     return list(out.reshape((-1,) + tuple(stacked.shape[1:])).unbind(0))

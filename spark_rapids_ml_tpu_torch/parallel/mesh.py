@@ -372,7 +372,10 @@ def device_array_rows_on_mesh(x: torch.Tensor, mesh: Mesh, shard_features: bool 
     """Split a tensor row-wise over the mesh's data axis. A live tensor is
     not copied into padded form here, so its rows must divide the data
     axis (and, with ``shard_features``, its features the model axis), as
-    in the reference."""
+    in the reference. In a gang a member's tensor is its local rows, as
+    ``core/ingest.py`` reads it (not the whole matrix that
+    :func:`shard_tensor_rows` splits): they join the gang's layout through
+    ``shard_rows_process_local``."""
     dp = int(mesh.shape[DATA_AXIS])
     if x.shape[0] % dp != 0:
         raise ValueError(
@@ -387,6 +390,10 @@ def device_array_rows_on_mesh(x: torch.Tensor, mesh: Mesh, shard_features: bool 
                 f"device-array input with shard_features needs features "
                 f"divisible by the model axis ({mp}), got {x.shape[1]}"
             )
+    if process_count() > 1:
+        from spark_rapids_ml_tpu_torch.parallel.distributed import shard_rows_process_local
+
+        return shard_rows_process_local([x.detach().cpu().numpy()], mesh)
     return shard_tensor_rows(x, mesh)
 
 

@@ -20,13 +20,19 @@ writes ``OUT.<rank>.npz``. One module-scoped fixture spawns the gang once
     forests (leaves 1e-5, gains 1e-4, structure exact) with JAX's edges,
     weights and uniforms passed in.
 
-ANN's IVF build and mesh IVF search refuse a gang: the reference's own
-fail there (``python tests/test_torch_gang_sharded.py jax PORT OUT`` is
-the reference's gang, run by the ``slow``-marked probe below, which shows
-its four other families completing bitwise its one-process (2, 1) mesh
-fit and its two IVF routes failing). The in-process cases hold the
-data-axis gather outside a gang and the mesh whose ``processes``
-disagrees with the gang.
+ANN's IVF builds (``ivfflat``, ``ivfpq``) and mesh IVF search refuse a
+gang: the reference's own fail there (``python
+tests/test_torch_gang_sharded.py jax PORT OUT`` is the reference's gang,
+run by the ``slow``-marked probe below, which shows its four other
+families completing bitwise its one-process (2, 1) mesh fit and its IVF
+routes failing).
+
+The same gang also holds the other contract: a PCA (and a ``RowMatrix``
+covariance) on a member's tensor reads it as that member's local rows, as
+``core/ingest.py`` does, so the gang fits both ranks' rows together. The
+in-process cases hold the data-axis gather outside a gang, its refusal of
+a width it cannot move, and the mesh whose ``processes`` disagrees with
+the gang.
 """
 
 import os
@@ -50,7 +56,8 @@ N, D, NQ = 203, 7, 20
 WORLD = 2
 TIMEOUT = 240
 FAMILIES = ["nearest_neighbors", "ann", "umap", "dbscan", "random_forest"]
-GATHER_DTYPES = ["float32", "float64", "int32", "int64", "bool"]
+GATHER_DTYPES = ["float16", "bfloat16", "float32", "float64", "int16", "int32", "int64", "bool"]
+PCA_ROWS = [(0, 102), (102, 202)]  # each rank's local rows for the PCA on a tensor
 LAYOUT = dict(neg_rate=3, learning_rate=1.0, repulsion=1.0, a=1.577, b=0.895)
 UM_K, UM_POOL = 6, 16
 UM_EPOCHS = {UM_POOL: 1, 0: 2}  # pooled: one epoch from a grid, as test_torch_mesh_neighbours
@@ -70,18 +77,26 @@ def queries():
     return dataset()[0][:NQ] + 0.05
 
 
-def gather_block(dtype: str, rank: int) -> np.ndarray:
-    """Rank ``rank``'s block for the gather check: -0.0, a NaN with a
-    payload and +inf for the floats, extreme values for the integers."""
+_INT_OF_WIDTH = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def gather_block(dtype: str, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s block for the gather check: -0.0, ±inf and a NaN
+    with a payload for the floats, extreme values for the integers."""
     if dtype == "bool":
-        return np.array([True, False, rank == 1])
-    if dtype.startswith("int"):
-        info = np.iinfo(dtype)
-        return np.array([info.min, -1, rank, info.max], dtype=dtype)
-    bits = np.dtype(dtype.replace("float", "uint"))
-    nan = np.array([np.nan], dtype=dtype).view(bits)
-    nan[0] |= 3
-    return np.array([-0.0, np.inf, -np.inf, nan.view(dtype)[0], rank + 0.5], dtype=dtype)
+        return torch.tensor([True, False, rank == 1])
+    tdt = getattr(torch, dtype)
+    if not tdt.is_floating_point:
+        info = torch.iinfo(tdt)
+        return torch.tensor([info.min, -1, rank, info.max], dtype=tdt)
+    block = torch.tensor([-0.0, float("inf"), float("-inf"), float("nan"), rank + 0.5], dtype=tdt)
+    block.view(_INT_OF_WIDTH[block.element_size()])[3] |= 3
+    return block
+
+
+def tensor_bits(t: torch.Tensor) -> np.ndarray:
+    """A tensor's bits as a numpy array (floats as integers of their width)."""
+    return (t.view(_INT_OF_WIDTH[t.element_size()]) if t.is_floating_point() else t).numpy()
 
 
 # --- the port's fits, in a gang or on a one-process mesh ----------------------
@@ -168,6 +183,8 @@ def draw_fits(mesh, inputs: dict) -> dict:
 
 
 def _torch_worker(port: int, out: str) -> None:
+    from spark_rapids_ml_tpu_torch.feature import PCA
+    from spark_rapids_ml_tpu_torch.linalg.row_matrix import RowMatrix
     from spark_rapids_ml_tpu_torch.parallel.collectives import all_gather_data
     from spark_rapids_ml_tpu_torch.utils.tracing import counter_value
 
@@ -180,8 +197,13 @@ def _torch_worker(port: int, out: str) -> None:
     res["gather_bytes"] = np.asarray(counter_value("collectives.gather.bytes") - before)
     res.update(draw_fits(tdist.global_mesh(), inputs))
     for dtype in GATHER_DTYPES:
-        block = torch.from_numpy(gather_block(dtype, rank))
-        res[f"gather/{dtype}"] = torch.stack(all_gather_data([block])).numpy()
+        got = torch.stack(all_gather_data([gather_block(dtype, rank)]))
+        res[f"gather/{dtype}"], res[f"gather_dtype/{dtype}"] = tensor_bits(got), np.asarray(str(got.dtype))
+    lo, hi = PCA_ROWS[rank]
+    local = torch.from_numpy(dataset()[0][lo:hi])
+    model = PCA().setDeployMode("gang").setK(3).setEigenSolver("full").fit(local)
+    res["pca/pc"], res["pca/ratio"] = model.pc, model.explainedVariance
+    res["pca/cov"] = RowMatrix(local, mesh=tdist.global_mesh()).compute_covariance().numpy()
     res["mesh"] = np.asarray([tdist.global_mesh().shape["data"], tdist.global_mesh().processes])
     np.savez(f"{out}.{rank}.npz", **res)
     world = tdist.process_count()
@@ -223,6 +245,10 @@ def jax_family_fits(mesh) -> dict:
     def ivfflat_search():
         return ApproximateNearestNeighbors().setK(4).setAlgoParams(ivf).fit(x).setMesh(mesh).kneighbors(q)
 
+    def ivfpq_fit():
+        est = ApproximateNearestNeighbors(mesh=mesh).setK(4).setAlgorithm("ivfpq")
+        return est.setAlgoParams({**ivf, "M": 7, "n_bits": 5}).fit(x).kneighbors(q)
+
     def dbscan():
         model = DBSCAN(mesh=mesh).setEps(1.2).setMinSamples(4).fit(x)
         return model.labels_, model.core_mask_
@@ -236,6 +262,7 @@ def jax_family_fits(mesh) -> dict:
         "ann_brute": lambda: ApproximateNearestNeighbors(mesh=mesh).setK(4).setAlgorithm("brute").fit(x).kneighbors(q),
         "ann_ivfflat_fit": ivfflat_fit,
         "ann_ivfflat_search": ivfflat_search,
+        "ann_ivfpq_fit": ivfpq_fit,
         "umap": lambda: (UMAP(mesh=mesh).setNNeighbors(UM_K).setNEpochs(20).setSeed(0).fit(x).embedding,),
         "dbscan": dbscan,
         "random_forest": forest,
@@ -513,11 +540,34 @@ def test_the_gang_is_within_the_family_tolerance_of_the_jax_mesh_fit(gang, famil
 
 @pytest.mark.parametrize("dtype", GATHER_DTYPES)
 def test_the_gang_gathers_every_shard_bit_for_bit(gang, dtype):
-    want = np.stack([gather_block(dtype, rank) for rank in range(WORLD)])
+    want = torch.stack([gather_block(dtype, rank) for rank in range(WORLD)])
     for res in gang[0]:
-        got = res[f"gather/{dtype}"]
-        assert got.dtype == want.dtype and np.array_equal(_bits(got), _bits(want)), (dtype, got)
+        assert str(res[f"gather_dtype/{dtype}"]) == str(want.dtype), dtype
+        assert np.array_equal(res[f"gather/{dtype}"], tensor_bits(want)), (dtype, res[f"gather/{dtype}"])
     assert int(gang[0][0]["gather_bytes"]) == int(gang[0][1]["gather_bytes"]) > 0
+
+
+def test_a_gang_pca_on_tensors_fits_both_ranks_local_rows(gang):
+    """A member's tensor is its local rows (``core/ingest.py``'s contract),
+    not the whole matrix the five families take: the gang's PCA and
+    ``RowMatrix`` covariance are the one-process fit of both ranks' rows
+    (components 1e-10 up to sign, ratios 1e-10, covariance 1e-12)."""
+    from spark_rapids_ml_tpu.utils.testing import assert_components_close
+    from spark_rapids_ml_tpu_torch.feature import PCA
+
+    ranks = gang[0]
+    for key in _family_keys(ranks[0], "pca"):
+        assert np.array_equal(_bits(ranks[0][key]), _bits(ranks[1][key])), key
+    rows = dataset()[0][PCA_ROWS[0][0]:PCA_ROWS[-1][1]]
+    platform = port_device.get_platform()
+    port_device.set_platform("cpu")
+    try:
+        want = PCA().setK(3).setEigenSolver("full").fit(torch.from_numpy(rows))
+    finally:
+        port_device.set_platform(platform)
+    assert_components_close(ranks[0]["pca/pc"], want.pc, 1e-10)
+    np.testing.assert_allclose(ranks[0]["pca/ratio"], want.explainedVariance, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(ranks[0]["pca/cov"], np.cov(rows.T), rtol=0, atol=1e-12)
 
 
 # --- in process -----------------------------------------------------------
@@ -528,13 +578,20 @@ def test_the_gather_is_the_blocks_outside_a_gang(dtype):
     from spark_rapids_ml_tpu_torch.parallel.collectives import all_gather_data
     from spark_rapids_ml_tpu_torch.utils.tracing import counter_value
 
-    blocks = [torch.from_numpy(gather_block(dtype, rank)) for rank in range(WORLD)]
+    blocks = [gather_block(dtype, rank) for rank in range(WORLD)]
     before = counter_value("collectives.gather.bytes")
     got = all_gather_data(blocks)
     assert len(got) == WORLD and all(g is b for g, b in zip(got, blocks))
     assert counter_value("collectives.gather.bytes") == before
     with pytest.raises(ValueError, match="at least one block"):
         all_gather_data([])
+
+
+def test_the_gather_refuses_a_width_it_cannot_move():
+    from spark_rapids_ml_tpu_torch.parallel.collectives import all_gather_data
+
+    with pytest.raises(ValueError, match=r"1, 2, 4 or 8 bytes; torch.complex128 has 16"):
+        all_gather_data([torch.zeros(3, dtype=torch.complex128)])
 
 
 def test_a_mesh_whose_processes_disagree_with_the_gang_raises():
@@ -556,7 +613,8 @@ def test_the_reference_gang_runs_four_families_and_fails_its_ivf_routes(tmp_path
     """Step 0's record: the reference's own 2-process gang (one virtual CPU
     device a process, the whole matrix on each) fits kNN, ANN ``brute``,
     UMAP, DBSCAN and the forest bitwise its one-process (2, 1) mesh fit,
-    and fails its IVF build and its mesh IVF search."""
+    and fails its IVF builds (``ivfflat`` and ``ivfpq``) and its mesh IVF
+    search."""
     ranks = _spawn("jax", str(tmp_path / "reference"))
     single = jax_family_fits(_jax_mesh())
     for name in ("nearest_neighbors", "ann_brute", "umap", "dbscan", "random_forest"):
@@ -565,6 +623,7 @@ def test_the_reference_gang_runs_four_families_and_fails_its_ivf_routes(tmp_path
         for key in keys:
             assert np.array_equal(ranks[0][key], ranks[1][key]) and np.array_equal(ranks[0][key], single[key]), key
     for name, needle in (("ann_ivfflat_fit", "addressable by the sharding"),
+                         ("ann_ivfpq_fit", "addressable by the sharding"),
                          ("ann_ivfflat_search", "non-addressable")):
         assert f"{name}/error" not in single, name
         for res in ranks:
