@@ -80,7 +80,7 @@ from spark_rapids_ml_tpu_torch.ops.linalg import resolve_precision, triu_to_full
 from spark_rapids_ml_tpu_torch.parallel.collectives import process_count
 from spark_rapids_ml_tpu_torch.parallel.distributed_cov import distributed_mean_and_covariance
 from spark_rapids_ml_tpu_torch.parallel.mesh import device_array_rows_on_mesh, shard_rows_from_partitions
-from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
+from spark_rapids_ml_tpu_torch.utils.tracing import HostSync, TraceColor, TraceRange, bump_counter
 
 #: The packed layout's wire-format cap (the reference's
 #: ``RapidsRowMatrix.scala:66-68``): n(n+1)/2 entries of a 32-bit index.
@@ -547,7 +547,10 @@ class RowMatrix:
 
     @staticmethod
     def _trace_ratio(w_k: torch.Tensor, cov: torch.Tensor) -> np.ndarray:
-        """Exact explained-variance ratios of the top-k: w / trace(cov)."""
-        w_k = np.clip(_host(w_k), 0, None)
-        total = float(torch.trace(cov))
+        """Exact explained-variance ratios of the top-k: w / trace(cov);
+        two host syncs (``sync.pca.trace_ratio``)."""
+        with HostSync("pca.trace_ratio"):
+            w_k = np.clip(_host(w_k), 0, None)
+        with HostSync("pca.trace_ratio"):
+            total = float(torch.trace(cov))
         return w_k / total if total > 0 else w_k

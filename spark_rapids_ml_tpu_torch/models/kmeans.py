@@ -97,7 +97,7 @@ from spark_rapids_ml_tpu_torch.ops.kmeans import (
 from spark_rapids_ml_tpu_torch.ops.precision import pallas_precision, resolve_policy, validate_mode
 from spark_rapids_ml_tpu_torch.observability import costs as _costs
 from spark_rapids_ml_tpu_torch.serving.signature import ServingSignature, spec
-from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
+from spark_rapids_ml_tpu_torch.utils.tracing import HostSync, TraceColor, TraceRange
 
 
 def _assign_kernel(x, centers, *, cosine: bool, precision: str = "highest"):
@@ -318,38 +318,39 @@ class KMeans(_KMeansParams, Estimator, MLReadable):
         dtype = default_dtype()
         device = _device.resolve_device()
         with TraceRange("kmeans stream fit", TraceColor.CYAN):
-            if self._initial_centers is not None:
-                # No sampling pass: check the width against one peeked block.
-                if self._initial_centers.shape[0] != k:
-                    raise ValueError(
-                        f"initial model has {self._initial_centers.shape[0]} centers but k={k}"
-                    )
-                width = peek_stream_width(rows)
-                if self._initial_centers.shape[1] != width:
-                    raise ValueError(
-                        f"initial centers have {self._initial_centers.shape[1]} features "
-                        f"but the data has {width}"
-                    )
-                init = torch.tensor(self._initial_centers, dtype=dtype, device=device)
-                if cosine:
-                    init = normalize_rows(init)
-            else:
-                cap = max(self._STREAM_SAMPLE_CAP, 4 * k)
-                sample, n_seen = reservoir_sample_rows(
-                    iter_stream_blocks(rows), cap, self.getSeed(), dtype=numpy_dtype(dtype)
-                )
-                if k > n_seen:
-                    raise ValueError(f"k={k} exceeds number of rows {n_seen}")
-                xs = torch.from_numpy(sample).to(device)
-                if cosine:
-                    xs = normalize_rows(xs)
-                mask = torch.ones(xs.shape[0], dtype=xs.dtype, device=device)
-                gen = torch.Generator(device=device)
-                gen.manual_seed(self.getSeed())
-                if self.getInitMode() == "random":
-                    init = random_init(xs, mask, gen, k)
+            with TraceRange("kmeans seeding", TraceColor.CYAN):
+                if self._initial_centers is not None:
+                    # No sampling pass: check the width against one peeked block.
+                    if self._initial_centers.shape[0] != k:
+                        raise ValueError(
+                            f"initial model has {self._initial_centers.shape[0]} centers but k={k}"
+                        )
+                    width = peek_stream_width(rows)
+                    if self._initial_centers.shape[1] != width:
+                        raise ValueError(
+                            f"initial centers have {self._initial_centers.shape[1]} features "
+                            f"but the data has {width}"
+                        )
+                    init = torch.tensor(self._initial_centers, dtype=dtype, device=device)
+                    if cosine:
+                        init = normalize_rows(init)
                 else:
-                    init = kmeans_plusplus_init(xs, mask, gen, k)
+                    cap = max(self._STREAM_SAMPLE_CAP, 4 * k)
+                    sample, n_seen = reservoir_sample_rows(
+                        iter_stream_blocks(rows), cap, self.getSeed(), dtype=numpy_dtype(dtype)
+                    )
+                    if k > n_seen:
+                        raise ValueError(f"k={k} exceeds number of rows {n_seen}")
+                    xs = torch.from_numpy(sample).to(device)
+                    if cosine:
+                        xs = normalize_rows(xs)
+                    mask = torch.ones(xs.shape[0], dtype=xs.dtype, device=device)
+                    gen = torch.Generator(device=device)
+                    gen.manual_seed(self.getSeed())
+                    if self.getInitMode() == "random":
+                        init = random_init(xs, mask, gen, k)
+                    else:
+                        init = kmeans_plusplus_init(xs, mask, gen, k)
             with TraceRange("kmeans lloyd stream", TraceColor.PURPLE):
                 centers, cost, n_iter = lloyd_streaming(
                     lambda: iter_stream_blocks(rows),
@@ -386,25 +387,27 @@ class KMeans(_KMeansParams, Estimator, MLReadable):
                 if cosine:
                     xs = normalize_rows(xs) * (mask > 0).to(xs.dtype)[:, None]
                 device, dtype = xs.device, xs.dtype
-            gen = torch.Generator(device=device)
-            gen.manual_seed(self.getSeed())
-            if self._initial_centers is not None:
-                if self._initial_centers.shape[0] != k:
-                    raise ValueError(
-                        f"initial model has {self._initial_centers.shape[0]} centers but k={k}"
-                    )
-                if self._initial_centers.shape[1] != d:
-                    raise ValueError(
-                        f"initial centers have {self._initial_centers.shape[1]} features "
-                        f"but the data has {d}"
-                    )
-                init = torch.tensor(self._initial_centers, dtype=dtype, device=device)
-                if cosine:
-                    init = normalize_rows(init)
-            elif self.getInitMode() == "random":
-                init = random_init(xs, mask, gen, k)
-            else:
-                init = kmeans_plusplus_init(xs, mask, gen, k)
+            with TraceRange("kmeans seeding", TraceColor.CYAN):
+                gen = torch.Generator(device=device)
+                gen.manual_seed(self.getSeed())
+                if self._initial_centers is not None:
+                    if self._initial_centers.shape[0] != k:
+                        raise ValueError(
+                            f"initial model has {self._initial_centers.shape[0]} centers but k={k}"
+                        )
+                    if self._initial_centers.shape[1] != d:
+                        raise ValueError(
+                            f"initial centers have {self._initial_centers.shape[1]} features "
+                            f"but the data has {d}"
+                        )
+                    with HostSync("kmeans.seeding.given"):
+                        init = torch.tensor(self._initial_centers, dtype=dtype, device=device)
+                    if cosine:
+                        init = normalize_rows(init)
+                elif self.getInitMode() == "random":
+                    init = random_init(xs, mask, gen, k)
+                else:
+                    init = kmeans_plusplus_init(xs, mask, gen, k)
             # Preemption tolerance (robustness/checkpoint.py): with the
             # TPUML_CHECKPOINT_* knobs set, Lloyd runs segmented on the
             # xla route and resumes mid-solve; never under an explicit

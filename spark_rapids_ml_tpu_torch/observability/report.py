@@ -12,7 +12,9 @@ and the finished :class:`RunReport` hangs off the model
     a span's time is host time: around a CUDA launch it is the enqueue,
     not the card's work, as the reference's spans time JAX's dispatch;
   - the **counter deltas** the call produced (checkpoint writes and
-    restores, retry attempts, serving cache traffic, ingest, persistence);
+    restores, retry attempts, serving cache traffic, ingest, persistence,
+    the host syncs ``sync.<site>`` and the eigensolver's decisions
+    ``eigh.auto.*``);
   - **device memory stats** for every local CUDA device (the reference's
     keys ``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_limit``), also
     published as ``device.memory.*`` gauges.
@@ -42,7 +44,7 @@ from spark_rapids_ml_tpu_torch.utils.lockcheck import make_lock
 
 #: Counter prefixes a report folds into its summary.
 _REPORT_PREFIXES = ("serving.", "checkpoint.", "retry.", "gang.", "ingest.",
-                    "persistence.", "degrade.")
+                    "persistence.", "degrade.", "sync.", "eigh.")
 
 
 def device_memory_stats() -> Dict[str, Dict[str, int]]:

@@ -21,6 +21,15 @@ Two differences by design:
   - ``eigh_auto``'s ``lax.while_loop`` + ``lax.cond`` is a Python loop:
     each stagnation check and the final accept/promote decision read one
     scalar back to the host.
+
+Each host sync sits in a counted ``HostSync`` (``utils/tracing.py``):
+``sync.eigh.start_basis`` (the start basis's copy to the device),
+``sync.eigh.auto.s_prev``, ``sync.eigh.auto.stagnation`` (one per
+subspace iteration), ``sync.eigh.ritz`` and ``sync.eigh.full`` (a dense
+``torch.linalg.eigh`` checks its ``info`` on the host: one per call) and
+``sync.eigh.auto.accept``. ``eigh_auto`` also counts its decisions:
+``eigh.auto.calls``, ``eigh.auto.iterations`` (subspace iterations run)
+and ``eigh.auto.promoted`` (fell back to :func:`eigh_descending`).
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from spark_rapids_ml_tpu_torch.utils.tracing import HostSync, bump_counter
 
 
 def sign_flip(u: torch.Tensor) -> torch.Tensor:
@@ -53,7 +64,8 @@ def _eigh(a: torch.Tensor):
 def eigh_descending(a: torch.Tensor):
     """Eigendecomposition of symmetric ``a``, eigenvalues descending,
     columns sign-flipped: ``(eigenvalues, eigenvectors)``."""
-    w, v = _eigh(a)  # ascending
+    with HostSync("eigh.full"):
+        w, v = _eigh(a)  # ascending
     return torch.flip(w, (0,)), sign_flip(torch.flip(v, (1,)))
 
 
@@ -95,7 +107,8 @@ def _start_basis(d: int, l: int, dtype, device, q0=None) -> torch.Tensor:
         q0 = torch.randn((d, l), generator=gen, dtype=dtype)
     elif not isinstance(q0, torch.Tensor):
         q0 = torch.tensor(np.asarray(q0), dtype=dtype)  # a copy: numpy views may be read-only
-    q0 = q0.to(device=device, dtype=dtype)
+    with HostSync("eigh.start_basis"):
+        q0 = q0.to(device=device, dtype=dtype)
     if tuple(q0.shape) != (d, l):
         raise ValueError(f"q0 must have shape {(d, l)}, got {tuple(q0.shape)}")
     q, _ = torch.linalg.qr(q0)
@@ -122,7 +135,8 @@ def _rayleigh_ritz(a: torch.Tensor, q: torch.Tensor, k: int):
     """True QR, Rayleigh–Ritz, descending top-k with the sign flip."""
     q, _ = torch.linalg.qr(q)
     b = q.T @ (a @ q)
-    w, u = _eigh(b)  # ascending
+    with HostSync("eigh.ritz"):
+        w, u = _eigh(b)  # ascending
     w = torch.flip(w, (0,))[:k]
     v = q @ torch.flip(u, (1,))[:, :k]
     return w, sign_flip(v)
@@ -153,8 +167,10 @@ def eigh_auto(
     rule, read for read.
 
     Returns ``(w (k,), v (d, k), promoted: bool)``."""
+    bump_counter("eigh.auto.calls")
     d = a.shape[0]
     if k >= d:  # no subspace to iterate: the full solve is the answer
+        bump_counter("eigh.auto.promoted")
         w, v = eigh_descending(a)
         return w[:k], v[:, :k], True
     l = _subspace_l(d, k)
@@ -164,10 +180,13 @@ def eigh_auto(
     vec_tol = 1e-3 if f32 else 1e-8
     eps_abs = 1e-5 if f32 else 1e-12
 
-    s_prev = torch.tensor(float("-inf"), dtype=a.dtype, device=a.device)
+    with HostSync("eigh.auto.s_prev"):
+        s_prev = torch.tensor(float("-inf"), dtype=a.dtype, device=a.device)
     for _ in range(max_iters):
         q, s = _cholqr(a @ q)
-        stagnated = bool(torch.abs(s - s_prev) <= stag_tol * s)  # host sync
+        bump_counter("eigh.auto.iterations")
+        with HostSync("eigh.auto.stagnation"):
+            stagnated = bool(torch.abs(s - s_prev) <= stag_tol * s)
         s_prev = s
         if stagnated:
             break
@@ -175,7 +194,8 @@ def eigh_auto(
     # the kept components' neighbours to measure local spacing.
     q, _ = torch.linalg.qr(q)
     b = q.T @ (a @ q)
-    w_all, u = _eigh(b)
+    with HostSync("eigh.ritz"):
+        w_all, u = _eigh(b)
     w_all = torch.flip(w_all, (0,))
     w_k = w_all[:k]
     v_k = sign_flip(q @ torch.flip(u, (1,))[:, :k])
@@ -187,9 +207,11 @@ def eigh_auto(
     spacing = torch.minimum(gap_left, gap_right)
     converged = resid <= vec_tol * w_k + scale
     degenerate = (spacing <= resid) & (resid <= cluster_tol * w_k + scale)
-    accept = bool(torch.all(converged | degenerate))  # host sync
+    with HostSync("eigh.auto.accept"):
+        accept = bool(torch.all(converged | degenerate))
     if accept:
         return w_k, v_k, False
+    bump_counter("eigh.auto.promoted")
     w, v = eigh_descending(a)
     return w[:k], v[:, :k], True
 

@@ -35,7 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from spark_rapids_ml_tpu_torch.ops.kernels import _build
-from spark_rapids_ml_tpu_torch.ops.kmeans import normalize_rows
+from spark_rapids_ml_tpu_torch.ops.kmeans import moved_above_tol, normalize_rows
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot, pallas_precision
 
 FUSED_NAME = "kmeans_assign_stats"
@@ -447,7 +447,7 @@ def lloyd_fused(
     centers = init_centers.to(torch.float32).contiguous()
     moved = torch.tensor(math.inf, dtype=torch.float32)
     it = 0
-    while bool(moved > tol * tol) and it < max_iter:
+    while moved_above_tol(moved, it, tol) and it < max_iter:
         sums, counts, _, _ = assign(x, centers, precision)
         counts = counts.to(torch.float32)
         new_centers = torch.where(

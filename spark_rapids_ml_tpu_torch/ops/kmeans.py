@@ -60,7 +60,7 @@ from spark_rapids_ml_tpu_torch.parallel.collectives import all_reduce_sum, allre
 from spark_rapids_ml_tpu_torch.parallel.mesh import ShardedRows
 from spark_rapids_ml_tpu_torch.robustness.checkpoint import replicate_state_onto_mesh, segment_boundary
 from spark_rapids_ml_tpu_torch.robustness.faults import fault_point
-from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
+from spark_rapids_ml_tpu_torch.utils.tracing import HostSync, TraceColor, TraceRange, bump_counter
 
 Dot = Union[str, Callable]
 
@@ -287,11 +287,20 @@ def _auto_block_rows(n: int, k: int, block_rows: Optional[int], data_shards: int
     return n + 1
 
 
+def moved_above_tol(moved, it: int, tol: float) -> bool:
+    """``moved > tol²`` in the state's dtype: one host sync
+    (``sync.kmeans.lloyd.moved``) after the first iteration; before it,
+    ``moved`` is the host-side ``inf`` the loop starts from."""
+    if it == 0:
+        return bool(moved > tol * tol)
+    with HostSync("kmeans.lloyd.moved"):
+        return bool(moved > tol * tol)
+
+
 def _lloyd_continues(moved, it: int, tol: float, max_iter: int) -> bool:
     """The reference's stopping rule: go on while some center moved more
-    than ``tol`` and ``it < max_iter`` (the comparison in the state's
-    dtype, one host sync)."""
-    return it < max_iter and bool(moved > tol * tol)
+    than ``tol`` and ``it < max_iter``."""
+    return it < max_iter and moved_above_tol(moved, it, tol)
 
 
 def _lloyd_prep(x: Any, mask: Optional[torch.Tensor], k: int, block_rows: Optional[int]):
@@ -524,7 +533,13 @@ def kmeans_plusplus_init(
     k: int,
     precision: str = "highest",
 ) -> torch.Tensor:
-    """Greedy k-means++ seeding on the device, no host sync.
+    """Greedy k-means++ seeding on the device.
+
+    On one device it makes one host sync (``sync.kmeans.seeding.neg_inf``,
+    a scalar copied to the device) and then two a step, both implicit:
+    ``xc[best]`` and ``d2c[best]`` index by the 0-dim device tensor
+    ``best``, which torch reads back to the host (``.item()``) to select
+    the row (``sync.kmeans.seeding.pick``, ``sync.kmeans.seeding.min_d2``).
 
     D² sampling with the greedy refinement: each step draws ``2 +
     ceil(log2 k)`` candidate rows with probability ∝ weight·D² (Gumbel-
@@ -539,7 +554,8 @@ def kmeans_plusplus_init(
     dtype = shards.x[0].dtype
     t = min(2 + max(int(math.ceil(math.log2(k))), 0), shards.n)
     x2 = [torch.sum(xi * xi, dim=1) for xi in shards.x]
-    neg_inf = [torch.tensor(-math.inf, dtype=dtype, device=xi.device) for xi in shards.x]
+    with HostSync("kmeans.seeding.neg_inf"):
+        neg_inf = [torch.tensor(-math.inf, dtype=dtype, device=xi.device) for xi in shards.x]
     g0 = _shard_gumbel(shards, generator)
     scores = [torch.where(mi > 0, gi, ni) for mi, gi, ni in zip(shards.mask, g0, neg_inf)]
     first = _global_topk(scores, shards, 1)[1][0]
@@ -567,8 +583,10 @@ def kmeans_plusplus_init(
             pots.append(torch.sum(torch.minimum(md[None, :], d2c) * mi[None, :], dim=1, dtype=torch.float64))
             d2cs.append(d2c)
         best = torch.argmin(psum_data(pots, dev))
-        centers[i] = xc[best]
-        min_d2 = [torch.minimum(md, d2c[best.to(d2c.device)]) for md, d2c in zip(min_d2, d2cs)]
+        with HostSync("kmeans.seeding.pick"):
+            centers[i] = xc[best]
+        with HostSync("kmeans.seeding.min_d2"):
+            min_d2 = [torch.minimum(md, d2c[best.to(d2c.device)]) for md, d2c in zip(min_d2, d2cs)]
     return centers
 
 
@@ -577,8 +595,9 @@ def random_init(x: Any, mask: Optional[torch.Tensor], generator: torch.Generator
     and an exact top-k over every shard."""
     shards = as_row_shards(x, mask)
     g = _shard_gumbel(shards, generator)
-    scores = [torch.where(mi > 0, gi, torch.tensor(-math.inf, dtype=gi.dtype, device=gi.device))
-              for mi, gi in zip(shards.mask, g)]
+    with HostSync("kmeans.seeding.neg_inf"):
+        scores = [torch.where(mi > 0, gi, torch.tensor(-math.inf, dtype=gi.dtype, device=gi.device))
+                  for mi, gi in zip(shards.mask, g)]
     return _rows_at(shards.x, shards, _global_topk(scores, shards, k)[1])
 
 

@@ -17,9 +17,26 @@
     ``clear_counters`` — aliases over the typed registry's counters
     (``observability/metrics.py``), with the flat-dict semantics of before.
 
+  - :class:`HostSync` — one counted, named host sync: ``with
+    HostSync("kmeans.seeding.pick"): ...`` around a statement that makes
+    the host wait for the card (``bool(t)``, ``.item()``, ``float(t)``, a
+    copy to the host, an index by a 0-dim CUDA tensor, a library call that
+    checks its ``info`` on the host). Every exit bumps the counter
+    ``sync.<site>``, on the CPU as on the card, so a CPU run counts what
+    the card would; while a ``torch.profiler`` session is open it is also
+    a ``TraceRange`` named ``sync <site>``, so each wait sits on the
+    trace's clock. Sites are named ``<layer>.<what>``.
+
 A span's ``start``/``end``/``dur`` are host clock readings
 (``time.perf_counter``): around a CUDA launch they time the enqueue, not
 the card's work, as the reference's spans time JAX's async dispatch.
+
+Every host sync of the fit routes the benchmark measures (PCA on a device
+tensor with the ``auto`` eigensolver, KMeans in memory on one device)
+sits in a ``HostSync``. ``torch.cuda.set_sync_debug_mode("warn")`` shows any that
+does not: ``HostSync`` turns the mode off for its own body and restores
+it after, so under the mode every warning (under ``"error"``, every
+error) is a sync the port does not count.
 """
 
 from __future__ import annotations
@@ -264,3 +281,41 @@ class TraceRange:
 
 # Alias matching the reference class name (NvtxRange.java:37).
 NvtxRange = TraceRange
+
+
+class HostSync:
+    """One counted host sync: ``with HostSync("eigh.auto.accept"): ...``.
+
+    On every exit, also when the body raises, it bumps ``sync.<site>``.
+    Only while a ``torch.profiler`` session is open it is also a
+    :class:`TraceRange` named ``sync <site>``; otherwise it costs one
+    counter bump and two flag tests. Where CUDA is initialized it turns
+    ``torch.cuda``'s sync debug mode off for its body and restores it
+    after, so that under that mode only an uncounted sync warns or raises.
+    """
+
+    __slots__ = ("site", "_range", "_mode")
+
+    def __init__(self, site: str):
+        self.site = site
+        self._range = None
+        self._mode = 0
+
+    def __enter__(self) -> "HostSync":
+        if torch.cuda.is_initialized():
+            self._mode = torch.cuda.get_sync_debug_mode()
+            if self._mode:
+                torch.cuda.set_sync_debug_mode(0)
+        if profiler_active():
+            self._range = TraceRange("sync " + self.site)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, exc_type=None, exc=None, tb=None) -> None:
+        try:
+            if self._range is not None:
+                self._range.__exit__(exc_type, exc, tb)
+            if self._mode:
+                torch.cuda.set_sync_debug_mode(self._mode)
+        finally:
+            bump_counter("sync." + self.site)

@@ -428,9 +428,18 @@ def test_ranges_show_in_an_open_profiler_by_name(no_event_log):
 #: Ranges the port opens and the reference does not, on these fits: a PCA
 #: host input uploads through the guarded placement (the ``ingest H2D``
 #: range and its retry unit, ROADMAP C), and the port's KMeans names its
-#: Lloyd loop.
-PORT_ONLY_STAGES = {"pca": {"ingest H2D", "retry:ingest.device_put#0"}, "kmeans": {"kmeans lloyd"}}
-PORT_ONLY_COUNTERS = {"pca": {"retry.ingest.device_put.attempts"}}
+#: Lloyd loop and its seeding. The port also counts its host syncs
+#: (``sync.<site>``, ``utils/tracing.HostSync``) and the eigensolver's
+#: decisions (``eigh.auto.*``).
+PORT_ONLY_STAGES = {"pca": {"ingest H2D", "retry:ingest.device_put#0"},
+                    "kmeans": {"kmeans lloyd", "kmeans seeding"}}
+PORT_ONLY_COUNTERS = {
+    "pca": {"retry.ingest.device_put.attempts", "eigh.auto.calls", "eigh.auto.iterations",
+            "sync.eigh.start_basis", "sync.eigh.auto.s_prev", "sync.eigh.auto.stagnation",
+            "sync.eigh.ritz", "sync.eigh.auto.accept", "sync.pca.trace_ratio"},
+    "kmeans": {"sync.kmeans.seeding.neg_inf", "sync.kmeans.seeding.pick", "sync.kmeans.seeding.min_d2",
+               "sync.kmeans.lloyd.moved"},
+}
 
 FITS = {
     "pca": (lambda E, x, y, yl: E().setK(2).fit(x), PCA, JaxPCA),
