@@ -15,9 +15,10 @@ counters set to 0 just before and read just after:
   tensor, a fit over four host partitions, a save/load round trip;
 - KMeans at BASELINE.md config 3's shape (20M x 16 float32, k = 100, on
   planted blobs made on the card from the seed): ``KMeans().setK(100)``
-  and ``setK(16)`` fits (kernels K2 and K3), predict and transform on all
-  rows, a save/load round trip, held against the ``xla`` route and a
-  float64 fit from the same initial centers;
+  and ``setK(16)`` fits (kernels K2 and K3, seeded on K5), predict and
+  transform on all rows, a save/load round trip, held against the ``xla``
+  route and a float64 fit from the same initial centers; K5's k-means++
+  seeding held against the torch loop on the same rows and draws;
 - UMAP at BASELINE.md config 13's shape (50,000 x 64 float32 -> 2-D,
   nNeighbors 15, 200 epochs, random init, pool of 256, on planted blobs):
   ``UMAP().fit`` (kernel K4 every epoch), ``transform`` of 10,000 new
@@ -395,7 +396,18 @@ KERNELS = [
      "spark_rapids_ml_tpu/ops/pallas/kmeans.py:258"),
     ("tail_accumulate", "cuda", "spark_rapids_ml_tpu_torch/csrc/umap_tail.cu",
      "spark_rapids_ml_tpu/ops/pallas/umap.py:162"),
+    ("seed_plusplus", "cuda", "spark_rapids_ml_tpu_torch/csrc/kmeans_seed.cu", None),  # the reference seeds in jnp
 ]
+
+#: The launch counters of a kernel that launches more than one function
+#: (K5: ``seed_select`` and ``seed_potentials`` each step); any other
+#: kernel's counter has its name.
+KERNEL_LAUNCHES = {"seed_plusplus": ("seed_select", "seed_potentials")}
+
+
+def launch_count(counts: dict, name: str) -> int:
+    """A kernel's launches in a dict of launch counters."""
+    return sum(counts[key] for key in KERNEL_LAUNCHES.get(name, (name,)))
 
 #: Published peaks (NVIDIA data sheets, dense, no sparsity): HBM bytes/s,
 #: fp32 FLOP/s outside the tensor cores, and fp64 FLOP/s at the tensor-core
@@ -937,6 +949,11 @@ def phase_kmeans_main_path(x: torch.Tensor) -> tuple:
     require(after_k100["assign_stats_fused"] >= 1 and after_k100["assign_stats_packed"] == 0,
             "the k=100 fit did not run on K2")
     require(after_k16["assign_stats_packed"] > after_k100["assign_stats_packed"], "the k=16 fit did not run on K3")
+    require(after_k100["seed_select"] == KM_K and after_k100["seed_potentials"] == KM_K - 1,
+            f"the k=100 fit did not seed on K5, one step a centre: {after_k100}")
+    require(after_k16["seed_select"] - after_k100["seed_select"] == KM_K_PACKED
+            and after_k16["seed_potentials"] - after_k100["seed_potentials"] == KM_K_PACKED - 1,
+            f"the k=16 fit did not seed on K5, one step a centre: {after_k16}")
     require(np.array_equal(loaded.clusterCenters(), centers), "save/load changed the centers")
     require(loaded.getK() == KM_K and loaded.numIter == model.numIter, "save/load lost params or numIter")
     require(torch.equal(loaded_labels, labels[:100_000]), "the loaded model predicts differently")
@@ -988,6 +1005,80 @@ def phase_kmeans_main_path(x: torch.Tensor) -> tuple:
     require(out["transform_equals_predict"], "transform differs from predict")
     require(labels.shape == (KM_N,), "predict shape")
     return out, model, model16
+
+
+def seeding_bound_ms(n: int, d: int, t: int, peaks) -> tuple:
+    """Least time of one greedy k-means++ step: each row's features,
+    weight and uniform read and its running D² read and written once
+    (4·d + 16 bytes a row) over HBM; the D² of every row to the t
+    candidates (2·n·d·t operations) over the fp32 peak."""
+    _, hbm, fp32, _ = peaks
+    bytes_ms = n * (4 * d + 16) / hbm * 1e3
+    ops_ms = 2.0 * n * d * t / fp32 * 1e3
+    return max(bytes_ms, ops_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def phase_kmeans_seeding(x: torch.Tensor, peaks) -> dict:
+    """K5 against its plain version on the main path's rows (20M x 16,
+    k = 100, weights 1): ``kk.seed_plusplus_cuda`` and the torch loop
+    ``ops_kmeans.kmeans_plusplus_loop`` from generators seeded alike pick
+    the same rows in the same order (the centres bitwise), a repeat is
+    bitwise, and K5's running D² is within 1e-5 relative of a float64 one
+    of the same rows and centres. Then both timed, a step each (one
+    seeding between CUDA events over its k − 1 steps), beside the step's
+    bound and the bytes K5's two passes move a row."""
+    n, d = int(x.shape[0]), int(x.shape[1])
+    t = ops_kmeans.seed_candidates(KM_K, n)
+    ones = torch.ones(n, device=x.device)
+
+    def gen() -> torch.Generator:
+        g = torch.Generator(device=x.device)
+        g.manual_seed(SEED)
+        return g
+
+    kk.reset_launches()
+    got = kk.seed_plusplus_cuda(x, None, gen(), KM_K)
+    sync()
+    launches = {name: kk.launches[name] for name in KERNEL_LAUNCHES["seed_plusplus"]}
+    again = kk.seed_plusplus_cuda(x, None, gen(), KM_K)
+    loop = ops_kmeans.kmeans_plusplus_loop(x, ones, gen(), KM_K)
+    ref = torch.empty(n, dtype=torch.float64, device=x.device)
+    c64 = got.centers[:KM_K - 1].double()
+    for i in range(0, n, KM_BLOCK):
+        b64 = x[i:i + KM_BLOCK].double()
+        ref[i:i + KM_BLOCK] = torch.stack([((b64 - c) ** 2).sum(dim=1) for c in c64]).min(dim=0).values
+    err = (got.md.double() - ref).abs()
+    positive = ref > 0
+    bound_ms, bound_by = seeding_bound_ms(n, d, t, peaks)
+    steps = KM_K - 1
+    kernel_ms = time_ms(lambda: kk.seed_plusplus_cuda(x, None, gen(), KM_K), repeats=5, warmup=1) / steps
+    plain_ms = time_ms(lambda: ops_kmeans.kmeans_plusplus_loop(x, ones, gen(), KM_K), repeats=3, warmup=1) / steps
+    keeps = kk.seed_keeps_d2(d, t)
+    out = {
+        "phase": "kmeans_seeding", "x": [n, d, str(x.dtype)], "k": KM_K, "t": t, "launches": launches,
+        "centers_equal_loop": bool(torch.equal(got.centers, loop)),
+        "rows_are_centers": bool(torch.equal(x[got.rows], got.centers)),
+        "distinct_rows": int(torch.unique(got.rows).numel()),
+        "bitwise_repeat": bool(torch.equal(got.centers, again.centers) and torch.equal(got.rows, again.rows)
+                               and torch.equal(got.md, again.md)),
+        "md_rel_f64": float((err[positive] / ref[positive]).max()),
+        "md_nonzero_where_f64_zero": int((got.md[~positive] != 0).sum()),
+        "max_abs_err": float((got.centers - loop).abs().max()),
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "timing": "a step: one seeding between CUDA events over its k - 1 steps, median of 5 (loop: 3)",
+        "keeps_d2": keeps, "design_bytes_per_row": 4 * d + 24 + (4 * t + 4 if keeps else 4 * d),
+        "library_ms": None, "library_why_none": "no PyTorch call draws a k-means++ step's candidates and scores them",
+        "roofline_share": bound_ms / kernel_ms,
+    }
+    del got, again, loop, ref, err, positive, ones
+    emit(out)
+    require(launches == {"seed_select": KM_K, "seed_potentials": KM_K - 1}, f"K5 launches {launches}")
+    require(out["centers_equal_loop"], "K5 picked other rows than the torch loop on the same draws")
+    require(out["rows_are_centers"] and out["distinct_rows"] == KM_K, "K5's rows are not its distinct centres")
+    require(out["bitwise_repeat"], "a repeat K5 seeding differs")
+    require(out["md_rel_f64"] <= 1e-5 and out["md_nonzero_where_f64_zero"] == 0,
+            f"K5's running D² {out['md_rel_f64']:.2e} from float64")
+    return out
 
 
 def assign_bound_ms(n: int, d: int, k: int, peaks) -> tuple:
@@ -1125,9 +1216,11 @@ def kmeans_phases(gen: torch.Generator, peaks) -> dict:
     torch.cuda.empty_cache()
     main_path, model, model16 = phase_kmeans_main_path(x100)
     torch.cuda.empty_cache()
+    seeding = phase_kmeans_seeding(x100, peaks)
+    torch.cuda.empty_cache()
     times = phase_kmeans_times(x100, model, model16, peaks)
     phase_kmeans_profile(x100)
-    return {"check": check, "main_path": main_path, "times": times}
+    return {"check": check, "main_path": main_path, "seeding": seeding, "times": times}
 
 
 # --- UMAP: kernel K4 -------------------------------------------------------
@@ -1711,7 +1804,10 @@ def phase_streaming_kmeans(x: torch.Tensor, truth: torch.Tensor, blocks: list, g
     }
     out["wall_s"] = time.perf_counter() - t_phase
     emit(out)
-    require(sum(kernel_launches.values()) == 0, "the streaming KMeans route launched K2 or K3")
+    require(kernel_launches["assign_stats_fused"] + kernel_launches["assign_stats_packed"] == 0,
+            "the streaming KMeans route launched K2 or K3")
+    require(kernel_launches["seed_select"] == KM_K and kernel_launches["seed_potentials"] == KM_K - 1,
+            f"the reservoir's seeding did not run on K5, one step a centre: {kernel_launches}")
     require(out["warm"]["centers_vs_in_memory_max_abs"] <= 1e-3, "streaming centers differ from the in-memory fit")
     require(out["warm"]["cost_vs_in_memory_rel"] <= 1e-4, "streaming cost differs from the in-memory fit")
     require(warm.numIter == mem.numIter, "streaming numIter differs from the in-memory fit")
@@ -8350,13 +8446,16 @@ def main() -> int:
     measured["tail_accumulate"] = dict(um["times"]["tail_accumulate"],
                                        launches=um["main_path"]["launches"]["tail_accumulate"],
                                        max_abs_err=um["check"]["k4_vs_plain_max_abs"])
+    measured["seed_plusplus"] = dict(km["seeding"],
+                                     launches=launch_count(km["main_path"]["launches_k100_fit"], "seed_plusplus"))
     rows = []
     for name, route, source, replaces in KERNELS:
         m = measured[name]
         rows.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": m["launches"], "launches_spark": spark["launches"][name],
-            "launches_serving": router["launches"][name], "launches_gang": gang_sharded["launches"][name],
+            "launches": m["launches"], "launches_spark": launch_count(spark["launches"], name),
+            "launches_serving": launch_count(router["launches"], name),
+            "launches_gang": launch_count(gang_sharded["launches"], name),
             "max_abs_err": m["max_abs_err"],
             "ms": m["kernel_ms"], "kernel_ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],

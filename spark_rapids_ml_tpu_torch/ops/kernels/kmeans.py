@@ -1,5 +1,5 @@
 """Kernels K2 and K3: fused KMeans assignment + update statistics on Hopper,
-and the Lloyd loop around them.
+and the Lloyd loop around them; kernel K5: the k-means++ seeding's steps.
 
 Replaces the TPU kernels of ``spark_rapids_ml_tpu/ops/pallas/kmeans.py``:
 ``assign_stats_fused`` (K2, ``csrc/kmeans_assign_stats.cu``) and
@@ -22,6 +22,14 @@ through :func:`pallas_precision`): IEEE fp32 products; the 3-pass bf16
 hi/lo split (stats from ``x_hi + bf16(x − x_hi)``); one bf16-rounded pass
 (stats from ``bf16(x)``). ``Σ‖x‖²`` and ``c2`` use the unrounded values.
 
+K5 (``csrc/kmeans_seed.cu``, :func:`seed_plusplus`) replaces no TPU
+kernel (the reference seeds in plain ``jnp``): each greedy k-means++ step
+is two launches, K5a (``seed_select``: the distance update, the Gumbel
+scores and their top t) and K5b (``seed_potentials``: the candidates'
+float64 potentials and their argmin), with the chosen row kept on the
+device, so the seeding makes no host sync. Its plain version is the torch
+loop :func:`ops.kmeans.kmeans_plusplus_loop`, with the same draws.
+
 Each wrapper takes its plain version only for a tensor on the CPU; on a
 CUDA tensor it launches the kernel or raises.
 """
@@ -30,19 +38,25 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from spark_rapids_ml_tpu_torch.ops.kernels import _build
-from spark_rapids_ml_tpu_torch.ops.kmeans import moved_above_tol, normalize_rows
+from spark_rapids_ml_tpu_torch.ops.kmeans import (
+    kmeans_plusplus_loop,
+    moved_above_tol,
+    normalize_rows,
+    seed_candidates,
+)
 from spark_rapids_ml_tpu_torch.ops.precision import make_dot, pallas_precision
 
 FUSED_NAME = "kmeans_assign_stats"
 PACKED_NAME = "kmeans_assign_packed"
+SEED_NAME = "kmeans_seed"
 
 #: Launches since the last reset, per kernel (the CPU route does not count).
-launches = {"assign_stats_fused": 0, "assign_stats_packed": 0}
+launches = {"assign_stats_fused": 0, "assign_stats_packed": 0, "seed_select": 0, "seed_potentials": 0}
 
 #: The kernels' precision codes (``PREC_*`` in ``csrc/kmeans_common.cuh``).
 PRECISIONS = {"highest": 0, "high": 1, "default": 2}
@@ -269,6 +283,13 @@ def _function(name: str, symbol: str, extra: int):
 _sm_counts: dict = {}  # device index -> streaming multiprocessors
 
 
+def _sms(dev: torch.device) -> int:
+    sms = _sm_counts.get(dev.index)
+    if sms is None:
+        sms = _sm_counts[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms
+
+
 def _aligned(nbytes: int) -> int:
     return -(-nbytes // 256) * 256
 
@@ -284,10 +305,7 @@ def _launch(name: str, symbol: str, x: torch.Tensor, centers: torch.Tensor, mode
     k = int(centers.shape[0])
     dev = x.device
     fn = _function(name, symbol, len(extra))
-    sms = _sm_counts.get(dev.index)
-    if sms is None:
-        sms = _sm_counts[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = plan(dev, n, sms)
+    blocks = plan(dev, n, _sms(dev))
     rows_per_block = -(-max(n, 1) // blocks)
     rows_per_block = -(-rows_per_block // unit) * unit
     blocks = max(1, -(-n // rows_per_block))
@@ -460,3 +478,171 @@ def lloyd_fused(
         it += 1
     _, _, cost, _ = assign(x, centers, precision)
     return centers, cost, it
+
+
+#: K5's block (``THREADS`` in ``csrc/kmeans_seed.cu``), its widest row
+#: (``D_MAX``: a thread holds a row in registers) and its most candidates a
+#: step (``T_MAX``: a warp's top-t list holds one a lane); ``SEED_SELECT``
+#: and ``SEED_POTENTIALS`` name K5a and K5b to the occupancy query.
+SEED_THREADS = 256
+SEED_D_MAX = 64
+SEED_T_MAX = 32
+SEED_SELECT, SEED_POTENTIALS = 0, 1
+
+
+def seed_feasible(d: int, t: int) -> bool:
+    """True when K5 can seed rows of width ``d`` drawing ``t`` candidates a
+    step (:func:`ops.kmeans.seed_candidates`): 1 ≤ d ≤ 64 and 1 ≤ t ≤ 32.
+    At t = 32, k reaches 2³⁰."""
+    return 1 <= d <= SEED_D_MAX and 1 <= t <= SEED_T_MAX
+
+
+def seed_keeps_d2(d: int, t: int) -> bool:
+    """True when K5b keeps each row's D² to the t candidates (4·t bytes a
+    row written, a (t, n) float32 buffer held through the seeding) for
+    the next K5a to read the chosen one's (4 bytes), rather than K5a
+    reading the row again (4·d bytes): whichever moves fewer bytes,
+    t + 1 < d. Both give the same bits. At 20M × 16 rows, k = 100 (t = 9):
+    128 bytes a row a step against 152, and 0.96 against 1.09 ms of K5 a
+    step on an H100. Narrow rows take the other side: the PQ codebooks of
+    4-wide subspaces (256 codes, t = 10) would write 40 bytes a row to
+    save reading 16, and hold a buffer 2.5 times their rows (20M × 4, k =
+    100: 68.4 ms a seeding keeping the D²s, 53.9 reading x again; PERF.md,
+    K5)."""
+    return t + 1 < d
+
+
+def seed_blocks(n: int, sms: int, per_sm: int) -> int:
+    """Blocks of a K5a or K5b launch: one wave, ``per_sm`` resident blocks
+    on each of ``sms`` SMs, each walking row tiles of
+    :data:`SEED_THREADS` (block, block + grid, ...); no more than one per
+    tile; at least 1."""
+    return max(1, min(sms * per_sm, -(-n // SEED_THREADS)))
+
+
+class Seeding(NamedTuple):
+    """What K5 leaves on the device: the centres (k, d), the row each
+    copies (k,) int64, and each row's squared distance to centres
+    0 … k − 2 (n,), from which the last step drew (+inf at k = 1). A fit
+    keeps the centres; the rows and distances are what the card tests
+    and ``chip_smoke.py`` hold against the torch loop and float64."""
+
+    centers: torch.Tensor
+    rows: torch.Tensor
+    md: torch.Tensor
+
+
+_seed_fns: dict = {}  # "select" / "potentials" -> the ctypes launcher, argtypes set
+_seed_resident: dict = {}  # (device index, kernel, d, t) -> resident blocks per SM
+
+
+def _seed_functions():
+    """K5a's and K5b's launchers, built and loaded at the first call."""
+    if not _seed_fns:
+        lib = _build.load(SEED_NAME)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        select = lib.kmeans_seed_select
+        select.argtypes = [p] * 5 + [ll, i, i, i] + [p] * 7 + [i, p]
+        select.restype = i
+        pots = lib.kmeans_seed_potentials
+        pots.argtypes = [p] * 4 + [ll, i, i, i] + [p] * 6 + [i, p]
+        pots.restype = i
+        _seed_fns.update(select=select, potentials=pots)
+    return _seed_fns["select"], _seed_fns["potentials"]
+
+
+def _seed_blocks_per_sm(device: torch.device, kernel: int, d: int, t: int) -> int:
+    """Resident K5a or K5b blocks per SM at (d, t), from the CUDA occupancy
+    API, once per device and shape."""
+    key = (device.index, kernel, d, t)
+    if key not in _seed_resident:
+        fn = _build.load(SEED_NAME).kmeans_seed_blocks_per_sm
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+        with torch.cuda.device(device):
+            got = fn(kernel, d, t)
+        if got <= 0:
+            raise RuntimeError(f"kmeans_seed occupancy query failed: {got}")
+        _seed_resident[key] = got
+    return _seed_resident[key]
+
+
+def _check_seed(x, w, k: int) -> int:
+    """Refuses what K5 does not take; returns the candidates a step."""
+    if x.dim() != 2:
+        raise ValueError(f"seed_plusplus: x must be 2-D, got {tuple(x.shape)}")
+    n, d = int(x.shape[0]), int(x.shape[1])
+    if x.dtype != torch.float32:
+        raise TypeError(f"seed_plusplus takes float32 x, got {x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"seed_plusplus runs on CUDA or CPU tensors, got {x.device}")
+    if w is not None and (tuple(w.shape) != (n,) or w.device != x.device):
+        raise ValueError(f"seed_plusplus: weights {tuple(w.shape)} on {w.device} for {n} rows on {x.device}")
+    if n < 1 or k < 1:
+        raise ValueError(f"seed_plusplus needs n >= 1 and k >= 1, got n={n}, k={k}")
+    t = seed_candidates(k, n)
+    if not seed_feasible(d, t):
+        raise ValueError(f"seed_plusplus: d={d} with {t} candidates a step is beyond K5 (d <= 64, t <= 32)")
+    return t
+
+
+def seed_plusplus(x: torch.Tensor, w: Optional[torch.Tensor], generator: torch.Generator,
+                  k: int) -> torch.Tensor:
+    """Greedy k-means++ on kernel K5 for a CUDA tensor (its plain version,
+    :func:`ops.kmeans.kmeans_plusplus_loop`, for a CPU one): the (k, d)
+    centres of float32 rows ``x`` (n, d) with row weights ``w`` (None: all
+    1), drawn from ``generator`` on x's device."""
+    _check_seed(x, w, k)
+    if x.device.type == "cpu":
+        return kmeans_plusplus_loop(x, w if w is not None else torch.ones(x.shape[0]), generator, k)
+    return seed_plusplus_cuda(x, w, generator, k).centers
+
+
+def seed_plusplus_cuda(x: torch.Tensor, w: Optional[torch.Tensor], generator: torch.Generator,
+                       k: int) -> Seeding:
+    """K5 on a CUDA tensor: the first centre by one K5a launch, then for
+    each further centre one ``torch.rand(n, generator=...)`` vector (the
+    torch loop's draws, in its order), K5a and K5b (which keeps the rows'
+    D² for the next K5a where :func:`seed_keeps_d2`). Nothing is read
+    back: the host queues the k − 1 steps and returns. Bitwise
+    repeatable."""
+    t = _check_seed(x, w, k)
+    select, potentials = _seed_functions()
+    x = x.contiguous()
+    n, d = int(x.shape[0]), int(x.shape[1])
+    dev = x.device
+    f32, i64 = torch.float32, torch.int64
+    w = torch.ones(n, dtype=f32, device=dev) if w is None else w.to(f32).contiguous()
+    sms = _sms(dev)
+    blocks_a = seed_blocks(n, sms, _seed_blocks_per_sm(dev, SEED_SELECT, d, t))
+    blocks_b = seed_blocks(n, sms, _seed_blocks_per_sm(dev, SEED_POTENTIALS, d, t))
+    with torch.cuda.device(dev):
+        ctl = torch.zeros(2, dtype=torch.int32, device=dev)
+        centers = torch.empty((k, d), dtype=f32, device=dev)
+        rows = torch.empty(k, dtype=i64, device=dev)
+        md = torch.empty(n, dtype=f32, device=dev) if k > 1 else torch.full((n,), math.inf, device=dev)
+        cand_rows = torch.empty((SEED_T_MAX, d), dtype=f32, device=dev)
+        cand_idx = torch.empty(SEED_T_MAX, dtype=i64, device=dev)
+        part_v = torch.empty(blocks_a * t, dtype=f32, device=dev)
+        part_i = torch.empty(blocks_a * t, dtype=i64, device=dev)
+        part = torch.empty(blocks_b * t, dtype=torch.float64, device=dev)
+        d2s = torch.empty((t, n), dtype=f32, device=dev) if seed_keeps_d2(d, t) and k > 2 else None
+        d2s_p = d2s.data_ptr() if d2s is not None else None
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        xp, wp, mdp, cp, rp = x.data_ptr(), w.data_ptr(), md.data_ptr(), centers.data_ptr(), rows.data_ptr()
+        crp, cip, ctlp = cand_rows.data_ptr(), cand_idx.data_ptr(), ctl.data_ptr()
+        pvp, pip, pp = part_v.data_ptr(), part_i.data_ptr(), part.data_ptr()
+        for step in range(k):
+            u = torch.rand(n, generator=generator, dtype=f32, device=dev)
+            err = select(xp, wp, u.data_ptr(), mdp, d2s_p, n, d, 1 if step == 0 else t, step, cp, rp,
+                         crp, cip, pvp, pip, ctlp, blocks_a, stream)
+            if err != 0:
+                raise RuntimeError(f"{SEED_NAME} select launch failed: CUDA error {err}")
+            launches["seed_select"] += 1
+            if step == 0:
+                continue
+            err = potentials(xp, wp, mdp, d2s_p, n, d, t, step, crp, cip, pp, cp, rp, ctlp, blocks_b,
+                             stream)
+            if err != 0:
+                raise RuntimeError(f"{SEED_NAME} potentials launch failed: CUDA error {err}")
+            launches["seed_potentials"] += 1
+    return Seeding(centers, rows, md)

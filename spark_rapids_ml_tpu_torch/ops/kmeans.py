@@ -526,6 +526,37 @@ def _shard_gumbel(shards: RowShards, generator: torch.Generator) -> List[torch.T
     return _split_global(g, shards) if len(shards.x) > 1 or in_gang() else [g]
 
 
+def seed_candidates(k: int, n: int) -> int:
+    """Candidates a greedy k-means++ step draws: ``2 + ceil(log2 k)``, at
+    most the ``n`` rows."""
+    return min(2 + max(int(math.ceil(math.log2(k))), 0), n)
+
+
+def seeding_on_k5(shards: RowShards, k: int, precision: str) -> bool:
+    """True when :func:`kmeans_plusplus_init` seeds on kernel K5 (``ops/
+    kernels/kmeans.py`` :func:`seed_plusplus`): the rows are one float32
+    CUDA shard outside a gang, the products IEEE (``highest``), and K5
+    takes the width and the step's candidates (``seed_feasible``). Every
+    other input (the CPU, float64, a mesh's row shards, a gang) seeds on
+    the torch loop, :func:`kmeans_plusplus_loop`: the same draws, run as
+    plain torch.
+
+    The two choose the same rows while each step finds its t candidates
+    among rows of nonzero weight off the chosen centres. Past that (k
+    above the distinct rows of nonzero weight) they may part: K5's D² of
+    a copy of a chosen centre is 0, so it fills the short slots with the
+    first centre's row, where the loop's expansion x² − 2x·c + c² can
+    leave such a copy a rounding residue and draw it, or keep a row of
+    weight 0 in a slot no finite score filled. So a mesh fit of such rows
+    may seed other repeated centres than the single-device fit."""
+    from spark_rapids_ml_tpu_torch.ops.kernels import kmeans as kernels  # imports this module
+
+    x = shards.x[0]
+    return (len(shards.x) == 1 and not in_gang() and x.is_cuda and x.dtype == torch.float32
+            and precision == "highest"
+            and kernels.seed_feasible(int(x.shape[1]), seed_candidates(k, shards.n)))
+
+
 def kmeans_plusplus_init(
     x: Any,
     mask: Optional[torch.Tensor],
@@ -535,24 +566,48 @@ def kmeans_plusplus_init(
 ) -> torch.Tensor:
     """Greedy k-means++ seeding on the device.
 
-    On one device it makes one host sync (``sync.kmeans.seeding.neg_inf``,
-    a scalar copied to the device) and then two a step, both implicit:
-    ``xc[best]`` and ``d2c[best]`` index by the 0-dim device tensor
-    ``best``, which torch reads back to the host (``.item()``) to select
-    the row (``sync.kmeans.seeding.pick``, ``sync.kmeans.seeding.min_d2``).
-
     D² sampling with the greedy refinement: each step draws ``2 +
     ceil(log2 k)`` candidate rows with probability ∝ weight·D² (Gumbel-
     top-t) and keeps the one that minimizes the resulting potential. Rows
     of weight 0 are never chosen and add nothing to the potential. ``x``
     is a tensor with its ``mask``, or row shards (the draws are those of
-    the single-device seeding of the same rows)."""
+    the single-device seeding of the same rows).
+
+    Two routes, one algorithm with the same draws (:func:`seeding_on_k5`
+    picks by the input, and says where their choices may part): on kernel
+    K5 each step is two launches with the chosen row kept on the device,
+    and the seeding makes no host sync; on the torch loop
+    (:func:`kmeans_plusplus_loop`) it makes 1 + 2·(k − 1)."""
+    shards = as_row_shards(x, mask)
+    if seeding_on_k5(shards, k, precision):
+        from spark_rapids_ml_tpu_torch.ops.kernels import kmeans as kernels  # imports this module
+
+        return kernels.seed_plusplus(shards.x[0], shards.mask[0], generator, k)
+    return kmeans_plusplus_loop(shards, None, generator, k, precision)
+
+
+def kmeans_plusplus_loop(
+    x: Any,
+    mask: Optional[torch.Tensor],
+    generator: torch.Generator,
+    k: int,
+    precision: str = "highest",
+) -> torch.Tensor:
+    """:func:`kmeans_plusplus_init` as plain torch, a dozen passes a step
+    (K5's plain version, and the route of the CPU, float64, meshes and
+    gangs).
+
+    On one device it makes one host sync (``sync.kmeans.seeding.neg_inf``,
+    a scalar copied to the device) and then two a step, both implicit:
+    ``xc[best]`` and ``d2c[best]`` index by the 0-dim device tensor
+    ``best``, which torch reads back to the host (``.item()``) to select
+    the row (``sync.kmeans.seeding.pick``, ``sync.kmeans.seeding.min_d2``)."""
     dot = make_dot(precision)
     shards = as_row_shards(x, mask)
     dev = shards.device
     d = shards.x[0].shape[1]
     dtype = shards.x[0].dtype
-    t = min(2 + max(int(math.ceil(math.log2(k))), 0), shards.n)
+    t = seed_candidates(k, shards.n)
     x2 = [torch.sum(xi * xi, dim=1) for xi in shards.x]
     with HostSync("kmeans.seeding.neg_inf"):
         neg_inf = [torch.tensor(-math.inf, dtype=dtype, device=xi.device) for xi in shards.x]

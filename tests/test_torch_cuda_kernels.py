@@ -705,3 +705,196 @@ def test_k4_runs_every_epoch_of_a_fit(cuda):
     assert bool(torch.isfinite(model._emb_raw).all())
     model.transform(x[:100])
     assert k4.launches["tail_accumulate"] == 30
+
+
+# --- Kernel K5 (k-means++ seeding) -----------------------------------------
+#
+# K5 and the torch loop draw the same uniforms from generators seeded
+# alike, so on planted blobs (no two candidates' scores or potentials
+# within float32 rounding of each other) they pick the same rows in the
+# same order: the centres are compared bitwise. K5's D² (sum of (x − c)²)
+# is held to a float64 one of the same rows and centres within 1e-5
+# relative, row by row (a sum of 64 rounded squares errs by ~64 ulp; the
+# torch loop's expansion x² − 2x·c + c² errs by far more near a centre).
+
+from spark_rapids_ml_tpu_torch.ops import kmeans as ops_kmeans  # noqa: E402
+
+
+def _seed_rows(cuda, n, d, blobs, seed, scale=50.0):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    truth = scale * torch.randn((blobs, d), generator=gen, device=cuda)
+    pick = torch.randint(0, blobs, (n,), generator=gen, device=cuda)
+    return (truth[pick] + torch.randn((n, d), generator=gen, device=cuda)).contiguous()
+
+
+def _seed_gen(cuda, seed):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _hold_k5(x, w, k, seed=2147483901):
+    cuda = x.device
+    got = kk.seed_plusplus_cuda(x, w, _seed_gen(cuda, seed), k)
+    again = kk.seed_plusplus_cuda(x, w, _seed_gen(cuda, seed), k)
+    ones = torch.ones(x.shape[0], device=cuda) if w is None else w
+    loop = ops_kmeans.kmeans_plusplus_loop(x, ones, _seed_gen(cuda, seed), k)
+    assert torch.equal(got.centers, loop)
+    assert torch.equal(x[got.rows], got.centers)
+    assert torch.equal(got.centers, again.centers) and torch.equal(got.rows, again.rows)
+    assert torch.equal(got.md, again.md)
+    if k > 1:
+        c = got.centers[: k - 1].double()
+        ref = torch.stack([((x.double() - ci) ** 2).sum(dim=1) for ci in c]).min(dim=0).values
+        assert ((got.md.double() - ref).abs() <= 1e-5 * ref).all()
+    return got
+
+
+@pytest.mark.parametrize("n,d,k", [
+    (1, 16, 1), (3, 16, 2), (4, 16, 2), (5, 16, 5), (6, 16, 5), (1_000_003, 16, 100),  # ragged n: t, t + 1
+    (20_001, 1, 5), (20_001, 3, 5), (20_001, 16, 5), (20_001, 17, 5), (20_001, 64, 5),  # widths; 64 the limit
+    (100_003, 16, 2), (100_003, 16, 5), (100_003, 16, 100),  # k
+])
+def test_k5_picks_the_torch_loops_rows(cuda, n, d, k):
+    x = _seed_rows(cuda, n, d, min(max(k, 2), 100), seed=n + d)
+    _hold_k5(x, None, k)
+
+
+def test_k5_with_its_widest_potential_slots(cuda):
+    # k = 16,385 draws t = 17 candidates a step, so K5b keeps 32 float64
+    # potentials a thread. Rows on an integer grid: every D² is exact in
+    # both routes (the loop's expansion included), so no near-tie of the
+    # 16,384 steps can part them.
+    gen = _seed_gen(cuda, 12)
+    x = torch.randint(-50, 50, (20_000, 4), generator=gen, device=cuda).float()
+    assert ops_kmeans.seed_candidates(16_385, 20_000) == 17
+    _hold_k5(x, None, 16_385)
+
+
+def test_k5_never_picks_a_row_of_weight_zero(cuda):
+    x = _seed_rows(cuda, 300_001, 16, 20, seed=3)
+    x[:1000] += 400.0  # a far blob, all of weight 0
+    w = torch.ones(x.shape[0], device=cuda)
+    w[:1000] = 0.0
+    w[::3] = 0.0
+    got = _hold_k5(x, w, 30)
+    assert bool((w[got.rows] > 0).all())
+
+
+def test_k5_repeats_the_first_row_on_duplicate_rows(cuda):
+    x = _seed_rows(cuda, 1, 16, 1, seed=4).repeat(50_000, 1)
+    got = _hold_k5(x, None, 6)
+    assert bool((got.rows == got.rows[0]).all())
+
+
+@pytest.mark.parametrize("k", [4, 5, 9])
+def test_k5_past_the_distinct_rows_repeats_the_first_row(cuda, k):
+    # Three distinct rows of weight 1, a thousand copies each, and ten of
+    # weight 0 apart: k above the three, within n. Both routes choose the
+    # three rows first, in one order. After them no row of weight > 0 lies
+    # off a chosen centre: K5's sum of (x − c)² gives every copy D² = 0,
+    # so every slot takes the first centre's row, and K5 never takes a row
+    # of weight 0. The torch loop's expansion x² − 2x·c + c² may leave a
+    # copy a rounding residue above 0 (about a fifth of such copies, on the
+    # CPU and on an H100 alike), so it may draw a copy of any chosen centre
+    # there instead: both are rows of x, and the two routes part.
+    gen = _seed_gen(cuda, 21)
+    points = 50.0 * torch.randn((3, 16), generator=gen, device=cuda)
+    apart = 50.0 * torch.randn((10, 16), generator=gen, device=cuda) + 400.0
+    x = torch.cat([points.repeat_interleave(1000, dim=0), apart])
+    w = torch.cat([torch.ones(3000, device=cuda), torch.zeros(10, device=cuda)])
+    order = torch.randperm(x.shape[0], generator=gen, device=cuda)
+    x, w = x[order].contiguous(), w[order].contiguous()
+    got = kk.seed_plusplus_cuda(x, w, _seed_gen(cuda, 22), k)
+    loop = ops_kmeans.kmeans_plusplus_loop(x, w, _seed_gen(cuda, 22), k)
+    assert torch.equal(x[got.rows], got.centers) and bool((w[got.rows] > 0).all())
+    assert torch.equal(got.centers[:3], loop[:3])
+    assert sorted(map(tuple, got.centers[:3].tolist())) == sorted(map(tuple, points.tolist()))
+    assert bool((got.rows[3:] == got.rows[0]).all())
+    assert bool((got.md == 0).logical_or(w == 0).all())
+    assert all(bool((x == c).all(dim=1).any()) for c in loop)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_k5_fills_short_slots_with_the_first_row_not_a_row_of_weight_zero(cuda, seed):
+    # A thousand copies of one row, two rows close to each other apart
+    # from it, and two thousand rows of weight 0 at their midpoint; k = 3
+    # draws t = 4 candidates a step. Once a copy is chosen, two rows have
+    # a finite score: K5 fills the other two slots with the first centre's
+    # row and chooses the close rows. The torch loop keeps whatever rows
+    # topk returns at −inf there, and a midpoint row, which halves the
+    # close rows' D², can win: it may choose a row of weight 0.
+    gen = _seed_gen(cuda, seed)
+    far = 50.0 * torch.randn(16, generator=gen, device=cuda) + 200.0
+    mid = 50.0 * torch.randn(16, generator=gen, device=cuda)
+    e = 0.5 * torch.randn(16, generator=gen, device=cuda)
+    x = torch.cat([far.repeat(1000, 1), (mid + e)[None], (mid - e)[None], mid.repeat(2000, 1)])
+    w = torch.cat([torch.ones(1002, device=cuda), torch.zeros(2000, device=cuda)])
+    order = torch.randperm(x.shape[0], generator=gen, device=cuda)
+    x, w = x[order].contiguous(), w[order].contiguous()
+    got = kk.seed_plusplus_cuda(x, w, _seed_gen(cuda, seed + 10), 3)
+    loop = ops_kmeans.kmeans_plusplus_loop(x, w, _seed_gen(cuda, seed + 10), 3)
+    assert torch.equal(x[got.rows], got.centers) and bool((w[got.rows] > 0).all())
+    want = sorted(map(tuple, torch.stack([far, mid + e, mid - e]).tolist()))
+    assert sorted(map(tuple, got.centers.tolist())) == want
+    assert all(bool((x == c).all(dim=1).any()) for c in loop)
+
+
+def test_k5_seeding_makes_no_host_sync(cuda):
+    x = _seed_rows(cuda, 200_003, 16, 100, seed=5)
+    mask = torch.ones(x.shape[0], device=cuda)
+    gen = _seed_gen(cuda, 7)
+    ops_kmeans.kmeans_plusplus_init(x, mask, _seed_gen(cuda, 7), 100)  # builds K5
+    torch.cuda.synchronize()
+    kk.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        centers = ops_kmeans.kmeans_plusplus_init(x, mask, gen, 100)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kk.launches["seed_select"] == 100 and kk.launches["seed_potentials"] == 99
+    assert torch.equal(centers, ops_kmeans.kmeans_plusplus_loop(x, mask, _seed_gen(cuda, 7), 100))
+
+
+def test_a_mesh_fit_on_one_card_equals_the_k5_fit(cuda):
+    from spark_rapids_ml_tpu_torch.clustering import KMeans
+    from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh, shard_tensor_rows
+
+    x = _seed_rows(cuda, 400_003, 16, 20, seed=6)
+    mesh = make_mesh((4, 1), devices=[cuda] * 4)
+    shards = ops_kmeans.as_row_shards(shard_tensor_rows(x, mesh))
+    assert not ops_kmeans.seeding_on_k5(shards, 20, "highest")
+    mask = torch.ones(x.shape[0], device=cuda)
+    k5 = ops_kmeans.kmeans_plusplus_init(x, mask, _seed_gen(cuda, 11), 20)
+    assert torch.equal(ops_kmeans.kmeans_plusplus_init(shards, None, _seed_gen(cuda, 11), 20), k5)
+    kk.reset_launches()
+    single = KMeans().setK(20).setSeed(11).fit(x)
+    assert kk.launches["seed_select"] == 20
+    meshed = KMeans(mesh=mesh).setK(20).setSeed(11).fit(x)
+    assert single.numIter == meshed.numIter
+    assert abs(single.clusterCenters() - meshed.clusterCenters()).max() <= 1e-3
+    assert abs(single.trainingCost - meshed.trainingCost) <= 1e-4 * meshed.trainingCost
+
+
+def test_k5_limits_match_the_source(cuda):
+    import re
+
+    from spark_rapids_ml_tpu_torch.ops.kernels import _build
+
+    text = (_build.CSRC_DIR / f"{kk.SEED_NAME}.cu").read_text()
+    ints = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+    assert (ints["THREADS"], ints["D_MAX"], ints["T_MAX"]) == (kk.SEED_THREADS, kk.SEED_D_MAX, kk.SEED_T_MAX)
+    for kernel in (kk.SEED_SELECT, kk.SEED_POTENTIALS):
+        for d, t in ((1, 1), (16, 9), (64, 32)):
+            assert kk._seed_blocks_per_sm(cuda, kernel, d, t) >= 1
+
+
+def test_k5_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    gen = _seed_gen(cuda, 0)
+    with pytest.raises(TypeError, match="float32"):
+        kk.seed_plusplus(torch.zeros((10, 4), dtype=torch.float64, device=cuda), None, gen, 3)
+    with pytest.raises(ValueError, match="beyond K5"):
+        kk.seed_plusplus(torch.zeros((10, 65), device=cuda), None, gen, 3)
+    with pytest.raises(ValueError, match="weights"):
+        kk.seed_plusplus(torch.zeros((10, 4), device=cuda), torch.ones(10), gen, 3)

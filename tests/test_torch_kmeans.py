@@ -233,7 +233,8 @@ def test_fused_route_runs_the_kernels_plain_versions(monkeypatch):
     monkeypatch.setattr(kk, "assign_stats_plain", lambda *a, **kw: calls.append(1) or real(*a, **kw))
     KMeans().setK(5).setSeed(1).setBackend("fused").fit(x)
     assert calls  # d = 16, k = 5 is packable: K3's plain version, which is K2's
-    assert kk.launches == {"assign_stats_fused": 0, "assign_stats_packed": 0}
+    assert kk.launches == {"assign_stats_fused": 0, "assign_stats_packed": 0, "seed_select": 0,
+                           "seed_potentials": 0}
 
 
 def test_resolve_backend_follows_the_reference_rules():

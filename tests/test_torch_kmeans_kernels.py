@@ -219,7 +219,9 @@ def test_launches_stay_zero_on_cpu():
     kk.assign_stats_fused(torch.from_numpy(x), torch.from_numpy(c))
     kk.assign_stats_packed(torch.from_numpy(x), torch.from_numpy(c))
     kk.lloyd_fused(torch.from_numpy(x), torch.from_numpy(c), max_iter=2)
-    assert kk.launches == {"assign_stats_fused": 0, "assign_stats_packed": 0}
+    kk.seed_plusplus(torch.from_numpy(x), None, torch.Generator().manual_seed(0), 3)
+    assert kk.launches == {"assign_stats_fused": 0, "assign_stats_packed": 0, "seed_select": 0,
+                           "seed_potentials": 0}
 
 
 def test_wrappers_validate_their_inputs():

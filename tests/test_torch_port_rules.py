@@ -177,7 +177,8 @@ def test_kernel_build_needs_nvcc(monkeypatch):
         _build.find_nvcc()
 
 
-@pytest.mark.parametrize("name", ["centered_gram", "kmeans_assign_stats", "kmeans_assign_packed", "umap_tail"])
+@pytest.mark.parametrize("name", ["centered_gram", "kmeans_assign_stats", "kmeans_assign_packed", "umap_tail",
+                                  "kmeans_seed"])
 def test_kernel_library_is_keyed_by_its_source(name):
     path = _build.library_path(name)
     assert path.parent == _build.BUILD_DIR and path.name.startswith(f"lib{name}-")
@@ -231,6 +232,9 @@ def test_a_cuda_tensor_never_reaches_the_plain_version(monkeypatch, tmp_path):
     for assign in (kk.assign_stats_fused, kk.assign_stats_packed):
         with pytest.raises(RuntimeError, match="nvcc was not found"):
             assign(_CudaLike((10, 4)), _CudaLike((3, 4)))
+    monkeypatch.setattr(kk, "kmeans_plusplus_loop", lambda *a, **k: pytest.fail("plain version reached"))
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        kk.seed_plusplus(_CudaLike((10, 4)), None, None, 3)
     monkeypatch.setattr(k4, "tail_accumulate_plain", lambda *a, **k: pytest.fail("plain version reached"))
     perm, offsets = _CudaLike((12,)), _CudaLike((5,))
     perm.dtype = offsets.dtype = torch.int32
