@@ -96,20 +96,29 @@ class ShiftedMoments:
         return self
 
     def finalize(self, center: bool = True) -> Tuple[np.ndarray, np.ndarray]:
-        """Returns (covariance, mean); covariance normalized by (n−1)."""
+        """Returns (covariance, mean); covariance normalized by (n−1). The
+        fields may also be float64 tensors on one device (the gang merge,
+        ``parallel/distributed.merge_moments``): the same arithmetic then
+        runs there, as numpy's ``outer`` does it, and returns tensors."""
         m = self.n_rows
         if m < 2:
             raise ValueError(f"need at least 2 rows, got {m}")
         ms = self.sum / m
         mean = self.shift + ms
         if center:
-            cov = (self.gram - m * np.outer(ms, ms)) / (m - 1)
+            cov = (self.gram - m * _outer(ms, ms)) / (m - 1)
         else:
             raw = (
                 self.gram
-                + np.outer(self.shift, self.sum)
-                + np.outer(self.sum, self.shift)
-                + m * np.outer(self.shift, self.shift)
+                + _outer(self.shift, self.sum)
+                + _outer(self.sum, self.shift)
+                + m * _outer(self.shift, self.shift)
             )
             cov = raw / (m - 1)
         return cov, mean
+
+
+def _outer(a, b):
+    """``np.outer(a, b)`` for numpy or torch vectors: numpy's own
+    definition, ``a[:, None] * b[None, :]``."""
+    return a[:, None] * b[None, :]

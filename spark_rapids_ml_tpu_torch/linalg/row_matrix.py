@@ -36,14 +36,23 @@ split block by block
 (``streaming_mean_and_covariance_mesh``; in a gang each process streams
 its own blocks and the moments merge,
 ``streaming_covariance_process_local``). The eigensolve follows on the
-mesh's first device. As in the reference, ``backend="pallas"`` has no
-mesh path, and ``precision="dd"`` with a mesh needs the multi-process
-streaming deployment.
+mesh's first device. ``precision="dd"`` with a mesh needs the
+multi-process streaming deployment, as in the reference.
+
+``backend="pallas"`` has one mesh path, a departure from the reference
+(where it has none): a gang member's resident tensor. Its rows stay
+where they are, with no host copy, padded placement or centred copy:
+after the counts handshake each member takes its rows' column mean and
+K1's Gram about it (``compute cov``, the work one card does alone), then
+one all-reduce merges the members' shifted moments in float64 by the
+parallel-axis rule (``gang merge``, ``parallel/distributed.merge_moments``)
+and every member solves the identical covariance. Any other mesh input
+refuses ``"pallas"``, as in the reference.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,12 +88,23 @@ from spark_rapids_ml_tpu_torch.ops.kernels.covariance import cost as gram_cost
 from spark_rapids_ml_tpu_torch.ops.linalg import resolve_precision, triu_to_full
 from spark_rapids_ml_tpu_torch.parallel.collectives import process_count
 from spark_rapids_ml_tpu_torch.parallel.distributed_cov import distributed_mean_and_covariance
-from spark_rapids_ml_tpu_torch.parallel.mesh import device_array_rows_on_mesh, shard_rows_from_partitions
+from spark_rapids_ml_tpu_torch.parallel.mesh import (
+    device_array_rows_on_mesh,
+    model_axis_size,
+    shard_rows_from_partitions,
+)
 from spark_rapids_ml_tpu_torch.utils.tracing import HostSync, TraceColor, TraceRange, bump_counter
 
 #: The packed layout's wire-format cap (the reference's
 #: ``RapidsRowMatrix.scala:66-68``): n(n+1)/2 entries of a 32-bit index.
 PACKED_MAX_COLS = 65535
+
+
+def pallas_gang_tensor(mesh: Any, rows: Any) -> bool:
+    """Whether ``rows`` on ``mesh`` is a gang member's resident tensor,
+    the one mesh input ``backend="pallas"`` takes (K1 where the rows live,
+    then the members' moments merge); every other mesh input refuses it."""
+    return mesh is not None and process_count() > 1 and is_device_array(rows)
 
 
 def _ratio(w: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
@@ -197,8 +217,11 @@ class RowMatrix:
                     "merge); single-process mesh fits use "
                     "precision='highest'"
                 )
-        if backend == "pallas" and mesh is not None:
+        if backend == "pallas" and mesh is not None and not self._gang_tensor:
             raise ValueError("backend='pallas' has no mesh path; use 'xla'")
+        if backend == "pallas" and self._gang_tensor and model_axis_size(mesh) != 1:
+            raise ValueError("backend='pallas' in a gang computes each member's full-width Gram; "
+                             "use a (data, 1) mesh")
         if backend == "pallas" and self._stream is not None:
             raise ValueError("backend='pallas' has no streaming path; use 'xla'")
         if backend == "pallas" and not use_gemm:
@@ -270,6 +293,10 @@ class RowMatrix:
     def _gang(self) -> bool:
         return self.mesh is not None and process_count() > 1
 
+    @property
+    def _gang_tensor(self) -> bool:
+        return pallas_gang_tensor(self.mesh, self._device_x)
+
     # --- column stats (Statistics.colStats analogue) ---
 
     def column_means(self) -> torch.Tensor:
@@ -329,6 +356,8 @@ class RowMatrix:
     def _covariance_device(self) -> torch.Tensor:
         """Covariance of a device tensor where it lives."""
         self._device()  # on a CUDA tensor: TF32 off, as "highest" needs
+        if self.backend == "pallas" and self._gang_tensor:
+            return self._covariance_gang_local()
         with TraceRange("compute cov", TraceColor.RED):
             if self.mesh is not None:
                 d = self.num_cols
@@ -338,6 +367,35 @@ class RowMatrix:
                 )
                 return cov[:d, :d]
             return self._gram(self._device_x, self._mean()) / (self.num_rows - 1)
+
+    def _covariance_gang_local(self) -> torch.Tensor:
+        """A gang member's resident tensor on K1, its rows where they are:
+        the counts handshake (the global count is checked after it, alike
+        on every member), this member's column mean and K1's Gram about
+        it, then the members' shifted moments ``(n_r, μ_r, G_r)`` merged
+        in float64 by one all-reduce (the mean is the shift, so the rows'
+        sum about it is taken as zero, as one card's fit takes it). The
+        merge runs outside ``compute cov``, in ``gang merge``."""
+        from spark_rapids_ml_tpu_torch.parallel.distributed import _allgather_counts_and_width, merge_moments
+
+        x = self._device_x
+        n_local, d = int(x.shape[0]), int(x.shape[1])
+        with HostSync("pca.gang.counts"):
+            counts, _ = _allgather_counts_and_width(n_local, d)
+        self._num_rows = int(counts.sum())
+        if self._num_rows < 2:
+            raise ValueError(f"need at least 2 rows, got {self._num_rows}")
+        with TraceRange("compute cov", TraceColor.RED):
+            if n_local == 0:
+                shift = torch.zeros(d, dtype=x.dtype, device=x.device)
+                gram = torch.zeros((d, d), dtype=x.dtype, device=x.device)
+            else:
+                shift = self._mean()
+                gram = self._gram(x, shift)
+        with TraceRange("gang merge", TraceColor.PURPLE):
+            _, cov = merge_moments(shift, gram, torch.zeros_like(shift), n_local, counts,
+                                   center=self.mean_centering)
+        return cov.to(x.dtype)
 
     def _covariance_mesh(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Host partitions over the mesh: placed shard by shard (never

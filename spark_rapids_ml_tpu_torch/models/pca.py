@@ -36,6 +36,11 @@ With a mesh (``PCA(mesh=make_mesh(...))``, or ``setDeployMode("gang")``
 in a gang) the covariance routes run over it (``linalg/row_matrix.py``)
 and the sketch runs row-sharded (``ops/randomized.py``); a mesh fit is
 admitted as it is, without a streaming reroute, as in the reference.
+``covarianceBackend="pallas"`` refuses a mesh, as in the reference, with
+one exception the reference lacks: in a gang, each member's resident
+tensor runs K1 where it lives and the members' moments merge in one
+all-reduce (``setDeployMode("gang").setCovarianceBackend("pallas")
+.fit(x_local)`` in every member).
 ``"auto"`` keeps the covariance for a wide input whose model axis would
 pad the features (the sketch does not shard the model axis); the
 streaming sketch and the sketch in a gang refuse a mesh.
@@ -76,7 +81,7 @@ from spark_rapids_ml_tpu_torch.core.persistence import (
     save_metadata,
 )
 from spark_rapids_ml_tpu_torch.core.serving import note_device_cache, serve_blocks, serve_rows, serve_stream
-from spark_rapids_ml_tpu_torch.linalg.row_matrix import RowMatrix
+from spark_rapids_ml_tpu_torch.linalg.row_matrix import RowMatrix, pallas_gang_tensor
 from spark_rapids_ml_tpu_torch.ops.linalg import project_rows, validate_precision
 from spark_rapids_ml_tpu_torch.ops.precision import resolve_policy
 from spark_rapids_ml_tpu_torch.ops.randomized import randomized_pca, randomized_pca_streaming
@@ -315,7 +320,9 @@ class PCA(_PCAParams, Estimator, MLReadable):
                 "solver='covariance' with precision='dd'"
             )
         if backend == "pallas" and (
-            self.mesh is not None or streaming or not self.getUseGemm() or solver == "randomized"
+            (self.mesh is not None and not pallas_gang_tensor(self.mesh, rows)) or streaming
+            or not self.getUseGemm()
+            or solver == "randomized"
         ):
             raise ValueError(
                 "covarianceBackend='pallas' applies to the single-device "

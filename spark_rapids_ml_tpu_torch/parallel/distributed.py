@@ -59,7 +59,7 @@ from spark_rapids_ml_tpu_torch.parallel.mesh import (
 from spark_rapids_ml_tpu_torch.robustness.faults import fault_point
 from spark_rapids_ml_tpu_torch.robustness.retry import default_policy
 from spark_rapids_ml_tpu_torch.utils.envknobs import EnvKnobError, env_int, env_str
-from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange
+from spark_rapids_ml_tpu_torch.utils.tracing import TraceColor, TraceRange, bump_counter
 
 _initialized = False
 # The coordinates the active group was brought up with, compared against
@@ -352,8 +352,9 @@ def streaming_covariance_process_local(
 
       - ``"psum"`` (the default with a mesh): the processes agree on a
         common shift (the count-weighted mean of their shifts), each
-        rebases its moments onto it in host float64, and the (d, d)
-        payload is one ``all_reduce`` in float64 on the device;
+        rebases its moments onto it, and the (d, d) payload is one
+        ``all_reduce``, all in float64 on the device
+        (:func:`merge_moments`);
       - ``"allgather"`` (the default without a mesh, and for ``"dd"``): the
         packed per-process moments ``[shift | sum | gram]`` are gathered
         and merged in rank order through
@@ -391,12 +392,8 @@ def streaming_covariance_process_local(
     gram = gram.to(torch.float64)
     s = s.to(torch.float64)
     if merge == "psum":
-        # One retry unit around the whole merge: the rebase is host math
-        # and the sum deterministic, so a re-run is exact.
-        return default_policy().run(
-            lambda: _psum_merge_moments(shift, gram, s, n_local, counts, d, center),
-            name="collective.psum",
-        )
+        mean, cov = merge_moments(shift, gram, s, n_local, counts, center)
+        return mean.cpu().numpy(), cov.cpu().numpy(), int(counts.sum())
     packed = torch.cat([torch.from_numpy(np.asarray(shift, dtype=np.float64)).to(device),
                         s, gram.reshape(-1)])
     gathered = allreduce_slots(packed).cpu().numpy()
@@ -418,33 +415,63 @@ def streaming_covariance_process_local(
     return mean, cov, acc.n_rows
 
 
-def _psum_merge_moments(shift, gram: torch.Tensor, s: torch.Tensor, n_local: int, counts, d: int,
-                        center: bool):
-    """Rebase this process's moments onto the common shift (exact closed
-    form, host float64), then one ``all_reduce`` of ``[gram | sum]``. The
-    exact integer row count comes from the counts handshake, never from
-    the float payload. The fault site comes before the first collective."""
+#: The moments merges this process has made (:func:`merge_moments`), a
+#: module count as K1 keeps its ``launches``.
+merges = 0
+
+
+def merge_moments(shift, gram: torch.Tensor, s: torch.Tensor, n_local: int, counts, center: bool = True):
+    """The gang's shifted moments merged by the parallel-axis rule, on
+    ``gram``'s device in float64, with no host sync. This process holds
+    ``n_local`` rows, their Gram ``gram`` and sum ``s`` about ``shift``
+    (a host array or a tensor); ``counts`` is the counts handshake's
+    per-process rows. The processes agree on a common shift (the
+    count-weighted mean of theirs, one ``all_reduce`` of the shifts), each
+    rebases its moments onto it in closed form, and ``[gram | sum]`` is one
+    ``all_reduce``; :class:`ShiftedMoments` finalizes the sum where it
+    lies. The exact row count comes from the handshake, never from the
+    float payload. Returns ``(mean, cov)`` tensors, the same bits on every
+    process. One retry unit (``collective.psum``) around the whole merge,
+    whose fault site comes before the first collective: the rebase is
+    exact and the sum deterministic, so a re-run is exact. Counts
+    ``gang.merge.calls`` and the bytes it all-reduces, ``gang.merge.bytes``."""
+    return default_policy().run(
+        lambda: _merge_moments_once(shift, gram, s, n_local, counts, center), name="collective.psum")
+
+
+def _merge_moments_once(shift, gram, s, n_local, counts, center):
+    global merges
     fault_point("collective.psum")
-    shifts = allreduce_slots(torch.from_numpy(np.asarray(shift, dtype=np.float64))).numpy()
-    weights = counts.astype(np.float64)
-    common = (shifts * weights[:, None]).sum(axis=0) / max(weights.sum(), 1.0)
-    delta = np.asarray(shift, dtype=np.float64) - common
-    s64 = s.cpu().numpy()
-    s_c = s64 + n_local * delta
-    corr = np.outer(delta, s64) + np.outer(s64, delta) + n_local * np.outer(delta, delta)
-    gram_c = gram + torch.from_numpy(corr).to(gram.device)
-    payload = torch.cat([gram_c.reshape(-1), torch.from_numpy(s_c).to(gram.device)])
-    out = all_reduce_sum(payload).cpu().numpy()
+    device, d = gram.device, int(gram.shape[0])
+    if isinstance(shift, torch.Tensor):
+        shift = shift.to(device=device, dtype=torch.float64)
+    else:
+        shift = torch.from_numpy(np.asarray(shift, dtype=np.float64)).to(device)
+    gram, s = gram.to(torch.float64), s.to(torch.float64)
+    shifts = allreduce_slots(shift)
+    # The weights stay host numbers: a host array copied to the card would
+    # wait for it.
+    common = shifts[0] * float(counts[0])
+    for r in range(1, len(counts)):
+        common = common + shifts[r] * float(counts[r])
+    common = common / max(float(counts.sum()), 1.0)
+    delta = shift - common
+    corr = torch.outer(delta, s) + torch.outer(s, delta) + n_local * torch.outer(delta, delta)
+    payload = torch.cat([(gram + corr).reshape(-1), s + n_local * delta])
+    out = all_reduce_sum(payload)
+    merges += 1
+    bump_counter("gang.merge.calls")
+    bump_counter("gang.merge.bytes", (shifts.numel() + payload.numel()) * payload.element_size())
     n_tot = int(counts.sum())
     if n_tot < 2:
         raise ValueError(f"need at least 2 rows to compute a covariance, got {n_tot}")
     acc = ShiftedMoments(d)
     acc.n_rows = n_tot
     acc.shift = common
-    acc.sum = out[d * d:].copy()
-    acc.gram = out[: d * d].reshape(d, d).copy()
+    acc.sum = out[d * d:]
+    acc.gram = out[: d * d].reshape(d, d)
     cov, mean = acc.finalize(center=center)
-    return mean, cov, acc.n_rows
+    return mean, cov
 
 
 __all__ = [
@@ -454,6 +481,7 @@ __all__ = [
     "global_mesh",
     "initialize",
     "member_env",
+    "merge_moments",
     "process_count",
     "process_index",
     "replicate_for_host",
